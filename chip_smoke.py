@@ -1,0 +1,281 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines; any failure raises and exits non-zero:
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: compile (or reuse) the CUDA kernels of ``demf_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version at the shapes of
+   the serving path, with its time and the plain version's;
+4. reference: the full-width detector on a small input, kernels against the
+   plain versions, stage predictions within 2e-3 relative;
+5. main path: DeMF-VoteNet (``configs/demf/demf_votenet.py``, full width,
+   seeded random weights) answers 3 requests of batch 2 at 20,000 points
+   and an 800x1344 image through ``engine.evaluation.make_eval_step``;
+   every request must launch each kernel a fixed number of times.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Float32 throughout: TF32 is switched
+off for matmuls and cuDNN convolutions.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# requests per run and what each must launch (4 SA + 1 vote aggregation for
+# FPS and ball query; 6 encoder layers + 1 decoder layer for MSDA)
+REQUESTS = (0, 1, 2)
+LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7}
+REPLACES = {
+    'fps': 'demf_tpu/ops/pallas/fps.py:60',
+    'ball_query': 'demf_tpu/ops/grouping.py:38',
+    'msda': 'demf_tpu/ops/msda.py:975',
+}
+SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
+           'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
+           'msda': 'demf_tpu_torch/csrc/msda.cu'}
+
+
+def time_ms(fn, iters):
+    """Mean device time of ``fn`` over ``iters`` runs, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_fps(dev, rng):
+    from demf_tpu_torch.ops import sampling
+    rows = []
+    for n, k in ((20000, 2048), (1024, 256)):
+        xyz = torch.from_numpy(
+            rng.uniform(-3, 3, (2, n, 3)).astype(np.float32)).to(dev)
+        got = sampling.furthest_point_sample_cuda(xyz, k)
+        want = sampling.furthest_point_sample_plain(xyz, k)
+        err = int((got - want).abs().max())
+        ms = time_ms(lambda: sampling.furthest_point_sample_cuda(xyz, k), 5)
+        plain_ms = time_ms(
+            lambda: sampling.furthest_point_sample_plain(xyz, k), 1)
+        print(f'K1 fps (2, {n}) -> {k}: max_abs_err {err} (index), kernel '
+              f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
+        if err != 0:
+            raise AssertionError(f'FPS kernel picks differ from plain ({n})')
+        rows.append((err, ms, plain_ms))
+    return rows[0]
+
+
+def _ball_sets_agree(points, centers, got, want, radius, k):
+    """Per-center set comparison, skipping centers with a point within 1e-5
+    of r^2 or within 1e-6 of the K-th distance.  Returns (compared share,
+    number of compared centers that differ)."""
+    from demf_tpu_torch.ops.grouping import sqdist
+    d2 = sqdist(centers, points)                       # (B, M, N)
+    r2 = radius * radius
+    near_r = ((d2 - r2).abs() < 1e-5).any(-1)
+    inside = torch.where(d2 < r2, d2, torch.full_like(d2, float('inf')))
+    kth = torch.sort(inside, -1).values[..., k - 1:k]
+    near_k = (torch.isfinite(kth) &
+              ((inside - kth).abs() < 1e-6)).sum(-1) > 1
+    ok = ~(near_r | near_k)
+    same = (torch.sort(got, -1).values ==
+            torch.sort(want, -1).values).all(-1)
+    return ok.float().mean().item(), int((ok & ~same).sum())
+
+
+def check_ball_query(dev, rng):
+    from demf_tpu_torch.ops import grouping
+    rows = []
+    for n, m, k, r, lo in ((20000, 2048, 64, 0.2, 3.0),
+                           (1024, 256, 16, 0.3, 1.0)):
+        pts = torch.from_numpy(
+            rng.uniform(-lo, lo, (2, n, 3)).astype(np.float32)).to(dev)
+        centers = pts[:, :m].contiguous()
+        got = grouping.ball_query_cuda(r, k, pts, centers)
+        want = grouping.ball_query_plain(r, k, pts, centers)
+        share, bad = _ball_sets_agree(pts, centers, got, want, r, k)
+        ms = time_ms(lambda: grouping.ball_query_cuda(r, k, pts, centers), 10)
+        plain_ms = time_ms(
+            lambda: grouping.ball_query_plain(r, k, pts, centers), 3)
+        print(f'K2 ball_query (2, M {m}, N {n}, K {k}, r {r}): compared '
+              f'{share:.4%} of centers, {bad} differ, kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms')
+        if share < 0.99 or bad:
+            raise AssertionError('ball query kernel disagrees with plain')
+        rows.append((bad, ms, plain_ms))
+    return rows[0]
+
+
+def check_msda(dev, rng):
+    from demf_tpu_torch.ops import msda
+    shapes = ((100, 168), (50, 84), (25, 42), (13, 21))
+    s = sum(h * w for h, w in shapes)
+    rows = []
+    for q, p in ((s, 4), (256, 2)):
+        value = torch.from_numpy(
+            rng.randn(2, s, 8, 32).astype(np.float32)).to(dev)
+        locs = torch.from_numpy(rng.uniform(
+            -0.1, 1.1, (2, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+        aw = torch.from_numpy(rng.rand(2, q, 8, 4 * p).astype(np.float32))
+        aw = (aw / aw.sum(-1, keepdim=True)).reshape(2, q, 8, 4, p).to(dev)
+        got = msda.msda_cuda(value, shapes, locs, aw)
+        want = msda.msda_plain(value, shapes, locs, aw)
+        err = (got - want).abs().max().item()
+        bound = 1e-5 * want.abs().max().item()
+        ms = time_ms(lambda: msda.msda_cuda(value, shapes, locs, aw), 10)
+        plain_ms = time_ms(lambda: msda.msda_plain(value, shapes, locs, aw),
+                           3)
+        print(f'K3 msda (2, Q {q}, heads 8, hd 32, L 4, P {p}, sum_HW {s}): '
+              f'max_abs_err {err:.3e} (bound {bound:.3e}), kernel '
+              f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
+        if not err <= bound:
+            raise AssertionError('MSDA kernel disagrees with plain')
+        rows.append((err, ms, plain_ms))
+    return rows[0]
+
+
+class plain_ops:
+    """Route the model's FPS and MSDA calls to their plain versions (the
+    kernel ball query stays: its picks are checked on their own above)."""
+
+    def __enter__(self):
+        from demf_tpu_torch.models import pointnet2, transformer, vote_head
+        from demf_tpu_torch.ops import msda, sampling
+        fps = sampling.furthest_point_sample_plain
+        self.saved = [(pointnet2, 'furthest_point_sample'),
+                      (vote_head, 'furthest_point_sample'),
+                      (transformer, 'multi_scale_deformable_attention')]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.saved]
+        pointnet2.furthest_point_sample = fps
+        vote_head.furthest_point_sample = fps
+        transformer.multi_scale_deformable_attention = msda.msda_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def check_reference(model, dev):
+    """Full-width model, small input: kernel path vs plain path."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    batch = batch_to_device(zoo.synth_demf_batch(
+        2, p=4096, hw=(256, 352), valid_hw=(240, 336), seed=7), dev)
+    with torch.inference_mode():
+        got = model(batch)['decode_res_all']
+        with plain_ops():
+            want = model(batch)['decode_res_all']
+    worst = 0.0
+    for stage, (g, w) in enumerate(zip(got, want)):
+        for key in ('center', 'size', 'dir_class', 'dir_res_norm',
+                    'obj_scores', 'sem_scores'):
+            scale = max(w[key].abs().max().item(), 1e-3)
+            worst = max(worst, (g[key] - w[key]).abs().max().item() / scale)
+            if not torch.isfinite(g[key]).all():
+                raise AssertionError(f'non-finite {key} at stage {stage}')
+    print(f'reference: full-width model at 4096 points, 256x352: kernel '
+          f'path vs plain path, max rel err {worst:.3e} (bound 2e-3)')
+    if not worst < 2e-3:
+        raise AssertionError('kernel path disagrees with the plain path')
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; this script runs on the card only',
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from demf_tpu_torch import ops, zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    from demf_tpu_torch.ops import _cuda
+
+    dev = torch.device('cuda', 0)
+    name = torch.cuda.get_device_name(0)
+    print(f'device: {name}, count {torch.cuda.device_count()}, torch '
+          f'{torch.__version__}, cuda {torch.version.cuda}')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(f'nvidia-smi: {smi.stdout.strip().splitlines()[0]}')
+
+    t0 = time.perf_counter()
+    info = _cuda.build_info()
+    print(f'build: {"built" if info["built"] else "reused"} '
+          f'{info["path"]} in {info["seconds"]:.2f} s (nvcc), '
+          f'{time.perf_counter() - t0:.2f} s with load')
+    log = info['path'][:-3] + '.log'
+    if os.path.exists(log):
+        with open(log) as f:
+            for line in f:
+                if 'registers' in line or 'Compiling entry' in line:
+                    print('  ptxas:', line.strip())
+
+    rng = np.random.RandomState(0)
+    measured = {'fps': check_fps(dev, rng),
+                'ball_query': check_ball_query(dev, rng),
+                'msda': check_msda(dev, rng)}
+
+    t0 = time.perf_counter()
+    model = zoo.build_detector('demf/demf_votenet.py', device=dev, seed=0)
+    print(f'model: DeMF-VoteNet full width, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, built '
+          f'in {time.perf_counter() - t0:.2f} s')
+    check_reference(model, dev)
+
+    kernels = ops.kernels()
+    eval_step = make_eval_step(model)
+    for k in kernels.values():
+        k.launches = 0
+    for seed in REQUESTS:
+        before = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.reset_peak_memory_stats()
+        batch = zoo.synth_demf_batch(2, p=20000, hw=(800, 1344),
+                                     valid_hw=(784, 1312), seed=seed)
+        t0 = time.perf_counter()
+        det = eval_step(batch_to_device(batch, dev))
+        torch.cuda.synchronize()
+        latency = (time.perf_counter() - t0) * 1e3
+        launched = {n: k.launches - before[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_REQUEST:
+            raise AssertionError(f'request {seed} launched {launched}, '
+                                 f'expected {LAUNCHES_PER_REQUEST}')
+        if tuple(det['boxes_3d'].shape) != (2, 5120, 7):
+            raise AssertionError(f'boxes_3d {tuple(det["boxes_3d"].shape)}')
+        for key in ('boxes_3d', 'scores_3d'):
+            if not torch.isfinite(det[key]).all():
+                raise AssertionError(f'non-finite {key} in request {seed}')
+        print(f'request {seed}: latency {latency:.3f} ms (host clock, '
+              f'batch 2, 20000 points, 800x1344), '
+              f'{int(det["valid"].sum())} valid detections, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, '
+              f'launches {launched}')
+
+    table = [dict(name=n, route='cuda', source=SOURCES[n],
+                  replaces=REPLACES[n], launches=kernels[n].launches,
+                  max_abs_err=measured[n][0], ms=measured[n][1],
+                  plain_ms=measured[n][2]) for n in kernels]
+    print(json.dumps({'kernels': table}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports no JAX, so it runs on a GPU machine without it:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+
+(``--noconftest``: the suite's conftest configures JAX.)  Without a card
+every test here skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from demf_tpu_torch.ops import grouping, msda, sampling
+
+
+def unambiguous_centers(points, centers, radius, k):
+    """Centers with no point within 1e-5 of r^2 and no tie within 1e-6 at
+    the K-th distance (fp noise of the matmul distance may flip those)."""
+    d2 = np.sum((centers[:, None] - points[None]) ** 2, -1)
+    near_r = np.any(np.abs(d2 - radius * radius) < 1e-5, 1)
+    inside = np.where(d2 < radius * radius, d2, np.inf)
+    kth = np.sort(inside, 1)[:, k - 1:k]
+    with np.errstate(invalid='ignore'):       # inf - inf where none inside
+        near_k = np.sum(np.isfinite(kth) & (np.abs(inside - kth) < 1e-6),
+                        1) > 1
+    return ~(near_r | near_k)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the kernels build with nvcc for '
+                    'sm_90a)')
+    return torch.device('cuda', 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,n,k', [(2, 3000, 256), (1, 20000, 512),
+                                   (3, 100, 100)])
+def test_fps_kernel_equals_plain(dev, b, n, k):
+    xyz = torch.from_numpy(np.random.RandomState(n).uniform(
+        -3, 3, (b, n, 3)).astype(np.float32)).to(dev)
+    before = sampling.FPS_KERNEL.launches
+    got = sampling.furthest_point_sample_cuda(xyz, k)
+    assert sampling.FPS_KERNEL.launches == before + 1
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,m,k,radius,extent', [
+    (3000, 128, 16, 0.3, 1.0),
+    (20000, 256, 64, 0.2, 3.0),
+    # every point inside the radius: more candidates than the kernel's
+    # shared-memory list holds, so the rounds rescan the point set
+    (6000, 8, 32, 5.0, 1.0)])
+def test_ball_query_kernel_equals_plain(dev, n, m, k, radius, extent):
+    rng = np.random.RandomState(m)
+    pts = rng.uniform(-extent, extent, (2, n, 3)).astype(np.float32)
+    centers = pts[:, :m].copy()
+    tp, tc = torch.from_numpy(pts).to(dev), torch.from_numpy(centers).to(dev)
+    got = grouping.ball_query_cuda(radius, k, tp, tc).cpu().numpy()
+    want = grouping.ball_query_plain(radius, k, tp, tc).cpu().numpy()
+    compared = 0
+    for bi in range(2):
+        ok = unambiguous_centers(pts[bi], centers[bi], radius, k)
+        compared += ok.sum()
+        for i in np.where(ok)[0]:
+            assert set(got[bi, i]) == set(want[bi, i]), (bi, i)
+    assert compared >= 0.9 * 2 * m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shapes,heads,hd,q,p', [
+    (((16, 24), (8, 12)), 4, 32, 50, 3),
+    (((100, 168), (50, 84), (25, 42), (13, 21)), 8, 32, 256, 2),
+    (((7, 5),), 2, 16, 40, 4)])
+def test_msda_kernel_matches_plain(dev, shapes, heads, hd, q, p):
+    s = sum(h * w for h, w in shapes)
+    nl = len(shapes)
+    g = torch.Generator(device=dev).manual_seed(q)
+    value = torch.randn(2, s, heads, hd, device=dev, generator=g)
+    locs = torch.rand(2, q, heads, nl, p, 2, device=dev, generator=g)
+    locs = locs * 1.2 - 0.1
+    aw = torch.rand(2, q, heads, nl, p, device=dev, generator=g)
+    got = msda.msda_cuda(value, shapes, locs, aw)
+    want = msda.msda_plain(value, shapes, locs, aw)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_msda_kernel_is_forward_only(dev):
+    value = torch.zeros(1, 2, 1, 4, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match='forward-only'):
+        msda.msda_cuda(value, ((1, 2),),
+                       torch.zeros(1, 1, 1, 1, 1, 2, device=dev),
+                       torch.zeros(1, 1, 1, 1, 1, device=dev))
