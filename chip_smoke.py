@@ -6,21 +6,39 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile (or reuse) the CUDA kernels of ``demf_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version at the shapes of
-   the serving path, with its time and the plain version's;
+3. kernels: each kernel against its plain PyTorch version, with its time
+   and the plain version's: K1 and K2 at the shapes of SA0 and of the vote
+   aggregation, at batch 16 (training) and 2 (serving); K3 at the
+   decoder's shape at batch 16 and 2 and at the encoder's at batch 2; K4,
+   the MSDA backward, against the plain version's autograd at the
+   decoder's training shape and at the encoder's shape;
 4. reference: the full-width detector on a small input, kernels against the
    plain versions, stage predictions within 2e-3 relative;
-5. main path: DeMF-VoteNet (``configs/demf/demf_votenet.py``, full width,
-   seeded random weights) answers 3 requests of batch 2 at 20,000 points
-   and an 800x1344 image through ``engine.evaluation.make_eval_step``;
-   every request must launch each kernel a fixed number of times.
+5. serving path: DeMF-VoteNet (``configs/demf/demf_votenet.py``, full
+   width, seeded random weights) answers 3 requests of batch 2 at 20,000
+   points and an 800x1344 image through
+   ``engine.evaluation.make_eval_step``; every request must launch each
+   kernel a fixed number of times;
+6. training reference: the full-width detector on a small input, dropout
+   off, one forward + loss + backward with the kernels against one with
+   the plain versions: losses within 1e-4 relative, each gradient within
+   1e-3 of that tensor's largest;
+7. training path: the stage-2 step at full width, batch 16 x 20,000 points
+   and 800x1344 images, seeded weights: the frozen image branch fills the
+   feature cache once, then 3 steps through ``engine.trainer``, each with
+   finite losses and gradient norm and a fixed number of launches of each
+   kernel; the image branch must stay unchanged and every other parameter
+   move.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Float32 throughout: TF32 is switched
-off for matmuls and cuDNN convolutions.
+The line before the last is the kernel table as JSON (launches counted in
+the training path, times at its shape: each kernel's first row above); the
+last line is ``{"ok": true, "device": {...}}``.
+Float32 throughout: TF32 is switched off for matmuls and cuDNN
+convolutions.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -33,15 +51,25 @@ import torch
 # requests per run and what each must launch (4 SA + 1 vote aggregation for
 # FPS and ball query; 6 encoder layers + 1 decoder layer for MSDA)
 REQUESTS = (0, 1, 2)
-LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7}
+LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7,
+                        'msda_backward': 0}
+# train steps per run and what each must launch (the image branch runs
+# once, before, to fill the feature cache)
+TRAIN_STEPS = 3
+TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
+LAUNCHES_PER_STEP = {'fps': 5, 'ball_query': 5, 'msda': 1,
+                     'msda_backward': 1}
 REPLACES = {
     'fps': 'demf_tpu/ops/pallas/fps.py:60',
     'ball_query': 'demf_tpu/ops/grouping.py:38',
     'msda': 'demf_tpu/ops/msda.py:975',
+    'msda_backward': 'demf_tpu/ops/msda.py:572',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
-           'msda': 'demf_tpu_torch/csrc/msda.cu'}
+           'msda': 'demf_tpu_torch/csrc/msda.cu',
+           'msda_backward': 'demf_tpu_torch/csrc/msda_backward.cu'}
+MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 
 
 def time_ms(fn, iters):
@@ -61,19 +89,21 @@ def time_ms(fn, iters):
 def check_fps(dev, rng):
     from demf_tpu_torch.ops import sampling
     rows = []
-    for n, k in ((20000, 2048), (1024, 256)):
+    for b, n, k in ((16, 20000, 2048), (16, 1024, 256), (2, 20000, 2048),
+                    (2, 1024, 256)):
         xyz = torch.from_numpy(
-            rng.uniform(-3, 3, (2, n, 3)).astype(np.float32)).to(dev)
+            rng.uniform(-3, 3, (b, n, 3)).astype(np.float32)).to(dev)
         got = sampling.furthest_point_sample_cuda(xyz, k)
         want = sampling.furthest_point_sample_plain(xyz, k)
         err = int((got - want).abs().max())
         ms = time_ms(lambda: sampling.furthest_point_sample_cuda(xyz, k), 5)
         plain_ms = time_ms(
             lambda: sampling.furthest_point_sample_plain(xyz, k), 1)
-        print(f'K1 fps (2, {n}) -> {k}: max_abs_err {err} (index), kernel '
+        print(f'K1 fps ({b}, {n}) -> {k}: max_abs_err {err} (index), kernel '
               f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
         if err != 0:
-            raise AssertionError(f'FPS kernel picks differ from plain ({n})')
+            raise AssertionError(f'FPS kernel picks differ from plain '
+                                 f'({b}, {n})')
         rows.append((err, ms, plain_ms))
     return rows[0]
 
@@ -99,10 +129,12 @@ def _ball_sets_agree(points, centers, got, want, radius, k):
 def check_ball_query(dev, rng):
     from demf_tpu_torch.ops import grouping
     rows = []
-    for n, m, k, r, lo in ((20000, 2048, 64, 0.2, 3.0),
-                           (1024, 256, 16, 0.3, 1.0)):
+    for b, n, m, k, r, lo in ((16, 20000, 2048, 64, 0.2, 3.0),
+                              (16, 1024, 256, 16, 0.3, 1.0),
+                              (2, 20000, 2048, 64, 0.2, 3.0),
+                              (2, 1024, 256, 16, 0.3, 1.0)):
         pts = torch.from_numpy(
-            rng.uniform(-lo, lo, (2, n, 3)).astype(np.float32)).to(dev)
+            rng.uniform(-lo, lo, (b, n, 3)).astype(np.float32)).to(dev)
         centers = pts[:, :m].contiguous()
         got = grouping.ball_query_cuda(r, k, pts, centers)
         want = grouping.ball_query_plain(r, k, pts, centers)
@@ -110,7 +142,7 @@ def check_ball_query(dev, rng):
         ms = time_ms(lambda: grouping.ball_query_cuda(r, k, pts, centers), 10)
         plain_ms = time_ms(
             lambda: grouping.ball_query_plain(r, k, pts, centers), 3)
-        print(f'K2 ball_query (2, M {m}, N {n}, K {k}, r {r}): compared '
+        print(f'K2 ball_query ({b}, M {m}, N {n}, K {k}, r {r}): compared '
               f'{share:.4%} of centers, {bad} differ, kernel {ms:.4f} ms, '
               f'plain {plain_ms:.4f} ms')
         if share < 0.99 or bad:
@@ -121,16 +153,16 @@ def check_ball_query(dev, rng):
 
 def check_msda(dev, rng):
     from demf_tpu_torch.ops import msda
-    shapes = ((100, 168), (50, 84), (25, 42), (13, 21))
+    shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = []
-    for q, p in ((s, 4), (256, 2)):
+    for b, q, p in ((16, 256, 2), (2, 256, 2), (2, s, 4)):
         value = torch.from_numpy(
-            rng.randn(2, s, 8, 32).astype(np.float32)).to(dev)
+            rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
         locs = torch.from_numpy(rng.uniform(
-            -0.1, 1.1, (2, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
-        aw = torch.from_numpy(rng.rand(2, q, 8, 4 * p).astype(np.float32))
-        aw = (aw / aw.sum(-1, keepdim=True)).reshape(2, q, 8, 4, p).to(dev)
+            -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+        aw = torch.from_numpy(rng.rand(b, q, 8, 4 * p).astype(np.float32))
+        aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p).to(dev)
         got = msda.msda_cuda(value, shapes, locs, aw)
         want = msda.msda_plain(value, shapes, locs, aw)
         err = (got - want).abs().max().item()
@@ -138,12 +170,55 @@ def check_msda(dev, rng):
         ms = time_ms(lambda: msda.msda_cuda(value, shapes, locs, aw), 10)
         plain_ms = time_ms(lambda: msda.msda_plain(value, shapes, locs, aw),
                            3)
-        print(f'K3 msda (2, Q {q}, heads 8, hd 32, L 4, P {p}, sum_HW {s}): '
+        print(f'K3 msda ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, sum_HW {s}): '
               f'max_abs_err {err:.3e} (bound {bound:.3e}), kernel '
               f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
         if not err <= bound:
             raise AssertionError('MSDA kernel disagrees with plain')
         rows.append((err, ms, plain_ms))
+    return rows[0]
+
+
+def check_msda_backward(dev, rng):
+    """K4 against the plain version's autograd, at the decoder's training
+    shape (batch 16, Q 256, P 2) and at the encoder's (batch 2, Q 22,323,
+    P 4).  The kernel time includes zeroing d_value."""
+    from demf_tpu_torch.ops import msda
+    shapes = MSDA_SHAPES
+    s = sum(h * w for h, w in shapes)
+    rows = []
+    for b, q, p in ((16, 256, 2), (2, s, 4)):
+        value = torch.from_numpy(
+            rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
+        locs = torch.from_numpy(rng.uniform(
+            -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+        aw = torch.from_numpy(rng.rand(b, q, 8, 4 * p).astype(np.float32))
+        aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p).to(dev)
+        grad = torch.from_numpy(
+            rng.randn(b, q, 256).astype(np.float32)).to(dev)
+
+        def kernel():
+            return msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+
+        def plain():
+            ins = [t.detach().requires_grad_() for t in (value, locs, aw)]
+            out = msda.msda_plain(ins[0], shapes, ins[1], ins[2])
+            return torch.autograd.grad(out, ins, grad)
+
+        errs, bounds = [], []
+        for g, w in zip(kernel(), plain()):
+            errs.append((g - w).abs().max().item())
+            bounds.append(1e-5 * w.abs().max().item())
+        ms = time_ms(kernel, 10)
+        plain_ms = time_ms(plain, 3)
+        print(f'K4 msda_backward ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, '
+              f'sum_HW {s}): max_abs_err d_value / d_loc / d_aw '
+              f'{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (bounds '
+              f'{bounds[0]:.3e} / {bounds[1]:.3e} / {bounds[2]:.3e}), '
+              f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+        if not all(e <= bd for e, bd in zip(errs, bounds)):
+            raise AssertionError('MSDA backward kernel disagrees with plain')
+        rows.append((max(errs), ms, plain_ms))
     return rows[0]
 
 
@@ -194,6 +269,131 @@ def check_reference(model, dev):
         raise AssertionError('kernel path disagrees with the plain path')
 
 
+def train_cfg_without_dropout():
+    """configs/demf/demf_votenet.py with every decoder dropout rate at 0."""
+    from demf_tpu_torch import zoo
+    cfg = copy.deepcopy(zoo.load_model_cfg('demf/demf_votenet.py').model)
+    tl = cfg['pts_bbox_head']['decoder']['transformerlayers']
+    tl['ffn_dropout'] = 0.0
+    tl['attn_cfgs'] = [dict(c, dropout=0.0) for c in tl['attn_cfgs']]
+    return cfg
+
+
+def check_train_reference(dev):
+    """Full-width model, small input, dropout off: one forward + loss +
+    backward on the kernel path vs the plain path (two copies of the same
+    weights).  A gradient that is rounding noise on the plain side (below
+    1e-6 of the largest: biases that feed a train-mode BatchNorm) must be
+    noise on the kernel side too."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, compute_image_features
+    model = zoo.build_detector(train_cfg_without_dropout(), dev, seed=1)
+    batch = zoo.synth_demf_batch(2, p=4096, g=64, hw=(256, 352),
+                                 valid_hw=(240, 336), seed=7)
+    batch['gt_bboxes_3d'][..., 3:6] *= 3     # proposals inside GT boxes
+    batch = batch_to_device(batch, dev)
+    batch['img_features'] = compute_image_features(model, batch)
+    del batch['img']
+    plain_model = copy.deepcopy(model)
+
+    def loss_and_grads(m):
+        m.train()
+        results = m(batch, generator=torch.Generator(dev).manual_seed(0))
+        losses = m.loss(results, batch)
+        sum(losses.values()).backward()
+        return ({k: v.detach() for k, v in losses.items()},
+                {n: p.grad for n, p in m.named_parameters()
+                 if p.grad is not None})
+
+    got_l, got_g = loss_and_grads(model)
+    with plain_ops():
+        want_l, want_g = loss_and_grads(plain_model)
+    loss_err = max(abs(got_l[k].item() - w.item()) / max(abs(w.item()), 1e-6)
+                   for k, w in want_l.items())
+    largest = max(w.abs().max().item() for w in want_g.values())
+    grad_err = 0.0
+    if set(got_g) != set(want_g):
+        raise AssertionError('kernel and plain paths train other tensors')
+    for name, w in want_g.items():
+        scale = w.abs().max().item()
+        err = (got_g[name] - w).abs().max().item()
+        if scale < 1e-6 * largest:
+            if got_g[name].abs().max().item() >= 1e-6 * largest:
+                raise AssertionError(f'{name}: gradient above noise')
+            continue
+        grad_err = max(grad_err, err / scale)
+    terms = ', '.join(f'{k} {v.item():.5f}' for k, v in want_l.items())
+    print(f'training reference: full-width model at 4096 points, 256x352, '
+          f'dropout off: kernel path vs plain path, losses max rel err '
+          f'{loss_err:.3e} (bound 1e-4), gradients max err / tensor max '
+          f'{grad_err:.3e} (bound 1e-3) over {len(want_g)} tensors; '
+          f'plain losses: {terms}')
+    if not (loss_err < 1e-4 and grad_err < 1e-3):
+        raise AssertionError('training kernel path disagrees with plain')
+
+
+def run_training_path(dev, kernels):
+    """The stage-2 step at full width; returns the launches of the steps."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, compute_image_features
+    t0 = time.perf_counter()
+    model, _, step = zoo.build_trainer('demf/demf_votenet.py', dev, seed=0)
+    print(f'training: DeMF-VoteNet full width, '
+          f'{sum(p.numel() for p in model.parameters() if p.requires_grad)}'
+          f' trained parameters, built in {time.perf_counter() - t0:.2f} s')
+    batch = batch_to_device(zoo.synth_demf_batch(**TRAIN_BATCH), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch['img_features'] = compute_image_features(model, batch)
+    torch.cuda.synchronize()
+    fill = time.perf_counter() - t0
+    del batch['img']
+    print(f'training: feature cache filled for {TRAIN_BATCH["b"]} scenes in '
+          f'{fill * 1e3:.3f} ms (host clock; first run of the image branch '
+          f'at this shape)')
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    for i in range(TRAIN_STEPS):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_STEP:
+            raise AssertionError(f'step {i} launched {launched}, expected '
+                                 f'{LAUNCHES_PER_STEP}')
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f'step {i}: non-finite {bad}')
+        terms = ', '.join(f'{k} {v.item():.5f}' for k, v in metrics.items())
+        print(f'train step {i}: {seconds * 1e3:.3f} ms (host clock), '
+              f'{TRAIN_BATCH["b"] / seconds:.3f} scenes/s, launches '
+              f'{launched}; {terms}')
+    launches = {n: k.launches for n, k in kernels.items()}
+    print(f'training: peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB over '
+          f'{TRAIN_STEPS} steps')
+    moved = frozen = 0
+    patterns = model.frozen_param_patterns()
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if any(pat in name for pat in patterns):
+            if not same:
+                raise AssertionError(f'frozen {name} changed')
+            frozen += 1
+        elif same and (p.grad is None or p.grad.any()):
+            raise AssertionError(f'{name} did not move')
+        else:
+            moved += not same
+    print(f'training: {frozen} frozen image-branch tensors unchanged, '
+          f'{moved} trained tensors moved')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -229,7 +429,8 @@ def main():
     rng = np.random.RandomState(0)
     measured = {'fps': check_fps(dev, rng),
                 'ball_query': check_ball_query(dev, rng),
-                'msda': check_msda(dev, rng)}
+                'msda': check_msda(dev, rng),
+                'msda_backward': check_msda_backward(dev, rng)}
 
     t0 = time.perf_counter()
     model = zoo.build_detector('demf/demf_votenet.py', device=dev, seed=0)
@@ -266,8 +467,12 @@ def main():
               f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, '
               f'launches {launched}')
 
+    del model, eval_step
+    check_train_reference(dev)
+    launches = run_training_path(dev, kernels)
+
     table = [dict(name=n, route='cuda', source=SOURCES[n],
-                  replaces=REPLACES[n], launches=kernels[n].launches,
+                  replaces=REPLACES[n], launches=launches[n],
                   max_abs_err=measured[n][0], ms=measured[n][1],
                   plain_ms=measured[n][2]) for n in kernels]
     print(json.dumps({'kernels': table}))

@@ -53,16 +53,18 @@ def box_corners(boxes):
 
 
 def points_in_boxes(points, boxes, eps=1e-6):
-    """(P, 3) points x (N, 7) boxes -> (P, N) bool membership, with the
-    ``box_corners``-consistent rotation sense."""
+    """(..., P, 3) points x (..., N, 7) boxes -> (..., P, N) bool
+    membership, with the ``box_corners``-consistent rotation sense."""
     centers = gravity_center(boxes)
-    shift = points[:, None, :] - centers[None, :, :]
-    c, s = torch.cos(boxes[:, 6]), torch.sin(boxes[:, 6])
+    shift = points[..., :, None, :] - centers[..., None, :, :]
+    c = torch.cos(boxes[..., None, :, 6])
+    s = torch.sin(boxes[..., None, :, 6])
     lx = shift[..., 0] * c - shift[..., 1] * s
     ly = shift[..., 0] * s + shift[..., 1] * c
-    half = boxes[:, 3:6] * 0.5
-    return ((lx.abs() <= half[:, 0] + eps) & (ly.abs() <= half[:, 1] + eps) &
-            (shift[..., 2].abs() <= half[:, 2] + eps))
+    half = boxes[..., None, :, 3:6] * 0.5
+    return ((lx.abs() <= half[..., 0] + eps) &
+            (ly.abs() <= half[..., 1] + eps) &
+            (shift[..., 2].abs() <= half[..., 2] + eps))
 
 
 def corners_minmax(boxes):
@@ -79,6 +81,17 @@ def aligned_box_iou_3d(boxes1, boxes2):
     vol1 = (boxes1[:, 3:] - boxes1[:, :3]).clamp_min(0).prod(-1)
     vol2 = (boxes2[:, 3:] - boxes2[:, :3]).clamp_min(0).prod(-1)
     return inter / (vol1[:, None] + vol2[None, :] - inter).clamp_min(1e-8)
+
+
+def angle2class(angle, num_dir_bins):
+    """Angle -> (direction bin, residual), mmdet3d
+    ``PartialBinBasedBBoxCoder.angle2class``."""
+    angle = torch.remainder(angle, 2 * np.pi)
+    angle_per_class = 2 * np.pi / float(num_dir_bins)
+    shifted = torch.remainder(angle + angle_per_class / 2, 2 * np.pi)
+    angle_cls = torch.div(shifted, angle_per_class, rounding_mode='floor')
+    angle_res = shifted - (angle_cls * angle_per_class + angle_per_class / 2)
+    return angle_cls.long(), angle_res
 
 
 def class2angle(angle_cls, angle_res, num_dir_bins, limit_period_flag=True):

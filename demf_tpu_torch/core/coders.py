@@ -1,4 +1,4 @@
-"""Box codecs (port of ``demf_tpu/core/coders.py``, inference half):
+"""Box codecs (port of ``demf_tpu/core/coders.py``):
 ``ClassAgnosticBBoxCoder`` and ``DeMFClassAgnosticBBoxCoder``."""
 from __future__ import annotations
 
@@ -24,6 +24,22 @@ class ClassAgnosticBBoxCoder:
         self.with_rot = with_rot
         self.num_sizes = num_sizes
         self.mean_sizes = np.asarray(mean_sizes) if mean_sizes else None
+
+    def encode(self, gt_bboxes_3d, gt_labels_3d, ret_dir_target=False):
+        """GT boxes (..., 7) -> (center, half dims, dir_class, dir_res[,
+        dir])."""
+        center = box_ops.gravity_center(gt_bboxes_3d)
+        size = gt_bboxes_3d[..., 3:6] / 2
+        yaw = gt_bboxes_3d[..., 6]
+        if self.with_rot:
+            dir_cls, dir_res = box_ops.angle2class(yaw, self.num_dir_bins)
+            dir_target = yaw
+        else:
+            dir_cls = torch.zeros_like(yaw, dtype=torch.long)
+            dir_res = torch.zeros_like(yaw)
+            dir_target = torch.zeros_like(yaw)
+        out = (center, size, dir_cls, dir_res)
+        return out + (dir_target,) if ret_dir_target else out
 
     def _decode_angle(self, bbox_out):
         dir_class = torch.argmax(bbox_out['dir_class'], -1)
@@ -63,10 +79,22 @@ class ClassAgnosticBBoxCoder:
         results['ref_points'] = ref_points
         return results
 
+    def decode_corners(self, distance, ref_points):
+        """(B, N, 6) min / max corners from face distances."""
+        return torch.cat([ref_points - distance[..., 3:6],
+                          ref_points + distance[..., 0:3]], -1)
+
 
 @BBOX_CODERS.register_module()
 class DeMFClassAgnosticBBoxCoder(ClassAgnosticBBoxCoder):
     """Center + size codec of DeMFVoteHead."""
+
+    def encode(self, gt_bboxes_3d, gt_labels_3d, ret_dir_target=False):
+        """As the parent's, with full box dims."""
+        out = list(super().encode(gt_bboxes_3d, gt_labels_3d,
+                                  ret_dir_target))
+        out[1] = gt_bboxes_3d[..., 3:6]
+        return tuple(out)
 
     def decode(self, bbox_out):
         center = bbox_out['center']
@@ -90,3 +118,7 @@ class DeMFClassAgnosticBBoxCoder(ClassAgnosticBBoxCoder):
         if cls_t.shape[-1] > 2:
             results['sem_scores'] = cls_t[..., 2:]
         return results
+
+    def decode_corners(self, center, size):
+        half = size / 2.0
+        return torch.cat([center - half, center + half], -1)

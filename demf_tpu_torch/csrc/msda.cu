@@ -1,6 +1,7 @@
 // Multi-scale deformable attention, forward: bilinear reads of the value
 // planes at the sampling locations, weighted by attention, summed over
-// levels and points.
+// levels and points.  The backward is kernel K4 (msda_backward.cu); the
+// autograd.Function of ops/msda.py pairs the two.
 //
 // Replaces: demf_tpu/ops/msda.py::multi_scale_deformable_attention (the XLA
 // forms _make_small_q_msda and _make_msda), and with it the two Pallas

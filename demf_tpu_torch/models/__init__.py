@@ -1,10 +1,11 @@
 """Models of the port.  Importing this package registers the detector and
 its parts in ``demf_tpu_torch.registry``."""
-from . import (conv_bbox_head, demf_head, demfnet, image_neck, pointnet2,
-               resnet, transformer, vote_head, vote_module)
+from . import (conv_bbox_head, demf_head, demfnet, image_neck, losses,
+               pointnet2, resnet, target_assign, transformer, vote_head,
+               vote_module)
 from .demfnet import DeMFVoteNet
 from .weight_init import init_weights
 
 __all__ = ['DeMFVoteNet', 'conv_bbox_head', 'demf_head', 'demfnet',
-           'image_neck', 'init_weights', 'pointnet2', 'resnet', 'transformer',
-           'vote_head', 'vote_module']
+           'image_neck', 'init_weights', 'losses', 'pointnet2', 'resnet',
+           'target_assign', 'transformer', 'vote_head', 'vote_module']

@@ -3,7 +3,8 @@
 
 Features stay channel-last, (B, N, C); the 1x1 Conv+BN+ReLU stacks are
 matmuls over the last axis that read the mmdet3d Conv1d / Conv2d weights.
-BatchNorm uses its running statistics: this is the inference path.
+BatchNorm follows flax (``bn_last``): batch statistics in train mode,
+running statistics in eval mode.
 """
 from __future__ import annotations
 
@@ -19,10 +20,25 @@ from ..registry import BACKBONES
 
 
 def bn_last(bn, x):
-    """Eval-mode BatchNorm over the last axis, as flax computes it:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return (x - bn.running_mean) * mul + bn.bias
+    """BatchNorm over the last axis, as flax computes it:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias.
+
+    Eval mode uses the running statistics.  Train mode uses the batch mean
+    and the *biased* variance over every other axis, and moves the running
+    statistics as flax does with momentum 0.9:
+    ``running = 0.9 * running + 0.1 * batch``, the biased variance included
+    (``torch.nn.BatchNorm`` stores the unbiased one, so it is not used).
+    """
+    if bn.training:
+        var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)),
+                                   correction=0)
+        with torch.no_grad():
+            bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            bn.running_var.mul_(0.9).add_(var, alpha=0.1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean) * mul + bn.bias
 
 
 class ConvModule(nn.Module):

@@ -5,7 +5,9 @@ the DeMF decoder layer (port of ``demf_tpu/models/transformer.py``).
 Everything is batch-first (B, N, C) with static per-level spatial shapes.
 Parameter names follow mmcv (``attentions`` / ``ffns`` / ``norms``).
 LayerNorm epsilon is 1e-6, flax's default, as in the JAX package (mmcv
-uses 1e-5).
+uses 1e-5).  Dropout sits where the JAX package puts it and, in train mode,
+draws its masks from an explicit ``torch.Generator`` passed down from the
+train step.
 """
 from __future__ import annotations
 
@@ -21,6 +23,19 @@ from ..registry import HEADS
 from .pointnet2 import bn_last
 
 LN_EPS = 1e-6
+
+
+def dropout(x, p, training, generator):
+    """Inverted dropout as flax's: keep with probability 1 - p, scaled by
+    1 / (1 - p); identity in eval mode or at p == 0.  The mask comes from
+    ``generator`` (a ``torch.Generator`` on x's device)."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in train mode needs a torch.Generator')
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 class SinePositionalEncoding:
@@ -70,11 +85,13 @@ def msda_offset_bias_init(num_heads, num_levels, num_points):
 
 class MultiScaleDeformableAttention(nn.Module):
     """mmcv MSDA layer (projections + residual), batch-first; the sampling
-    core is kernel K3 (``ops/msda.py``)."""
+    core is kernels K3 / K4 (``ops/msda.py``).  ``dropout`` acts on the
+    output projection, before the residual."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4):
+                 num_points=4, dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.num_levels = num_levels
@@ -102,7 +119,7 @@ class MultiScaleDeformableAttention(nn.Module):
             lin.bias.zero_()
 
     def forward(self, query, value, query_pos=None, key_padding_mask=None,
-                reference_points=None, spatial_shapes=None):
+                reference_points=None, spatial_shapes=None, generator=None):
         """query (B, Nq, C), value (B, Nv, C), key_padding_mask (B, Nv) bool
         (True = padding), reference_points (B, Nq, L, 2) normalized,
         static spatial_shapes ((h, w), ...)."""
@@ -123,37 +140,48 @@ class MultiScaleDeformableAttention(nn.Module):
         locs = reference_points[:, :, None, :, None, :] + \
             offsets / normalizer[None, None, None, :, None, :]
         out = multi_scale_deformable_attention(v, spatial_shapes, locs, attn)
-        return self.output_proj(out) + identity
+        out = dropout(self.output_proj(out), self.dropout, self.training,
+                      generator)
+        return out + identity
 
 
 class FFN(nn.Module):
     """mmcv FFN: ``layers.0.0`` Linear, ReLU, ``layers.1`` Linear,
-    plus the residual."""
+    plus the residual; ``ffn_drop`` after the ReLU and after ``layers.1``."""
 
-    def __init__(self, embed_dims=256, feedforward_channels=1024):
+    def __init__(self, embed_dims=256, feedforward_channels=1024,
+                 ffn_drop=0.0):
         super().__init__()
+        self.ffn_drop = ffn_drop
         self.layers = nn.Sequential(
             nn.Sequential(nn.Linear(embed_dims, feedforward_channels),
                           nn.ReLU()),
             nn.Linear(feedforward_channels, embed_dims))
 
-    def forward(self, x):
-        return x + self.layers(x)
+    def forward(self, x, generator=None):
+        def drop(y):
+            return dropout(y, self.ffn_drop, self.training, generator)
+
+        y = drop(self.layers[0](x))
+        return x + drop(self.layers[1](y))
 
 
 class InProjAttention(nn.Module):
     """Multi-head attention with ``nn.MultiheadAttention``'s parameter
-    names (``in_proj_weight`` = [Wq; Wk; Wv], ``out_proj``), batch-first."""
+    names (``in_proj_weight`` = [Wq; Wk; Wv], ``out_proj``), batch-first;
+    ``dropout`` acts on the attention probabilities, as flax's
+    ``MultiHeadDotProductAttention`` does."""
 
-    def __init__(self, embed_dims, num_heads):
+    def __init__(self, embed_dims, num_heads, dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * embed_dims, embed_dims))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
         self.out_proj = nn.Linear(embed_dims, embed_dims)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, generator=None):
         b, nq, e = q.shape
         hd = e // self.num_heads
         wq, wk, wv = self.in_proj_weight.chunk(3)
@@ -165,69 +193,80 @@ class InProjAttention(nn.Module):
 
         qh, kh, vh = heads(q, wq, bq), heads(k, wk, bk), heads(v, wv, bv)
         logits = torch.matmul(qh / math.sqrt(hd), kh.transpose(-1, -2))
-        out = torch.matmul(logits.softmax(-1), vh)
+        probs = dropout(logits.softmax(-1), self.dropout, self.training,
+                        generator)
+        out = torch.matmul(probs, vh)
         return self.out_proj(out.transpose(1, 2).reshape(b, nq, e))
 
 
 class MultiheadAttention(nn.Module):
-    """mmcv MultiheadAttention: ``.attn`` plus query_pos / residual."""
+    """mmcv MultiheadAttention: ``.attn`` plus query_pos / residual;
+    ``dropout`` on the attention probabilities and on the output."""
 
-    def __init__(self, embed_dims=256, num_heads=8):
+    def __init__(self, embed_dims=256, num_heads=8, dropout=0.0):
         super().__init__()
-        self.attn = InProjAttention(embed_dims, num_heads)
+        self.dropout = dropout
+        self.attn = InProjAttention(embed_dims, num_heads, dropout)
 
-    def forward(self, query, query_pos=None):
+    def forward(self, query, query_pos=None, generator=None):
         """Self-attention: keys take the same position as queries, values
         take none."""
         qk = query + query_pos if query_pos is not None else query
-        return query + self.attn(qk, qk, query)
+        out = self.attn(qk, qk, query, generator)
+        return query + dropout(out, self.dropout, self.training, generator)
 
 
 class DetrTransformerEncoderLayer(nn.Module):
     """self_attn (MSDA) -> LN -> FFN -> LN."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, feedforward_channels=1024):
+                 num_points=4, feedforward_channels=1024, ffn_dropout=0.1,
+                 attn_dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([MultiScaleDeformableAttention(
-            embed_dims, num_heads, num_levels, num_points)])
-        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])
+            embed_dims, num_heads, num_levels, num_points, attn_dropout)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
+                                       ffn_dropout)])
         self.norms = nn.ModuleList(
             [nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(2)])
 
     def forward(self, x, pos, key_padding_mask, reference_points,
-                spatial_shapes):
+                spatial_shapes, generator=None):
         x = self.attentions[0](x, x, query_pos=pos,
                                key_padding_mask=key_padding_mask,
                                reference_points=reference_points,
-                               spatial_shapes=spatial_shapes)
+                               spatial_shapes=spatial_shapes,
+                               generator=generator)
         x = self.norms[0](x)
-        return self.norms[1](self.ffns[0](x))
+        return self.norms[1](self.ffns[0](x, generator))
 
 
 class DetrTransformerDecoderLayer(nn.Module):
     """self_attn (MHA) -> LN -> cross_attn (MSDA) -> LN -> FFN -> LN."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, feedforward_channels=1024):
+                 num_points=4, feedforward_channels=1024, ffn_dropout=0.1,
+                 self_attn_dropout=0.1, cross_attn_dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([
-            MultiheadAttention(embed_dims, num_heads),
+            MultiheadAttention(embed_dims, num_heads, self_attn_dropout),
             MultiScaleDeformableAttention(embed_dims, num_heads, num_levels,
-                                          num_points)])
-        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])
+                                          num_points, cross_attn_dropout)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
+                                       ffn_dropout)])
         self.norms = nn.ModuleList(
             [nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3)])
 
     def forward(self, query, value, query_pos, key_padding_mask,
-                reference_points, spatial_shapes):
-        q = self.norms[0](self.attentions[0](query, query_pos=query_pos))
+                reference_points, spatial_shapes, generator=None):
+        q = self.norms[0](self.attentions[0](query, query_pos, generator))
         q = self.attentions[1](q, value, query_pos=query_pos,
                                key_padding_mask=key_padding_mask,
                                reference_points=reference_points,
-                               spatial_shapes=spatial_shapes)
+                               spatial_shapes=spatial_shapes,
+                               generator=generator)
         q = self.norms[1](q)
-        return self.norms[2](self.ffns[0](q))
+        return self.norms[2](self.ffns[0](q, generator))
 
 
 def make_level_masks(img_shape, batch_hw, spatial_shapes):
@@ -300,12 +339,13 @@ class DeformableDetrEncoder(nn.Module):
         self.encoder = _Layers([DetrTransformerEncoderLayer(
             embed_dims, attn_cfg.get('num_heads', 8), num_feature_levels,
             attn_cfg.get('num_points', 4),
-            tl.get('feedforward_channels', 1024))
+            tl.get('feedforward_channels', 1024), tl.get('ffn_dropout', 0.1),
+            attn_cfg.get('dropout', 0.1))
             for _ in range(enc_cfg.get('num_layers', 6))])
         self.level_embeds = nn.Parameter(
             torch.zeros(num_feature_levels, embed_dims))
 
-    def forward(self, mlvl_feats, img_shape):
+    def forward(self, mlvl_feats, img_shape, generator=None):
         """mlvl_feats: tuple of (B, H_l, W_l, C) maps; img_shape (B, 2)
         valid [h, w] at input resolution (level 0 has stride 8)."""
         spatial_shapes = tuple((f.shape[1], f.shape[2]) for f in mlvl_feats)
@@ -326,7 +366,7 @@ class DeformableDetrEncoder(nn.Module):
                                                     valid_ratios)
         for layer in self.encoder.layers:
             x = layer(x, pos, key_padding_mask, reference_points,
-                      spatial_shapes)
+                      spatial_shapes, generator)
         outs, start = [], 0
         for (h, w) in spatial_shapes:
             outs.append(x[:, start:start + h * w].reshape(
@@ -361,20 +401,22 @@ class DeMFTransformerDecoderLayer(nn.Module):
         super().__init__()
         tl = dict(transformerlayers or {})
         attn_cfgs = tl.get('attn_cfgs', [{}, {}])
-        cross = dict(attn_cfgs[1])
+        self_cfg, cross = dict(attn_cfgs[0]), dict(attn_cfgs[1])
         pe = dict(posembed or {})
         self.posembed = PositionEmbeddingLearned(
             pe.get('input_channel', 6), pe.get('num_pos_feats', 256))
         self.layer = DetrTransformerDecoderLayer(
             cross.get('embed_dims', 256), cross.get('num_heads', 8),
             cross.get('num_levels', 4), cross.get('num_points', 4),
-            tl.get('feedforward_channels', 1024))
+            tl.get('feedforward_channels', 1024), tl.get('ffn_dropout', 0.1),
+            self_cfg.get('dropout', 0.1), cross.get('dropout', 0.1))
 
     def forward(self, query, value, query_pos_input, key_padding_mask,
-                reference_points, spatial_shapes, valid_ratios):
+                reference_points, spatial_shapes, valid_ratios,
+                generator=None):
         """query (B, Nq, C), value (B, Nv, C), query_pos_input (B, Nq, 6),
         reference_points (B, Nq, 2) normalized, valid_ratios (B, L, 2)."""
         ref = reference_points[:, :, None, :] * valid_ratios[:, None]
         query_pos = self.posembed(query_pos_input)
         return self.layer(query, value, query_pos, key_padding_mask, ref,
-                          spatial_shapes)
+                          spatial_shapes, generator)

@@ -1,6 +1,6 @@
-"""Class-agnostic vote head, inference half (port of
-``demf_tpu/models/vote_head.py``): vote -> aggregate, and the fixed-shape
-multiclass 3D NMS.  The losses arrive with the training path."""
+"""Class-agnostic vote head (port of ``demf_tpu/models/vote_head.py``):
+vote -> aggregate, the ``'ca'`` losses, and the fixed-shape multiclass 3D
+NMS."""
 from __future__ import annotations
 
 import torch
@@ -9,8 +9,9 @@ from torch import nn
 from ..core import boxes as box_ops
 from ..ops.nms import aligned_3d_nms
 from ..ops.sampling import furthest_point_sample
-from ..registry import BBOX_CODERS, build_from_cfg
+from ..registry import BBOX_CODERS, LOSSES, build_from_cfg
 from .pointnet2 import PointSAModule
+from .target_assign import get_vote_head_targets
 from .vote_module import VoteModule
 
 
@@ -59,7 +60,7 @@ def multiclass_nms_3d(obj_scores, sem_scores, bbox3d, points, test_cfg):
 
 class CAVoteHead(nn.Module):
     """Class-agnostic VoteNet head (reference CAVoteHead): the parts the
-    DeMF head shares.  Loss configs are kept for the training path."""
+    DeMF head shares, and the face-distance losses of mode ``'ca'``."""
 
     def __init__(self, num_classes=10, bbox_coder=None, train_cfg=None,
                  test_cfg=None, vote_module_cfg=None,
@@ -93,7 +94,15 @@ class CAVoteHead(nn.Module):
     def _reg_out_channels(self):
         return 6 + self.bbox_coder_cfg['num_dir_bins'] * 2
 
-    def _vote_and_aggregate(self, feat_dict, sample_mod):
+    def build_loss(self, name):
+        """The configured loss ``name`` (e.g. ``'objectness_loss'``)."""
+        return build_from_cfg(self.loss_cfgs[name], LOSSES)
+
+    def _vote_and_aggregate(self, feat_dict, sample_mod, generator=None):
+        """Vote, then aggregate proposals around the FPS of the votes
+        ('vote'), of the seeds ('seed'), seeds drawn at random from
+        ``generator`` ('random'), or around every vote from the seed
+        features ('spec')."""
         seed_points = feat_dict['seed_points']
         vote_points, vote_features, vote_offset = self.vote_module(
             seed_points, feat_dict['seed_features'])
@@ -104,12 +113,62 @@ class CAVoteHead(nn.Module):
         if sample_mod == 'vote':
             new_xyz, feats, _ = self.vote_aggregation(vote_points,
                                                       vote_features)
-        elif sample_mod == 'seed':
-            idx = furthest_point_sample(seed_points, self.num_proposal)
+        elif sample_mod in ('seed', 'random'):
+            if sample_mod == 'seed':
+                idx = furthest_point_sample(seed_points, self.num_proposal)
+            elif generator is None:
+                raise ValueError("sample_mod 'random' needs a "
+                                 "torch.Generator")
+            else:
+                b, n = seed_points.shape[:2]
+                idx = torch.randint(0, n, (b, self.num_proposal),
+                                    generator=generator,
+                                    device=seed_points.device)
             new_xyz, feats, _ = self.vote_aggregation(
                 vote_points, vote_features, indices=idx)
+        elif sample_mod == 'spec':
+            new_xyz, feats, _ = self.vote_aggregation(
+                seed_points, feat_dict['seed_features'],
+                target_xyz=vote_points)
         else:
-            raise NotImplementedError(
-                f'sample_mod {sample_mod!r}: the port has seed and vote')
+            raise NotImplementedError(f'sample_mod {sample_mod!r}')
         results['aggregated_points'] = new_xyz
         return results, feats
+
+    def loss(self, results, points, gt_bboxes_3d, gt_labels_3d, gt_valid):
+        """Reference CAVoteHead.loss over a results dict with the
+        ``ClassAgnosticBBoxCoder`` fields (distance, dir_class,
+        dir_res_norm, obj_scores, sem_scores, ref_points)."""
+        targets = get_vote_head_targets(
+            points, gt_bboxes_3d, gt_labels_3d, gt_valid,
+            results['aggregated_points'], self.coder, self.train_cfg,
+            self.vote_module.gt_per_seed, mode='ca')
+        losses = dict(vote_loss=self.vote_module.get_loss(
+            results['seed_points'], results['vote_points'],
+            results['seed_indices'], targets['vote_target_masks'],
+            targets['vote_targets']))
+        losses['objectness_loss'] = self.build_loss('objectness_loss')(
+            results['obj_scores'], targets['objectness_targets'],
+            weight=targets['objectness_weights'])
+        blw = targets['box_loss_weights']
+        losses['size_res_loss'] = self.build_loss('size_res_loss')(
+            results['distance'], targets['distance_targets'],
+            weight=blw[..., None])
+        dir_cls = targets['dir_class_targets']
+        losses['dir_class_loss'] = self.build_loss('dir_class_loss')(
+            results['dir_class'], dir_cls, weight=blw)
+        dir_res_norm = torch.gather(results['dir_res_norm'], -1,
+                                    dir_cls[..., None])[..., 0]
+        losses['dir_res_loss'] = self.build_loss('dir_res_loss')(
+            dir_res_norm, targets['dir_res_targets'], weight=blw)
+        if self.with_semantic:
+            losses['semantic_loss'] = self.build_loss('semantic_loss')(
+                results['sem_scores'], targets['mask_targets'], weight=blw)
+        if self.loss_cfgs.get('iou_loss') is not None:
+            corners_pred = self.coder.decode_corners(results['distance'],
+                                                     results['ref_points'])
+            corners_target = self.coder.decode_corners(
+                targets['distance_targets'], results['ref_points'])
+            losses['iou_loss'] = self.build_loss('iou_loss')(
+                corners_pred, corners_target, weight=blw)
+        return losses

@@ -1,11 +1,13 @@
-"""Geometric ops of the port.  FPS, ball query and MSDA each have a CUDA
-kernel (``csrc/``) beside a plain PyTorch version; a CPU tensor takes the
-plain version and a CUDA tensor the kernel."""
+"""Geometric ops of the port.  FPS, ball query and MSDA (forward and
+backward) each have a CUDA kernel (``csrc/``) beside a plain PyTorch
+version; a CPU tensor takes the plain version and a CUDA tensor the
+kernel."""
 from .grouping import (BALL_QUERY_KERNEL, ball_query, gather_points,
                        gather_points_last, group_points, group_points_last,
                        query_and_group)
 from .interpolate import three_nn_interpolate
-from .msda import MSDA_KERNEL, multi_scale_deformable_attention
+from .msda import (MSDA_BACKWARD_KERNEL, MSDA_KERNEL,
+                   multi_scale_deformable_attention)
 from .nms import aligned_3d_nms
 from .sampling import FPS_KERNEL, furthest_point_sample
 
@@ -18,6 +20,7 @@ __all__ = [
 
 
 def kernels():
-    """name -> CudaKernel for every kernel of the serving path."""
+    """name -> CudaKernel for every kernel of the serving and training
+    paths."""
     return {'fps': FPS_KERNEL, 'ball_query': BALL_QUERY_KERNEL,
-            'msda': MSDA_KERNEL}
+            'msda': MSDA_KERNEL, 'msda_backward': MSDA_BACKWARD_KERNEL}

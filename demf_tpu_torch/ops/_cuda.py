@@ -2,8 +2,9 @@
 
 Every ``csrc/*.cu`` file exports plain C functions that take raw device
 pointers and a ``cudaStream_t`` and return ``cudaGetLastError()``.  They are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library at first use
-and loaded with ``ctypes``.  Nothing is compiled when a module is imported,
+compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc`` process per
+source, all started together, then linked into one shared library and
+loaded with ``ctypes``.  Nothing is compiled when a module is imported,
 so the package imports on hosts without ``nvcc`` or a card.
 
 The library lands in ``build/kernels/`` at the repository root under a name
@@ -26,8 +27,9 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'kernels')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                           '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _lib = None
@@ -67,20 +69,35 @@ def build():
         return path, 0.0, False
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith('.cu')]
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    with open(path[:-3] + '.log', 'w') as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stderr[-4000:]}')
-    os.replace(tmp, path)   # atomic: a concurrent build sees all or nothing
-    return path, seconds, True
+    try:
+        objs = [os.path.join(work, os.path.basename(s)[:-3] + '.o')
+                for s in cu]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-c', '-o', o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(cu, objs)]
+        outs = [p.communicate() for p in procs]
+        log = ''.join(out + err for out, err in outs)
+        failed = [f'{os.path.basename(s)} ({p.returncode}):\n{err[-4000:]}'
+                  for s, p, (_, err) in zip(cu, procs, outs) if p.returncode]
+        if not failed:
+            tmp = os.path.join(work, 'lib.so')
+            link = subprocess.run([_nvcc(), *ARCH_FLAGS, '-shared', '-o', tmp,
+                                   *objs], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode:
+                failed.append(f'link ({link.returncode}):\n'
+                              f'{link.stderr[-4000:]}')
+        with open(path[:-3] + '.log', 'w') as f:
+            f.write(log)
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        os.replace(tmp, path)   # atomic: a concurrent build sees all or none
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return path, time.perf_counter() - t0, True
 
 
 def library():

@@ -1,21 +1,27 @@
-"""Multi-scale deformable attention core: CUDA kernel K3 and its plain
-version (forward only).
+"""Multi-scale deformable attention core: CUDA kernels K3 (forward) and K4
+(backward), and their plain version.
 
 Port of ``demf_tpu/ops/msda.py::multi_scale_deformable_attention``:
 bilinear reads with ``align_corners=False`` and zero padding at the
 sampling locations, weighted by the attention weights, accumulated in fp32.
-The backward (``d_value``) arrives with the training path.
+On a CUDA tensor that needs a gradient the op is ``MSDAFunction``: K3 runs
+the forward and K4 returns ``d_value``, ``d_sampling_locations`` and
+``d_attention_weights``.  The plain version's gradient is its own autograd
+(gathers, whose backward is a scatter-add).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ._cuda import CudaKernel, check_cuda
 
 MSDA_KERNEL = CudaKernel(
     'demf_msda_forward', [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7)
+MSDA_BACKWARD_KERNEL = CudaKernel(
+    'demf_msda_backward', [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7)
 
 
 def multi_scale_deformable_attention(value, spatial_shapes,
@@ -24,14 +30,19 @@ def multi_scale_deformable_attention(value, spatial_shapes,
     sampling_locations (B, Q, heads, L, P, 2) in [0, 1], attention_weights
     (B, Q, heads, L, P) -> (B, Q, heads * hd).
 
-    A CPU tensor takes the plain version; a CUDA tensor the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor the kernels (K3,
+    and K4 in the backward when an input requires grad).
     """
     if value.device.type == 'cpu':
         return msda_plain(value, spatial_shapes, sampling_locations,
                           attention_weights)
-    return msda_cuda(value.contiguous(), spatial_shapes,
-                     sampling_locations.contiguous(),
-                     attention_weights.contiguous())
+    args = (value.contiguous(), spatial_shapes,
+            sampling_locations.contiguous(), attention_weights.contiguous())
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations,
+                                      attention_weights)):
+        return MSDAFunction.apply(*args)
+    return msda_cuda(*args)
 
 
 def _bilinear_sample(rows, loc_xy, h, w):
@@ -80,16 +91,13 @@ def msda_plain(value, spatial_shapes, sampling_locations, attention_weights):
     return out.permute(0, 2, 1, 3).reshape(b, q, heads * hd).to(value.dtype)
 
 
-def msda_cuda(value, spatial_shapes, sampling_locations, attention_weights):
-    """Kernel K3 (csrc/msda.cu).  Forward only: raises on inputs that
-    require grad."""
+def _check_args(value, spatial_shapes, sampling_locations,
+                attention_weights):
+    """Validate the kernels' inputs; returns the level table (H, W, start)
+    as an int32 tensor on the device."""
     check_cuda('value', value, torch.float32, 4)
     check_cuda('sampling_locations', sampling_locations, torch.float32, 6)
     check_cuda('attention_weights', attention_weights, torch.float32, 5)
-    if any(t.requires_grad for t in (value, sampling_locations,
-                                     attention_weights)):
-        raise RuntimeError('the MSDA kernel is forward-only; run under '
-                           'torch.no_grad() or torch.inference_mode()')
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
     if tuple(sampling_locations.shape) != (b, q, heads, levels, points, 2):
@@ -108,11 +116,66 @@ def msda_cuda(value, spatial_shapes, sampling_locations, attention_weights):
         start += int(h) * int(w)
     if start != s:
         raise ValueError(f'spatial shapes cover {start} tokens, value has {s}')
-    level_info = torch.tensor(info, dtype=torch.int32).to(
-        value.device, non_blocking=True)
+    return torch.tensor(info, dtype=torch.int32).to(value.device,
+                                                    non_blocking=True)
+
+
+def msda_cuda(value, spatial_shapes, sampling_locations, attention_weights):
+    """Kernel K3 (csrc/msda.cu): the forward, no autograd."""
+    level_info = _check_args(value, spatial_shapes, sampling_locations,
+                             attention_weights)
+    b, s, heads, hd = value.shape
+    _, q, _, levels, points, _ = sampling_locations.shape
     out = torch.empty((b, q, heads * hd), dtype=torch.float32,
                       device=value.device)
     MSDA_KERNEL(value.data_ptr(), level_info.data_ptr(),
                 sampling_locations.data_ptr(), attention_weights.data_ptr(),
                 out.data_ptr(), b, s, q, heads, hd, levels, points)
     return out
+
+
+def msda_backward_cuda(value, spatial_shapes, sampling_locations,
+                       attention_weights, grad_out):
+    """Kernel K4 (csrc/msda_backward.cu): grad_out (B, Q, heads * hd) ->
+    (d_value, d_sampling_locations, d_attention_weights).  head_dim must
+    divide 32."""
+    level_info = _check_args(value, spatial_shapes, sampling_locations,
+                             attention_weights)
+    b, s, heads, hd = value.shape
+    _, q, _, levels, points, _ = sampling_locations.shape
+    if hd > 32 or 32 % hd:
+        raise ValueError(f'the MSDA backward kernel needs a head_dim that '
+                         f'divides 32, got {hd}')
+    check_cuda('grad_out', grad_out, torch.float32, 3)
+    if tuple(grad_out.shape) != (b, q, heads * hd):
+        raise ValueError(f'grad_out {tuple(grad_out.shape)} does not match '
+                         f'({b}, {q}, {heads * hd})')
+    d_value = torch.zeros_like(value)
+    d_locs = torch.empty_like(sampling_locations)
+    d_aw = torch.empty_like(attention_weights)
+    MSDA_BACKWARD_KERNEL(
+        value.data_ptr(), level_info.data_ptr(),
+        sampling_locations.data_ptr(), attention_weights.data_ptr(),
+        grad_out.data_ptr(), d_value.data_ptr(), d_locs.data_ptr(),
+        d_aw.data_ptr(), b, s, q, heads, hd, levels, points)
+    return d_value, d_locs, d_aw
+
+
+class MSDAFunction(torch.autograd.Function):
+    """MSDA on CUDA tensors with a gradient: K3 forward, K4 backward."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return msda_cuda(value, spatial_shapes, sampling_locations,
+                         attention_weights)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        value, locs, aw = ctx.saved_tensors
+        d_value, d_locs, d_aw = msda_backward_cuda(
+            value, ctx.spatial_shapes, locs, aw, grad_out.contiguous())
+        return d_value, None, d_locs, d_aw

@@ -11,6 +11,7 @@ BACKBONES = Registry('torch_backbones')
 NECKS = Registry('torch_necks')
 HEADS = Registry('torch_heads')
 BBOX_CODERS = Registry('torch_bbox_coders')
+LOSSES = Registry('torch_losses')
 
-__all__ = ['BACKBONES', 'BBOX_CODERS', 'DETECTORS', 'HEADS', 'NECKS',
-           'Registry', 'build_from_cfg']
+__all__ = ['BACKBONES', 'BBOX_CODERS', 'DETECTORS', 'HEADS', 'LOSSES',
+           'NECKS', 'Registry', 'build_from_cfg']

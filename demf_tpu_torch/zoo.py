@@ -1,5 +1,5 @@
-"""Build the port's detector from the shared ``configs/`` and make synthetic
-batches (numpy) with the fields, shapes and meta of
+"""Build the port's detector and its trainer from the shared ``configs/``,
+and make synthetic batches (numpy) with the fields, shapes and meta of
 ``demf_tpu.zoo.synth_demf_batch``, value for value from the same seed."""
 from __future__ import annotations
 
@@ -22,6 +22,35 @@ def build_detector(model_cfg, device='cpu', seed=0):
     model = build_from_cfg(model_cfg, DETECTORS)
     models.init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+def build_trainer(cfg, device='cpu', seed=0, steps_per_epoch=1):
+    """Detector (seeded random weights, train mode) plus its AdamW and train
+    step, as the JAX package's ``train.py`` and ``bench.py`` set them up:
+    the config's optimizer with the frozen image branch at lr_mult 0, its
+    step LR schedule and its grad clip.
+
+    ``cfg``: a path under ``configs/``, or a config / dict with ``model``,
+    ``optimizer`` and optionally ``optimizer_config`` and ``lr_config``.
+    Returns (model, optimizer, train_step).
+    """
+    from .engine.optim import build_optimizer, step_lr_schedule
+    from .engine.trainer import make_train_step
+    if isinstance(cfg, str):
+        cfg = load_model_cfg(cfg)
+    model = build_detector(cfg['model'], device, seed).train()
+    optimizer = build_optimizer(model, cfg['optimizer'],
+                                model.frozen_param_patterns())
+    lr_cfg = cfg.get('lr_config') or {}
+    scheduler = step_lr_schedule(
+        cfg['optimizer']['lr'], steps_per_epoch, lr_cfg.get('step', []),
+        warmup=lr_cfg.get('warmup'),
+        warmup_iters=lr_cfg.get('warmup_iters', 500),
+        warmup_ratio=lr_cfg.get('warmup_ratio', 1.0 / 3))
+    clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
+    step = make_train_step(model, optimizer, scheduler,
+                           clip['max_norm'] if clip else None)
+    return model, optimizer, step
 
 
 def synth_demf_batch(b, p=20000, g=32, hw=(800, 1344), seed=0,

@@ -88,10 +88,42 @@ def test_msda_kernel_matches_plain(dev, shapes, heads, hd, q, p):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+def _msda_inputs(dev, shapes, b, q, heads, hd, p, seed):
+    s = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    value = torch.randn(b, s, heads, hd, device=dev, generator=g)
+    locs = torch.rand(b, q, heads, len(shapes), p, 2, device=dev,
+                      generator=g) * 1.2 - 0.1
+    aw = torch.rand(b, q, heads, len(shapes), p, device=dev, generator=g)
+    grad = torch.randn(b, q, heads * hd, device=dev, generator=g)
+    return value, locs, aw, grad
+
+
 @pytest.mark.cuda
-def test_msda_kernel_is_forward_only(dev):
-    value = torch.zeros(1, 2, 1, 4, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match='forward-only'):
-        msda.msda_cuda(value, ((1, 2),),
-                       torch.zeros(1, 1, 1, 1, 1, 2, device=dev),
-                       torch.zeros(1, 1, 1, 1, 1, device=dev))
+@pytest.mark.parametrize('shapes,heads,hd,q,p', [
+    (((16, 24), (8, 12)), 4, 8, 50, 3),
+    (((7, 5),), 2, 16, 40, 4),
+    (((100, 168), (50, 84), (25, 42), (13, 21)), 8, 32, 256, 2)])
+def test_msda_backward_kernel_matches_plain(dev, shapes, heads, hd, q, p):
+    """K4 through the autograd.Function against the plain version's
+    autograd: d_value, d_loc and d_aw within 1e-5 of the largest |ref|.
+    Both sides round x = loc * W - 0.5 alike, so no sample sits on the
+    other side of a grid line, where d_loc jumps."""
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 2, q, heads, hd, p, q)
+    grads = []
+    for fn in (msda.multi_scale_deformable_attention, msda.msda_plain):
+        ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+        before = msda.MSDA_BACKWARD_KERNEL.launches
+        fn(ins[0], shapes, ins[1], ins[2]).backward(grad)
+        launched = msda.MSDA_BACKWARD_KERNEL.launches - before
+        assert launched == (1 if fn is not msda.msda_plain else 0)
+        grads.append([t.grad for t in ins])
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_msda_backward_kernel_refuses_head_dim(dev):
+    value, locs, aw, grad = _msda_inputs(dev, ((3, 4),), 1, 5, 2, 12, 2, 0)
+    with pytest.raises(ValueError, match='divides 32'):
+        msda.msda_backward_cuda(value, ((3, 4),), locs, aw, grad)
