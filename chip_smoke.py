@@ -12,26 +12,37 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    decoder's shape at batch 16 and 2 and at the encoder's at batch 2; K4,
    the MSDA backward, against the plain version's autograd at the
    decoder's training shape and at the encoder's shape;
-4. reference: the full-width detector on a small input, kernels against the
+4. probes: with the launch counts at 0, the port's three probes at their
+   full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
+   plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
+   f32; K7 M-form sampler at the encoder's four levels; K5 + K6 slot fold
+   at main18's shape, both weight layouts, bf16 rows), each kernel within
+   its bound of the plain version and timed against it; then the
+   quad-plane route (K5 + K6, f32) against K3 at the encoder's shape
+   within 1e-5 of K3's largest output; K5-K7 must each have launched;
+5. reference: the full-width detector on a small input, kernels against the
    plain versions, stage predictions within 2e-3 relative;
-5. serving path: DeMF-VoteNet (``configs/demf/demf_votenet.py``, full
+6. serving path: DeMF-VoteNet (``configs/demf/demf_votenet.py``, full
    width, seeded random weights) answers 3 requests of batch 2 at 20,000
    points and an 800x1344 image through
    ``engine.evaluation.make_eval_step``; every request must launch each
    kernel a fixed number of times;
-6. training reference: the full-width detector on a small input, dropout
+7. training reference: the full-width detector on a small input, dropout
    off, one forward + loss + backward with the kernels against one with
    the plain versions: losses within 1e-4 relative, each gradient within
    1e-3 of that tensor's largest;
-7. training path: the stage-2 step at full width, batch 16 x 20,000 points
+8. training path: the stage-2 step at full width, batch 16 x 20,000 points
    and 800x1344 images, seeded weights: the frozen image branch fills the
    feature cache once, then 3 steps through ``engine.trainer``, each with
    finite losses and gradient norm and a fixed number of launches of each
    kernel; the image branch must stay unchanged and every other parameter
    move.
 
-The line before the last is the kernel table as JSON (launches counted in
-the training path, times at its shape: each kernel's first row above); the
+The line before the last is the kernel table as JSON (K1-K4: launches
+counted in the training path, times at its shape, each kernel's first row
+above; K5-K7: launches counted in the probes phase, times of K5 at the
+gather probe's shape, K6 in the (LP, Q, 4) layout on one chunk, K7 at the
+finest level); the
 last line is ``{"ok": true, "device": {...}}``.
 Float32 throughout: TF32 is switched off for matmuls and cuDNN
 convolutions.
@@ -52,42 +63,39 @@ import torch
 # FPS and ball query; 6 encoder layers + 1 decoder layer for MSDA)
 REQUESTS = (0, 1, 2)
 LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7,
-                        'msda_backward': 0}
+                        'msda_backward': 0, 'gather_rows': 0, 'msda_fold': 0,
+                        'mform_sample': 0}
 # train steps per run and what each must launch (the image branch runs
 # once, before, to fill the feature cache)
 TRAIN_STEPS = 3
 TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
 LAUNCHES_PER_STEP = {'fps': 5, 'ball_query': 5, 'msda': 1,
-                     'msda_backward': 1}
+                     'msda_backward': 1, 'gather_rows': 0, 'msda_fold': 0,
+                     'mform_sample': 0}
+# the probes' kernels: their launches are counted over the probes phase
+PROBE_KERNELS = ('gather_rows', 'msda_fold', 'mform_sample')
 REPLACES = {
     'fps': 'demf_tpu/ops/pallas/fps.py:60',
     'ball_query': 'demf_tpu/ops/grouping.py:38',
     'msda': 'demf_tpu/ops/msda.py:975',
     'msda_backward': 'demf_tpu/ops/msda.py:572',
+    'gather_rows': 'demf_tpu/ops/pallas/gather_rows.py:81',
+    'msda_fold': 'demf_tpu/ops/pallas/msda_fold.py:113',
+    'mform_sample': 'tools/bench_msda_matmul.py:73',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
            'msda': 'demf_tpu_torch/csrc/msda.cu',
-           'msda_backward': 'demf_tpu_torch/csrc/msda_backward.cu'}
+           'msda_backward': 'demf_tpu_torch/csrc/msda_backward.cu',
+           'gather_rows': 'demf_tpu_torch/csrc/gather_rows.cu',
+           'msda_fold': 'demf_tpu_torch/csrc/msda_fold.cu',
+           'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
-
-
-def time_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` runs, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def check_fps(dev, rng):
     from demf_tpu_torch.ops import sampling
+    from demf_tpu_torch.tools import time_ms
     rows = []
     for b, n, k in ((16, 20000, 2048), (16, 1024, 256), (2, 20000, 2048),
                     (2, 1024, 256)):
@@ -128,6 +136,7 @@ def _ball_sets_agree(points, centers, got, want, radius, k):
 
 def check_ball_query(dev, rng):
     from demf_tpu_torch.ops import grouping
+    from demf_tpu_torch.tools import time_ms
     rows = []
     for b, n, m, k, r, lo in ((16, 20000, 2048, 64, 0.2, 3.0),
                               (16, 1024, 256, 16, 0.3, 1.0),
@@ -153,6 +162,7 @@ def check_ball_query(dev, rng):
 
 def check_msda(dev, rng):
     from demf_tpu_torch.ops import msda
+    from demf_tpu_torch.tools import time_ms
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = []
@@ -184,6 +194,7 @@ def check_msda_backward(dev, rng):
     shape (batch 16, Q 256, P 2) and at the encoder's (batch 2, Q 22,323,
     P 4).  The kernel time includes zeroing d_value."""
     from demf_tpu_torch.ops import msda
+    from demf_tpu_torch.tools import time_ms
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = []
@@ -220,6 +231,62 @@ def check_msda_backward(dev, rng):
             raise AssertionError('MSDA backward kernel disagrees with plain')
         rows.append((max(errs), ms, plain_ms))
     return rows[0]
+
+
+def check_quad_route(dev, rng):
+    """The quad-plane route (K5 gather + K6 fold, f32 plane) against K3 at
+    the encoder's shape, with samples clamped at and beyond the edges."""
+    from demf_tpu_torch.ops import msda, msda_quad
+    from demf_tpu_torch.tools import max_err, time_ms
+    shapes = MSDA_SHAPES
+    s = sum(h * w for h, w in shapes)
+    b, q = 2, s
+    value = torch.from_numpy(rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
+    locs = torch.from_numpy(rng.uniform(
+        -0.1, 1.1, (b, q, 8, 4, 4, 2)).astype(np.float32)).to(dev)
+    aw = torch.from_numpy(rng.rand(b, q, 8, 16).astype(np.float32))
+    aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, 4).to(dev)
+
+    def quad():
+        return msda_quad.msda_quad_forward(value, shapes, locs, aw)
+
+    def k3():
+        return msda.msda_cuda(value, shapes, locs, aw)
+
+    err, bound = max_err(quad(), k3())
+    ms = time_ms(quad, 3)
+    k3_ms = time_ms(k3, 10)
+    print(f'quad route (K5 + K6, f32) vs K3, encoder shape ({b}, Q {q}, '
+          f'heads 8, hd 32, L 4, P 4, sum_HW {s}): max_abs_err {err:.3e} '
+          f'(bound {bound:.3e}), quad route {ms:.4f} ms, K3 {k3_ms:.4f} ms',
+          flush=True)
+    if not err <= bound:
+        raise AssertionError('the quad-plane route disagrees with K3')
+
+
+def run_probes(dev, rng, kernels):
+    """The probes' entry points and the quad route, with every launch
+    count set to 0 first.  Returns the K5-K7 rows of the kernel table and
+    their launches."""
+    from demf_tpu_torch.tools import (bench_gather_kernel, bench_msda_fold,
+                                      bench_msda_matmul)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    gather = bench_gather_kernel.main([])
+    mform = bench_msda_matmul.main([])['lvl0']
+    fold = bench_msda_fold.main([])
+    check_quad_route(dev, rng)
+    launches = {n: kernels[n].launches for n in PROBE_KERNELS}
+    print(f'probes: {time.perf_counter() - t0:.2f} s, launches {launches}')
+    missing = [n for n, count in launches.items() if not count]
+    if missing:
+        raise AssertionError(f'the probes never launched {missing}')
+    torch.cuda.empty_cache()
+    measured = {n: (r['max_abs_err'], r['ms'], r['plain_ms']) for n, r in
+                (('gather_rows', gather), ('msda_fold', fold),
+                 ('mform_sample', mform))}
+    return measured, launches
 
 
 class plain_ops:
@@ -431,6 +498,9 @@ def main():
                 'ball_query': check_ball_query(dev, rng),
                 'msda': check_msda(dev, rng),
                 'msda_backward': check_msda_backward(dev, rng)}
+    kernels = ops.kernels()
+    probed, probe_launches = run_probes(dev, rng, kernels)
+    measured.update(probed)
 
     t0 = time.perf_counter()
     model = zoo.build_detector('demf/demf_votenet.py', device=dev, seed=0)
@@ -439,7 +509,6 @@ def main():
           f'in {time.perf_counter() - t0:.2f} s')
     check_reference(model, dev)
 
-    kernels = ops.kernels()
     eval_step = make_eval_step(model)
     for k in kernels.values():
         k.launches = 0
@@ -470,6 +539,7 @@ def main():
     del model, eval_step
     check_train_reference(dev)
     launches = run_training_path(dev, kernels)
+    launches.update(probe_launches)
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

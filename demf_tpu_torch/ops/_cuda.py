@@ -31,6 +31,9 @@ ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
 
+# dtype codes of the kernels that take float32 or bfloat16 operands
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _lock = threading.Lock()
 _lib = None
 _build_info = {}

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from demf_tpu_torch.ops import grouping, msda, sampling
+from demf_tpu_torch.ops import (gather_rows, grouping, mform, msda, msda_fold,
+                                sampling)
 
 
 def unambiguous_centers(points, centers, radius, k):
@@ -127,3 +128,65 @@ def test_msda_backward_kernel_refuses_head_dim(dev):
     value, locs, aw, grad = _msda_inputs(dev, ((3, 4),), 1, 5, 2, 12, 2, 0)
     with pytest.raises(ValueError, match='divides 32'):
         msda.msda_backward_cuda(value, ((3, 4),), locs, aw, grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('n', [1024, 999])
+def test_gather_rows_kernel_equals_plain(dev, dtype, n):
+    """K5 bit for bit, with N a multiple of the TPU's 16-row blocks and
+    not."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    plane = torch.randn(3, n, 128, device=dev, generator=g).to(dtype)
+    idx = torch.randint(0, n, (3, 5000), device=dev, generator=g,
+                        dtype=torch.int32)
+    idx[:, :16] = torch.arange(n - 16, n, device=dev, dtype=torch.int32)
+    before = gather_rows.GATHER_ROWS_KERNEL.launches
+    got = gather_rows.gather_rows(plane, idx)
+    assert gather_rows.GATHER_ROWS_KERNEL.launches == before + 1
+    assert torch.equal(got, gather_rows.gather_rows_plain(plane, idx))
+
+
+@pytest.mark.cuda
+def test_gather_rows_kernel_refuses_int64_indices(dev):
+    plane = torch.zeros(1, 8, 128, device=dev)
+    with pytest.raises(TypeError, match='int32'):
+        gather_rows.gather_rows(plane, torch.zeros(1, 4, dtype=torch.long,
+                                                   device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['lp_q_slot', 'slot_major'])
+def test_msda_fold_kernel_matches_plain(dev, dtype, layout):
+    """K6 with weights (BH, LP, Q, 4) and, read through their strides,
+    slot-major (BH, LP, 4, Q); within 1e-5 of the largest output (both
+    sides round alike, so in practice bit-equal)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = torch.randn(2, 16, 300, 128, device=dev, generator=g).to(dtype)
+    if layout == 'slot_major':
+        w = torch.rand(2, 16, 4, 300, device=dev, generator=g)
+        got = msda_fold.slot_major_fold(rows, w)
+        w = w.transpose(2, 3)
+    else:
+        w = torch.rand(2, 16, 300, 4, device=dev, generator=g)
+        got = msda_fold.weighted_slot_fold_batched(rows, w, hd=32)
+        w = w.to(dtype)
+    want = msda_fold.slot_fold_plain(rows, w)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_mform_kernel_matches_plain(dev, dtype):
+    """K7 within 1e-5 of the largest output (in practice bit-equal), with
+    repeated indices among a query's 16 slots."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    plane = torch.randn(3, 700, 32, device=dev, generator=g).to(dtype)
+    idx16 = torch.randint(0, 40, (3, 16, 300, 1), device=dev, generator=g,
+                          dtype=torch.int32)
+    w16 = torch.rand(3, 16, 300, 1, device=dev, generator=g).to(dtype)
+    got = mform.mform_sample(plane, idx16, w16)
+    want = mform.mform_sample_plain(plane, idx16, w16).float()
+    assert got.dtype == dtype
+    assert (got.float() - want).abs().max() <= 1e-5 * want.abs().max()
