@@ -6,18 +6,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile (or reuse) the CUDA kernels of ``demf_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version, with its time
-   and the plain version's: K1 and K2 at the shapes of SA0 and of the vote
+3. kernels: each kernel against its plain PyTorch version, with its time,
+   the plain version's and its bound (the least time the card could take:
+   the larger of its float32 operations at 67 TFLOP/s and the bytes it
+   must move at 3.35 TB/s): K1 and K2 at the shapes of SA0 and of the vote
    aggregation, at batch 16 (training) and 2 (serving); K3 at the
-   decoder's shape at batch 16 and 2 and at the encoder's at batch 2; K4,
-   the MSDA backward, against the plain version's autograd at the
-   decoder's training shape and at the encoder's shape;
+   decoder's shape at batch 16 and 2 and at the encoder's at batch 2, with
+   locations over the whole map and with the encoder's own (each token
+   samples around its own pixel); K4, the MSDA backward, against the plain
+   version's autograd at the decoder's training shape and at the
+   encoder's shape;
 4. probes: with the launch counts at 0, the port's three probes at their
    full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
    plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
    f32; K7 M-form sampler at the encoder's four levels; K5 + K6 slot fold
    at main18's shape, both weight layouts, bf16 rows), each kernel within
-   its bound of the plain version and timed against it; then the
+   its bound of the plain version and timed against it, against its
+   bound and, K5 and K6, against the one PyTorch call that computes the
+   same function (a yardstick: nothing in the port calls it); then the
    quad-plane route (K5 + K6, f32) against K3 at the encoder's shape
    within 1e-5 of K3's largest output; K5-K7 must each have launched;
 5. reference: the full-width detector on a small input, kernels against the
@@ -26,7 +32,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    width, seeded random weights) answers 3 requests of batch 2 at 20,000
    points and an 800x1344 image through
    ``engine.evaluation.make_eval_step``; every request must launch each
-   kernel a fixed number of times;
+   kernel a fixed number of times; one more request runs under
+   torch.profiler and prints the device time of K1-K3 on the model's own
+   inputs and the device's busy share;
 7. training reference: the full-width detector on a small input, dropout
    off, one forward + loss + backward with the kernels against one with
    the plain versions: losses within 1e-4 relative, each gradient within
@@ -39,10 +47,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    move.
 
 The line before the last is the kernel table as JSON (K1-K4: launches
-counted in the training path, times at its shape, each kernel's first row
-above; K5-K7: launches counted in the probes phase, times of K5 at the
-gather probe's shape, K6 in the (LP, Q, 4) layout on one chunk, K7 at the
-finest level); the
+counted in the training path, times and bound at its shape, each kernel's
+first row above; K5-K7: launches counted in the probes phase, times and
+bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
+one chunk, K7 at the finest level; ``library_ms`` is the one PyTorch call
+that computes the kernel's function (K5 an indexing call, K6 an einsum, K7
+an ``embedding_bag`` with weights) and null where there is none: FPS, the
+exact ball query, MSDA and its backward); the
 last line is ``{"ok": true, "device": {...}}``.
 Float32 throughout: TF32 is switched off for matmuls and cuDNN
 convolutions.
@@ -93,9 +104,17 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 
 
+def kernel_row(max_abs_err, ms, plain_ms, bound_ms, bound_by,
+               library_ms=None):
+    """A kernel's measured part of the ``kernels`` line; ``library_ms``
+    stays None where no single PyTorch call computes its function."""
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 def check_fps(dev, rng):
     from demf_tpu_torch.ops import sampling
-    from demf_tpu_torch.tools import time_ms
+    from demf_tpu_torch.tools import bound_ms, time_ms
     rows = []
     for b, n, k in ((16, 20000, 2048), (16, 1024, 256), (2, 20000, 2048),
                     (2, 1024, 256)):
@@ -107,12 +126,15 @@ def check_fps(dev, rng):
         ms = time_ms(lambda: sampling.furthest_point_sample_cuda(xyz, k), 5)
         plain_ms = time_ms(
             lambda: sampling.furthest_point_sample_plain(xyz, k), 1)
+        # a step: 3 sub, 3 mul, 2 add, a min and a compare for every point
+        least, by = bound_ms(10 * b * (k - 1) * n, b * n * 12 + b * k * 8)
         print(f'K1 fps ({b}, {n}) -> {k}: max_abs_err {err} (index), kernel '
-              f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
+              f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {least:.4f} ms '
+              f'({by})')
         if err != 0:
             raise AssertionError(f'FPS kernel picks differ from plain '
                                  f'({b}, {n})')
-        rows.append((err, ms, plain_ms))
+        rows.append(kernel_row(err, ms, plain_ms, least, by))
     return rows[0]
 
 
@@ -136,7 +158,7 @@ def _ball_sets_agree(points, centers, got, want, radius, k):
 
 def check_ball_query(dev, rng):
     from demf_tpu_torch.ops import grouping
-    from demf_tpu_torch.tools import time_ms
+    from demf_tpu_torch.tools import bound_ms, time_ms
     rows = []
     for b, n, m, k, r, lo in ((16, 20000, 2048, 64, 0.2, 3.0),
                               (16, 1024, 256, 16, 0.3, 1.0),
@@ -151,26 +173,48 @@ def check_ball_query(dev, rng):
         ms = time_ms(lambda: grouping.ball_query_cuda(r, k, pts, centers), 10)
         plain_ms = time_ms(
             lambda: grouping.ball_query_plain(r, k, pts, centers), 3)
+        # a pair: 3 sub, 3 mul, 2 add and the compare with r^2
+        least, by = bound_ms(9 * b * m * n,
+                             b * (n + m) * 12 + b * m * k * 8)
         print(f'K2 ball_query ({b}, M {m}, N {n}, K {k}, r {r}): compared '
               f'{share:.4%} of centers, {bad} differ, kernel {ms:.4f} ms, '
-              f'plain {plain_ms:.4f} ms')
+              f'plain {plain_ms:.4f} ms, bound {least:.4f} ms ({by})')
         if share < 0.99 or bad:
             raise AssertionError('ball query kernel disagrees with plain')
-        rows.append((bad, ms, plain_ms))
+        rows.append(kernel_row(bad, ms, plain_ms, least, by))
     return rows[0]
+
+
+def msda_bytes(shapes, value, locs, aw, backward=False):
+    """What MSDA must move for these inputs: the value rows its samples
+    touch, locations, weights and the output; the backward also reads the
+    output's gradient and writes all three gradients (d_value in full)."""
+    from demf_tpu_torch.tools import msda_rows_touched
+    hd = value.shape[-1]
+    out = value.shape[0] * locs.shape[1] * value.shape[2] * hd
+    moved = msda_rows_touched(shapes, locs) * hd + locs.numel() + \
+        aw.numel() + out
+    if backward:
+        moved += value.numel() + locs.numel() + aw.numel()
+    return 4 * moved
 
 
 def check_msda(dev, rng):
     from demf_tpu_torch.ops import msda
-    from demf_tpu_torch.tools import time_ms
+    from demf_tpu_torch.tools import (bound_ms, encoder_sampling_locations,
+                                      time_ms)
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = []
-    for b, q, p in ((16, 256, 2), (2, 256, 2), (2, s, 4)):
+    for b, q, p, own in ((16, 256, 2, False), (2, 256, 2, False),
+                         (2, s, 4, False), (2, s, 4, True)):
         value = torch.from_numpy(
             rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
-        locs = torch.from_numpy(rng.uniform(
-            -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+        if own:     # the encoder's: every token samples around its own pixel
+            locs = encoder_sampling_locations(shapes, b, 8, p, dev)
+        else:
+            locs = torch.from_numpy(rng.uniform(
+                -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
         aw = torch.from_numpy(rng.rand(b, q, 8, 4 * p).astype(np.float32))
         aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p).to(dev)
         got = msda.msda_cuda(value, shapes, locs, aw)
@@ -180,12 +224,18 @@ def check_msda(dev, rng):
         ms = time_ms(lambda: msda.msda_cuda(value, shapes, locs, aw), 10)
         plain_ms = time_ms(lambda: msda.msda_plain(value, shapes, locs, aw),
                            3)
-        print(f'K3 msda ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, sum_HW {s}): '
-              f'max_abs_err {err:.3e} (bound {bound:.3e}), kernel '
-              f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
+        # a sample and channel: 4 corners and the weight, an FMA each
+        least, by = bound_ms(10 * aw.numel() * 32,
+                             msda_bytes(shapes, value, locs, aw))
+        where = ("the encoder's own locations" if own
+                 else 'locations over the whole map')
+        print(f'K3 msda ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, sum_HW {s}, '
+              f'{where}): max_abs_err {err:.3e} (bound {bound:.3e}), kernel '
+              f'{ms:.4f} ms, plain {plain_ms:.4f} ms, least {least:.4f} ms '
+              f'({by})')
         if not err <= bound:
             raise AssertionError('MSDA kernel disagrees with plain')
-        rows.append((err, ms, plain_ms))
+        rows.append(kernel_row(err, ms, plain_ms, least, by))
     return rows[0]
 
 
@@ -194,7 +244,7 @@ def check_msda_backward(dev, rng):
     shape (batch 16, Q 256, P 2) and at the encoder's (batch 2, Q 22,323,
     P 4).  The kernel time includes zeroing d_value."""
     from demf_tpu_torch.ops import msda
-    from demf_tpu_torch.tools import time_ms
+    from demf_tpu_torch.tools import bound_ms, time_ms
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = []
@@ -222,14 +272,20 @@ def check_msda_backward(dev, rng):
             bounds.append(1e-5 * w.abs().max().item())
         ms = time_ms(kernel, 10)
         plain_ms = time_ms(plain, 3)
+        # a sample and channel: 4 corners, each an add into d_value and a
+        # product into d_aw and into both halves of d_loc
+        least, by = bound_ms(
+            30 * aw.numel() * 32,
+            msda_bytes(shapes, value, locs, aw, backward=True))
         print(f'K4 msda_backward ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, '
               f'sum_HW {s}): max_abs_err d_value / d_loc / d_aw '
               f'{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (bounds '
               f'{bounds[0]:.3e} / {bounds[1]:.3e} / {bounds[2]:.3e}), '
-              f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+              f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, least '
+              f'{least:.4f} ms ({by})')
         if not all(e <= bd for e, bd in zip(errs, bounds)):
             raise AssertionError('MSDA backward kernel disagrees with plain')
-        rows.append((max(errs), ms, plain_ms))
+        rows.append(kernel_row(max(errs), ms, plain_ms, least, by))
     return rows[0]
 
 
@@ -283,9 +339,11 @@ def run_probes(dev, rng, kernels):
     if missing:
         raise AssertionError(f'the probes never launched {missing}')
     torch.cuda.empty_cache()
-    measured = {n: (r['max_abs_err'], r['ms'], r['plain_ms']) for n, r in
-                (('gather_rows', gather), ('msda_fold', fold),
-                 ('mform_sample', mform))}
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+    measured = {n: kernel_row(*(r[key] for key in keys)) for n, r in (
+        ('gather_rows', gather), ('msda_fold', fold),
+        ('mform_sample', mform))}
     return measured, launches
 
 
@@ -334,6 +392,34 @@ def check_reference(model, dev):
           f'path vs plain path, max rel err {worst:.3e} (bound 2e-3)')
     if not worst < 2e-3:
         raise AssertionError('kernel path disagrees with the plain path')
+
+
+def profile_request(eval_step, batch):
+    """One more request under torch.profiler: the device time of the
+    port's kernels on the model's own inputs, and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eval_step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eval_step(batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours = []
+    for marker in ('fps_kernel', 'ball_query_kernel', 'msda_forward_kernel'):
+        hits = [e for e in events if marker in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        ours.append(f'{marker} {ms:.3f} ms in '
+                    f'{sum(e.count for e in hits)} launches')
+    print(f'profiled request: untraced {wall_ms:.3f} ms (host clock), device '
+          f'kernels {busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.1%}; '
+          + '; '.join(ours))
 
 
 def train_cfg_without_dropout():
@@ -536,15 +622,15 @@ def main():
               f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, '
               f'launches {launched}')
 
+    profile_request(eval_step, batch_to_device(batch, dev))
     del model, eval_step
     check_train_reference(dev)
     launches = run_training_path(dev, kernels)
     launches.update(probe_launches)
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
-                  replaces=REPLACES[n], launches=launches[n],
-                  max_abs_err=measured[n][0], ms=measured[n][1],
-                  plain_ms=measured[n][2]) for n in kernels]
+                  replaces=REPLACES[n], launches=launches[n], **measured[n])
+             for n in kernels]
     print(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -12,114 +12,421 @@
 //
 // Semantics: grid_sample with align_corners=False and zero padding, per
 // level: x = loc_x * W - 0.5, y = loc_y * H - 0.5; corners outside the map
-// read zero.  Accumulation is float32.
+// read zero.  Accumulation is float32, in the order levels, points, corners.
 //
-// What bounds it on the card: the reads.  Every (query, head, level, point)
-// sample reads four value rows of head_dim floats at data-dependent
-// addresses, and the arithmetic per byte is tiny, so the kernel is bound by
-// the gather traffic through L2 (the value planes of one scene, 22k tokens x
-// 256 channels x 4 B = 23 MB, fit in the 50 MB L2).
+// What bounds it on the card: bytes, and which memory they come from.  The
+// function must move the value rows it samples, locations, weights and
+// output once (160 MB at the encoder's shape: 0.05 ms from device memory),
+// but every (query, head, level, point) sample reads four rows of head_dim
+// floats at data-dependent addresses: 2.9 GB of 128-byte reads at the
+// encoder's shape.  Served from L2 they cost ~0.7 ms, whatever the thread
+// mapping.
 //
-// What this design does about it: one thread per (batch, query, head,
-// channel), so neighbouring threads read neighbouring channels of one value
-// row: at head_dim 32 each corner read of a warp is one 128-byte
-// transaction.  The
-// location and weight of a sample are the same for the whole warp and come
-// from one broadcast load.  Level shapes and start offsets live in a small
-// device array.  Sorting samples for locality, vector loads and shared
-// memory staging are left to later changes.
+// What this design does about it:
+// - In the encoder the queries are the levels' own pixels and a query's
+//   samples lie a few pixels around its own position on every level.  So a
+//   block takes a spatial tile of one level's queries for one head (the
+//   tiling comes from ops/msda.py::msda_tiling) and goes through the levels
+//   one after the other: it copies the window of the level's value rows
+//   that lies under the tile (kMargin pixels around it), and the tile's
+//   locations and weights on that level, into shared memory with cp.async,
+//   then every query of the tile takes its samples of that level from
+//   there.  A thread keeps the sums of its (at most kMaxPasses) queries in
+//   registers across the levels, so a query's sum keeps the order levels,
+//   points, corners.  A sample whose four corners lie in the window (the
+//   usual case) needs one address and no test of the map's edges; any other
+//   corner is tested and read from global memory, so the window decides
+//   the speed and never the result.  Two blocks share an SM: one copies
+//   while the other samples.
+// - A thread owns 4 channels (one 16-byte load a corner) and head_dim / 4
+//   threads a (query, head); they load a sample's location and weight from
+//   one address.
+// - Queries that are not the levels' pixels (the decoder's 256 proposals),
+//   and the pixels of levels too coarse for a tile, keep the query-major
+//   mapping: a thread takes all samples of its (query, head, 4 channels)
+//   from global memory.  Both kinds of block run in one launch.
+// - x and y are rounded as loc * W, then - 0.5, without an FMA, as the
+//   plain version and K4 round them.
+// With the window in place a tile block is bound by what its warps run
+// (some 50 operations a sample and thread, the geometry repeated in the
+// head_dim / 4 threads of a query), not by shared memory or L2.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kMaxPasses = 4;   // queries of a tile that one thread sums
+constexpr int kMaxTile = 256;   // queries of a tile (16 x 16 pixels)
+constexpr int kMargin = 5;      // pixels of window around a tile's footprint
+// shared memory of a tile block, two blocks an SM: the window (729 rows of
+// 128 bytes with 4 points a level) and the tile's locations and weights
+constexpr int kTileBytes = 105600;
 
-__global__ void __launch_bounds__(kThreads)
-    msda_forward_kernel(const float* __restrict__ value,
-                        const int* __restrict__ level_info,
-                        const float* __restrict__ locs,
-                        const float* __restrict__ attn,
-                        float* __restrict__ out, int b, int s, int q,
-                        int heads, int hd, int levels, int points) {
-  const long long total = static_cast<long long>(b) * q * heads * hd;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
+// the window of one level's rows in shared memory: [y0, y0 + h) x [x0, x0 + w)
+struct Window {
+  const float* rows;
+  int x0, y0, w, h;
+};
 
-  const int c = static_cast<int>(tid % hd);
-  long long r = tid / hd;
-  const int h = static_cast<int>(r % heads);
-  r /= heads;
-  const int qi = static_cast<int>(r % q);
-  const int bi = static_cast<int>(r / q);
+__device__ __forceinline__ void fma4(float4& v, float w, const float4& r) {
+  v.x = fmaf(w, r.x, v.x);
+  v.y = fmaf(w, r.y, v.y);
+  v.z = fmaf(w, r.z, v.z);
+  v.w = fmaf(w, r.w, v.w);
+}
 
-  const float* vb = value + static_cast<long long>(bi) * s * heads * hd;
-  const long long sample0 =
-      ((static_cast<long long>(bi) * q + qi) * heads + h) * levels * points;
-  const float* loc = locs + sample0 * 2;
-  const float* aw = attn + sample0;
-  const long long row_stride = static_cast<long long>(heads) * hd;
-  const int col = h * hd + c;
+// the 4 channels of row (y, x): from the window where it holds the row,
+// else from global memory.  vl points at this thread's channels of the
+// level's first row.
+template <bool kWindowed>
+__device__ __forceinline__ float4 load_row(const float* vl,
+                                           long long row_stride, int wl,
+                                           int y, int x, const Window& win,
+                                           int hd, int c4) {
+  if (kWindowed) {
+    const unsigned wx = static_cast<unsigned>(x - win.x0);
+    const unsigned wy = static_cast<unsigned>(y - win.y0);
+    if (wx < static_cast<unsigned>(win.w) &&
+        wy < static_cast<unsigned>(win.h))
+      return *reinterpret_cast<const float4*>(
+          win.rows + (wy * win.w + wx) * hd + c4);
+  }
+  return __ldg(reinterpret_cast<const float4*>(
+      vl + static_cast<long long>(y * wl + x) * row_stride));
+}
 
-  float acc = 0.0f;
-  for (int l = 0; l < levels; ++l) {
-    const int hl = __ldg(level_info + 3 * l);
-    const int wl = __ldg(level_info + 3 * l + 1);
-    const int start = __ldg(level_info + 3 * l + 2);
-    const float* vl = vb + static_cast<long long>(start) * row_stride + col;
-    for (int p = 0; p < points; ++p) {
-      const int sp = l * points + p;
-      // rounded as loc * W, then - 0.5 (no FMA): the plain version's x, y
-      const float x = __fsub_rn(__fmul_rn(__ldg(loc + 2 * sp), wl), 0.5f);
-      const float y = __fsub_rn(__fmul_rn(__ldg(loc + 2 * sp + 1), hl), 0.5f);
-      const float a = __ldg(aw + sp);
-      if (!(x > -1.0f && y > -1.0f && x < wl && y < hl)) continue;
-      const float xf = floorf(x);
-      const float yf = floorf(y);
-      const int x0 = static_cast<int>(xf);
-      const int y0 = static_cast<int>(yf);
-      const float lx = x - xf;
-      const float ly = y - yf;
-      const float hx = 1.0f - lx;
-      const float hy = 1.0f - ly;
-      float v = 0.0f;
-      if (y0 >= 0) {
-        if (x0 >= 0) v += hy * hx * __ldg(vl + (y0 * wl + x0) * row_stride);
-        if (x0 + 1 < wl)
-          v += hy * lx * __ldg(vl + (y0 * wl + x0 + 1) * row_stride);
-      }
-      if (y0 + 1 < hl) {
-        if (x0 >= 0)
-          v += ly * hx * __ldg(vl + ((y0 + 1) * wl + x0) * row_stride);
-        if (x0 + 1 < wl)
-          v += ly * lx * __ldg(vl + ((y0 + 1) * wl + x0 + 1) * row_stride);
-      }
-      acc += a * v;
+// acc += a * (bilinear read at loc) for one sample
+template <bool kWindowed>
+__device__ __forceinline__ void sample(float4& acc, const float* vl,
+                                       long long row_stride, int hl, int wl,
+                                       float2 loc, float a,
+                                       const Window& win, int hd, int c4) {
+  // rounded as loc * W, then - 0.5 (no FMA): the plain version's x, y
+  const float x = __fsub_rn(__fmul_rn(loc.x, wl), 0.5f);
+  const float y = __fsub_rn(__fmul_rn(loc.y, hl), 0.5f);
+  const float xf = floorf(x);
+  const float yf = floorf(y);
+  const int x0 = static_cast<int>(xf);
+  const int y0 = static_cast<int>(yf);
+  const float lx = x - xf;
+  const float ly = y - yf;
+  const float hx = 1.0f - lx;
+  const float hy = 1.0f - ly;
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (kWindowed) {
+    // the usual case: all four corners in the window (and so in the map),
+    // one address and no further test
+    const unsigned wx = static_cast<unsigned>(x0 - win.x0);
+    const unsigned wy = static_cast<unsigned>(y0 - win.y0);
+    if (wx < static_cast<unsigned>(win.w - 1) &&
+        wy < static_cast<unsigned>(win.h - 1)) {
+      const float* r = win.rows + (wy * win.w + wx) * hd + c4;
+      const int down = win.w * hd;
+      fma4(v, hy * hx, *reinterpret_cast<const float4*>(r));
+      fma4(v, hy * lx, *reinterpret_cast<const float4*>(r + hd));
+      fma4(v, ly * hx, *reinterpret_cast<const float4*>(r + down));
+      fma4(v, ly * lx, *reinterpret_cast<const float4*>(r + down + hd));
+      fma4(acc, a, v);
+      return;
     }
   }
-  out[(static_cast<long long>(bi) * q + qi) * row_stride + col] = acc;
+  if (!(x > -1.0f && y > -1.0f && x < wl && y < hl)) return;
+  if (y0 >= 0) {
+    if (x0 >= 0)
+      fma4(v, hy * hx,
+           load_row<kWindowed>(vl, row_stride, wl, y0, x0, win, hd, c4));
+    if (x0 + 1 < wl)
+      fma4(v, hy * lx,
+           load_row<kWindowed>(vl, row_stride, wl, y0, x0 + 1, win, hd, c4));
+  }
+  if (y0 + 1 < hl) {
+    if (x0 >= 0)
+      fma4(v, ly * hx,
+           load_row<kWindowed>(vl, row_stride, wl, y0 + 1, x0, win, hd, c4));
+    if (x0 + 1 < wl)
+      fma4(v, ly * lx,
+           load_row<kWindowed>(vl, row_stride, wl, y0 + 1, x0 + 1, win, hd,
+                               c4));
+  }
+  fma4(acc, a, v);
+}
+
+struct Args {
+  const float* value;
+  const int* level_info;   // (levels, 3): H, W, first token
+  const int* tile_info;    // (levels, 5): tile H, tile W, tiles across,
+                           // tiles of the level, first tile of the level
+  const float* locs;
+  const float* attn;
+  float* out;
+  int b, s, q, heads, hd, levels, points;
+  int tiles;         // tiles of one (scene, head), over all tiled levels
+  int direct_from;   // queries from here on take the query-major mapping
+  int window_rows;   // rows of head_dim floats that the window holds
+};
+
+// 4, 8 or 16 bytes from global to shared memory, not waited for
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* to, const void* from) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(to));
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(from)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst),
+                 "l"(from), "n"(kBytes)
+                 : "memory");
+}
+
+// one tile of one level's queries for one head, level after level
+__device__ __forceinline__ void tile_block(const Args& a, float* window) {
+  const int tid = threadIdx.x;
+  const int lpq = a.hd >> 2;          // threads of one (query, head)
+  const int qpp = kThreads / lpq;     // queries of one pass
+  const int slot = tid / lpq;
+  const int c4 = (tid % lpq) * 4;
+  // after the window: the tile's locations and weights on one level
+  float2* s_loc = reinterpret_cast<float2*>(window + a.window_rows * a.hd);
+  float* s_aw = reinterpret_cast<float*>(s_loc + kMaxTile * a.points);
+  int t = blockIdx.x;
+  const int tile = t % a.tiles;
+  t /= a.tiles;
+  const int h = t % a.heads;
+  const int bi = t / a.heads;
+
+  int lq = 0;
+  while (lq + 1 < a.levels && tile >= __ldg(a.tile_info + 5 * (lq + 1) + 4) &&
+         __ldg(a.tile_info + 5 * (lq + 1) + 3) > 0)
+    ++lq;
+  const int th = __ldg(a.tile_info + 5 * lq);
+  const int tw = __ldg(a.tile_info + 5 * lq + 1);
+  const int across = __ldg(a.tile_info + 5 * lq + 2);
+  const int in_level = tile - __ldg(a.tile_info + 5 * lq + 4);
+  const int ty0 = (in_level / across) * th;
+  const int tx0 = (in_level % across) * tw;
+  const int hq = __ldg(a.level_info + 3 * lq);
+  const int wq = __ldg(a.level_info + 3 * lq + 1);
+  const int startq = __ldg(a.level_info + 3 * lq + 2);
+
+  // this thread's queries: pass p takes query p * qpp + slot of the tile
+  int query[kMaxPasses];
+  float4 acc[kMaxPasses];
+#pragma unroll
+  for (int p = 0; p < kMaxPasses; ++p) {
+    const int qi = p * qpp + slot;
+    const int y = ty0 + qi / tw;
+    const int x = tx0 + qi % tw;
+    query[p] = (qi < th * tw && y < hq && x < wq) ? startq + y * wq + x : -1;
+    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+
+  const long long row_stride = static_cast<long long>(a.heads) * a.hd;
+  const float* vb =
+      a.value + static_cast<long long>(bi) * a.s * row_stride + h * a.hd;
+  for (int l = 0; l < a.levels; ++l) {
+    const int hl = __ldg(a.level_info + 3 * l);
+    const int wl = __ldg(a.level_info + 3 * l + 1);
+    const float* vlevel =
+        vb + static_cast<long long>(__ldg(a.level_info + 3 * l + 2)) *
+                 row_stride;
+    // the tile's footprint on this level, kMargin pixels around it and one
+    // more for the far corner, cut to the level and to the window's room
+    Window win;
+    win.rows = window;
+    win.x0 = max(0, tx0 * wl / wq - kMargin);
+    win.y0 = max(0, ty0 * hl / hq - kMargin);
+    win.w = min(wl, ((tx0 + tw) * wl + wq - 1) / wq + kMargin + 1) - win.x0;
+    win.h = min(hl, ((ty0 + th) * hl + hq - 1) / hq + kMargin + 1) - win.y0;
+    while (win.w * win.h > a.window_rows) {
+      if (win.w >= win.h) {
+        win.x0 += win.w & 1;
+        --win.w;
+      } else {
+        win.y0 += win.h & 1;
+        --win.h;
+      }
+    }
+    __syncthreads();   // the last level's reads are done
+    // thread t copies its 16 bytes of the window's rows t / lpq, t / lpq +
+    // qpp, ...; (wy, wx) is the row's place in the window, stepped without
+    // a division
+    const int step_y = qpp / win.w, step_x = qpp % win.w;
+    int wy = slot / win.w, wx = slot % win.w;
+    for (int r = slot; r < win.w * win.h; r += qpp) {
+      copy_async<16>(window + r * a.hd + c4,
+                     vlevel + static_cast<long long>((win.y0 + wy) * wl +
+                                                     win.x0 + wx) *
+                                  row_stride + c4);
+      wy += step_y;
+      wx += step_x;
+      if (wx >= win.w) {
+        wx -= win.w;
+        ++wy;
+      }
+    }
+    for (int i = tid; i < th * tw * a.points; i += kThreads) {
+      const int qi = i / a.points;
+      const int y = ty0 + qi / tw;
+      const int x = tx0 + qi % tw;
+      if (y >= hq || x >= wq) continue;
+      const long long sp =
+          (((static_cast<long long>(bi) * a.q + startq + y * wq + x) *
+                a.heads + h) * a.levels + l) * a.points + i % a.points;
+      copy_async<8>(s_loc + i, reinterpret_cast<const float2*>(a.locs) + sp);
+      copy_async<4>(s_aw + i, a.attn + sp);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+
+    const float* vl = vlevel + c4;
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p) {
+      if (query[p] < 0) continue;
+      const int s0 = (p * qpp + slot) * a.points;
+      for (int pt = 0; pt < a.points; ++pt)
+        sample<true>(acc[p], vl, row_stride, hl, wl, s_loc[s0 + pt],
+                     s_aw[s0 + pt], win, a.hd, c4);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kMaxPasses; ++p) {
+    if (query[p] < 0) continue;
+    *reinterpret_cast<float4*>(
+        a.out + (static_cast<long long>(bi) * a.q + query[p]) * row_stride +
+        h * a.hd + c4) = acc[p];
+  }
+}
+
+// query-major: a thread takes every sample of its (query, head, 4 channels)
+__device__ __forceinline__ void query_block(const Args& a, int block) {
+  const int lpq = a.hd >> 2;
+  const int nq = a.q - a.direct_from;
+  const long long total = static_cast<long long>(a.b) * nq * a.heads * lpq;
+  const long long item = static_cast<long long>(block) * kThreads + threadIdx.x;
+  if (item >= total) return;
+  const int c4 = static_cast<int>(item % lpq) * 4;
+  long long r = item / lpq;
+  const int h = static_cast<int>(r % a.heads);
+  r /= a.heads;
+  const int qi = a.direct_from + static_cast<int>(r % nq);
+  const int bi = static_cast<int>(r / nq);
+
+  const long long row_stride = static_cast<long long>(a.heads) * a.hd;
+  const float* vb = a.value + static_cast<long long>(bi) * a.s * row_stride +
+                    h * a.hd + c4;
+  const long long s0 =
+      ((static_cast<long long>(bi) * a.q + qi) * a.heads + h) * a.levels *
+      a.points;
+  const float2* loc = reinterpret_cast<const float2*>(a.locs) + s0;
+  const float* aw = a.attn + s0;
+  const Window none = {nullptr, 0, 0, 0, 0};
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int l = 0; l < a.levels; ++l) {
+    const int hl = __ldg(a.level_info + 3 * l);
+    const int wl = __ldg(a.level_info + 3 * l + 1);
+    const float* vl =
+        vb + static_cast<long long>(__ldg(a.level_info + 3 * l + 2)) *
+                 row_stride;
+    for (int pt = 0; pt < a.points; ++pt) {
+      const int sp = l * a.points + pt;
+      sample<false>(acc, vl, row_stride, hl, wl, __ldg(loc + sp),
+                    __ldg(aw + sp), none, a.hd, c4);
+    }
+  }
+  *reinterpret_cast<float4*>(
+      a.out + (static_cast<long long>(bi) * a.q + qi) * row_stride + h * a.hd +
+      c4) = acc;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    msda_forward_kernel(const Args a) {
+  extern __shared__ __align__(16) float window[];
+  const int tile_blocks = a.b * a.heads * a.tiles;
+  if (static_cast<int>(blockIdx.x) < tile_blocks)
+    tile_block(a, window);
+  else
+    query_block(a, blockIdx.x - tile_blocks);
 }
 
 }  // namespace
 
 extern "C" {
 
-// value: (B, S, heads, hd) f32; level_info: (levels, 3) int32 device array
-// of (H, W, start); locs: (B, Q, heads, levels, points, 2) f32;
-// attn: (B, Q, heads, levels, points) f32; out: (B, Q, heads * hd) f32.
+// value: (B, S, heads, hd) f32, 16-byte aligned, hd a multiple of 4 that
+// divides 1024; level_info: (levels, 3) int32 device array of (H, W, first
+// token); tile_info: (levels, 5) int32 device array of (tile H, tile W,
+// tiles across, tiles of the level, first tile of the level), read only
+// when tiles > 0: then queries [0, direct_from) are the tokens of the tiled
+// levels, max_tile is the most queries (tile H x tile W) of any tile, at
+// most 256 and at most 4 * (512 / (hd / 4)), the tile's locations and
+// weights on one level leave room for a window (points <= 16 does), and
+// the other queries take the query-major mapping; locs: (B, Q, heads,
+// levels, points, 2) f32, 8-byte aligned; attn: (B, Q, heads, levels,
+// points) f32; out: (B, Q, heads * hd) f32, 16-byte aligned.  Anything
+// else is refused with cudaErrorInvalidValue.
 int demf_msda_forward(const void* value, const void* level_info,
-                      const void* locs, const void* attn, void* out, int b,
-                      int s, int q, int heads, int hd, int levels, int points,
-                      void* stream) {
-  const long long total = static_cast<long long>(b) * q * heads * hd;
-  if (total == 0) return 0;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  msda_forward_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(value), static_cast<const int*>(level_info),
-      static_cast<const float*>(locs), static_cast<const float*>(attn),
-      static_cast<float*>(out), b, s, q, heads, hd, levels, points);
+                      const void* tile_info, const void* locs,
+                      const void* attn, void* out, int b, int s, int q,
+                      int heads, int hd, int levels, int points, int tiles,
+                      int direct_from, int max_tile, void* stream) {
+  if (hd < 4 || hd % 4 || kThreads % (hd / 4) || tiles < 0 ||
+      direct_from < 0 || direct_from > q || (tiles == 0 && direct_from != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a larger tile would overrun its slots for locations or a thread's sums
+  if (tiles && (max_tile < 1 || max_tile > kMaxTile ||
+                max_tile > kMaxPasses * (kThreads / (hd / 4))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // float4 and cp.async accesses of 16 bytes (value, out) and 8 (locs)
+  if ((reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(out)) %
+          16 ||
+      reinterpret_cast<uintptr_t>(locs) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.value = static_cast<const float*>(value);
+  a.level_info = static_cast<const int*>(level_info);
+  a.tile_info = static_cast<const int*>(tile_info);
+  a.locs = static_cast<const float*>(locs);
+  a.attn = static_cast<const float*>(attn);
+  a.out = static_cast<float*>(out);
+  a.b = b;
+  a.s = s;
+  a.q = q;
+  a.heads = heads;
+  a.hd = hd;
+  a.levels = levels;
+  a.points = points;
+  a.tiles = tiles;
+  a.direct_from = direct_from;
+  // what the tile's locations and weights (12 bytes a sample) leave
+  a.window_rows = (kTileBytes - kMaxTile * points * 12) / (hd * 4);
+  if (tiles && a.window_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long direct = static_cast<long long>(b) * (q - direct_from) *
+                           heads * (hd / 4);
+  const long long blocks = static_cast<long long>(b) * heads * tiles +
+                           (direct + kThreads - 1) / kThreads;
+  if (blocks == 0) return 0;
+  const int smem = tiles ? kTileBytes : 0;
+  static int configured = -1;   // the shared memory of the last launch
+  if (smem != configured) {
+    // tile blocks need the large shared-memory carve-out, query-major
+    // launches the large L1
+    cudaError_t err = cudaFuncSetAttribute(
+        msda_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTileBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          msda_forward_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          tiles ? cudaSharedmemCarveoutMaxShared : cudaSharedmemCarveoutMaxL1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = smem;
+  }
+  msda_forward_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,9 +19,25 @@ from torch.autograd.function import once_differentiable
 from ._cuda import CudaKernel, check_cuda
 
 MSDA_KERNEL = CudaKernel(
-    'demf_msda_forward', [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7)
+    'demf_msda_forward', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 MSDA_BACKWARD_KERNEL = CudaKernel(
     'demf_msda_backward', [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7)
+
+# csrc/msda.cu: threads of a block, queries of a tile that one thread sums,
+# the side of a tile on the finest level (a tile holds at most its square),
+# the fewest queries worth a tile, the most points a level whose locations
+# still leave a tile's window room in shared memory.  The kernel's entry
+# point is told the largest tile and refuses one beyond its own limits.
+MSDA_THREADS = 512
+MSDA_MAX_PASSES = 4
+MSDA_TILE_SIDE = 16
+MSDA_MIN_TILE = 64
+MSDA_MAX_TILE_POINTS = 16
+
+# (spatial shapes, head_dim, tiled, device) -> (level table, tile table,
+# tiles, direct_from, max_tile) with the tables on the device: built once, not copied
+# from the host at every call
+_TABLES = {}
 
 
 def multi_scale_deformable_attention(value, spatial_shapes,
@@ -91,10 +107,65 @@ def msda_plain(value, spatial_shapes, sampling_locations, attention_weights):
     return out.permute(0, 2, 1, 3).reshape(b, q, heads * hd).to(value.dtype)
 
 
+def msda_tiling(spatial_shapes, head_dim):
+    """How K3 cuts the levels' own tokens, as queries, into spatial tiles.
+
+    Returns (rows, tiles, direct_from): ``rows`` holds one (tile H, tile W,
+    tiles across, tiles of the level, first tile of the level) per level;
+    ``tiles`` is their number over all levels; the queries from token
+    ``direct_from`` on belong to no tile and take the kernel's query-major
+    mapping.  A tile covers about ``MSDA_TILE_SIDE`` squared pixels of the
+    first level, whatever its own level, so that its samples' window on
+    each level stays small; a tile's queries fit the kernel's
+    ``MSDA_MAX_PASSES`` passes of ``MSDA_THREADS / (head_dim / 4)`` queries
+    and its ``MSDA_TILE_SIDE`` squared slots for locations; a level whose
+    tiles would hold fewer than ``MSDA_MIN_TILE`` queries is left to the
+    query-major mapping, and every level after it too.
+    """
+    most = min(MSDA_TILE_SIDE ** 2,
+               MSDA_MAX_PASSES * (MSDA_THREADS // (head_dim // 4)))
+    side_w = MSDA_TILE_SIDE
+    side_h = max(1, min(MSDA_TILE_SIDE, most // side_w))
+    h0, w0 = spatial_shapes[0]
+    rows, tiles, direct_from, tiled = [], 0, 0, True
+    for h, w in spatial_shapes:
+        th = max(1, min(h, round(side_h * h / h0)))
+        tw = max(1, min(w, round(side_w * w / w0)))
+        tiled = tiled and MSDA_MIN_TILE <= th * tw <= most
+        if tiled:
+            across, down = -(-w // tw), -(-h // th)
+            rows.append((th, tw, across, across * down, tiles))
+            tiles += across * down
+            direct_from += h * w
+        else:
+            rows.append((0, 0, 0, 0, tiles))
+    return rows, tiles, direct_from
+
+
+def _tables(spatial_shapes, head_dim, tiled, device):
+    """The kernels' level table (H, W, first token) and K3's tile table as
+    int32 tensors on ``device``, with K3's tile count, ``direct_from`` and
+    the most queries of any tile (all 0 unless ``tiled``)."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    key = (shapes, head_dim, tiled, device)
+    if key not in _TABLES:
+        info, start = [], 0
+        for h, w in shapes:
+            info.append((h, w, start))
+            start += h * w
+        rows, tiles, direct_from = msda_tiling(shapes, head_dim)
+        if not tiled or not tiles:
+            rows, tiles, direct_from = [(0,) * 5] * len(shapes), 0, 0
+        _TABLES[key] = (
+            torch.tensor(info, dtype=torch.int32).to(device),
+            torch.tensor(rows, dtype=torch.int32).to(device),
+            tiles, direct_from, max(th * tw for th, tw, *_ in rows))
+    return _TABLES[key]
+
+
 def _check_args(value, spatial_shapes, sampling_locations,
                 attention_weights):
-    """Validate the kernels' inputs; returns the level table (H, W, start)
-    as an int32 tensor on the device."""
+    """Validate the kernels' inputs."""
     check_cuda('value', value, torch.float32, 4)
     check_cuda('sampling_locations', sampling_locations, torch.float32, 6)
     check_cuda('attention_weights', attention_weights, torch.float32, 5)
@@ -110,27 +181,33 @@ def _check_args(value, spatial_shapes, sampling_locations,
     if len(spatial_shapes) != levels:
         raise ValueError(f'{len(spatial_shapes)} spatial shapes for '
                          f'{levels} levels')
-    info, start = [], 0
-    for (h, w) in spatial_shapes:
-        info += [int(h), int(w), start]
-        start += int(h) * int(w)
-    if start != s:
-        raise ValueError(f'spatial shapes cover {start} tokens, value has {s}')
-    return torch.tensor(info, dtype=torch.int32).to(value.device,
-                                                    non_blocking=True)
+    covered = sum(int(h) * int(w) for h, w in spatial_shapes)
+    if covered != s:
+        raise ValueError(f'spatial shapes cover {covered} tokens, value has '
+                         f'{s}')
 
 
 def msda_cuda(value, spatial_shapes, sampling_locations, attention_weights):
-    """Kernel K3 (csrc/msda.cu): the forward, no autograd."""
-    level_info = _check_args(value, spatial_shapes, sampling_locations,
-                             attention_weights)
+    """Kernel K3 (csrc/msda.cu): the forward, no autograd.  Where there is
+    one query per token (Q == sum_HW: the encoder's self-attention, whose
+    query i is token i) the tokens of the finer levels go through the
+    kernel's spatial tiles; that choice moves the speed only, any
+    locations give the same result."""
+    _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
+    if hd % 4 or hd < 4 or MSDA_THREADS % (hd // 4):
+        raise ValueError(f'the MSDA forward kernel needs a head_dim that is '
+                         f'4 times a divisor of {MSDA_THREADS}, got {hd}')
+    level_info, tile_info, tiles, direct_from, max_tile = _tables(
+        spatial_shapes, hd, q == s and points <= MSDA_MAX_TILE_POINTS,
+        value.device)
     out = torch.empty((b, q, heads * hd), dtype=torch.float32,
                       device=value.device)
-    MSDA_KERNEL(value.data_ptr(), level_info.data_ptr(),
+    MSDA_KERNEL(value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
                 sampling_locations.data_ptr(), attention_weights.data_ptr(),
-                out.data_ptr(), b, s, q, heads, hd, levels, points)
+                out.data_ptr(), b, s, q, heads, hd, levels, points, tiles,
+                direct_from, max_tile)
     return out
 
 
@@ -139,10 +216,10 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
     """Kernel K4 (csrc/msda_backward.cu): grad_out (B, Q, heads * hd) ->
     (d_value, d_sampling_locations, d_attention_weights).  head_dim must
     divide 32."""
-    level_info = _check_args(value, spatial_shapes, sampling_locations,
-                             attention_weights)
+    _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
+    level_info = _tables(spatial_shapes, hd, False, value.device)[0]
     if hd > 32 or 32 % hd:
         raise ValueError(f'the MSDA backward kernel needs a head_dim that '
                          f'divides 32, got {hd}')

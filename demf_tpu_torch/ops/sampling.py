@@ -12,11 +12,27 @@ import torch
 
 from ._cuda import CudaKernel, check_cuda
 
-# csrc/fps.cu: one block of 1024 threads, at most 32 points per thread
+# csrc/fps.cu: a thread owns at most 16 points; 8 blocks of 256 threads hold
 FPS_MAX_POINTS = 32 * 1024
-FPS_KERNEL = CudaKernel('demf_fps', [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int])
+FPS_KERNEL = CudaKernel('demf_fps', [ctypes.c_void_p, ctypes.c_void_p] +
+                        [ctypes.c_int] * 5)
+
+
+def fps_launch_shape(n):
+    """(blocks in a scene's cluster, threads in a block) for N points.
+
+    The cluster shares a scene's points, so more blocks shorten a step's
+    pass over them and add an exchange between the blocks to it; the
+    sizes are the fastest measured on an NVIDIA H100 at the shapes the
+    models send, N 512 to 2,048 and 20,000 (``python -m
+    demf_tpu_torch.tools.compare_kernels --sweep``), among the portable
+    cluster sizes (up to 8).  Each thread owns
+    ceil(ceil(N / cluster) / threads) <= 16 points.
+    """
+    if not 0 < n <= FPS_MAX_POINTS:
+        raise ValueError(f'FPS kernel takes 1..{FPS_MAX_POINTS} points, '
+                         f'got {n}')
+    return (1, 128) if n <= 2048 else (8, 256)
 
 
 def furthest_point_sample(points_xyz, num_samples):
@@ -57,13 +73,12 @@ def furthest_point_sample_cuda(points_xyz, num_samples):
     b, n, c = points_xyz.shape
     if c != 3:
         raise ValueError(f'points_xyz must be (B, N, 3), got {c} channels')
-    if not 0 < n <= FPS_MAX_POINTS:
-        raise ValueError(f'FPS kernel takes 1..{FPS_MAX_POINTS} points, '
-                         f'got {n}')
+    cluster, threads = fps_launch_shape(n)
     if num_samples < 1:
         raise ValueError(f'num_samples must be >= 1, got {num_samples}')
     out = torch.empty((b, num_samples), dtype=torch.int64,
                       device=points_xyz.device)
     if b:
-        FPS_KERNEL(points_xyz.data_ptr(), out.data_ptr(), b, n, num_samples)
+        FPS_KERNEL(points_xyz.data_ptr(), out.data_ptr(), b, n, num_samples,
+                   cluster, threads)
     return out

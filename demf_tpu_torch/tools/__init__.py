@@ -3,13 +3,15 @@
     python -m demf_tpu_torch.tools.bench_gather_kernel [--small]   # K5
     python -m demf_tpu_torch.tools.bench_msda_matmul               # K7
     python -m demf_tpu_torch.tools.bench_msda_fold [--batch B]     # K5 + K6
+    python -m demf_tpu_torch.tools.compare_kernels [--parent DIR]  # K1, K3
 
 Ports of the JAX package's ``tools/bench_gather_kernel.py``,
 ``tools/bench_msda_matmul.py`` and ``tools/bench_msda_layer.py::main18``.
 Each checks its kernel against the plain version on the kernel's own
 output, then times both with CUDA events, prints its lines and returns
 the numbers.  Inputs come from a seeded generator on the card.  Without a
-card each raises: none falls back to the CPU.
+card each raises: none falls back to the CPU.  ``compare_kernels`` times
+K1 and K3 in turns with another commit's, each through its own wrapper.
 """
 from __future__ import annotations
 
@@ -47,8 +49,77 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+# published peaks of one NVIDIA H100 SXM: float32 outside the tensor cores,
+# and device memory
+PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take for work of ``flops`` float32
+    operations that must move ``nbytes`` (each input read once, each output
+    written once): (ms, 'operations' or 'bytes'), whichever is larger."""
+    by_ops = flops / PEAK_FLOPS * 1e3
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, 'operations') if by_ops > by_bytes else (by_bytes, 'bytes')
+
+
+def msda_rows_touched(spatial_shapes, sampling_locations):
+    """How many distinct (scene, token, head) value rows the bilinear
+    corners of these sampling locations read (corners outside the map read
+    nothing): the part of ``value`` that MSDA needs for this input."""
+    b, q, heads, _, _, _ = sampling_locations.shape
+    s = sum(h * w for h, w in spatial_shapes)
+    hit = torch.zeros(b * s * heads, dtype=torch.bool,
+                      device=sampling_locations.device)
+    scene = torch.arange(b, device=hit.device)[:, None, None, None]
+    head = torch.arange(heads, device=hit.device)[None, None, :, None]
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl]            # (B, Q, heads, P, 2)
+        x0 = torch.floor(loc[..., 0] * w - 0.5).long()
+        y0 = torch.floor(loc[..., 1] * h - 0.5).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = x0 + dx, y0 + dy
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                row = ((scene * s + start + y * w + x) * heads + head)[ok]
+                hit[row] = True
+        start += h * w
+    return int(hit.sum())
+
+
 def max_err(got, want):
     """(max |got - want|, 1e-5 * max |want|), compared in float32."""
     want = want.float()
     return ((got.float() - want).abs().max().item(),
             1e-5 * want.abs().max().item())
+
+
+def encoder_sampling_locations(spatial_shapes, b, heads, points, device,
+                               jitter=0.5, seed=0):
+    """Sampling locations as the deformable encoder's self-attention makes
+    them, (B, sum_HW, heads, L, P, 2): query i is token i, its reference
+    point is its own pixel's centre on every level, and its offsets are the
+    DETR grid (head h's direction, point p at p + 1 pixels:
+    ``models.transformer.msda_offset_bias_init``) plus normal noise of
+    ``jitter`` pixels."""
+    from ..models.transformer import msda_offset_bias_init
+    levels = len(spatial_shapes)
+    gen = torch.Generator(device).manual_seed(seed)
+    ref = []
+    for h, w in spatial_shapes:
+        ys, xs = torch.meshgrid(
+            (torch.arange(h, device=device) + 0.5) / h,
+            (torch.arange(w, device=device) + 0.5) / w, indexing='ij')
+        ref.append(torch.stack([xs, ys], -1).reshape(h * w, 2))
+    ref = torch.cat(ref)                                   # (S, 2)
+    grid = torch.from_numpy(msda_offset_bias_init(heads, levels, points))
+    grid = grid.reshape(heads, levels, points, 2).to(device)
+    s = ref.shape[0]
+    offsets = grid + jitter * torch.randn(
+        (b, s, heads, levels, points, 2), generator=gen, device=device)
+    wh = torch.tensor([[w, h] for h, w in spatial_shapes],
+                      dtype=torch.float32, device=device)
+    return (ref[None, :, None, None, None, :] +
+            offsets / wh[None, None, None, :, None, :]).contiguous()

@@ -17,7 +17,10 @@ folds 16 slices at a time.  Variants, each over all slices:
   through their strides.
 
 On the first chunk both K6 layouts are held against the plain fold
-(1e-5 of the largest output) and the fold alone is timed.  The other
+(1e-5 of the largest output) and the fold alone is timed, beside its bound
+(rows and weights read once, sums written once; two operations a row
+element) and the one PyTorch call that computes the same function, a
+``torch.einsum`` over rows and weights.  The other
 variants of ``bench_msda_layer.py`` time XLA layouts and have no kernel
 to port.
 """
@@ -30,7 +33,7 @@ import torch
 from demf_tpu_torch.ops.gather_rows import gather_rows
 from demf_tpu_torch.ops.msda_fold import (slot_fold_plain, slot_major_fold,
                                           weighted_slot_fold_batched)
-from demf_tpu_torch.tools import cuda_device, max_err, time_ms
+from demf_tpu_torch.tools import bound_ms, cuda_device, max_err, time_ms
 
 N, Q, HD, NLV, NPTS = 22336, 22528, 32, 4, 4
 LP = NLV * NPTS
@@ -51,9 +54,9 @@ def make_inputs(bh, dev, seed=0):
 
 
 def main(argv=None):
-    """Returns dict(max_abs_err, bound, ms, plain_ms) of K6 in the
-    (LP, Q, 4) layout against the plain fold on one chunk, and the same for
-    the slot-major layout under ``slot_major``."""
+    """Returns dict(max_abs_err, bound, ms, plain_ms, bound_ms, bound_by,
+    library_ms) of K6 in the (LP, Q, 4) layout against the plain fold on one
+    chunk, and the same for the slot-major layout under ``slot_major``."""
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--batch', type=int, default=16,
                         help='scenes; BH = 8 heads x batch (default 16)')
@@ -87,6 +90,11 @@ def main(argv=None):
     rows = rows_of(chunks[0])
     plain_ms = time_ms(lambda: slot_fold_plain(rows, w4[chunks[0]]), 3)
     want = slot_fold_plain(rows, w4[chunks[0]])
+    w_chunk = w4[chunks[0]]
+    library_ms = time_ms(lambda: torch.einsum(
+        'blqsj,blqs->bqj', rows.view(-1, LP, Q, 4, HD), w_chunk), 3)
+    print(f'K6 library (one einsum over bf16 rows and weights), one chunk: '
+          f'{library_ms:.4f} ms', flush=True)
     out = {}
     for key, label, fn in (
             ('lpq4', 'K6 (LP, Q, 4)', lambda: weighted_slot_fold_batched(
@@ -95,14 +103,20 @@ def main(argv=None):
              lambda: slot_major_fold(rows, w4t[chunks[0]]))):
         err, bound = max_err(fn(), want)
         ms = time_ms(fn, 10)
+        w = w4t if key == 'slot_major' else w4
+        least, by = bound_ms(
+            2 * rows.numel(),
+            rows.numel() * rows.element_size() +
+            w[chunks[0]].numel() * w.element_size() + want.numel() * 4)
         print(f'K6 msda_fold {label}, one chunk ({rows.shape[0]} slices, '
               f'{rows.shape[0] * S} samples): max_abs_err {err:.3e} (bound '
-              f'{bound:.3e}); fold {ms:.4f} ms, plain fold {plain_ms:.4f} ms',
-              flush=True)
+              f'{bound:.3e}); fold {ms:.4f} ms, plain fold {plain_ms:.4f} ms,'
+              f' least {least:.4f} ms ({by})', flush=True)
         if not err <= bound:
             raise AssertionError(f'fold kernel disagrees with plain ({label})')
         out[key] = dict(max_abs_err=err, bound=bound, ms=ms,
-                        plain_ms=plain_ms)
+                        plain_ms=plain_ms, bound_ms=least, bound_by=by,
+                        library_ms=library_ms)
     return dict(out['lpq4'], slot_major=out['slot_major'])
 
 

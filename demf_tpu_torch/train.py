@@ -22,11 +22,10 @@ import time
 
 import torch
 
-from demf_tpu.utils.config import Config
-
 from . import zoo
 from .engine import Runner, batch_to_device, compute_image_features
 from .engine.trainer import PHASES
+from .utils.config import Config
 
 
 def parse_args(argv=None):

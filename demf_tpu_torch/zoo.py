@@ -3,20 +3,43 @@ and make synthetic batches (numpy) with the fields, shapes and meta of
 ``demf_tpu.zoo.synth_demf_batch``, value for value from the same seed."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from demf_tpu.zoo import load_model_cfg
-
 from .registry import DETECTORS, build_from_cfg
+from .utils.config import Config
+
+# the configs are data that both packages build from; they import nothing
+CFG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
+                       'configs')
 
 _DEPTH2CAM = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32)
 
 
-def build_detector(model_cfg, device='cpu', seed=0):
+def load_model_cfg(rel_path):
+    """The config at ``rel_path`` under the repository's ``configs/``."""
+    return Config.fromfile(os.path.join(CFG_DIR, rel_path))
+
+
+def _device(device):
+    """``device`` as a ``torch.device``; raises when it names the card and
+    there is none (nothing carries on on the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds its models on the GPU; pass "
+            "device='cpu' for a small model on the CPU")
+    return device
+
+
+def build_detector(model_cfg, device='cuda', seed=0):
     """Detector from a model cfg dict (or a path under ``configs/``) with
-    seeded random weights, in eval mode on ``device``."""
+    seeded random weights, in eval mode on ``device``: the card unless the
+    caller passes ``'cpu'``; raises without a card."""
     from . import models
+    device = _device(device)
     if isinstance(model_cfg, str):
         model_cfg = load_model_cfg(model_cfg).model
     model = build_from_cfg(model_cfg, DETECTORS)
@@ -24,7 +47,7 @@ def build_detector(model_cfg, device='cpu', seed=0):
     return model.to(device).eval()
 
 
-def build_trainer(cfg, device='cpu', seed=0, steps_per_epoch=1):
+def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
     """Detector (seeded random weights, train mode) plus its AdamW and train
     step, as the JAX package's ``train.py`` and ``bench.py`` set them up:
     the config's optimizer with the frozen image branch at lr_mult 0, its
@@ -32,7 +55,8 @@ def build_trainer(cfg, device='cpu', seed=0, steps_per_epoch=1):
 
     ``cfg``: a path under ``configs/``, or a config / dict with ``model``,
     ``optimizer`` and optionally ``optimizer_config`` and ``lr_config``.
-    Returns (model, optimizer, train_step).
+    ``device`` as in ``build_detector``.  Returns (model, optimizer,
+    train_step).
     """
     from .engine.optim import build_optimizer, step_lr_schedule
     from .engine.trainer import make_train_step

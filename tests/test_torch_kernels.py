@@ -49,6 +49,61 @@ def test_fps_kernel_equals_plain(dev, b, n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 16])
+@pytest.mark.parametrize('n,k', [(20000, 64), (999, 200), (33, 33),
+                                 (20000, 3), (2049, 40)])
+def test_fps_kernel_ragged_shares_and_few_picks(dev, b, n, k):
+    """N that no cluster or block divides (a cluster's last block and a
+    block's last threads own fewer points, or none), fewer picks than the
+    cluster has blocks, one scene and sixteen."""
+    xyz = torch.from_numpy(np.random.RandomState(n + k).uniform(
+        -3, 3, (b, n, 3)).astype(np.float32)).to(dev)
+    got = sampling.furthest_point_sample_cuda(xyz, k)
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [20000, 999])
+def test_fps_kernel_ties_go_to_the_lowest_index(dev, n):
+    """Points on a coarse grid, most of them many times over: every step's
+    largest distance is shared, also across the blocks of a cluster."""
+    xyz = torch.from_numpy(np.random.RandomState(n).randint(
+        0, 3, (2, n, 3)).astype(np.float32)).to(dev)
+    got = sampling.furthest_point_sample_cuda(xyz, 64)
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cluster,threads', [(1, 512), (2, 512), (4, 256),
+                                             (8, 128), (8, 256), (8, 512)])
+def test_fps_kernel_equals_plain_at_any_launch_shape(dev, cluster, threads):
+    """The picks do not depend on how the wrapper cuts a scene over blocks
+    and threads."""
+    n, k = 4999, 300
+    xyz = torch.from_numpy(np.random.RandomState(cluster).uniform(
+        -3, 3, (3, n, 3)).astype(np.float32)).to(dev)
+    out = torch.empty((3, k), dtype=torch.int64, device=dev)
+    sampling.FPS_KERNEL(xyz.data_ptr(), out.data_ptr(), 3, n, k, cluster,
+                        threads)
+    assert torch.equal(out, sampling.furthest_point_sample_plain(xyz, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cluster,threads', [(16, 128), (0, 128), (8, 48),
+                                             (8, 1024), (1, 128)])
+def test_fps_kernel_refuses_launch_shapes(dev, cluster, threads):
+    """A cluster beyond the portable 8 blocks, a block that is no whole
+    number of warps or too large, and more than 16 points a thread."""
+    xyz = torch.zeros((1, 4999, 3), device=dev)
+    out = torch.empty((1, 8), dtype=torch.int64, device=dev)
+    before = sampling.FPS_KERNEL.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        sampling.FPS_KERNEL(xyz.data_ptr(), out.data_ptr(), 1, 4999, 8,
+                            cluster, threads)
+    assert sampling.FPS_KERNEL.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('n,m,k,radius,extent', [
     (3000, 128, 16, 0.3, 1.0),
     (20000, 256, 64, 0.2, 3.0),
@@ -87,6 +142,123 @@ def test_msda_kernel_matches_plain(dev, shapes, heads, hd, q, p):
     got = msda.msda_cuda(value, shapes, locs, aw)
     want = msda.msda_plain(value, shapes, locs, aw)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+ENCODER_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shapes,heads,hd,p', [
+    (ENCODER_SHAPES, 8, 32, 4),
+    (((32, 48), (16, 24), (8, 12)), 4, 16, 3),
+    (((32, 48), (16, 24), (8, 12)), 2, 8, 2),
+    (((33, 47), (17, 24)), 2, 64, 4)])
+@pytest.mark.parametrize('where', ['own', 'scattered', 'whole map',
+                                   'off the map'])
+def test_msda_kernel_tiles_match_plain(dev, shapes, heads, hd, p, where):
+    """One query a token, so the finer levels go through the kernel's
+    spatial tiles: with the encoder's own locations (inside the tiles'
+    windows), with those scattered by 4 pixels (some inside a window, some
+    outside, some across its edge), with locations over the whole map
+    (outside every window: the corners come from global memory) and with
+    locations around and beyond the map's edges (corners that read
+    zero)."""
+    from demf_tpu_torch.tools import encoder_sampling_locations
+    s = sum(h * w for h, w in shapes)
+    assert msda.msda_tiling(shapes, hd)[1] > 0
+    g = torch.Generator(device=dev).manual_seed(hd)
+    value = torch.randn(2, s, heads, hd, device=dev, generator=g)
+    if where in ('own', 'scattered'):
+        locs = encoder_sampling_locations(
+            shapes, 2, heads, p, dev, jitter=0.5 if where == 'own' else 4.0)
+    else:
+        locs = torch.rand(2, s, heads, len(shapes), p, 2, device=dev,
+                          generator=g)
+        locs = locs * 1.2 - 0.1 if where == 'whole map' else locs * 3 - 1
+    aw = torch.rand(2, s, heads, len(shapes), p, device=dev, generator=g)
+    before = msda.MSDA_KERNEL.launches
+    got = msda.msda_cuda(value, shapes, locs, aw)
+    assert msda.MSDA_KERNEL.launches == before + 1
+    want = msda.msda_plain(value, shapes, locs, aw)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_msda_function_pairs_tiled_forward_with_backward_kernel(dev):
+    """Through ``MSDAFunction`` at one query a token: K3's tiles forward,
+    K4 backward, against the plain version's autograd."""
+    from demf_tpu_torch.tools import encoder_sampling_locations
+    shapes = ((32, 48), (16, 24), (8, 12))
+    s = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=dev).manual_seed(3)
+    value = torch.randn(2, s, 4, 32, device=dev, generator=g)
+    locs = encoder_sampling_locations(shapes, 2, 4, 4, dev)
+    aw = torch.rand(2, s, 4, 3, 4, device=dev, generator=g)
+    grad = torch.randn(2, s, 128, device=dev, generator=g)
+    results = []
+    for fn in (msda.multi_scale_deformable_attention, msda.msda_plain):
+        ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+        launched = (msda.MSDA_KERNEL.launches,
+                    msda.MSDA_BACKWARD_KERNEL.launches)
+        out = fn(ins[0], shapes, ins[1], ins[2])
+        out.backward(grad)
+        launched = (msda.MSDA_KERNEL.launches - launched[0],
+                    msda.MSDA_BACKWARD_KERNEL.launches - launched[1])
+        assert launched == ((1, 1) if fn is not msda.msda_plain else (0, 0))
+        results.append([out.detach()] + [t.grad for t in ins])
+    for got, want in zip(*results):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_msda_kernel_refuses_head_dim(dev):
+    value, locs, aw, _ = _msda_inputs(dev, ((3, 4),), 1, 5, 2, 12, 2, 0)
+    with pytest.raises(ValueError, match='divisor of'):
+        msda.msda_cuda(value, ((3, 4),), locs, aw)
+
+
+@pytest.mark.cuda
+def test_msda_kernel_refuses_a_tile_beyond_its_limits(dev):
+    """The entry point is told the largest tile of the table and refuses
+    one that would overrun the block's slots (256 queries, 4 a thread)."""
+    shapes = ((32, 48), (16, 24))
+    s = sum(h * w for h, w in shapes)
+    value, locs, aw, _ = _msda_inputs(dev, shapes, 1, s, 2, 32, 2, 0)
+    info, tile_info, tiles, direct_from, max_tile = msda._tables(
+        shapes, 32, True, dev)
+    assert tiles and 0 < max_tile <= 256
+    out = torch.empty((1, s, 64), device=dev)
+    before = msda.MSDA_KERNEL.launches
+    for too_large in (257, 0):
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            msda.MSDA_KERNEL(value.data_ptr(), info.data_ptr(),
+                             tile_info.data_ptr(), locs.data_ptr(),
+                             aw.data_ptr(), out.data_ptr(), 1, s, s, 2, 32,
+                             2, 2, tiles, direct_from, too_large)
+    assert msda.MSDA_KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['value', 'locs'])
+def test_msda_kernel_refuses_misaligned_tensors(dev, which):
+    """Its 16-byte loads of value rows and 8-byte loads of locations need
+    pointers aligned so; a contiguous view 4 bytes into a buffer is not."""
+    shapes = ((3, 4),)
+    value, locs, aw, _ = _msda_inputs(dev, shapes, 1, 5, 2, 16, 2, 0)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 8 == 4
+        return view
+
+    if which == 'value':
+        value = shifted(value)
+    else:
+        locs = shifted(locs)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        msda.msda_cuda(value, shapes, locs, aw)
 
 
 def _msda_inputs(dev, shapes, b, q, heads, hd, p, seed):
@@ -190,3 +362,21 @@ def test_mform_kernel_matches_plain(dev, dtype):
     want = mform.mform_sample_plain(plane, idx16, w16).float()
     assert got.dtype == dtype
     assert (got.float() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd,p', [(8, 16), (32, 16), (32, 17)])
+def test_msda_kernel_tiles_with_many_points(dev, hd, p):
+    """Many points a level leave the tiles' windows little room (they
+    shrink; the corners outside come from global memory); past
+    ``MSDA_MAX_TILE_POINTS`` the wrapper takes the query-major mapping."""
+    from demf_tpu_torch.tools import encoder_sampling_locations
+    shapes = ((32, 48), (16, 24))
+    s = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=dev).manual_seed(p)
+    value = torch.randn(1, s, 2, hd, device=dev, generator=g)
+    locs = encoder_sampling_locations(shapes, 1, 2, p, dev)
+    aw = torch.rand(1, s, 2, 2, p, device=dev, generator=g)
+    got = msda.msda_cuda(value, shapes, locs, aw)
+    want = msda.msda_plain(value, shapes, locs, aw)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -166,6 +166,24 @@ def test_mform_plain_matches_xla_ref_f32(monkeypatch):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_mform_library_call_is_the_same_function(dtype):
+    """The probe's yardstick for K7, one ``embedding_bag`` call over the
+    planes laid end to end, computes ``mform_sample``."""
+    from demf_tpu_torch.tools import bench_msda_matmul as probe
+    plane, idx16, w16 = (torch.from_numpy(x) for x in _mform_inputs(
+        np.random.RandomState(12), 3, 17, 10, 8, 16))
+    plane, w16 = plane.to(dtype), w16.to(dtype)
+    flat, idx, w = probe.embedding_bag_inputs(plane, idx16, w16)
+    assert flat.shape == (3 * 17, 8) and idx.shape == w.shape == (3 * 10, 16)
+    assert idx.dtype == torch.int64 and int(idx.max()) < 3 * 17
+    got = probe.mform_library(flat, idx, w, 3)
+    want = mform.mform_sample_plain(plane, idx16, w16)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert _rel(got.float(), want.float().numpy()) < tol
+
+
 def _msda_inputs(seed, b=2, q=50, heads=2, hd=8, p=2):
     rng = np.random.RandomState(seed)
     s = sum(h * w for h, w in SHAPES)

@@ -222,3 +222,155 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         msda.msda_cuda(torch.zeros(1, 2, 1, 4), ((1, 2),),
                        torch.zeros(1, 1, 1, 1, 1, 2), torch.zeros(1, 1, 1, 1,
                                                                   1))
+
+
+@pytest.mark.parametrize('n', [1, 33, 512, 513, 999, 2048, 2049, 20000,
+                               sampling.FPS_MAX_POINTS])
+def test_fps_launch_shape_holds_the_points(n):
+    """K1's cluster and block sizes by N: within what csrc/fps.cu takes (a
+    cluster of 1..8 blocks of whole warps, at most 512 threads, at most
+    16 points a thread)."""
+    cluster, threads = sampling.fps_launch_shape(n)
+    assert 1 <= cluster <= 8
+    assert threads % 32 == 0 and 32 <= threads <= 512
+    share = -(-n // cluster)
+    assert -(-share // threads) <= 16
+    assert cluster * threads * 16 >= n
+
+
+def test_fps_launch_shape_bounds():
+    assert sampling.FPS_MAX_POINTS >= 32768
+    for n in (0, -1, sampling.FPS_MAX_POINTS + 1):
+        with pytest.raises(ValueError, match='points'):
+            sampling.fps_launch_shape(n)
+    # one block for the small calls of the point branch, a cluster for SA0
+    assert sampling.fps_launch_shape(1024)[0] == 1
+    assert sampling.fps_launch_shape(20000)[0] > 1
+
+
+def _tile_queries(shapes, rows):
+    """The tokens that K3's tile blocks take as queries, tile by tile, by
+    the kernel's rule: query i of a tile is pixel (i // tile W, i % tile W)
+    of the tile, kept where it lies inside the level."""
+    out, start = [], 0
+    for (h, w), (th, tw, across, tiles, first) in zip(shapes, rows):
+        for t in range(tiles):
+            y0, x0 = (t // across) * th, (t % across) * tw
+            tile = [start + (y0 + i // tw) * w + x0 + i % tw
+                    for i in range(th * tw)
+                    if y0 + i // tw < h and x0 + i % tw < w]
+            assert tile, (h, w, t)
+            out.append(tile)
+        start += h * w
+    return out
+
+
+@pytest.mark.parametrize('shapes,hd', [
+    (((100, 168), (50, 84), (25, 42), (13, 21)), 32),
+    (((100, 168), (50, 84), (25, 42), (13, 21)), 64),
+    (((32, 48), (16, 24), (8, 12)), 8),
+    (((16, 24), (8, 12)), 16),
+    (((7, 5),), 16),
+    (((8, 12), (40, 60)), 32)])
+def test_msda_tiling_covers_each_tiled_token_once(shapes, hd):
+    rows, tiles, direct_from = msda.msda_tiling(shapes, hd)
+    most = min(msda.MSDA_TILE_SIDE ** 2,
+               msda.MSDA_MAX_PASSES * (msda.MSDA_THREADS // (hd // 4)))
+    assert len(rows) == len(shapes)
+    tiled = [r for r in rows if r[3]]
+    # tiled levels come first, their tiles are numbered in order
+    assert rows[:len(tiled)] == tiled
+    assert sum(r[3] for r in rows) == tiles
+    first = 0
+    for th, tw, across, count, start in rows:
+        assert start == first
+        first += count
+        if count:
+            assert msda.MSDA_MIN_TILE <= th * tw <= most
+    assert direct_from == sum(h * w for h, w in shapes[:len(tiled)])
+    queries = _tile_queries(shapes, rows)
+    assert len(queries) == tiles
+    flat = sorted(q for tile in queries for q in tile)
+    assert flat == list(range(direct_from))
+
+
+def test_msda_tiling_at_the_encoder_shape():
+    """16 x 16 pixels on the finest level, 8 x 8 on the next (the same
+    footprint), the two coarse levels query-major."""
+    rows, tiles, direct_from = msda.msda_tiling(
+        ((100, 168), (50, 84), (25, 42), (13, 21)), 32)
+    assert rows[0][:2] == (16, 16) and rows[1][:2] == (8, 8)
+    assert rows[2][3] == rows[3][3] == 0
+    assert tiles == 2 * 7 * 11 and direct_from == 100 * 168 + 50 * 84
+
+
+def test_msda_tables_are_built_once():
+    shapes = ((8, 12), (4, 6))
+    cpu = torch.device('cpu')
+    first = msda._tables(shapes, 32, True, cpu)
+    again = msda._tables([[8, 12], [4, 6]], 32, True, cpu)
+    assert all(a is b for a, b in zip(first, again))
+    level_info, tile_info, tiles, direct_from, max_tile = first
+    assert level_info.dtype == tile_info.dtype == torch.int32
+    assert level_info.tolist() == [[8, 12, 0], [4, 6, 96]]
+    assert tuple(tile_info.shape) == (2, 5)
+    rows, want_tiles, want_from = msda.msda_tiling(shapes, 32)
+    assert tile_info.tolist() == [list(r) for r in rows]
+    assert (tiles, direct_from) == (want_tiles, want_from)
+    # the largest tile, which the kernel's entry point holds to its limits
+    assert max_tile == max(th * tw for th, tw, *_ in rows) > 0
+    untiled = msda._tables(shapes, 32, False, cpu)
+    assert untiled[2:] == (0, 0, 0) and not untiled[1].any()
+    assert untiled[0].tolist() == level_info.tolist()
+
+
+def test_encoder_sampling_locations_are_the_modules():
+    """The tools' encoder-like locations, without noise, are what the MSDA
+    layer makes at its DETR init from reference points at the pixel
+    centres."""
+    from demf_tpu_torch.models.transformer import (
+        MultiScaleDeformableAttention)
+    from demf_tpu_torch.tools import encoder_sampling_locations
+    shapes = ((6, 8), (3, 4))
+    s = sum(h * w for h, w in shapes)
+    layer = MultiScaleDeformableAttention(32, 4, 2, 3)
+    layer.init_weights(torch.Generator().manual_seed(0))
+    got = encoder_sampling_locations(shapes, 2, 4, 3, 'cpu', jitter=0.0)
+    assert tuple(got.shape) == (2, s, 4, 2, 3, 2)
+    ref = torch.cat([torch.stack(torch.meshgrid(
+        (torch.arange(w) + 0.5) / w, (torch.arange(h) + 0.5) / h,
+        indexing='xy'), -1).reshape(h * w, 2) for h, w in shapes])
+    offsets = layer.sampling_offsets(torch.zeros(2, s, 32)).reshape(
+        2, s, 4, 2, 3, 2)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
+    want = ref[None, :, None, None, None] + offsets / wh[:, None]
+    assert (got - want).abs().max() < 1e-6
+    noisy = encoder_sampling_locations(shapes, 2, 4, 3, 'cpu', seed=1)
+    assert 0 < (noisy - got).abs().max() < 1.0
+
+
+def test_msda_rows_touched_counts_distinct_rows_inside_the_map():
+    from demf_tpu_torch.tools import bound_ms, msda_rows_touched
+    shapes = ((4, 6), (2, 3))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(0)
+    locs = rng.uniform(-0.3, 1.3, (2, 5, 3, 2, 2, 2)).astype(np.float32)
+    seen, start = set(), 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = np.floor(locs[:, :, :, lvl, :, 0] * np.float32(w) -
+                      np.float32(0.5)).astype(int)
+        y0 = np.floor(locs[:, :, :, lvl, :, 1] * np.float32(h) -
+                      np.float32(0.5)).astype(int)
+        for (b, q, hd, p), x in np.ndenumerate(x0):
+            for yy in (y0[b, q, hd, p], y0[b, q, hd, p] + 1):
+                for xx in (x, x + 1):
+                    if 0 <= xx < w and 0 <= yy < h:
+                        seen.add((b, start + yy * w + xx, hd))
+        start += h * w
+    assert 0 < len(seen) < 2 * s * 3
+    assert msda_rows_touched(shapes, _t(locs)) == len(seen)
+    far = np.full_like(locs, 5.0)
+    assert msda_rows_touched(shapes, _t(far)) == 0
+    # 6.7 GFLOP at 67 TFLOP/s against 3.35 MB at 3.35 TB/s, and the reverse
+    assert bound_ms(6.7e9, 3.35e6) == (pytest.approx(0.1), 'operations')
+    assert bound_ms(6.7e6, 3.35e9) == (pytest.approx(1.0), 'bytes')

@@ -78,7 +78,7 @@ def slice_pair():
                     jmodel.get_bboxes(results, b))
 
         jres, jdet = jax.device_get(serve(jvars, jbatch))
-    port = zoo.build_detector(cfg)
+    port = zoo.build_detector(cfg, 'cpu')
     port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     batch = zoo.synth_demf_batch(**BATCH)
     return jres, jdet, port, batch
@@ -173,5 +173,5 @@ def test_weights_invert_port_demf_checkpoint():
     assert set(back) == set(sd)
     for k, v in sd.items():
         np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
-    port = zoo.build_detector(cfg.model)
+    port = zoo.build_detector(cfg.model, 'cpu')
     port.load_state_dict(mimic.state_dict(), strict=True)

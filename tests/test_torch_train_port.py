@@ -36,7 +36,7 @@ def tiny_trainer_cfg():
 def tiny():
     """(model, optimizer, train step, cached batch); the tiny config keeps
     its decoder dropout (0.4 / 0.4 / 0.1)."""
-    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg())
+    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg(), 'cpu')
     batch = batch_to_device(zoo.synth_demf_batch(**BATCH), 'cpu')
     batch['img_features'] = compute_image_features(model, batch)
     del batch['img']
@@ -101,7 +101,7 @@ def test_clip_follows_optax_rule():
 
 def test_train_step_keeps_frozen_branch_bit_for_bit(tiny):
     _, _, _, batch = tiny
-    model, _, step = zoo.build_trainer(tiny_trainer_cfg())
+    model, _, step = zoo.build_trainer(tiny_trainer_cfg(), 'cpu')
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     metrics = step(batch, torch.Generator().manual_seed(0))
     assert all(torch.isfinite(v) for v in metrics.values())
@@ -134,11 +134,11 @@ def test_feature_cache_is_shared_with_jax(tmp_path, writer):
 
 def test_checkpoint_saves_and_resumes(tiny, tmp_path):
     _, _, _, batch = tiny
-    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg())
+    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg(), 'cpu')
     step(batch, torch.Generator().manual_seed(0))
     path = save_checkpoint(str(tmp_path), model, optimizer, 4)
     assert path.endswith(os.path.join('checkpoints', 'epoch_5.pth'))
-    fresh, fresh_opt, _ = zoo.build_trainer(tiny_trainer_cfg(), seed=1)
+    fresh, fresh_opt, _ = zoo.build_trainer(tiny_trainer_cfg(), 'cpu', seed=1)
     assert load_checkpoint(path, fresh, fresh_opt) == 4
     for (k, v), w in zip(model.state_dict().items(),
                          fresh.state_dict().values()):
@@ -161,7 +161,7 @@ def test_remap_img_branch_keys():
 
 def test_runner_trains_checkpoints_and_resumes(tiny, tmp_path):
     _, _, _, batch = tiny
-    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg())
+    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg(), 'cpu')
     lines = []
     runner = Runner(model, optimizer, step, [batch, batch], max_epochs=2,
                     log_interval=2, work_dir=str(tmp_path),

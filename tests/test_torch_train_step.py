@@ -123,7 +123,7 @@ def step_pair():
     model, _, step = zoo.build_trainer(
         dict(model=cfg, optimizer=FULL.optimizer,
              optimizer_config=FULL.optimizer_config,
-             lr_config=FULL.lr_config))
+             lr_config=FULL.lr_config), 'cpu')
     model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     img_before = {n: p.detach().clone() for n, p in model.named_parameters()
                   if n.startswith(IMG_BRANCH)}
@@ -246,7 +246,7 @@ def test_adamw_matches_optax_chain_over_two_steps():
         updates, state = tx.update(unflatten_params(g), state, jparams)
         jparams = optax.apply_updates(jparams, updates)
 
-    model = zoo.build_detector(cfg)
+    model = zoo.build_detector(cfg, 'cpu')
     model.load_state_dict(state_dict_from_jax(params, {}), strict=False)
     optimizer = build_optimizer(model, FULL.optimizer,
                                 model.frozen_param_patterns())
