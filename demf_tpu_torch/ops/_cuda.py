@@ -31,6 +31,10 @@ ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
 
+# one H100: what a block may use of an SM's shared memory, and the SMs
+SMEM_PER_BLOCK = 232448
+SM_COUNT = 132
+
 # dtype codes of the kernels that take float32 or bfloat16 operands
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -120,6 +124,16 @@ def build_info():
     return dict(_build_info)
 
 
+def current_stream_handle():
+    """PyTorch's current ``cudaStream_t`` as an int.  The raw getter skips
+    building a ``torch.cuda.Stream``, about 2 us of the ~20 a small launch
+    costs the host; without it the public route gives the same handle."""
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
+
+
 class CudaKernel:
     """One C entry point of the kernel library, with a launch counter.
 
@@ -140,8 +154,7 @@ class CudaKernel:
             fn.argtypes = self.argtypes + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        stream = torch.cuda.current_stream().cuda_stream
-        err = self._fn(*args, stream)
+        err = self._fn(*args, current_stream_handle())
         if err != 0:
             raise RuntimeError(f'{self.symbol}: CUDA error {err} at launch')
         self.launches += 1

@@ -3,7 +3,7 @@
     python -m demf_tpu_torch.tools.bench_gather_kernel [--small]   # K5
     python -m demf_tpu_torch.tools.bench_msda_matmul               # K7
     python -m demf_tpu_torch.tools.bench_msda_fold [--batch B]     # K5 + K6
-    python -m demf_tpu_torch.tools.compare_kernels [--parent DIR]  # K1, K3
+    python -m demf_tpu_torch.tools.compare_kernels [--parent DIR]  # K1-K3, K7
 
 Ports of the JAX package's ``tools/bench_gather_kernel.py``,
 ``tools/bench_msda_matmul.py`` and ``tools/bench_msda_layer.py::main18``.
@@ -11,7 +11,8 @@ Each checks its kernel against the plain version on the kernel's own
 output, then times both with CUDA events, prints its lines and returns
 the numbers.  Inputs come from a seeded generator on the card.  Without a
 card each raises: none falls back to the CPU.  ``compare_kernels`` times
-K1 and K3 in turns with another commit's, each through its own wrapper.
+K1, K2, K3 and K7 in turns with another commit's, each through its own
+wrapper.
 """
 from __future__ import annotations
 

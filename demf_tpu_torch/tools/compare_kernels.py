@@ -1,5 +1,6 @@
-"""K1 (FPS) and K3 (MSDA forward) of this tree against the same kernels of
-another commit, in turns, on one card:
+"""K1 (FPS), K2 (ball query), K3 (MSDA forward) and K7 (M-form sampler) of
+this tree against the same kernels of another commit, in turns, on one
+card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
         tar -x -C build/parent
@@ -9,18 +10,28 @@ another commit, in turns, on one card:
 ``demf_tpu_torch``.  Its ``ops`` package is loaded beside this tree's under
 a name of its own and builds its kernels from its own sources, so each
 side goes through its own wrapper (``furthest_point_sample_cuda``,
-``msda_cuda``), whatever C interface lies below.  At every shape of the
-main paths each side is timed twice, in the order parent, this tree, this
-tree, parent, on tensors made beforehand; K1's picks must be equal and
-K3's outputs within 1e-5 of the plain version's largest.  The encoder's
+``ball_query_cuda``, ``msda_cuda``, ``mform_sample_cuda``), whatever C
+interface lies below.  At every shape of the main paths (K7: the four
+levels of ``bench_msda_matmul``, bf16 and f32) each side is timed twice, in
+the order parent, this tree, this tree, parent, on tensors made beforehand;
+K1's and K2's picks and K7's outputs must be equal (K7's to the plain
+version's too) and K3's outputs within 1e-5 of the plain version's largest.
+K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
+first SA module's ball) and over one of 2 m with an eighth of them twice
+(about 84 in that ball, so every center fills its K slots and equal
+distances occur).  The encoder's
 shape is timed with locations drawn over the whole map and with the
 encoder's own (``tools.encoder_sampling_locations``): offsets of the
 module's initial grid with noise of 0.5 pixels, as a model has them before
 training, and with noise of 4 pixels, which scatters a share of the
 samples out of the kernel's windows as learned offsets may.  Without
-``--parent`` only this tree is timed.  ``--sweep`` also times K1 of this
-tree at every cluster size and block size that holds the points: the
-numbers behind ``ops.sampling.fps_launch_shape``.  Prints its lines, writes
+``--parent`` only this tree is timed.  ``--sweep`` also times this tree's
+K1 at every cluster size and block size that holds the points, K2 at
+every block shape and three tile sizes, and K7 at several tile and block
+sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
+``ops.grouping.ball_query_launch_shape`` and
+``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
+(``fps,ball_query,msda,mform``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -34,13 +45,22 @@ import sys
 
 import torch
 
-from ..ops import msda, sampling
-from . import cuda_device, encoder_sampling_locations, time_ms
+from ..ops import grouping, mform, msda, sampling
+from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
+from . import bench_msda_matmul, cuda_device, encoder_sampling_locations, \
+    time_ms
 
 # (scenes, points, picks) of the point branch's four SA modules and the
 # vote aggregation, at the training batch and the serving batch
 FPS_SHAPES = [(b, n, k) for b in (16, 2) for n, k in (
     (20000, 2048), (2048, 1024), (1024, 512), (512, 256), (1024, 256))]
+# (points, centers, picks, radius) of the four SA modules and the vote
+# aggregation (configs/demf/demf_votenet.py), and the two densities: (name,
+# half the cube's side in metres, share of the points that occur twice)
+BALL_SHAPES = ((20000, 2048, 64, 0.2), (2048, 1024, 32, 0.4),
+               (1024, 512, 16, 0.8), (512, 256, 16, 1.2),
+               (1024, 256, 16, 0.3))
+BALL_DENSITIES = (('sparse', 3.0, 0.0), ('dense', 1.0, 0.125))
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # (name, scenes, points a level, noise of the encoder's offsets in pixels
 # or None); queries are 256 proposals or the tokens
@@ -50,11 +70,15 @@ MSDA_CASES = (('decoder', 16, 2, None), ('decoder', 2, 2, None),
               ('encoder, its own locations, noise 4 px', 2, 4, 4.0))
 
 
+KERNELS = ('fps', 'ball_query', 'msda', 'mform')
+
+
 def parent_ops(parent):
-    """The other commit's (``ops.sampling``, ``ops.msda``), loaded as the
-    package ``demf_parent_ops``; ``this tree`` twice without a parent."""
+    """The other commit's ``ops.sampling``, ``ops.grouping``, ``ops.msda``
+    and ``ops.mform``, loaded as the package ``demf_parent_ops``; ``this
+    tree`` twice without a parent."""
     if parent is None:
-        return sampling, msda
+        return sampling, grouping, msda, mform
     path = os.path.join(parent, 'demf_tpu_torch', 'ops')
     spec = importlib.util.spec_from_file_location(
         'demf_parent_ops', os.path.join(path, '__init__.py'),
@@ -62,8 +86,8 @@ def parent_ops(parent):
     package = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = package
     spec.loader.exec_module(package)
-    return (importlib.import_module('demf_parent_ops.sampling'),
-            importlib.import_module('demf_parent_ops.msda'))
+    return tuple(importlib.import_module(f'demf_parent_ops.{name}')
+                 for name in ('sampling', 'grouping', 'msda', 'mform'))
 
 
 def in_turns(parent, change, iters):
@@ -118,6 +142,149 @@ def sweep_fps(xyz, k, want):
     return found
 
 
+def ball_inputs(b, n, m, half_side, twice, gen, dev):
+    """(B, N, 3) points uniform over a cube, the share ``twice`` of them
+    copies of the first ones; the first M are the centers."""
+    pts = (torch.rand((b, n, 3), generator=gen, device=dev) * 2 - 1) * \
+        half_side
+    copies = int(n * twice)
+    if copies:
+        pts[:, n // 2:n // 2 + copies] = pts[:, :copies]
+    return pts, pts[:, :m].contiguous()
+
+
+def compare_ball_query(old, dev, sweep):
+    rows = []
+    gen = torch.Generator(dev).manual_seed(0)
+    for density, half_side, twice in BALL_DENSITIES:
+        for b in (16, 2):
+            for n, m, k, r in BALL_SHAPES:
+                pts, ctr = ball_inputs(b, n, m, half_side, twice, gen, dev)
+                want = old.ball_query_cuda(r, k, pts, ctr)
+                got = grouping.ball_query_cuda(r, k, pts, ctr)
+                equal = torch.equal(want, got)
+                d2 = grouping.sqdist(ctr, pts)
+                in_ball = (d2 < r * r).sum(-1).float().mean().item()
+                del d2
+                # 50 runs a turn: the small calls take ~10 us on the card
+                ms = in_turns(lambda: old.ball_query_cuda(r, k, pts, ctr),
+                              lambda: grouping.ball_query_cuda(r, k, pts, ctr),
+                              50)
+                row = dict(kernel='ball_query', density=density, b=b, n=n,
+                           m=m, k=k, r=r, in_ball=in_ball, equal=equal,
+                           launch_shape=grouping.ball_query_launch_shape(
+                               b, m, n, k),
+                           parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+                print(f'K2 ball_query {density} (B {b}, M {m}, N {n}, K {k}, '
+                      f'r {r}; {in_ball:.1f} points a ball): parent '
+                      f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} '
+                      f'/ {ms[2]:.4f} ms (warps, centers a warp, list, tile '
+                      f'{row["launch_shape"]}), picks equal: {equal}',
+                      flush=True)
+                if not equal:
+                    raise AssertionError('the two ball query kernels pick '
+                                         'other points')
+                if sweep:
+                    row['sweep'] = sweep_ball_query(pts, ctr, k, r, want)
+                rows.append(row)
+    return rows
+
+
+def sweep_ball_query(pts, ctr, k, r, want):
+    """ms of this tree's K2 by (warps, centers a warp, tile)."""
+    b, n, _ = pts.shape
+    m = ctr.shape[1]
+    cap = grouping.ball_query_launch_shape(b, m, n, k)[2]
+    out = torch.empty_like(want)
+    found = {}
+    for warps, per_warp in ((16, 2), (8, 8), (8, 4), (8, 2), (4, 8), (4, 4),
+                            (4, 2), (4, 1), (2, 4), (2, 2), (2, 1), (1, 2),
+                            (1, 1)):
+        for tile in (512, 1024, 2048):
+            if tile >= 2 * n or grouping.ball_query_smem_bytes(
+                    warps, per_warp, cap, tile) > SMEM_PER_BLOCK:
+                continue
+
+            def run():
+                grouping.BALL_QUERY_KERNEL(
+                    pts.data_ptr(), ctr.data_ptr(), out.data_ptr(), b, n, m,
+                    k, r * r, warps, per_warp, cap, tile)
+
+            run()
+            if not torch.equal(out, want):
+                raise AssertionError(f'ball query picks differ at {warps} '
+                                     f'warps x {per_warp}, tile {tile}')
+            found[f'{warps}x{per_warp}/{tile}'] = time_ms(run, 5)
+    best = sorted(found.items(), key=lambda kv: kv[1])[:6]
+    print('   sweep, best of (warps x centers a warp / tile: ms): ' +
+          ', '.join(f'{key}: {ms:.4f}' for key, ms in best), flush=True)
+    return found
+
+
+def compare_mform(old, dev, sweep):
+    """K7 at ``bench_msda_matmul``'s four levels, bf16 and f32."""
+    rows = []
+    bh, q, hd, slots = (bench_msda_matmul.BH, bench_msda_matmul.Q,
+                        bench_msda_matmul.HD, bench_msda_matmul.SLOTS)
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, label in bench_msda_matmul.LEVELS:
+            plane, idx16, w16 = bench_msda_matmul.make_inputs(
+                bh, n, q, hd, slots, dev)
+            plane, w16 = plane.to(dtype), w16.to(dtype)
+            want = old.mform_sample_cuda(plane, idx16, w16)
+            got = mform.mform_sample_cuda(plane, idx16, w16)
+            equal = torch.equal(want, got) and torch.equal(
+                got, mform.mform_sample_plain(plane, idx16, w16))
+            bag = bench_msda_matmul.embedding_bag_inputs(plane, idx16, w16)
+            library_ms = time_ms(
+                lambda: bench_msda_matmul.mform_library(*bag, bh), 5)
+            del bag
+            ms = in_turns(lambda: old.mform_sample_cuda(plane, idx16, w16),
+                          lambda: mform.mform_sample_cuda(plane, idx16, w16),
+                          10)
+            shape = mform.mform_launch_shape(
+                slots, hd, plane.element_size(), w16.element_size())
+            row = dict(kernel='mform', level=label, n=n, dtype=str(dtype),
+                       equal=equal, launch_shape=shape, library_ms=library_ms,
+                       parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+            print(f'K7 mform {label} N {n} {dtype}: parent {ms[0]:.4f} / '
+                  f'{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms '
+                  f'(queries a tile, threads {shape}), one '
+                  f'embedding_bag call {library_ms:.4f} ms, equal to the '
+                  f'parent\'s and the plain version\'s: {equal}', flush=True)
+            if not equal:
+                raise AssertionError('the M-form kernels disagree')
+            if sweep:
+                row['sweep'] = sweep_mform(plane, idx16, w16, want)
+            rows.append(row)
+    return rows
+
+
+def sweep_mform(plane, idx16, w16, want):
+    """ms of this tree's K7 by (queries a tile, threads)."""
+    bh, n, hd = plane.shape
+    _, k, q, _ = idx16.shape
+    out = torch.empty_like(want)
+    found = {}
+    for shape in [(q_tile, threads) for q_tile in (64, 128, 256, 512)
+                  for threads in (64, 128, 256, 512)]:
+
+        def run():
+            mform.MFORM_KERNEL(
+                plane.data_ptr(), idx16.data_ptr(), w16.data_ptr(),
+                out.data_ptr(), bh, n, k, q, hd, DTYPE_CODES[plane.dtype],
+                DTYPE_CODES[w16.dtype], *shape)
+
+        run()
+        if not torch.equal(out, want):
+            raise AssertionError(f'M-form outputs differ at {shape}')
+        found['/'.join(map(str, shape))] = time_ms(run, 5)
+    best = sorted(found.items(), key=lambda kv: kv[1])[:6]
+    print('   sweep, best of (queries a tile / threads: ms): ' +
+          ', '.join(f'{key}: {ms:.4f}' for key, ms in best), flush=True)
+    return found
+
+
 def compare_msda(old, dev):
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
@@ -158,12 +325,24 @@ def main(argv=None):
     ap.add_argument('--parent', default=None,
                     help="directory with the other commit's demf_tpu_torch")
     ap.add_argument('--sweep', action='store_true')
+    ap.add_argument('--only', default=','.join(KERNELS),
+                    help='comma-separated kernels among ' + ', '.join(KERNELS))
     ap.add_argument('--out', default=None, help='write the rows here as JSON')
     args = ap.parse_args(argv)
     dev = cuda_device()
-    old_sampling, old_msda = parent_ops(args.parent)
-    rows = compare_fps(old_sampling, dev, args.sweep) + compare_msda(
-        old_msda, dev)
+    only = args.only.split(',')
+    if not set(only) <= set(KERNELS):
+        ap.error(f'--only takes {KERNELS}')
+    old_sampling, old_grouping, old_msda, old_mform = parent_ops(args.parent)
+    rows = []
+    if 'fps' in only:
+        rows += compare_fps(old_sampling, dev, args.sweep)
+    if 'ball_query' in only:
+        rows += compare_ball_query(old_grouping, dev, args.sweep)
+    if 'msda' in only:
+        rows += compare_msda(old_msda, dev)
+    if 'mform' in only:
+        rows += compare_mform(old_mform, dev, args.sweep)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -107,8 +107,8 @@ def test_fps_kernel_refuses_launch_shapes(dev, cluster, threads):
 @pytest.mark.parametrize('n,m,k,radius,extent', [
     (3000, 128, 16, 0.3, 1.0),
     (20000, 256, 64, 0.2, 3.0),
-    # every point inside the radius: more candidates than the kernel's
-    # shared-memory list holds, so the rounds rescan the point set
+    # every point inside the radius: many times what a center's list in
+    # shared memory holds, so the list is pruned again and again
     (6000, 8, 32, 5.0, 1.0)])
 def test_ball_query_kernel_equals_plain(dev, n, m, k, radius, extent):
     rng = np.random.RandomState(m)
@@ -124,6 +124,136 @@ def test_ball_query_kernel_equals_plain(dev, n, m, k, radius, extent):
         for i in np.where(ok)[0]:
             assert set(got[bi, i]) == set(want[bi, i]), (bi, i)
     assert compared >= 0.9 * 2 * m
+
+
+def _dense_scene(dev, seed, b, n, m, extent=1.0):
+    """Points uniform over a cube, an eighth of them twice (equal
+    distances); the first M are the centers."""
+    pts = np.random.RandomState(seed).uniform(
+        -extent, extent, (b, n, 3)).astype(np.float32)
+    pts[:, n // 2:n // 2 + n // 8] = pts[:, :n // 8]
+    pts = torch.from_numpy(pts).to(dev)
+    return pts, pts[:, :m].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [1, 16, 64])
+@pytest.mark.parametrize('b,n,m,radius', [
+    (2, 5003, 77, 0.3),       # M no multiple of a block's centers, N of a tile
+    (16, 1000, 130, 0.5),     # the blocks of many centers
+    (2, 20000, 2048, 0.2),    # the first SA module at batch 2
+    (1, 6000, 8, 5.0)])       # every point in the radius
+def test_ball_query_kernel_equals_plain_pick_for_pick(dev, k, b, n, m,
+                                                      radius):
+    """On a dense cloud with duplicated points the kernel's picks equal,
+    index for index, the plain version's on distances rounded as the
+    kernel rounds them (``sqdist_unfused``)."""
+    pts, centers = _dense_scene(dev, n + k, b, n, m)
+    before = grouping.BALL_QUERY_KERNEL.launches
+    got = grouping.ball_query_cuda(radius, k, pts, centers)
+    assert grouping.BALL_QUERY_KERNEL.launches == before + 1
+    want = grouping.ball_query_plain(radius, k, pts, centers,
+                                     distances=grouping.sqdist_unfused)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,radius', [(100, 5.0), (200, 5.0), (300, 0.7)])
+def test_ball_query_kernel_long_lists(dev, k, radius):
+    """K above 96 takes lists of 256 keys or more, which the kernel cuts
+    with its sorting network where K up to 96 ranks by counting: with
+    every point in the radius (many cuts) and with about as many as K."""
+    pts, centers = _dense_scene(dev, k, 2, 2000, 9)
+    assert grouping.ball_query_launch_shape(2, 9, 2000, k)[2] >= 256
+    got = grouping.ball_query_cuda(radius, k, pts, centers)
+    want = grouping.ball_query_plain(radius, k, pts, centers,
+                                     distances=grouping.sqdist_unfused)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ball_query_kernel_matches_its_streamed_emulation(dev):
+    """The plain emulation of the streaming top-K, fed the kernel's
+    distances, at the kernel's own tile and list sizes."""
+    pts, centers = _dense_scene(dev, 4, 1, 1500, 10)
+    _, _, cap, tile = grouping.ball_query_launch_shape(1, 10, 1500, 16)
+    got = grouping.ball_query_cuda(0.9, 16, pts, centers)
+    want = grouping.ball_query_streamed_plain(
+        0.9, 16, pts.cpu(), centers.cpu(), tile, cap,
+        distances=lambda a, b: grouping.sqdist_unfused(
+            a.to(dev), b.to(dev)).cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('warps,per_warp,cap,tile', [
+    (1, 1, 64, 32), (16, 2, 128, 2048), (8, 8, 64, 512), (3, 4, 256, 96),
+    (8, 4, 128, 1024), (4, 1, 64, 4096)])
+def test_ball_query_kernel_equals_plain_at_any_launch_shape(dev, warps,
+                                                            per_warp, cap,
+                                                            tile):
+    """The picks do not depend on how a scene's centers are cut over blocks
+    and warps, nor on the list and tile sizes (a short list is pruned more
+    often)."""
+    n, m, k, radius = 3001, 150, 16, 0.45
+    pts, centers = _dense_scene(dev, warps, 3, n, m)
+    out = torch.empty((3, m, k), dtype=torch.int64, device=dev)
+    grouping.BALL_QUERY_KERNEL(pts.data_ptr(), centers.data_ptr(),
+                               out.data_ptr(), 3, n, m, k, radius * radius,
+                               warps, per_warp, cap, tile)
+    want = grouping.ball_query_plain(radius, k, pts, centers,
+                                     distances=grouping.sqdist_unfused)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('warps,per_warp,cap,tile', [
+    (8, 4, 32, 512),        # a list shorter than K + 32
+    (8, 4, 96, 512),        # no power of two
+    (8, 4, 64, 500),        # a tile that is no whole number of warps
+    (17, 2, 64, 512), (0, 2, 64, 512), (8, 3, 64, 512),
+    (16, 8, 256, 1024)])    # 262 KB of lists: more than a block may hold
+def test_ball_query_kernel_refuses_launch_shapes(dev, warps, per_warp, cap,
+                                                 tile):
+    pts = torch.zeros((1, 600, 3), device=dev)
+    out = torch.empty((1, 600, 16), dtype=torch.int64, device=dev)
+    before = grouping.BALL_QUERY_KERNEL.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        grouping.BALL_QUERY_KERNEL(pts.data_ptr(), pts.data_ptr(),
+                                   out.data_ptr(), 1, 600, 600, 16, 0.04,
+                                   warps, per_warp, cap, tile)
+    assert grouping.BALL_QUERY_KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_ball_query_wrapper_refuses_what_fits_no_block(dev):
+    """K 30,000 would need a list of 32,768 keys a center: the wrapper
+    raises, nothing is truncated and no launch is counted."""
+    pts = torch.zeros((1, 40000, 3), device=dev)
+    before = grouping.BALL_QUERY_KERNEL.launches
+    with pytest.raises(ValueError, match='does not fit'):
+        grouping.ball_query_cuda(0.2, 30000, pts, pts[:, :4].contiguous())
+    assert grouping.BALL_QUERY_KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_ball_query_kernel_takes_a_view_off_the_16_byte_grid(dev):
+    """The kernel copies points 16 bytes at a time and refuses a pointer
+    off that grid; the wrapper hands it a copy instead."""
+    pts, _ = _dense_scene(dev, 6, 3, 1001, 1)
+    view = pts[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    centers = view[:, :50].contiguous()
+    out = torch.empty((2, 50, 8), dtype=torch.int64, device=dev)
+    before = grouping.BALL_QUERY_KERNEL.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        grouping.BALL_QUERY_KERNEL(view.data_ptr(), centers.data_ptr(),
+                                   out.data_ptr(), 2, 1001, 50, 8, 0.09,
+                                   4, 1, 64, 512)
+    assert grouping.BALL_QUERY_KERNEL.launches == before
+    got = grouping.ball_query_cuda(0.3, 8, view, centers)
+    assert torch.equal(got, grouping.ball_query_plain(
+        0.3, 8, view, centers, distances=grouping.sqdist_unfused))
 
 
 @pytest.mark.cuda
@@ -362,6 +492,83 @@ def test_mform_kernel_matches_plain(dev, dtype):
     want = mform.mform_sample_plain(plane, idx16, w16).float()
     assert got.dtype == dtype
     assert (got.float() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _mform_inputs(dev, seed, bh, n, k, q, hd, dtype, wdtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    plane = torch.randn(bh, n, hd, device=dev, generator=g).to(dtype)
+    # some indices below 0 and beyond N: both sides clamp them
+    idx16 = torch.randint(-3, n + 3, (bh, k, q, 1), device=dev, generator=g,
+                          dtype=torch.int32)
+    w16 = torch.rand(bh, k, q, 1, device=dev, generator=g).to(wdtype)
+    return plane, idx16, w16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [16, 32, 64])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('wdtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('q', [301, 1024])
+def test_mform_kernel_equals_plain_bit_for_bit(dev, hd, dtype, wdtype, q):
+    """Every width the kernel takes, either dtype of plane and weights, Q a
+    multiple of the query tile and not (at Q 301 the rows of indices and
+    weights start off the 16-byte grid and are copied element by element),
+    indices out of range clamped."""
+    plane, idx16, w16 = _mform_inputs(dev, hd + q, 3, 700, 16, q, hd, dtype,
+                                      wdtype)
+    assert int(idx16.min()) < 0 and int(idx16.max()) >= 700
+    before = mform.MFORM_KERNEL.launches
+    got = mform.mform_sample(plane, idx16, w16)
+    assert mform.MFORM_KERNEL.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, mform.mform_sample_plain(plane, idx16, w16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('q_tile,threads', [(8, 32), (64, 512), (256, 128),
+                                            (512, 64), (40, 96)])
+@pytest.mark.parametrize('k', [16, 5])
+def test_mform_kernel_equals_plain_at_any_launch_shape(dev, q_tile, threads,
+                                                       k):
+    """The output does not depend on the query tile or the block, with K a
+    multiple of the kernel's unrolled group of slots and not."""
+    plane, idx16, w16 = _mform_inputs(dev, q_tile, 2, 333, k, 777, 32,
+                                      torch.bfloat16, torch.bfloat16)
+    out = torch.empty((2, 777, 32), dtype=torch.bfloat16, device=dev)
+    mform.MFORM_KERNEL(plane.data_ptr(), idx16.data_ptr(), w16.data_ptr(),
+                       out.data_ptr(), 2, 333, k, 777, 32, 1, 1, q_tile,
+                       threads)
+    assert torch.equal(out, mform.mform_sample_plain(plane, idx16, w16))
+
+
+@pytest.mark.cuda
+def test_mform_kernel_refuses_widths_pointers_and_launch_shapes(dev):
+    """A row that is no whole number of 16-byte pieces (the wrapper says
+    so before any launch), a plane off the 16-byte grid, a tile that is no
+    multiple of 8 and a block beyond 512 threads."""
+    plane, idx16, w16 = _mform_inputs(dev, 1, 2, 50, 4, 24, 10,
+                                      torch.float32, torch.float32)
+    before = mform.MFORM_KERNEL.launches
+    with pytest.raises(ValueError, match='16-byte pieces'):
+        mform.mform_sample(plane, idx16, w16)
+    out = torch.empty((2, 24, 16), device=dev)
+
+    def launch(p, hd, q_tile, threads):
+        mform.MFORM_KERNEL(p.data_ptr(), idx16.data_ptr(), w16.data_ptr(),
+                           out.data_ptr(), 2, 50, 4, 24, hd, 0, 0, q_tile,
+                           threads)
+
+    buf = torch.zeros(2 * 50 * 16 + 1, device=dev)
+    shifted = buf[1:].view(2, 50, 16)
+    assert shifted.data_ptr() % 16 == 4
+    for args in ((plane, 10, 64, 128), (shifted, 16, 64, 128),
+                 (buf, 16, 60, 128), (buf, 16, 64, 1024),
+                 (buf, 16, 64, 100)):
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            launch(*args)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        mform.mform_sample(shifted, idx16, w16)
+    assert mform.MFORM_KERNEL.launches == before
 
 
 @pytest.mark.cuda
