@@ -16,8 +16,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    locations over the whole map and with the encoder's own (each token
    samples around its own pixel); K4, the MSDA backward, against the plain
    version's autograd at the decoder's training shape and at the
-   encoder's shape; then the NMS (plain torch, no kernel yet) timed alone
-   at a request's shape beside its bound;
+   encoder's shape; K8, the aligned 3D NMS, keep masks equal to the plain
+   version's bit for bit at a request's shape (2 scenes of 512 boxes) and
+   at an eval batch's (16), on boxes spread out and on clustered boxes
+   where most are suppressed, beside its bound and the least a serial sweep
+   of N dependent steps could take; then the non-empty-box test that runs
+   before the NMS (plain torch), timed alone at batch 2 and 16;
 4. probes: with the launch counts at 0, the port's three probes at their
    full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
    plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
@@ -35,8 +39,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    points and an 800x1344 image through
    ``engine.evaluation.make_eval_step``; every request must launch each
    kernel a fixed number of times; one more request runs under
-   torch.profiler and prints the device time of K1-K3 on the model's own
-   inputs and the device's busy share;
+   torch.profiler and prints the device time of K1-K3 and K8 on the
+   model's own inputs and the device's busy share, and so does one request
+   of batch 16 (an eval batch of the dataset path);
 7. training reference: the full-width detector on a small input, dropout
    off, one forward + loss + backward with the kernels against one with
    the plain versions: losses within 1e-4 relative, each gradient within
@@ -46,27 +51,45 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    feature cache once, then 3 steps through ``engine.trainer``, each with
    finite losses and gradient norm and a fixed number of launches of each
    kernel; the image branch must stay unchanged and every other parameter
-   move.
+   move;
+9. dataset path: ``SyntheticSUNRGBD`` scenes of the real raw size (24,000
+   points, 480x640 images) under the unchanged train and test pipelines
+   of ``configs/demf/demf_votenet.py`` (20,000 points, ``Resize`` to
+   (1333, 800), ``Pad`` 32), 32 train and 18 val scenes
+   (``demf_tpu_torch/configs/demf_votenet_synthetic.py``), through the two
+   entry points' ``main(argv)``: the loader alone (4 workers, scenes/s),
+   then ``demf_tpu_torch.train`` (cache fill, one epoch of 2 steps at batch
+   16, a checkpoint with meta, the eval hook), then ``demf_tpu_torch.eval``
+   on that checkpoint (one full batch of 16 and one filled batch, the mAP
+   printed): 18 finite results, the first one that of scene 0, the
+   checkpoint's meta names the classes, and K1-K4 and K8 were launched the
+   expected number of times.
 
 The line before the last is the kernel table as JSON (K1-K4: launches
 counted in the training path, times and bound at its shape, each kernel's
 first row above; K5-K7: launches counted in the probes phase, times and
 bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
-one chunk, K7 at the finest level; ``library_ms`` is the one PyTorch call
-that computes the kernel's function (K5 an indexing call, K6 an einsum, K7
-an ``embedding_bag`` with weights) and null where there is none: FPS, the
-exact ball query, MSDA and its backward); the
+one chunk, K7 at the finest level; K8: launches counted in the dataset
+path, times and bound at an eval batch's shape; ``library_ms`` is the one
+PyTorch call that computes the kernel's function (K5 an indexing call, K6
+an einsum, K7 an ``embedding_bag`` with weights) and null where there is
+none: FPS, the exact ball query, MSDA and its backward, and the
+class-aware 3D NMS); the
 last line is ``{"ok": true, "device": {...}}``.
 Float32 throughout: TF32 is switched off for matmuls and cuDNN
 convolutions.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,14 +100,29 @@ import torch
 REQUESTS = (0, 1, 2)
 LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7,
                         'msda_backward': 0, 'gather_rows': 0, 'msda_fold': 0,
-                        'mform_sample': 0}
+                        'mform_sample': 0, 'nms3d': 1}
 # train steps per run and what each must launch (the image branch runs
 # once, before, to fill the feature cache)
 TRAIN_STEPS = 3
 TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
 LAUNCHES_PER_STEP = {'fps': 5, 'ball_query': 5, 'msda': 1,
                      'msda_backward': 1, 'gather_rows': 0, 'msda_fold': 0,
-                     'mform_sample': 0}
+                     'mform_sample': 0, 'nms3d': 0}
+# the dataset path: 32 train scenes (2 batches of 16: the cache fill runs
+# the encoder's 6 MSDA layers on each, the epoch 2 steps) and 18 val scenes
+# (2 batches, the second filled), read by the train entry's eval hook and
+# again by the eval entry
+DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
+                           'demf_votenet_synthetic.py')
+EVAL_BATCHES = 2
+VAL_SCENES = 18
+TRAIN_BATCH_SHAPES = ((16, 20000, 4), (16, 800, 1088, 3))   # points, images
+LAUNCHES_TRAIN_ENTRY = {
+    n: 2 * LAUNCHES_PER_STEP[n] + EVAL_BATCHES * LAUNCHES_PER_REQUEST[n]
+    for n in LAUNCHES_PER_STEP}
+LAUNCHES_TRAIN_ENTRY['msda'] += 2 * 6
+LAUNCHES_EVAL_ENTRY = {n: EVAL_BATCHES * c
+                       for n, c in LAUNCHES_PER_REQUEST.items()}
 # the probes' kernels: their launches are counted over the probes phase
 PROBE_KERNELS = ('gather_rows', 'msda_fold', 'mform_sample')
 REPLACES = {
@@ -95,6 +133,7 @@ REPLACES = {
     'gather_rows': 'demf_tpu/ops/pallas/gather_rows.py:81',
     'msda_fold': 'demf_tpu/ops/pallas/msda_fold.py:113',
     'mform_sample': 'tools/bench_msda_matmul.py:73',
+    'nms3d': 'demf_tpu/ops/nms.py:46',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -102,7 +141,8 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'msda_backward': 'demf_tpu_torch/csrc/msda_backward.cu',
            'gather_rows': 'demf_tpu_torch/csrc/gather_rows.cu',
            'msda_fold': 'demf_tpu_torch/csrc/msda_fold.cu',
-           'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu'}
+           'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu',
+           'nms3d': 'demf_tpu_torch/csrc/nms3d.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 
 
@@ -209,26 +249,87 @@ def check_ball_query(dev, rng):
     return rows[0]
 
 
-def time_nms(dev, rng):
-    """``ops.nms.aligned_3d_nms`` (plain torch on the device, no kernel
-    yet) alone, at a request's shape: 2 scenes of 512 boxes in 10 classes.
-    Its bound counts the N^2 pair IoUs (22 operations a pair); the greedy
-    sweep's N dependent steps are what a kernel would have to beat."""
-    from demf_tpu_torch.ops.nms import aligned_3d_nms
+# what the sweep's dependent chain costs a box (a test of its bit and an OR
+# into the removed mask, ~4 clocks of dependent latency each): a reckoning,
+# not a measurement
+SWEEP_CLOCKS_A_BOX = 8
+
+
+def max_sm_clock_hz():
+    """The card's highest SM clock, as nvidia-smi gives it."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def check_nms(dev):
+    """K8 against the plain version, masks equal, at an eval batch's shape
+    and a request's, 10 classes: boxes spread over a cube of 6 m (few
+    overlaps) and boxes clustered around a few centers (most suppressed).
+    Its bound counts the IoUs the sweep can ask for on these inputs, the
+    pairs of valid boxes of one class (22 operations a pair); beside it
+    stands the least a serial sweep of N dependent steps could take at the
+    card's highest clock."""
+    from demf_tpu_torch.ops import nms
     from demf_tpu_torch.tools import bound_ms, time_ms
-    b, n = 2, 512
-    lo = rng.uniform(-3, 3, (b, n, 3)).astype(np.float32)
-    size = rng.uniform(0.3, 1.5, (b, n, 3)).astype(np.float32)
-    boxes = torch.from_numpy(np.concatenate([lo, lo + size], -1)).to(dev)
-    scores = torch.from_numpy(rng.rand(b, n).astype(np.float32)).to(dev)
-    classes = torch.from_numpy(rng.randint(0, 10, (b, n))).to(dev)
-    keep = aligned_3d_nms(boxes, scores, classes, 0.25)
-    ms = time_ms(lambda: aligned_3d_nms(boxes, scores, classes, 0.25), 3)
-    least, by = bound_ms(22 * b * n * n,
-                         b * n * (24 + 4 + 8) + keep.numel())
-    print(f'NMS aligned_3d_nms ({b}, N {n}, 10 classes; plain torch, no '
-          f'kernel): kept {int(keep.sum())} of {b * n}, {ms:.4f} ms, bound '
-          f'{least:.6f} ms ({by})')
+    from demf_tpu_torch.tools.nms_cases import nms_case
+    rows = []
+    clock_hz = max_sm_clock_hz()
+    for b, n, kind in ((16, 512, 'random'), (16, 512, 'clustered'),
+                       (2, 512, 'random'), (2, 512, 'clustered')):
+        boxes, scores, classes, valid = (
+            torch.from_numpy(a).to(dev) for a in nms_case(kind, b, n, seed=b))
+        got = nms.aligned_3d_nms_cuda(boxes, scores, classes, 0.25, valid)
+        want = nms.aligned_3d_nms_plain(boxes, scores, classes, 0.25, valid)
+        differ = int((got != want).sum())
+        ms = time_ms(lambda: nms.aligned_3d_nms_cuda(
+            boxes, scores, classes, 0.25, valid), 20)
+        plain_ms = time_ms(lambda: nms.aligned_3d_nms_plain(
+            boxes, scores, classes, 0.25, valid), 1)
+        # boxes of a scene and a class: m of them make m (m - 1) / 2 pairs
+        sizes = torch.stack([((classes == c) & valid).sum(1)
+                             for c in classes.unique()])
+        pairs = int((sizes * (sizes - 1) // 2).sum())
+        least, by = bound_ms(22 * pairs,
+                             b * n * (24 + 4 + 8 + 1) + got.numel())
+        sweep_ms = n * SWEEP_CLOCKS_A_BOX / clock_hz * 1e3
+        print(f'K8 nms3d ({b}, N {n}, 10 classes, {kind}): kept '
+              f'{int(got.sum())} of {int(valid.sum())} valid, {differ} mask '
+              f'bits differ from plain, kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs} '
+              f'pairs of one class), a serial sweep of {n} steps at '
+              f'{clock_hz / 1e6:.0f} MHz at least {sweep_ms:.6f} ms')
+        if differ:
+            raise AssertionError('NMS kernel keep masks differ from plain')
+        rows.append(kernel_row(differ, ms, plain_ms, least, by))
+    return rows[0]
+
+
+def time_nonempty_test(dev, rng):
+    """The non-empty-box test that ``multiclass_nms_3d`` runs before the
+    NMS (more than 5 of a scene's 20,000 points inside a box, for 512
+    boxes; plain torch, a Python loop over the batch), timed alone."""
+    from demf_tpu_torch.core import boxes as box_ops
+    from demf_tpu_torch.tools import time_ms
+    for b in (2, 16):
+        points = torch.from_numpy(
+            rng.uniform(-3, 3, (b, 20000, 3)).astype(np.float32)).to(dev)
+        bottom = torch.from_numpy(np.concatenate(
+            [rng.uniform(-3, 3, (b, 512, 3)), rng.uniform(0.3, 1.5,
+                                                          (b, 512, 3)),
+             rng.uniform(-3, 3, (b, 512, 1))], -1).astype(np.float32)).to(dev)
+
+        def nonempty():
+            return torch.stack([
+                box_ops.points_in_boxes(points[i], bottom[i]).sum(0) > 5
+                for i in range(b)])
+
+        share = nonempty().float().mean().item()
+        print(f'non-empty-box test ({b}, 20000 points, 512 boxes; plain '
+              f'torch): {time_ms(nonempty, 5):.4f} ms, {share:.1%} of the '
+              f'boxes non-empty')
 
 
 def msda_bytes(shapes, value, locs, aw, backward=False):
@@ -441,8 +542,9 @@ def check_reference(model, dev):
 
 
 def profile_request(eval_step, batch):
-    """One more request under torch.profiler: the device time of the
-    port's kernels on the model's own inputs, and the device's busy share."""
+    """One more request under torch.profiler (after one untraced, timed on
+    the host clock): the device time of the port's kernels on the model's
+    own inputs, and the device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -458,14 +560,15 @@ def profile_request(eval_step, batch):
               if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     ours = []
-    for marker in ('fps_kernel', 'ball_query_kernel', 'msda_forward_kernel'):
+    for marker in ('fps_kernel', 'ball_query_kernel', 'msda_forward_kernel',
+                   'nms3d_kernel'):
         hits = [e for e in events if marker in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         ours.append(f'{marker} {ms:.3f} ms in '
                     f'{sum(e.count for e in hits)} launches')
-    print(f'profiled request: untraced {wall_ms:.3f} ms (host clock), device '
-          f'kernels {busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.1%}; '
-          + '; '.join(ours))
+    print(f'profiled request of batch {batch["points"].shape[0]}: untraced '
+          f'{wall_ms:.3f} ms (host clock), device kernels {busy_ms:.3f} ms, '
+          f'busy share {busy_ms / wall_ms:.1%}; ' + '; '.join(ours))
 
 
 def train_cfg_without_dropout():
@@ -593,6 +696,136 @@ def run_training_path(dev, kernels):
     return launches
 
 
+class Tee(io.StringIO):
+    """Collects what is printed and passes it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def run_entry(main, argv, kernels, expected):
+    """One entry point's ``main(argv)`` with every launch count at 0 before
+    it: -> (what it returned, what it printed, seconds, launches); raises
+    unless it launched each kernel the expected number of times."""
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    if launches != expected:
+        raise AssertionError(f'{main.__module__} launched {launches}, '
+                             f'expected {expected}')
+    return result, tee.getvalue(), seconds, launches
+
+
+def run_dataset_path(kernels):
+    """dataset -> train -> checkpoint -> eval -> mAP through the entry
+    points, at full width; returns the launches of the two entries."""
+    from demf_tpu_torch import eval as eval_entry
+    from demf_tpu_torch import train as train_entry
+    from demf_tpu_torch.data import build_dataloader, build_dataset
+    from demf_tpu_torch.engine import (latest_checkpoint, load_checkpoint,
+                                       load_meta, run_dataset_inference)
+    from demf_tpu_torch.utils.config import Config
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(root, DATASET_CFG)
+    cfg = Config.fromfile(cfg_file)
+    batch = cfg.data['samples_per_gpu']
+
+    np.random.seed(0)
+    train_set = build_dataset(cfg.data['train'])
+    loader = build_dataloader(train_set, samples_per_gpu=batch,
+                              workers_per_gpu=cfg.data['workers_per_gpu'],
+                              shuffle=True, seed=0)
+    t0 = time.perf_counter()
+    shapes = [(b['points'].shape, b['img'].shape) for b in loader]
+    seconds = time.perf_counter() - t0
+    scenes = len(shapes) * batch
+    print(f'dataset path: host pipeline alone, {scenes} scenes '
+          f'({cfg.data["workers_per_gpu"]} workers, batches of points '
+          f'{shapes[0][0]} and images {shapes[0][1]}) in {seconds:.3f} s, '
+          f'{scenes / seconds:.3f} scenes/s')
+    if shapes != [TRAIN_BATCH_SHAPES] * 2:
+        raise AssertionError(f'train batches of {shapes}')
+
+    # the work dir (feature cache ~0.4 GB, checkpoint, log) goes where the
+    # kernels are built: under build/ of this checkout, removed afterwards
+    build_dir = os.path.join(root, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        _, out, seconds, launches = run_entry(
+            train_entry.main, [cfg_file, '--work-dir', work_dir], kernels,
+            LAUNCHES_TRAIN_ENTRY)
+        wait = [line for line in out.splitlines()
+                if 'waiting for the loader' in line]
+        if len(wait) != 1 or out.count('[eval @ epoch 1]') != 1:
+            raise AssertionError('the train entry logged no epoch or eval')
+        print(f'dataset path: train entry {seconds:.3f} s in all; '
+              f'{wait[0].split(" - ", 1)[1]}; launches {launches}')
+        ckpt = latest_checkpoint(work_dir)
+        meta = load_meta(ckpt)
+        if meta['CLASSES'] != list(train_set.CLASSES) or meta['epoch'] != 0 \
+                or 'SyntheticSUNRGBD' not in meta['config']:
+            raise AssertionError(f'checkpoint meta: {sorted(meta)}')
+        if os.listdir(os.path.dirname(ckpt)) != ['epoch_1.pth']:
+            raise AssertionError('checkpoints were not pruned')
+
+        out_file = os.path.join(work_dir, 'results.pkl')
+        torch.cuda.reset_peak_memory_stats()
+        np.random.seed(7)
+        metrics, out, seconds, eval_launches = run_entry(
+            eval_entry.main, [cfg_file, ckpt, '--eval', 'mAP', '--out',
+                              out_file], kernels, LAUNCHES_EVAL_ENTRY)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        with open(out_file, 'rb') as f:
+            results = pickle.load(f)
+        val_set = build_dataset(cfg.data['test'])
+        if len(results) != len(val_set) or len(val_set) != VAL_SCENES:
+            raise AssertionError(f'{len(results)} results for '
+                                 f'{len(val_set)} scenes')
+        for r in results:
+            if not (np.isfinite(r['boxes_3d']).all() and
+                    np.isfinite(r['scores_3d']).all()):
+                raise AssertionError('non-finite detections')
+        if not all(np.isfinite(v) for v in metrics.values()) or \
+                f"mAP_0.25: {metrics['mAP_0.25']:.4f}" not in out:
+            raise AssertionError(f'mAP {metrics}')
+        print(f'dataset path: eval entry {seconds:.3f} s in all, '
+              f'{len(results) / seconds:.3f} scenes/s with the model\'s '
+              f'build and the host pipeline in one thread, peak memory '
+              f'{peak:.1f} MiB at batch {batch}, '
+              f'{sum(len(r["scores_3d"]) for r in results)} detections, '
+              f'mAP_0.25 {metrics["mAP_0.25"]:.4f} mAP_0.50 '
+              f'{metrics["mAP_0.50"]:.4f} (random weights), launches '
+              f'{eval_launches}')
+
+        # the first result is scene 0's: the same draws, the scene alone
+        from demf_tpu_torch import zoo
+        model = zoo.build_detector(cfg.model, seed=0)
+        load_checkpoint(ckpt, model)
+        np.random.seed(7)
+        alone = run_dataset_inference(model, [val_set[0]], batch_size=batch)
+        top = slice(0, 10)
+        if abs(len(alone[0]['scores_3d']) - len(results[0]['scores_3d'])) > \
+                0.01 * len(results[0]['scores_3d']) or not np.allclose(
+                    np.sort(alone[0]['scores_3d'])[::-1][top],
+                    np.sort(results[0]['scores_3d'])[::-1][top], atol=1e-4):
+            raise AssertionError('the first result is not scene 0')
+    for n in launches:
+        launches[n] += eval_launches[n]
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -629,9 +862,10 @@ def main():
     measured = {'fps': check_fps(dev, rng),
                 'ball_query': check_ball_query(dev, rng),
                 'msda': check_msda(dev, rng),
-                'msda_backward': check_msda_backward(dev, rng)}
+                'msda_backward': check_msda_backward(dev, rng),
+                'nms3d': check_nms(dev)}
     kernels = ops.kernels()
-    time_nms(dev, rng)
+    time_nonempty_test(dev, rng)
     probed, probe_launches = run_probes(dev, rng, kernels)
     measured.update(probed)
 
@@ -670,10 +904,17 @@ def main():
               f'launches {launched}')
 
     profile_request(eval_step, batch_to_device(batch, dev))
-    del model, eval_step
+    # an eval batch of the dataset path: 16 scenes (its first run at this
+    # shape is not timed)
+    batch = batch_to_device(zoo.synth_demf_batch(
+        16, p=20000, hw=(800, 1344), valid_hw=(784, 1312), seed=3), dev)
+    eval_step(batch)
+    profile_request(eval_step, batch)
+    del model, eval_step, batch
     check_train_reference(dev)
     launches = run_training_path(dev, kernels)
     launches.update(probe_launches)
+    launches['nms3d'] = run_dataset_path(kernels)['nms3d']
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n], **measured[n])

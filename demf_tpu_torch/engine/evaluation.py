@@ -1,16 +1,21 @@
-"""Inference loop (port of ``engine/trainer.py::make_eval_step`` and
-``engine/evaluation.py::run_dataset_inference``).
+"""Inference loops and the dataset evaluation loop (port of
+``engine/trainer.py::make_eval_step`` and ``demf_tpu/engine/evaluation.py``).
 
-Batches are collated dicts of numpy arrays (``points``, ``img`` or
-``img_features``, ``img_meta``) as ``data.loader.collate_fixed`` and the
-zoo's synthetic batches give them; reading the dataset is not ported yet.
+``run_dataset_inference`` reads a dataset (``data.build_dataset``) scene by
+scene, collates fixed-shape batches and returns per-scene detections for
+``dataset.evaluate`` (the indoor mAP); ``run_batches_inference`` does the
+same over batches that are already collated (dicts of numpy arrays:
+``points``, ``img`` or ``img_features``, ``img_meta``), as
+``data.loader.collate_fixed`` and the zoo's synthetic batches give them.
 """
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Callable, Iterable, List
 
 import numpy as np
 import torch
+
+from ..data.loader import collate_fixed
 
 
 def batch_to_device(batch, device):
@@ -36,7 +41,20 @@ def make_eval_step(model):
     return eval_step
 
 
-def run_dataset_inference(model, batches: Iterable[dict]) -> List[dict]:
+def _scene_results(det, scenes):
+    """Padded detections of a batch -> validity-filtered numpy results of
+    its first ``scenes`` scenes."""
+    det = {k: v.cpu().numpy() for k, v in det.items()}
+    out = []
+    for k in range(scenes):
+        v = det['valid'][k]
+        out.append(dict(boxes_3d=det['boxes_3d'][k][v],
+                        scores_3d=det['scores_3d'][k][v],
+                        labels_3d=det['labels_3d'][k][v]))
+    return out
+
+
+def run_batches_inference(model, batches: Iterable[dict]) -> List[dict]:
     """Run inference over collated numpy batches on the model's device and
     return per-scene numpy results, validity-filtered, in batch order."""
     device = next(model.parameters()).device
@@ -44,10 +62,48 @@ def run_dataset_inference(model, batches: Iterable[dict]) -> List[dict]:
     results: List[dict] = []
     for batch in batches:
         det = eval_step(batch_to_device(batch, device))
-        det = {k: v.cpu().numpy() for k, v in det.items()}
-        for k in range(det['valid'].shape[0]):
-            v = det['valid'][k]
-            results.append(dict(boxes_3d=det['boxes_3d'][k][v],
-                                scores_3d=det['scores_3d'][k][v],
-                                labels_3d=det['labels_3d'][k][v]))
+        results.extend(_scene_results(det, det['valid'].shape[0]))
     return results
+
+
+def run_dataset_inference(model, dataset, batch_size=16, max_gt=64,
+                          progress_cb=None) -> List[dict]:
+    """Run inference over a whole dataset on the model's device (the
+    caller puts the model in eval mode), returning per-scene numpy results,
+    validity-filtered, in dataset order.  Every batch has ``batch_size``
+    scenes: the last one is filled by repeating its last scene, and the
+    fill is dropped."""
+    device = next(model.parameters()).device
+    eval_step = make_eval_step(model)
+    n = len(dataset)
+    results: List[dict] = []
+    for start in range(0, n, batch_size):
+        idx = list(range(start, min(start + batch_size, n)))
+        pad = batch_size - len(idx)
+        samples = [dataset[i] for i in idx] + [dataset[idx[-1]]] * pad
+        batch = collate_fixed(samples, max_gt=max_gt)
+        results.extend(_scene_results(
+            eval_step(batch_to_device(batch, device)), len(idx)))
+        if progress_cb:
+            progress_cb(len(results), n)
+    return results
+
+
+def make_dataset_eval_fn(dataset, batch_size, logger) -> Callable:
+    """-> ``eval_fn(model, epoch)`` for the runner's eval hook: inference
+    over ``dataset`` in eval mode, ``dataset.evaluate``, one log line; the
+    model goes back to the mode it was in."""
+
+    def eval_fn(model, epoch):
+        was_training = model.training
+        model.eval()
+        try:
+            results = run_dataset_inference(model, dataset, batch_size)
+        finally:
+            model.train(was_training)
+        metrics = dataset.evaluate(results)
+        logger(f'[eval @ epoch {epoch + 1}] ' + ' '.join(
+            f'{k}: {v:.4f}' for k, v in metrics.items()))
+        return metrics
+
+    return eval_fn

@@ -62,6 +62,49 @@ class FeatureCache:
         return out
 
 
+def precompute_dataset_features(model, dataset, cache, batch_size=8,
+                                max_gt=64, progress_cb=None):
+    """Fill the cache for every scene of a dataset (one pass, batched; a
+    batch whose scenes are all cached is skipped; the last batch is filled
+    by repeating its last scene)."""
+    from ..data.loader import collate_fixed
+    from .evaluation import batch_to_device
+    device = next(model.parameters()).device
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        ids = list(range(start, min(start + batch_size, n)))
+        if all(cache.has(i) for i in ids):
+            continue
+        pad = batch_size - len(ids)
+        samples = [dataset[i] for i in ids] + [dataset[ids[-1]]] * pad
+        batch = collate_fixed(samples, max_gt=max_gt)
+        feats = compute_image_features(model, batch_to_device(
+            dict(img=batch['img'], img_meta=batch['img_meta']), device))
+        feats = [f.cpu() for f in feats]
+        for k, sid in enumerate(ids):
+            cache.save(sid, [f[k] for f in feats])
+        if progress_cb:
+            progress_cb(min(start + batch_size, n), n)
+
+
+class CachedFeatureLoader:
+    """Wraps a DataLoader: swaps each batch's images for cached features."""
+
+    def __init__(self, loader, cache):
+        self.loader = loader
+        self.cache = cache
+        self.batch_size = loader.batch_size
+        self.dataset = loader.dataset
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield attach_cached_features(batch, self.cache,
+                                         batch['sample_idx'])
+
+
 def attach_cached_features(batch, cache, scene_ids):
     """Collated numpy batch -> the same batch with 'img_features' (levels
     stacked over its scenes) in place of 'img'."""

@@ -1,0 +1,80 @@
+"""Evaluate a checkpoint with the port (the repository's ``eval.py`` on
+PyTorch + CUDA).
+
+    python -m demf_tpu_torch.eval <config> <checkpoint> [--eval mAP]
+        [--out results.pkl] [--format-only] [--eval-options k=v ...]
+
+builds ``data.test`` of the config and the detector, loads the checkpoint
+(strict; ``CLASSES`` come from its meta when it has one), runs batched
+inference over the dataset (``engine.run_dataset_inference``: the last
+batch filled and the fill dropped) and prints the indoor mAP of
+``dataset.evaluate``.  It runs on the GPU by default and stops when there
+is none; ``--device cpu`` is for small configs.
+"""
+from __future__ import annotations
+
+import pickle
+
+from . import zoo
+from .data import build_dataset
+from .engine import load_checkpoint, load_meta, run_dataset_inference
+from .engine.cli import parse_args_test, refuse_compute_dtype, require_device
+from .utils.config import Config
+
+META_SHOWN = ('config_file', 'demf_tpu_torch_version', 'torch_version',
+              'seed', 'time', 'epoch')
+
+
+def main(argv=None):
+    args = parse_args_test(argv)
+    device = require_device(args.device)
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+    refuse_compute_dtype(cfg)
+
+    dataset = build_dataset(cfg.data['test'])
+    # self-describing checkpoints: recover CLASSES recorded at train time
+    meta = load_meta(args.checkpoint)
+    if meta:
+        shown = {k: meta[k] for k in META_SHOWN if k in meta}
+        print(f'checkpoint meta: {shown}')
+        classes = meta.get('CLASSES')
+        if classes and tuple(classes) != tuple(
+                getattr(dataset, 'CLASSES', ()) or ()):
+            print(f'using CLASSES from checkpoint meta: {classes}')
+            inner = getattr(dataset, 'dataset', dataset)
+            inner.CLASSES = dataset.CLASSES = tuple(classes)
+
+    model = zoo.build_detector(cfg.model, device, args.seed)
+    load_checkpoint(args.checkpoint, model)
+    batch_size = cfg.data['samples_per_gpu']
+
+    def progress(done, total):
+        if done % (10 * batch_size) < batch_size:
+            print(f'[{done}/{total}]', flush=True)
+
+    results = run_dataset_inference(
+        model, dataset, batch_size=batch_size, max_gt=cfg.get('max_gt', 64),
+        progress_cb=progress)
+
+    if args.out:
+        with open(args.out, 'wb') as f:
+            pickle.dump(results, f)
+        print(f'results written to {args.out}')
+    if args.format_only:
+        prefix = (args.eval_options or {}).get('pklfile_prefix')
+        _, out_file = dataset.format_results(results, pklfile_prefix=prefix)
+        print(f'formatted results written to {out_file}')
+        return None
+    metrics = None
+    if args.eval:
+        metrics = dataset.evaluate(results, metric=args.eval,
+                                   **(args.eval_options or {}))
+        for k, v in metrics.items():
+            print(f'{k}: {v:.4f}')
+    return metrics
+
+
+if __name__ == '__main__':
+    main()

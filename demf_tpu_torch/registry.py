@@ -81,6 +81,8 @@ NECKS = Registry('torch_necks')
 HEADS = Registry('torch_heads')
 BBOX_CODERS = Registry('torch_bbox_coders')
 LOSSES = Registry('torch_losses')
+PIPELINES = Registry('torch_pipelines')
+DATASETS = Registry('torch_datasets')
 
-__all__ = ['BACKBONES', 'BBOX_CODERS', 'DETECTORS', 'HEADS', 'LOSSES',
-           'NECKS', 'Registry', 'build_from_cfg']
+__all__ = ['BACKBONES', 'BBOX_CODERS', 'DATASETS', 'DETECTORS', 'HEADS',
+           'LOSSES', 'NECKS', 'PIPELINES', 'Registry', 'build_from_cfg']

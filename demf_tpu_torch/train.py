@@ -1,48 +1,46 @@
-"""Train DeMF-VoteNet with the port, on synthetic batches.
+"""Train a detector with the port (the repository's ``train.py`` on
+PyTorch + CUDA).
 
-    python -m demf_tpu_torch.train configs/demf/demf_votenet.py --steps 3
+    python -m demf_tpu_torch.train <config> [--work-dir DIR]
+        [--resume-from CKPT] [--no-validate] [--cfg-options k=v ...]
 
-Builds the detector (seeded random weights), its AdamW and its train step
-from the config (``zoo.build_trainer``), makes one synthetic batch with
-``zoo.synth_demf_batch``, fills its frozen image-branch features once
-(``engine.feature_cache.compute_image_features``) and takes ``--steps``
-steps on it through ``engine.Runner``, logging every step; ``--profile``
-then traces one more step with ``torch.profiler`` and prints its kernels by
-device time and the device's busy share of the step.  Reading the
-dataset is not ported yet; until it is, this is the port's counterpart of
-the repository's ``train.py``.  It runs on the GPU by default and stops
-when there is none; ``--device cpu`` takes the plain versions of the
-kernels (for small sizes only).
+reads the config's dataset through its pipeline (``data.build_dataset``,
+``build_dataloader``), builds the detector (seeded random weights, or the
+config's ``load_from`` warm start), its AdamW, its step LR schedule from
+the loader's length and its train step (``zoo.build_trainer``), fills the
+frozen image-feature cache when the config sets ``cached_img_features``,
+and trains ``runner.max_epochs`` epochs through ``engine.Runner``: a log
+file and a dump of the config in the work dir, checkpoints with meta
+pruned to ``checkpoint_config.max_keep_ckpts``, the mAP on ``data.val``
+every ``evaluation.interval`` epochs.
+
+    python -m demf_tpu_torch.train configs/demf/demf_votenet.py \\
+        --synthetic --steps 3 [--profile]
+
+takes ``--steps`` steps on one synthetic batch (``zoo.synth_demf_batch``,
+its image features cached once) instead of reading a dataset;
+``--profile`` then traces one more step with ``torch.profiler`` and prints
+its kernels by device time, the device's busy share and the step's phases.
+
+Both run on the GPU by default and stop when there is none; ``--device
+cpu`` takes the plain versions of the kernels (for small sizes only).
 """
 from __future__ import annotations
 
-import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
-from . import zoo
-from .engine import Runner, batch_to_device, compute_image_features
+from . import __version__, zoo
+from .data import build_dataloader, build_dataset
+from .engine import (CachedFeatureLoader, FeatureCache, Runner,
+                     batch_to_device, compute_image_features, load_weights,
+                     make_dataset_eval_fn, precompute_dataset_features)
+from .engine.cli import parse_args, refuse_compute_dtype, require_device
 from .engine.trainer import PHASES
 from .utils.config import Config
-
-
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument('config', help='config file, or a path under configs/')
-    p.add_argument('--steps', type=int, default=3)
-    p.add_argument('--batch', type=int, default=16)
-    p.add_argument('--points', type=int, default=20000)
-    p.add_argument('--hw', type=int, nargs=2, default=(800, 1344))
-    p.add_argument('--gt', type=int, default=64, help='GT box slots')
-    p.add_argument('--seed', type=int, default=0)
-    p.add_argument('--device', default='cuda')
-    p.add_argument('--work-dir', default=None,
-                   help='write a checkpoint here at the end')
-    p.add_argument('--profile', action='store_true',
-                   help='trace one more step and print where it spends')
-    return p.parse_args(argv)
 
 
 def _sync(device):
@@ -106,15 +104,11 @@ def profile_step(step, batch, generator, device, rows=20):
                                     row_limit=rows, max_name_column_width=60))
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise SystemExit('no CUDA device: this trainer runs on the GPU '
-                         '(pass --device cpu for a small run on the CPU)')
-    cfg = (Config.fromfile(args.config) if os.path.exists(args.config)
-           else zoo.load_model_cfg(args.config))
-    model, optimizer, step = zoo.build_trainer(cfg, device, args.seed)
+def train_synthetic(cfg, args, device):
+    """``--steps`` steps on one synthetic batch, each logged; the schedule
+    counts ``--steps`` as the epoch's length."""
+    model, optimizer, step = zoo.build_trainer(
+        cfg, device, args.seed, steps_per_epoch=max(args.steps, 1))
     batch = batch_to_device(zoo.synth_demf_batch(
         args.batch, p=args.points, g=args.gt, hw=tuple(args.hw),
         seed=args.seed), device)
@@ -129,6 +123,124 @@ def main(argv=None):
     runner.run()
     if args.profile:
         profile_step(step, batch, runner.generator, device)
+
+
+def train_dataset(cfg, args, device):
+    """The config's dataset, schedule, checkpoints and eval hook."""
+    if args.work_dir:
+        cfg.work_dir = args.work_dir
+    elif not cfg.get('work_dir'):
+        cfg.work_dir = os.path.join(
+            'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
+    os.makedirs(cfg.work_dir, exist_ok=True)
+    cfg.dump(os.path.join(cfg.work_dir, os.path.basename(args.config)))
+    log_file = os.path.join(cfg.work_dir,
+                            time.strftime('%Y%m%d_%H%M%S') + '.log')
+    with open(log_file, 'a') as log_fh:
+
+        def logger(msg):
+            line = f'{time.strftime("%Y-%m-%d %H:%M:%S")} - {msg}'
+            print(line)
+            log_fh.write(line + '\n')
+            log_fh.flush()
+
+        _train_dataset(cfg, args, device, logger)
+
+
+def _train_dataset(cfg, args, device, logger):
+    name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
+            else 'cpu')
+    logger(f'device: {name}')
+    logger(f'config: {args.config}')
+    if args.autoscale_lr:
+        cfg.optimizer['lr'] = (cfg.optimizer['lr'] *
+                               max(torch.cuda.device_count(), 1) / 8.0)
+        logger(f'autoscaled lr to {cfg.optimizer["lr"]}')
+    np.random.seed(args.seed)
+
+    batch_size = cfg.data['samples_per_gpu']
+    max_gt = cfg.get('max_gt', 64)
+    dataset = build_dataset(cfg.data['train'])
+    loader = build_dataloader(
+        dataset, samples_per_gpu=batch_size,
+        workers_per_gpu=cfg.data.get('workers_per_gpu', 4), shuffle=True,
+        seed=args.seed, max_gt=max_gt)
+
+    model, optimizer, step = zoo.build_trainer(
+        cfg, device, args.seed, steps_per_epoch=max(len(loader), 1))
+    n_params = sum(p.numel() for p in model.parameters())
+    logger(f'model params: {n_params / 1e6:.2f}M')
+    if cfg.get('load_from'):
+        missing, unexpected = load_weights(cfg.load_from, model)
+        logger(f'warm-started from {cfg.load_from} ({len(missing)} keys '
+               f'missing, {len(unexpected)} unexpected)')
+    frozen = model.frozen_param_patterns()
+    if frozen:
+        logger(f'frozen param patterns: {frozen}')
+
+    if cfg.get('cached_img_features'):
+        # frozen image branch + deterministic image pipeline => encode each
+        # scene once and train the fusion stage from the cache
+        cache = FeatureCache(os.path.join(cfg.work_dir, 'img_feat_cache'))
+        logger('filling frozen image-feature cache ...')
+        t0 = time.perf_counter()
+        precompute_dataset_features(
+            model, getattr(dataset, 'dataset', dataset), cache,
+            batch_size=batch_size, max_gt=max_gt,
+            progress_cb=lambda d, n: logger(f'  cache {d}/{n}'))
+        loader = CachedFeatureLoader(loader, cache)
+        logger(f'image-feature cache active '
+               f'({time.perf_counter() - t0:.3f} s)')
+
+    evaluation = cfg.get('evaluation') or {}
+    eval_fn = None
+    if not args.no_validate and evaluation.get('interval'):
+        eval_fn = make_dataset_eval_fn(build_dataset(cfg.data['val']),
+                                       batch_size, logger)
+    ckpt_cfg = cfg.get('checkpoint_config') or {}
+    # self-describing checkpoints: the config text, CLASSES and versions
+    meta = dict(
+        config=cfg.dump(),
+        config_file=os.path.basename(args.config),
+        CLASSES=list(getattr(dataset, 'CLASSES', []) or []),
+        demf_tpu_torch_version=__version__,
+        torch_version=str(torch.__version__),
+        seed=args.seed,
+        time=time.strftime('%Y-%m-%d %H:%M:%S'))
+    runner = Runner(
+        model, optimizer, step, loader,
+        max_epochs=cfg.runner['max_epochs'],
+        log_interval=(cfg.get('log_config') or {}).get('interval', 50),
+        checkpoint_interval=ckpt_cfg.get('interval', 1),
+        max_keep_ckpts=ckpt_cfg.get('max_keep_ckpts', -1),
+        work_dir=cfg.work_dir, seed=args.seed, logger=logger,
+        eval_fn=eval_fn,
+        eval_interval=0 if eval_fn is None else evaluation['interval'],
+        meta=meta)
+    if args.resume_from:
+        runner.resume(args.resume_from)
+        logger(f'resumed from {args.resume_from}')
+    runner.run()
+    if runner.epoch_s:
+        logger(f'epochs took {runner.epoch_s:.3f} s, of which '
+               f'{runner.loader_wait_s:.3f} s '
+               f'({runner.loader_wait_s / runner.epoch_s:.1%}) waiting for '
+               f'the loader')
+    logger('training finished')
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = require_device(args.device)
+    cfg = (Config.fromfile(args.config) if os.path.exists(args.config)
+           else zoo.load_model_cfg(args.config))
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+    refuse_compute_dtype(cfg)
+    if args.synthetic:
+        train_synthetic(cfg, args, device)
+    else:
+        train_dataset(cfg, args, device)
 
 
 if __name__ == '__main__':

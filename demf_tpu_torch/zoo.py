@@ -1,6 +1,7 @@
 """Build the port's detector and its trainer from the shared ``configs/``,
-and make synthetic batches (numpy) with the fields, shapes and meta of
-``demf_tpu.zoo.synth_demf_batch``, value for value from the same seed."""
+the tiny DeMF model config of the CPU runs, and synthetic batches (numpy)
+with the fields, shapes and meta of ``demf_tpu.zoo.synth_demf_batch``,
+value for value from the same seed."""
 from __future__ import annotations
 
 import os
@@ -51,7 +52,9 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
     """Detector (seeded random weights, train mode) plus its AdamW and train
     step, as the JAX package's ``train.py`` and ``bench.py`` set them up:
     the config's optimizer with the frozen image branch at lr_mult 0, its
-    step LR schedule and its grad clip.
+    step LR schedule and its grad clip.  The schedule's milestones are
+    epochs: pass the loader's length as ``steps_per_epoch`` (the default of
+    1 makes them step counts).
 
     ``cfg``: a path under ``configs/``, or a config / dict with ``model``,
     ``optimizer`` and optionally ``optimizer_config`` and ``lr_config``.
@@ -59,7 +62,7 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
     train_step).
     """
     from .engine.optim import build_optimizer, step_lr_schedule
-    from .engine.trainer import make_train_step
+    from .engine.trainer import TrainStep
     if isinstance(cfg, str):
         cfg = load_model_cfg(cfg)
     model = build_detector(cfg['model'], device, seed).train()
@@ -72,9 +75,98 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
         warmup_iters=lr_cfg.get('warmup_iters', 500),
         warmup_ratio=lr_cfg.get('warmup_ratio', 1.0 / 3))
     clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
-    step = make_train_step(model, optimizer, scheduler,
-                           clip['max_norm'] if clip else None)
+    step = TrainStep(model, optimizer, scheduler,
+                     clip['max_norm'] if clip else None)
     return model, optimizer, step
+
+
+def tiny_demf_model_cfg():
+    """Scaled-down DeMF for CPU runs (same topology, small dims), equal to
+    ``demf_tpu.zoo.tiny_demf_model_cfg`` (a test holds the two together)."""
+    return dict(
+        type='DeMFVoteNet',
+        img_backbone=dict(type='ResNet', depth=50, num_stages=4,
+                          out_indices=(1, 2, 3), frozen_stages=1,
+                          norm_eval=True, style='pytorch'),
+        img_neck=dict(type='ChannelMapper', in_channels=[512, 1024, 2048],
+                      kernel_size=1, out_channels=32, act_cfg=None,
+                      norm_cfg=dict(type='GN', num_groups=8), num_outs=4),
+        img_encoder=dict(
+            type='DeformableDetrEncoder',
+            encoder=dict(
+                type='DetrTransformerEncoder', num_layers=2,
+                transformerlayers=dict(
+                    type='BaseTransformerLayer',
+                    attn_cfgs=dict(type='MultiScaleDeformableAttention',
+                                   embed_dims=32),
+                    feedforward_channels=64, ffn_dropout=0.1,
+                    operation_order=('self_attn', 'norm', 'ffn', 'norm'))),
+            positional_encoding=dict(type='SinePositionalEncoding',
+                                     num_feats=16, normalize=True,
+                                     offset=-0.5),
+            num_feature_levels=4, embed_dims=32),
+        pts_backbone=dict(
+            type='PointNet2SASSG', in_channels=4,
+            num_points=(64, 32, 16, 8), radius=(0.2, 0.4, 0.8, 1.2),
+            num_samples=(8, 8, 4, 4),
+            sa_channels=((16, 16, 32), (32, 32, 32), (32, 32, 32),
+                         (32, 32, 32)),
+            fp_channels=((32, 32), (32, 32)), norm_cfg=dict(type='BN2d'),
+            sa_cfg=dict(type='PointSAModule', pool_mod='max', use_xyz=True,
+                        normalize_xyz=True)),
+        pts_bbox_head=dict(
+            type='DeMFVoteHead', num_classes=10,
+            pred_layer_cfg=dict(in_channels=32,
+                                shared_conv_channels=(32, 32), bias=True,
+                                conv_pred_layers=2),
+            decoder=dict(
+                type='DeMFTransformerDecoderLayer', num_layers=1,
+                transformerlayers=dict(
+                    type='DetrTransformerDecoderLayer',
+                    attn_cfgs=[
+                        dict(type='MultiheadAttention', embed_dims=32,
+                             num_heads=4, dropout=0.4),
+                        dict(type='MultiScaleDeformableAttention',
+                             num_heads=4, num_levels=4, num_points=2,
+                             dropout=0.4, embed_dims=32)],
+                    feedforward_channels=64, ffn_dropout=0.1,
+                    operation_order=('self_attn', 'norm', 'cross_attn',
+                                     'norm', 'ffn', 'norm')),
+                posembed=dict(input_channel=6, num_pos_feats=32)),
+            bbox_coder=dict(type='DeMFClassAgnosticBBoxCoder',
+                            num_dir_bins=12, with_rot=True, num_sizes=10),
+            objectness_loss=dict(type='CrossEntropyLoss',
+                                 class_weight=[0.2, 0.8], reduction='sum',
+                                 loss_weight=5.0),
+            dir_class_loss=dict(type='CrossEntropyLoss', reduction='sum',
+                                loss_weight=1.0),
+            dir_res_loss=dict(type='SmoothL1Loss', reduction='sum',
+                              loss_weight=10.0),
+            size_res_loss=dict(type='SmoothL1Loss', reduction='sum',
+                               loss_weight=10.0, beta=0.0625),
+            center_loss=dict(type='SmoothL1Loss', beta=1.0 / 9.0,
+                             reduction='sum', loss_weight=10.0),
+            iou_loss=dict(type='AxisAlignedIoULoss', reduction='sum',
+                          loss_weight=4.0),
+            semantic_loss=dict(type='CrossEntropyLoss', reduction='sum',
+                               loss_weight=1.0),
+            vote_module_cfg=dict(
+                in_channels=32, vote_per_seed=1, gt_per_seed=3,
+                conv_channels=(32, 32), norm_feats=True,
+                vote_loss=dict(type='ChamferDistance', mode='l1',
+                               reduction='none', loss_dst_weight=10.0)),
+            vote_aggregation_cfg=dict(
+                type='PointSAModule', num_point=16, radius=0.3,
+                num_sample=4, mlp_channels=[32, 32, 32, 32], use_xyz=True,
+                normalize_xyz=True)),
+        num_sampled_seed=1024,
+        freeze_img_branch=True,
+        train_cfg=dict(pts=dict(pos_distance_thr=0.3, neg_distance_thr=0.6,
+                                sample_mod='seed')),
+        test_cfg=dict(img_rcnn=dict(score_thr=0.1),
+                      pts=dict(ensemble_layers=[0, 1], sample_mod='seed',
+                               nms_thr=0.25, score_thr=0.05,
+                               per_class_proposal=True)))
 
 
 def synth_demf_batch(b, p=20000, g=32, hw=(800, 1344), seed=0,

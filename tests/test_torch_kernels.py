@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from demf_tpu_torch.ops import (gather_rows, grouping, mform, msda, msda_fold,
-                                sampling)
+                                nms, sampling)
 
 
 def unambiguous_centers(points, centers, radius, k):
@@ -587,3 +587,62 @@ def test_msda_kernel_tiles_with_many_points(dev, hd, p):
     got = msda.msda_cuda(value, shapes, locs, aw)
     want = msda.msda_plain(value, shapes, locs, aw)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _nms_inputs(dev, kind, b, n, seed=0):
+    from demf_tpu_torch.tools.nms_cases import nms_case
+    return [torch.from_numpy(a).to(dev) for a in nms_case(kind, b, n, seed)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,n', [(2, 512), (16, 512), (3, 500), (1, 32)])
+@pytest.mark.parametrize('kind', ['random', 'clustered', 'ties', 'invalid',
+                                  'degenerate', 'one_class'])
+def test_nms_kernel_keep_masks_equal_plain(dev, kind, b, n):
+    """K8 against the plain version, masks equal bit for bit: few and many
+    suppressions, equal scores, invalid boxes and a wholly invalid scene,
+    flat / inverted / identical boxes with NaN and infinite coordinates and
+    scores, one class, N no multiple of 32; one launch a batch."""
+    boxes, scores, classes, valid = _nms_inputs(dev, kind, b, n, seed=n + b)
+    before = nms.NMS3D_KERNEL.launches
+    got = nms.aligned_3d_nms(boxes, scores, classes, 0.25, valid)
+    assert nms.NMS3D_KERNEL.launches == before + 1
+    want = nms.aligned_3d_nms_plain(boxes, scores, classes, 0.25, valid)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    if kind in ('clustered', 'one_class') and n >= 500:
+        assert int(want.sum()) < int(valid.sum()) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('thresh', [0.0, 0.1, 0.5, 0.9])
+@pytest.mark.parametrize('n', [1, 31, 33, 256, 1024, 1184])
+def test_nms_kernel_any_threshold_and_size(dev, n, thresh):
+    """One box, N around a word's 32 bits, the VoteNet size, the largest
+    power of two and the most a block's shared memory holds; no valid mask
+    given."""
+    boxes, scores, classes, _ = _nms_inputs(dev, 'ties', 2, n, seed=n)
+    got = nms.aligned_3d_nms(boxes, scores, classes, thresh)
+    want = nms.aligned_3d_nms_plain(boxes, scores, classes, thresh,
+                                    torch.ones_like(scores, dtype=torch.bool))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_refuses_what_it_cannot_take(dev):
+    """More boxes than a block's shared memory holds, a negative
+    threshold, other dtypes: each raises before any launch; an empty batch
+    launches nothing."""
+    boxes, scores, classes, valid = _nms_inputs(dev, 'random', 1, 1185)
+    before = nms.NMS3D_KERNEL.launches
+    with pytest.raises(ValueError, match='shared memory'):
+        nms.aligned_3d_nms(boxes, scores, classes, 0.25, valid)
+    boxes, scores, classes, valid = _nms_inputs(dev, 'random', 2, 64)
+    with pytest.raises(ValueError, match='thresh'):
+        nms.aligned_3d_nms(boxes, scores, classes, -0.1, valid)
+    with pytest.raises(TypeError, match='classes'):
+        nms.aligned_3d_nms(boxes, scores, classes.int(), 0.25, valid)
+    with pytest.raises(TypeError, match='boxes'):
+        nms.aligned_3d_nms(boxes.double(), scores, classes, 0.25, valid)
+    assert nms.aligned_3d_nms(boxes[:0], scores[:0], classes[:0], 0.25,
+                              valid[:0]).shape == (0, 64)
+    assert nms.NMS3D_KERNEL.launches == before

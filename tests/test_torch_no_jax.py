@@ -1,5 +1,6 @@
 """The port runs where there is no JAX: importing ``demf_tpu_torch``, every
-submodule and ``chip_smoke`` must not touch jax, flax or the JAX package
+submodule (the data layer, the mAP and the two entry points among them)
+and ``chip_smoke`` must not touch jax, flax, optax, orbax or the JAX package
 ``demf_tpu`` (not even its framework-free modules: the port keeps its own
 copies), and must not build the CUDA kernels (they are built at first
 launch, so no nvcc is needed to import)."""
@@ -15,6 +16,8 @@ _PROBE = r'''
 import importlib, pkgutil, sys
 sys.modules['jax'] = None          # any "import jax" now raises ImportError
 sys.modules['flax'] = None
+sys.modules['optax'] = None
+sys.modules['orbax'] = None
 sys.modules['demf_tpu'] = None     # the JAX package, whatever the module
 import demf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(demf_tpu_torch.__path__,
@@ -25,11 +28,16 @@ import chip_smoke  # noqa: F401
 from demf_tpu_torch.ops import _cuda
 assert _cuda._lib is None, 'the kernel library was loaded at import'
 loaded = sorted(m for m in sys.modules
-                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'demf_tpu')
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                       'orbax', 'demf_tpu')
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-print(len(names))
+print(' '.join(names))
 '''
+
+DATASET_PATH_MODULES = ('data', 'data.pipeline', 'data.sunrgbd',
+                        'data.loader', 'core.eval3d', 'engine.cli', 'train',
+                        'eval', 'tools.nms_cases')
 
 
 def test_port_imports_without_jax_or_nvcc():
@@ -38,17 +46,22 @@ def test_port_imports_without_jax_or_nvcc():
     proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    names = proc.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 50
+    for name in DATASET_PATH_MODULES:
+        assert f'demf_tpu_torch.{name}' in names
 
 
 def test_port_sources_name_no_import_of_the_jax_package():
-    """No ``import demf_tpu`` / ``from demf_tpu[.x] import`` in the port's
-    sources or in ``chip_smoke.py`` (a lazy import inside a function would
-    get past the probe above)."""
-    pattern = re.compile(r'^\s*(from|import)\s+demf_tpu($|[.\s])', re.M)
+    """No ``import demf_tpu`` / ``from demf_tpu[.x] import``, and no import
+    of jax, flax, optax or orbax, in the port's sources, its configs or
+    ``chip_smoke.py`` (a lazy import inside a function would get past the
+    probe above)."""
+    pattern = re.compile(
+        r'^\s*(from|import)\s+(demf_tpu|jax|flax|optax|orbax)($|[.\s])', re.M)
     files = glob.glob(os.path.join(ROOT, 'demf_tpu_torch', '**', '*.py'),
                       recursive=True) + [os.path.join(ROOT, 'chip_smoke.py')]
-    assert len(files) >= 40
+    assert len(files) >= 55
     hits = []
     for path in files:
         with open(path) as f:

@@ -23,7 +23,7 @@ from demf_tpu.zoo import synth_demf_batch as jax_synth_batch
 from demf_tpu.zoo import tiny_demf_model_cfg
 from demf_tpu_torch import zoo
 from demf_tpu_torch.engine import (batch_to_device, make_eval_step,
-                                   run_dataset_inference,
+                                   run_batches_inference,
                                    state_dict_from_jax)
 from test_demf_port import DeMFVoteNetMimic
 
@@ -138,9 +138,9 @@ def test_detections_match_jax(slice_pair):
                                    jdet[key][valid], rtol=1e-4, atol=1e-4)
 
 
-def test_run_dataset_inference_filters_valid(slice_pair):
+def test_run_batches_inference_filters_valid(slice_pair):
     _, jdet, port, batch = slice_pair
-    results = run_dataset_inference(port, [batch, batch])
+    results = run_batches_inference(port, [batch, batch])
     assert len(results) == 4
     for i, r in enumerate(results):
         v = jdet['valid'][i % 2]

@@ -2,7 +2,9 @@
 and random proposal sampling repeat from an explicit ``torch.Generator``,
 the spec sampling runs, the optax clip rule, the frozen-feature cache is
 shared with the JAX package in both directions, checkpoints save and
-resume, the warm-start key remap, the runner and the training entry point.
+resume (with the update count, so the LR schedule goes on), carry meta and
+are pruned, the warm-start key remap, the runner with its eval hook, and
+the training entry point's synthetic mode and its schedule.
 """
 import copy
 import os
@@ -17,7 +19,8 @@ from demf_tpu_torch import train, zoo
 from demf_tpu_torch.engine import (FeatureCache, Runner,
                                    attach_cached_features, batch_to_device,
                                    clip_grad_global_norm,
-                                   compute_image_features, load_checkpoint,
+                                   compute_image_features, latest_checkpoint,
+                                   load_checkpoint, load_meta, load_weights,
                                    remap_img_branch_keys, save_checkpoint)
 
 FULL = load_model_cfg('demf/demf_votenet.py')
@@ -181,12 +184,197 @@ def test_train_entry_point_runs_tiny_config(tmp_path, capsys):
     cfg = tiny_trainer_cfg()
     cfg_file.write_text('\n'.join(f'{k} = {dict(v)!r}'
                                   for k, v in cfg.items()))
-    train.main([str(cfg_file), '--steps', '2', '--batch', '2', '--points',
-                '1024', '--hw', '64', '96', '--gt', '8', '--device', 'cpu',
-                '--work-dir', str(tmp_path / 'wd'), '--profile'])
+    train.main([str(cfg_file), '--synthetic', '--steps', '2', '--batch', '2',
+                '--points', '1024', '--hw', '64', '96', '--gt', '8',
+                '--device', 'cpu', '--work-dir', str(tmp_path / 'wd'),
+                '--profile'])
     out = capsys.readouterr().out
     assert 'image features of 2 scenes cached' in out
     assert out.count('Epoch [1/1]') == 2
     assert 'profiled step' in out
     assert 'phases: forward' in out and ', optimizer ' in out
     assert os.path.exists(tmp_path / 'wd' / 'checkpoints' / 'epoch_1.pth')
+
+
+def _record_rates(optimizer):
+    """Every base learning rate ``optimizer.step`` is called with."""
+    rates, step = [], optimizer.step
+
+    def recording_step(*args, **kwargs):
+        rates.append(optimizer.param_groups[0]['lr'] /
+                     optimizer.param_groups[0]['lr_mult'])
+        return step(*args, **kwargs)
+
+    optimizer.step = recording_step
+    return rates
+
+
+def _scheduled_trainer(batches):
+    """The tiny model without dropout (so that a run repeats exactly), a
+    schedule whose warmup (2 steps) and milestone (epoch 1) fall inside
+    two epochs of three steps, and three cached batches."""
+    cfg = tiny_trainer_cfg()
+    tl = cfg['model']['pts_bbox_head']['decoder']['transformerlayers']
+    tl['ffn_dropout'] = 0.0
+    tl['attn_cfgs'] = [dict(c, dropout=0.0) for c in tl['attn_cfgs']]
+    cfg['lr_config'] = dict(policy='step', warmup='linear', warmup_iters=2,
+                            warmup_ratio=0.25, step=[1])
+    model, optimizer, step = zoo.build_trainer(cfg, 'cpu', steps_per_epoch=3)
+    if not batches:
+        for seed in range(3):
+            b = batch_to_device(zoo.synth_demf_batch(**dict(BATCH, seed=seed)),
+                                'cpu')
+            b['img_features'] = compute_image_features(model, b)
+            del b['img']
+            batches.append(b)
+    return model, optimizer, step, _record_rates(optimizer)
+
+
+def test_resume_continues_the_lr_schedule_and_the_weights(tmp_path):
+    """Two epochs unbroken against one epoch, a resume in a fresh trainer,
+    and one more: the rate of every step and the final weights are equal
+    (the update count travels in the checkpoint)."""
+    batches = []
+    model, optimizer, step, rates = _scheduled_trainer(batches)
+    Runner(model, optimizer, step, batches, max_epochs=2,
+           logger=lambda m: None).run()
+    base = FULL.optimizer['lr']
+    assert rates[:3] == pytest.approx([base * 0.25, base * 0.625, base])
+    assert rates[3:] == pytest.approx([base * 0.1] * 3)
+
+    first, first_opt, first_step, first_rates = _scheduled_trainer(batches)
+    Runner(first, first_opt, first_step, batches, max_epochs=1,
+           work_dir=str(tmp_path), logger=lambda m: None).run()
+    ckpt = latest_checkpoint(str(tmp_path))
+    again, again_opt, again_step, again_rates = _scheduled_trainer(batches)
+    runner = Runner(again, again_opt, again_step, batches, max_epochs=2,
+                    logger=lambda m: None)
+    runner.resume(ckpt)
+    assert runner.start_epoch == 1 and again_step.count == 3
+    runner.run()
+    assert first_rates + again_rates == rates
+    assert again_step.count == step.count == 6
+    for (k, v), w in zip(model.state_dict().items(),
+                         again.state_dict().values()):
+        assert torch.equal(v, w), k
+
+
+def test_checkpoints_carry_meta_and_are_pruned(tiny, tmp_path):
+    model, optimizer, step, batch = tiny
+    wd = str(tmp_path)
+    assert latest_checkpoint(wd) is None
+    meta = dict(config='model = {}', CLASSES=['bed', 'chair'], seed=3,
+                versions=dict(torch='2'))
+    for epoch in range(4):
+        save_checkpoint(wd, model, optimizer, epoch, count=10 * epoch,
+                        keep=2, meta=meta)
+    assert sorted(os.listdir(os.path.join(wd, 'checkpoints'))) == \
+        ['epoch_3.pth', 'epoch_4.pth']
+    latest = latest_checkpoint(wd)
+    assert latest.endswith('epoch_4.pth')
+    assert load_meta(latest) == dict(meta, epoch=3)
+    save_checkpoint(wd, model, optimizer, 9, meta=meta)       # keeps all
+    assert latest_checkpoint(wd).endswith('epoch_10.pth')
+    assert len(os.listdir(os.path.join(wd, 'checkpoints'))) == 3
+    bare = save_checkpoint(str(tmp_path / 'bare'), model, optimizer, 0)
+    assert load_meta(bare) is None
+    fresh_step = zoo.build_trainer(tiny_trainer_cfg(), 'cpu')[2]
+    assert load_checkpoint(latest, model, optimizer, fresh_step) == 3
+    assert fresh_step.count == 30
+    with pytest.raises(TypeError, match='plain types'):
+        save_checkpoint(wd, model, optimizer, 0,
+                        meta=dict(torch_version=torch.__version__))
+
+
+def test_runner_prunes_writes_meta_and_fires_the_eval_hook(tiny, tmp_path):
+    _, _, _, batch = tiny
+    model, optimizer, step = zoo.build_trainer(tiny_trainer_cfg(), 'cpu')
+    seen = []
+
+    def eval_fn(m, epoch):
+        seen.append((epoch, m is model, m.training))
+
+    runner = Runner(model, optimizer, step, [batch], max_epochs=4,
+                    work_dir=str(tmp_path), logger=lambda m: None,
+                    eval_fn=eval_fn, eval_interval=2, max_keep_ckpts=1,
+                    meta=dict(CLASSES=['bed']))
+    runner.run()
+    assert seen == [(1, True, True), (3, True, True)]
+    assert os.listdir(tmp_path / 'checkpoints') == ['epoch_4.pth']
+    assert load_meta(latest_checkpoint(str(tmp_path))) == \
+        dict(CLASSES=['bed'], epoch=3)
+    assert runner.epoch_s > 0 and 0 <= runner.loader_wait_s < runner.epoch_s
+
+
+def test_load_weights_warm_starts_through_the_remap(tiny, tmp_path):
+    """A stage-1 file (encoder under ``img_bbox_head.transformer``, a
+    decoder that DeMF drops) and a checkpoint of the port both load."""
+    model = tiny[0]
+    fresh = zoo.build_detector(tiny_trainer_cfg()['model'], 'cpu', seed=5)
+    stage1 = {}
+    for k, v in model.state_dict().items():
+        if k.startswith('img_encoder.'):
+            k = k.replace('img_encoder.', 'img_bbox_head.transformer.', 1)
+        stage1[k] = v
+    stage1['img_bbox_head.transformer.decoder.layers.0.w'] = torch.zeros(1)
+    path = str(tmp_path / 'stage1.pth')
+    torch.save(stage1, path)
+    assert load_weights(path, fresh) == ([], [])
+    for (k, v), w in zip(model.state_dict().items(),
+                         fresh.state_dict().values()):
+        assert torch.equal(v, w), k
+    ckpt = save_checkpoint(str(tmp_path), model, tiny[1], 0)
+    assert load_weights(ckpt, fresh) == ([], [])
+
+
+def test_train_entry_point_takes_the_epochs_length_for_its_schedule(
+        tmp_path, monkeypatch):
+    """``schedule_3x`` (milestones at epochs 24 and 32) over an epoch of 30
+    steps: step 24 still runs at the base rate, in the dataset mode (the
+    loader's length) and in the synthetic mode (``--steps``)."""
+    rates = []
+    build = zoo.build_trainer
+
+    def recording_build(*args, **kwargs):
+        model, optimizer, step = build(*args, **kwargs)
+        rates.append(_record_rates(optimizer))
+        return model, optimizer, step
+
+    monkeypatch.setattr(zoo, 'build_trainer', recording_build)
+    cfg = os.path.join(os.path.dirname(zoo.__file__), 'configs',
+                       'demf_tiny.py')
+    train.main([cfg, '--device', 'cpu', '--work-dir', str(tmp_path / 'wd'),
+                '--no-validate', '--cfg-options', 'data.samples_per_gpu=1',
+                'data.train.num_scenes=30', 'lr_config.step=[24,32]',
+                'cached_img_features=False'])
+    train.main([cfg, '--synthetic', '--steps', '26', '--batch', '1',
+                '--points', '256', '--hw', '64', '96', '--gt', '4',
+                '--device', 'cpu', '--cfg-options',
+                'lr_config.step=[24,32]'])
+    assert len(rates[0]) == 30 and len(rates[1]) == 26
+    for run in rates:
+        assert run[24] == pytest.approx(0.004) and set(run) == {run[24]}
+
+
+def test_entry_points_stop_without_a_card_and_refuse_what_is_not_ported(
+        tmp_path, capsys):
+    from demf_tpu_torch import eval as eval_entry
+    cfg = os.path.join(os.path.dirname(zoo.__file__), 'configs',
+                       'demf_tiny.py')
+    if not torch.cuda.is_available():
+        for main, argv in ((train.main, [cfg]),
+                           (eval_entry.main, [cfg, 'none.pth'])):
+            with pytest.raises(SystemExit, match='no CUDA device'):
+                main(argv)
+    refused = [(train.main, [cfg, '--launcher', 'pytorch']),
+               (eval_entry.main, [cfg, 'c.pth', '--launcher', 'slurm']),
+               (eval_entry.main, [cfg, 'c.pth', '--show']),
+               (eval_entry.main, [cfg, 'c.pth', '--show-dir', 'x']),
+               (eval_entry.main, [cfg, 'c.pth', '--fuse-conv-bn'])]
+    for main, argv in refused:
+        with pytest.raises(SystemExit):
+            main(argv + ['--device', 'cpu'])
+        assert 'not ported yet (ROADMAP M2 / M4)' in capsys.readouterr().err
+    for main, argv in ((train.main, [cfg]), (eval_entry.main, [cfg, 'c.pth'])):
+        with pytest.raises(SystemExit, match='bf16.*not ported yet'):
+            main(argv + ['--device', 'cpu', '--cfg-options', 'bf16=True'])
