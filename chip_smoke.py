@@ -15,9 +15,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    decoder's shape at batch 16 and 2 and at the encoder's at batch 2, with
    locations over the whole map and with the encoder's own (each token
    samples around its own pixel); K4, the MSDA backward, against the plain
-   version's autograd at the decoder's training shape and at the
-   encoder's shape; K8, the aligned 3D NMS, keep masks equal to the plain
-   version's bit for bit at a request's shape (2 scenes of 512 boxes) and
+   version's autograd at the decoder's shapes (batch 16 of 256 proposals,
+   batch 4 of 300 queries) and at the encoder's shape at batch 2 and 4 on
+   three kinds of locations (over the whole map, the encoder's own, those
+   scattered by 4 pixels); K8, the aligned 3D NMS, keep masks equal to the
+   plain version's bit for bit at a request's shape (2 scenes of 512 boxes) and
    at an eval batch's (16), on boxes spread out and on clustered boxes
    where most are suppressed, beside its bound and the least a serial sweep
    of N dependent steps could take; then the non-empty-box test that runs
@@ -63,12 +65,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    on that checkpoint (one full batch of 16 and one filled batch, the mAP
    printed): 18 finite results, the first one that of scene 0, the
    checkpoint's meta names the classes, and K1-K4 and K8 were launched the
-   expected number of times.
+   expected number of times;
+10. pretrain path: the stage-1 Deformable-DETR pretrain of
+   ``configs/deformdetr/imvotenet_deform.py`` (the image branch trained end
+   to end: ResNet-50 with ``frozen_stages=1``, the neck, 6 encoder and 6
+   decoder layers, 300 queries) at full width, seeded weights, batch 4 of
+   800x1344 with 20 GT slots: one forward + loss + backward with dropout
+   off and the scipy solver on the kernel path against the plain path
+   (losses 1e-4, gradients 1e-3 of each tensor's largest); 3 steps
+   through ``engine.trainer``, each launching K3 12 times, K4 12 times and
+   no other kernel, with step times and peak memory; the step's assignment
+   (6 layers x 4 images, 300 queries, 20 GT) timed by the auction on the
+   card and by scipy on the host; the same steps through
+   ``demf_tpu_torch.train --synthetic --steps 3 --profile`` (device time by
+   phase, busy share); the entry's dataset mode on ``SyntheticSUNRGBD``
+   under the unchanged 2D pipeline (4 steps); and, at the tiny size, the
+   hand-over: a pretrain checkpoint written by the entry warm-starts a DeMF
+   model through ``load_weights`` and its serving forward runs.
 
-The line before the last is the kernel table as JSON (K1-K4: launches
+The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
-first row above; K5-K7: launches counted in the probes phase, times and
-bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
+first row above; K4: launches counted in the pretrain path's 3 steps, times
+and bound at the encoder's shape at batch 4, its own locations;
+``launches_by_path`` has every path's count; K5-K7: launches counted in
+the probes phase, times and bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
 one chunk, K7 at the finest level; K8: launches counted in the dataset
 path, times and bound at an eval batch's shape; ``library_ms`` is the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
@@ -144,6 +164,20 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu',
            'nms3d': 'demf_tpu_torch/csrc/nms3d.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
+# the stage-1 pretrain path: the model of configs/deformdetr/
+# imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
+# step runs 6 encoder and 6 decoder MSDA layers forward (K3) and backward
+# (K4) and none of the point branch's kernels
+PRETRAIN_CFG = 'deformdetr/imvotenet_deform.py'
+PRETRAIN_BATCH = dict(b=4, hw=(800, 1344), g=20)
+PRETRAIN_STEPS = 3
+LAUNCHES_PER_PRETRAIN_STEP = {'fps': 0, 'ball_query': 0, 'msda': 12,
+                              'msda_backward': 12, 'gather_rows': 0,
+                              'msda_fold': 0, 'mform_sample': 0, 'nms3d': 0}
+PRETRAIN_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
+                                    'detr_pretrain_synthetic.py')
+PRETRAIN_TINY_CFG = os.path.join('demf_tpu_torch', 'configs',
+                                 'detr_pretrain_tiny.py')
 
 
 def kernel_row(max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -353,8 +387,12 @@ def check_msda(dev, rng):
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = []
+    # the stage-2 step's and the request's decoder, the request's encoder,
+    # and the pretrain step's encoder and decoder at batch 4
     for b, q, p, own in ((16, 256, 2, False), (2, 256, 2, False),
-                         (2, s, 4, False), (2, s, 4, True)):
+                         (2, s, 4, False), (2, s, 4, True),
+                         (4, s, 4, False), (4, s, 4, True),
+                         (4, 300, 4, False)):
         value = torch.from_numpy(
             rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
         if own:     # the encoder's: every token samples around its own pixel
@@ -383,23 +421,38 @@ def check_msda(dev, rng):
         if not err <= bound:
             raise AssertionError('MSDA kernel disagrees with plain')
         rows.append(kernel_row(err, ms, plain_ms, least, by))
+        del value, locs, aw, got, want
+        torch.cuda.empty_cache()
     return rows[0]
 
 
 def check_msda_backward(dev, rng):
-    """K4 against the plain version's autograd, at the decoder's training
-    shape (batch 16, Q 256, P 2) and at the encoder's (batch 2, Q 22,323,
-    P 4).  The kernel time includes zeroing d_value."""
+    """K4 against the plain version's autograd: at the decoder's shapes
+    (batch 16, Q 256, P 2 of the stage-2 step; batch 4, Q 300, P 4 of the
+    pretrain step) and at the encoder's (Q 22,323, P 4) at batch 2 and 4,
+    with locations over the whole map, with the encoder's own (noise of
+    0.5 pixels) and with those scattered by 4 pixels.  The kernel time
+    includes zeroing d_value.  Returns the row of the pretrain step's
+    costliest launch: the encoder's own locations at batch 4."""
     from demf_tpu_torch.ops import msda
-    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools import (bound_ms, encoder_sampling_locations,
+                                      time_ms)
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
-    rows = []
-    for b, q, p in ((16, 256, 2), (2, s, 4)):
+    rows = {}
+    for b, q, p, noise in ((16, 256, 2, None), (4, 300, 4, None),
+                           (2, s, 4, None), (2, s, 4, 0.5), (2, s, 4, 4.0),
+                           (4, s, 4, None), (4, s, 4, 0.5), (4, s, 4, 4.0)):
         value = torch.from_numpy(
             rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
-        locs = torch.from_numpy(rng.uniform(
-            -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+        if noise is None:
+            locs = torch.from_numpy(rng.uniform(
+                -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+            where = 'locations over the whole map'
+        else:
+            locs = encoder_sampling_locations(shapes, b, 8, p, dev,
+                                              jitter=noise)
+            where = f"the encoder's own locations, noise {noise} px"
         aw = torch.from_numpy(rng.rand(b, q, 8, 4 * p).astype(np.float32))
         aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p).to(dev)
         grad = torch.from_numpy(
@@ -418,22 +471,24 @@ def check_msda_backward(dev, rng):
             errs.append((g - w).abs().max().item())
             bounds.append(1e-5 * w.abs().max().item())
         ms = time_ms(kernel, 10)
-        plain_ms = time_ms(plain, 3)
+        plain_ms = time_ms(plain, 2)
         # a sample and channel: 4 corners, each an add into d_value and a
         # product into d_aw and into both halves of d_loc
         least, by = bound_ms(
             30 * aw.numel() * 32,
             msda_bytes(shapes, value, locs, aw, backward=True))
         print(f'K4 msda_backward ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, '
-              f'sum_HW {s}): max_abs_err d_value / d_loc / d_aw '
+              f'sum_HW {s}, {where}): max_abs_err d_value / d_loc / d_aw '
               f'{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (bounds '
               f'{bounds[0]:.3e} / {bounds[1]:.3e} / {bounds[2]:.3e}), '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, least '
-              f'{least:.4f} ms ({by})')
+              f'{least:.4f} ms ({by})', flush=True)
         if not all(e <= bd for e, bd in zip(errs, bounds)):
             raise AssertionError('MSDA backward kernel disagrees with plain')
-        rows.append(kernel_row(max(errs), ms, plain_ms, least, by))
-    return rows[0]
+        rows[b, q, noise] = kernel_row(max(errs), ms, plain_ms, least, by)
+        del value, locs, aw, grad
+        torch.cuda.empty_cache()
+    return rows[4, s, 0.5]
 
 
 def check_quad_route(dev, rng):
@@ -826,6 +881,272 @@ def run_dataset_path(kernels):
     return launches
 
 
+def pretrain_cfg(dropout=None, solver=None):
+    """The stage-1 config; with ``dropout`` every rate of the head's
+    transformer set to it, with ``solver`` the assigner's solver."""
+    from demf_tpu_torch import zoo
+    cfg = copy.deepcopy(zoo.load_model_cfg(PRETRAIN_CFG))
+    model = cfg.model
+    if dropout is not None:
+        t = model['img_bbox_head']['transformer']
+        enc = t['encoder']['transformerlayers']
+        enc['ffn_dropout'] = dropout
+        enc['attn_cfgs'] = dict(enc['attn_cfgs'], dropout=dropout)
+        dec = t['decoder']['transformerlayers']
+        dec['ffn_dropout'] = dropout
+        dec['attn_cfgs'] = [dict(c, dropout=dropout)
+                            for c in dec['attn_cfgs']]
+    if solver is not None:
+        model['train_cfg']['assigner']['solver'] = solver
+    return cfg
+
+
+def check_pretrain_reference(dev):
+    """The full-width stage-1 model, dropout off, the scipy solver: one
+    forward + loss + backward on the batch of the steps below (4 images of
+    800x1344: 22,323 tokens and 300 decoder queries, the shapes at which
+    the steps launch K3 and K4) on the kernel path against the plain path,
+    from the same weights."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    model = zoo.build_detector(pretrain_cfg(0.0, 'scipy').model, dev, seed=1)
+    batch = batch_to_device(zoo.synth_detr2d_batch(seed=7, **PRETRAIN_BATCH),
+                            dev)
+    plain_model = copy.deepcopy(model)
+
+    def loss_and_grads(m):
+        m.train()
+        torch.cuda.reset_peak_memory_stats()
+        losses = m.loss(m(batch), batch)
+        sum(losses.values()).backward()
+        return ({k: v.detach() for k, v in losses.items()},
+                {n: p.grad for n, p in m.named_parameters()
+                 if p.grad is not None},
+                torch.cuda.max_memory_allocated() / 2**20)
+
+    got_l, got_g, got_mib = loss_and_grads(model)
+    with plain_ops():
+        want_l, want_g, want_mib = loss_and_grads(plain_model)
+    if set(got_g) != set(want_g) or any(
+            n.startswith(('img_backbone.conv1', 'img_backbone.layer1.'))
+            for n in want_g):
+        raise AssertionError('kernel and plain paths train other tensors, '
+                             'or the frozen stages got a gradient')
+    loss_err = max(abs(got_l[k].item() - w.item()) / max(abs(w.item()), 1e-6)
+                   for k, w in want_l.items())
+    # a gradient that is rounding noise on the plain side (below 1e-6 of
+    # the largest) must be noise on the kernel side too
+    largest = max(w.abs().max().item() for w in want_g.values())
+    grad_err, worst, noise = 0.0, None, []
+    for name, w in want_g.items():
+        scale = w.abs().max().item()
+        if scale < 1e-6 * largest:
+            if got_g[name].abs().max().item() >= 1e-6 * largest:
+                raise AssertionError(f'{name}: gradient above noise')
+            noise.append(name)
+            continue
+        err = (got_g[name] - w).abs().max().item() / scale
+        if err > grad_err:
+            grad_err, worst = err, name
+    b, hw = PRETRAIN_BATCH['b'], PRETRAIN_BATCH['hw']
+    print(f'pretrain reference: full-width stage-1 model, {b} images of '
+          f'{hw[0]}x{hw[1]}, dropout off, scipy solver: kernel path (peak '
+          f'{got_mib:.1f} MiB) vs plain path (peak {want_mib:.1f} MiB), '
+          f'{len(want_l)} losses max rel err {loss_err:.3e} (bound 1e-4), '
+          f'gradients max err / tensor max {grad_err:.3e} (bound 1e-3, at '
+          f'{worst}) over {len(want_g) - len(noise)} tensors ({len(noise)} '
+          f'at noise level: {noise[:3]}); total loss '
+          f'{sum(v.item() for v in want_l.values()):.5f}', flush=True)
+    if not (loss_err < 1e-4 and grad_err < 1e-3):
+        raise AssertionError('pretrain kernel path disagrees with plain')
+
+
+def time_solvers(model, batch, dev):
+    """The one-to-one assignment of a step, (6 layers x 4 images, Q 300, G
+    20), on the model's own costs: the auction on the card (its steps, and
+    its time with the host's reads of the state) and scipy on the host
+    (with the copy of the costs and of the result)."""
+    from demf_tpu_torch.models.detr_head import _whwh, box_xyxy_to_cxcywh
+    from demf_tpu_torch.ops.assignment import auction_assign, hungarian_match
+    head = model.img_bbox_head
+    with torch.no_grad():
+        preds = model.eval()(batch)['img_preds']
+        factor = _whwh(batch['img_meta']['img_shape'])
+        gt = box_xyxy_to_cxcywh(batch['gt_bboxes'] / factor[:, None])
+        cost = head.match_cost(preds['cls_scores'], preds['bbox_preds'], gt,
+                               batch['gt_labels'], batch['gt_bboxes_valid'],
+                               factor).flatten(0, 1)
+    model.train()
+
+    def clock(fn, runs=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / runs * 1e3, out
+
+    auction_ms, (assigned, steps) = clock(lambda: auction_assign(
+        cost.transpose(1, 2), return_steps=True))
+    scipy_ms, optimum = clock(lambda: hungarian_match(cost))
+    layers = preds['cls_scores'].shape[0]
+    valid = batch['gt_bboxes_valid'].repeat(layers, 1)
+    rows = torch.arange(cost.shape[0], device=dev)[:, None]
+    cols = torch.arange(cost.shape[2], device=dev)[None]
+    totals = [(cost[rows, a, cols] * valid).sum().item()
+              for a in (assigned, optimum)]
+    same = ((assigned == optimum) | ~valid).float().mean().item()
+    print(f'pretrain path: assignment of {tuple(cost.shape)} costs, '
+          f'{int(valid.sum())} real columns: auction {steps} steps, '
+          f'{auction_ms:.3f} ms (host clock, state read every 8 steps); '
+          f'scipy on the host {scipy_ms:.3f} ms with its copies; total cost '
+          f'{totals[0]:.4f} against the optimum {totals[1]:.4f}, '
+          f'{same:.2%} of the assignments equal', flush=True)
+    if totals[0] > totals[1] * 1.001 + 1e-3:
+        raise AssertionError('the auction is further from the optimum than '
+                             'its bound')
+
+
+def run_pretrain_path(dev, kernels):
+    """The stage-1 pretrain step at full width; returns the launches of its
+    steps."""
+    from demf_tpu_torch import train as train_entry
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import (batch_to_device, latest_checkpoint,
+                                       load_weights, make_eval_step)
+    check_pretrain_reference(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, _, step = zoo.build_trainer(pretrain_cfg(), dev, seed=0)
+    trained = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f'pretrain path: ImVoteNet_Deformdetr full width, image-only, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, '
+          f'{trained} trained, built in {time.perf_counter() - t0:.2f} s')
+    batch = batch_to_device(zoo.synth_detr2d_batch(seed=0, **PRETRAIN_BATCH),
+                            dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    for i in range(PRETRAIN_STEPS):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_PRETRAIN_STEP:
+            raise AssertionError(f'pretrain step {i} launched {launched}, '
+                                 f'expected {LAUNCHES_PER_PRETRAIN_STEP}')
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad or len(metrics) != 6 * 3 + 2:
+            raise AssertionError(f'pretrain step {i}: non-finite {bad} of '
+                                 f'{len(metrics)} metrics')
+        print(f'pretrain step {i}: {seconds * 1e3:.3f} ms (host clock), '
+              f'{PRETRAIN_BATCH["b"] / seconds:.3f} images/s, launches '
+              f'{launched}; loss {metrics["loss"].item():.5f}, grad_norm '
+              f'{metrics["grad_norm"].item():.5f}')
+    launches = {n: k.launches for n, k in kernels.items()}
+    print(f'pretrain path: peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB over '
+          f'{PRETRAIN_STEPS} steps at batch {PRETRAIN_BATCH["b"]}')
+    frozen = moved = 0
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if not p.requires_grad:
+            if not same or not name.startswith('img_backbone.'):
+                raise AssertionError(f'frozen {name} changed')
+            frozen += 1
+        elif same:
+            raise AssertionError(f'{name} did not move')
+        else:
+            moved += 1
+    print(f'pretrain path: {frozen} tensors of the frozen stages unchanged, '
+          f'{moved} trained tensors moved')
+    time_solvers(model, batch, dev)
+    del model, step, batch, before
+    torch.cuda.empty_cache()
+
+    # the same steps through the entry point, and one more under the
+    # profiler: 3 + 1 untraced + 1 traced
+    root = os.path.dirname(os.path.abspath(__file__))
+    expected = {n: 5 * c for n, c in LAUNCHES_PER_PRETRAIN_STEP.items()}
+    _, out, seconds, _ = run_entry(
+        train_entry.main, [PRETRAIN_CFG, '--synthetic', '--steps', '3',
+                           '--profile'], kernels, expected)
+    if out.count('Epoch [1/1]') != 3 or 'profiled step' not in out or \
+            'phases: forward' not in out:
+        raise AssertionError('the train entry logged no steps or profile')
+    print(f'pretrain path: train entry --synthetic --steps 3 --profile '
+          f'{seconds:.3f} s in all')
+    torch.cuda.empty_cache()
+
+    build_dir = os.path.join(root, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        # the dataset mode at full width: 16 scenes under the unchanged 2D
+        # pipeline (AutoAugment, RandomCrop, multi-scale Resize), 4 steps
+        expected = {n: 4 * c for n, c in LAUNCHES_PER_PRETRAIN_STEP.items()}
+        _, out, seconds, _ = run_entry(
+            train_entry.main, [os.path.join(root, PRETRAIN_DATASET_CFG),
+                               '--work-dir', os.path.join(work_dir, 'full')],
+            kernels, expected)
+        wait = [line for line in out.splitlines()
+                if 'waiting for the loader' in line]
+        if len(wait) != 1 or out.count('Epoch [1/1]') != 4:
+            raise AssertionError('the pretrain entry logged no epoch')
+        print(f'pretrain path: train entry on SyntheticSUNRGBD {seconds:.3f} '
+              f's in all; {wait[0].split(" - ", 1)[1]}')
+        torch.cuda.empty_cache()
+
+        # the hand-over at the tiny size: a pretrain checkpoint written by
+        # the entry warm-starts a DeMF model, whose serving forward runs
+        for k in kernels.values():
+            k.launches = 0
+        train_entry.main([os.path.join(root, PRETRAIN_TINY_CFG),
+                          '--work-dir', os.path.join(work_dir, 'tiny')])
+        tiny_launches = {n: kernels[n].launches
+                         for n in ('msda', 'msda_backward')}
+        ckpt = latest_checkpoint(os.path.join(work_dir, 'tiny'))
+        cfg = zoo.tiny_demf_model_cfg()
+        cfg['img_encoder']['encoder']['num_layers'] = 1
+        demf = zoo.build_detector(cfg, dev, seed=9)
+        missing, unexpected = load_weights(ckpt, demf)
+        if unexpected or not missing or not all(
+                k.startswith(('pts_backbone.', 'pts_bbox_head.'))
+                for k in missing):
+            raise AssertionError(f'hand-over: unexpected {unexpected}, '
+                                 f'missing {missing[:5]}')
+        stage1 = torch.load(ckpt, map_location=dev,
+                            weights_only=True)['state_dict']
+        carried = 0
+        for key, v in demf.state_dict().items():
+            if key.startswith(('img_backbone.', 'img_neck.')):
+                source = key
+            elif key.startswith('img_encoder.'):
+                source = key.replace('img_encoder',
+                                     'img_bbox_head.transformer', 1)
+            else:
+                continue
+            if not torch.equal(v, stage1[source]):
+                raise AssertionError(f'hand-over: {key} differs')
+            carried += 1
+        det = make_eval_step(demf)(batch_to_device(zoo.synth_demf_batch(
+            2, p=1024, g=8, hw=(64, 96), valid_hw=(60, 88), seed=0), dev))
+        if not torch.isfinite(det['boxes_3d']).all():
+            raise AssertionError('hand-over: non-finite detections')
+        print(f'pretrain path: hand-over at the tiny size: the entry\'s '
+              f'checkpoint (K3 / K4 launches {tiny_launches}) warm-started '
+              f'DeMF: {carried} image-branch tensors equal, {len(missing)} '
+              f'point-branch keys left to train, none unexpected; serving '
+              f'forward {tuple(det["boxes_3d"].shape)} finite')
+        if not all(tiny_launches.values()):
+            raise AssertionError('the tiny pretrain launched no K3 / K4')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -913,11 +1234,19 @@ def main():
     del model, eval_step, batch
     check_train_reference(dev)
     launches = run_training_path(dev, kernels)
+    by_path = {'training': dict(launches), 'probes': probe_launches}
     launches.update(probe_launches)
-    launches['nms3d'] = run_dataset_path(kernels)['nms3d']
+    by_path['dataset'] = run_dataset_path(kernels)
+    launches['nms3d'] = by_path['dataset']['nms3d']
+    by_path['pretrain'] = run_pretrain_path(dev, kernels)
+    # K4's row is the pretrain step's shape, so its launches are that path's
+    launches['msda_backward'] = by_path['pretrain']['msda_backward']
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
-                  replaces=REPLACES[n], launches=launches[n], **measured[n])
+                  replaces=REPLACES[n], launches=launches[n],
+                  launches_by_path={k: v.get(n, 0)
+                                    for k, v in by_path.items()},
+                  **measured[n])
              for n in kernels]
     print(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

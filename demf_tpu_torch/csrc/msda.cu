@@ -54,21 +54,17 @@
 
 #include <cstdint>
 
+#include "msda_window.cuh"
+
 namespace {
+
+using namespace msda;   // the tile, its window, cp.async: shared with K4
 
 constexpr int kThreads = 512;
 constexpr int kMaxPasses = 4;   // queries of a tile that one thread sums
-constexpr int kMaxTile = 256;   // queries of a tile (16 x 16 pixels)
-constexpr int kMargin = 5;      // pixels of window around a tile's footprint
 // shared memory of a tile block, two blocks an SM: the window (729 rows of
 // 128 bytes with 4 points a level) and the tile's locations and weights
 constexpr int kTileBytes = 105600;
-
-// the window of one level's rows in shared memory: [y0, y0 + h) x [x0, x0 + w)
-struct Window {
-  const float* rows;
-  int x0, y0, w, h;
-};
 
 __device__ __forceinline__ void fma4(float4& v, float w, const float4& r) {
   v.x = fmaf(w, r.x, v.x);
@@ -167,20 +163,6 @@ struct Args {
   int window_rows;   // rows of head_dim floats that the window holds
 };
 
-// 4, 8 or 16 bytes from global to shared memory, not waited for
-template <int kBytes>
-__device__ __forceinline__ void copy_async(void* to, const void* from) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(to));
-  if (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-                 "l"(from)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst),
-                 "l"(from), "n"(kBytes)
-                 : "memory");
-}
-
 // one tile of one level's queries for one head, level after level
 __device__ __forceinline__ void tile_block(const Args& a, float* window) {
   const int tid = threadIdx.x;
@@ -197,19 +179,9 @@ __device__ __forceinline__ void tile_block(const Args& a, float* window) {
   const int h = t % a.heads;
   const int bi = t / a.heads;
 
-  int lq = 0;
-  while (lq + 1 < a.levels && tile >= __ldg(a.tile_info + 5 * (lq + 1) + 4) &&
-         __ldg(a.tile_info + 5 * (lq + 1) + 3) > 0)
-    ++lq;
-  const int th = __ldg(a.tile_info + 5 * lq);
-  const int tw = __ldg(a.tile_info + 5 * lq + 1);
-  const int across = __ldg(a.tile_info + 5 * lq + 2);
-  const int in_level = tile - __ldg(a.tile_info + 5 * lq + 4);
-  const int ty0 = (in_level / across) * th;
-  const int tx0 = (in_level % across) * tw;
-  const int hq = __ldg(a.level_info + 3 * lq);
-  const int wq = __ldg(a.level_info + 3 * lq + 1);
-  const int startq = __ldg(a.level_info + 3 * lq + 2);
+  const Tile tl = decode_tile(a.tile_info, a.level_info, a.levels, tile);
+  const int th = tl.th, tw = tl.tw, ty0 = tl.ty0, tx0 = tl.tx0;
+  const int hq = tl.hq, wq = tl.wq, startq = tl.startq;
 
   // this thread's queries: pass p takes query p * qpp + slot of the tile
   int query[kMaxPasses];
@@ -232,41 +204,9 @@ __device__ __forceinline__ void tile_block(const Args& a, float* window) {
     const float* vlevel =
         vb + static_cast<long long>(__ldg(a.level_info + 3 * l + 2)) *
                  row_stride;
-    // the tile's footprint on this level, kMargin pixels around it and one
-    // more for the far corner, cut to the level and to the window's room
-    Window win;
-    win.rows = window;
-    win.x0 = max(0, tx0 * wl / wq - kMargin);
-    win.y0 = max(0, ty0 * hl / hq - kMargin);
-    win.w = min(wl, ((tx0 + tw) * wl + wq - 1) / wq + kMargin + 1) - win.x0;
-    win.h = min(hl, ((ty0 + th) * hl + hq - 1) / hq + kMargin + 1) - win.y0;
-    while (win.w * win.h > a.window_rows) {
-      if (win.w >= win.h) {
-        win.x0 += win.w & 1;
-        --win.w;
-      } else {
-        win.y0 += win.h & 1;
-        --win.h;
-      }
-    }
+    const Window win = level_window(tl, hl, wl, a.window_rows, window);
     __syncthreads();   // the last level's reads are done
-    // thread t copies its 16 bytes of the window's rows t / lpq, t / lpq +
-    // qpp, ...; (wy, wx) is the row's place in the window, stepped without
-    // a division
-    const int step_y = qpp / win.w, step_x = qpp % win.w;
-    int wy = slot / win.w, wx = slot % win.w;
-    for (int r = slot; r < win.w * win.h; r += qpp) {
-      copy_async<16>(window + r * a.hd + c4,
-                     vlevel + static_cast<long long>((win.y0 + wy) * wl +
-                                                     win.x0 + wx) *
-                                  row_stride + c4);
-      wy += step_y;
-      wx += step_x;
-      if (wx >= win.w) {
-        wx -= win.w;
-        ++wy;
-      }
-    }
+    copy_window(window, win, vlevel, wl, row_stride, a.hd, slot, qpp, c4);
     for (int i = tid; i < th * tw * a.points; i += kThreads) {
       const int qi = i / a.points;
       const int y = ty0 + qi / tw;
@@ -278,8 +218,7 @@ __device__ __forceinline__ void tile_block(const Args& a, float* window) {
       copy_async<8>(s_loc + i, reinterpret_cast<const float2*>(a.locs) + sp);
       copy_async<4>(s_aw + i, a.attn + sp);
     }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    copy_async_wait();
     __syncthreads();
 
     const float* vl = vlevel + c4;

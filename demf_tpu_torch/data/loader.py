@@ -115,6 +115,11 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def set_epoch(self, epoch):
+        """The next iteration shuffles as epoch ``epoch`` of an unbroken
+        run does (a resumed run calls this)."""
+        self._epoch = epoch
+
     def _indices(self):
         n = len(self.dataset)
         idx = np.arange(n)

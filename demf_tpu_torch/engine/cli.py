@@ -50,10 +50,12 @@ def parse_args(argv=None):
         "config's dataset (what the step-time measurements use)")
     group.add_argument('--synthetic', action='store_true')
     group.add_argument('--steps', type=int, default=3)
-    group.add_argument('--batch', type=int, default=16)
+    group.add_argument('--batch', type=int, default=None,
+                       help="default: the model's (zoo.synth_batch_for)")
     group.add_argument('--points', type=int, default=20000)
     group.add_argument('--hw', type=int, nargs=2, default=(800, 1344))
-    group.add_argument('--gt', type=int, default=64, help='GT box slots')
+    group.add_argument('--gt', type=int, default=None,
+                       help="GT box slots (default: the model's)")
     group.add_argument('--profile', action='store_true',
                        help='trace one more step and print where it spends')
     return _parse(parser, argv)

@@ -99,6 +99,9 @@ class CachedFeatureLoader:
     def __len__(self):
         return len(self.loader)
 
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
     def __iter__(self):
         for batch in self.loader:
             yield attach_cached_features(batch, self.cache,

@@ -126,7 +126,9 @@ class Runner:
         self._tb = _tensorboard(work_dir) if work_dir else None
 
     def resume(self, path):
-        """Model, optimizer, epoch and update count from a checkpoint."""
+        """Model, optimizer, epoch and update count from a checkpoint; the
+        loader goes on with the shuffle of the next epoch (``run`` sets
+        it), not with epoch 0's."""
         self.start_epoch = load_checkpoint(path, self.model, self.optimizer,
                                            self.train_step) + 1
 
@@ -145,6 +147,8 @@ class Runner:
         last = {}
         for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.perf_counter()
+            if hasattr(self.batches, 'set_epoch'):
+                self.batches.set_epoch(epoch)
             batches = iter(self.batches)
             it = 0
             while True:

@@ -54,6 +54,27 @@ _RULES = [
      '{p}.decoder.{1}.posembed.position_embedding_head.1', 'norm'),
     (r'(?P<p>.*)/decoder_(\d+)/posembed/fc2',
      '{p}.decoder.{1}.posembed.position_embedding_head.3', 'c1'),
+    # DeformableDETRHead: its layers sit under mmdet's ``transformer``
+    (r'(?P<p>.*)/encoder_(\d+)/self_attn/(\w+)',
+     '{p}.transformer.encoder.layers.{1}.attentions.0.{2}', 'lin'),
+    (r'(?P<p>.*)/encoder_(\d+)/ffn/fc1',
+     '{p}.transformer.encoder.layers.{1}.ffns.0.layers.0.0', 'lin'),
+    (r'(?P<p>.*)/encoder_(\d+)/ffn/fc2',
+     '{p}.transformer.encoder.layers.{1}.ffns.0.layers.1', 'lin'),
+    (r'(?P<p>.*)/encoder_(\d+)/norm(\d)',
+     '{p}.transformer.encoder.layers.{1}.norms.{n2}', 'norm'),
+    (r'(?P<p>.*)/decoder_(\d+)/cross_attn/(\w+)',
+     '{p}.transformer.decoder.layers.{1}.attentions.1.{2}', 'lin'),
+    (r'(?P<p>.*)/decoder_(\d+)/ffn/fc1',
+     '{p}.transformer.decoder.layers.{1}.ffns.0.layers.0.0', 'lin'),
+    (r'(?P<p>.*)/decoder_(\d+)/ffn/fc2',
+     '{p}.transformer.decoder.layers.{1}.ffns.0.layers.1', 'lin'),
+    (r'(?P<p>.*)/decoder_(\d+)/norm(\d)',
+     '{p}.transformer.decoder.layers.{1}.norms.{n2}', 'norm'),
+    (r'(?P<p>.*)/(reference_points_fc)', '{p}.transformer.reference_points',
+     'lin'),
+    (r'(?P<p>.*)/(fc_cls)', '{p}.fc_cls', 'lin'),
+    (r'(?P<p>.*)/fc_reg/l(\d)', '{p}.fc_reg.{x2}', 'lin'),
     (r'(?P<p>.*)/layers_(\d+)/self_attn/(\w+)',
      '{p}.encoder.layers.{1}.attentions.0.{2}', 'lin'),
     (r'(?P<p>.*)/layers_(\d+)/ffn/fc1',
@@ -77,7 +98,8 @@ _RULES = [
     (r'(?P<p>.*)/extra_gn_(\d+)', '{p}.extra_convs.{1}.gn', 'norm'),
 ]
 _RULES = [(re.compile(pat + '$'), tmpl, kind) for pat, tmpl, kind in _RULES]
-_MHA = re.compile(r'(?P<p>.*)/decoder_(\d+)/layer/self_attn/attn$')
+# the decoder's self-attention: the DeMF head's layer, the DETR head's layers
+_MHA = re.compile(r'(?P<p>.*)/decoder_(\d+)(?P<demf>/layer)?/self_attn/attn$')
 _LEAF = dict(kernel='weight', bias='bias', scale='weight',
              mean='running_mean', var='running_var')
 
@@ -88,8 +110,12 @@ def _torch_module(path):
         if m:
             g = m.groups()
             # {n2}: flax norm{k} counts from 1, mmcv norms.{k-1} from 0
-            n2 = int(g[-1]) - 1 if g[-1].isdigit() else None
-            return tmpl.format(*g, p=g[0].replace('/', '.'), n2=n2), kind
+            # {x2}: DetrMLP's l{k} is index 2k of the port's Sequential
+            last = int(g[-1]) if g[-1].isdigit() else None
+            return tmpl.format(
+                *g, p=g[0].replace('/', '.'),
+                n2=None if last is None else last - 1,
+                x2=None if last is None else 2 * last), kind
     raise KeyError(f'no port rule for flax module {path!r}')
 
 
@@ -117,7 +143,14 @@ def state_dict_from_jax(params, batch_stats):
         v = np.asarray(v)
         path, leaf = key.rsplit('/', 1)
         if leaf == 'level_embeds':
-            sd[key.replace('/', '.')] = v
+            # a DETR head keeps them under ``transformer``, beside its
+            # queries; the DeMF image encoder on itself
+            head = f'{path}/query_embedding' in params
+            sd[path.replace('/', '.') + ('.transformer.' if head else '.') +
+               leaf] = v
+            continue
+        if leaf == 'query_embedding':
+            sd[key.replace('/', '.') + '.weight'] = v
             continue
         attn_path, proj = path.rsplit('/', 1)
         if _MHA.match(attn_path):
@@ -129,8 +162,9 @@ def state_dict_from_jax(params, batch_stats):
             sd[f'{module}.num_batches_tracked'] = np.asarray(0)
     for attn_path, parts in mha.items():
         m = _MHA.match(attn_path)
-        prefix = '{}.decoder.{}.layer.attentions.0.attn'.format(
-            m.group('p').replace('/', '.'), m.group(2))
+        prefix = ('{}.decoder.{}.layer.attentions.0.attn' if m.group('demf')
+                  else '{}.transformer.decoder.layers.{}.attentions.0.attn'
+                  ).format(m.group('p').replace('/', '.'), m.group(2))
         names = ('query', 'key', 'value')
         e = parts[('query', 'kernel')].shape[0]
         sd[f'{prefix}.in_proj_weight'] = np.concatenate(

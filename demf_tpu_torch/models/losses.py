@@ -87,6 +87,44 @@ class L1Loss:
             (pred - target).abs(), weight, self.reduction, avg_factor)
 
 
+def sigmoid_cross_entropy(logits, labels):
+    """Elementwise binary cross entropy on logits, in optax's stable form
+    ``max(x, 0) - x * z + log1p(exp(-|x|))``."""
+    return logits.clamp_min(0) - logits * labels + torch.log1p(
+        torch.exp(-logits.abs()))
+
+
+@LOSSES.register_module()
+class FocalLoss:
+    """Sigmoid focal loss (mmdet semantics, used by DeformableDETRHead)."""
+
+    def __init__(self, use_sigmoid=True, gamma=2.0, alpha=0.25,
+                 reduction='mean', loss_weight=1.0):
+        if not use_sigmoid:
+            raise NotImplementedError('the focal loss has the sigmoid form '
+                                      'only')
+        self.gamma = gamma
+        self.alpha = alpha
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        """pred (N, C) logits; target (N,) int labels, where label == C is
+        the background (a row of zeros in the one-hot)."""
+        num_classes = pred.shape[-1]
+        t = (target.long()[:, None] == torch.arange(
+            num_classes, device=pred.device)).to(pred.dtype)
+        p = torch.sigmoid(pred)
+        ce = sigmoid_cross_entropy(pred, t)
+        pt = p * t + (1 - p) * (1 - t)
+        alpha_t = self.alpha * t + (1 - self.alpha) * (1 - t)
+        loss = alpha_t * ((1 - pt) ** self.gamma) * ce
+        if weight is not None and weight.dim() == 1:
+            weight = weight[:, None]
+        return self.loss_weight * weight_reduce_loss(
+            loss, weight, self.reduction, avg_factor)
+
+
 @LOSSES.register_module()
 class AxisAlignedIoULoss:
     """1 - IoU of axis-aligned 3D corner boxes (x1y1z1x2y2z2)."""
@@ -104,6 +142,38 @@ class AxisAlignedIoULoss:
         iou = inter / (vol_p + vol_t - inter).clamp_min(1e-8)
         return self.loss_weight * weight_reduce_loss(
             1.0 - iou, weight, self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class GIoULoss:
+    """Generalized IoU loss over (..., 4) xyxy 2D boxes."""
+
+    def __init__(self, reduction='mean', loss_weight=1.0, eps=1e-7):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+        self.eps = eps
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        lt = torch.maximum(pred[..., :2], target[..., :2])
+        rb = torch.minimum(pred[..., 2:], target[..., 2:])
+        inter = extent_area(rb - lt)
+        union = extent_area(pred[..., 2:] - pred[..., :2]) + extent_area(
+            target[..., 2:] - target[..., :2]) - inter + self.eps
+        iou = inter / union
+        elt = torch.minimum(pred[..., :2], target[..., :2])
+        erb = torch.maximum(pred[..., 2:], target[..., 2:])
+        enclose = extent_area(erb - elt) + self.eps
+        giou = iou - (enclose - union) / enclose
+        if weight is not None and weight.dim() == pred.dim():
+            weight = weight.mean(-1)
+        return self.loss_weight * weight_reduce_loss(
+            1.0 - giou, weight, self.reduction, avg_factor)
+
+
+def extent_area(wh):
+    """Width times height of (..., 2) extents, negative ones cut to 0."""
+    wh = wh.clamp_min(0)
+    return wh[..., 0] * wh[..., 1]
 
 
 def chamfer_distance(src, dst, src_weight=1.0, dst_weight=1.0, mode='l2',

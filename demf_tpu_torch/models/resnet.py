@@ -1,12 +1,18 @@
-"""ResNet image backbone, depth 50, inference (port of
-``demf_tpu/models/resnet.py``).
+"""ResNet image backbone, depth 50 (port of ``demf_tpu/models/resnet.py``).
 
-mmdet ``ResNet`` in the pytorch style (the stride sits on conv2) with
-eval-mode BatchNorm.  NHWC in, a tuple of NHWC stage outputs out; the
-convolutions run in NCHW inside.
+mmdet ``ResNet`` in the pytorch style (the stride sits on conv2).  NHWC in,
+a tuple of NHWC stage outputs out; the convolutions run in NCHW inside.
+``norm_eval`` pins BatchNorm to its running statistics whatever the mode
+(every config sets it); without it a module in train mode normalizes with
+the batch's statistics and updates the running ones by flax's rule.
+``frozen_stages`` >= 0 freezes the stem and the stages up to it, as mmdet's
+``_freeze_stages`` and the JAX package's ``stop_gradient`` do: their
+parameters have ``requires_grad=False`` and the activation that leaves the
+frozen part is detached, so no graph is kept below the first trained stage.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -14,8 +20,21 @@ from ..registry import BACKBONES
 
 
 def _bn(bn, x):
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=False, eps=bn.eps)
+    """BatchNorm2d on NCHW: the running statistics in eval mode; in train
+    mode the batch's (biased variance) with flax's update of the running
+    ones, ``running = 0.9 * running + 0.1 * batch`` (biased variance too,
+    where ``nn.BatchNorm2d`` would store the unbiased one)."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, training=False, eps=bn.eps)
+    mean = x.mean((0, 2, 3))
+    var = (x * x).mean((0, 2, 3)) - mean * mean
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(0.1 * mean)
+        bn.running_var.mul_(0.9).add_(0.1 * var)
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    return (x - mean[:, None, None]) * scale[:, None, None] + \
+        bn.bias[:, None, None]
 
 
 class Bottleneck(nn.Module):
@@ -45,9 +64,8 @@ class Bottleneck(nn.Module):
 
 @BACKBONES.register_module()
 class ResNet(nn.Module):
-    """``frozen_stages``, ``norm_eval``, ``norm_cfg`` and ``style`` are
-    accepted for config parity: inference uses the running statistics and
-    the pytorch style only."""
+    """``norm_cfg`` and ``style`` are accepted for config parity: the port
+    has BatchNorm and the pytorch style only."""
 
     def __init__(self, depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
                  frozen_stages=-1, norm_eval=True, style='pytorch',
@@ -67,15 +85,44 @@ class ResNet(nn.Module):
             self.add_module(f'layer{s + 1}', nn.Sequential(*blocks))
             cin = planes * 4
         self.num_stages = num_stages
+        self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
+        for module in self._frozen_modules():
+            module.requires_grad_(False)
+
+    def _frozen_modules(self):
+        if self.frozen_stages < 0:
+            return []
+        return [self.conv1, self.bn1] + [
+            getattr(self, f'layer{s}')
+            for s in range(1, self.frozen_stages + 1)]
+
+    def frozen_param_patterns(self):
+        """Name prefixes of the parameters that ``frozen_stages`` keeps
+        still (they have ``requires_grad=False``, so no optimizer sees
+        them): the JAX package's list in the port's spelling."""
+        if self.frozen_stages < 0:
+            return []
+        return ['conv1', 'bn1'] + [
+            f'layer{s}.' for s in range(1, self.frozen_stages + 1)]
+
+    def train(self, mode=True):
+        """Train mode reaches the BatchNorms only without ``norm_eval``."""
+        super().train(mode and not self.norm_eval)
+        return self
 
     def forward(self, img):
         """img (B, H, W, 3) -> tuple of (B, h, w, C) stage outputs."""
         x = img.permute(0, 3, 1, 2)
         x = F.relu(_bn(self.bn1, self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
         for s in range(self.num_stages):
             x = getattr(self, f'layer{s + 1}')(x)
+            if s + 1 <= self.frozen_stages:
+                x = x.detach()
             if s in self.out_indices:
                 outs.append(x.permute(0, 2, 3, 1))
         return tuple(outs)

@@ -313,6 +313,59 @@ def encoder_reference_points(spatial_shapes, valid_ratios):
     return refs[:, :, None, :] * valid_ratios[:, None, :, :]
 
 
+def flatten_levels(mlvl_feats, img_shape, pos_enc, level_embeds):
+    """The encoder's input from the neck's maps: mlvl_feats, a tuple of
+    (B, H_l, W_l, C) maps (level 0 has stride 8); img_shape (B, 2), the
+    valid [h, w] at input resolution.  -> (tokens (B, sum_HW, C), their
+    sine position plus level embed, key_padding_mask (B, sum_HW) bool,
+    spatial_shapes, valid_ratios (B, L, 2))."""
+    spatial_shapes = tuple((f.shape[1], f.shape[2]) for f in mlvl_feats)
+    batch_hw = (mlvl_feats[0].shape[1] * 8, mlvl_feats[0].shape[2] * 8)
+    masks = make_level_masks(img_shape, batch_hw, spatial_shapes)
+    feats, poss, flat_masks = [], [], []
+    for lvl, (feat, mask) in enumerate(zip(mlvl_feats, masks)):
+        b, h, w, c = feat.shape
+        pos = pos_enc(mask) + level_embeds[lvl]
+        feats.append(feat.reshape(b, h * w, c))
+        poss.append(pos.reshape(b, h * w, c))
+        flat_masks.append(mask.reshape(b, h * w))
+    return (torch.cat(feats, 1), torch.cat(poss, 1),
+            torch.cat(flat_masks, 1), spatial_shapes,
+            get_valid_ratios(masks))
+
+
+def build_encoder_layers(enc_cfg, num_levels, embed_dims):
+    """The ``DetrTransformerEncoderLayer``s of an mmcv encoder config."""
+    tl = dict(enc_cfg.get('transformerlayers', {}))
+    attn_cfg = dict(tl.get('attn_cfgs', {}))
+    return [DetrTransformerEncoderLayer(
+        embed_dims, attn_cfg.get('num_heads', 8), num_levels,
+        attn_cfg.get('num_points', 4), tl.get('feedforward_channels', 1024),
+        tl.get('ffn_dropout', 0.1), attn_cfg.get('dropout', 0.1))
+        for _ in range(enc_cfg.get('num_layers', 6))]
+
+
+def encode_levels(layers, mlvl_feats, img_shape, pos_enc, level_embeds,
+                  generator=None):
+    """``flatten_levels`` and the encoder layers over the tokens: ->
+    (memory (B, sum_HW, C), key_padding_mask, spatial_shapes,
+    valid_ratios)."""
+    x, pos, key_padding_mask, spatial_shapes, valid_ratios = flatten_levels(
+        mlvl_feats, img_shape, pos_enc, level_embeds)
+    reference_points = encoder_reference_points(spatial_shapes, valid_ratios)
+    for layer in layers:
+        x = layer(x, pos, key_padding_mask, reference_points, spatial_shapes,
+                  generator)
+    return x, key_padding_mask, spatial_shapes, valid_ratios
+
+
+def sine_encoding(positional_encoding):
+    """``SinePositionalEncoding`` from its config dict."""
+    cfg = dict(positional_encoding or {})
+    cfg.pop('type', None)
+    return SinePositionalEncoding(**cfg)
+
+
 class _Layers(nn.Module):
     """Holder that gives the encoder layers mmcv's ``encoder.layers`` path."""
 
@@ -330,43 +383,18 @@ class DeformableDetrEncoder(nn.Module):
     def __init__(self, encoder=None, positional_encoding=None,
                  num_feature_levels=4, embed_dims=256, init_cfg=None):
         super().__init__()
-        enc_cfg = dict(encoder or {})
-        tl = dict(enc_cfg.get('transformerlayers', {}))
-        attn_cfg = dict(tl.get('attn_cfgs', {}))
-        pe_cfg = dict(positional_encoding or {})
-        pe_cfg.pop('type', None)
-        self.pos_enc = SinePositionalEncoding(**pe_cfg)
-        self.encoder = _Layers([DetrTransformerEncoderLayer(
-            embed_dims, attn_cfg.get('num_heads', 8), num_feature_levels,
-            attn_cfg.get('num_points', 4),
-            tl.get('feedforward_channels', 1024), tl.get('ffn_dropout', 0.1),
-            attn_cfg.get('dropout', 0.1))
-            for _ in range(enc_cfg.get('num_layers', 6))])
+        self.pos_enc = sine_encoding(positional_encoding)
+        self.encoder = _Layers(build_encoder_layers(
+            dict(encoder or {}), num_feature_levels, embed_dims))
         self.level_embeds = nn.Parameter(
             torch.zeros(num_feature_levels, embed_dims))
 
     def forward(self, mlvl_feats, img_shape, generator=None):
         """mlvl_feats: tuple of (B, H_l, W_l, C) maps; img_shape (B, 2)
         valid [h, w] at input resolution (level 0 has stride 8)."""
-        spatial_shapes = tuple((f.shape[1], f.shape[2]) for f in mlvl_feats)
-        batch_hw = (mlvl_feats[0].shape[1] * 8, mlvl_feats[0].shape[2] * 8)
-        masks = make_level_masks(img_shape, batch_hw, spatial_shapes)
-        valid_ratios = get_valid_ratios(masks)
-        feats, poss, flat_masks = [], [], []
-        for lvl, (feat, mask) in enumerate(zip(mlvl_feats, masks)):
-            b, h, w, c = feat.shape
-            pos = self.pos_enc(mask) + self.level_embeds[lvl]
-            feats.append(feat.reshape(b, h * w, c))
-            poss.append(pos.reshape(b, h * w, c))
-            flat_masks.append(mask.reshape(b, h * w))
-        x = torch.cat(feats, 1)
-        pos = torch.cat(poss, 1)
-        key_padding_mask = torch.cat(flat_masks, 1)
-        reference_points = encoder_reference_points(spatial_shapes,
-                                                    valid_ratios)
-        for layer in self.encoder.layers:
-            x = layer(x, pos, key_padding_mask, reference_points,
-                      spatial_shapes, generator)
+        x, _, spatial_shapes, _ = encode_levels(
+            self.encoder.layers, mlvl_feats, img_shape, self.pos_enc,
+            self.level_embeds, generator)
         outs, start = [], 0
         for (h, w) in spatial_shapes:
             outs.append(x[:, start:start + h * w].reshape(

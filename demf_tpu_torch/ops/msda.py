@@ -21,9 +21,10 @@ from ._cuda import CudaKernel, check_cuda
 MSDA_KERNEL = CudaKernel(
     'demf_msda_forward', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 MSDA_BACKWARD_KERNEL = CudaKernel(
-    'demf_msda_backward', [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7)
+    'demf_msda_backward', [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10)
 
-# csrc/msda.cu: threads of a block, queries of a tile that one thread sums,
+# csrc/msda.cu (K4 takes the same tiles): threads of a block, queries of a
+# tile that one thread sums,
 # the side of a tile on the finest level (a tile holds at most its square),
 # the fewest queries worth a tile, the most points a level whose locations
 # still leave a tile's window room in shared memory.  The kernel's entry
@@ -33,6 +34,8 @@ MSDA_MAX_PASSES = 4
 MSDA_TILE_SIDE = 16
 MSDA_MIN_TILE = 64
 MSDA_MAX_TILE_POINTS = 16
+# csrc/msda_backward.cu: the most points a level of a tile's queries
+MSDA_BACKWARD_MAX_TILE_POINTS = 4
 
 # (spatial shapes, head_dim, tiled, device) -> (level table, tile table,
 # tiles, direct_from, max_tile) with the tables on the device: built once, not copied
@@ -215,14 +218,20 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
                        attention_weights, grad_out):
     """Kernel K4 (csrc/msda_backward.cu): grad_out (B, Q, heads * hd) ->
     (d_value, d_sampling_locations, d_attention_weights).  head_dim must
-    divide 32."""
+    divide 32.  As in ``msda_cuda``, with one query per token the tokens of
+    the finer levels go through the kernel's spatial tiles (K3's), which
+    sum a tile's additions to d_value row by row before they reach global
+    memory; that moves the speed only."""
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
-    level_info = _tables(spatial_shapes, hd, False, value.device)[0]
     if hd > 32 or 32 % hd:
         raise ValueError(f'the MSDA backward kernel needs a head_dim that '
                          f'divides 32, got {hd}')
+    level_info, tile_info, tiles, direct_from, max_tile = _tables(
+        spatial_shapes, hd,
+        q == s and hd % 4 == 0 and points <= MSDA_BACKWARD_MAX_TILE_POINTS,
+        value.device)
     check_cuda('grad_out', grad_out, torch.float32, 3)
     if tuple(grad_out.shape) != (b, q, heads * hd):
         raise ValueError(f'grad_out {tuple(grad_out.shape)} does not match '
@@ -231,10 +240,11 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
     d_locs = torch.empty_like(sampling_locations)
     d_aw = torch.empty_like(attention_weights)
     MSDA_BACKWARD_KERNEL(
-        value.data_ptr(), level_info.data_ptr(),
+        value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(),
         grad_out.data_ptr(), d_value.data_ptr(), d_locs.data_ptr(),
-        d_aw.data_ptr(), b, s, q, heads, hd, levels, points)
+        d_aw.data_ptr(), b, s, q, heads, hd, levels, points, tiles,
+        direct_from, max_tile)
     return d_value, d_locs, d_aw
 
 

@@ -1,5 +1,5 @@
-"""K1 (FPS), K2 (ball query), K3 (MSDA forward) and K7 (M-form sampler) of
-this tree against the same kernels of another commit, in turns, on one
+"""K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward) and K7
+(M-form sampler) of this tree against the same kernels of another commit, in turns, on one
 card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
@@ -10,12 +10,17 @@ card:
 ``demf_tpu_torch``.  Its ``ops`` package is loaded beside this tree's under
 a name of its own and builds its kernels from its own sources, so each
 side goes through its own wrapper (``furthest_point_sample_cuda``,
-``ball_query_cuda``, ``msda_cuda``, ``mform_sample_cuda``), whatever C
+``ball_query_cuda``, ``msda_cuda``, ``msda_backward_cuda``,
+``mform_sample_cuda``), whatever C
 interface lies below.  At every shape of the main paths (K7: the four
 levels of ``bench_msda_matmul``, bf16 and f32) each side is timed twice, in
 the order parent, this tree, this tree, parent, on tensors made beforehand;
 K1's and K2's picks and K7's outputs must be equal (K7's to the plain
 version's too) and K3's outputs within 1e-5 of the plain version's largest.
+K4 runs at the decoder's shapes (batch 16 of 256 proposals with 2 points,
+batch 4 of 300 queries with 4) and at the encoder's at batch 2 and 4 on the
+same three kinds of locations as K3; its three gradients must lie within
+1e-5 of the largest of the plain version's autograd on both sides.
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -31,7 +36,7 @@ every block shape and three tile sizes, and K7 at several tile and block
 sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
 ``ops.grouping.ball_query_launch_shape`` and
 ``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
-(``fps,ball_query,msda,mform``).  Prints its lines, writes
+(``fps,ball_query,msda,msda_backward,mform``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -70,7 +75,17 @@ MSDA_CASES = (('decoder', 16, 2, None), ('decoder', 2, 2, None),
               ('encoder, its own locations, noise 4 px', 2, 4, 4.0))
 
 
-KERNELS = ('fps', 'ball_query', 'msda', 'mform')
+# K4: (name, scenes, queries or None for the tokens, points, noise)
+MSDA_BACKWARD_CASES = (
+    ('decoder', 16, 256, 2, None), ('decoder', 4, 300, 4, None),
+    ('encoder, locations over the whole map', 2, None, 4, None),
+    ('encoder, its own locations, noise 0.5 px', 2, None, 4, 0.5),
+    ('encoder, its own locations, noise 4 px', 2, None, 4, 4.0),
+    ('encoder, locations over the whole map', 4, None, 4, None),
+    ('encoder, its own locations, noise 0.5 px', 4, None, 4, 0.5),
+    ('encoder, its own locations, noise 4 px', 4, None, 4, 4.0))
+
+KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform')
 
 
 def parent_ops(parent):
@@ -320,6 +335,54 @@ def compare_msda(old, dev):
     return rows
 
 
+def compare_msda_backward(old, dev):
+    """K4 at the shapes the paths launch it; the time includes the
+    wrapper's zero-fill of d_value."""
+    shapes = MSDA_SHAPES
+    s = sum(h * w for h, w in shapes)
+    gen = torch.Generator(dev).manual_seed(0)
+    rows = []
+    for name, b, q, p, noise in MSDA_BACKWARD_CASES:
+        q = q or s
+        value = torch.randn((b, s, 8, 32), generator=gen, device=dev)
+        if noise is None:
+            locs = torch.rand((b, q, 8, 4, p, 2), generator=gen,
+                              device=dev) * 1.2 - 0.1
+        else:
+            locs = encoder_sampling_locations(shapes, b, 8, p, dev,
+                                              jitter=noise)
+        aw = torch.rand((b, q, 8, 4 * p), generator=gen, device=dev)
+        aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p)
+        grad = torch.randn((b, q, 256), generator=gen, device=dev)
+        ins = [t.detach().requires_grad_() for t in (value, locs, aw)]
+        want = torch.autograd.grad(
+            msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+        del ins
+        bounds = [1e-5 * w.abs().max().item() for w in want]
+        errs = [[(g - w).abs().max().item() for g, w in zip(
+            m.msda_backward_cuda(value, shapes, locs, aw, grad), want)]
+            for m in (old, msda)]
+        del want
+        ms = in_turns(
+            lambda: old.msda_backward_cuda(value, shapes, locs, aw, grad),
+            lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad),
+            10)
+        rows.append(dict(kernel='msda_backward', case=name, b=b, q=q, p=p,
+                         parent_err=errs[0], err=errs[1], bounds=bounds,
+                         parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]]))
+        fmt = ' / '.join(['{:.3e}'] * 3)
+        print(f'K4 msda_backward {name} (B {b}, Q {q}, P {p}): parent '
+              f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
+              f'{ms[2]:.4f} ms; max err of d_value / d_loc / d_aw vs plain: '
+              f'parent {fmt.format(*errs[0])}, this tree '
+              f'{fmt.format(*errs[1])} (bounds {fmt.format(*bounds)})',
+              flush=True)
+        if not all(e <= bd for side in errs for e, bd in zip(side, bounds)):
+            raise AssertionError('an MSDA backward kernel disagrees with '
+                                 'plain')
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', default=None,
@@ -341,6 +404,8 @@ def main(argv=None):
         rows += compare_ball_query(old_grouping, dev, args.sweep)
     if 'msda' in only:
         rows += compare_msda(old_msda, dev)
+    if 'msda_backward' in only:
+        rows += compare_msda_backward(old_msda, dev)
     if 'mform' in only:
         rows += compare_mform(old_mform, dev, args.sweep)
     if args.out:

@@ -17,8 +17,10 @@ every ``evaluation.interval`` epochs.
     python -m demf_tpu_torch.train configs/demf/demf_votenet.py \\
         --synthetic --steps 3 [--profile]
 
-takes ``--steps`` steps on one synthetic batch (``zoo.synth_demf_batch``,
-its image features cached once) instead of reading a dataset;
+takes ``--steps`` steps on one synthetic batch (``zoo.synth_batch_for``
+the model: scenes for DeMF, images with 2D boxes for the stage-1 pretrain
+of ``configs/deformdetr/imvotenet_deform.py``; a frozen image branch's
+features are cached once) instead of reading a dataset;
 ``--profile`` then traces one more step with ``torch.profiler`` and prints
 its kernels by device time, the device's busy share and the step's phases.
 
@@ -109,15 +111,16 @@ def train_synthetic(cfg, args, device):
     counts ``--steps`` as the epoch's length."""
     model, optimizer, step = zoo.build_trainer(
         cfg, device, args.seed, steps_per_epoch=max(args.steps, 1))
-    batch = batch_to_device(zoo.synth_demf_batch(
-        args.batch, p=args.points, g=args.gt, hw=tuple(args.hw),
+    batch = batch_to_device(zoo.synth_batch_for(
+        model, args.batch, p=args.points, g=args.gt, hw=tuple(args.hw),
         seed=args.seed), device)
-    t0 = time.perf_counter()
-    batch['img_features'] = compute_image_features(model, batch)
-    del batch['img']
-    _sync(device)
-    print(f'image features of {args.batch} scenes cached in '
-          f'{time.perf_counter() - t0:.3f} s')
+    if model.freeze_img_branch:   # else the image branch trains every step
+        t0 = time.perf_counter()
+        batch['img_features'] = compute_image_features(model, batch)
+        n = len(batch.pop('img'))
+        _sync(device)
+        print(f'image features of {n} scenes cached in '
+              f'{time.perf_counter() - t0:.3f} s')
     runner = Runner(model, optimizer, step, [batch] * args.steps,
                     log_interval=1, work_dir=args.work_dir, seed=args.seed)
     runner.run()

@@ -1,7 +1,8 @@
 """Build the port's detector and its trainer from the shared ``configs/``,
-the tiny DeMF model config of the CPU runs, and synthetic batches (numpy)
-with the fields, shapes and meta of ``demf_tpu.zoo.synth_demf_batch``,
-value for value from the same seed."""
+the tiny DeMF and DETR-pretrain model configs of the CPU runs, and
+synthetic batches (numpy) with the fields, shapes and meta of
+``demf_tpu.zoo.synth_demf_batch`` and ``synth_detr2d_batch``, value for
+value from the same seed."""
 from __future__ import annotations
 
 import os
@@ -167,6 +168,93 @@ def tiny_demf_model_cfg():
                       pts=dict(ensemble_layers=[0, 1], sample_mod='seed',
                                nms_thr=0.25, score_thr=0.05,
                                per_class_proposal=True)))
+
+
+def tiny_detr_model_cfg():
+    """Scaled-down stage-1 Deformable-DETR pretrain model for CPU runs: the
+    model of ``configs/synthetic/detr_pretrain_tiny.py`` (ResNet-50 at full
+    width, a 32-wide neck and head, 20 queries, 1 encoder and 2 decoder
+    layers; a test holds the two together)."""
+    def msda():
+        return dict(type='MultiScaleDeformableAttention', embed_dims=32)
+
+    return dict(
+        type='ImVoteNet_Deformdetr',
+        img_backbone=dict(type='ResNet', depth=50, num_stages=4,
+                          out_indices=(1, 2, 3), frozen_stages=1,
+                          norm_eval=True, style='pytorch'),
+        img_neck=dict(type='ChannelMapper', in_channels=[512, 1024, 2048],
+                      kernel_size=1, out_channels=32, act_cfg=None,
+                      norm_cfg=dict(type='GN', num_groups=8), num_outs=4),
+        img_bbox_head=dict(
+            type='DeformableDETRHead', num_query=20, num_classes=10,
+            in_channels=2048, sync_cls_avg_factor=True, as_two_stage=False,
+            embed_dims=32,
+            transformer=dict(
+                type='DeformableDetrTransformer',
+                encoder=dict(
+                    type='DetrTransformerEncoder', num_layers=1,
+                    transformerlayers=dict(
+                        type='BaseTransformerLayer', attn_cfgs=msda(),
+                        feedforward_channels=64, ffn_dropout=0.1,
+                        operation_order=('self_attn', 'norm', 'ffn',
+                                         'norm'))),
+                decoder=dict(
+                    type='DeformableDetrTransformerDecoder', num_layers=2,
+                    return_intermediate=True,
+                    transformerlayers=dict(
+                        type='DetrTransformerDecoderLayer',
+                        attn_cfgs=[
+                            dict(type='MultiheadAttention', embed_dims=32,
+                                 num_heads=4, dropout=0.1),
+                            msda()],
+                        feedforward_channels=64, ffn_dropout=0.1,
+                        operation_order=('self_attn', 'norm', 'cross_attn',
+                                         'norm', 'ffn', 'norm')))),
+            positional_encoding=dict(type='SinePositionalEncoding',
+                                     num_feats=16, normalize=True,
+                                     offset=-0.5),
+            loss_cls=dict(type='FocalLoss', use_sigmoid=True, gamma=2.0,
+                          alpha=0.25, loss_weight=2.0),
+            loss_bbox=dict(type='L1Loss', loss_weight=5.0),
+            loss_iou=dict(type='GIoULoss', loss_weight=2.0)),
+        train_cfg=dict(
+            assigner=dict(
+                type='HungarianAssigner',
+                cls_cost=dict(type='FocalLossCost', weight=2.0),
+                reg_cost=dict(type='BBoxL1Cost', weight=5.0,
+                              box_format='xywh'),
+                iou_cost=dict(type='IoUCost', iou_mode='giou', weight=2.0))),
+        test_cfg=dict(max_per_img=20))
+
+
+def synth_detr2d_batch(b, hw=(800, 1344), g=20, seed=0):
+    """Synthetic image-only batch of the stage-1 DETR pretrain (numpy), value
+    for value ``demf_tpu.zoo.synth_detr2d_batch``: an image, ``g`` GT slots
+    of xyxy boxes in pixels with labels, about 80% of them valid."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    boxes = np.zeros((b, g, 4), np.float32)
+    boxes[..., 0] = rng.uniform(0, w / 2, (b, g))
+    boxes[..., 1] = rng.uniform(0, h / 2, (b, g))
+    boxes[..., 2] = boxes[..., 0] + rng.uniform(16, w / 2, (b, g))
+    boxes[..., 3] = boxes[..., 1] + rng.uniform(16, h / 2, (b, g))
+    return dict(
+        img=rng.rand(b, h, w, 3).astype(np.float32),
+        img_meta=dict(img_shape=np.tile(np.array([list(hw)], np.int32),
+                                        (b, 1))),
+        gt_bboxes=boxes, gt_labels=rng.randint(0, 10, (b, g)),
+        gt_bboxes_valid=rng.rand(b, g) < 0.8)
+
+
+def synth_batch_for(model, b=None, p=20000, g=None, hw=(800, 1344), seed=0):
+    """The synthetic batch that ``model`` trains on (numpy), at the size of
+    the step-time measurements unless given: ``synth_demf_batch`` of 16
+    scenes with 64 GT slots for a detector with a point branch, else
+    ``synth_detr2d_batch`` of 4 images with 20 GT slots."""
+    if hasattr(model, 'pts_backbone'):
+        return synth_demf_batch(b or 16, p=p, g=g or 64, hw=hw, seed=seed)
+    return synth_detr2d_batch(b or 4, hw=hw, g=g or 20, seed=seed)
 
 
 def synth_demf_batch(b, p=20000, g=32, hw=(800, 1344), seed=0,

@@ -426,6 +426,119 @@ def test_msda_backward_kernel_matches_plain(dev, shapes, heads, hd, q, p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('shapes,heads,hd,p', [
+    (ENCODER_SHAPES, 8, 32, 4),
+    (((32, 48), (16, 24), (8, 12)), 4, 16, 3),
+    (((32, 48), (16, 24), (8, 12)), 2, 8, 2),
+    (((33, 47), (17, 24)), 2, 32, 4),       # tiles at a level's ragged edge
+    (((32, 48), (16, 24)), 2, 4, 1)])
+@pytest.mark.parametrize('where', ['own', 'scattered', 'whole map',
+                                   'off the map'])
+def test_msda_backward_kernel_tiles_match_plain(dev, shapes, heads, hd, p,
+                                                where):
+    """One query a token, so the finer levels go through K4's spatial
+    tiles (entries linked by window row, one reduction a list) and the rest
+    through its query-major kernel: the encoder's own locations (inside the
+    tiles' windows), those scattered by 4 pixels (some across a window's
+    edge), locations over the whole map (outside every window: straight to
+    global memory) and around and beyond the map's edges (corners that add
+    nothing, but whose location gradient the plain version has too).
+    Padded tokens are zero rows of value."""
+    from demf_tpu_torch.tools import encoder_sampling_locations
+    s = sum(h * w for h, w in shapes)
+    tiles, direct_from = msda._tables(shapes, hd, True, dev)[2:4]
+    assert tiles > 0 and 0 < direct_from <= s
+    g = torch.Generator(device=dev).manual_seed(hd)
+    value = torch.randn(2, s, heads, hd, device=dev, generator=g)
+    value[1, s // 3: s // 2] = 0.0
+    if where in ('own', 'scattered'):
+        locs = encoder_sampling_locations(
+            shapes, 2, heads, p, dev, jitter=0.5 if where == 'own' else 4.0)
+    else:
+        locs = torch.rand(2, s, heads, len(shapes), p, 2, device=dev,
+                          generator=g)
+        locs = locs * 1.2 - 0.1 if where == 'whole map' else locs * 3 - 1
+    aw = torch.rand(2, s, heads, len(shapes), p, device=dev, generator=g)
+    grad = torch.randn(2, s, heads * hd, device=dev, generator=g)
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    got = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before + 1
+    ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+    want = torch.autograd.grad(
+        msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+    for g_, w in zip(got, want):
+        assert torch.isfinite(g_).all()
+        assert (g_ - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('q,p', [(300, 4), (None, 5), (None, 16)])
+def test_msda_backward_kernel_takes_the_query_major_route(dev, q, p):
+    """Queries that are not the tokens, and tokens with more points a level
+    than a tile's entries hold, all go through the query-major kernel."""
+    shapes = ((32, 48), (16, 24), (8, 12))
+    s = sum(h * w for h, w in shapes)
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 2, q or s, 4, 32, p, p)
+    got = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+    want = torch.autograd.grad(
+        msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+    for g_, w in zip(got, want):
+        assert (g_ - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('what', ['max_tile', 'points', 'direct_from',
+                                  'value', 'grad_out', 'd_value', 'locs',
+                                  'd_locs'])
+def test_msda_backward_kernel_refuses_without_a_counted_launch(dev, what):
+    """The entry point refuses a tile beyond a block's slots, more points
+    than a tile's entries hold, a ``direct_from`` beyond the queries, and,
+    with tiles, pointers off the 16-byte (value, grad_out, d_value) or
+    8-byte (locs, d_locs) grid; a refused call counts no launch."""
+    shapes = ((32, 48), (16, 24))
+    s = sum(h * w for h, w in shapes)
+    points = 5 if what == 'points' else 2
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 1, s, 2, 32, points, 0)
+    info, tile_info, tiles, direct_from, max_tile = msda._tables(
+        shapes, 32, True, dev)
+    assert tiles and 0 < max_tile <= 256
+    t = dict(value=value, locs=locs, grad_out=grad,
+             d_value=torch.zeros_like(value), d_locs=torch.empty_like(locs))
+    if what in t:
+        buf = torch.empty(t[what].numel() + 1, device=dev)
+        view = buf[1:].view(t[what].shape)
+        view.copy_(t[what])
+        assert view.is_contiguous() and view.data_ptr() % 8 == 4
+        t[what] = view
+    if what == 'max_tile':
+        max_tile = 257
+    if what == 'direct_from':
+        direct_from = s + 1
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        msda.MSDA_BACKWARD_KERNEL(
+            t['value'].data_ptr(), info.data_ptr(), tile_info.data_ptr(),
+            t['locs'].data_ptr(), aw.data_ptr(), t['grad_out'].data_ptr(),
+            t['d_value'].data_ptr(), t['d_locs'].data_ptr(),
+            torch.empty_like(aw).data_ptr(), 1, s, s, 2, 32, 2, points,
+            tiles, direct_from, max_tile)
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [64, 128])
+def test_msda_backward_wrapper_refuses_head_dim(dev, hd):
+    """K3 takes a head_dim of 64; K4's query-major kernel sums over a
+    (query, head)'s channels within a warp and does not."""
+    value, locs, aw, grad = _msda_inputs(dev, ((8, 8),), 1, 64, 2, hd, 2, 0)
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    with pytest.raises(ValueError, match='divides 32'):
+        msda.msda_backward_cuda(value, ((8, 8),), locs, aw, grad)
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before
+
+
+@pytest.mark.cuda
 def test_msda_backward_kernel_refuses_head_dim(dev):
     value, locs, aw, grad = _msda_inputs(dev, ((3, 4),), 1, 5, 2, 12, 2, 0)
     with pytest.raises(ValueError, match='divides 32'):

@@ -104,6 +104,71 @@ def test_resnet50():
         assert _rel(g, w) < TOL
 
 
+def test_resnet50_norm_eval_false_takes_batch_statistics():
+    """Without ``norm_eval`` a model in train mode normalizes with the
+    batch's statistics and updates the running ones by flax's rule (biased
+    variance, momentum 0.9): outputs 1e-4, running statistics 1e-5."""
+    img = np.random.RandomState(4).randn(2, 64, 96, 3).astype(np.float32)
+    # two stages: deeper, the float32 rounding of the batch statistics
+    # compounds on the JAX side (the port in float64 is then as far from it
+    # as in float32: 2e-4 after stage 3, 9e-4 after stage 4)
+    kw = dict(depth=50, num_stages=2, out_indices=(0, 1), norm_eval=False)
+    jmodel = jresnet.ResNet(**kw)
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img))
+    jvars, sd = _carry(variables, 'img_backbone')
+    want, mutated = jmodel.apply(jvars, jnp.asarray(img), train=True,
+                                 mutable=['batch_stats'])
+    port = _load(resnet.ResNet(**kw), sd).train()
+    assert port.bn1.training and port.layer2[2].bn2.training
+    with torch.no_grad():
+        got = port(torch.from_numpy(img))
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert _rel(g, w) < TOL
+    stats = state_dict_from_jax({}, {
+        f'img_backbone/{k}': np.asarray(v)
+        for k, v in flatten_params(mutated['batch_stats']).items()})
+    after = port.state_dict()
+    checked = 0
+    for key, w in stats.items():
+        if key.endswith(('running_mean', 'running_var')):
+            name = key[len('img_backbone.'):]
+            assert not torch.equal(after[name], sd[name]), name
+            assert _rel(after[name], w) < 1e-5, name
+            checked += 1
+    assert checked == 2 * 24
+    # with norm_eval (every config) train mode leaves the statistics alone
+    pinned = _load(resnet.ResNet(**dict(kw, norm_eval=True)), sd).train()
+    assert not pinned.bn1.training
+    with torch.no_grad():
+        pinned(torch.from_numpy(img))
+    assert torch.equal(pinned.state_dict()['bn1.running_mean'],
+                       sd['bn1.running_mean'])
+
+
+@pytest.mark.parametrize('frozen_stages', [-1, 0, 1, 2])
+def test_resnet50_frozen_stages(frozen_stages):
+    """The stem and the stages up to ``frozen_stages`` have
+    ``requires_grad=False``, get no gradient and keep no graph; the names
+    are the JAX package's ``frozen_param_patterns`` in the port's
+    spelling."""
+    port = resnet.ResNet(depth=50, out_indices=(0, 1, 2, 3),
+                         frozen_stages=frozen_stages)
+    patterns = port.frozen_param_patterns()
+    want = jresnet.ResNet(frozen_stages=frozen_stages).frozen_param_patterns()
+    assert patterns == [p.replace('_', '.') for p in want]
+    for name, p in port.named_parameters():
+        assert p.requires_grad != name.startswith(tuple(patterns)), name
+    img = torch.from_numpy(
+        np.random.RandomState(5).randn(1, 32, 32, 3).astype(np.float32))
+    outs = port.train()(img)
+    for stage, out in enumerate(outs):
+        assert out.requires_grad == (stage + 1 > frozen_stages), stage
+    sum(o.sum() for o in outs).backward()
+    for name, p in port.named_parameters():
+        assert (p.grad is None) == name.startswith(tuple(patterns)), name
+
+
 def test_channel_mapper():
     rng = np.random.RandomState(3)
     feats = [rng.randn(2, 8 // s, 12 // s, c).astype(np.float32)

@@ -38,6 +38,9 @@ print(' '.join(names))
 DATASET_PATH_MODULES = ('data', 'data.pipeline', 'data.sunrgbd',
                         'data.loader', 'core.eval3d', 'engine.cli', 'train',
                         'eval', 'tools.nms_cases')
+PRETRAIN_PATH_MODULES = ('ops.assignment', 'models.detr_head',
+                         'models.imvotenet', 'tools.k4_phases',
+                         'tools.compare_kernels')
 
 
 def test_port_imports_without_jax_or_nvcc():
@@ -48,7 +51,7 @@ def test_port_imports_without_jax_or_nvcc():
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = proc.stdout.strip().splitlines()[-1].split()
     assert len(names) >= 50
-    for name in DATASET_PATH_MODULES:
+    for name in DATASET_PATH_MODULES + PRETRAIN_PATH_MODULES:
         assert f'demf_tpu_torch.{name}' in names
 
 
@@ -68,3 +71,33 @@ def test_port_sources_name_no_import_of_the_jax_package():
             if pattern.search(f.read()):
                 hits.append(os.path.relpath(path, ROOT))
     assert not hits, hits
+
+
+_CONFIG_PROBE = r'''
+import glob, sys
+for name in ('jax', 'flax', 'optax', 'orbax', 'demf_tpu'):
+    sys.modules[name] = None
+from demf_tpu_torch.utils.config import Config
+from demf_tpu_torch.registry import DETECTORS, build_from_cfg
+import demf_tpu_torch.models
+files = sorted(glob.glob('demf_tpu_torch/configs/*.py'))
+for path in files:
+    cfg = Config.fromfile(path)
+    assert cfg.model['type'] in DETECTORS, path
+print(' '.join(files))
+'''
+
+
+def test_port_configs_load_without_jax():
+    """Every config of the port (the pretrain ones among them) reads, with
+    its ``_base_`` files under ``configs/``, where there is no JAX."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, '-c', _CONFIG_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = proc.stdout.strip().splitlines()[-1].split()
+    for name in ('detr_pretrain_tiny', 'detr_pretrain_synthetic',
+                 'demf_tiny', 'demf_votenet_synthetic'):
+        assert f'demf_tpu_torch/configs/{name}.py' in names

@@ -3,8 +3,9 @@ and random proposal sampling repeat from an explicit ``torch.Generator``,
 the spec sampling runs, the optax clip rule, the frozen-feature cache is
 shared with the JAX package in both directions, checkpoints save and
 resume (with the update count, so the LR schedule goes on), carry meta and
-are pruned, the warm-start key remap, the runner with its eval hook, and
-the training entry point's synthetic mode and its schedule.
+are pruned, the warm-start key remap, the runner with its eval hook, the training
+entry point's synthetic mode and its schedule, a resumed run's shuffles,
+and the stage-1 pretrain through the entry with its hand-over to stage 2.
 """
 import copy
 import os
@@ -378,3 +379,175 @@ def test_entry_points_stop_without_a_card_and_refuse_what_is_not_ported(
     for main, argv in ((train.main, [cfg]), (eval_entry.main, [cfg, 'c.pth'])):
         with pytest.raises(SystemExit, match='bf16.*not ported yet'):
             main(argv + ['--device', 'cpu', '--cfg-options', 'bf16=True'])
+
+
+# -- a resumed run shuffles as the unbroken run does ------------------------
+
+class _Numbers:
+    """A dataset of 12 numbered samples."""
+
+    def __len__(self):
+        return 12
+
+    def __getitem__(self, i):
+        return int(i)
+
+
+class _Recorder:
+    """A train step that only records the batches it is given."""
+
+    def __init__(self):
+        self.count = 0
+        self.seen = []
+
+    def __call__(self, batch, generator):
+        self.seen.append(batch.tolist())
+        self.count += 1
+        return {}
+
+
+def _shuffling_runner(work_dir=None, max_epochs=4, cached=False):
+    from demf_tpu_torch.data import DataLoader
+    from demf_tpu_torch.engine import CachedFeatureLoader
+    loader = DataLoader(_Numbers(), batch_size=4, shuffle=True, seed=3,
+                        num_threads=1, prefetch=0, collate_fn=np.asarray)
+    if cached:     # the wrapper of the stage-2 step passes the epoch on
+
+        class Passing(CachedFeatureLoader):
+            def __iter__(self):
+                return iter(self.loader)
+
+        loader = Passing(loader, cache=None)
+    model = torch.nn.Linear(1, 1)
+    step = _Recorder()
+    runner = Runner(model, torch.optim.AdamW(model.parameters()), step,
+                    loader, max_epochs=max_epochs, work_dir=work_dir,
+                    logger=lambda m: None)
+    return runner, step
+
+
+@pytest.mark.parametrize('cached', [False, True])
+@pytest.mark.parametrize('stop_at', [1, 2, 3])
+def test_resumed_run_shuffles_as_the_unbroken_run(tmp_path, stop_at, cached):
+    """Epoch k draws its order from ``seed + k``: after a resume at epoch k
+    the loader goes on with epoch k's order, not with epoch 0's."""
+    runner, unbroken = _shuffling_runner(cached=cached)
+    runner.run()
+    assert len(unbroken.seen) == 4 * 3
+    epochs = [unbroken.seen[3 * e:3 * e + 3] for e in range(4)]
+    assert len({str(e) for e in epochs}) == 4        # every epoch its own
+    for epoch in epochs:
+        assert sorted(sum(epoch, [])) == list(range(12))
+
+    first, _ = _shuffling_runner(str(tmp_path), max_epochs=stop_at,
+                                 cached=cached)
+    first.run()
+    again, resumed = _shuffling_runner(cached=cached)
+    again.resume(latest_checkpoint(str(tmp_path)))
+    assert again.start_epoch == stop_at
+    again.run()
+    assert resumed.seen == unbroken.seen[3 * stop_at:]
+
+
+def test_loader_set_epoch_names_the_shuffle():
+    from demf_tpu_torch.data import DataLoader
+    kw = dict(batch_size=4, shuffle=True, seed=1, num_threads=1, prefetch=0,
+              collate_fn=list)
+    a, b = DataLoader(_Numbers(), **kw), DataLoader(_Numbers(), **kw)
+    orders = [list(a) for _ in range(3)]
+    b.set_epoch(2)
+    assert list(b) == orders[2] and list(b) == list(a)   # both at epoch 3
+    b.set_epoch(0)
+    assert list(b) == orders[0]
+
+
+# -- the stage-1 pretrain through the entry, and its hand-over to stage 2 --
+
+PRETRAIN_CFG = os.path.join(os.path.dirname(zoo.__file__), 'configs',
+                            'detr_pretrain_tiny.py')
+
+
+@pytest.fixture(scope='module')
+def pretrain_run(tmp_path_factory):
+    """``train.main`` on the tiny pretrain config: one epoch of 2 steps and
+    a checkpoint; then a resumed run to 2 epochs in the same work dir."""
+    wd = str(tmp_path_factory.mktemp('pretrain'))
+    train.main([PRETRAIN_CFG, '--device', 'cpu', '--work-dir', wd])
+    first = latest_checkpoint(wd)
+    train.main([PRETRAIN_CFG, '--device', 'cpu', '--work-dir', wd,
+                '--resume-from', first, '--cfg-options',
+                'runner.max_epochs=2'])
+    return wd, first, latest_checkpoint(wd)
+
+
+def test_pretrain_entry_trains_checkpoints_and_resumes(pretrain_run):
+    wd, first, second = pretrain_run
+    assert first.endswith('epoch_1.pth') and second.endswith('epoch_2.pth')
+    a = torch.load(first, weights_only=True)
+    b = torch.load(second, weights_only=True)
+    assert (a['epoch'], a['count'], b['epoch'], b['count']) == (0, 2, 1, 4)
+    assert a['meta']['config_file'] == 'detr_pretrain_tiny.py'
+    assert 'ImVoteNet_Deformdetr' in a['meta']['config']
+    logs = [f for f in os.listdir(wd) if f.endswith('.log')]
+    text = ''.join(open(os.path.join(wd, f)).read() for f in logs)
+    assert text.count('Epoch [1/1]') == 2 and text.count('Epoch [2/2]') == 2
+    assert 'loss_cls.d0' in text and 'loss_iou' in text
+    assert 'resumed from' in text
+    moved = frozen = 0
+    for key, v in a['state_dict'].items():
+        if not v.is_floating_point() or 'running_' in key:
+            continue
+        if key.startswith(('img_backbone.conv1', 'img_backbone.bn1',
+                           'img_backbone.layer1.')):
+            assert torch.equal(v, b['state_dict'][key]), key
+            frozen += 1
+        else:
+            moved += not torch.equal(v, b['state_dict'][key])
+    assert frozen == 33 and moved > 200
+
+
+def test_pretrain_entry_synthetic_mode(capsys):
+    train.main([PRETRAIN_CFG, '--synthetic', '--steps', '2', '--batch', '2',
+                '--hw', '64', '96', '--gt', '5', '--device', 'cpu',
+                '--profile'])
+    out = capsys.readouterr().out
+    assert 'image features' not in out        # nothing to cache: it trains
+    assert out.count('Epoch [1/1]') == 2 and 'loss_bbox.d0' in out
+    assert 'profiled step' in out and 'phases: forward' in out
+
+
+def test_pretrain_checkpoint_warm_starts_stage_two(pretrain_run):
+    """The hand-over: a checkpoint that the port's own pretrain wrote loads
+    into a DeMF model through ``load_from``: backbone and neck as they are,
+    the head's encoder and level embeds as ``img_encoder``, its decoder and
+    branches dropped; nothing else is unused and only the point branch and
+    the fusion head are missing.  Then a serving forward runs."""
+    _, _, ckpt = pretrain_run
+    cfg = tiny_demf_model_cfg()
+    cfg['pts_backbone']['sa_cfg']['ball_query_exact'] = True
+    cfg['img_encoder']['encoder']['num_layers'] = 1      # as the pretrain's
+    model = zoo.build_detector(cfg, 'cpu', seed=9)
+    missing, unexpected = load_weights(ckpt, model)
+    assert unexpected == []
+    assert missing and all(k.startswith(('pts_backbone.', 'pts_bbox_head.'))
+                           for k in missing)
+    stage1 = torch.load(ckpt, weights_only=True)['state_dict']
+    got = model.state_dict()
+    carried = 0
+    for key, v in stage1.items():
+        if key.startswith(('img_backbone.', 'img_neck.')):
+            target = key
+        elif key.startswith(('img_bbox_head.transformer.encoder.',
+                             'img_bbox_head.transformer.level_embeds')):
+            target = key.replace('img_bbox_head.transformer', 'img_encoder')
+        else:
+            assert key.startswith('img_bbox_head.'), key
+            continue
+        assert torch.equal(got[target], v), key
+        carried += 1
+    assert carried == sum(k.startswith(('img_backbone.', 'img_neck.',
+                                        'img_encoder.')) for k in got)
+    batch = batch_to_device(zoo.synth_demf_batch(**BATCH), 'cpu')
+    with torch.no_grad():
+        det = model.get_bboxes(model(batch), batch)
+    assert torch.isfinite(det['boxes_3d']).all()

@@ -13,7 +13,9 @@ parameter's gradient within 1e-3 of the largest |gradient| of that tensor
 on the JAX side; the updated BatchNorm running statistics within 1e-5
 relative.  The optimizer alone (clip, AdamW, lr_mult, frozen patterns and
 the step schedule) agrees with the optax chain within 1e-6 relative over
-two steps.
+two steps.  With ``freeze_img_branch=False`` the step runs from the image:
+the backbone's ``frozen_stages`` keep the stem and ``layer1`` still, and
+every other gradient of the image branch agrees at the same bound.
 """
 import numpy as np
 import optax
@@ -264,3 +266,101 @@ def test_adamw_matches_optax_chain_over_two_steps():
     want = state_dict_from_jax(flatten_params(jparams), {})
     for name, p in model.named_parameters():
         assert _rel(p.detach(), want[name]) < 1e-6, name
+
+
+# -- the image branch trained too (``freeze_img_branch=False``) -------------
+
+FROZEN_STAGES = ('img_backbone.conv1', 'img_backbone.bn1',
+                 'img_backbone.layer1.')
+
+
+@pytest.fixture(scope='module')
+def unfrozen_pair():
+    """One step of the tiny model with a trainable image branch, from the
+    image itself (nothing is cached): JAX (gradients, their norm) and the
+    port's (the model after the step, every parameter before it)."""
+    cfg = tiny_train_cfg()
+    cfg['freeze_img_branch'] = False
+    tl = cfg['img_encoder']['encoder']['transformerlayers']
+    tl['ffn_dropout'] = 0.0
+    tl['attn_cfgs'] = dict(tl['attn_cfgs'], dropout=0.0)
+    jmodel = build_from_cfg(cfg, JAX_DETECTORS)
+    batch = tiny_batch()
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    params, stats = _jax_variables(jmodel, jbatch)
+    jvars = {'params': unflatten_params(params),
+             'batch_stats': unflatten_params(stats)}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('DEMF_TPU_MSDA_F32', '1')
+
+        def loss_fn(p):
+            results, _ = jmodel.apply(
+                {'params': p, 'batch_stats': jvars['batch_stats']}, jbatch,
+                train=True, mutable=['batch_stats'],
+                rngs={'sample': jax.random.PRNGKey(1),
+                      'dropout': jax.random.PRNGKey(2)})
+            return sum(jmodel.loss(results, jbatch).values())
+
+        total, grads = jax.device_get(jax.jit(jax.value_and_grad(loss_fn))(
+            jvars['params']))
+    model, _, step = zoo.build_trainer(
+        dict(model=cfg, optimizer=FULL.optimizer,
+             optimizer_config=FULL.optimizer_config,
+             lr_config=FULL.lr_config), 'cpu')
+    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    # PyTorch's own convolutions: oneDNN's float32 backward is off by 3e-3
+    # of a tensor's largest against a float64 run
+    with torch.backends.mkldnn.flags(enabled=False):
+        metrics = step(batch_to_device(batch, 'cpu'),
+                       torch.Generator().manual_seed(0))
+    return (dict(total=total, grads=flatten_params(grads),
+                 grad_norm=float(optax.global_norm(grads))),
+            metrics, model, before)
+
+
+def test_unfrozen_image_branch_grads_match_jax(unfrozen_pair):
+    """``frozen_stages=1`` of the backbone holds with the branch trained:
+    the stem and ``layer1`` have no gradient in the port (and a zero one in
+    the JAX package, which stops it at their outputs); ``layer2`` on, the
+    neck and the encoder get the JAX package's gradients."""
+    jax_out, metrics, model, _ = unfrozen_pair
+    assert _rel(metrics['loss'], jax_out['total']) < 1e-4
+    assert _rel(metrics['grad_norm'], jax_out['grad_norm']) < 1e-4
+    scale = MAX_NORM / jax_out['grad_norm']
+    assert scale <= 1
+    want = state_dict_from_jax(jax_out['grads'], {})
+    largest = max(np.abs(w.numpy()).max() for w in want.values()) * scale
+    compared = {}
+    for name, p in model.named_parameters():
+        w = want[name].numpy() * scale
+        if name.startswith(FROZEN_STAGES):
+            assert not p.requires_grad and p.grad is None, name
+            assert not np.any(w), name
+            continue
+        assert p.requires_grad, name
+        if np.abs(w).max() < 1e-6 * largest:     # see the frozen case above
+            assert np.abs(p.grad.numpy()).max() < 1e-6 * largest, name
+            continue
+        err = np.abs(p.grad.numpy() - w).max()
+        assert err <= 1e-3 * np.abs(w).max(), (name, err, np.abs(w).max())
+        compared[name.split('.')[0]] = compared.get(name.split('.')[0], 0) + 1
+    assert compared['img_backbone'] > 100 and compared['img_neck'] >= 8
+    assert compared['img_encoder'] > 20 and compared['pts_bbox_head'] > 50
+
+
+def test_unfrozen_image_branch_step_keeps_the_frozen_stages(unfrozen_pair):
+    _, _, model, before = unfrozen_pair
+    assert model.frozen_param_patterns() == []
+    assert model.img_backbone.frozen_param_patterns() == [
+        'conv1', 'bn1', 'layer1.']
+    frozen = moved = 0
+    for name, p in model.named_parameters():
+        if name.startswith(FROZEN_STAGES):
+            assert torch.equal(p.detach(), before[name]), name
+            frozen += 1
+        elif name.startswith(IMG_BRANCH):
+            moved += not torch.equal(p.detach(), before[name])
+    assert frozen == 33 and moved > 150
+    assert model.img_encoder.training and model.img_neck.training
+    assert not model.img_backbone.layer2[0].bn1.training      # norm_eval
