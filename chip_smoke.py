@@ -22,8 +22,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    plain version's bit for bit at a request's shape (2 scenes of 512 boxes) and
    at an eval batch's (16), on boxes spread out and on clustered boxes
    where most are suppressed, beside its bound and the least a serial sweep
-   of N dependent steps could take; then the non-empty-box test that runs
-   before the NMS (plain torch), timed alone at batch 2 and 16;
+   of N dependent steps could take; K9, the count of points in rotated
+   boxes behind the non-empty-box test before the NMS, counts equal to the
+   plain version's at a request's shape (2 scenes of 20,000 points and 512
+   boxes) and an eval batch's (16), on points spread over the room and
+   clustered around the boxes, beside the test it replaced (a Python loop
+   of ``points_in_boxes`` over the scenes);
 4. probes: with the launch counts at 0, the port's three probes at their
    full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
    plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
@@ -42,8 +46,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``engine.evaluation.make_eval_step``; every request must launch each
    kernel a fixed number of times; one more request runs under
    torch.profiler and prints the device time of K1-K3 and K8 on the
-   model's own inputs and the device's busy share, and so does one request
-   of batch 16 (an eval batch of the dataset path);
+   model's own inputs, the device time of the post-processing (all of
+   ``multiclass_nms_3d``: K9, K8 and the torch ops around them) and the
+   device's busy share, and so does one request of batch 16 (an eval batch
+   of the dataset path);
 7. training reference: the full-width detector on a small input, dropout
    off, one forward + loss + backward with the kernels against one with
    the plain versions: losses within 1e-4 relative, each gradient within
@@ -64,8 +70,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    16, a checkpoint with meta, the eval hook), then ``demf_tpu_torch.eval``
    on that checkpoint (one full batch of 16 and one filled batch, the mAP
    printed): 18 finite results, the first one that of scene 0, the
-   checkpoint's meta names the classes, and K1-K4 and K8 were launched the
-   expected number of times;
+   checkpoint's meta names the classes, and K1-K4, K8 and K9 were launched
+   the expected number of times;
 10. pretrain path: the stage-1 Deformable-DETR pretrain of
    ``configs/deformdetr/imvotenet_deform.py`` (the image branch trained end
    to end: ResNet-50 with ``frozen_stages=1``, the neck, 6 encoder and 6
@@ -89,12 +95,13 @@ first row above; K4: launches counted in the pretrain path's 3 steps, times
 and bound at the encoder's shape at batch 4, its own locations;
 ``launches_by_path`` has every path's count; K5-K7: launches counted in
 the probes phase, times and bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
-one chunk, K7 at the finest level; K8: launches counted in the dataset
-path, times and bound at an eval batch's shape; ``library_ms`` is the one
+one chunk, K7 at the finest level; K8 and K9: launches counted in the
+dataset path, times and bound at an eval batch's shape; ``library_ms`` is
+the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights) and null where there is
-none: FPS, the exact ball query, MSDA and its backward, and the
-class-aware 3D NMS); the
+none: FPS, the exact ball query, MSDA and its backward, the class-aware
+3D NMS and the count of points in rotated boxes); the
 last line is ``{"ok": true, "device": {...}}``.
 Float32 throughout: TF32 is switched off for matmuls and cuDNN
 convolutions.
@@ -120,14 +127,14 @@ import torch
 REQUESTS = (0, 1, 2)
 LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7,
                         'msda_backward': 0, 'gather_rows': 0, 'msda_fold': 0,
-                        'mform_sample': 0, 'nms3d': 1}
+                        'mform_sample': 0, 'nms3d': 1, 'box_count': 1}
 # train steps per run and what each must launch (the image branch runs
 # once, before, to fill the feature cache)
 TRAIN_STEPS = 3
 TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
 LAUNCHES_PER_STEP = {'fps': 5, 'ball_query': 5, 'msda': 1,
                      'msda_backward': 1, 'gather_rows': 0, 'msda_fold': 0,
-                     'mform_sample': 0, 'nms3d': 0}
+                     'mform_sample': 0, 'nms3d': 0, 'box_count': 0}
 # the dataset path: 32 train scenes (2 batches of 16: the cache fill runs
 # the encoder's 6 MSDA layers on each, the epoch 2 steps) and 18 val scenes
 # (2 batches, the second filled), read by the train entry's eval hook and
@@ -154,6 +161,7 @@ REPLACES = {
     'msda_fold': 'demf_tpu/ops/pallas/msda_fold.py:113',
     'mform_sample': 'tools/bench_msda_matmul.py:73',
     'nms3d': 'demf_tpu/ops/nms.py:46',
+    'box_count': 'demf_tpu/core/boxes.py:105',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -162,7 +170,8 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'gather_rows': 'demf_tpu_torch/csrc/gather_rows.cu',
            'msda_fold': 'demf_tpu_torch/csrc/msda_fold.cu',
            'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu',
-           'nms3d': 'demf_tpu_torch/csrc/nms3d.cu'}
+           'nms3d': 'demf_tpu_torch/csrc/nms3d.cu',
+           'box_count': 'demf_tpu_torch/csrc/box_count.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -173,7 +182,8 @@ PRETRAIN_BATCH = dict(b=4, hw=(800, 1344), g=20)
 PRETRAIN_STEPS = 3
 LAUNCHES_PER_PRETRAIN_STEP = {'fps': 0, 'ball_query': 0, 'msda': 12,
                               'msda_backward': 12, 'gather_rows': 0,
-                              'msda_fold': 0, 'mform_sample': 0, 'nms3d': 0}
+                              'msda_fold': 0, 'mform_sample': 0, 'nms3d': 0,
+                              'box_count': 0}
 PRETRAIN_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
                                     'detr_pretrain_synthetic.py')
 PRETRAIN_TINY_CFG = os.path.join('demf_tpu_torch', 'configs',
@@ -341,29 +351,74 @@ def check_nms(dev):
     return rows[0]
 
 
-def time_nonempty_test(dev, rng):
-    """The non-empty-box test that ``multiclass_nms_3d`` runs before the
-    NMS (more than 5 of a scene's 20,000 points inside a box, for 512
-    boxes; plain torch, a Python loop over the batch), timed alone."""
-    from demf_tpu_torch.core import boxes as box_ops
-    from demf_tpu_torch.tools import time_ms
-    for b in (2, 16):
-        points = torch.from_numpy(
-            rng.uniform(-3, 3, (b, 20000, 3)).astype(np.float32)).to(dev)
-        bottom = torch.from_numpy(np.concatenate(
-            [rng.uniform(-3, 3, (b, 512, 3)), rng.uniform(0.3, 1.5,
-                                                          (b, 512, 3)),
-             rng.uniform(-3, 3, (b, 512, 1))], -1).astype(np.float32)).to(dev)
+def device_ms(fn, marker, runs=5):
+    """Device ms of one run of ``fn`` by torch.profiler, mean of ``runs``:
+    (the kernels whose name holds ``marker``, all its kernels, how many of
+    them); without the host's time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    ours = sum(e.self_device_time_total for e in events if marker in e.key)
+    every = sum(e.self_device_time_total for e in events)
+    return (ours / 1e3 / runs, every / 1e3 / runs,
+            sum(e.count for e in events) // runs)
 
-        def nonempty():
+
+def check_box_count(dev):
+    """K9 against the plain count at a request's shape and an eval batch's
+    (20,000 points of (B, P, 4), read through their strides, and 512
+    boxes), points spread over the room and clustered around the boxes:
+    counts equal.  Beside it, the non-empty-box test as ``multiclass_nms_3d``
+    ran it before K9: ``points_in_boxes`` in a Python loop over the scenes.
+    Its bound: 12 float32 operations a (point, box) test (3 subtracts, 4
+    multiplies, 2 adds, 3 comparisons of absolute values)."""
+    from demf_tpu_torch.core import boxes as box_ops
+    from demf_tpu_torch.ops import box_count
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools.nms_cases import box_count_case
+    rows = []
+    for b, kind in ((16, 'clustered'), (16, 'spread'), (2, 'clustered'),
+                    (2, 'spread')):
+        points, boxes = (torch.from_numpy(a).to(dev) for a in box_count_case(
+            kind, b, 20000, 512, seed=b))
+        got = box_count.box_point_count_cuda(points, boxes)
+        want = box_count.box_point_count_plain(points, boxes)
+        differ = int((got != want).sum())
+        ms = time_ms(lambda: box_count.box_point_count_cuda(points, boxes), 20)
+        plain_ms = time_ms(
+            lambda: box_count.box_point_count_plain(points, boxes), 3)
+
+        def loop():
             return torch.stack([
-                box_ops.points_in_boxes(points[i], bottom[i]).sum(0) > 5
+                box_ops.points_in_boxes(points[i, :, :3], boxes[i]).sum(0) > 5
                 for i in range(b)])
 
-        share = nonempty().float().mean().item()
-        print(f'non-empty-box test ({b}, 20000 points, 512 boxes; plain '
-              f'torch): {time_ms(nonempty, 5):.4f} ms, {share:.1%} of the '
-              f'boxes non-empty')
+        loop_ms = time_ms(loop, 3)
+        alone, wrapper, kinds = device_ms(
+            lambda: box_count.box_point_count_cuda(points, boxes),
+            'box_count_kernel')
+        same_mask = torch.equal(loop(), got > 5)
+        p, n = points.shape[1], boxes.shape[1]
+        least, by = bound_ms(12 * b * p * n, points.numel() * 4 +
+                             boxes.numel() * 4 + got.numel() * 4)
+        print(f'K9 box_count ({b}, {p} points, {n} boxes, {kind}): '
+              f'{(got > 5).float().mean().item():.1%} of the boxes non-empty, '
+              f'{differ} counts differ from plain, mask equal to the loop\'s: '
+              f'{same_mask}; kernel {ms:.4f} ms through the wrapper (on the '
+              f'device: K9 {alone:.4f} ms, the wrapper\'s {kinds} launches '
+              f'{wrapper:.4f} ms), plain {plain_ms:.4f} ms, the loop it '
+              f'replaced {loop_ms:.4f} ms, bound {least:.6f} ms ({by})')
+        if differ or not same_mask:
+            raise AssertionError('box count kernel disagrees with plain')
+        rows.append(kernel_row(differ, ms, plain_ms, least, by))
+    return rows[0]
 
 
 def msda_bytes(shapes, value, locs, aw, backward=False):
@@ -596,10 +651,50 @@ def check_reference(model, dev):
         raise AssertionError('kernel path disagrees with the plain path')
 
 
+POST_PROCESSING = 'post-processing'
+
+
+class post_processing_range:
+    """Run ``multiclass_nms_3d`` (what ``get_bboxes`` does after the
+    decoder) inside a profiler range of its own."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from demf_tpu_torch.models import demf_head
+        self.fn = fn = demf_head.multiclass_nms_3d
+
+        def ranged(*args, **kwargs):
+            with record_function(POST_PROCESSING):
+                return fn(*args, **kwargs)
+
+        demf_head.multiclass_nms_3d = ranged
+        return self
+
+    def __exit__(self, *exc):
+        from demf_tpu_torch.models import demf_head
+        demf_head.multiclass_nms_3d = self.fn
+
+
+def device_ms_launched_in(prof, name):
+    """Device ms of the kernels whose launch (the CUDA runtime call with
+    their correlation id) lies in the host range ``name``: the port's
+    kernels launch through ctypes, outside any aten op."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    ranges = [e.time_range for e in events
+              if e.name == name and e.device_type == DeviceType.CPU]
+    calls = {e.id: e.time_range.start for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith('cu')}
+    us = sum(e.time_range.elapsed_us() for e in events
+             if e.device_type == DeviceType.CUDA and e.name != name and any(
+                 r.start <= calls.get(e.id, -1.0) < r.end for r in ranges))
+    return us / 1e3, len(ranges)
+
+
 def profile_request(eval_step, batch):
     """One more request under torch.profiler (after one untraced, timed on
     the host clock): the device time of the port's kernels on the model's
-    own inputs, and the device's busy share."""
+    own inputs, of the post-processing, and the device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -607,23 +702,28 @@ def profile_request(eval_step, batch):
     eval_step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with post_processing_range(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eval_step(batch)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA and e.key != POST_PROCESSING]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     ours = []
     for marker in ('fps_kernel', 'ball_query_kernel', 'msda_forward_kernel',
-                   'nms3d_kernel'):
+                   'nms3d_kernel', 'box_count_kernel'):
         hits = [e for e in events if marker in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         ours.append(f'{marker} {ms:.3f} ms in '
                     f'{sum(e.count for e in hits)} launches')
+    post_ms, ranges = device_ms_launched_in(prof, POST_PROCESSING)
+    if ranges != 1:
+        raise AssertionError(f'{ranges} post-processing ranges in a request')
     print(f'profiled request of batch {batch["points"].shape[0]}: untraced '
           f'{wall_ms:.3f} ms (host clock), device kernels {busy_ms:.3f} ms, '
-          f'busy share {busy_ms / wall_ms:.1%}; ' + '; '.join(ours))
+          f'busy share {busy_ms / wall_ms:.1%}; post-processing '
+          f'(multiclass_nms_3d) {post_ms:.3f} ms on the device; ' +
+          '; '.join(ours))
 
 
 def train_cfg_without_dropout():
@@ -1184,9 +1284,9 @@ def main():
                 'ball_query': check_ball_query(dev, rng),
                 'msda': check_msda(dev, rng),
                 'msda_backward': check_msda_backward(dev, rng),
-                'nms3d': check_nms(dev)}
+                'nms3d': check_nms(dev),
+                'box_count': check_box_count(dev)}
     kernels = ops.kernels()
-    time_nonempty_test(dev, rng)
     probed, probe_launches = run_probes(dev, rng, kernels)
     measured.update(probed)
 
@@ -1238,6 +1338,7 @@ def main():
     launches.update(probe_launches)
     by_path['dataset'] = run_dataset_path(kernels)
     launches['nms3d'] = by_path['dataset']['nms3d']
+    launches['box_count'] = by_path['dataset']['box_count']
     by_path['pretrain'] = run_pretrain_path(dev, kernels)
     # K4's row is the pretrain step's shape, so its launches are that path's
     launches['msda_backward'] = by_path['pretrain']['msda_backward']

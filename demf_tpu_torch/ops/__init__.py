@@ -1,9 +1,11 @@
 """Geometric ops of the port.  FPS, ball query, MSDA (forward and
-backward) and the aligned 3D NMS each have a CUDA kernel (``csrc/``) beside
-a plain PyTorch version; a CPU tensor takes the plain version and a CUDA
-tensor the kernel.  So do the row gather, the slot fold and the M-form
-sampler of the quad-plane MSDA route (``msda_quad.py``), which the probes
-of ``demf_tpu_torch.tools`` drive and the model does not call."""
+backward), the aligned 3D NMS and the count of points in rotated boxes
+each have a CUDA kernel (``csrc/``) beside a plain PyTorch version; a CPU
+tensor takes the plain version and a CUDA tensor the kernel.  So do the
+row gather, the slot fold and the M-form sampler of the quad-plane MSDA
+route (``msda_quad.py``), which the probes of ``demf_tpu_torch.tools``
+drive and the model does not call."""
+from .box_count import BOX_COUNT_KERNEL, box_point_count
 from .gather_rows import GATHER_ROWS_KERNEL
 from .grouping import (BALL_QUERY_KERNEL, ball_query, gather_points,
                        gather_points_last, group_points, group_points_last,
@@ -17,8 +19,9 @@ from .nms import NMS3D_KERNEL, aligned_3d_nms
 from .sampling import FPS_KERNEL, furthest_point_sample
 
 __all__ = [
-    'aligned_3d_nms', 'ball_query', 'furthest_point_sample', 'gather_points',
-    'gather_points_last', 'group_points', 'group_points_last',
+    'aligned_3d_nms', 'ball_query', 'box_point_count',
+    'furthest_point_sample', 'gather_points', 'gather_points_last',
+    'group_points', 'group_points_last',
     'multi_scale_deformable_attention', 'query_and_group',
     'three_nn_interpolate', 'kernels',
 ]
@@ -26,8 +29,10 @@ __all__ = [
 
 def kernels():
     """name -> CudaKernel for every kernel of the port: the serving and
-    training paths' (FPS to MSDA backward, and the NMS) and the probes'."""
+    training paths' (FPS to MSDA backward, the NMS and the box count) and
+    the probes'."""
     return {'fps': FPS_KERNEL, 'ball_query': BALL_QUERY_KERNEL,
             'msda': MSDA_KERNEL, 'msda_backward': MSDA_BACKWARD_KERNEL,
             'gather_rows': GATHER_ROWS_KERNEL, 'msda_fold': MSDA_FOLD_KERNEL,
-            'mform_sample': MFORM_KERNEL, 'nms3d': NMS3D_KERNEL}
+            'mform_sample': MFORM_KERNEL, 'nms3d': NMS3D_KERNEL,
+            'box_count': BOX_COUNT_KERNEL}

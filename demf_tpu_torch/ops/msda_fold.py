@@ -24,7 +24,10 @@ from ._cuda import DTYPE_CODES, CudaKernel, check_cuda
 
 MSDA_FOLD_KERNEL = CudaKernel(
     'demf_msda_fold', [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 +
-    [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2)
+    [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4)
+
+# K6's vector kernel loads 16 bytes of a slot's channels a thread
+VECTOR_BYTES = 16
 
 
 def weighted_slot_fold(rows, w4, *, hd):
@@ -72,8 +75,29 @@ def slot_fold_plain(rows, w):
     return acc
 
 
+def fold_takes_vector_loads(rows):
+    """Whether K6 takes these rows with its vector kernel, which loads 16
+    bytes of one slot's channels a thread: hd must be a multiple of 8 in
+    bfloat16 or 4 in float32 and the rows' data pointer 16-byte aligned.
+    Other rows take its scalar kernel (one thread an output element).  The
+    choice is made by shape and address before the launch, never on a
+    failure."""
+    lanes = VECTOR_BYTES // rows.element_size()
+    return (rows.shape[-1] // 4) % lanes == 0 and \
+        rows.data_ptr() % VECTOR_BYTES == 0
+
+
+def weights_take_vector_loads(w):
+    """Whether the vector kernel reads a (lp, q)'s 4 weights as one 8- or
+    16-byte load: adjacent slots, and every (lp, q) on a grid of 4
+    weights (the contiguous (BH, LP, Q, 4) layout)."""
+    return w.stride(3) == 1 and all(st % 4 == 0 for st in w.stride()[:3]) \
+        and w.data_ptr() % (4 * w.element_size()) == 0
+
+
 def slot_fold_cuda(rows, w):
-    """Kernel K6 (csrc/msda_fold.cu)."""
+    """Kernel K6 (csrc/msda_fold.cu): the vector kernel where
+    ``fold_takes_vector_loads(rows)``, else the scalar one."""
     if rows.dtype not in DTYPE_CODES or w.dtype not in DTYPE_CODES:
         raise TypeError(f'the fold kernel takes float32 or bfloat16 rows and '
                         f'weights, got {rows.dtype} and {w.dtype}')
@@ -88,5 +112,6 @@ def slot_fold_cuda(rows, w):
                       device=rows.device)
     MSDA_FOLD_KERNEL(rows.data_ptr(), w.data_ptr(), out.data_ptr(), bh, lp,
                      q, c4 // 4, *w.stride(), DTYPE_CODES[rows.dtype],
-                     DTYPE_CODES[w.dtype])
+                     DTYPE_CODES[w.dtype], int(fold_takes_vector_loads(rows)),
+                     int(weights_take_vector_loads(w)))
     return out

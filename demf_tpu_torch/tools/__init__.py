@@ -3,7 +3,8 @@
     python -m demf_tpu_torch.tools.bench_gather_kernel [--small]   # K5
     python -m demf_tpu_torch.tools.bench_msda_matmul               # K7
     python -m demf_tpu_torch.tools.bench_msda_fold [--batch B]     # K5 + K6
-    python -m demf_tpu_torch.tools.compare_kernels [--parent DIR]  # K1-K4, K7
+    python -m demf_tpu_torch.tools.compare_kernels [--parent DIR]  # K1-K4,
+                                                      # K6, K7, K9
     python -m demf_tpu_torch.tools.k4_phases [--batch B]           # K4 by phase
 
 Ports of the JAX package's ``tools/bench_gather_kernel.py``,
@@ -12,7 +13,7 @@ Each checks its kernel against the plain version on the kernel's own
 output, then times both with CUDA events, prints its lines and returns
 the numbers.  Inputs come from a seeded generator on the card.  Without a
 card each raises: none falls back to the CPU.  ``compare_kernels`` times
-K1-K4 and K7 in turns with another commit's, each through its own
+K1-K4, K6, K7 and K9 in turns with another commit's, each through its own
 wrapper.
 """
 from __future__ import annotations

@@ -16,8 +16,9 @@ folds 16 slices at a time.  Variants, each over all slices:
 - K6, weights slot-major (LP, 4, Q) in float32 (main18's layout), read
   through their strides.
 
-On the first chunk both K6 layouts are held against the plain fold
-(1e-5 of the largest output) and the fold alone is timed, beside its bound
+On the first chunk both K6 layouts are held against the plain fold (equal
+bit for bit: both round each product and sum alike, in the same order)
+and the fold alone is timed, beside its bound
 (rows and weights read once, sums written once; two operations a row
 element) and the one PyTorch call that computes the same function, a
 ``torch.einsum`` over rows and weights.  The other
@@ -101,7 +102,10 @@ def main(argv=None):
                 rows, w4[chunks[0]], hd=HD)),
             ('slot_major', 'K6 slot-major',
              lambda: slot_major_fold(rows, w4t[chunks[0]]))):
-        err, bound = max_err(fn(), want)
+        got = fn()
+        err, bound = max_err(got, want)
+        equal = torch.equal(got, want)
+        del got
         ms = time_ms(fn, 10)
         w = w4t if key == 'slot_major' else w4
         least, by = bound_ms(
@@ -109,10 +113,11 @@ def main(argv=None):
             rows.numel() * rows.element_size() +
             w[chunks[0]].numel() * w.element_size() + want.numel() * 4)
         print(f'K6 msda_fold {label}, one chunk ({rows.shape[0]} slices, '
-              f'{rows.shape[0] * S} samples): max_abs_err {err:.3e} (bound '
-              f'{bound:.3e}); fold {ms:.4f} ms, plain fold {plain_ms:.4f} ms,'
-              f' least {least:.4f} ms ({by})', flush=True)
-        if not err <= bound:
+              f'{rows.shape[0] * S} samples): max_abs_err {err:.3e}, equal to '
+              f'the plain fold bit for bit: {equal}; fold {ms:.4f} ms, plain '
+              f'fold {plain_ms:.4f} ms, least {least:.4f} ms ({by}), '
+              f'{least / ms:.1%} of it', flush=True)
+        if not equal:
             raise AssertionError(f'fold kernel disagrees with plain ({label})')
         out[key] = dict(max_abs_err=err, bound=bound, ms=ms,
                         plain_ms=plain_ms, bound_ms=least, bound_by=by,

@@ -1,6 +1,6 @@
-"""K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward) and K7
-(M-form sampler) of this tree against the same kernels of another commit, in turns, on one
-card:
+"""K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward), K6
+(slot fold), K7 (M-form sampler) and K9 (box count) of this tree against
+the same kernels of another commit, in turns, on one card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
         tar -x -C build/parent
@@ -11,8 +11,8 @@ card:
 a name of its own and builds its kernels from its own sources, so each
 side goes through its own wrapper (``furthest_point_sample_cuda``,
 ``ball_query_cuda``, ``msda_cuda``, ``msda_backward_cuda``,
-``mform_sample_cuda``), whatever C
-interface lies below.  At every shape of the main paths (K7: the four
+``weighted_slot_fold_batched`` / ``slot_major_fold``,
+``mform_sample_cuda``), whatever C interface lies below.  At every shape of the main paths (K7: the four
 levels of ``bench_msda_matmul``, bf16 and f32) each side is timed twice, in
 the order parent, this tree, this tree, parent, on tensors made beforehand;
 K1's and K2's picks and K7's outputs must be equal (K7's to the plain
@@ -21,6 +21,14 @@ K4 runs at the decoder's shapes (batch 16 of 256 proposals with 2 points,
 batch 4 of 300 queries with 4) and at the encoder's at batch 2 and 4 on the
 same three kinds of locations as K3; its three gradients must lie within
 1e-5 of the largest of the plain version's autograd on both sides.
+K6 runs on one chunk of ``bench_msda_fold`` (16 slices x LP 16 x Q
+22,528 rows of 128 channels) in both weight layouts ((LP, Q, 4) and
+slot-major), rows in bf16 and f32; both sides must equal the plain fold.
+K9 runs at a request's and an eval batch's shape (20,000 points, 512
+boxes, batch 2 and 16) on spread and clustered points; a commit without
+K9 stands in with the non-empty-box test its ``multiclass_nms_3d`` ran (a
+Python loop of its ``core/boxes.py::points_in_boxes`` over the scenes),
+and the masks ``count > 5`` must be equal.
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -36,7 +44,7 @@ every block shape and three tile sizes, and K7 at several tile and block
 sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
 ``ops.grouping.ball_query_launch_shape`` and
 ``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
-(``fps,ball_query,msda,msda_backward,mform``).  Prints its lines, writes
+(``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -50,10 +58,13 @@ import sys
 
 import torch
 
-from ..ops import grouping, mform, msda, sampling
+from ..core import boxes as box_ops
+from ..ops import box_count, grouping, mform, msda, msda_fold, sampling
 from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
-from . import bench_msda_matmul, cuda_device, encoder_sampling_locations, \
-    time_ms
+from ..ops.gather_rows import gather_rows
+from . import (bench_msda_fold, bench_msda_matmul, bound_ms, cuda_device,
+               encoder_sampling_locations, time_ms)
+from .nms_cases import box_count_case
 
 # (scenes, points, picks) of the point branch's four SA modules and the
 # vote aggregation, at the training batch and the serving batch
@@ -85,15 +96,19 @@ MSDA_BACKWARD_CASES = (
     ('encoder, its own locations, noise 0.5 px', 4, None, 4, 0.5),
     ('encoder, its own locations, noise 4 px', 4, None, 4, 4.0))
 
-KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform')
+KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
+           'msda_fold', 'box_count')
+# K9: (scenes, points, boxes) of a request and of an eval batch
+BOX_COUNT_SHAPES = ((2, 20000, 512), (16, 20000, 512))
 
 
 def parent_ops(parent):
-    """The other commit's ``ops.sampling``, ``ops.grouping``, ``ops.msda``
-    and ``ops.mform``, loaded as the package ``demf_parent_ops``; ``this
-    tree`` twice without a parent."""
+    """The other commit's ``ops.sampling``, ``ops.grouping``, ``ops.msda``,
+    ``ops.mform`` and ``ops.msda_fold``, loaded as the package
+    ``demf_parent_ops``, and its ``core/boxes.py`` as
+    ``demf_parent_boxes``; this tree's without a parent."""
     if parent is None:
-        return sampling, grouping, msda, mform
+        return sampling, grouping, msda, mform, msda_fold, box_ops
     path = os.path.join(parent, 'demf_tpu_torch', 'ops')
     spec = importlib.util.spec_from_file_location(
         'demf_parent_ops', os.path.join(path, '__init__.py'),
@@ -101,8 +116,14 @@ def parent_ops(parent):
     package = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = package
     spec.loader.exec_module(package)
+    spec = importlib.util.spec_from_file_location(
+        'demf_parent_boxes',
+        os.path.join(parent, 'demf_tpu_torch', 'core', 'boxes.py'))
+    boxes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(boxes)
     return tuple(importlib.import_module(f'demf_parent_ops.{name}')
-                 for name in ('sampling', 'grouping', 'msda', 'mform'))
+                 for name in ('sampling', 'grouping', 'msda', 'mform',
+                              'msda_fold')) + (boxes,)
 
 
 def in_turns(parent, change, iters):
@@ -383,6 +404,86 @@ def compare_msda_backward(old, dev):
     return rows
 
 
+def compare_msda_fold(old, dev):
+    """K6 on one chunk of the fold probe, both weight layouts, bf16 and f32
+    rows; its bound: rows and weights read once, sums written once."""
+    hd, lp, q = bench_msda_fold.HD, bench_msda_fold.LP, bench_msda_fold.Q
+    plane, idx, w4 = bench_msda_fold.make_inputs(bench_msda_fold.CHUNK, dev)
+    bf16_rows = gather_rows(plane, idx).view(-1, lp, q, 4 * hd)
+    del plane, idx
+    w4 = w4.view(-1, lp, q, 4)
+    w4t = w4.permute(0, 1, 3, 2).float().contiguous()      # (BH, LP, 4, Q)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        r = bf16_rows.to(dtype)
+        for layout, w, fold in (
+                ('(LP, Q, 4)', w4, lambda m, r=r: m.weighted_slot_fold_batched(
+                    r, w4, hd=hd)),
+                ('slot-major', w4t, lambda m, r=r: m.slot_major_fold(r, w4t))):
+            want = msda_fold.slot_fold_plain(
+                r, w.to(dtype) if w is w4 else w.transpose(2, 3))
+            equal = [torch.equal(fold(m), want) for m in (old, msda_fold)]
+            ms = in_turns(lambda: fold(old), lambda: fold(msda_fold), 10)
+            wbytes = w.numel() * (r.element_size() if w is w4 else 4)
+            least, by = bound_ms(2 * r.numel(), r.numel() * r.element_size() +
+                                 wbytes + want.numel() * 4)
+            row = dict(kernel='msda_fold', layout=layout, dtype=str(dtype),
+                       vector=msda_fold.fold_takes_vector_loads(r),
+                       equal=equal, bound_ms=least, bound_by=by,
+                       parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+            print(f'K6 msda_fold {layout} {dtype}, one chunk {tuple(r.shape)}: '
+                  f'parent {ms[0]:.4f} / {ms[3]:.4f} ms, this tree '
+                  f'{ms[1]:.4f} / {ms[2]:.4f} ms (vector kernel: '
+                  f'{row["vector"]}), bound {least:.4f} ms ({by}), this tree '
+                  f'at {least / min(ms[1:3]):.1%} of it; equal to the plain '
+                  f'fold: parent {equal[0]}, this tree {equal[1]}', flush=True)
+            if not all(equal):
+                raise AssertionError('a fold kernel differs from plain')
+            rows.append(row)
+            del want
+        del r
+    return rows
+
+
+def compare_box_count(old_boxes, dev, parent_has_k9):
+    """K9 against the parent's: its kernel where it has one, else the
+    non-empty-box test of its ``multiclass_nms_3d``, a Python loop of its
+    ``points_in_boxes`` over the scenes."""
+    rows = []
+    for b, p, n in BOX_COUNT_SHAPES:
+        for kind in ('spread', 'clustered'):
+            points, boxes = (torch.from_numpy(a).to(dev) for a in
+                             box_count_case(kind, b, p, n, seed=b))
+
+            def before():
+                if parent_has_k9:
+                    return old_boxes(points, boxes) > 5
+                return torch.stack([
+                    old_boxes.points_in_boxes(points[i, :, :3],
+                                              boxes[i]).sum(0) > 5
+                    for i in range(b)])
+
+            def after():
+                return box_count.box_point_count_cuda(points, boxes) > 5
+
+            equal = torch.equal(before(), after())
+            ms = in_turns(before, after, 5)
+            least, by = bound_ms(12 * b * p * n,
+                                 4 * (points.numel() + boxes.numel() + b * n))
+            row = dict(kernel='box_count', kind=kind, b=b, p=p, n=n,
+                       equal=equal, parent_ms=[ms[0], ms[3]],
+                       ms=[ms[1], ms[2]], bound_ms=least, bound_by=by)
+            print(f'K9 box_count {kind} (B {b}, P {p}, N {n}): parent '
+                  f'{"K9" if parent_has_k9 else "loop of points_in_boxes"} '
+                  f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
+                  f'{ms[2]:.4f} ms, bound {least:.6f} ms ({by}); masks equal: '
+                  f'{equal}', flush=True)
+            if not equal:
+                raise AssertionError('the non-empty masks differ')
+            rows.append(row)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', default=None,
@@ -396,7 +497,8 @@ def main(argv=None):
     only = args.only.split(',')
     if not set(only) <= set(KERNELS):
         ap.error(f'--only takes {KERNELS}')
-    old_sampling, old_grouping, old_msda, old_mform = parent_ops(args.parent)
+    (old_sampling, old_grouping, old_msda, old_mform, old_fold,
+     old_boxes) = parent_ops(args.parent)
     rows = []
     if 'fps' in only:
         rows += compare_fps(old_sampling, dev, args.sweep)
@@ -408,6 +510,13 @@ def main(argv=None):
         rows += compare_msda_backward(old_msda, dev)
     if 'mform' in only:
         rows += compare_mform(old_mform, dev, args.sweep)
+    if 'msda_fold' in only:
+        rows += compare_msda_fold(old_fold, dev)
+    if 'box_count' in only:
+        old_k9 = sys.modules.get('demf_parent_ops')
+        old_k9 = getattr(old_k9, 'box_point_count', None) if args.parent \
+            else box_count.box_point_count_cuda
+        rows += compare_box_count(old_k9 or old_boxes, dev, old_k9 is not None)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from demf_tpu_torch.ops import (gather_rows, grouping, mform, msda, msda_fold,
-                                nms, sampling)
+from demf_tpu_torch.ops import (box_count, gather_rows, grouping, mform, msda,
+                                msda_fold, nms, sampling)
 
 
 def unambiguous_centers(points, centers, radius, k):
@@ -573,22 +573,61 @@ def test_gather_rows_kernel_refuses_int64_indices(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('layout', ['lp_q_slot', 'slot_major'])
-def test_msda_fold_kernel_matches_plain(dev, dtype, layout):
+@pytest.mark.parametrize('hd', [16, 32, 64])
+@pytest.mark.parametrize('lp,q', [(16, 300), (1, 1001), (16, 64), (5, 77)])
+def test_msda_fold_kernel_matches_plain(dev, dtype, layout, hd, lp, q):
     """K6 with weights (BH, LP, Q, 4) and, read through their strides,
-    slot-major (BH, LP, 4, Q); within 1e-5 of the largest output (both
-    sides round alike, so in practice bit-equal)."""
+    slot-major (BH, LP, 4, Q): bit-equal to the plain fold (both round
+    each product and sum in lp-major, then slot, order), at head widths
+    16 / 32 / 64, LP 16 (the unrolled case), 1 and 5, and Q that fills no
+    whole block; these rows take the vector kernel."""
     g = torch.Generator(device=dev).manual_seed(7)
-    rows = torch.randn(2, 16, 300, 128, device=dev, generator=g).to(dtype)
+    rows = torch.randn(2, lp, q, 4 * hd, device=dev, generator=g).to(dtype)
+    assert msda_fold.fold_takes_vector_loads(rows)
+    before = msda_fold.MSDA_FOLD_KERNEL.launches
     if layout == 'slot_major':
-        w = torch.rand(2, 16, 4, 300, device=dev, generator=g)
+        w = torch.rand(2, lp, 4, q, device=dev, generator=g)
         got = msda_fold.slot_major_fold(rows, w)
         w = w.transpose(2, 3)
     else:
-        w = torch.rand(2, 16, 300, 4, device=dev, generator=g)
-        got = msda_fold.weighted_slot_fold_batched(rows, w, hd=32)
+        w = torch.rand(2, lp, q, 4, device=dev, generator=g)
+        got = msda_fold.weighted_slot_fold_batched(rows, w, hd=hd)
         w = w.to(dtype)
-    want = msda_fold.slot_fold_plain(rows, w)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert msda_fold.MSDA_FOLD_KERNEL.launches == before + 1
+    assert torch.equal(got, msda_fold.slot_fold_plain(rows, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,hd,offset', [
+    (torch.bfloat16, 32, 1), (torch.float32, 32, 2), (torch.bfloat16, 12, 0),
+    (torch.float32, 6, 0)])
+@pytest.mark.parametrize('layout', ['lp_q_slot', 'slot_major'])
+def test_msda_fold_scalar_kernel_takes_other_rows(dev, dtype, hd, offset,
+                                                  layout):
+    """Rows off the 16-byte grid (a data pointer a few elements in, hd not
+    a multiple of 8 in bf16 or 4 in f32) take the scalar kernel: bit-equal
+    too; the vector kernel asked for them refuses."""
+    lp, q = 16, 301
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = 2 * lp * q * 4 * hd
+    buf = torch.randn(n + 64, device=dev, generator=g).to(dtype)
+    start = (-buf.data_ptr() % 64) // buf.element_size() + offset
+    rows = buf[start:start + n].view(2, lp, q, 4 * hd)
+    assert not msda_fold.fold_takes_vector_loads(rows)
+    w = torch.rand(2, lp, 4, q, device=dev, generator=g)
+    if layout == 'slot_major':
+        got = msda_fold.slot_major_fold(rows, w)
+    else:
+        w = w.transpose(2, 3).contiguous()
+        got = msda_fold.slot_fold(rows, w)
+    assert torch.equal(got, msda_fold.slot_fold_plain(rows, w.transpose(2, 3)
+                                                      if layout ==
+                                                      'slot_major' else w))
+    out = torch.empty(2, q, hd, device=dev)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        msda_fold.MSDA_FOLD_KERNEL(
+            rows.data_ptr(), w.data_ptr(), out.data_ptr(), 2, lp, q, hd,
+            *w.stride(), int(dtype == torch.bfloat16), 0, 1, 0)
 
 
 @pytest.mark.cuda
@@ -759,3 +798,76 @@ def test_nms_kernel_refuses_what_it_cannot_take(dev):
     assert nms.aligned_3d_nms(boxes[:0], scores[:0], classes[:0], 0.25,
                               valid[:0]).shape == (0, 64)
     assert nms.NMS3D_KERNEL.launches == before
+
+
+def _box_count_inputs(dev, kind, b, p, n, seed=0):
+    from demf_tpu_torch.tools.nms_cases import box_count_case
+    return [torch.from_numpy(a).to(dev)
+            for a in box_count_case(kind, b, p, n, seed=seed)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,p,n', [(1, 37, 5), (2, 20000, 512),
+                                   (16, 20000, 512), (3, 999, 1184)])
+@pytest.mark.parametrize('kind', ['spread', 'clustered', 'faces'])
+def test_box_count_kernel_equals_plain(dev, kind, b, p, n):
+    """K9 against the plain count, bit for bit, on (B, P, 4) clouds read
+    through their strides: points spread over the room, clustered around
+    the boxes, and put on faces, edges and corners at the test's own limit
+    (half + eps before the rotation rounds them); one launch a batch."""
+    points, boxes = _box_count_inputs(dev, kind, b, p, n, seed=p + n)
+    before = box_count.BOX_COUNT_KERNEL.launches
+    got = box_count.box_point_count(points, boxes)
+    assert box_count.BOX_COUNT_KERNEL.launches == before + 1
+    want = box_count.box_point_count_plain(points, boxes)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if kind != 'spread' or p * n > 10 ** 5:     # 37 spread points miss
+        assert int(got.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('view', ['xyz', 'channels_first', 'every_other',
+                                  'nan'])
+def test_box_count_kernel_reads_points_through_strides(dev, view):
+    """Contiguous (B, P, 3) points, a (B, 3, P) buffer seen as (B, P, 3),
+    every other point, and NaN points and boxes, which count nothing."""
+    points, boxes = _box_count_inputs(dev, 'clustered', 2, 3001, 70, seed=4)
+    if view == 'xyz':
+        points = points[..., :3].contiguous()
+    elif view == 'channels_first':
+        points = points[..., :3].transpose(1, 2).contiguous().transpose(1, 2)
+    elif view == 'every_other':
+        points = points[:, ::2]
+    else:
+        points[0, ::5, 1] = float('nan')
+        boxes[1, :7, 6] = float('nan')
+    got = box_count.box_point_count(points, boxes)
+    assert torch.equal(got, box_count.box_point_count_plain(points, boxes))
+    if view == 'nan':
+        assert not got[1, :7].any()
+
+
+@pytest.mark.cuda
+def test_box_count_kernel_refuses_what_it_cannot_take(dev):
+    """Other dtypes, shapes and devices raise before any launch; a cloud
+    without points or a batch without boxes launches nothing."""
+    points, boxes = _box_count_inputs(dev, 'spread', 2, 100, 9)
+    before = box_count.BOX_COUNT_KERNEL.launches
+    with pytest.raises(TypeError, match='points'):
+        box_count.box_point_count(points.double(), boxes)
+    with pytest.raises(TypeError, match='boxes'):
+        box_count.box_point_count(points, boxes.half())
+    with pytest.raises(ValueError, match='do not go with'):
+        box_count.box_point_count(points[..., :2], boxes)
+    with pytest.raises(ValueError, match='do not go with'):
+        box_count.box_point_count(points, boxes[..., :6])
+    with pytest.raises(ValueError, match='do not go with'):
+        box_count.box_point_count(points[:1], boxes)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        box_count.box_point_count(points, boxes.cpu())
+    with pytest.raises(ValueError, match='3 dims'):
+        box_count.box_point_count(points[0], boxes)
+    assert torch.equal(box_count.box_point_count(points[:, :0], boxes),
+                       torch.zeros(2, 9, dtype=torch.int32, device=dev))
+    assert box_count.box_point_count(points, boxes[:, :0]).shape == (2, 0)
+    assert box_count.BOX_COUNT_KERNEL.launches == before

@@ -137,6 +137,42 @@ def test_slot_major_fold_matches_main18_formula(batched):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.parametrize('dtype,hd,offset,vector', [
+    (torch.bfloat16, 32, 0, True), (torch.bfloat16, 16, 0, True),
+    (torch.bfloat16, 12, 0, False), (torch.bfloat16, 32, 1, False),
+    (torch.float32, 12, 0, True), (torch.float32, 6, 0, False),
+    (torch.float32, 32, 2, False), (torch.float32, 32, 4, True)])
+def test_fold_kernel_is_chosen_by_shape_and_address(dtype, hd, offset,
+                                                    vector):
+    """K6's vector kernel takes rows whose 16-byte channel groups are
+    aligned (hd a multiple of 8 in bf16 or 4 in f32, the data pointer on
+    the 16-byte grid); other rows take its scalar kernel."""
+    buf = torch.zeros(64 + 2 * 3 * 5 * 4 * hd, dtype=dtype)
+    start = (-buf.data_ptr() % 64) // buf.element_size() + offset
+    rows = buf[start:start + 2 * 3 * 5 * 4 * hd].view(2, 3, 5, 4 * hd)
+    assert rows.is_contiguous()
+    assert msda_fold.fold_takes_vector_loads(rows) is vector
+
+
+@pytest.mark.parametrize('layout,vector', [
+    ('lp_q_slot', True), ('slot_major', False), ('offset', False),
+    ('every_other_query', True)])
+def test_fold_weights_vector_load_by_layout(layout, vector):
+    """A (lp, q)'s 4 weights come as one vector load where they are
+    adjacent and on a grid of 4; slot-major weights come one by one."""
+    w = torch.zeros(64 + 2 * 16 * 10 * 4)
+    start = (-w.data_ptr() % 64) // 4
+    w4 = w[start:start + 2 * 16 * 10 * 4].view(2, 16, 10, 4)
+    if layout == 'slot_major':
+        w4 = w[start:start + 2 * 16 * 10 * 4].view(2, 16, 4, 10).transpose(
+            2, 3)
+    elif layout == 'offset':
+        w4 = w[start + 1:start + 1 + 2 * 16 * 10 * 4].view(2, 16, 10, 4)
+    elif layout == 'every_other_query':
+        w4 = w4[:, :, ::2]
+    assert msda_fold.weights_take_vector_loads(w4) is vector
+
+
 def _mform_inputs(rng, bh, n, q, hd, nslots):
     plane = rng.randn(bh, n, hd).astype(np.float32)
     idx16 = rng.randint(0, n, (bh, nslots, q, 1)).astype(np.int32)

@@ -121,3 +121,106 @@ def test_multiclass_nms_3d_goes_through_the_wrapper(monkeypatch):
         dict(nms_thr=0.25, score_thr=0.05, per_class_proposal=True))
     assert calls == [(b, n, 6)]
     assert out['valid'].shape == (b, n * c)
+
+
+def _nms_scene(kind, b, n, c, seed, per_class, empty_scene):
+    """A tiny batch for ``multiclass_nms_3d``: gravity-center boxes made
+    from a ``box_count_case`` (points 1e-4 from every face), scores and
+    class probabilities from a seed; with ``empty_scene`` the last scene's
+    points lie far from every box."""
+    from demf_tpu_torch.tools.nms_cases import box_count_case
+    points, bottom = box_count_case(kind, b, 600, n, seed=seed, margin=1e-4)
+    if empty_scene:
+        points[-1, :, :2] += 50.0
+    bbox = bottom.copy()
+    bbox[..., 2] += bbox[..., 5] / 2
+    rng = np.random.RandomState(seed)
+    obj = rng.rand(b, n).astype(np.float32)
+    logits = rng.normal(0, 2, (b, n, c)).astype(np.float32)
+    sem = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    cfg = dict(nms_thr=0.25, score_thr=0.05, per_class_proposal=per_class)
+    return (obj, sem.astype(np.float32), bbox, points), cfg
+
+
+@pytest.mark.parametrize('empty_scene', [False, True])
+@pytest.mark.parametrize('per_class', [True, False])
+@pytest.mark.parametrize('kind', ['spread', 'clustered'])
+def test_multiclass_nms_3d_equals_jax(kind, per_class, empty_scene):
+    """The port's ``multiclass_nms_3d`` (the count for the whole batch,
+    then the NMS) against the JAX package's, vmapped over the scenes:
+    boxes, scores, labels and the valid mask."""
+    from demf_tpu.models.vote_head import multiclass_nms_3d as jax_mc
+    from demf_tpu_torch.models.vote_head import multiclass_nms_3d
+    arrays, cfg = _nms_scene(kind, 3, 40, 5, seed=11, per_class=per_class,
+                             empty_scene=empty_scene)
+    got = multiclass_nms_3d(*(torch.from_numpy(a) for a in arrays), cfg)
+    want = jax_mc(*(jnp.asarray(a) for a in arrays), cfg)
+    np.testing.assert_array_equal(got['valid'].numpy(),
+                                  np.asarray(want['valid']))
+    np.testing.assert_array_equal(got['labels_3d'].numpy(),
+                                  np.asarray(want['labels_3d']))
+    np.testing.assert_array_equal(got['boxes_3d'].numpy(),
+                                  np.asarray(want['boxes_3d']))
+    np.testing.assert_allclose(got['scores_3d'].numpy(),
+                               np.asarray(want['scores_3d']), rtol=1e-6)
+    valid = got['valid'].numpy()
+    assert valid[:2].any()
+    if empty_scene:
+        assert not valid[-1].any()
+
+
+@pytest.mark.parametrize('b', [1, 3])
+def test_multiclass_nms_3d_counts_the_batch_in_one_call(monkeypatch, b):
+    """``models.vote_head.multiclass_nms_3d`` calls ``box_point_count``
+    once for the whole batch, on the (B, P, 4) clouds as they come (the
+    kernel reads them through their strides), and keeps a box when more
+    than 5 points lie in it."""
+    from demf_tpu_torch.models import vote_head
+    from demf_tpu_torch.ops import box_count
+    calls = []
+
+    def spy(points, boxes, *args):
+        calls.append((tuple(points.shape), tuple(boxes.shape)))
+        return box_count.box_point_count(points, boxes, *args)
+
+    monkeypatch.setattr(vote_head, 'box_point_count', spy)
+    arrays, cfg = _nms_scene('clustered', b, 24, 10, seed=b,
+                             per_class=False, empty_scene=False)
+    obj, sem, bbox, points = (torch.from_numpy(a) for a in arrays)
+    out = vote_head.multiclass_nms_3d(obj, sem, bbox, points, cfg)
+    assert calls == [((b, 600, 4), (b, 24, 7))]
+    bottom = bbox.clone()
+    bottom[..., 2] -= bottom[..., 5] / 2
+    few = box_count.box_point_count(points, bottom) <= 5
+    assert not out['valid'][few].any() and out['valid'].any()
+
+
+def test_multiclass_nms_3d_on_the_card_counts_through_the_kernel(
+        monkeypatch):
+    """Tensors off the CPU (``meta`` ones here: no card) take K9's wrapper,
+    once for the whole batch, and never the plain count."""
+    from demf_tpu_torch.models import vote_head
+    from demf_tpu_torch.ops import box_count
+    calls = []
+
+    def kernel(points, boxes, eps=1e-6):
+        calls.append((tuple(points.shape), tuple(boxes.shape),
+                       points.device.type))
+        return torch.zeros(boxes.shape[:2], dtype=torch.int32,
+                           device=boxes.device)
+
+    def plain(*args, **kwargs):
+        raise AssertionError('the plain count ran on a tensor off the CPU')
+
+    monkeypatch.setattr(box_count, 'box_point_count_cuda', kernel)
+    monkeypatch.setattr(box_count, 'box_point_count_plain', plain)
+    monkeypatch.setattr(vote_head, 'aligned_3d_nms',
+                        lambda minmax, scores, classes, thr, valid: valid)
+    b, n, c = 2, 24, 10
+    out = vote_head.multiclass_nms_3d(
+        torch.rand(b, n, device='meta'), torch.rand(b, n, c, device='meta'),
+        torch.rand(b, n, 7, device='meta'),
+        torch.rand(b, 600, 4, device='meta'),
+        dict(nms_thr=0.25, score_thr=0.05, per_class_proposal=True))
+    assert calls == [((b, 600, 4), (b, n, 7), 'meta')]
+    assert out['valid'].shape == (b, n * c)
