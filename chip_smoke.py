@@ -27,7 +27,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    plain version's at a request's shape (2 scenes of 20,000 points and 512
    boxes) and an eval batch's (16), on points spread over the room and
    clustered around the boxes, beside the test it replaced (a Python loop
-   of ``points_in_boxes`` over the scenes);
+   of ``points_in_boxes`` over the scenes); K3 and K4 on a bf16 value
+   (their bf16 entries) at the encoder's shape at batch 2 and 4, the
+   stage-2 decoder's and the pretrain decoder's, against the plain version
+   in bf16 (one bf16 step of the largest output) and against the float32
+   kernel on the same inputs rounded to bf16, beside their bound with the
+   value's bytes at 2 a number;
 4. probes: with the launch counts at 0, the port's three probes at their
    full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
    plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
@@ -49,7 +54,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    model's own inputs, the device time of the post-processing (all of
    ``multiclass_nms_3d``: K9, K8 and the torch ops around them) and the
    device's busy share, and so does one request of batch 16 (an eval batch
-   of the dataset path);
+   of the dataset path); then requests of batch 2 under the bf16 policy
+   (``bf16=True``): latency, peak memory, K3's bf16 launches, one profiled,
+   the stage predictions within 0.2 of each tensor's largest of the float32
+   request's and finite float32 detections;
 7. training reference: the full-width detector on a small input, dropout
    off, one forward + loss + backward with the kernels against one with
    the plain versions: losses within 1e-4 relative, each gradient within
@@ -59,7 +67,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    feature cache once, then 3 steps through ``engine.trainer``, each with
    finite losses and gradient norm and a fixed number of launches of each
    kernel; the image branch must stay unchanged and every other parameter
-   move;
+   move; then the same step under the bf16 policy from the same weights,
+   batch and dropout draws: its first step's losses within 0.2 of the
+   float32 first step's, step time, peak memory, float32 master weights,
+   optimizer state and BatchNorm statistics;
 9. dataset path: ``SyntheticSUNRGBD`` scenes of the real raw size (24,000
    points, 480x640 images) under the unchanged train and test pipelines
    of ``configs/demf/demf_votenet.py`` (20,000 points, ``Resize`` to
@@ -87,12 +98,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    phase, busy share); the entry's dataset mode on ``SyntheticSUNRGBD``
    under the unchanged 2D pipeline (4 steps); and, at the tiny size, the
    hand-over: a pretrain checkpoint written by the entry warm-starts a DeMF
-   model through ``load_weights`` and its serving forward runs.
+   model through ``load_weights`` and its serving forward runs; then 2
+   steps under the bf16 policy (K3 and K4 in bf16, 12 launches each) with
+   step time, peak memory and K4's device ms in a profiled step;
+11. VoteNet (``configs/baseline/votenet.py``, full width, points only):
+   one forward + loss + backward on the kernel path against the plain path
+   at 2 x 20,000 points (losses 1e-4, gradients 1e-3 of each tensor's
+   largest); 3 steps at batch 16 x 20,000 with 64 GT slots in float32 and
+   under the bf16 policy (step times, scenes/s, peak memory), and 2 more
+   through ``demf_tpu_torch.train --synthetic`` each; the dataset path on
+   ``demf_tpu_torch/configs/votenet_synthetic.py`` (train entry: an epoch
+   of 2 steps, a checkpoint, the eval hook; eval entry: 18 scenes, the mAP
+   printed), with K1, K2, K8 and K9 counted; last, one forward, loss,
+   backward and ``get_bboxes`` of the standard ``VoteHead`` of
+   ``configs/_base_/models/votenet.py`` with the SUN RGB-D coder.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
 first row above; K4: launches counted in the pretrain path's 3 steps, times
-and bound at the encoder's shape at batch 4, its own locations;
+and bound at the encoder's shape at batch 4, its own locations; K3 in bf16:
+launches of the bf16 requests, times and bound at the encoder's shape at
+batch 2; K4 in bf16: launches of the bf16 pretrain steps, times and bound
+at the encoder's shape at batch 4;
 ``launches_by_path`` has every path's count; K5-K7: launches counted in
 the probes phase, times and bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
 one chunk, K7 at the finest level; K8 and K9: launches counted in the
@@ -103,8 +130,8 @@ an einsum, K7 an ``embedding_bag`` with weights) and null where there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
 3D NMS and the count of points in rotated boxes); the
 last line is ``{"ok": true, "device": {...}}``.
-Float32 throughout: TF32 is switched off for matmuls and cuDNN
-convolutions.
+Float32 but for the bf16 phases: TF32 is switched off for matmuls and
+cuDNN convolutions.
 """
 from __future__ import annotations
 
@@ -122,19 +149,49 @@ import time
 import numpy as np
 import torch
 
+# every kernel's count, as ops.kernels() names them (K3 and K4 count their
+# float32 and their bfloat16 launches apart)
+KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
+                'msda_backward_bf16', 'gather_rows', 'msda_fold',
+                'mform_sample', 'nms3d', 'box_count')
+
+
+def launch_counts(**counts):
+    """What a run must launch: ``counts``, and 0 of every other kernel."""
+    return {n: counts.get(n, 0) for n in KERNEL_NAMES}
+
+
 # requests per run and what each must launch (4 SA + 1 vote aggregation for
 # FPS and ball query; 6 encoder layers + 1 decoder layer for MSDA)
 REQUESTS = (0, 1, 2)
-LAUNCHES_PER_REQUEST = {'fps': 5, 'ball_query': 5, 'msda': 7,
-                        'msda_backward': 0, 'gather_rows': 0, 'msda_fold': 0,
-                        'mform_sample': 0, 'nms3d': 1, 'box_count': 1}
+LAUNCHES_PER_REQUEST = launch_counts(fps=5, ball_query=5, msda=7, nms3d=1,
+                                     box_count=1)
 # train steps per run and what each must launch (the image branch runs
 # once, before, to fill the feature cache)
 TRAIN_STEPS = 3
 TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
-LAUNCHES_PER_STEP = {'fps': 5, 'ball_query': 5, 'msda': 1,
-                     'msda_backward': 1, 'gather_rows': 0, 'msda_fold': 0,
-                     'mform_sample': 0, 'nms3d': 0, 'box_count': 0}
+LAUNCHES_PER_STEP = launch_counts(fps=5, ball_query=5, msda=1,
+                                  msda_backward=1)
+# under the bf16 policy the MSDA layers take bf16 values: K3 and K4 run
+# their bf16 entries; FPS, the ball query, K8 and K9 stay float32
+LAUNCHES_PER_REQUEST_BF16 = launch_counts(fps=5, ball_query=5, msda_bf16=7,
+                                          nms3d=1, box_count=1)
+LAUNCHES_PER_STEP_BF16 = launch_counts(fps=5, ball_query=5, msda_bf16=1,
+                                       msda_backward_bf16=1)
+# bf16 against float32 stage predictions of a full-width request, of each
+# tensor's largest: 2.2e-2 measured on an H100 (PERF.md), a limit with some
+# room above it that a stage off by a tenth would break
+SERVE_BF16_BOUND = 5e-2
+# VoteNet (configs/baseline/votenet.py): 4 SA + the vote aggregation around
+# the FPS of the seeds, points only; a request also runs K9 and K8
+VOTENET_CFG = 'baseline/votenet.py'
+VOTENET_STEPS = 3
+VOTENET_BATCH = dict(b=16, p=20000, g=64)
+LAUNCHES_PER_VOTENET_STEP = launch_counts(fps=5, ball_query=5)
+LAUNCHES_PER_VOTENET_REQUEST = launch_counts(fps=5, ball_query=5, nms3d=1,
+                                             box_count=1)
+VOTENET_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
+                                   'votenet_synthetic.py')
 # the dataset path: 32 train scenes (2 batches of 16: the cache fill runs
 # the encoder's 6 MSDA layers on each, the epoch 2 steps) and 18 val scenes
 # (2 batches, the second filled), read by the train entry's eval hook and
@@ -150,6 +207,13 @@ LAUNCHES_TRAIN_ENTRY = {
 LAUNCHES_TRAIN_ENTRY['msda'] += 2 * 6
 LAUNCHES_EVAL_ENTRY = {n: EVAL_BATCHES * c
                        for n, c in LAUNCHES_PER_REQUEST.items()}
+# the VoteNet dataset path: an epoch of 2 steps and the eval hook's 2
+# batches, then the eval entry's 2 batches
+LAUNCHES_VOTENET_TRAIN_ENTRY = {
+    n: 2 * LAUNCHES_PER_VOTENET_STEP[n] +
+    EVAL_BATCHES * LAUNCHES_PER_VOTENET_REQUEST[n] for n in KERNEL_NAMES}
+LAUNCHES_VOTENET_EVAL_ENTRY = {
+    n: EVAL_BATCHES * c for n, c in LAUNCHES_PER_VOTENET_REQUEST.items()}
 # the probes' kernels: their launches are counted over the probes phase
 PROBE_KERNELS = ('gather_rows', 'msda_fold', 'mform_sample')
 REPLACES = {
@@ -157,6 +221,8 @@ REPLACES = {
     'ball_query': 'demf_tpu/ops/grouping.py:38',
     'msda': 'demf_tpu/ops/msda.py:975',
     'msda_backward': 'demf_tpu/ops/msda.py:572',
+    'msda_bf16': 'demf_tpu/ops/msda.py:975',
+    'msda_backward_bf16': 'demf_tpu/ops/msda.py:572',
     'gather_rows': 'demf_tpu/ops/pallas/gather_rows.py:81',
     'msda_fold': 'demf_tpu/ops/pallas/msda_fold.py:113',
     'mform_sample': 'tools/bench_msda_matmul.py:73',
@@ -167,6 +233,8 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
            'msda': 'demf_tpu_torch/csrc/msda.cu',
            'msda_backward': 'demf_tpu_torch/csrc/msda_backward.cu',
+           'msda_bf16': 'demf_tpu_torch/csrc/msda.cu',
+           'msda_backward_bf16': 'demf_tpu_torch/csrc/msda_backward.cu',
            'gather_rows': 'demf_tpu_torch/csrc/gather_rows.cu',
            'msda_fold': 'demf_tpu_torch/csrc/msda_fold.cu',
            'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu',
@@ -180,10 +248,9 @@ MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 PRETRAIN_CFG = 'deformdetr/imvotenet_deform.py'
 PRETRAIN_BATCH = dict(b=4, hw=(800, 1344), g=20)
 PRETRAIN_STEPS = 3
-LAUNCHES_PER_PRETRAIN_STEP = {'fps': 0, 'ball_query': 0, 'msda': 12,
-                              'msda_backward': 12, 'gather_rows': 0,
-                              'msda_fold': 0, 'mform_sample': 0, 'nms3d': 0,
-                              'box_count': 0}
+LAUNCHES_PER_PRETRAIN_STEP = launch_counts(msda=12, msda_backward=12)
+LAUNCHES_PER_PRETRAIN_STEP_BF16 = launch_counts(msda_bf16=12,
+                                                msda_backward_bf16=12)
 PRETRAIN_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
                                     'detr_pretrain_synthetic.py')
 PRETRAIN_TINY_CFG = os.path.join('demf_tpu_torch', 'configs',
@@ -424,15 +491,18 @@ def check_box_count(dev):
 def msda_bytes(shapes, value, locs, aw, backward=False):
     """What MSDA must move for these inputs: the value rows its samples
     touch, locations, weights and the output; the backward also reads the
-    output's gradient and writes all three gradients (d_value in full)."""
+    output's gradient and writes all three gradients (d_value in full).
+    The value, the output, its gradient and d_value count the value's
+    element size (2 bytes in bf16), locations and weights 4."""
     from demf_tpu_torch.tools import msda_rows_touched
     hd = value.shape[-1]
     out = value.shape[0] * locs.shape[1] * value.shape[2] * hd
-    moved = msda_rows_touched(shapes, locs) * hd + locs.numel() + \
-        aw.numel() + out
-    if backward:
-        moved += value.numel() + locs.numel() + aw.numel()
-    return 4 * moved
+    rows = msda_rows_touched(shapes, locs) * hd + out
+    small = locs.numel() + aw.numel()
+    if backward:    # the output's place is grad_out's, read once
+        rows += value.numel()
+        small += locs.numel() + aw.numel()
+    return value.element_size() * rows + 4 * small
 
 
 def check_msda(dev, rng):
@@ -544,6 +614,113 @@ def check_msda_backward(dev, rng):
         del value, locs, aw, grad
         torch.cuda.empty_cache()
     return rows[4, s, 0.5]
+
+
+# K3 / K4 on a bf16 value: against the plain version in bf16 an output may
+# land one bf16 step apart where the two float32 sums straddle a rounding
+# boundary (2^-7 of the largest); against the float32 kernel on the same
+# rounded inputs each output is that sum rounded once (2^-8 of itself, plus
+# 1e-5 of the largest for the order of the float32 sums).  d_loc and d_aw
+# stay float32: 1e-5 of the largest.
+BF16_STEP = 2.0 ** -7
+BF16_HALF_STEP = 2.0 ** -8
+
+
+def _bf16_err(got, want, rel_each, rel_max):
+    """(max |got - want| - rel_each |want|, rel_max max |want|): within
+    the bound when the first is at most the second."""
+    got, want = got.float(), want.float()
+    return (((got - want).abs() - rel_each * want.abs()).max().item(),
+            rel_max * want.abs().max().item())
+
+
+def check_msda_bf16(dev, rng):
+    """K3 and K4 on a bf16 value at the shapes of this slice's paths: the
+    encoder at batch 2 (a request) and 4 (the pretrain step) on its own
+    locations, the stage-2 decoder (batch 16, Q 256, P 2) and the pretrain
+    decoder (batch 4, Q 300, P 4); each against the plain version in bf16
+    and against the float32 kernel on the same inputs rounded to bf16,
+    timed beside the plain version and the bound with the value's bytes at
+    2 a number.  Returns the rows of K3 at the request's encoder shape and
+    of K4 at the pretrain step's."""
+    from demf_tpu_torch.ops import msda
+    from demf_tpu_torch.tools import (bound_ms, encoder_sampling_locations,
+                                      time_ms)
+    shapes = MSDA_SHAPES
+    s = sum(h * w for h, w in shapes)
+    rows = {}
+    for b, q, p in ((2, s, 4), (4, s, 4), (16, 256, 2), (4, 300, 4)):
+        value = torch.from_numpy(rng.randn(b, s, 8, 32).astype(
+            np.float32)).to(dev).bfloat16()
+        if q == s:
+            locs = encoder_sampling_locations(shapes, b, 8, p, dev)
+            where = "the encoder's own locations"
+        else:
+            locs = torch.from_numpy(rng.uniform(
+                -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
+            where = 'locations over the whole map'
+        aw = torch.from_numpy(rng.rand(b, q, 8, 4 * p).astype(np.float32))
+        aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p).to(dev)
+        grad = torch.from_numpy(rng.randn(b, q, 256).astype(
+            np.float32)).to(dev).bfloat16()
+        shape = f'({b}, Q {q}, heads 8, hd 32, L 4, P {p}, {where})'
+
+        got = msda.msda_cuda(value, shapes, locs, aw)
+        errs = [_bf16_err(got, msda.msda_plain(value, shapes, locs, aw),
+                          0.0, BF16_STEP),
+                _bf16_err(got, msda.msda_cuda(value.float(), shapes, locs,
+                                              aw), BF16_HALF_STEP, 1e-5)]
+        ms = time_ms(lambda: msda.msda_cuda(value, shapes, locs, aw), 10)
+        plain_ms = time_ms(lambda: msda.msda_plain(value, shapes, locs, aw),
+                           3)
+        least, by = bound_ms(10 * aw.numel() * 32,
+                             msda_bytes(shapes, value, locs, aw))
+        print(f'K3 msda bf16 {shape}: vs plain bf16 {errs[0][0]:.3e} (bound '
+              f'{errs[0][1]:.3e}), vs the f32 kernel on the rounded inputs '
+              f'{errs[1][0]:.3e} (bound {errs[1][1]:.3e}), kernel {ms:.4f} '
+              f'ms, plain {plain_ms:.4f} ms, least {least:.4f} ms ({by}, '
+              f'value at 2 bytes)', flush=True)
+        if not all(e <= bd for e, bd in errs):
+            raise AssertionError('MSDA bf16 kernel disagrees')
+        rows['msda', b, q] = kernel_row(errs[0][0], ms, plain_ms, least, by)
+
+        def kernel():
+            return msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+
+        def plain():
+            ins = [t.detach().requires_grad_() for t in (value, locs, aw)]
+            out = msda.msda_plain(ins[0], shapes, ins[1], ins[2])
+            return torch.autograd.grad(out, ins, grad)
+
+        got = kernel()
+        ref = msda.msda_backward_cuda(value.float(), shapes, locs, aw,
+                                      grad.float())
+        want = plain()
+        if [t.dtype for t in got] != [torch.bfloat16, torch.float32,
+                                      torch.float32]:
+            raise AssertionError('K4 bf16 returned other dtypes')
+        errs = [_bf16_err(got[0], want[0], 0.0, BF16_STEP),
+                _bf16_err(got[0], ref[0], BF16_HALF_STEP, 1e-5)]
+        errs += [_bf16_err(g, w, 0.0, 1e-5)
+                 for g, w in zip(got[1:] + got[1:], want[1:] + ref[1:])]
+        ms = time_ms(kernel, 10)
+        plain_ms = time_ms(plain, 2)
+        least, by = bound_ms(30 * aw.numel() * 32, msda_bytes(
+            shapes, value, locs, aw, backward=True))
+        print(f'K4 msda_backward bf16 {shape}: d_value vs plain bf16 '
+              f'{errs[0][0]:.3e} (bound {errs[0][1]:.3e}), vs the f32 kernel '
+              f'{errs[1][0]:.3e} (bound {errs[1][1]:.3e}); d_loc / d_aw vs '
+              f'plain {errs[2][0]:.3e} / {errs[3][0]:.3e}, vs f32 '
+              f'{errs[4][0]:.3e} / {errs[5][0]:.3e}; kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, least {least:.4f} ms ({by}, value '
+              f'at 2 bytes)', flush=True)
+        if not all(e <= bd for e, bd in errs):
+            raise AssertionError('MSDA backward bf16 kernel disagrees')
+        rows['msda_backward', b, q] = kernel_row(
+            max(errs[0][0], errs[2][0], errs[3][0]), ms, plain_ms, least, by)
+        del value, locs, aw, grad, got, ref, want
+        torch.cuda.empty_cache()
+    return rows['msda', 2, s], rows['msda_backward', 4, s]
 
 
 def check_quad_route(dev, rng):
@@ -692,16 +869,21 @@ def device_ms_launched_in(prof, name):
 
 
 def profile_request(eval_step, batch):
-    """One more request under torch.profiler (after one untraced, timed on
-    the host clock): the device time of the port's kernels on the model's
-    own inputs, of the post-processing, and the device's busy share."""
+    """One more request under torch.profiler (after three untraced, timed
+    on the host clock: the median is the untraced time; a single one was
+    once 7 times the others): the device time of the port's kernels on the
+    model's own inputs, of the post-processing, and the device's busy
+    share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eval_step(batch)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
     with post_processing_range(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eval_step(batch)
@@ -720,7 +902,9 @@ def profile_request(eval_step, batch):
     if ranges != 1:
         raise AssertionError(f'{ranges} post-processing ranges in a request')
     print(f'profiled request of batch {batch["points"].shape[0]}: untraced '
-          f'{wall_ms:.3f} ms (host clock), device kernels {busy_ms:.3f} ms, '
+          f'{wall_ms:.3f} ms (host clock, median of ' +
+          ' / '.join(f'{w:.3f}' for w in walls) + f'), device kernels '
+          f'{busy_ms:.3f} ms, '
           f'busy share {busy_ms / wall_ms:.1%}; post-processing '
           f'(multiclass_nms_3d) {post_ms:.3f} ms on the device; ' +
           '; '.join(ours))
@@ -790,7 +974,8 @@ def check_train_reference(dev):
 
 
 def run_training_path(dev, kernels):
-    """The stage-2 step at full width; returns the launches of the steps."""
+    """The stage-2 step at full width; returns the launches of the steps
+    and the first step's metrics."""
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device, compute_image_features
     t0 = time.perf_counter()
@@ -826,6 +1011,8 @@ def run_training_path(dev, kernels):
         bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
         if bad:
             raise AssertionError(f'step {i}: non-finite {bad}')
+        if i == 0:
+            first = {k: v.item() for k, v in metrics.items()}
         terms = ', '.join(f'{k} {v.item():.5f}' for k, v in metrics.items())
         print(f'train step {i}: {seconds * 1e3:.3f} ms (host clock), '
               f'{TRAIN_BATCH["b"] / seconds:.3f} scenes/s, launches '
@@ -848,7 +1035,411 @@ def run_training_path(dev, kernels):
             moved += not same
     print(f'training: {frozen} frozen image-branch tensors unchanged, '
           f'{moved} trained tensors moved')
+    return launches, first
+
+
+def stage_errors(got, want):
+    """Largest |got - want| / max |want| over the stage predictions."""
+    worst = 0.0
+    for g, w in zip(got['decode_res_all'], want['decode_res_all']):
+        for key in ('center', 'size', 'dir_class', 'dir_res_norm',
+                    'obj_scores', 'sem_scores'):
+            if not torch.isfinite(g[key]).all():
+                raise AssertionError(f'non-finite {key}')
+            scale = max(w[key].abs().max().item(), 1e-3)
+            worst = max(worst, (g[key].float() - w[key]).abs().max().item() /
+                        scale)
+    return worst
+
+
+def weight_copy_ms(model, dtype, inference):
+    """Host ms of the bf16 weight copies that one call under the policy
+    takes (``policy_weights``), as a step or a request takes them: made
+    anew (after a ``load_state_dict``, which changes every parameter's
+    version, as every call made them before copies were kept), then as
+    kept; and the count of floating parameters cast anew on every call."""
+    from demf_tpu_torch.utils.precision import policy_weights
+    model.load_state_dict(model.state_dict())
+    mode = torch.inference_mode if inference else contextlib.nullcontext
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode():
+            policy_weights(model, dtype)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    floating = [p for p in model.parameters() if p.is_floating_point()]
+    cast = 0 if inference else sum(p.requires_grad for p in floating)
+    return times, cast, len(floating)
+
+
+def run_serving_bf16(model, dev, kernels):
+    """Requests of batch 2 through ``make_eval_step`` under the bf16 policy
+    (``bf16=True``): latency, peak memory, launches, one profiled; the
+    stage predictions against the float32 request's within
+    ``SERVE_BF16_BOUND`` of each tensor's largest, and the detections
+    finite.  Returns the launches of the timed requests."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    from demf_tpu_torch.utils.precision import (cast_batch, cast_floating,
+                                                policy_call,
+                                                resolve_compute_dtype)
+    dtype = resolve_compute_dtype(dict(bf16=True))
+    eval_step = make_eval_step(model, dtype)
+    batch = batch_to_device(zoo.synth_demf_batch(
+        2, p=20000, hw=(800, 1344), valid_hw=(784, 1312), seed=5), dev)
+    eval_step(batch)                    # the first request at this dtype
+    for k in kernels.values():
+        k.launches = 0
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = eval_step(batch)
+        torch.cuda.synchronize()
+        latency = (time.perf_counter() - t0) * 1e3
+        for key in ('boxes_3d', 'scores_3d'):
+            if det[key].dtype != torch.float32 or \
+                    not torch.isfinite(det[key]).all():
+                raise AssertionError(f'bf16 request: {key} not finite f32')
+        print(f'bf16 request {i}: latency {latency:.3f} ms (host clock, '
+              f'batch 2, 20000 points, 800x1344), '
+              f'{int(det["valid"].sum())} valid detections, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB',
+              flush=True)
+    launches = {n: k.launches for n, k in kernels.items()}
+    expected = {n: 2 * c for n, c in LAUNCHES_PER_REQUEST_BF16.items()}
+    if launches != expected:
+        raise AssertionError(f'bf16 requests launched {launches}, expected '
+                             f'{expected}')
+    profile_request(eval_step, batch)
+    with torch.inference_mode():
+        got = cast_floating(policy_call(model, dtype, cast_batch(
+            batch, dtype)), torch.float32)
+        want = model(batch)
+    worst = stage_errors(got, want)
+    print(f'bf16 request: stage predictions vs the float32 request, max '
+          f'err / tensor max {worst:.3e} (bound {SERVE_BF16_BOUND}); '
+          f'launches {launches}', flush=True)
+    if not worst < SERVE_BF16_BOUND:
+        raise AssertionError('bf16 request strays from float32')
+    (made, kept), _, n = weight_copy_ms(model, dtype, inference=True)
+    print(f'bf16 request weight copies: {made:.3f} ms made anew, {kept:.3f} '
+          f'ms kept (host clock, {n} parameters)', flush=True)
     return launches
+
+
+def run_training_bf16(dev, kernels, fp32_first):
+    """The stage-2 step at full width under the bf16 policy, from the
+    weights, batch and dropout draws of the float32 training path: its
+    first step's losses within 0.2 of the float32 first step's (the JAX
+    package's bound), then step time and peak memory; the master weights,
+    the optimizer state and the BatchNorm statistics stay float32.
+    Returns the launches of the steps."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, compute_image_features
+    cfg = copy.deepcopy(zoo.load_model_cfg('demf/demf_votenet.py'))
+    cfg.bf16 = True
+    model, optimizer, step = zoo.build_trainer(cfg, dev, seed=0)
+    if step.compute_dtype != torch.bfloat16:
+        raise AssertionError('bf16=True did not select the policy')
+    batch = batch_to_device(zoo.synth_demf_batch(**TRAIN_BATCH), dev)
+    batch['img_features'] = compute_image_features(model, batch)
+    del batch['img']
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    for i in range(TRAIN_STEPS - 1):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_STEP_BF16:
+            raise AssertionError(f'bf16 step {i} launched {launched}')
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f'bf16 step {i}: non-finite {bad}')
+        if i == 0:
+            rel = {k: abs(metrics[k].item() - v) / max(abs(v), 1e-6)
+                   for k, v in fp32_first.items() if k != 'grad_norm'}
+            worst = max(rel, key=rel.get)
+            print(f'bf16 train step 0 vs the float32 step 0: losses max rel '
+                  f'err {rel[worst]:.3e} ({worst}; bound 0.2); grad_norm '
+                  f'{metrics["grad_norm"].item():.3f} against '
+                  f'{fp32_first["grad_norm"]:.3f}', flush=True)
+            if not rel[worst] < 0.2:
+                raise AssertionError('bf16 step strays from float32')
+        print(f'bf16 train step {i}: {seconds * 1e3:.3f} ms (host clock), '
+              f'{TRAIN_BATCH["b"] / seconds:.3f} scenes/s, launches '
+              f'{launched}; loss {metrics["loss"].item():.5f}', flush=True)
+    launches = {n: k.launches for n, k in kernels.items()}
+    states = [v for st in optimizer.state.values() for v in st.values()
+              if torch.is_tensor(v) and v.is_floating_point()]
+    buffers = [b for n, b in model.named_buffers() if 'running' in n]
+    if not states or not buffers or any(
+            t.dtype != torch.float32
+            for t in list(model.parameters()) + states + buffers):
+        raise AssertionError('bf16 step: masters, optimizer state or BN '
+                             'statistics left float32')
+    print(f'bf16 training: peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB over '
+          f'{TRAIN_STEPS - 1} steps; {len(buffers)} BN statistics, '
+          f'{len(states)} optimizer tensors and every master weight float32')
+    (made, kept), cast, n = weight_copy_ms(model, step.compute_dtype,
+                                          inference=False)
+    print(f'bf16 step weight copies: {made:.3f} ms all made anew, {kept:.3f} '
+          f'ms with the frozen ones kept (host clock; {cast} of {n} '
+          f'parameters cast every step)', flush=True)
+    return launches
+
+
+def device_ms_of(prof, markers):
+    """Device ms and launches of the kernels whose name holds a marker (the
+    train step's phase ranges, which span kernels, are not kernels)."""
+    from torch.autograd import DeviceType
+    from demf_tpu_torch.engine.trainer import PHASES
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in PHASES and
+            any(m in e.key for m in markers)]
+    return (sum(e.self_device_time_total for e in hits) / 1e3,
+            sum(e.count for e in hits))
+
+
+def run_pretrain_bf16(dev, kernels):
+    """The stage-1 pretrain step at full width under the bf16 policy:
+    step time, peak memory, K4's device ms in a profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    cfg = pretrain_cfg()
+    cfg.bf16 = True
+    model, _, step = zoo.build_trainer(cfg, dev, seed=0)
+    batch = batch_to_device(zoo.synth_detr2d_batch(seed=0, **PRETRAIN_BATCH),
+                            dev)
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    for i in range(PRETRAIN_STEPS - 1):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_PRETRAIN_STEP_BF16:
+            raise AssertionError(f'bf16 pretrain step {i} launched '
+                                 f'{launched}')
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'bf16 pretrain step {i}: non-finite')
+        print(f'bf16 pretrain step {i}: {seconds * 1e3:.3f} ms (host '
+              f'clock), {PRETRAIN_BATCH["b"] / seconds:.3f} images/s; loss '
+              f'{metrics["loss"].item():.5f}', flush=True)
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, generator)
+        torch.cuda.synchronize()
+    k4_ms, k4_n = device_ms_of(prof, ('msda_backward', 'round_to_bf16'))
+    k3_ms, k3_n = device_ms_of(prof, ('msda_forward',))
+    busy_ms = device_ms_of(prof, ('',))[0]
+    print(f'bf16 pretrain: peak memory {peak:.1f} MiB at batch '
+          f'{PRETRAIN_BATCH["b"]}; a profiled step: device kernels '
+          f'{busy_ms:.3f} ms, K4 (bf16) {k4_ms:.3f} ms in {k4_n} launches, '
+          f'K3 (bf16) {k3_ms:.3f} ms in {k3_n}', flush=True)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def votenet_reference(dev):
+    """Full-width VoteNet, 2 scenes of 20,000 points: one forward + loss +
+    backward on the kernel path against the plain path (losses 1e-4,
+    gradients 1e-3 of each tensor's largest)."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    model = zoo.build_detector(zoo.load_model_cfg(VOTENET_CFG).model, dev,
+                               seed=1)
+    batch = zoo.synth_points_batch(2, 20000, g=64, seed=7)
+    batch['gt_bboxes_3d'][..., 3:6] *= 3
+    batch = batch_to_device(batch, dev)
+    plain_model = copy.deepcopy(model)
+
+    def loss_and_grads(m):
+        m.train()
+        losses = m.loss(m(batch), batch)
+        sum(losses.values()).backward()
+        return ({k: v.detach() for k, v in losses.items()},
+                {n: p.grad for n, p in m.named_parameters()
+                 if p.grad is not None})
+
+    got_l, got_g = loss_and_grads(model)
+    with plain_ops():
+        want_l, want_g = loss_and_grads(plain_model)
+    loss_err = max(abs(got_l[k].item() - w.item()) / max(abs(w.item()), 1e-6)
+                   for k, w in want_l.items())
+    largest = max(w.abs().max().item() for w in want_g.values())
+    grad_err = 0.0
+    for name, w in want_g.items():
+        scale = w.abs().max().item()
+        if scale < 1e-6 * largest:
+            if got_g[name].abs().max().item() >= 1e-6 * largest:
+                raise AssertionError(f'{name}: gradient above noise')
+            continue
+        grad_err = max(grad_err, (got_g[name] - w).abs().max().item() / scale)
+    print(f'votenet reference: full width, 2 scenes of 20000 points: kernel '
+          f'path vs plain path, losses max rel err {loss_err:.3e} (bound '
+          f'1e-4), gradients max err / tensor max {grad_err:.3e} (bound '
+          f'1e-3) over {len(want_g)} tensors', flush=True)
+    if not (set(got_g) == set(want_g) and loss_err < 1e-4 and
+            grad_err < 1e-3):
+        raise AssertionError('votenet kernel path disagrees with plain')
+
+
+def run_votenet_path(dev, kernels):
+    """VoteNet at full width: kernel path vs plain path; steps at batch
+    16 x 20,000 with 64 GT slots in float32 and under the bf16 policy
+    (``train --synthetic``'s trainer and batch); the same through the entry
+    point in both; then the dataset path on
+    ``demf_tpu_torch/configs/votenet_synthetic.py`` (train entry, an
+    epoch, a checkpoint, the eval hook, the eval entry, the mAP); last,
+    the standard ``VoteHead`` of ``configs/_base_/models/votenet.py``.
+    Returns the launches by sub-path."""
+    from demf_tpu_torch import eval as eval_entry
+    from demf_tpu_torch import train as train_entry
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, latest_checkpoint
+    votenet_reference(dev)
+    by_path = {}
+    for bf16 in (False, True):
+        cfg = copy.deepcopy(zoo.load_model_cfg(VOTENET_CFG))
+        if bf16:
+            cfg.bf16 = True
+        model, _, step = zoo.build_trainer(cfg, dev, seed=0)
+        b, p, g = (VOTENET_BATCH[k] for k in 'bpg')
+        batch = batch_to_device(zoo.synth_batch_for(model, p=p, seed=0), dev)
+        if tuple(batch['points'].shape) != (b, p, 4) or \
+                tuple(batch['gt_valid'].shape) != (b, g) or 'img' in batch:
+            raise AssertionError('votenet batch of another shape')
+        generator = torch.Generator(dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        times = []
+        for i in range(VOTENET_STEPS):
+            start = {n: k.launches for n, k in kernels.items()}
+            t0 = time.perf_counter()
+            metrics = step(batch, generator)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launched = {n: k.launches - start[n] for n, k in kernels.items()}
+            if launched != LAUNCHES_PER_VOTENET_STEP:
+                raise AssertionError(f'votenet step {i} launched {launched}')
+            if not all(torch.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f'votenet step {i}: non-finite')
+        name = 'bf16' if bf16 else 'f32'
+        by_path[f'votenet_{name}'] = {n: k.launches
+                                      for n, k in kernels.items()}
+        print(f'votenet {name}: steps at batch {b} x {p} points, {g} GT: ' +
+              ', '.join(f'{t * 1e3:.3f}' for t in times) + ' ms (host '
+              f'clock), after the first {b / np.mean(times[1:]):.3f} '
+              f'scenes/s; peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; loss '
+              f'{metrics["loss"].item():.5f}', flush=True)
+        argv = [VOTENET_CFG, '--synthetic', '--steps', '2', '--points',
+                str(p)]
+        if bf16:
+            argv += ['--cfg-options', 'bf16=True']
+        _, out, seconds, _ = run_entry(
+            train_entry.main, argv, kernels,
+            {n: 2 * c for n, c in LAUNCHES_PER_VOTENET_STEP.items()})
+        if out.count('Epoch [1/1]') != 2:
+            raise AssertionError('the votenet entry logged no steps')
+        print(f'votenet {name}: train entry --synthetic --steps 2 '
+              f'{seconds:.3f} s in all', flush=True)
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(root, VOTENET_DATASET_CFG)
+    build_dir = os.path.join(root, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        np.random.seed(0)
+        _, out, seconds, launches = run_entry(
+            train_entry.main, [cfg_file, '--work-dir', work_dir], kernels,
+            LAUNCHES_VOTENET_TRAIN_ENTRY)
+        wait = [line for line in out.splitlines()
+                if 'waiting for the loader' in line]
+        if len(wait) != 1 or out.count('[eval @ epoch 1]') != 1 or \
+                'image-feature cache' in out:
+            raise AssertionError('the votenet train entry logged no epoch '
+                                 'or eval, or filled a feature cache')
+        print(f'votenet dataset path: train entry {seconds:.3f} s in all; '
+              f'{wait[0].split(" - ", 1)[1]}; launches {launches}',
+              flush=True)
+        ckpt = latest_checkpoint(work_dir)
+        out_file = os.path.join(work_dir, 'results.pkl')
+        torch.cuda.reset_peak_memory_stats()
+        np.random.seed(7)
+        metrics, out, seconds, eval_launches = run_entry(
+            eval_entry.main, [cfg_file, ckpt, '--eval', 'mAP', '--out',
+                              out_file], kernels,
+            LAUNCHES_VOTENET_EVAL_ENTRY)
+        with open(out_file, 'rb') as f:
+            results = pickle.load(f)
+        if len(results) != VAL_SCENES or not all(
+                np.isfinite(r['boxes_3d']).all() for r in results) or \
+                not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError('votenet eval entry: results or mAP')
+        print(f'votenet dataset path: eval entry {seconds:.3f} s in all, '
+              f'{len(results) / seconds:.3f} scenes/s, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, '
+              f'{sum(len(r["scores_3d"]) for r in results)} detections, '
+              f'mAP_0.25 {metrics["mAP_0.25"]:.4f} mAP_0.50 '
+              f'{metrics["mAP_0.50"]:.4f} (random weights), launches '
+              f'{eval_launches}', flush=True)
+    by_path['votenet_dataset'] = {n: launches[n] + eval_launches[n]
+                                  for n in launches}
+    check_standard_vote_head(dev)
+    return by_path
+
+
+def check_standard_vote_head(dev):
+    """The standard VoteHead of the _base_ model, with the SUN RGB-D coder
+    of mmdet3d's votenet config (the _base_ file leaves the coder to it):
+    one forward, loss, backward and ``get_bboxes`` at 2 x 20,000 points."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    base = copy.deepcopy(zoo.load_model_cfg('_base_/models/votenet.py'))
+    means = zoo.load_model_cfg(VOTENET_CFG).model['bbox_head'][
+        'bbox_coder']['mean_sizes']
+    base.model['bbox_head'].update(
+        num_classes=10, bbox_coder=dict(
+            type='PartialBinBasedBBoxCoder', num_dir_bins=12, num_sizes=10,
+            with_rot=True, mean_sizes=means))
+    model = zoo.build_detector(base.model, dev, seed=2).train()
+    batch = batch_to_device(zoo.synth_points_batch(2, 20000, g=64, seed=9),
+                            dev)
+    results = model(batch)
+    losses = model.loss(results, batch)
+    sum(losses.values()).backward()
+    model.eval()
+    with torch.inference_mode():
+        det = model.get_bboxes(model(batch), batch)
+    if not all(torch.isfinite(v) for v in losses.values()) or \
+            not torch.isfinite(det['boxes_3d']).all() or \
+            tuple(det['boxes_3d'].shape) != (2, 2560, 7):
+        raise AssertionError('standard VoteHead: non-finite or misshapen')
+    print(f'standard VoteHead (configs/_base_/models/votenet.py): forward, '
+          f'{len(losses)} losses ({", ".join(sorted(losses))}), backward '
+          f'and get_bboxes {tuple(det["boxes_3d"].shape)} at 2 x 20000 '
+          f'points, finite; {int(det["valid"].sum())} valid', flush=True)
 
 
 class Tee(io.StringIO):
@@ -1286,6 +1877,8 @@ def main():
                 'msda_backward': check_msda_backward(dev, rng),
                 'nms3d': check_nms(dev),
                 'box_count': check_box_count(dev)}
+    measured['msda_bf16'], measured['msda_backward_bf16'] = \
+        check_msda_bf16(dev, rng)
     kernels = ops.kernels()
     probed, probe_launches = run_probes(dev, rng, kernels)
     measured.update(probed)
@@ -1331,10 +1924,15 @@ def main():
         16, p=20000, hw=(800, 1344), valid_hw=(784, 1312), seed=3), dev)
     eval_step(batch)
     profile_request(eval_step, batch)
-    del model, eval_step, batch
+    del eval_step, batch
+    serving_bf16 = run_serving_bf16(model, dev, kernels)
+    del model
+    torch.cuda.empty_cache()
     check_train_reference(dev)
-    launches = run_training_path(dev, kernels)
-    by_path = {'training': dict(launches), 'probes': probe_launches}
+    launches, first_step = run_training_path(dev, kernels)
+    by_path = {'training': dict(launches), 'probes': probe_launches,
+               'serving_bf16': serving_bf16}
+    by_path['training_bf16'] = run_training_bf16(dev, kernels, first_step)
     launches.update(probe_launches)
     by_path['dataset'] = run_dataset_path(kernels)
     launches['nms3d'] = by_path['dataset']['nms3d']
@@ -1342,6 +1940,13 @@ def main():
     by_path['pretrain'] = run_pretrain_path(dev, kernels)
     # K4's row is the pretrain step's shape, so its launches are that path's
     launches['msda_backward'] = by_path['pretrain']['msda_backward']
+    by_path['pretrain_bf16'] = run_pretrain_bf16(dev, kernels)
+    # K3 bf16's row is a request's encoder shape, K4 bf16's the pretrain
+    # step's: their launches are those paths'
+    launches['msda_bf16'] = serving_bf16['msda_bf16']
+    launches['msda_backward_bf16'] = \
+        by_path['pretrain_bf16']['msda_backward_bf16']
+    by_path.update(run_votenet_path(dev, kernels))
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

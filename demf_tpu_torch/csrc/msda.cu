@@ -38,9 +38,14 @@
 //   corner is tested and read from global memory, so the window decides
 //   the speed and never the result.  Two blocks share an SM: one copies
 //   while the other samples.
-// - A thread owns 4 channels (one 16-byte load a corner) and head_dim / 4
-//   threads a (query, head); they load a sample's location and weight from
-//   one address.
+// - A thread owns 16 bytes of a row's channels (4 float32 or 8 bfloat16:
+//   one 16-byte load a corner, widened to float32 in registers) and
+//   head_dim / 4 or head_dim / 8 threads a (query, head); they load a
+//   sample's location and weight from one address.
+// - One source for both value types (a template): the value, the window
+//   and the output in float32 or bfloat16, the locations and weights
+//   float32, the sums float32, a bfloat16 output rounded once at the
+//   store.  A bfloat16 window holds twice the rows in the same bytes.
 // - Queries that are not the levels' pixels (the decoder's 256 proposals),
 //   and the pixels of levels too coarse for a tile, keep the query-major
 //   mapping: a thread takes all samples of its (query, head, 4 channels)
@@ -58,7 +63,7 @@
 
 namespace {
 
-using namespace msda;   // the tile, its window, cp.async: shared with K4
+using namespace msda;   // the tile, its window, cp.async, rows: shared with K4
 
 constexpr int kThreads = 512;
 constexpr int kMaxPasses = 4;   // queries of a tile that one thread sums
@@ -66,39 +71,37 @@ constexpr int kMaxPasses = 4;   // queries of a tile that one thread sums
 // 128 bytes with 4 points a level) and the tile's locations and weights
 constexpr int kTileBytes = 105600;
 
-__device__ __forceinline__ void fma4(float4& v, float w, const float4& r) {
-  v.x = fmaf(w, r.x, v.x);
-  v.y = fmaf(w, r.y, v.y);
-  v.z = fmaf(w, r.z, v.z);
-  v.w = fmaf(w, r.w, v.w);
+template <int kN>
+__device__ __forceinline__ void fma_row(float (&v)[kN], float w,
+                                        const float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) v[i] = fmaf(w, r[i], v[i]);
 }
 
-// the 4 channels of row (y, x): from the window where it holds the row,
-// else from global memory.  vl points at this thread's channels of the
-// level's first row.
-template <bool kWindowed>
-__device__ __forceinline__ float4 load_row(const float* vl,
-                                           long long row_stride, int wl,
-                                           int y, int x, const Window& win,
-                                           int hd, int c4) {
+// the channels of row (y, x): from the window where it holds the row, else
+// from global memory.  vl points at this thread's channels of the level's
+// first row.
+template <typename T, bool kWindowed>
+__device__ __forceinline__ Row<T> load_row(const T* vl, long long row_stride,
+                                           int wl, int y, int x,
+                                           const Window<T>& win, int hd,
+                                           int c) {
   if (kWindowed) {
     const unsigned wx = static_cast<unsigned>(x - win.x0);
     const unsigned wy = static_cast<unsigned>(y - win.y0);
     if (wx < static_cast<unsigned>(win.w) &&
         wy < static_cast<unsigned>(win.h))
-      return *reinterpret_cast<const float4*>(
-          win.rows + (wy * win.w + wx) * hd + c4);
+      return load_row16(win.rows + (wy * win.w + wx) * hd + c);
   }
-  return __ldg(reinterpret_cast<const float4*>(
-      vl + static_cast<long long>(y * wl + x) * row_stride));
+  return ldg_row16(vl + static_cast<long long>(y * wl + x) * row_stride);
 }
 
 // acc += a * (bilinear read at loc) for one sample
-template <bool kWindowed>
-__device__ __forceinline__ void sample(float4& acc, const float* vl,
+template <typename T, bool kWindowed>
+__device__ __forceinline__ void sample(Row<T>& acc, const T* vl,
                                        long long row_stride, int hl, int wl,
                                        float2 loc, float a,
-                                       const Window& win, int hd, int c4) {
+                                       const Window<T>& win, int hd, int c) {
   // rounded as loc * W, then - 0.5 (no FMA): the plain version's x, y
   const float x = __fsub_rn(__fmul_rn(loc.x, wl), 0.5f);
   const float y = __fsub_rn(__fmul_rn(loc.y, hl), 0.5f);
@@ -110,7 +113,7 @@ __device__ __forceinline__ void sample(float4& acc, const float* vl,
   const float ly = y - yf;
   const float hx = 1.0f - lx;
   const float hy = 1.0f - ly;
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  Row<T> v = {};
   if (kWindowed) {
     // the usual case: all four corners in the window (and so in the map),
     // one address and no further test
@@ -118,58 +121,66 @@ __device__ __forceinline__ void sample(float4& acc, const float* vl,
     const unsigned wy = static_cast<unsigned>(y0 - win.y0);
     if (wx < static_cast<unsigned>(win.w - 1) &&
         wy < static_cast<unsigned>(win.h - 1)) {
-      const float* r = win.rows + (wy * win.w + wx) * hd + c4;
+      const T* r = win.rows + (wy * win.w + wx) * hd + c;
       const int down = win.w * hd;
-      fma4(v, hy * hx, *reinterpret_cast<const float4*>(r));
-      fma4(v, hy * lx, *reinterpret_cast<const float4*>(r + hd));
-      fma4(v, ly * hx, *reinterpret_cast<const float4*>(r + down));
-      fma4(v, ly * lx, *reinterpret_cast<const float4*>(r + down + hd));
-      fma4(acc, a, v);
+      fma_row(v.v, hy * hx, load_row16(r).v);
+      fma_row(v.v, hy * lx, load_row16(r + hd).v);
+      fma_row(v.v, ly * hx, load_row16(r + down).v);
+      fma_row(v.v, ly * lx, load_row16(r + down + hd).v);
+      fma_row(acc.v, a, v.v);
       return;
     }
   }
   if (!(x > -1.0f && y > -1.0f && x < wl && y < hl)) return;
   if (y0 >= 0) {
     if (x0 >= 0)
-      fma4(v, hy * hx,
-           load_row<kWindowed>(vl, row_stride, wl, y0, x0, win, hd, c4));
+      fma_row(v.v, hy * hx,
+              load_row<T, kWindowed>(vl, row_stride, wl, y0, x0, win, hd, c)
+                  .v);
     if (x0 + 1 < wl)
-      fma4(v, hy * lx,
-           load_row<kWindowed>(vl, row_stride, wl, y0, x0 + 1, win, hd, c4));
+      fma_row(v.v, hy * lx,
+              load_row<T, kWindowed>(vl, row_stride, wl, y0, x0 + 1, win, hd,
+                                     c).v);
   }
   if (y0 + 1 < hl) {
     if (x0 >= 0)
-      fma4(v, ly * hx,
-           load_row<kWindowed>(vl, row_stride, wl, y0 + 1, x0, win, hd, c4));
+      fma_row(v.v, ly * hx,
+              load_row<T, kWindowed>(vl, row_stride, wl, y0 + 1, x0, win, hd,
+                                     c).v);
     if (x0 + 1 < wl)
-      fma4(v, ly * lx,
-           load_row<kWindowed>(vl, row_stride, wl, y0 + 1, x0 + 1, win, hd,
-                               c4));
+      fma_row(v.v, ly * lx,
+              load_row<T, kWindowed>(vl, row_stride, wl, y0 + 1, x0 + 1, win,
+                                     hd, c).v);
   }
-  fma4(acc, a, v);
+  fma_row(acc.v, a, v.v);
 }
 
+template <typename T>
 struct Args {
-  const float* value;
+  const T* value;
   const int* level_info;   // (levels, 3): H, W, first token
   const int* tile_info;    // (levels, 5): tile H, tile W, tiles across,
                            // tiles of the level, first tile of the level
   const float* locs;
   const float* attn;
-  float* out;
+  T* out;
   int b, s, q, heads, hd, levels, points;
   int tiles;         // tiles of one (scene, head), over all tiled levels
   int direct_from;   // queries from here on take the query-major mapping
-  int window_rows;   // rows of head_dim floats that the window holds
+  int window_rows;   // rows of head_dim values that the window holds
 };
 
 // one tile of one level's queries for one head, level after level
-__device__ __forceinline__ void tile_block(const Args& a, float* window) {
+template <typename T>
+__device__ __forceinline__ void tile_block(const Args<T>& a,
+                                           unsigned char* smem) {
+  constexpr int kN = Row<T>::kN;
   const int tid = threadIdx.x;
-  const int lpq = a.hd >> 2;          // threads of one (query, head)
+  const int lpq = a.hd / kN;          // threads of one (query, head)
   const int qpp = kThreads / lpq;     // queries of one pass
   const int slot = tid / lpq;
-  const int c4 = (tid % lpq) * 4;
+  const int c = (tid % lpq) * kN;
+  T* window = reinterpret_cast<T*>(smem);
   // after the window: the tile's locations and weights on one level
   float2* s_loc = reinterpret_cast<float2*>(window + a.window_rows * a.hd);
   float* s_aw = reinterpret_cast<float*>(s_loc + kMaxTile * a.points);
@@ -185,28 +196,28 @@ __device__ __forceinline__ void tile_block(const Args& a, float* window) {
 
   // this thread's queries: pass p takes query p * qpp + slot of the tile
   int query[kMaxPasses];
-  float4 acc[kMaxPasses];
+  Row<T> acc[kMaxPasses];
 #pragma unroll
   for (int p = 0; p < kMaxPasses; ++p) {
     const int qi = p * qpp + slot;
     const int y = ty0 + qi / tw;
     const int x = tx0 + qi % tw;
     query[p] = (qi < th * tw && y < hq && x < wq) ? startq + y * wq + x : -1;
-    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    acc[p] = Row<T>{};
   }
 
   const long long row_stride = static_cast<long long>(a.heads) * a.hd;
-  const float* vb =
+  const T* vb =
       a.value + static_cast<long long>(bi) * a.s * row_stride + h * a.hd;
   for (int l = 0; l < a.levels; ++l) {
     const int hl = __ldg(a.level_info + 3 * l);
     const int wl = __ldg(a.level_info + 3 * l + 1);
-    const float* vlevel =
+    const T* vlevel =
         vb + static_cast<long long>(__ldg(a.level_info + 3 * l + 2)) *
                  row_stride;
-    const Window win = level_window(tl, hl, wl, a.window_rows, window);
+    const Window<T> win = level_window<T>(tl, hl, wl, a.window_rows, window);
     __syncthreads();   // the last level's reads are done
-    copy_window(window, win, vlevel, wl, row_stride, a.hd, slot, qpp, c4);
+    copy_window(window, win, vlevel, wl, row_stride, a.hd, slot, qpp, c);
     for (int i = tid; i < th * tw * a.points; i += kThreads) {
       const int qi = i / a.points;
       const int y = ty0 + qi / tw;
@@ -221,33 +232,35 @@ __device__ __forceinline__ void tile_block(const Args& a, float* window) {
     copy_async_wait();
     __syncthreads();
 
-    const float* vl = vlevel + c4;
+    const T* vl = vlevel + c;
 #pragma unroll
     for (int p = 0; p < kMaxPasses; ++p) {
       if (query[p] < 0) continue;
       const int s0 = (p * qpp + slot) * a.points;
       for (int pt = 0; pt < a.points; ++pt)
-        sample<true>(acc[p], vl, row_stride, hl, wl, s_loc[s0 + pt],
-                     s_aw[s0 + pt], win, a.hd, c4);
+        sample<T, true>(acc[p], vl, row_stride, hl, wl, s_loc[s0 + pt],
+                        s_aw[s0 + pt], win, a.hd, c);
     }
   }
 #pragma unroll
   for (int p = 0; p < kMaxPasses; ++p) {
     if (query[p] < 0) continue;
-    *reinterpret_cast<float4*>(
-        a.out + (static_cast<long long>(bi) * a.q + query[p]) * row_stride +
-        h * a.hd + c4) = acc[p];
+    store_row16(a.out + (static_cast<long long>(bi) * a.q + query[p]) *
+                            row_stride + h * a.hd + c,
+                acc[p]);
   }
 }
 
-// query-major: a thread takes every sample of its (query, head, 4 channels)
-__device__ __forceinline__ void query_block(const Args& a, int block) {
-  const int lpq = a.hd >> 2;
+// query-major: a thread takes every sample of its (query, head, channels)
+template <typename T>
+__device__ __forceinline__ void query_block(const Args<T>& a, int block) {
+  constexpr int kN = Row<T>::kN;
+  const int lpq = a.hd / kN;
   const int nq = a.q - a.direct_from;
   const long long total = static_cast<long long>(a.b) * nq * a.heads * lpq;
   const long long item = static_cast<long long>(block) * kThreads + threadIdx.x;
   if (item >= total) return;
-  const int c4 = static_cast<int>(item % lpq) * 4;
+  const int c = static_cast<int>(item % lpq) * kN;
   long long r = item / lpq;
   const int h = static_cast<int>(r % a.heads);
   r /= a.heads;
@@ -255,40 +268,106 @@ __device__ __forceinline__ void query_block(const Args& a, int block) {
   const int bi = static_cast<int>(r / nq);
 
   const long long row_stride = static_cast<long long>(a.heads) * a.hd;
-  const float* vb = a.value + static_cast<long long>(bi) * a.s * row_stride +
-                    h * a.hd + c4;
+  const T* vb = a.value + static_cast<long long>(bi) * a.s * row_stride +
+                h * a.hd + c;
   const long long s0 =
       ((static_cast<long long>(bi) * a.q + qi) * a.heads + h) * a.levels *
       a.points;
   const float2* loc = reinterpret_cast<const float2*>(a.locs) + s0;
   const float* aw = a.attn + s0;
-  const Window none = {nullptr, 0, 0, 0, 0};
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const Window<T> none = {nullptr, 0, 0, 0, 0};
+  Row<T> acc = {};
   for (int l = 0; l < a.levels; ++l) {
     const int hl = __ldg(a.level_info + 3 * l);
     const int wl = __ldg(a.level_info + 3 * l + 1);
-    const float* vl =
+    const T* vl =
         vb + static_cast<long long>(__ldg(a.level_info + 3 * l + 2)) *
                  row_stride;
     for (int pt = 0; pt < a.points; ++pt) {
       const int sp = l * a.points + pt;
-      sample<false>(acc, vl, row_stride, hl, wl, __ldg(loc + sp),
-                    __ldg(aw + sp), none, a.hd, c4);
+      sample<T, false>(acc, vl, row_stride, hl, wl, __ldg(loc + sp),
+                       __ldg(aw + sp), none, a.hd, c);
     }
   }
-  *reinterpret_cast<float4*>(
-      a.out + (static_cast<long long>(bi) * a.q + qi) * row_stride + h * a.hd +
-      c4) = acc;
+  store_row16(a.out + (static_cast<long long>(bi) * a.q + qi) * row_stride +
+                  h * a.hd + c,
+              acc);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    msda_forward_kernel(const Args a) {
-  extern __shared__ __align__(16) float window[];
+    msda_forward_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tile_blocks = a.b * a.heads * a.tiles;
   if (static_cast<int>(blockIdx.x) < tile_blocks)
-    tile_block(a, window);
+    tile_block(a, smem);
   else
     query_block(a, blockIdx.x - tile_blocks);
+}
+
+template <typename T>
+int launch(const void* value, const void* level_info, const void* tile_info,
+           const void* locs, const void* attn, void* out, int b, int s, int q,
+           int heads, int hd, int levels, int points, int tiles,
+           int direct_from, int max_tile, void* stream) {
+  constexpr int kN = Row<T>::kN;
+  if (hd < kN || hd % kN || kThreads % (hd / kN) || tiles < 0 ||
+      direct_from < 0 || direct_from > q || (tiles == 0 && direct_from != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a larger tile would overrun its slots for locations or a thread's sums
+  if (tiles && (max_tile < 1 || max_tile > kMaxTile ||
+                max_tile > kMaxPasses * (kThreads / (hd / kN))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte loads and cp.async of the rows (value, out) and 8 (locs)
+  if ((reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(out)) %
+          16 ||
+      reinterpret_cast<uintptr_t>(locs) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<T> a;
+  a.value = static_cast<const T*>(value);
+  a.level_info = static_cast<const int*>(level_info);
+  a.tile_info = static_cast<const int*>(tile_info);
+  a.locs = static_cast<const float*>(locs);
+  a.attn = static_cast<const float*>(attn);
+  a.out = static_cast<T*>(out);
+  a.b = b;
+  a.s = s;
+  a.q = q;
+  a.heads = heads;
+  a.hd = hd;
+  a.levels = levels;
+  a.points = points;
+  a.tiles = tiles;
+  a.direct_from = direct_from;
+  // what the tile's locations and weights (12 bytes a sample) leave
+  a.window_rows = (kTileBytes - kMaxTile * points * 12) /
+                  (hd * static_cast<int>(sizeof(T)));
+  if (tiles && a.window_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long direct = static_cast<long long>(b) * (q - direct_from) *
+                           heads * (hd / kN);
+  const long long blocks = static_cast<long long>(b) * heads * tiles +
+                           (direct + kThreads - 1) / kThreads;
+  if (blocks == 0) return 0;
+  const int smem = tiles ? kTileBytes : 0;
+  static int configured = -1;   // the shared memory of the last launch
+  if (smem != configured) {
+    // tile blocks need the large shared-memory carve-out, query-major
+    // launches the large L1
+    cudaError_t err = cudaFuncSetAttribute(
+        msda_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTileBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          msda_forward_kernel<T>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          tiles ? cudaSharedmemCarveoutMaxShared : cudaSharedmemCarveoutMaxL1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = smem;
+  }
+  msda_forward_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -312,61 +391,23 @@ int demf_msda_forward(const void* value, const void* level_info,
                       const void* attn, void* out, int b, int s, int q,
                       int heads, int hd, int levels, int points, int tiles,
                       int direct_from, int max_tile, void* stream) {
-  if (hd < 4 || hd % 4 || kThreads % (hd / 4) || tiles < 0 ||
-      direct_from < 0 || direct_from > q || (tiles == 0 && direct_from != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // a larger tile would overrun its slots for locations or a thread's sums
-  if (tiles && (max_tile < 1 || max_tile > kMaxTile ||
-                max_tile > kMaxPasses * (kThreads / (hd / 4))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // float4 and cp.async accesses of 16 bytes (value, out) and 8 (locs)
-  if ((reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(out)) %
-          16 ||
-      reinterpret_cast<uintptr_t>(locs) % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.value = static_cast<const float*>(value);
-  a.level_info = static_cast<const int*>(level_info);
-  a.tile_info = static_cast<const int*>(tile_info);
-  a.locs = static_cast<const float*>(locs);
-  a.attn = static_cast<const float*>(attn);
-  a.out = static_cast<float*>(out);
-  a.b = b;
-  a.s = s;
-  a.q = q;
-  a.heads = heads;
-  a.hd = hd;
-  a.levels = levels;
-  a.points = points;
-  a.tiles = tiles;
-  a.direct_from = direct_from;
-  // what the tile's locations and weights (12 bytes a sample) leave
-  a.window_rows = (kTileBytes - kMaxTile * points * 12) / (hd * 4);
-  if (tiles && a.window_rows < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long direct = static_cast<long long>(b) * (q - direct_from) *
-                           heads * (hd / 4);
-  const long long blocks = static_cast<long long>(b) * heads * tiles +
-                           (direct + kThreads - 1) / kThreads;
-  if (blocks == 0) return 0;
-  const int smem = tiles ? kTileBytes : 0;
-  static int configured = -1;   // the shared memory of the last launch
-  if (smem != configured) {
-    // tile blocks need the large shared-memory carve-out, query-major
-    // launches the large L1
-    cudaError_t err = cudaFuncSetAttribute(
-        msda_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kTileBytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          msda_forward_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          tiles ? cudaSharedmemCarveoutMaxShared : cudaSharedmemCarveoutMaxL1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
-  }
-  msda_forward_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(value, level_info, tile_info, locs, attn, out, b, s,
+                       q, heads, hd, levels, points, tiles, direct_from,
+                       max_tile, stream);
+}
+
+// The same with value and out in bfloat16: hd a multiple of 8 that
+// divides 4096, max_tile at most 4 * (512 / (hd / 8)) (and 256); the sums
+// are float32 and each output is rounded to bfloat16 once.
+int demf_msda_forward_bf16(const void* value, const void* level_info,
+                           const void* tile_info, const void* locs,
+                           const void* attn, void* out, int b, int s, int q,
+                           int heads, int hd, int levels, int points,
+                           int tiles, int direct_from, int max_tile,
+                           void* stream) {
+  return launch<__nv_bfloat16>(value, level_info, tile_info, locs, attn, out,
+                               b, s, q, heads, hd, levels, points, tiles,
+                               direct_from, max_tile, stream);
 }
 
 }  // extern "C"

@@ -54,6 +54,14 @@
 //   reads and atomics on one contiguous row.  Both kernels run in one call.
 // - x and y are rounded as loc * W, then - 0.5, without an FMA, as the
 //   forward and the plain version round them.
+// - One source for both value types (a template): value and grad_out in
+//   float32 or bfloat16, read 16 bytes at a time (4 or 8 channels a thread)
+//   and widened in registers, windows and the tile's grad_out rows in
+//   shared memory in that type (a bfloat16 window has twice the rows).
+//   Locations, weights and their gradients are float32.  Every sum is
+//   float32: a bfloat16 d_value is summed into a float32 buffer, its
+//   16-byte global reductions as above, and rounded to bfloat16 once, by a
+//   last pass over it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -89,20 +97,21 @@ constexpr int kHeads = 1536;         // lists of entries, some a window row
 constexpr int kTileBytes = 227584;
 constexpr int kShareA = 729, kShareB = 361;
 
+template <typename T>
 struct Args {
-  const float* value;
+  const T* value;
   const int* level_info;   // (levels, 3): H, W, first token
   const int* tile_info;    // (levels, 5), see msda_window.cuh
   const float* locs;
   const float* attn;
-  const float* grad_out;
-  float* d_value;
+  const T* grad_out;
+  float* d_value;          // float32 sums, laid out as value
   float* d_locs;
   float* d_attn;
   int b, s, q, heads, hd, levels, points;
   int tiles;         // tiles of one (scene, head), over all tiled levels
   int direct_from;   // queries from here on take the query-major kernel
-  int rows_a, rows_b;   // rows of head_dim floats that the windows hold
+  int rows_a, rows_b;   // rows of head_dim values that the windows hold
 };
 
 // Sum over the n lanes of one group; n is a power of two dividing 32 and
@@ -113,37 +122,59 @@ __device__ __forceinline__ float group_sum(float v, int n, unsigned mask) {
   return v;
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+// sum_i a[i] * b[i], in the order 0, 1, ... (a float32 row: the order of
+// the first kernel's float4 dot product)
+template <int kN>
+__device__ __forceinline__ float dot(const float (&a)[kN],
+                                     const float (&b)[kN]) {
+  float s = a[0] * b[0];
+#pragma unroll
+  for (int i = 1; i < kN; ++i) s = fmaf(a[i], b[i], s);
+  return s;
+}
+
+// d_value[0 : kN) += w * g, as 16-byte global reductions (native on sm_90)
+template <int kN>
+__device__ __forceinline__ void add_rows(float* d, const float (&g)[kN],
+                                         float w) {
+#pragma unroll
+  for (int i = 0; i < kN; i += 4)
+    atomicAdd(reinterpret_cast<float4*>(d + i),
+              make_float4(w * g[i], w * g[i + 1], w * g[i + 2],
+                          w * g[i + 3]));
 }
 
 // one level of one tile, as the loop below needs it
+template <typename T>
 struct Level {
   int hl, wl;
-  const float* value;   // this head's channels of the level's first row
+  const T* value;   // this head's channels of the level's first row
   float* d_value;
-  Window win;
+  Window<T> win;
 };
 
 // one tile of one level's queries for one head, level after level
+template <typename T>
 __global__ void __launch_bounds__(kTileThreads, 1)
-    msda_backward_tile_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
+    msda_backward_tile_kernel(const Args<T> a) {
+  constexpr int kN = Row<T>::kN;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  const int lpq = a.hd >> 2;              // threads of one (query, head)
+  const int lpq = a.hd / kN;              // threads of one (query, head)
   const int qpp = kTileThreads / lpq;     // queries of one pass
   const int slot = tid / lpq;
   const int lane_q = tid % lpq;
-  const int c4 = lane_q * 4;
+  const int c4 = lane_q * kN;             // this thread's first channel
   // the lanes of this thread's (query, head), for __syncwarp
   const unsigned group_mask =
       (lpq == 32 ? 0xffffffffu : (1u << lpq) - 1u) << ((tid & 31) / lpq * lpq);
   // shared memory: two value windows (level l in window l % 2), the tile's
   // grad_out rows, two sets of locations and weights, the entries' weights
   // and links, the lists' heads
-  float* vwin[2] = {smem, smem + a.rows_a * a.hd};
+  T* vwin[2] = {reinterpret_cast<T*>(smem),
+                reinterpret_cast<T*>(smem) + a.rows_a * a.hd};
   const int room[2] = {a.rows_a, a.rows_b};
-  float* g_tile = vwin[1] + a.rows_b * a.hd;
+  T* g_tile = vwin[1] + a.rows_b * a.hd;
   float2* s_loc = reinterpret_cast<float2*>(g_tile + kMaxTile * a.hd);
   float* s_aw = reinterpret_cast<float*>(s_loc + 2 * kMaxTile * kMaxPoints);
   float* ent_w = s_aw + 2 * kMaxTile * kMaxPoints;
@@ -162,7 +193,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       static_cast<long long>(bi) * a.s * row_stride + h * a.hd;
 
   auto level = [&](int l) {
-    Level lv;
+    Level<T> lv;
     lv.hl = __ldg(a.level_info + 3 * l);
     lv.wl = __ldg(a.level_info + 3 * l + 1);
     const long long level0 =
@@ -170,12 +201,12 @@ __global__ void __launch_bounds__(kTileThreads, 1)
         static_cast<long long>(__ldg(a.level_info + 3 * l + 2)) * row_stride;
     lv.value = a.value + level0;
     lv.d_value = a.d_value + level0;
-    lv.win = level_window(tl, lv.hl, lv.wl, room[l & 1], vwin[l & 1]);
+    lv.win = level_window<T>(tl, lv.hl, lv.wl, room[l & 1], vwin[l & 1]);
     return lv;
   };
   // starts the copies of level l: its window of value rows and the tile's
   // locations and weights on it
-  auto prefetch = [&](int l, const Level& lv) {
+  auto prefetch = [&](int l, const Level<T>& lv) {
     copy_window(vwin[l & 1], lv.win, lv.value, lv.wl, row_stride, a.hd, slot,
                 qpp, c4);
     float2* to_loc = s_loc + (l & 1) * kMaxTile * kMaxPoints;
@@ -199,26 +230,26 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int y = tl.ty0 + qi / tl.tw;
     const int x = tl.tx0 + qi % tl.tw;
     if (y >= tl.hq || x >= tl.wq) continue;
-    copy_async<16>(g_tile + qi * a.hd + (i % lpq) * 4,
+    copy_async<16>(g_tile + qi * a.hd + (i % lpq) * kN,
                    a.grad_out + (static_cast<long long>(bi) * a.q + tl.startq +
                                  y * tl.wq + x) * row_stride + h * a.hd +
-                       (i % lpq) * 4);
+                       (i % lpq) * kN);
   }
   for (int i = tid; i < kHeads; i += kTileThreads) head[i] = -1;
-  Level lv = level(0);
+  Level<T> lv = level(0);
   prefetch(0, lv);
 
   for (int l = 0; l < a.levels; ++l) {
     copy_async_wait();
     __syncthreads();   // level l has arrived; the last level's lists are read
-    Level next;
+    Level<T> next;
     if (l + 1 < a.levels) {   // the next level's copies run under this one
       next = level(l + 1);
       prefetch(l + 1, next);
     }
-    const Window win = lv.win;
+    const Window<T> win = lv.win;
     const int hl = lv.hl, wl = lv.wl;
-    const float* vw = vwin[l & 1];
+    const T* vw = vwin[l & 1];
     const float2* loc_l = s_loc + (l & 1) * kMaxTile * kMaxPoints;
     const float* aw_l = s_aw + (l & 1) * kMaxTile * kMaxPoints;
     const int rows = win.w * win.h;
@@ -240,8 +271,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       // name only those that stay
       const unsigned mask = __ballot_sync(0xffffffffu, valid);
       if (!valid) continue;
-      const float4 g = *reinterpret_cast<const float4*>(g_tile + qi * a.hd +
-                                                        c4);
+      const Row<T> g = load_row16(g_tile + qi * a.hd + c4);
       const long long s0 =
           (((static_cast<long long>(bi) * a.q + tl.startq + qy * tl.wq + qx) *
                 a.heads + h) * a.levels + l) * a.points;
@@ -269,13 +299,10 @@ __global__ void __launch_bounds__(kTileThreads, 1)
           // the usual case: all four corners in the window (and so in the
           // map), one address and no further test
           const int r = (wy * win.w + wx) * a.hd + c4;
-          const float d00 = dot4(g, *reinterpret_cast<const float4*>(vw + r));
-          const float d01 =
-              dot4(g, *reinterpret_cast<const float4*>(vw + r + a.hd));
-          const float d10 =
-              dot4(g, *reinterpret_cast<const float4*>(vw + r + down));
-          const float d11 =
-              dot4(g, *reinterpret_cast<const float4*>(vw + r + down + a.hd));
+          const float d00 = dot(g.v, load_row16(vw + r).v);
+          const float d01 = dot(g.v, load_row16(vw + r + a.hd).v);
+          const float d10 = dot(g.v, load_row16(vw + r + down).v);
+          const float d11 = dot(g.v, load_row16(vw + r + down + a.hd).v);
           part_a = hy * (hx * d00 + lx * d01) + ly * (hx * d10 + lx * d11);
           part_x = hy * (d01 - d00) + ly * (d11 - d10);
           part_y = hx * (d10 - d00) + lx * (d11 - d01);
@@ -302,8 +329,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
             if (cx < static_cast<unsigned>(win.w) &&
                 cy < static_cast<unsigned>(win.h)) {
               const int row = cy * win.w + cx;
-              gv = dot4(g, *reinterpret_cast<const float4*>(
-                               vw + row * a.hd + c4));
+              gv = dot(g.v, load_row16(vw + row * a.hd + c4).v);
               if (k % lpq == lane_q) {
                 ent_w[e0 + k] = aw * wgt_x * wgt_y;
                 ent_next[e0 + k] = static_cast<unsigned short>(
@@ -312,11 +338,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
             } else {
               const long long off =
                   static_cast<long long>(yi * wl + xi) * row_stride + c4;
-              gv = dot4(g, __ldg(reinterpret_cast<const float4*>(
-                               lv.value + off)));
-              const float w = aw * wgt_x * wgt_y;
-              atomicAdd(reinterpret_cast<float4*>(lv.d_value + off),
-                        make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+              gv = dot(g.v, ldg_row16(lv.value + off).v);
+              add_rows(lv.d_value + off, g.v, aw * wgt_x * wgt_y);
             }
             part_a += wgt_x * wgt_y * gv;
             part_x += (k & 1) ? wgt_y * gv : -wgt_y * gv;
@@ -373,22 +396,18 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       __syncwarp(group_mask);   // all have read the head
       if (e >= 0) {
         if (lane_q == 0) *list = -1;
-        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        Row<T> acc = {};
         do {
           const float w = ent_w[e];
-          const float4 g = *reinterpret_cast<const float4*>(
-              g_tile + (e >> kEntryShift) * a.hd + c4);
-          acc.x = fmaf(w, g.x, acc.x);
-          acc.y = fmaf(w, g.y, acc.y);
-          acc.z = fmaf(w, g.z, acc.z);
-          acc.w = fmaf(w, g.w, acc.w);
+          const Row<T> g = load_row16(g_tile + (e >> kEntryShift) * a.hd + c4);
+#pragma unroll
+          for (int i = 0; i < kN; ++i) acc.v[i] = fmaf(w, g.v[i], acc.v[i]);
           e = ent_next[e];
         } while (e != 0xffff);   // what the first link took from the head
-        atomicAdd(reinterpret_cast<float4*>(
-                      lv.d_value +
-                      static_cast<long long>((win.y0 + fy) * wl + win.x0 +
-                                             fx) * row_stride + c4),
-                  acc);
+        add_rows(lv.d_value +
+                     static_cast<long long>((win.y0 + fy) * wl + win.x0 +
+                                            fx) * row_stride + c4,
+                 acc.v, 1.0f);
       }
       fy += step_y;
       fx += step_x;
@@ -401,13 +420,19 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   }
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // query-major: one thread per (batch, query >= direct_from, head, channel)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    msda_backward_query_kernel(const float* __restrict__ value,
+    msda_backward_query_kernel(const T* __restrict__ value,
                                const int* __restrict__ level_info,
                                const float* __restrict__ locs,
                                const float* __restrict__ attn,
-                               const float* __restrict__ grad_out,
+                               const T* __restrict__ grad_out,
                                float* __restrict__ d_value,
                                float* __restrict__ d_locs,
                                float* __restrict__ d_attn, int b, int s,
@@ -437,8 +462,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* loc = locs + sample0 * 2;
   const float* aw = attn + sample0;
   const int col = h * hd + c;
-  const float g = __ldg(
-      grad_out + (static_cast<long long>(bi) * q + qi) * row_stride + col);
+  const float g = to_float(
+      grad_out[(static_cast<long long>(bi) * q + qi) * row_stride + col]);
 
   for (int l = 0; l < levels; ++l) {
     const int hl = __ldg(level_info + 3 * l);
@@ -446,7 +471,7 @@ __global__ void __launch_bounds__(kThreads)
     const int start = __ldg(level_info + 3 * l + 2);
     const long long base =
         plane0 + static_cast<long long>(start) * row_stride + col;
-    const float* vl = value + base;
+    const T* vl = value + base;
     float* dvl = d_value + base;
     for (int p = 0; p < points; ++p) {
       const int sp = l * points + p;
@@ -477,7 +502,7 @@ __global__ void __launch_bounds__(kThreads)
             const float wx = dx ? lx : hx;
             const long long off = (static_cast<long long>(yi) * wl + xi) *
                                   row_stride;
-            const float gv = g * __ldg(vl + off);
+            const float gv = g * to_float(vl[off]);
             part_a += wx * wy * gv;
             part_x += dx ? wy * gv : -wy * gv;
             part_y += dy ? wx * gv : -wx * gv;
@@ -495,6 +520,92 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+}
+
+// d_value's float32 sums rounded to bfloat16, once
+__global__ void __launch_bounds__(kThreads)
+    round_to_bf16_kernel(const float* __restrict__ from,
+                         __nv_bfloat16* __restrict__ to, long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * kThreads)
+    to[i] = __float2bfloat16_rn(from[i]);
+}
+
+template <typename T>
+int launch(const void* value, const void* level_info, const void* tile_info,
+           const void* locs, const void* attn, const void* grad_out,
+           void* d_value, void* d_locs, void* d_attn, int b, int s, int q,
+           int heads, int hd, int levels, int points, int tiles,
+           int direct_from, int max_tile, cudaStream_t st) {
+  constexpr int kN = Row<T>::kN;
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  if (hd <= 0 || hd > 32 || 32 % hd != 0 || tiles < 0 || direct_from < 0 ||
+      direct_from > q || (tiles == 0 && direct_from != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<T> a;
+  a.value = static_cast<const T*>(value);
+  a.level_info = static_cast<const int*>(level_info);
+  a.tile_info = static_cast<const int*>(tile_info);
+  a.locs = static_cast<const float*>(locs);
+  a.attn = static_cast<const float*>(attn);
+  a.grad_out = static_cast<const T*>(grad_out);
+  a.d_value = static_cast<float*>(d_value);
+  a.d_locs = static_cast<float*>(d_locs);
+  a.d_attn = static_cast<float*>(d_attn);
+  a.b = b;
+  a.s = s;
+  a.q = q;
+  a.heads = heads;
+  a.hd = hd;
+  a.levels = levels;
+  a.points = points;
+  a.tiles = tiles;
+  a.direct_from = direct_from;
+  a.rows_a = a.rows_b = 0;
+  if (tiles) {
+    if (hd % kN || max_tile < 1 || max_tile > kMaxTile || points < 1 ||
+        points > kMaxPoints)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // 16-byte loads, cp.async and reductions, and 8-byte ones
+    if ((reinterpret_cast<uintptr_t>(value) |
+         reinterpret_cast<uintptr_t>(grad_out) |
+         reinterpret_cast<uintptr_t>(d_value)) % 16 ||
+        (reinterpret_cast<uintptr_t>(locs) |
+         reinterpret_cast<uintptr_t>(d_locs)) % 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // what the rest leaves for the two windows; a window row has a list
+    const int fixed = kMaxTile * hd * kSize + 2 * kMaxTile * kMaxPoints * 12 +
+                      kEntries * 6 + kHeads * 4;
+    const int rows = (kTileBytes - fixed) / (hd * kSize);
+    a.rows_b = min(kHeads, rows * kShareB / (kShareA + kShareB));
+    a.rows_a = min(kHeads, rows - a.rows_b);
+  }
+  const long long tile_blocks = static_cast<long long>(b) * heads * tiles;
+  const long long direct =
+      static_cast<long long>(b) * (q - direct_from) * heads * hd;
+  if (tile_blocks && K4_RUNS(4, b)) {
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t err = cudaFuncSetAttribute(
+          msda_backward_tile_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      configured = true;
+    }
+    msda_backward_tile_kernel<T><<<static_cast<unsigned>(tile_blocks),
+                                   kTileThreads, kTileBytes, st>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (direct) {
+    const unsigned blocks =
+        static_cast<unsigned>((direct + kThreads - 1) / kThreads);
+    msda_backward_query_kernel<T><<<blocks, kThreads, 0, st>>>(
+        a.value, a.level_info, a.locs, a.attn, a.grad_out, a.d_value,
+        a.d_locs, a.d_attn, b, s, q, heads, hd, levels, points, direct_from);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -518,71 +629,36 @@ int demf_msda_backward(const void* value, const void* level_info,
                        void* d_locs, void* d_attn, int b, int s, int q,
                        int heads, int hd, int levels, int points, int tiles,
                        int direct_from, int max_tile, void* stream) {
-  if (hd <= 0 || hd > 32 || 32 % hd != 0 || tiles < 0 || direct_from < 0 ||
-      direct_from > q || (tiles == 0 && direct_from != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.value = static_cast<const float*>(value);
-  a.level_info = static_cast<const int*>(level_info);
-  a.tile_info = static_cast<const int*>(tile_info);
-  a.locs = static_cast<const float*>(locs);
-  a.attn = static_cast<const float*>(attn);
-  a.grad_out = static_cast<const float*>(grad_out);
-  a.d_value = static_cast<float*>(d_value);
-  a.d_locs = static_cast<float*>(d_locs);
-  a.d_attn = static_cast<float*>(d_attn);
-  a.b = b;
-  a.s = s;
-  a.q = q;
-  a.heads = heads;
-  a.hd = hd;
-  a.levels = levels;
-  a.points = points;
-  a.tiles = tiles;
-  a.direct_from = direct_from;
-  a.rows_a = a.rows_b = 0;
-  if (tiles) {
-    if (hd % 4 || max_tile < 1 || max_tile > kMaxTile || points < 1 ||
-        points > kMaxPoints)
-      return static_cast<int>(cudaErrorInvalidValue);
-    // float4 and cp.async accesses of 16 bytes and of 8
-    if ((reinterpret_cast<uintptr_t>(value) |
-         reinterpret_cast<uintptr_t>(grad_out) |
-         reinterpret_cast<uintptr_t>(d_value)) % 16 ||
-        (reinterpret_cast<uintptr_t>(locs) |
-         reinterpret_cast<uintptr_t>(d_locs)) % 8)
-      return static_cast<int>(cudaErrorInvalidValue);
-    // what the rest leaves for the two windows; a window row has a list
-    const int fixed = kMaxTile * hd * 4 + 2 * kMaxTile * kMaxPoints * 12 +
-                      kEntries * 6 + kHeads * 4;
-    const int rows = (kTileBytes - fixed) / (hd * 4);
-    a.rows_b = min(kHeads, rows * kShareB / (kShareA + kShareB));
-    a.rows_a = min(kHeads, rows - a.rows_b);
-  }
-  const long long tile_blocks = static_cast<long long>(b) * heads * tiles;
-  const long long direct =
-      static_cast<long long>(b) * (q - direct_from) * heads * hd;
+  return launch<float>(value, level_info, tile_info, locs, attn, grad_out,
+                       d_value, d_locs, d_attn, b, s, q, heads, hd, levels,
+                       points, tiles, direct_from, max_tile,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The same with value and grad_out in bfloat16 (with tiles, hd a multiple
+// of 8): the float32 sums go to d_value_sums (f32, like value, zeroed by
+// the caller, 16-byte aligned), and a last pass rounds them once into
+// d_value (bf16, like value).
+int demf_msda_backward_bf16(const void* value, const void* level_info,
+                            const void* tile_info, const void* locs,
+                            const void* attn, const void* grad_out,
+                            void* d_value_sums, void* d_value, void* d_locs,
+                            void* d_attn, int b, int s, int q, int heads,
+                            int hd, int levels, int points, int tiles,
+                            int direct_from, int max_tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile_blocks && K4_RUNS(4, b)) {
-    static bool configured = false;
-    if (!configured) {
-      cudaError_t err = cudaFuncSetAttribute(
-          msda_backward_tile_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      configured = true;
-    }
-    msda_backward_tile_kernel<<<static_cast<unsigned>(tile_blocks),
-                                kTileThreads, kTileBytes, st>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (direct) {
-    const unsigned blocks =
-        static_cast<unsigned>((direct + kThreads - 1) / kThreads);
-    msda_backward_query_kernel<<<blocks, kThreads, 0, st>>>(
-        a.value, a.level_info, a.locs, a.attn, a.grad_out, a.d_value,
-        a.d_locs, a.d_attn, b, s, q, heads, hd, levels, points, direct_from);
+  const int err = launch<__nv_bfloat16>(
+      value, level_info, tile_info, locs, attn, grad_out, d_value_sums,
+      d_locs, d_attn, b, s, q, heads, hd, levels, points, tiles, direct_from,
+      max_tile, st);
+  if (err) return err;
+  const long long n = static_cast<long long>(b) * s * heads * hd;
+  if (n) {
+    const long long need = (n + kThreads - 1) / kThreads;
+    const long long blocks = need < (1LL << 16) ? need : (1LL << 16);
+    round_to_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        static_cast<const float*>(d_value_sums),
+        static_cast<__nv_bfloat16*>(d_value), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

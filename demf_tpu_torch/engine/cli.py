@@ -1,7 +1,8 @@
 """Argument parsers of the port's two entry points (port of
 ``demf_tpu/engine/cli.py``): the flags of the repository's ``train.py`` and
 ``eval.py``, plus ``--device``.  Options whose code is not ported yet are
-refused by name; none is accepted and ignored.
+refused by name; none is accepted and ignored.  A config's ``bf16`` /
+``fp16`` selects the bf16 policy (``utils/precision.py``).
 """
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import argparse
 
 from ..utils.config import DictAction
 
-NOT_PORTED = 'not ported yet (ROADMAP M2 / M4)'
+NOT_PORTED = 'not ported yet (ROADMAP M4)'
 
 
 def _parse(parser, argv, refused=()):
@@ -77,16 +78,6 @@ def parse_args_test(argv=None):
     parser.add_argument('--show-dir', help=NOT_PORTED)
     _add_common(parser)
     return _parse(parser, argv, ('fuse_conv_bn', 'show', 'show_dir'))
-
-
-def refuse_compute_dtype(cfg):
-    """A config that asks for bf16 / fp16 compute stops here: the precision
-    policy is not ported, and running it in float32 would be another run
-    than the one asked for."""
-    for key in ('bf16', 'fp16'):
-        if cfg.get(key):
-            raise SystemExit(f'config sets {key}: a {key} compute_dtype is '
-                             f'{NOT_PORTED}')
 
 
 def require_device(name):

@@ -7,6 +7,10 @@ scene, collates fixed-shape batches and returns per-scene detections for
 same over batches that are already collated (dicts of numpy arrays:
 ``points``, ``img`` or ``img_features``, ``img_meta``), as
 ``data.loader.collate_fixed`` and the zoo's synthetic batches give them.
+``make_eval_step(model, torch.bfloat16)`` runs the forward under the bf16
+policy (``utils/precision.py``) and casts its results to float32 before
+``get_bboxes``, so the NMS and the box count run in float32 as they do
+without it; ``run_dataset_inference`` and the eval hook pass it on.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from ..data.loader import collate_fixed
+from ..utils.precision import cast_batch, cast_floating, policy_call
 
 
 def batch_to_device(batch, device):
@@ -29,13 +34,15 @@ def batch_to_device(batch, device):
     return torch.as_tensor(np.asarray(batch), device=device)
 
 
-def make_eval_step(model):
+def make_eval_step(model, compute_dtype=None):
     """batch (tensors on the model's device) -> padded detections:
     boxes_3d (B, K, 7), scores_3d (B, K), labels_3d (B, K), valid (B, K)."""
 
     @torch.inference_mode()
     def eval_step(batch):
-        results = model(batch)
+        results = cast_floating(policy_call(
+            model, compute_dtype, cast_batch(batch, compute_dtype)),
+            torch.float32)
         return model.get_bboxes(results, batch)
 
     return eval_step
@@ -67,14 +74,14 @@ def run_batches_inference(model, batches: Iterable[dict]) -> List[dict]:
 
 
 def run_dataset_inference(model, dataset, batch_size=16, max_gt=64,
-                          progress_cb=None) -> List[dict]:
+                          progress_cb=None, compute_dtype=None) -> List[dict]:
     """Run inference over a whole dataset on the model's device (the
     caller puts the model in eval mode), returning per-scene numpy results,
     validity-filtered, in dataset order.  Every batch has ``batch_size``
     scenes: the last one is filled by repeating its last scene, and the
     fill is dropped."""
     device = next(model.parameters()).device
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, compute_dtype)
     n = len(dataset)
     results: List[dict] = []
     for start in range(0, n, batch_size):
@@ -89,7 +96,8 @@ def run_dataset_inference(model, dataset, batch_size=16, max_gt=64,
     return results
 
 
-def make_dataset_eval_fn(dataset, batch_size, logger) -> Callable:
+def make_dataset_eval_fn(dataset, batch_size, logger,
+                         compute_dtype=None) -> Callable:
     """-> ``eval_fn(model, epoch)`` for the runner's eval hook: inference
     over ``dataset`` in eval mode, ``dataset.evaluate``, one log line; the
     model goes back to the mode it was in."""
@@ -98,7 +106,8 @@ def make_dataset_eval_fn(dataset, batch_size, logger) -> Callable:
         was_training = model.training
         model.eval()
         try:
-            results = run_dataset_inference(model, dataset, batch_size)
+            results = run_dataset_inference(model, dataset, batch_size,
+                                            compute_dtype=compute_dtype)
         finally:
             model.train(was_training)
         metrics = dataset.evaluate(results)

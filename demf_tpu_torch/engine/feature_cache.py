@@ -6,7 +6,10 @@ scene, so each scene's encoded feature levels are computed once and the
 stage-2 step trains on them.  The on-disk format is the JAX package's: one
 ``<scene_id>.npz`` per scene holding float16 ``lvl0..lvl3`` NHWC arrays
 without the batch axis, so a cache written by either package loads in the
-other.
+other.  The cache is filled in float32 (the frozen branch's own precision,
+as in the JAX package) and read back as float32; under the bf16 policy the
+train step casts the features to bf16 (``img_features`` is one of
+``utils/precision.py``'s cast keys), without it they stay float32.
 """
 from __future__ import annotations
 

@@ -7,6 +7,12 @@ returns its metrics as device tensors and does no host sync, so steps queue
 on the card back to back; the runner reads them only at its log interval.
 The three phases are ``torch.profiler`` ranges (``PHASES``), which cost a
 few microseconds when no profiler runs; ``train.py --profile`` reads them.
+With ``compute_dtype=torch.bfloat16`` the step runs the JAX package's
+mixed-precision policy (``utils/precision.py``): forward and backward on
+bf16 copies of the float32 master weights, the batch's images / cached
+features in bf16 and everything else float32, the results cast to float32
+before the loss; the gradients, the clip, AdamW and the BatchNorm running
+statistics stay float32, and nothing scales the loss.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import time
 import torch
 from torch.profiler import record_function
 
+from ..utils.precision import cast_batch, cast_floating, policy_call
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluation import batch_to_device
 from .optim import clip_grad_global_norm, global_norm, set_lr
@@ -33,17 +40,20 @@ class TrainStep:
     sum of the terms), each loss term, and ``grad_norm`` (before the
     clip), all 0-dim tensors.
 
-    ``count`` is the number of updates taken; ``lr`` the base rate of the
-    last one.  A checkpoint saves the count and a resume restores it, so
+    ``compute_dtype`` (None or ``torch.bfloat16``) selects the precision
+    policy.  ``count`` is the number of updates taken; ``lr`` the base rate
+    of the last one.  A checkpoint saves the count and a resume restores it, so
     the schedule goes on where it stopped (in the JAX package the count
     lives in the optax state).
     """
 
-    def __init__(self, model, optimizer, scheduler=None, max_norm=None):
+    def __init__(self, model, optimizer, scheduler=None, max_norm=None,
+                 compute_dtype=None):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.max_norm = max_norm
+        self.compute_dtype = compute_dtype
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.count = 0
         self.lr = None
@@ -53,7 +63,11 @@ class TrainStep:
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with record_function(PHASES[0]):
-            results = model(batch, generator=generator)
+            dtype = self.compute_dtype
+            # the float32 loss island (the reference's @force_fp32)
+            results = cast_floating(policy_call(
+                model, dtype, cast_batch(batch, dtype), generator=generator),
+                torch.float32)
             losses = model.loss(results, batch)
             total = sum(losses.values())
         with record_function(PHASES[1]):

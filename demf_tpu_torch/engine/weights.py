@@ -1,4 +1,5 @@
-"""Weights from the JAX package into the port.
+"""Weights from the JAX package into the port (DeMF-VoteNet, the stage-1
+DETR pretrain model, VoteNet).
 
 ``state_dict_from_jax`` is the exact inverse of
 ``demf_tpu.engine.torch_port.port_demf_checkpoint``: it takes the flax
@@ -40,6 +41,8 @@ _RULES = [
      '{p}.shared_convs.layer{1}.bn', 'norm'),
     (r'(?P<p>.*)/conv_pred(\d+)/conv_(cls|reg)', '{p}.conv_pred{1}.conv_{2}',
      'c1'),
+    # a vote head's single prediction layer (VoteNet's CAVoteHead, VoteHead)
+    (r'(?P<p>.*)/conv_pred/conv_(cls|reg)', '{p}.conv_pred.conv_{1}', 'c1'),
     (r'(?P<p>.*)/decoder_(\d+)/layer/cross_attn/(\w+)',
      '{p}.decoder.{1}.layer.attentions.1.{2}', 'lin'),
     (r'(?P<p>.*)/decoder_(\d+)/layer/ffn/fc1',

@@ -8,8 +8,10 @@ builds ``data.test`` of the config and the detector, loads the checkpoint
 (strict; ``CLASSES`` come from its meta when it has one), runs batched
 inference over the dataset (``engine.run_dataset_inference``: the last
 batch filled and the fill dropped) and prints the indoor mAP of
-``dataset.evaluate``.  It runs on the GPU by default and stops when there
-is none; ``--device cpu`` is for small configs.
+``dataset.evaluate``.  A config's ``bf16`` / ``fp16`` runs the forward
+under the bf16 policy (``utils/precision.py``).  It runs on the GPU by
+default and stops when there is none; ``--device cpu`` is for small
+configs.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import pickle
 from . import zoo
 from .data import build_dataset
 from .engine import load_checkpoint, load_meta, run_dataset_inference
-from .engine.cli import parse_args_test, refuse_compute_dtype, require_device
+from .engine.cli import parse_args_test, require_device
 from .utils.config import Config
+from .utils.precision import resolve_compute_dtype
 
 META_SHOWN = ('config_file', 'demf_tpu_torch_version', 'torch_version',
               'seed', 'time', 'epoch')
@@ -31,7 +34,6 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
-    refuse_compute_dtype(cfg)
 
     dataset = build_dataset(cfg.data['test'])
     # self-describing checkpoints: recover CLASSES recorded at train time
@@ -56,7 +58,7 @@ def main(argv=None):
 
     results = run_dataset_inference(
         model, dataset, batch_size=batch_size, max_gt=cfg.get('max_gt', 64),
-        progress_cb=progress)
+        progress_cb=progress, compute_dtype=resolve_compute_dtype(cfg))
 
     if args.out:
         with open(args.out, 'wb') as f:

@@ -2,9 +2,9 @@
 ``demf_tpu/models/conv_bbox_head.py``, mmdet3d ``BaseConvBboxHead``)."""
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import dense
 from .pointnet2 import SharedMLP
 
 
@@ -21,6 +21,4 @@ class BaseConvBboxHead(nn.Module):
     def forward(self, features):
         """(B, N, C) -> (cls (B, N, C_cls), reg (B, N, C_reg))."""
         x = self.shared_convs(features)
-        cls = F.linear(x, self.conv_cls.weight.flatten(1), self.conv_cls.bias)
-        reg = F.linear(x, self.conv_reg.weight.flatten(1), self.conv_reg.bias)
-        return cls, reg
+        return dense(x, self.conv_cls), dense(x, self.conv_reg)

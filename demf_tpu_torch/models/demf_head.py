@@ -36,6 +36,9 @@ class DeMFVoteHead(CAVoteHead):
                 **pred, num_cls_out_channels=self._cls_out_channels(),
                 num_reg_out_channels=self._reg_out_channels()))
 
+    def _build_conv_pred(self):
+        """The stages ``conv_pred{i}`` are built in ``__init__``."""
+
     @torch.no_grad()
     def init_weights(self, generator):
         """Start the size regression at the mean class size of the coder,

@@ -22,6 +22,10 @@ class DeMFVoteNet(nn.Module):
     """``img_bbox_head`` is accepted and ignored: the DeMF config inherits
     the Deformable-DETR base whose 2D head DeMF does not use."""
 
+    # what the step-time measurements train it on (``zoo.synth_batch_for``):
+    # batch maker, scenes, GT slots
+    synth_batch = ('demf', 16, 64)
+
     def __init__(self, pts_backbone=None, pts_bbox_head=None, pts_neck=None,
                  img_backbone=None, img_neck=None, img_encoder=None,
                  img_bbox_head=None, freeze_img_branch=False,

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.assignment import auction_match, hungarian_match
 from ..registry import HEADS, LOSSES, build_from_cfg
+from ..utils.precision import dense
 from .losses import extent_area
 from .transformer import (DetrTransformerDecoderLayer, _Layers,
                           build_encoder_layers, encode_levels, sine_encoding)
@@ -74,6 +75,12 @@ class DetrMLP(nn.Sequential):
                      nn.ReLU()]
         mods.append(nn.Linear(hidden if layers > 1 else in_channels, out))
         super().__init__(*mods)
+
+    def forward(self, x):
+        linears = [m for m in self if isinstance(m, nn.Linear)]
+        for lin in linears[:-1]:
+            x = torch.relu(dense(x, lin))
+        return dense(x, linears[-1])
 
 
 class DeformableDetrTransformer(nn.Module):
@@ -146,14 +153,14 @@ class DeformableDETRHead(nn.Module):
         query_pos, query = self.query_embedding.weight.chunk(2, -1)
         query_pos = query_pos[None].expand(b, -1, -1)
         query = query[None].expand(b, -1, -1)
-        reference_points = t.reference_points(query_pos).sigmoid()  # (B, Q, 2)
+        reference_points = dense(query_pos, t.reference_points).sigmoid()
         ref_input = reference_points[:, :, None, :] * valid_ratios[:, None]
         ref_logit = inverse_sigmoid(reference_points)
         cls_all, bbox_all = [], []
         for layer in t.decoder.layers:
             query = layer(query, memory, query_pos, key_padding_mask,
                           ref_input, spatial_shapes, generator)
-            cls_all.append(self.fc_cls(query))
+            cls_all.append(dense(query, self.fc_cls))
             tmp = self.fc_reg(query)
             bbox_all.append(torch.cat(
                 [tmp[..., :2] + ref_logit, tmp[..., 2:]], -1).sigmoid())

@@ -2,13 +2,16 @@
 
 1x1 convolutions with GroupNorm from each backbone level to
 ``out_channels``, plus extra levels from the last input by 3x3 stride-2
-convolutions.  NHWC in and out.
+convolutions.  NHWC in and out.  GroupNorm runs in float32 and returns
+the dtype of the convolution's input (``utils/precision.py``).
 """
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
 
 from ..registry import NECKS
+from ..utils.precision import conv, norm_as
 
 
 class _ConvGN(nn.Module):
@@ -20,7 +23,10 @@ class _ConvGN(nn.Module):
         self.gn = nn.GroupNorm(num_groups, cout, eps=1e-5)
 
     def forward(self, x):
-        return self.gn(self.conv(x))
+        gn = self.gn
+        return norm_as(x.dtype, lambda y, w, b: F.group_norm(
+            y, gn.num_groups, w, b, gn.eps), conv(self.conv, x), gn.weight,
+            gn.bias)
 
 
 @NECKS.register_module()

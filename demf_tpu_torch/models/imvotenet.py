@@ -22,6 +22,10 @@ IMG_BRANCH = ('img_backbone', 'img_neck', 'img_bbox_head')
 
 @DETECTORS.register_module()
 class ImVoteNet_Deformdetr(nn.Module):
+    # what the step-time measurements train it on (``zoo.synth_batch_for``):
+    # batch maker, images, GT slots
+    synth_batch = ('detr2d', 4, 20)
+
     def __init__(self, pts_backbone=None, pts_bbox_heads=None, pts_neck=None,
                  img_backbone=None, img_neck=None, img_bbox_head=None,
                  img_mlp=None, freeze_img_branch=False, fusion_layer=None,

@@ -4,7 +4,9 @@
 Features stay channel-last, (B, N, C); the 1x1 Conv+BN+ReLU stacks are
 matmuls over the last axis that read the mmdet3d Conv1d / Conv2d weights.
 BatchNorm follows flax (``bn_last``): batch statistics in train mode,
-running statistics in eval mode.
+running statistics in eval mode.  Under the bf16 policy
+(``utils/precision.py``) the grouped features go to the compute dtype after
+the coordinate math, and every layer keeps its input's dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from ..ops.grouping import (ball_query, gather_points_last,
 from ..ops.interpolate import three_nn_interpolate
 from ..ops.sampling import furthest_point_sample
 from ..registry import BACKBONES
+from ..utils.precision import cast_compute, dense
 
 
 def bn_last(bn, x):
@@ -28,7 +31,13 @@ def bn_last(bn, x):
     statistics as flax does with momentum 0.9:
     ``running = 0.9 * running + 0.1 * batch``, the biased variance included
     (``torch.nn.BatchNorm`` stores the unbiased one, so it is not used).
+
+    As flax, it reduces and normalizes in float32 whatever the input's
+    dtype (a bfloat16 ``var_mean`` would reduce in bfloat16), keeps the
+    running statistics float32, and returns the input's dtype.
     """
+    dtype = x.dtype
+    x = x.float()
     if bn.training:
         var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)),
                                    correction=0)
@@ -37,8 +46,8 @@ def bn_last(bn, x):
             bn.running_var.mul_(0.9).add_(var, alpha=0.1)
     else:
         mean, var = bn.running_mean, bn.running_var
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean) * mul + bn.bias
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    return ((x - mean) * mul + bn.bias.float()).to(dtype)
 
 
 class ConvModule(nn.Module):
@@ -56,8 +65,7 @@ class ConvModule(nn.Module):
         self.bn = bn(out_channels)
 
     def forward(self, x):
-        y = F.linear(x, self.conv.weight.flatten(1), self.conv.bias)
-        return F.relu(bn_last(self.bn, y))
+        return F.relu(bn_last(self.bn, dense(x, self.conv)))
 
 
 class SharedMLP(nn.Module):
@@ -119,9 +127,11 @@ class PointSAModule(nn.Module):
             grouped = grouped / self.radius
         if features is not None:
             grouped_feats = group_points_last(features, idx)
-            grouped = (torch.cat([grouped, grouped_feats], -1)
+            grouped = (torch.cat([grouped.to(grouped_feats.dtype),
+                                  grouped_feats], -1)
                        if self.use_xyz else grouped_feats)
-        out = self.mlps[0](grouped)
+        # the coordinate math is done: the MLP runs in the policy's dtype
+        out = self.mlps[0](cast_compute(grouped))
         pooled = out.amax(2) if self.pool_mod == 'max' else out.mean(2)
         return new_xyz, pooled, indices
 

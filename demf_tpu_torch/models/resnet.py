@@ -9,6 +9,9 @@ the batch's statistics and updates the running ones by flax's rule.
 ``_freeze_stages`` and the JAX package's ``stop_gradient`` do: their
 parameters have ``requires_grad=False`` and the activation that leaves the
 frozen part is detached, so no graph is kept below the first trained stage.
+Under the bf16 policy the convolutions take their input's dtype and
+BatchNorm runs in float32 and returns the block's input dtype, as in the
+JAX package (``utils/precision.py``).
 """
 from __future__ import annotations
 
@@ -17,24 +20,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..registry import BACKBONES
+from ..utils.precision import conv
 
 
-def _bn(bn, x):
+def _bn(bn, x, dtype):
     """BatchNorm2d on NCHW: the running statistics in eval mode; in train
     mode the batch's (biased variance) with flax's update of the running
     ones, ``running = 0.9 * running + 0.1 * batch`` (biased variance too,
-    where ``nn.BatchNorm2d`` would store the unbiased one)."""
+    where ``nn.BatchNorm2d`` would store the unbiased one).  It computes
+    in float32 and returns ``dtype``."""
+    x = x.float()
+    weight, bias = bn.weight.float(), bn.bias.float()
     if not bn.training:
-        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                            bn.bias, training=False, eps=bn.eps)
+        return F.batch_norm(x, bn.running_mean, bn.running_var, weight,
+                            bias, training=False, eps=bn.eps).to(dtype)
     mean = x.mean((0, 2, 3))
     var = (x * x).mean((0, 2, 3)) - mean * mean
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(0.1 * mean)
         bn.running_var.mul_(0.9).add_(0.1 * var)
-    scale = bn.weight * torch.rsqrt(var + bn.eps)
-    return (x - mean[:, None, None]) * scale[:, None, None] + \
-        bn.bias[:, None, None]
+    scale = weight * torch.rsqrt(var + bn.eps)
+    return ((x - mean[:, None, None]) * scale[:, None, None] +
+            bias[:, None, None]).to(dtype)
 
 
 class Bottleneck(nn.Module):
@@ -53,12 +60,14 @@ class Bottleneck(nn.Module):
                 nn.BatchNorm2d(out))
 
     def forward(self, x):
-        out = F.relu(_bn(self.bn1, self.conv1(x)))
-        out = F.relu(_bn(self.bn2, self.conv2(out)))
-        out = _bn(self.bn3, self.conv3(out))
+        dt = x.dtype
+        out = F.relu(_bn(self.bn1, conv(self.conv1, x), dt))
+        out = F.relu(_bn(self.bn2, conv(self.conv2, out), dt))
+        out = _bn(self.bn3, conv(self.conv3, out), dt)
         identity = x
         if hasattr(self, 'downsample'):
-            identity = _bn(self.downsample[1], self.downsample[0](x))
+            identity = _bn(self.downsample[1], conv(self.downsample[0], x),
+                           dt)
         return F.relu(out + identity)
 
 
@@ -114,7 +123,7 @@ class ResNet(nn.Module):
     def forward(self, img):
         """img (B, H, W, 3) -> tuple of (B, h, w, C) stage outputs."""
         x = img.permute(0, 3, 1, 2)
-        x = F.relu(_bn(self.bn1, self.conv1(x)))
+        x = F.relu(_bn(self.bn1, conv(self.conv1, x), x.dtype))
         x = F.max_pool2d(x, 3, 2, 1)
         if self.frozen_stages >= 0:
             x = x.detach()

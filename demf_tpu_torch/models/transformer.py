@@ -7,7 +7,9 @@ Parameter names follow mmcv (``attentions`` / ``ffns`` / ``norms``).
 LayerNorm epsilon is 1e-6, flax's default, as in the JAX package (mmcv
 uses 1e-5).  Dropout sits where the JAX package puts it and, in train mode,
 draws its masks from an explicit ``torch.Generator`` passed down from the
-train step.
+train step.  Every layer computes in the promoted dtype of its input and
+its parameters, and every LayerNorm reduces in float32 and returns the
+dtype its JAX call site names (``utils/precision.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 
 from ..ops.msda import multi_scale_deformable_attention
 from ..registry import HEADS
+from ..utils.precision import dense, norm_as, promote
 from .pointnet2 import bn_last
 
 LN_EPS = 1e-6
@@ -34,7 +37,7 @@ def dropout(x, p, training, generator):
     if generator is None:
         raise ValueError('dropout in train mode needs a torch.Generator')
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - p
+                      dtype=torch.float32) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -128,21 +131,29 @@ class MultiScaleDeformableAttention(nn.Module):
         if query_pos is not None:
             query = query + query_pos
         b, nq, c = query.shape
-        v = self.value_proj(value)
+        v = dense(value, self.value_proj)
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[..., None], 0.0)
         v = v.reshape(b, v.shape[1], h, c // h)
-        offsets = self.sampling_offsets(query).reshape(b, nq, h, l, p, 2)
-        attn = self.attention_weights(query).reshape(b, nq, h, l * p)
+        offsets = dense(query, self.sampling_offsets).reshape(
+            b, nq, h, l, p, 2)
+        attn = dense(query, self.attention_weights).reshape(b, nq, h, l * p)
         attn = attn.softmax(-1).reshape(b, nq, h, l, p)
         normalizer = torch.tensor([[w_, h_] for (h_, w_) in spatial_shapes],
-                                  dtype=query.dtype, device=query.device)
+                                  dtype=torch.float32, device=query.device)
         locs = reference_points[:, :, None, :, None, :] + \
             offsets / normalizer[None, None, None, :, None, :]
         out = multi_scale_deformable_attention(v, spatial_shapes, locs, attn)
-        out = dropout(self.output_proj(out), self.dropout, self.training,
-                      generator)
+        out = dropout(dense(out, self.output_proj), self.dropout,
+                      self.training, generator)
         return out + identity
+
+
+def layer_norm(norm, x, dtype):
+    """``nn.LayerNorm`` ``norm`` on ``x`` in float32, returned in ``dtype``
+    (the JAX layers' ``.astype(dt)``)."""
+    return norm_as(dtype, lambda y, w, b: F.layer_norm(
+        y, norm.normalized_shape, w, b, norm.eps), x, norm.weight, norm.bias)
 
 
 class FFN(nn.Module):
@@ -162,8 +173,8 @@ class FFN(nn.Module):
         def drop(y):
             return dropout(y, self.ffn_drop, self.training, generator)
 
-        y = drop(self.layers[0](x))
-        return x + drop(self.layers[1](y))
+        y = drop(torch.relu(dense(x, self.layers[0][0])))
+        return x + drop(dense(y, self.layers[1]))
 
 
 class InProjAttention(nn.Module):
@@ -188,15 +199,16 @@ class InProjAttention(nn.Module):
         bq, bk, bv = self.in_proj_bias.chunk(3)
 
         def heads(x, w, bias):
-            return F.linear(x, w, bias).reshape(
+            return F.linear(*promote(x, w, bias)).reshape(
                 b, -1, self.num_heads, hd).transpose(1, 2)
 
         qh, kh, vh = heads(q, wq, bq), heads(k, wk, bk), heads(v, wv, bv)
-        logits = torch.matmul(qh / math.sqrt(hd), kh.transpose(-1, -2))
+        logits = torch.matmul(*promote(qh / math.sqrt(hd),
+                                       kh.transpose(-1, -2)))
         probs = dropout(logits.softmax(-1), self.dropout, self.training,
                         generator)
-        out = torch.matmul(probs, vh)
-        return self.out_proj(out.transpose(1, 2).reshape(b, nq, e))
+        out = torch.matmul(*promote(probs, vh))
+        return dense(out.transpose(1, 2).reshape(b, nq, e), self.out_proj)
 
 
 class MultiheadAttention(nn.Module):
@@ -237,8 +249,9 @@ class DetrTransformerEncoderLayer(nn.Module):
                                reference_points=reference_points,
                                spatial_shapes=spatial_shapes,
                                generator=generator)
-        x = self.norms[0](x)
-        return self.norms[1](self.ffns[0](x, generator))
+        dt = x.dtype
+        x = layer_norm(self.norms[0], x, dt)
+        return layer_norm(self.norms[1], self.ffns[0](x, generator), dt)
 
 
 class DetrTransformerDecoderLayer(nn.Module):
@@ -259,14 +272,16 @@ class DetrTransformerDecoderLayer(nn.Module):
 
     def forward(self, query, value, query_pos, key_padding_mask,
                 reference_points, spatial_shapes, generator=None):
-        q = self.norms[0](self.attentions[0](query, query_pos, generator))
+        dt = query.dtype
+        q = layer_norm(self.norms[0],
+                       self.attentions[0](query, query_pos, generator), dt)
         q = self.attentions[1](q, value, query_pos=query_pos,
                                key_padding_mask=key_padding_mask,
                                reference_points=reference_points,
                                spatial_shapes=spatial_shapes,
                                generator=generator)
-        q = self.norms[1](q)
-        return self.norms[2](self.ffns[0](q, generator))
+        q = layer_norm(self.norms[1], q, dt)
+        return layer_norm(self.norms[2], self.ffns[0](q, generator), dt)
 
 
 def make_level_masks(img_shape, batch_hw, spatial_shapes):
@@ -417,9 +432,8 @@ class PositionEmbeddingLearned(nn.Module):
     def forward(self, xyz):
         """(B, N, input_channel) -> (B, N, num_pos_feats)."""
         fc1, bn, _, fc2 = self.position_embedding_head
-        x = F.linear(xyz, fc1.weight.flatten(1), fc1.bias)
-        x = F.relu(bn_last(bn, x))
-        return F.linear(x, fc2.weight.flatten(1), fc2.bias)
+        x = F.relu(bn_last(bn, dense(xyz, fc1)).to(xyz.dtype))
+        return dense(x, fc2)
 
 
 class DeMFTransformerDecoderLayer(nn.Module):

@@ -3,9 +3,9 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import dense
 from .pointnet2 import ConvModule
 
 
@@ -37,7 +37,7 @@ class VoteModule(nn.Module):
         b, n, c = seed_feats.shape
         vps = self.vote_per_seed
         x = self.vote_conv(seed_feats)
-        out = F.linear(x, self.conv_out.weight.flatten(1), self.conv_out.bias)
+        out = dense(x, self.conv_out)
         out = out.reshape(b, n, vps, -1)
         offset = out[..., 0:3]
         vote_points = (seed_points[:, :, None, :] + offset).reshape(

@@ -12,7 +12,8 @@ from .grouping import (BALL_QUERY_KERNEL, ball_query, gather_points,
                        query_and_group)
 from .interpolate import three_nn_interpolate
 from .mform import MFORM_KERNEL
-from .msda import (MSDA_BACKWARD_KERNEL, MSDA_KERNEL,
+from .msda import (MSDA_BACKWARD_BF16_KERNEL, MSDA_BACKWARD_KERNEL,
+                   MSDA_BF16_KERNEL, MSDA_KERNEL,
                    multi_scale_deformable_attention)
 from .msda_fold import MSDA_FOLD_KERNEL
 from .nms import NMS3D_KERNEL, aligned_3d_nms
@@ -29,10 +30,13 @@ __all__ = [
 
 def kernels():
     """name -> CudaKernel for every kernel of the port: the serving and
-    training paths' (FPS to MSDA backward, the NMS and the box count) and
-    the probes'."""
+    training paths' (FPS to MSDA backward, the NMS and the box count; MSDA
+    forward and backward on a float32 and on a bfloat16 value, each with
+    its own count) and the probes'."""
     return {'fps': FPS_KERNEL, 'ball_query': BALL_QUERY_KERNEL,
             'msda': MSDA_KERNEL, 'msda_backward': MSDA_BACKWARD_KERNEL,
+            'msda_bf16': MSDA_BF16_KERNEL,
+            'msda_backward_bf16': MSDA_BACKWARD_BF16_KERNEL,
             'gather_rows': GATHER_ROWS_KERNEL, 'msda_fold': MSDA_FOLD_KERNEL,
             'mform_sample': MFORM_KERNEL, 'nms3d': NMS3D_KERNEL,
             'box_count': BOX_COUNT_KERNEL}

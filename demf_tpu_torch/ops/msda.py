@@ -8,6 +8,16 @@ On a CUDA tensor that needs a gradient the op is ``MSDAFunction``: K3 runs
 the forward and K4 returns ``d_value``, ``d_sampling_locations`` and
 ``d_attention_weights``.  The plain version's gradient is its own autograd
 (gathers, whose backward is a scatter-add).
+
+The value (and with it the output, ``grad_out`` and ``d_value``) is float32
+or bfloat16, each kernel reading it in its own type (the ``_bf16`` entry
+points of the same sources); locations and weights are float32, and so are
+every sum and ``d_loc`` / ``d_aw``.  Under the bf16 policy the locations
+arrive float32 everywhere (float32 reference points plus the offsets), and
+so do the weights of the encoders and the DeMF decoder (their queries
+carry a float32 position); the DETR head's decoder gives bf16 weights (its
+learned query position is a bf16 weight, as in the JAX package), which the
+op widens to float32, exactly, before the kernels.
 """
 from __future__ import annotations
 
@@ -22,6 +32,13 @@ MSDA_KERNEL = CudaKernel(
     'demf_msda_forward', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 MSDA_BACKWARD_KERNEL = CudaKernel(
     'demf_msda_backward', [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10)
+# the same kernels on a bfloat16 value; K4's takes a float32 buffer for
+# d_value's sums beside the bfloat16 d_value it rounds them into
+MSDA_BF16_KERNEL = CudaKernel(
+    'demf_msda_forward_bf16', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
+MSDA_BACKWARD_BF16_KERNEL = CudaKernel(
+    'demf_msda_backward_bf16', [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10)
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
 # csrc/msda.cu (K4 takes the same tiles): threads of a block, queries of a
 # tile that one thread sums,
@@ -47,7 +64,7 @@ def multi_scale_deformable_attention(value, spatial_shapes,
                                      sampling_locations, attention_weights):
     """value (B, sum_HW, heads, hd), static ``spatial_shapes`` ((h, w), ...),
     sampling_locations (B, Q, heads, L, P, 2) in [0, 1], attention_weights
-    (B, Q, heads, L, P) -> (B, Q, heads * hd).
+    (B, Q, heads, L, P) -> (B, Q, heads * hd) in the value's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor the kernels (K3,
     and K4 in the backward when an input requires grad).
@@ -56,7 +73,8 @@ def multi_scale_deformable_attention(value, spatial_shapes,
         return msda_plain(value, spatial_shapes, sampling_locations,
                           attention_weights)
     args = (value.contiguous(), spatial_shapes,
-            sampling_locations.contiguous(), attention_weights.contiguous())
+            sampling_locations.float().contiguous(),
+            attention_weights.float().contiguous())
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations,
                                       attention_weights)):
@@ -168,8 +186,12 @@ def _tables(spatial_shapes, head_dim, tiled, device):
 
 def _check_args(value, spatial_shapes, sampling_locations,
                 attention_weights):
-    """Validate the kernels' inputs."""
-    check_cuda('value', value, torch.float32, 4)
+    """Validate the kernels' inputs: a float32 or bfloat16 value, float32
+    locations and weights."""
+    if value.dtype not in VALUE_DTYPES:
+        raise TypeError(f'value must be float32 or bfloat16, got '
+                        f'{value.dtype}')
+    check_cuda('value', value, value.dtype, 4)
     check_cuda('sampling_locations', sampling_locations, torch.float32, 6)
     check_cuda('attention_weights', attention_weights, torch.float32, 5)
     b, s, heads, hd = value.shape
@@ -195,22 +217,27 @@ def msda_cuda(value, spatial_shapes, sampling_locations, attention_weights):
     one query per token (Q == sum_HW: the encoder's self-attention, whose
     query i is token i) the tokens of the finer levels go through the
     kernel's spatial tiles; that choice moves the speed only, any
-    locations give the same result."""
+    locations give the same result.  The output has the value's dtype: a
+    bfloat16 value runs the kernel's bfloat16 entry, 8 channels a thread,
+    so its head_dim is 8 times a divisor of ``MSDA_THREADS``."""
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
-    if hd % 4 or hd < 4 or MSDA_THREADS % (hd // 4):
+    lanes = 16 // value.element_size()
+    if hd < lanes or hd % lanes or MSDA_THREADS % (hd // lanes):
         raise ValueError(f'the MSDA forward kernel needs a head_dim that is '
-                         f'4 times a divisor of {MSDA_THREADS}, got {hd}')
+                         f'{lanes} times a divisor of {MSDA_THREADS} in '
+                         f'{value.dtype}, got {hd}')
     level_info, tile_info, tiles, direct_from, max_tile = _tables(
         spatial_shapes, hd, q == s and points <= MSDA_MAX_TILE_POINTS,
         value.device)
-    out = torch.empty((b, q, heads * hd), dtype=torch.float32,
+    out = torch.empty((b, q, heads * hd), dtype=value.dtype,
                       device=value.device)
-    MSDA_KERNEL(value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
-                sampling_locations.data_ptr(), attention_weights.data_ptr(),
-                out.data_ptr(), b, s, q, heads, hd, levels, points, tiles,
-                direct_from, max_tile)
+    kernel = MSDA_KERNEL if value.dtype == torch.float32 else MSDA_BF16_KERNEL
+    kernel(value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
+           sampling_locations.data_ptr(), attention_weights.data_ptr(),
+           out.data_ptr(), b, s, q, heads, hd, levels, points, tiles,
+           direct_from, max_tile)
     return out
 
 
@@ -221,7 +248,9 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
     divide 32.  As in ``msda_cuda``, with one query per token the tokens of
     the finer levels go through the kernel's spatial tiles (K3's), which
     sum a tile's additions to d_value row by row before they reach global
-    memory; that moves the speed only."""
+    memory; that moves the speed only.  ``grad_out`` and ``d_value`` have
+    the value's dtype; a bfloat16 d_value is summed in a float32 buffer and
+    rounded once (its tiles need a head_dim that is a multiple of 8)."""
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
@@ -230,28 +259,42 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
                          f'divides 32, got {hd}')
     level_info, tile_info, tiles, direct_from, max_tile = _tables(
         spatial_shapes, hd,
-        q == s and hd % 4 == 0 and points <= MSDA_BACKWARD_MAX_TILE_POINTS,
-        value.device)
-    check_cuda('grad_out', grad_out, torch.float32, 3)
+        q == s and hd % (16 // value.element_size()) == 0 and
+        points <= MSDA_BACKWARD_MAX_TILE_POINTS, value.device)
+    check_cuda('grad_out', grad_out, value.dtype, 3)
     if tuple(grad_out.shape) != (b, q, heads * hd):
         raise ValueError(f'grad_out {tuple(grad_out.shape)} does not match '
                          f'({b}, {q}, {heads * hd})')
-    d_value = torch.zeros_like(value)
     d_locs = torch.empty_like(sampling_locations)
     d_aw = torch.empty_like(attention_weights)
-    MSDA_BACKWARD_KERNEL(
-        value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
-        sampling_locations.data_ptr(), attention_weights.data_ptr(),
-        grad_out.data_ptr(), d_value.data_ptr(), d_locs.data_ptr(),
-        d_aw.data_ptr(), b, s, q, heads, hd, levels, points, tiles,
-        direct_from, max_tile)
+    ints = (b, s, q, heads, hd, levels, points, tiles, direct_from, max_tile)
+    ptrs = (value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
+            sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            grad_out.data_ptr())
+    if value.dtype == torch.float32:
+        d_value = torch.zeros_like(value)
+        MSDA_BACKWARD_KERNEL(*ptrs, d_value.data_ptr(), d_locs.data_ptr(),
+                             d_aw.data_ptr(), *ints)
+    else:
+        sums = torch.zeros(value.shape, dtype=torch.float32,
+                           device=value.device)
+        d_value = torch.empty_like(value)
+        MSDA_BACKWARD_BF16_KERNEL(*ptrs, sums.data_ptr(), d_value.data_ptr(),
+                                  d_locs.data_ptr(), d_aw.data_ptr(), *ints)
     return d_value, d_locs, d_aw
 
 
 class MSDAFunction(torch.autograd.Function):
-    """MSDA on CUDA tensors with a gradient: K3 forward, K4 backward."""
+    """MSDA on CUDA tensors with a gradient: K3 forward, K4 backward.
+
+    It takes its inputs as they come, also under ``torch.autocast``: the
+    value keeps its dtype (the output and ``d_value`` have it), the
+    locations and weights must be float32, and autocast casts nothing
+    here (the port's bf16 policy uses no autocast; a caller that does
+    gets the same kernels on the same dtypes)."""
 
     @staticmethod
+    @torch.amp.custom_fwd(device_type='cuda')
     def forward(ctx, value, spatial_shapes, sampling_locations,
                 attention_weights):
         ctx.spatial_shapes = spatial_shapes
@@ -261,6 +304,7 @@ class MSDAFunction(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @torch.amp.custom_bwd(device_type='cuda')
     def backward(ctx, grad_out):
         value, locs, aw = ctx.saved_tensors
         d_value, d_locs, d_aw = msda_backward_cuda(

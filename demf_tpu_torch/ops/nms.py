@@ -72,8 +72,9 @@ def aligned_3d_nms(boxes, scores, classes, thresh, valid=None):
     """Axis-aligned 3D NMS, same-class suppression only.
 
     boxes (B, N, 6) as (x1, y1, z1, x2, y2, z2), scores (B, N), classes
-    (B, N) -> (B, N) bool keep mask.  A CPU tensor takes the plain
-    version; a CUDA tensor launches K8 or raises.
+    (B, N) -> (B, N) bool keep mask, of any strides.  A CPU tensor takes
+    the plain version; a CUDA tensor launches K8 (on contiguous copies
+    where an input is a view, as VoteNet's sliced scores are) or raises.
     """
     if not thresh >= 0:
         raise ValueError(f'thresh must be >= 0, got {thresh}')
@@ -81,7 +82,9 @@ def aligned_3d_nms(boxes, scores, classes, thresh, valid=None):
         valid = torch.ones_like(scores, dtype=torch.bool)
     if boxes.device.type == 'cpu':
         return aligned_3d_nms_plain(boxes, scores, classes, thresh, valid)
-    return aligned_3d_nms_cuda(boxes, scores, classes, thresh, valid)
+    return aligned_3d_nms_cuda(boxes.contiguous(), scores.contiguous(),
+                               classes.contiguous(), thresh,
+                               valid.contiguous())
 
 
 def aligned_3d_nms_plain(boxes, scores, classes, thresh, valid):

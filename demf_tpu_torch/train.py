@@ -12,7 +12,9 @@ frozen image-feature cache when the config sets ``cached_img_features``,
 and trains ``runner.max_epochs`` epochs through ``engine.Runner``: a log
 file and a dump of the config in the work dir, checkpoints with meta
 pruned to ``checkpoint_config.max_keep_ckpts``, the mAP on ``data.val``
-every ``evaluation.interval`` epochs.
+every ``evaluation.interval`` epochs.  A config's ``bf16 = True`` or
+``fp16 = dict(...)`` (``--cfg-options bf16=True``) trains and evaluates
+under the bf16 policy (``utils/precision.py``), in both modes.
 
     python -m demf_tpu_torch.train configs/demf/demf_votenet.py \\
         --synthetic --steps 3 [--profile]
@@ -40,9 +42,10 @@ from .data import build_dataloader, build_dataset
 from .engine import (CachedFeatureLoader, FeatureCache, Runner,
                      batch_to_device, compute_image_features, load_weights,
                      make_dataset_eval_fn, precompute_dataset_features)
-from .engine.cli import parse_args, refuse_compute_dtype, require_device
+from .engine.cli import parse_args, require_device
 from .engine.trainer import PHASES
 from .utils.config import Config
+from .utils.precision import resolve_compute_dtype
 
 
 def _sync(device):
@@ -114,7 +117,8 @@ def train_synthetic(cfg, args, device):
     batch = batch_to_device(zoo.synth_batch_for(
         model, args.batch, p=args.points, g=args.gt, hw=tuple(args.hw),
         seed=args.seed), device)
-    if model.freeze_img_branch:   # else the image branch trains every step
+    if getattr(model, 'freeze_img_branch', False):
+        # else the image branch trains every step, or there is none
         t0 = time.perf_counter()
         batch['img_features'] = compute_image_features(model, batch)
         n = len(batch.pop('img'))
@@ -155,6 +159,8 @@ def _train_dataset(cfg, args, device, logger):
             else 'cpu')
     logger(f'device: {name}')
     logger(f'config: {args.config}')
+    if resolve_compute_dtype(cfg) is not None:
+        logger('compute dtype: bfloat16 (fp32 master weights)')
     if args.autoscale_lr:
         cfg.optimizer['lr'] = (cfg.optimizer['lr'] *
                                max(torch.cuda.device_count(), 1) / 8.0)
@@ -199,7 +205,8 @@ def _train_dataset(cfg, args, device, logger):
     eval_fn = None
     if not args.no_validate and evaluation.get('interval'):
         eval_fn = make_dataset_eval_fn(build_dataset(cfg.data['val']),
-                                       batch_size, logger)
+                                       batch_size, logger,
+                                       resolve_compute_dtype(cfg))
     ckpt_cfg = cfg.get('checkpoint_config') or {}
     # self-describing checkpoints: the config text, CLASSES and versions
     meta = dict(
@@ -239,7 +246,6 @@ def main(argv=None):
            else zoo.load_model_cfg(args.config))
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
-    refuse_compute_dtype(cfg)
     if args.synthetic:
         train_synthetic(cfg, args, device)
     else:

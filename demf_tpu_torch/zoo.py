@@ -1,10 +1,11 @@
 """Build the port's detector and its trainer from the shared ``configs/``,
-the tiny DeMF and DETR-pretrain model configs of the CPU runs, and
+the tiny DeMF, DETR-pretrain and VoteNet model configs of the CPU runs, and
 synthetic batches (numpy) with the fields, shapes and meta of
-``demf_tpu.zoo.synth_demf_batch`` and ``synth_detr2d_batch``, value for
-value from the same seed."""
+``demf_tpu.zoo.synth_points_batch``, ``synth_demf_batch`` and
+``synth_detr2d_batch``, value for value from the same seed."""
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -58,12 +59,14 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
     1 makes them step counts).
 
     ``cfg``: a path under ``configs/``, or a config / dict with ``model``,
-    ``optimizer`` and optionally ``optimizer_config`` and ``lr_config``.
+    ``optimizer`` and optionally ``optimizer_config``, ``lr_config`` and
+    ``bf16`` / ``fp16`` (the bf16 policy of ``utils/precision.py``).
     ``device`` as in ``build_detector``.  Returns (model, optimizer,
     train_step).
     """
     from .engine.optim import build_optimizer, step_lr_schedule
     from .engine.trainer import TrainStep
+    from .utils.precision import resolve_compute_dtype
     if isinstance(cfg, str):
         cfg = load_model_cfg(cfg)
     model = build_detector(cfg['model'], device, seed).train()
@@ -77,7 +80,8 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
         warmup_ratio=lr_cfg.get('warmup_ratio', 1.0 / 3))
     clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
     step = TrainStep(model, optimizer, scheduler,
-                     clip['max_norm'] if clip else None)
+                     clip['max_norm'] if clip else None,
+                     compute_dtype=resolve_compute_dtype(cfg))
     return model, optimizer, step
 
 
@@ -247,29 +251,56 @@ def synth_detr2d_batch(b, hw=(800, 1344), g=20, seed=0):
         gt_bboxes_valid=rng.rand(b, g) < 0.8)
 
 
+def tiny_votenet_model_cfg():
+    """The tiny VoteNet of ``configs/synthetic/votenet_tiny.py`` (the
+    baseline's ``CAVoteHead`` at small widths), which the port reads as it
+    is."""
+    return copy.deepcopy(load_model_cfg('synthetic/votenet_tiny.py').model)
+
+
 def synth_batch_for(model, b=None, p=20000, g=None, hw=(800, 1344), seed=0):
-    """The synthetic batch that ``model`` trains on (numpy), at the size of
-    the step-time measurements unless given: ``synth_demf_batch`` of 16
-    scenes with 64 GT slots for a detector with a point branch, else
-    ``synth_detr2d_batch`` of 4 images with 20 GT slots."""
-    if hasattr(model, 'pts_backbone'):
-        return synth_demf_batch(b or 16, p=p, g=g or 64, hw=hw, seed=seed)
-    return synth_detr2d_batch(b or 4, hw=hw, g=g or 20, seed=seed)
+    """The synthetic batch that ``model`` trains on (numpy), as its class
+    names it (``synth_batch``, ``bench.py``'s sizes) unless given:
+    ``synth_demf_batch`` of 16 scenes with 64 GT slots for DeMF-VoteNet,
+    ``synth_points_batch`` of 16 scenes of ``p`` points with 64 GT slots
+    for VoteNet, ``synth_detr2d_batch`` of 4 images with 20 GT slots for
+    the stage-1 pretrain."""
+    spec = getattr(model, 'synth_batch', None)
+    if spec is None:
+        raise NotImplementedError(
+            f'no synthetic batch for a {type(model).__name__}')
+    kind, scenes, slots = spec
+    b, g = b or scenes, g or slots
+    if kind == 'demf':
+        return synth_demf_batch(b, p=p, g=g, hw=hw, seed=seed)
+    if kind == 'points':
+        return synth_points_batch(b, p=p, g=g, seed=seed)
+    return synth_detr2d_batch(b, hw=hw, g=g, seed=seed)
+
+
+def synth_points_batch(b, p, g=32, seed=0):
+    """Synthetic point-cloud batch (numpy), value for value
+    ``demf_tpu.zoo.synth_points_batch``: ``p`` points of xyz + height in a
+    6 m cube, ``g`` GT slots of rotated boxes with labels, about half of
+    them valid."""
+    rng = np.random.RandomState(seed)
+    points = rng.rand(b, p, 4).astype(np.float32) * 6 - 3
+    boxes = np.zeros((b, g, 7), np.float32)
+    boxes[..., :3] = rng.rand(b, g, 3) * 4 - 2
+    boxes[..., 3:6] = rng.rand(b, g, 3) * 1.2 + 0.3
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (b, g))
+    return dict(points=points, gt_bboxes_3d=boxes,
+                gt_labels_3d=rng.randint(0, 10, (b, g)),
+                gt_valid=rng.rand(b, g) < 0.5)
 
 
 def synth_demf_batch(b, p=20000, g=32, hw=(800, 1344), seed=0,
                      valid_hw=None):
-    """Synthetic DeMF batch: points + image + calibration / aug meta, as
-    numpy arrays (``engine.evaluation.batch_to_device`` moves it)."""
-    rng = np.random.RandomState(seed)
-    prng = np.random.RandomState(seed)     # the points draw their own stream
-    points = prng.rand(b, p, 4).astype(np.float32) * 6 - 3
-    boxes = np.zeros((b, g, 7), np.float32)
-    boxes[..., :3] = prng.rand(b, g, 3) * 4 - 2
-    boxes[..., 3:6] = prng.rand(b, g, 3) * 1.2 + 0.3
-    boxes[..., 6] = prng.uniform(-np.pi, np.pi, (b, g))
-    labels = prng.randint(0, 10, (b, g))
-    gt_valid = prng.rand(b, g) < 0.5
+    """Synthetic DeMF batch: ``synth_points_batch`` + image + calibration /
+    aug meta, as numpy arrays (``engine.evaluation.batch_to_device`` moves
+    it)."""
+    rng = np.random.RandomState(seed)     # the points draw their own stream
+    batch = synth_points_batch(b, p, g, seed)
     h, w = hw
     vh, vw = valid_hw or (h - 16, w - 32)
     k = np.array([[529.5, 0, vw / 2], [0, 529.5, vh / 2], [0, 0, 1]],
@@ -285,6 +316,5 @@ def synth_demf_batch(b, p=20000, g=32, hw=(800, 1344), seed=0,
         pcd_scale_factor=np.ones((b,), np.float32),
         pcd_trans=np.zeros((b, 3), np.float32),
         pcd_horizontal_flip=np.zeros((b,), bool))
-    return dict(points=points, gt_bboxes_3d=boxes, gt_labels_3d=labels,
-                gt_valid=gt_valid,
-                img=rng.rand(b, h, w, 3).astype(np.float32), img_meta=meta)
+    return dict(batch, img=rng.rand(b, h, w, 3).astype(np.float32),
+                img_meta=meta)

@@ -780,6 +780,22 @@ def test_nms_kernel_any_threshold_and_size(dev, n, thresh):
 
 
 @pytest.mark.cuda
+def test_nms_takes_views_of_any_strides(dev):
+    """VoteNet's ``get_bboxes`` hands the NMS a slice of its softmax scores
+    (the last column of (B, N, 2)): the wrapper launches K8 on contiguous
+    copies, equal to the plain version."""
+    boxes, scores, classes, valid = _nms_inputs(dev, 'random', 16, 256, 4)
+    wide = torch.stack([1 - scores, scores], -1)
+    view = wide[..., -1]
+    assert not view.is_contiguous()
+    before = nms.NMS3D_KERNEL.launches
+    got = nms.aligned_3d_nms(boxes, view, classes, 0.25, valid)
+    assert nms.NMS3D_KERNEL.launches == before + 1
+    assert torch.equal(got, nms.aligned_3d_nms_plain(boxes, scores, classes,
+                                                     0.25, valid))
+
+
+@pytest.mark.cuda
 def test_nms_kernel_refuses_what_it_cannot_take(dev):
     """More boxes than a block's shared memory holds, a negative
     threshold, other dtypes: each raises before any launch; an empty batch
@@ -871,3 +887,137 @@ def test_box_count_kernel_refuses_what_it_cannot_take(dev):
                        torch.zeros(2, 9, dtype=torch.int32, device=dev))
     assert box_count.box_point_count(points, boxes[:, :0]).shape == (2, 0)
     assert box_count.BOX_COUNT_KERNEL.launches == before
+
+
+# -- K3 / K4 on a bfloat16 value ---------------------------------------------
+# Bounds: against the plain version in bfloat16 (float32 sums of the same
+# widened values, rounded once) an output may land one bfloat16 step apart
+# where the two float32 sums straddle a rounding boundary: 2^-7 of the
+# largest |output|.  Against the float32 kernel on the same inputs rounded
+# to bfloat16, each output is that sum rounded once: 2^-8 of itself, plus
+# 1e-5 of the largest for the order of the float32 sums.  d_loc and d_aw
+# stay float32: 1e-5 of the largest, as in float32.
+
+BF16_STEP = 2.0 ** -7
+BF16_HALF_STEP = 2.0 ** -8
+# (B, Q or None for one query a token, P, locations): the encoder at batch
+# 2 and 4, the stage-2 decoder at batch 16, the pretrain decoder at batch 4
+BF16_SHAPES = [(2, None, 4, 'own'), (4, None, 4, 'own'),
+               (2, None, 4, 'scattered'), (16, 256, 2, 'whole map'),
+               (4, 300, 4, 'whole map')]
+
+
+def _bf16_inputs(dev, b, q, p, where, seed=0):
+    from demf_tpu_torch.tools import encoder_sampling_locations
+    shapes = ENCODER_SHAPES
+    s = sum(h * w for h, w in shapes)
+    q = q or s
+    g = torch.Generator(device=dev).manual_seed(seed)
+    value = torch.randn(b, s, 8, 32, device=dev, generator=g).bfloat16()
+    if where == 'whole map':
+        locs = torch.rand(b, q, 8, 4, p, 2, device=dev, generator=g)
+        locs = locs * 1.2 - 0.1
+    else:
+        locs = encoder_sampling_locations(
+            shapes, b, 8, p, dev, jitter=0.5 if where == 'own' else 4.0)
+    aw = torch.rand(b, q, 8, 4 * p, device=dev, generator=g)
+    aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p)
+    grad = torch.randn(b, q, 256, device=dev, generator=g).bfloat16()
+    return shapes, value, locs, aw, grad
+
+
+def _within(got, want, rel_each, rel_max):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= rel_each * want.abs() +
+                 rel_max * want.abs().max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,q,p,where', BF16_SHAPES)
+def test_msda_kernel_reads_a_bf16_value(dev, b, q, p, where):
+    """K3's bf16 entry: output in bf16, within one bf16 step of the largest
+    output of the plain version in bf16, and each output the rounding of
+    the float32 kernel's on the same (rounded) inputs."""
+    shapes, value, locs, aw, _ = _bf16_inputs(dev, b, q, p, where)
+    before = (msda.MSDA_KERNEL.launches, msda.MSDA_BF16_KERNEL.launches)
+    got = msda.msda_cuda(value, shapes, locs, aw)
+    assert (msda.MSDA_KERNEL.launches,
+            msda.MSDA_BF16_KERNEL.launches) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    want = msda.msda_plain(value, shapes, locs, aw)
+    assert want.dtype == torch.bfloat16
+    assert _within(got, want, 0.0, BF16_STEP)
+    assert _within(got, msda.msda_cuda(value.float(), shapes, locs, aw),
+                   BF16_HALF_STEP, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,q,p,where', BF16_SHAPES)
+def test_msda_backward_kernel_reads_a_bf16_value(dev, b, q, p, where):
+    """K4's bf16 entry: d_value in bf16 (float32 sums rounded once), d_loc
+    and d_aw in float32, against the plain version's autograd in bf16 and
+    against the float32 kernel on the same rounded inputs."""
+    shapes, value, locs, aw, grad = _bf16_inputs(dev, b, q, p, where, 1)
+    before = (msda.MSDA_BACKWARD_KERNEL.launches,
+              msda.MSDA_BACKWARD_BF16_KERNEL.launches)
+    got = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    assert (msda.MSDA_BACKWARD_KERNEL.launches,
+            msda.MSDA_BACKWARD_BF16_KERNEL.launches) == (before[0],
+                                                         before[1] + 1)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+    want = torch.autograd.grad(
+        msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+    ref32 = msda.msda_backward_cuda(value.float(), shapes, locs, aw,
+                                    grad.float())
+    assert _within(got[0], want[0], 0.0, BF16_STEP)
+    assert _within(got[0], ref32[0], BF16_HALF_STEP, 1e-5)
+    for g_, w, r in zip(got[1:], want[1:], ref32[1:]):
+        assert torch.isfinite(g_).all()
+        assert _within(g_, w, 0.0, 1e-5) and _within(g_, r, 0.0, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_msda_function_takes_its_inputs_as_they_come_under_autocast(
+        dev, dtype):
+    """``MSDAFunction`` under ``torch.autocast``: the value keeps its dtype
+    (the output and d_value have it), the kernels of that dtype run, and
+    the forward, d_loc and d_aw equal those outside autocast; d_value, whose
+    sums K4 adds with atomics in no fixed order, within 1e-5 of its largest
+    in float32 and one bf16 step in bf16."""
+    shapes = ((32, 48), (16, 24), (8, 12))
+    s = sum(h * w for h, w in shapes)
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 2, s, 4, 32, 4, 5)
+    value, grad = value.to(dtype), grad.to(dtype)
+    fwd = (msda.MSDA_KERNEL if dtype == torch.float32
+           else msda.MSDA_BF16_KERNEL)
+    runs = []
+    for autocast in (False, True):
+        ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+        before = fwd.launches
+        with torch.autocast('cuda', dtype=torch.bfloat16, enabled=autocast):
+            out = msda.multi_scale_deformable_attention(ins[0], shapes,
+                                                        ins[1], ins[2])
+        out.backward(grad)
+        assert fwd.launches == before + 1 and out.dtype == dtype
+        runs.append([out.detach()] + [t.grad for t in ins])
+    assert runs[0][1].dtype == dtype
+    (out0, dv0, dl0, da0), (out1, dv1, dl1, da1) = runs
+    assert torch.equal(out0, out1) and torch.equal(dl0, dl1)
+    assert torch.equal(da0, da1)
+    assert _within(dv1, dv0, 0.0,
+                   1e-5 if dtype == torch.float32 else BF16_STEP)
+
+
+@pytest.mark.cuda
+def test_msda_kernels_refuse_other_dtypes(dev):
+    """A float16 value, or bf16 locations, raise: no kernel takes them."""
+    value, locs, aw, grad = _msda_inputs(dev, ((3, 4),), 1, 5, 2, 16, 2, 0)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        msda.msda_cuda(value.half(), ((3, 4),), locs, aw)
+    with pytest.raises(TypeError, match='float32'):
+        msda.msda_cuda(value.bfloat16(), ((3, 4),), locs.bfloat16(), aw)
+    with pytest.raises(TypeError, match='bfloat16'):
+        msda.msda_backward_cuda(value.bfloat16(), ((3, 4),), locs, aw, grad)

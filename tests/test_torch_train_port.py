@@ -375,10 +375,19 @@ def test_entry_points_stop_without_a_card_and_refuse_what_is_not_ported(
     for main, argv in refused:
         with pytest.raises(SystemExit):
             main(argv + ['--device', 'cpu'])
-        assert 'not ported yet (ROADMAP M2 / M4)' in capsys.readouterr().err
-    for main, argv in ((train.main, [cfg]), (eval_entry.main, [cfg, 'c.pth'])):
-        with pytest.raises(SystemExit, match='bf16.*not ported yet'):
-            main(argv + ['--device', 'cpu', '--cfg-options', 'bf16=True'])
+        assert 'not ported yet (ROADMAP M4)' in capsys.readouterr().err
+    # a config's bf16 / fp16 is no longer refused: both entries take the
+    # bf16 policy and run on the CPU
+    wd = tmp_path / 'bf16'
+    for key in ('bf16=True', 'fp16.loss_scale=512.0'):
+        train.main([cfg, '--device', 'cpu', '--work-dir', str(wd),
+                    '--no-validate', '--cfg-options', key])
+        assert 'compute dtype: bfloat16' in capsys.readouterr().out
+        metrics = eval_entry.main([cfg, str(wd / 'checkpoints' /
+                                             'epoch_1.pth'), '--device',
+                                   'cpu', '--cfg-options', key])
+        assert set(metrics) >= {'mAP_0.25', 'mAP_0.50'}
+        assert all(np.isfinite(v) for v in metrics.values())
 
 
 # -- a resumed run shuffles as the unbroken run does ------------------------
