@@ -111,7 +111,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    of 2 steps, a checkpoint, the eval hook; eval entry: 18 scenes, the mAP
    printed), with K1, K2, K8 and K9 counted; last, one forward, loss,
    backward and ``get_bboxes`` of the standard ``VoteHead`` of
-   ``configs/_base_/models/votenet.py`` with the SUN RGB-D coder.
+   ``configs/_base_/models/votenet.py`` with the SUN RGB-D coder;
+12. ImVoteNet (``configs/baseline/imvotenet.py``, full width: the caffe
+   ResNet-50 + FPN + RPN + RoI head 2D branch, VoteFusion, three towers),
+   its R-CNN's ``fc_cls`` scaled by 8 so that 2D boxes pass the 0.1 score
+   at random weights, its regressors by 0.1 so that the boxes stay on the
+   image, and the synthetic scenes' points moved into the camera's view
+   (``in_view``) so that seeds fall in them: first K10 (the batched 2D NMS) bit-equal to its plain
+   version at the RPN's (4,390 candidates in 5 level groups) and the
+   R-CNN's (10,000 in 10 class groups) shapes at batch 16 and 2 and at its
+   limit of 16,384, and K11 (the pyramid RoIAlign) at 1,000 RoIs a scene
+   from the four levels of a 608x832 image at batch 16 and 2, equal bit for
+   bit and held within 1e-5, each beside its bound (both in phase 3's
+   list); then the kernel path against the plain path at batch 2 x 20,000
+   points (towers within 2e-3 relative, 2D boxes and detections equal), 3
+   requests of batch 2 with their launches (K1 7, K2 7, K10 2, K11 1, K8 1,
+   K9 1), proposals, 2D boxes and seeds with image votes, one profiled; 3
+   stage-2 steps at batch 16 x 20,000 points with 64 GT, the 2D branch in
+   the step and unchanged after it; ``train --synthetic --steps 2
+   --profile``; the dataset path on
+   ``demf_tpu_torch/configs/imvotenet_synthetic.py`` through both entries.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
@@ -123,12 +142,15 @@ at the encoder's shape at batch 4;
 ``launches_by_path`` has every path's count; K5-K7: launches counted in
 the probes phase, times and bound of K5 at the gather probe's shape, K6 in the (LP, Q, 4) layout on
 one chunk, K7 at the finest level; K8 and K9: launches counted in the
-dataset path, times and bound at an eval batch's shape; ``library_ms`` is
+dataset path, times and bound at an eval batch's shape; K10 and K11:
+launches counted in the ImVoteNet requests, times and bound at a request's
+shape (the R-CNN's 10,000 candidates; 2 x 1,000 RoIs); ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights) and null where there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
-3D NMS and the count of points in rotated boxes); the
+3D NMS, the count of points in rotated boxes, and the 2D NMS and RoIAlign,
+which torchvision has and this machine does not); the
 last line is ``{"ok": true, "device": {...}}``.
 Float32 but for the bf16 phases: TF32 is switched off for matmuls and
 cuDNN convolutions.
@@ -153,7 +175,7 @@ import torch
 # float32 and their bfloat16 launches apart)
 KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'msda_backward_bf16', 'gather_rows', 'msda_fold',
-                'mform_sample', 'nms3d', 'box_count')
+                'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align')
 
 
 def launch_counts(**counts):
@@ -228,6 +250,8 @@ REPLACES = {
     'mform_sample': 'tools/bench_msda_matmul.py:73',
     'nms3d': 'demf_tpu/ops/nms.py:46',
     'box_count': 'demf_tpu/core/boxes.py:105',
+    'nms2d': 'demf_tpu/ops/nms.py:119',
+    'roi_align': 'demf_tpu/models/rpn_roi.py:167',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -239,7 +263,9 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'msda_fold': 'demf_tpu_torch/csrc/msda_fold.cu',
            'mform_sample': 'demf_tpu_torch/csrc/mform_sample.cu',
            'nms3d': 'demf_tpu_torch/csrc/nms3d.cu',
-           'box_count': 'demf_tpu_torch/csrc/box_count.cu'}
+           'box_count': 'demf_tpu_torch/csrc/box_count.cu',
+           'nms2d': 'demf_tpu_torch/csrc/nms2d.cu',
+           'roi_align': 'demf_tpu_torch/csrc/roi_align.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -255,6 +281,42 @@ PRETRAIN_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
                                     'detr_pretrain_synthetic.py')
 PRETRAIN_TINY_CFG = os.path.join('demf_tpu_torch', 'configs',
                                  'detr_pretrain_tiny.py')
+# ImVoteNet (configs/baseline/imvotenet.py): a request runs the Faster
+# R-CNN branch (K10 over the RPN's level groups and the R-CNN's class
+# groups, K11 once), 4 SA and 3 tower aggregations around the FPS of the
+# seeds, and the joint tower's post-processing; a step the same but the
+# post-processing.  Scenes of 608x832 (a 530x730 frame under Resize
+# (1333, 600) and Pad 32)
+IMVOTENET_CFG = 'baseline/imvotenet.py'
+IMVOTENET_REQUEST = dict(b=2, p=20000, hw=(608, 832), valid_hw=(600, 826))
+LAUNCHES_PER_IMVOTENET_REQUEST = launch_counts(
+    fps=7, ball_query=7, nms2d=2, roi_align=1, nms3d=1, box_count=1)
+LAUNCHES_PER_IMVOTENET_STEP = launch_counts(fps=7, ball_query=7, nms2d=2,
+                                            roi_align=1)
+IMVOTENET_STEPS = 3
+IMVOTENET_STEP_BATCH = (16, 608, 832)          # scenes, image
+# random weights score the R-CNN's 11 classes near 1 / 11, under the
+# config's score_thr of 0.1: fc_cls scaled by this on both paths makes the
+# R-CNN confident, so that 2D boxes pass; and their random box deltas
+# (exp'd up to 62x) throw the boxes off the image, where the clip leaves
+# them flat: the RPN's and the R-CNN's regressors scaled by the second keep
+# the boxes near their anchors, so that seeds fall in them
+RCNN_CONFIDENCE = 8.0
+REGRESSOR_SCALE = 0.1
+IMVOTENET_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
+                                     'imvotenet_synthetic.py')
+LAUNCHES_IMVOTENET_TRAIN_ENTRY = {
+    n: 2 * LAUNCHES_PER_IMVOTENET_STEP[n] +
+    EVAL_BATCHES * LAUNCHES_PER_IMVOTENET_REQUEST[n] for n in KERNEL_NAMES}
+LAUNCHES_IMVOTENET_EVAL_ENTRY = {
+    n: EVAL_BATCHES * c for n, c in LAUNCHES_PER_IMVOTENET_REQUEST.items()}
+# the shapes K10 and K11 are held and timed at: the RPN's 5 level groups
+# and the R-CNN's 10 class groups, at a request's batch and a step's, and
+# K10's limit; the FPN's four pooled levels at 608x832
+NMS2D_SHAPES = ((16, 'rcnn', 10000, 0.5), (16, 'rpn', 4390, 0.7),
+                (2, 'rcnn', 10000, 0.5), (2, 'rpn', 4390, 0.7),
+                (2, 'random', 16384, 0.7))
+ROI_LEVELS = ((152, 208), (76, 104), (38, 52), (19, 26))
 
 
 def kernel_row(max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -782,21 +844,34 @@ def run_probes(dev, rng, kernels):
 
 
 class plain_ops:
-    """Route the model's FPS and MSDA calls to their plain versions (the
-    kernel ball query stays: its picks are checked on their own above)."""
+    """Route the model's FPS, MSDA, 2D NMS and RoIAlign calls to their plain
+    versions (the kernel ball query stays: its picks are checked on their
+    own above; so do K8 and K9, equal to theirs bit for bit)."""
 
     def __enter__(self):
-        from demf_tpu_torch.models import pointnet2, transformer, vote_head
-        from demf_tpu_torch.ops import msda, sampling
+        from demf_tpu_torch.models import (pointnet2, rpn_roi, transformer,
+                                           vote_head)
+        from demf_tpu_torch.ops import msda, nms2d, roi_align, sampling
         fps = sampling.furthest_point_sample_plain
         self.saved = [(pointnet2, 'furthest_point_sample'),
                       (vote_head, 'furthest_point_sample'),
-                      (transformer, 'multi_scale_deformable_attention')]
+                      (transformer, 'multi_scale_deformable_attention'),
+                      (rpn_roi, 'batched_nms_2d'),
+                      (rpn_roi, 'pyramid_roi_align')]
         self.saved = [(mod, name, getattr(mod, name))
                       for mod, name in self.saved]
         pointnet2.furthest_point_sample = fps
         vote_head.furthest_point_sample = fps
         transformer.multi_scale_deformable_attention = msda.msda_plain
+
+        def nms_plain(boxes, scores, idxs, thresh, valid=None):
+            if valid is None:
+                valid = torch.ones_like(scores, dtype=torch.bool)
+            return nms2d.batched_nms_2d_plain(boxes, scores, idxs, thresh,
+                                              valid)
+
+        rpn_roi.batched_nms_2d = nms_plain
+        rpn_roi.pyramid_roi_align = roi_align.pyramid_roi_align_plain
         return self
 
     def __exit__(self, *exc):
@@ -833,23 +908,23 @@ POST_PROCESSING = 'post-processing'
 
 class post_processing_range:
     """Run ``multiclass_nms_3d`` (what ``get_bboxes`` does after the
-    decoder) inside a profiler range of its own."""
+    decoder, or after a vote head) inside a profiler range of its own."""
 
     def __enter__(self):
         from torch.profiler import record_function
-        from demf_tpu_torch.models import demf_head
-        self.fn = fn = demf_head.multiclass_nms_3d
+        from demf_tpu_torch.models import demf_head, vote_head
+        self.fn = fn = vote_head.multiclass_nms_3d
 
         def ranged(*args, **kwargs):
             with record_function(POST_PROCESSING):
                 return fn(*args, **kwargs)
 
-        demf_head.multiclass_nms_3d = ranged
+        demf_head.multiclass_nms_3d = vote_head.multiclass_nms_3d = ranged
         return self
 
     def __exit__(self, *exc):
-        from demf_tpu_torch.models import demf_head
-        demf_head.multiclass_nms_3d = self.fn
+        from demf_tpu_torch.models import demf_head, vote_head
+        demf_head.multiclass_nms_3d = vote_head.multiclass_nms_3d = self.fn
 
 
 def device_ms_launched_in(prof, name):
@@ -893,7 +968,8 @@ def profile_request(eval_step, batch):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     ours = []
     for marker in ('fps_kernel', 'ball_query_kernel', 'msda_forward_kernel',
-                   'nms3d_kernel', 'box_count_kernel'):
+                   'nms3d_kernel', 'box_count_kernel', 'nms2d_',
+                   'roi_align_kernel'):
         hits = [e for e in events if marker in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         ours.append(f'{marker} {ms:.3f} ms in '
@@ -1838,6 +1914,377 @@ def run_pretrain_path(dev, kernels):
     return launches
 
 
+def check_nms2d(dev):
+    """K10 against the plain version, keep masks equal bit for bit, at the
+    RPN's and the R-CNN's shapes at batch 16 and 2 and at its limit of
+    16,384 candidates an image.  Its bound counts the IoUs the sweep can
+    ask for on these inputs (the pairs of valid boxes of one group, ~20
+    operations a pair) and the bytes (boxes, scores, groups, valid in, the
+    mask out); beside it stand the device time of its two kernels alone
+    (the wrapper also sorts) and the least a serial sweep of the longest
+    group could take at the card's highest clock."""
+    from demf_tpu_torch.ops import nms2d
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools.nms_cases import nms2d_case
+    rows = []
+    clock_hz = max_sm_clock_hz()
+    for b, layout, n, thr in NMS2D_SHAPES:
+        boxes, scores, idxs, valid = (torch.from_numpy(a).to(dev) for a in
+                                      nms2d_case(b, n, groups=5, seed=b,
+                                                 layout=layout))
+        got = nms2d.batched_nms_2d_cuda(boxes, scores, idxs, thr, valid)
+        want = nms2d.batched_nms_2d_plain(boxes, scores, idxs, thr, valid)
+        differ = int((got != want).sum())
+        ms = time_ms(lambda: nms2d.batched_nms_2d_cuda(
+            boxes, scores, idxs, thr, valid), 20)
+        kernel_ms, _, _ = device_ms(lambda: nms2d.batched_nms_2d_cuda(
+            boxes, scores, idxs, thr, valid), 'nms2d_', runs=5)
+        plain_ms = time_ms(lambda: nms2d.batched_nms_2d_plain(
+            boxes, scores, idxs, thr, valid), 1)
+        sizes = torch.stack([((idxs == g) & valid).sum(1)
+                             for g in idxs.unique()])
+        pairs = int((sizes * (sizes - 1) // 2).sum())
+        least, by = bound_ms(20 * pairs, b * n * (16 + 4 + 8 + 1 + 1))
+        sweep_ms = int(sizes.max()) * SWEEP_CLOCKS_A_BOX / clock_hz * 1e3
+        print(f'K10 nms2d ({b}, N {n}, {layout}, thr {thr}): kept '
+              f'{int(got.sum())} of {int(valid.sum())} valid, {differ} mask '
+              f'bits differ from plain, through the wrapper {ms:.4f} ms '
+              f'(its two kernels {kernel_ms:.4f} ms on the device), plain '
+              f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs} '
+              f'pairs of one group), a serial sweep of the longest group '
+              f'({int(sizes.max())}) at {clock_hz / 1e6:.0f} MHz at least '
+              f'{sweep_ms:.6f} ms; library call: none', flush=True)
+        if differ:
+            raise AssertionError('2D NMS kernel keep masks differ from plain')
+        rows.append(kernel_row(differ, ms, plain_ms, least, by))
+    return rows[2]
+
+
+def roi_case(dev, b, r=1000, c=256, seed=0):
+    """The FPN's four pooled levels of a 608x832 image and ``r`` RoIs a
+    scene the size of the RPN's proposals (16 to 600 pixels, some across
+    the borders), with mmdet's levels."""
+    from demf_tpu_torch.ops import roi_align
+    gen = torch.Generator(dev).manual_seed(seed)
+    feats = tuple(torch.randn((b, h, w, c), generator=gen, device=dev)
+                  for h, w in ROI_LEVELS)
+    xy = torch.rand((b, r, 2), generator=gen, device=dev) * torch.tensor(
+        [852.0, 628.0], device=dev) - 20
+    wh = torch.exp(torch.rand((b, r, 2), generator=gen, device=dev) * 3.6 +
+                   2.8)
+    rois = torch.cat([xy, xy + wh], -1)
+    return feats, rois, roi_align.roi_levels(rois, len(ROI_LEVELS))
+
+
+def check_roi_align(dev):
+    """K11 against the plain version at the path's shape, batch 16 and 2:
+    1,000 RoIs a scene into (7, 7, 256) from the four levels of a 608x832
+    image; equal bit for bit (the same roundings), held within 1e-5 of the
+    largest output.  Its bound: the bytes (the levels read once, the RoIs
+    and levels, the output written once) against ~50 operations an output
+    number."""
+    from demf_tpu_torch.ops import roi_align
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    rows = []
+    for b in (16, 2):
+        feats, rois, lvl = roi_case(dev, b, seed=b)
+        strides = (4, 8, 16, 32)
+        got = roi_align.pyramid_roi_align_cuda(feats, rois, lvl, strides)
+        want = roi_align.pyramid_roi_align_plain(feats, rois, lvl, strides)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ms = time_ms(lambda: roi_align.pyramid_roi_align_cuda(
+            feats, rois, lvl, strides), 20)
+        plain_ms = time_ms(lambda: roi_align.pyramid_roi_align_plain(
+            feats, rois, lvl, strides), 1)
+        # each level read once, the RoIs and their levels, the output
+        least, by = bound_ms(50 * got.numel(), 4 * (
+            sum(f.numel() for f in feats) + rois.numel() + lvl.numel() +
+            got.numel()))
+        per_level = [int((lvl == i).sum()) for i in range(4)]
+        print(f'K11 roi_align (B {b}, 1000 RoIs a scene, levels '
+              f'{per_level}, out {tuple(got.shape)}): max |kernel - plain| '
+              f'{err:.3e} (bound 1e-5 x {scale:.3f}; equal bit for bit: '
+              f'{torch.equal(got, want)}), kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}), '
+              f'{least / ms:.1%} of it; library call: none', flush=True)
+        if not err <= 1e-5 * scale:
+            raise AssertionError('RoIAlign kernel disagrees with plain')
+        rows.append(kernel_row(err, ms, plain_ms, least, by))
+    return rows[1]
+
+
+class imvotenet_probe:
+    """Keep what an ImVoteNet forward decided, as tensors read after it:
+    the proposals' valid masks, the 2D boxes' valid masks and the masks of
+    the seeds' image votes."""
+
+    def __init__(self, model):
+        self.model = model
+        self.proposals, self.boxes, self.votes = [], [], []
+
+    def __enter__(self):
+        from demf_tpu_torch.models import imvotenet
+        rpn = self.model.img_rpn_head
+        self.saved = (rpn.get_proposals, self.model.extract_bboxes_2d,
+                      imvotenet.sample_valid_seeds)
+        get_proposals, extract, sample = self.saved
+
+        def proposals(*args):
+            out = get_proposals(*args)
+            self.proposals.append(out[2])
+            return out
+
+        def boxes(*args):
+            out = extract(*args)
+            self.boxes.append(out[1])
+            return out
+
+        def seeds(mask, *args):
+            self.votes.append(mask.reshape(mask.shape[0], 3, -1).any(1))
+            return sample(mask, *args)
+
+        rpn.get_proposals = proposals
+        self.model.extract_bboxes_2d = boxes
+        imvotenet.sample_valid_seeds = seeds
+        return self
+
+    def __exit__(self, *exc):
+        from demf_tpu_torch.models import imvotenet
+        del self.model.img_rpn_head.get_proposals
+        del self.model.extract_bboxes_2d
+        imvotenet.sample_valid_seeds = self.saved[2]
+
+    def counts(self):
+        """'proposals / 2D boxes / seeds with image votes' of each scene of
+        the last forward."""
+        return ', '.join(
+            f'{int(p)} / {int(bx)} / {int(v)}' for p, bx, v in zip(
+                self.proposals[-1].sum(1), self.boxes[-1].sum(1),
+                self.votes[-1].sum(1)))
+
+
+def in_view(batch):
+    """The synthetic scene's points moved into the camera's view (a numpy
+    batch of ``zoo.synth_demf_batch``): its cube of 6 m around the camera
+    puts half the points behind it and most of the rest outside the image,
+    where a real depth frame has every point in front.  Depth 1-4 m, the
+    other two axes within the field of view; the GT boxes stay."""
+    pts = batch['points']
+    depth = 1.0 + np.abs(pts[..., 1])
+    pts[..., 0] = pts[..., 0] / 3 * 0.7 * depth
+    pts[..., 2] = pts[..., 2] / 3 * 0.5 * depth
+    pts[..., 1] = depth
+    return batch
+
+
+def confident_imvotenet(dev, trainer=False):
+    """The full-width ImVoteNet with seeded weights, its R-CNN's fc_cls
+    scaled by ``RCNN_CONFIDENCE`` and the RPN's and R-CNN's regressors by
+    ``REGRESSOR_SCALE``; with ``trainer`` its AdamW and train step too."""
+    from demf_tpu_torch import zoo
+    if trainer:
+        model, _, step = zoo.build_trainer(IMVOTENET_CFG, dev, seed=0)
+    else:
+        model, step = zoo.build_detector(IMVOTENET_CFG, dev, seed=0), None
+    with torch.no_grad():
+        model.img_roi_head.bbox_head.fc_cls.weight.mul_(RCNN_CONFIDENCE)
+        model.img_roi_head.bbox_head.fc_reg.weight.mul_(REGRESSOR_SCALE)
+        model.img_rpn_head.rpn_reg.weight.mul_(REGRESSOR_SCALE)
+    return model, step
+
+
+def run_imvotenet_path(dev, kernels):
+    """ImVoteNet at full width: the kernel path against the plain path,
+    requests of batch 2, the stage-2 step at batch 16 (the 2D branch in the
+    step), the train entry's synthetic mode with its profile, and the
+    dataset path on ``demf_tpu_torch/configs/imvotenet_synthetic.py``.
+    Returns the launches by sub-path."""
+    from demf_tpu_torch import eval as eval_entry
+    from demf_tpu_torch import train as train_entry
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import (batch_to_device, latest_checkpoint,
+                                       make_eval_step)
+    from demf_tpu_torch.models import imvotenet
+    t0 = time.perf_counter()
+    model, _ = confident_imvotenet(dev)
+    print(f'imvotenet: configs/baseline/imvotenet.py full width, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, built '
+          f'in {time.perf_counter() - t0:.2f} s; fc_cls x {RCNN_CONFIDENCE}, '
+          f'rpn_reg and fc_reg x {REGRESSOR_SCALE}', flush=True)
+    batch = batch_to_device(in_view(zoo.synth_batch_for(model, b=2,
+                                                        seed=11)), dev)
+    with torch.inference_mode(), imvotenet_probe(model) as probe:
+        got = model(batch)
+        got_det = model.get_bboxes(got, batch)
+        kernel_counts = probe.counts()
+        with plain_ops():
+            want = model(batch)
+            want_det = model.get_bboxes(want, batch)
+    worst = 0.0
+    for tower in imvotenet.TOWERS:
+        for key in ('vote_points', 'aggregated_points', 'obj_scores',
+                    'sem_scores', 'distance', 'dir_class', 'dir_res_norm'):
+            g, w = got[tower][key], want[tower][key]
+            if not torch.isfinite(g).all():
+                raise AssertionError(f'non-finite {tower} {key}')
+            worst = max(worst, (g - w).abs().max().item() /
+                        max(w.abs().max().item(), 1e-3))
+    same = all(torch.equal(got_det[k], want_det[k]) for k in got_det) and \
+        torch.equal(got['bboxes_2d_valid'], want['bboxes_2d_valid'])
+    print(f'imvotenet reference: batch 2 x 20000 points, 608x832: kernel '
+          f'path vs plain path, towers max rel err {worst:.3e} (bound '
+          f'2e-3), 2D boxes and detections equal: {same}; proposals / 2D '
+          f'boxes / seeds with image votes a scene: {kernel_counts}',
+          flush=True)
+    if not (worst < 2e-3 and same):
+        raise AssertionError('imvotenet kernel path disagrees with plain')
+
+    # the joint tower's proposals, one a class
+    head = model.pts_bbox_head_joint
+    proposals = head.num_proposal * head.num_classes
+    eval_step = make_eval_step(model)
+    for k in kernels.values():
+        k.launches = 0
+    for seed in REQUESTS:
+        before = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.reset_peak_memory_stats()
+        batch = batch_to_device(in_view(zoo.synth_demf_batch(
+            seed=seed, **IMVOTENET_REQUEST)), dev)
+        with imvotenet_probe(model) as probe:
+            t0 = time.perf_counter()
+            det = eval_step(batch)
+            torch.cuda.synchronize()
+            latency = (time.perf_counter() - t0) * 1e3
+        launched = {n: k.launches - before[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_IMVOTENET_REQUEST:
+            raise AssertionError(f'imvotenet request {seed} launched '
+                                 f'{launched}')
+        if tuple(det['boxes_3d'].shape) != (2, proposals, 7) or not all(
+                torch.isfinite(det[k]).all() for k in ('boxes_3d',
+                                                       'scores_3d')):
+            raise AssertionError('imvotenet detections')
+        if not probe.boxes[-1].any() or not probe.votes[-1].any():
+            raise AssertionError('no 2D box passed, or no seed has a vote')
+        print(f'imvotenet request {seed}: latency {latency:.3f} ms (host '
+              f'clock, batch 2, 20000 points, 608x832), proposals / 2D '
+              f'boxes / seeds with image votes a scene {probe.counts()}, '
+              f'{int(det["valid"].sum())} valid detections, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB',
+              flush=True)
+    by_path = {'imvotenet_serving': {n: k.launches
+                                     for n, k in kernels.items()}}
+    profile_request(eval_step, batch)
+    del eval_step, model, batch
+    torch.cuda.empty_cache()
+
+    model, step = confident_imvotenet(dev, trainer=True)
+    batch = batch_to_device(in_view(zoo.synth_batch_for(model, seed=0)),
+                            dev)
+    b, p = batch['points'].shape[:2]
+    if tuple(batch['img'].shape[:3]) != IMVOTENET_STEP_BATCH or \
+            batch['gt_valid'].shape[1] != 64:
+        raise AssertionError('imvotenet step batch of another shape')
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    with imvotenet_probe(model) as probe:
+        for i in range(IMVOTENET_STEPS):
+            start = {n: k.launches for n, k in kernels.items()}
+            t0 = time.perf_counter()
+            metrics = step(batch, generator)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launched = {n: k.launches - start[n] for n, k in kernels.items()}
+            if launched != LAUNCHES_PER_IMVOTENET_STEP:
+                raise AssertionError(f'imvotenet step {i} launched '
+                                     f'{launched}')
+            if not all(torch.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f'imvotenet step {i}: non-finite')
+    by_path['imvotenet_step'] = {n: k.launches for n, k in kernels.items()}
+    frozen = moved = 0
+    for name, param in model.named_parameters():
+        unchanged = torch.equal(param.detach(), before[name])
+        if name.startswith(model.img_branch):
+            if not unchanged:
+                raise AssertionError(f'frozen {name} changed')
+            frozen += 1
+        else:
+            moved += not unchanged
+    print(f'imvotenet step: batch {b} x {p} points, images '
+          f'{tuple(batch["img"].shape[1:3])}, 64 GT, the 2D branch in the '
+          f'step: ' +
+          ', '.join(f'{t * 1e3:.3f}' for t in times) + ' ms (host clock), '
+          f'after the first {b / np.mean(times[1:]):.3f} scenes/s; peak '
+          f'memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; '
+          f'loss {metrics["loss"].item():.5f}; {frozen} 2D-branch tensors '
+          f'unchanged, {moved} trained tensors moved; 2D boxes after the '
+          f'half-drop a scene '
+          f'{probe.boxes[-1].sum(1).tolist()}', flush=True)
+    if not moved or not probe.votes[-1].any():
+        raise AssertionError('imvotenet step: nothing moved or no votes')
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    # the entry's synthetic mode: 2 steps, then one untraced and one traced
+    # (its R-CNN as built: at random weights few 2D boxes pass score_thr)
+    _, out, seconds, _ = run_entry(
+        train_entry.main, [IMVOTENET_CFG, '--synthetic', '--steps', '2',
+                           '--profile'], kernels,
+        {n: 4 * c for n, c in LAUNCHES_PER_IMVOTENET_STEP.items()})
+    if out.count('Epoch [1/1]') != 2 or 'profiled step' not in out:
+        raise AssertionError('the imvotenet entry logged no steps')
+    print(f'imvotenet: train entry --synthetic --steps 2 --profile '
+          f'{seconds:.3f} s in all', flush=True)
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(root, IMVOTENET_DATASET_CFG)
+    build_dir = os.path.join(root, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        np.random.seed(0)
+        _, out, seconds, launches = run_entry(
+            train_entry.main, [cfg_file, '--work-dir', work_dir], kernels,
+            LAUNCHES_IMVOTENET_TRAIN_ENTRY)
+        wait = [line for line in out.splitlines()
+                if 'waiting for the loader' in line]
+        if len(wait) != 1 or out.count('[eval @ epoch 1]') != 1 or \
+                'image-feature cache' in out:
+            raise AssertionError('the imvotenet train entry logged no epoch '
+                                 'or eval, or filled a feature cache')
+        print(f'imvotenet dataset path: train entry {seconds:.3f} s in all; '
+              f'{wait[0].split(" - ", 1)[1]}; launches {launches}',
+              flush=True)
+        ckpt = latest_checkpoint(work_dir)
+        out_file = os.path.join(work_dir, 'results.pkl')
+        torch.cuda.reset_peak_memory_stats()
+        np.random.seed(7)
+        metrics, out, seconds, eval_launches = run_entry(
+            eval_entry.main, [cfg_file, ckpt, '--eval', 'mAP', '--out',
+                              out_file], kernels,
+            LAUNCHES_IMVOTENET_EVAL_ENTRY)
+        with open(out_file, 'rb') as f:
+            results = pickle.load(f)
+        if len(results) != VAL_SCENES or not all(
+                np.isfinite(r['boxes_3d']).all() for r in results) or \
+                not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError('imvotenet eval entry: results or mAP')
+        print(f'imvotenet dataset path: eval entry {seconds:.3f} s in all, '
+              f'{len(results) / seconds:.3f} scenes/s, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, '
+              f'{sum(len(r["scores_3d"]) for r in results)} detections, '
+              f'mAP_0.25 {metrics["mAP_0.25"]:.4f} mAP_0.50 '
+              f'{metrics["mAP_0.50"]:.4f} (random weights), launches '
+              f'{eval_launches}', flush=True)
+    by_path['imvotenet_dataset'] = {n: launches[n] + eval_launches[n]
+                                    for n in launches}
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -1876,7 +2323,9 @@ def main():
                 'msda': check_msda(dev, rng),
                 'msda_backward': check_msda_backward(dev, rng),
                 'nms3d': check_nms(dev),
-                'box_count': check_box_count(dev)}
+                'box_count': check_box_count(dev),
+                'nms2d': check_nms2d(dev),
+                'roi_align': check_roi_align(dev)}
     measured['msda_bf16'], measured['msda_backward_bf16'] = \
         check_msda_bf16(dev, rng)
     kernels = ops.kernels()
@@ -1947,6 +2396,11 @@ def main():
     launches['msda_backward_bf16'] = \
         by_path['pretrain_bf16']['msda_backward_bf16']
     by_path.update(run_votenet_path(dev, kernels))
+    by_path.update(run_imvotenet_path(dev, kernels))
+    # K10's and K11's rows are a request's shapes: their launches are the
+    # ImVoteNet requests'
+    launches['nms2d'] = by_path['imvotenet_serving']['nms2d']
+    launches['roi_align'] = by_path['imvotenet_serving']['roi_align']
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

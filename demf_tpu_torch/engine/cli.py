@@ -54,7 +54,8 @@ def parse_args(argv=None):
     group.add_argument('--batch', type=int, default=None,
                        help="default: the model's (zoo.synth_batch_for)")
     group.add_argument('--points', type=int, default=20000)
-    group.add_argument('--hw', type=int, nargs=2, default=(800, 1344))
+    group.add_argument('--hw', type=int, nargs=2, default=None,
+                       help="image size (default: the model's)")
     group.add_argument('--gt', type=int, default=None,
                        help="GT box slots (default: the model's)")
     group.add_argument('--profile', action='store_true',

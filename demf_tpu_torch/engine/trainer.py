@@ -21,7 +21,8 @@ import time
 import torch
 from torch.profiler import record_function
 
-from ..utils.precision import cast_batch, cast_floating, policy_call
+from ..utils.precision import (cast_batch, cast_floating, check_policy,
+                               policy_call)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluation import batch_to_device
 from .optim import clip_grad_global_norm, global_norm, set_lr
@@ -53,6 +54,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.max_norm = max_norm
+        check_policy(model, compute_dtype)
         self.compute_dtype = compute_dtype
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.count = 0

@@ -1,5 +1,5 @@
 """Weights from the JAX package into the port (DeMF-VoteNet, the stage-1
-DETR pretrain model, VoteNet).
+DETR pretrain model, VoteNet, ImVoteNet and its Faster R-CNN branch).
 
 ``state_dict_from_jax`` is the exact inverse of
 ``demf_tpu.engine.torch_port.port_demf_checkpoint``: it takes the flax
@@ -76,6 +76,15 @@ _RULES = [
      '{p}.transformer.decoder.layers.{1}.norms.{n2}', 'norm'),
     (r'(?P<p>.*)/(reference_points_fc)', '{p}.transformer.reference_points',
      'lin'),
+    # ImVoteNet's Faster R-CNN branch: FPN, RPN, Shared2FC (mmdet's names)
+    (r'(?P<p>.*)/lateral_(\d+)', '{p}.lateral_convs.{1}.conv', 'hwio'),
+    (r'(?P<p>.*)/fpn_conv_(\d+)', '{p}.fpn_convs.{1}.conv', 'hwio'),
+    (r'(?P<p>.*)/(rpn_conv|rpn_cls|rpn_reg)', '{p}.{1}', 'hwio'),
+    (r'(?P<p>.*)/shared_fc(\d)', '{p}.bbox_head.shared_fcs.{n2}', 'lin'),
+    (r'(?P<p>.*img_roi_head)/(fc_cls|fc_reg)', '{p}.bbox_head.{1}', 'lin'),
+    # ImVoteNet's image-vote MLP (mmdet3d ``MLP``: Conv1d layers)
+    (r'(?P<p>.*)/mlp/Dense_(\d+)', '{p}.mlp.layer{1}.conv', 'c1'),
+    (r'(?P<p>.*)/mlp/BatchNorm_(\d+)', '{p}.mlp.layer{1}.bn', 'norm'),
     (r'(?P<p>.*)/(fc_cls)', '{p}.fc_cls', 'lin'),
     (r'(?P<p>.*)/fc_reg/l(\d)', '{p}.fc_reg.{x2}', 'lin'),
     (r'(?P<p>.*)/layers_(\d+)/self_attn/(\w+)',

@@ -25,6 +25,9 @@ class DeMFVoteNet(nn.Module):
     # what the step-time measurements train it on (``zoo.synth_batch_for``):
     # batch maker, scenes, GT slots
     synth_batch = ('demf', 16, 64)
+    # a batch may carry the frozen image branch's output as ``img_features``
+    # (``engine/feature_cache.py``)
+    caches_img_features = True
 
     def __init__(self, pts_backbone=None, pts_bbox_head=None, pts_neck=None,
                  img_backbone=None, img_neck=None, img_encoder=None,

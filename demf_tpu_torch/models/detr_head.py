@@ -26,6 +26,7 @@ from ..ops.assignment import auction_match, hungarian_match
 from ..registry import HEADS, LOSSES, build_from_cfg
 from ..utils.precision import dense
 from .losses import extent_area
+from .rpn_roi import topk_stable
 from .transformer import (DetrTransformerDecoderLayer, _Layers,
                           build_encoder_layers, encode_levels, sine_encoding)
 
@@ -248,7 +249,8 @@ class DeformableDETRHead(nn.Module):
         max_per_img = dict(self.test_cfg or {}).get('max_per_img', 100)
         cls, bbox = preds['cls_scores'][-1], preds['bbox_preds'][-1]
         b, q, c = cls.shape
-        topv, topi = cls.sigmoid().reshape(b, q * c).topk(max_per_img)
+        topv, topi = topk_stable(cls.sigmoid().reshape(b, q * c),
+                                 max_per_img)
         query_idx = torch.div(topi, c, rounding_mode='floor')
         boxes = bbox.gather(1, query_idx[..., None].expand(-1, -1, 4))
         xyxy = box_cxcywh_to_xyxy(boxes) * _whwh(img_shape)[:, None]

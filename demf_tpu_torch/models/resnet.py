@@ -1,6 +1,9 @@
 """ResNet image backbone, depth 50 (port of ``demf_tpu/models/resnet.py``).
 
-mmdet ``ResNet`` in the pytorch style (the stride sits on conv2).  NHWC in,
+mmdet ``ResNet`` in the pytorch style (a stage's stride sits on its first
+block's conv2) or the caffe style (on its conv1), as the JAX package puts
+it (``style != 'pytorch'`` is caffe; the ImVoteNet baseline's Faster R-CNN
+backbone is caffe).  NHWC in,
 a tuple of NHWC stage outputs out; the convolutions run in NCHW inside.
 ``norm_eval`` pins BatchNorm to its running statistics whatever the mode
 (every config sets it); without it a module in train mode normalizes with
@@ -45,12 +48,14 @@ def _bn(bn, x, dtype):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, in_channels, planes, stride=1, downsample=False):
+    def __init__(self, in_channels, planes, stride=1, downsample=False,
+                 style='pytorch'):
         super().__init__()
         out = planes * 4
-        self.conv1 = nn.Conv2d(in_channels, planes, 1, bias=False)
+        s1, s2 = (1, stride) if style == 'pytorch' else (stride, 1)
+        self.conv1 = nn.Conv2d(in_channels, planes, 1, s1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, s2, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(out)
@@ -73,15 +78,15 @@ class Bottleneck(nn.Module):
 
 @BACKBONES.register_module()
 class ResNet(nn.Module):
-    """``norm_cfg`` and ``style`` are accepted for config parity: the port
-    has BatchNorm and the pytorch style only."""
+    """``norm_cfg`` is accepted for config parity: the port has
+    BatchNorm only."""
 
     def __init__(self, depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
                  frozen_stages=-1, norm_eval=True, style='pytorch',
                  norm_cfg=None, init_cfg=None):
         super().__init__()
-        if depth != 50 or style != 'pytorch':
-            raise NotImplementedError('the port has ResNet-50, pytorch style')
+        if depth != 50:
+            raise NotImplementedError('the port has ResNet-50')
         self.out_indices = tuple(out_indices)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
@@ -90,7 +95,8 @@ class ResNet(nn.Module):
                                             (64, 128, 256, 512))):
             blocks = [Bottleneck(cin if i == 0 else planes * 4, planes,
                                  stride=(2 if s > 0 and i == 0 else 1),
-                                 downsample=(i == 0)) for i in range(n)]
+                                 downsample=(i == 0), style=style)
+                      for i in range(n)]
             self.add_module(f'layer{s + 1}', nn.Sequential(*blocks))
             cin = planes * 4
         self.num_stages = num_stages

@@ -1,7 +1,7 @@
-"""Seeded inputs for the aligned 3D NMS and for the count of points in
-rotated boxes before it: what the tests (CPU and card) and the smoke run
-hold the kernels K8 and K9, K8's rule in Python and the plain versions
-against.  Numpy only."""
+"""Seeded inputs for the aligned 3D NMS, the count of points in rotated
+boxes before it and the batched 2D NMS: what the tests (CPU and card) and
+the smoke run hold the kernels K8, K9 and K10, K8's and K10's rules in
+Python and the plain versions against.  Numpy only."""
 from __future__ import annotations
 
 import numpy as np
@@ -142,3 +142,58 @@ def _off_faces(xyz, boxes, margin):
                       shift[..., 2]], -1)
     gap = np.abs(np.abs(local) - bx[..., 3:6] * 0.5)
     return (gap >= margin).all(-1).all(-1)
+
+
+# the 2D NMS's groups on ImVoteNet's path: the RPN's 5 levels (nms_pre 1000
+# of 152x208, 76x104, 38x52, 19x26 and 10x13 positions x 3 anchors), the
+# R-CNN's 10 classes of 1,000 proposals
+RPN_LEVELS = (1000, 1000, 1000, 1000, 390)
+RCNN_PROPOSALS, RCNN_CLASSES = 1000, 10
+
+
+def nms2d_case(b, n, groups=1, seed=0, ties=False, degenerate=False,
+               invalid=0.2, layout='random'):
+    """-> boxes (b, n, 4) f32 xyxy in clusters over a 600x800 image (so that
+    many overlap above the thresholds), scores (b, n) f32, groups (b, n)
+    int64, valid (b, n) bool.
+
+    ``ties``: scores on a grid of 0.25.  ``degenerate``: every 7th box of
+    zero width and exact duplicates (boxes and scores) next to them.
+    ``invalid``: the share of invalid entries.  ``layout``: ``random``
+    groups; ``rpn``, the RPN's level groups in order (n = 4,390, all
+    valid); ``rcnn``, the R-CNN's proposal-major classes (n = 10,000), the
+    boxes of a proposal's classes close together, a score a class of a
+    softmax over 11 and valid where it is over 0.1.
+    """
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(0, 700, (b, max(n // 8, 1), 2))
+    pick = rng.randint(0, centers.shape[1], (b, n))
+    c = np.take_along_axis(centers, pick[..., None], 1) + rng.normal(
+        0, 6, (b, n, 2))
+    wh = rng.uniform(8, 80, (b, n, 2))
+    scores = rng.rand(b, n).astype(np.float32)
+    idxs = rng.randint(0, groups, (b, n))
+    valid = rng.rand(b, n) >= invalid
+    if layout == 'rpn':
+        assert n == sum(RPN_LEVELS)
+        idxs = np.repeat(np.arange(len(RPN_LEVELS)), RPN_LEVELS)[None]
+        idxs = np.repeat(idxs, b, 0)
+        valid = np.ones((b, n), bool)
+    elif layout == 'rcnn':
+        r, k = RCNN_PROPOSALS, RCNN_CLASSES
+        assert n == r * k
+        c = np.repeat(c[:, :r], k, 1) + rng.normal(0, 3, (b, n, 2))
+        logits = rng.normal(0, 1.5, (b, r, k + 1))
+        probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+        scores = probs[..., :k].reshape(b, n).astype(np.float32)
+        idxs = np.tile(np.arange(k), r)[None].repeat(b, 0)
+        valid = scores > 0.1
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 4) / 4
+    if degenerate:
+        boxes[:, ::7, 2] = boxes[:, ::7, 0]
+        m = boxes[:, 2::7].shape[1]
+        boxes[:, 1::7][:, :m] = boxes[:, 2::7]
+        scores[:, 1::7][:, :m] = scores[:, 2::7]
+    return boxes, scores, idxs.astype(np.int64), valid

@@ -20,9 +20,11 @@ under the bf16 policy (``utils/precision.py``), in both modes.
         --synthetic --steps 3 [--profile]
 
 takes ``--steps`` steps on one synthetic batch (``zoo.synth_batch_for``
-the model: scenes for DeMF, images with 2D boxes for the stage-1 pretrain
-of ``configs/deformdetr/imvotenet_deform.py``; a frozen image branch's
-features are cached once) instead of reading a dataset;
+the model: scenes for DeMF and ImVoteNet, points for VoteNet, images with
+2D boxes for the stage-1 pretrain of
+``configs/deformdetr/imvotenet_deform.py``; DeMF's frozen image branch's
+features are cached once, ImVoteNet's 2D branch runs in every step)
+instead of reading a dataset;
 ``--profile`` then traces one more step with ``torch.profiler`` and prints
 its kernels by device time, the device's busy share and the step's phases.
 
@@ -115,10 +117,12 @@ def train_synthetic(cfg, args, device):
     model, optimizer, step = zoo.build_trainer(
         cfg, device, args.seed, steps_per_epoch=max(args.steps, 1))
     batch = batch_to_device(zoo.synth_batch_for(
-        model, args.batch, p=args.points, g=args.gt, hw=tuple(args.hw),
+        model, args.batch, p=args.points, g=args.gt, hw=args.hw,
         seed=args.seed), device)
-    if getattr(model, 'freeze_img_branch', False):
-        # else the image branch trains every step, or there is none
+    if getattr(model, 'caches_img_features', False) and \
+            model.freeze_img_branch:
+        # else the image branch trains every step, runs inside the step
+        # (ImVoteNet's 2D detector), or there is none
         t0 = time.perf_counter()
         batch['img_features'] = compute_image_features(model, batch)
         n = len(batch.pop('img'))

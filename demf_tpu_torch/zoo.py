@@ -1,6 +1,6 @@
 """Build the port's detector and its trainer from the shared ``configs/``,
-the tiny DeMF, DETR-pretrain and VoteNet model configs of the CPU runs, and
-synthetic batches (numpy) with the fields, shapes and meta of
+the tiny DeMF, DETR-pretrain, VoteNet and ImVoteNet model configs of the
+CPU runs, and synthetic batches (numpy) with the fields, shapes and meta of
 ``demf_tpu.zoo.synth_points_batch``, ``synth_demf_batch`` and
 ``synth_detr2d_batch``, value for value from the same seed."""
 from __future__ import annotations
@@ -251,6 +251,58 @@ def synth_detr2d_batch(b, hw=(800, 1344), g=20, seed=0):
         gt_bboxes_valid=rng.rand(b, g) < 0.8)
 
 
+def tiny_imvotenet_model_cfg():
+    """The ImVoteNet baseline of ``configs/baseline/imvotenet.py`` scaled
+    down for CPU runs: ResNet-50 at full width and the real RPN / RoI
+    wiring, a 16-wide FPN, RPN and 32-wide Shared2FC, a small point branch
+    and towers, 32 seeds, a small proposal budget.  Equal to the JAX tests'
+    ``tests/test_rpn_roi.py::tiny_imvotenet_cfg`` (a test holds the two
+    together)."""
+    m = copy.deepcopy(dict(load_model_cfg('baseline/imvotenet.py').model))
+    m['img_neck'] = dict(type='FPN', in_channels=[256, 512, 1024, 2048],
+                         out_channels=16, num_outs=5)
+    m['img_rpn_head'] = dict(m['img_rpn_head'], in_channels=16,
+                             feat_channels=16)
+    roi = dict(m['img_roi_head'])
+    roi['bbox_head'] = dict(roi['bbox_head'], in_channels=16,
+                            fc_out_channels=32)
+    m['img_roi_head'] = roi
+    m['pts_backbone'] = dict(
+        type='PointNet2SASSG', in_channels=4, num_points=(64, 32, 16, 8),
+        radius=(0.2, 0.4, 0.8, 1.2), num_samples=(8, 8, 4, 4),
+        sa_channels=((16, 16, 16), (16, 16, 16), (16, 16, 16), (16, 16, 16)),
+        fp_channels=((16, 16), (16, 16)), norm_cfg=dict(type='BN2d'),
+        sa_cfg=dict(type='PointSAModule', pool_mod='max', use_xyz=True,
+                    normalize_xyz=True))
+    heads = dict(m['pts_bbox_heads'])
+    heads['common'] = dict(heads['common'], pred_layer_cfg=dict(
+        in_channels=16, shared_conv_channels=(16, 16), bias=True))
+
+    def tower(in_ch):
+        return dict(
+            vote_module_cfg=dict(
+                in_channels=in_ch, vote_per_seed=1, gt_per_seed=3,
+                conv_channels=(in_ch, in_ch), norm_feats=True,
+                vote_loss=dict(type='ChamferDistance', mode='l1',
+                               reduction='none', loss_dst_weight=10.0)),
+            vote_aggregation_cfg=dict(
+                type='PointSAModule', num_point=8, radius=0.3, num_sample=4,
+                mlp_channels=[in_ch, 16, 16, 16], use_xyz=True,
+                normalize_xyz=True))
+
+    heads['joint'] = tower(32)
+    heads['pts'] = tower(16)
+    heads['img'] = tower(16)
+    m['pts_bbox_heads'] = heads
+    m['img_mlp'] = dict(in_channel=18, conv_channels=(16, 16))
+    m['num_sampled_seed'] = 32
+    tc = dict(m['test_cfg'])
+    tc['img_rpn'] = dict(tc['img_rpn'], nms_pre=32, max_per_img=16)
+    tc['img_rcnn'] = dict(tc['img_rcnn'], max_per_img=8)
+    m['test_cfg'] = tc
+    return m
+
+
 def tiny_votenet_model_cfg():
     """The tiny VoteNet of ``configs/synthetic/votenet_tiny.py`` (the
     baseline's ``CAVoteHead`` at small widths), which the port reads as it
@@ -258,24 +310,31 @@ def tiny_votenet_model_cfg():
     return copy.deepcopy(load_model_cfg('synthetic/votenet_tiny.py').model)
 
 
-def synth_batch_for(model, b=None, p=20000, g=None, hw=(800, 1344), seed=0):
+def synth_batch_for(model, b=None, p=20000, g=None, hw=None, seed=0):
     """The synthetic batch that ``model`` trains on (numpy), as its class
-    names it (``synth_batch``, ``bench.py``'s sizes) unless given:
-    ``synth_demf_batch`` of 16 scenes with 64 GT slots for DeMF-VoteNet,
-    ``synth_points_batch`` of 16 scenes of ``p`` points with 64 GT slots
-    for VoteNet, ``synth_detr2d_batch`` of 4 images with 20 GT slots for
-    the stage-1 pretrain."""
+    names it (``synth_batch``: the batch maker, scenes, GT slots and the
+    maker's other defaults; ``bench.py``'s sizes) unless given:
+    ``synth_demf_batch`` of 16 scenes with 64 GT slots and 800x1344 images
+    for DeMF-VoteNet, and the same at 608x832 (600x826 valid) for
+    ImVoteNet; ``synth_points_batch`` of 16 scenes of ``p`` points with 64
+    GT slots for VoteNet; ``synth_detr2d_batch`` of 4 images of 800x1344
+    with 20 GT slots for the stage-1 pretrain."""
     spec = getattr(model, 'synth_batch', None)
     if spec is None:
         raise NotImplementedError(
-            f'no synthetic batch for a {type(model).__name__}')
-    kind, scenes, slots = spec
+            f'no synthetic batch for a {type(model).__name__}: DeMF-VoteNet, '
+            f'ImVoteNet, VoteNet and the stage-1 pretrain model name theirs '
+            f'(synth_batch)')
+    kind, scenes, slots = spec[:3]
+    sizes = dict(dict(hw=(800, 1344)), **(spec[3] if len(spec) > 3 else {}))
+    if hw is not None:
+        sizes = dict(hw=tuple(hw))
     b, g = b or scenes, g or slots
     if kind == 'demf':
-        return synth_demf_batch(b, p=p, g=g, hw=hw, seed=seed)
+        return synth_demf_batch(b, p=p, g=g, seed=seed, **sizes)
     if kind == 'points':
         return synth_points_batch(b, p=p, g=g, seed=seed)
-    return synth_detr2d_batch(b, hw=hw, g=g, seed=seed)
+    return synth_detr2d_batch(b, g=g, seed=seed, **sizes)
 
 
 def synth_points_batch(b, p, g=32, seed=0):

@@ -258,8 +258,10 @@ def test_get_bboxes_matches_jax(pair, forward_pair):
 
 
 def test_fusion_mode_is_refused(pair):
+    """The stage-1 model has no point branch: a batch with points is
+    refused (the fusion mode itself is held in test_torch_imvotenet.py)."""
     batch = dict(pair['batch'], points=torch.zeros(2, 16, 4))
-    with pytest.raises(NotImplementedError, match='fusion mode'):
+    with pytest.raises(ValueError, match='fusion mode'):
         pair['model'](batch)
 
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from demf_tpu_torch.ops import (box_count, gather_rows, grouping, mform, msda,
-                                msda_fold, nms, sampling)
+                                msda_fold, nms, nms2d, roi_align, sampling)
 
 
 def unambiguous_centers(points, centers, radius, k):
@@ -1021,3 +1021,137 @@ def test_msda_kernels_refuse_other_dtypes(dev):
         msda.msda_cuda(value.bfloat16(), ((3, 4),), locs.bfloat16(), aw)
     with pytest.raises(TypeError, match='bfloat16'):
         msda.msda_backward_cuda(value.bfloat16(), ((3, 4),), locs, aw, grad)
+
+
+def _nms2d_inputs(dev, b, n, seed=0, **kwargs):
+    from demf_tpu_torch.tools.nms_cases import nms2d_case
+    return [torch.from_numpy(a).to(dev)
+            for a in nms2d_case(b, n, seed=seed, **kwargs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [2, 16])
+@pytest.mark.parametrize('layout,n,thresh', [('rpn', 4390, 0.7),
+                                             ('rcnn', 10000, 0.5)])
+def test_nms2d_kernel_equals_plain_at_the_path_shapes(dev, b, layout, n,
+                                                      thresh):
+    """K10 against the plain version, keep masks equal bit for bit, on the
+    RPN's 5 level groups and the R-CNN's 10 class groups; one launch a
+    batch."""
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, b, n, seed=b,
+                                               layout=layout)
+    before = nms2d.NMS2D_KERNEL.launches
+    got = nms2d.batched_nms_2d(boxes, scores, idxs, thresh, valid)
+    assert nms2d.NMS2D_KERNEL.launches == before + 1
+    want = nms2d.batched_nms_2d_plain(boxes, scores, idxs, thresh, valid)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,groups', [(1, 1), (63, 2), (65, 1), (4096, 1),
+                                      (5000, 3), (16384, 7)])
+@pytest.mark.parametrize('options', [{}, dict(ties=True, degenerate=True,
+                                              invalid=0.5)])
+def test_nms2d_kernel_any_size_and_group_count(dev, n, groups, options):
+    """One box, N around a tile's 64, one group over 4,096 boxes (a group
+    past 32 words: the sweep's device-memory words), and the limit of
+    16,384; tied scores, zero-area and identical boxes, invalid entries."""
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, 2, n, seed=n,
+                                               groups=groups, **options)
+    got = nms2d.batched_nms_2d(boxes, scores, idxs, 0.5, valid)
+    want = nms2d.batched_nms_2d_plain(boxes, scores, idxs, 0.5, valid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_nms2d_kernel_non_finite_inputs(dev):
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, 2, 700, seed=9,
+                                               groups=3)
+    boxes[0, 3, 0] = float('nan')
+    boxes[0, 9, 2] = float('inf')
+    boxes[1, 4] = boxes[1, 5]
+    boxes[1, 4, 1] = -float('inf')
+    scores[1, 7] = float('nan')
+    valid[1, 7] = True
+    got = nms2d.batched_nms_2d(boxes, scores, idxs, 0.5, valid)
+    assert torch.equal(got, nms2d.batched_nms_2d_plain(boxes, scores, idxs,
+                                                       0.5, valid))
+
+
+@pytest.mark.cuda
+def test_nms2d_kernel_refuses_what_it_cannot_take(dev):
+    """Over 16,384 candidates, another dtype, a CPU tensor handed to the
+    CUDA entry: each raises before any launch."""
+    before = nms2d.NMS2D_KERNEL.launches
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, 1, 16385)
+    with pytest.raises(ValueError, match='at most 16384'):
+        nms2d.batched_nms_2d(boxes, scores, idxs, 0.5, valid)
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, 2, 64)
+    with pytest.raises(TypeError, match='boxes'):
+        nms2d.batched_nms_2d(boxes.double(), scores, idxs, 0.5, valid)
+    with pytest.raises(TypeError, match='scores'):
+        nms2d.batched_nms_2d(boxes, scores.half(), idxs, 0.5, valid)
+    with pytest.raises(TypeError, match='idxs'):
+        nms2d.batched_nms_2d(boxes, scores, idxs.float(), 0.5, valid)
+    with pytest.raises(ValueError, match='CUDA'):
+        nms2d.batched_nms_2d_cuda(boxes.cpu(), scores, idxs, 0.5, valid)
+    assert nms2d.NMS2D_KERNEL.launches == before
+
+
+def _pyramid_inputs(dev, b, r, levels, c, seed=0):
+    """NHWC levels, RoIs of every size (some across the borders and some
+    beyond) and their levels by mmdet's rule."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = tuple(torch.randn((b, h, w, c), generator=gen).to(dev)
+                  for h, w in levels)
+    img_h, img_w = levels[0][0] * 4, levels[0][1] * 4
+    xy = torch.rand((b, r, 2), generator=gen) * torch.tensor(
+        [img_w + 40.0, img_h + 40.0]) - 20
+    wh = torch.exp(torch.rand((b, r, 2), generator=gen) * 6.5 + 0.5)
+    rois = torch.cat([xy, xy + wh], -1).to(dev)
+    return feats, rois, roi_align.roi_levels(rois, len(levels))
+
+
+PATH_LEVELS = ((152, 208), (76, 104), (38, 52), (19, 26))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,r,levels,c', [
+    (2, 1000, PATH_LEVELS, 256), (16, 1000, PATH_LEVELS, 256),
+    (1, 37, ((16, 24), (8, 12), (4, 6), (2, 3)), 16),
+    (3, 5, ((9, 7),), 4)])
+def test_roi_align_kernel_equals_plain(dev, b, r, levels, c):
+    """K11 against the plain version, equal bit for bit (the same
+    roundings in the same order), so within 1e-5 of the largest output:
+    the path's pyramid at batch 2 and 16, the tiny model's, one level; one
+    launch a batch."""
+    feats, rois, lvl = _pyramid_inputs(dev, b, r, levels, c, seed=b + r)
+    strides = (4, 8, 16, 32)[:len(levels)]
+    before = roi_align.ROI_ALIGN_KERNEL.launches
+    got = roi_align.pyramid_roi_align(feats, rois, lvl, strides, 7)
+    assert roi_align.ROI_ALIGN_KERNEL.launches == before + 1
+    want = roi_align.pyramid_roi_align_plain(feats, rois, lvl, strides, 7)
+    assert got.shape == (b, r, 7, 7, c)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_roi_align_kernel_refuses_what_it_cannot_take(dev):
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 8, ((16, 24), (8, 12)), 8)
+    before = roi_align.ROI_ALIGN_KERNEL.launches
+    with pytest.raises(TypeError, match='float32'):
+        roi_align.pyramid_roi_align(tuple(f.half() for f in feats),
+                                    rois, lvl, (4, 8))
+    with pytest.raises(TypeError, match='float32'):
+        roi_align.pyramid_roi_align(feats, rois.double(), lvl, (4, 8))
+    with pytest.raises(ValueError, match='multiple of 4'):
+        roi_align.pyramid_roi_align(tuple(f[..., :6].contiguous()
+                                          for f in feats), rois, lvl, (4, 8))
+    with pytest.raises(ValueError, match='levels'):
+        roi_align.pyramid_roi_align(feats * 3, rois, lvl, (4, 8) * 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        roi_align.pyramid_roi_align_cuda(tuple(f.cpu() for f in feats),
+                                         rois, lvl, (4, 8))
+    assert roi_align.ROI_ALIGN_KERNEL.launches == before

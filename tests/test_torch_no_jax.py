@@ -41,6 +41,8 @@ DATASET_PATH_MODULES = ('data', 'data.pipeline', 'data.sunrgbd',
 PRETRAIN_PATH_MODULES = ('ops.assignment', 'models.detr_head',
                          'models.imvotenet', 'tools.k4_phases',
                          'tools.compare_kernels')
+IMVOTENET_PATH_MODULES = ('ops.nms2d', 'ops.roi_align', 'models.rpn_roi',
+                          'models.vote_fusion', 'models.image_neck')
 
 
 def test_port_imports_without_jax_or_nvcc():
@@ -51,7 +53,8 @@ def test_port_imports_without_jax_or_nvcc():
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = proc.stdout.strip().splitlines()[-1].split()
     assert len(names) >= 50
-    for name in DATASET_PATH_MODULES + PRETRAIN_PATH_MODULES:
+    for name in (DATASET_PATH_MODULES + PRETRAIN_PATH_MODULES +
+                 IMVOTENET_PATH_MODULES):
         assert f'demf_tpu_torch.{name}' in names
 
 
@@ -99,5 +102,6 @@ def test_port_configs_load_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = proc.stdout.strip().splitlines()[-1].split()
     for name in ('detr_pretrain_tiny', 'detr_pretrain_synthetic',
-                 'demf_tiny', 'demf_votenet_synthetic'):
+                 'demf_tiny', 'demf_votenet_synthetic', 'imvotenet_tiny',
+                 'imvotenet_synthetic'):
         assert f'demf_tpu_torch/configs/{name}.py' in names
