@@ -46,8 +46,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 5. reference: the full-width detector on a small input, kernels against the
    plain versions, stage predictions within 2e-3 relative;
 6. serving path: DeMF-VoteNet (``configs/demf/demf_votenet.py``, full
-   width, seeded random weights) answers 3 requests of batch 2 at 20,000
-   points and an 800x1344 image through
+   width, seeded random weights; its prediction stages started at the
+   coder's mean class size by ``with_size_prior``, as are the training
+   path's models, so that boxes hold points and K9 and K8 have work: a
+   fresh model starts its sizes at 0) answers 3 requests of batch 2 at
+   20,000 points and an 800x1344 image through
    ``engine.evaluation.make_eval_step``; every request must launch each
    kernel a fixed number of times; one more request runs under
    torch.profiler and prints the device time of K1-K3 and K8 on the
@@ -879,6 +882,19 @@ class plain_ops:
             setattr(mod, name, fn)
 
 
+def with_size_prior(model):
+    """A DeMF model's prediction stages started at the coder's mean class
+    size (``conv_reg.bias[3:6]``): a fresh model starts its sizes at 0, as
+    the JAX package's does, and boxes of no size hold no points, so K9
+    would pass none to K8.  Applied here, not by any config or entry."""
+    head = model.pts_bbox_head
+    mean = torch.as_tensor(head.coder.mean_sizes.mean(0), dtype=torch.float32)
+    with torch.no_grad():
+        for i in range(len(head.decoder) + 1):
+            getattr(head, f'conv_pred{i}').conv_reg.bias[3:6] = mean
+    return model
+
+
 def check_reference(model, dev):
     """Full-width model, small input: kernel path vs plain path."""
     from demf_tpu_torch import zoo
@@ -1056,6 +1072,7 @@ def run_training_path(dev, kernels):
     from demf_tpu_torch.engine import batch_to_device, compute_image_features
     t0 = time.perf_counter()
     model, _, step = zoo.build_trainer('demf/demf_votenet.py', dev, seed=0)
+    with_size_prior(model)
     print(f'training: DeMF-VoteNet full width, '
           f'{sum(p.numel() for p in model.parameters() if p.requires_grad)}'
           f' trained parameters, built in {time.perf_counter() - t0:.2f} s')
@@ -1218,6 +1235,7 @@ def run_training_bf16(dev, kernels, fp32_first):
     cfg = copy.deepcopy(zoo.load_model_cfg('demf/demf_votenet.py'))
     cfg.bf16 = True
     model, optimizer, step = zoo.build_trainer(cfg, dev, seed=0)
+    with_size_prior(model)
     if step.compute_dtype != torch.bfloat16:
         raise AssertionError('bf16=True did not select the policy')
     batch = batch_to_device(zoo.synth_demf_batch(**TRAIN_BATCH), dev)
@@ -1920,9 +1938,11 @@ def check_nms2d(dev):
     16,384 candidates an image.  Its bound counts the IoUs the sweep can
     ask for on these inputs (the pairs of valid boxes of one group, ~20
     operations a pair) and the bytes (boxes, scores, groups, valid in, the
-    mask out); beside it stand the device time of its two kernels alone
-    (the wrapper also sorts) and the least a serial sweep of the longest
-    group could take at the card's highest clock."""
+    mask out); beside it stand the device time of its two kernels (the
+    order, then the bits and the sweeps), the count of all kernels a call
+    runs on the device (the wrapper's own launches besides them), and the
+    least a serial sweep of the longest group could take at the card's
+    highest clock."""
     from demf_tpu_torch.ops import nms2d
     from demf_tpu_torch.tools import bound_ms, time_ms
     from demf_tpu_torch.tools.nms_cases import nms2d_case
@@ -1937,8 +1957,9 @@ def check_nms2d(dev):
         differ = int((got != want).sum())
         ms = time_ms(lambda: nms2d.batched_nms_2d_cuda(
             boxes, scores, idxs, thr, valid), 20)
-        kernel_ms, _, _ = device_ms(lambda: nms2d.batched_nms_2d_cuda(
-            boxes, scores, idxs, thr, valid), 'nms2d_', runs=5)
+        kernel_ms, _, on_device = device_ms(
+            lambda: nms2d.batched_nms_2d_cuda(boxes, scores, idxs, thr,
+                                              valid), 'nms2d_', runs=5)
         plain_ms = time_ms(lambda: nms2d.batched_nms_2d_plain(
             boxes, scores, idxs, thr, valid), 1)
         sizes = torch.stack([((idxs == g) & valid).sum(1)
@@ -1949,7 +1970,8 @@ def check_nms2d(dev):
         print(f'K10 nms2d ({b}, N {n}, {layout}, thr {thr}): kept '
               f'{int(got.sum())} of {int(valid.sum())} valid, {differ} mask '
               f'bits differ from plain, through the wrapper {ms:.4f} ms '
-              f'(its two kernels {kernel_ms:.4f} ms on the device), plain '
+              f'(its two kernels {kernel_ms:.4f} ms on the device; '
+              f'{on_device} kernels a call in all), plain '
               f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs} '
               f'pairs of one group), a serial sweep of the longest group '
               f'({int(sizes.max())}) at {clock_hz / 1e6:.0f} MHz at least '
@@ -2333,7 +2355,8 @@ def main():
     measured.update(probed)
 
     t0 = time.perf_counter()
-    model = zoo.build_detector('demf/demf_votenet.py', device=dev, seed=0)
+    model = with_size_prior(zoo.build_detector('demf/demf_votenet.py',
+                                               device=dev, seed=0))
     print(f'model: DeMF-VoteNet full width, '
           f'{sum(p.numel() for p in model.parameters())} parameters, built '
           f'in {time.perf_counter() - t0:.2f} s')

@@ -39,17 +39,6 @@ class DeMFVoteHead(CAVoteHead):
     def _build_conv_pred(self):
         """The stages ``conv_pred{i}`` are built in ``__init__``."""
 
-    @torch.no_grad()
-    def init_weights(self, generator):
-        """Start the size regression at the mean class size of the coder,
-        when it has one, so untrained boxes have plausible extents."""
-        if self.coder.mean_sizes is None:
-            return
-        mean = torch.as_tensor(self.coder.mean_sizes.mean(0),
-                               dtype=torch.float32)
-        for i in range(len(self.decoder) + 1):
-            getattr(self, f'conv_pred{i}').conv_reg.bias[3:6] = mean
-
     def _predict(self, stage, feats, aggregated_points):
         cls, reg = getattr(self, f'conv_pred{stage}')(feats)
         return self.coder.split_pred(cls.transpose(1, 2),

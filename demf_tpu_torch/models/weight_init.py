@@ -13,7 +13,7 @@ def init_weights(model, generator):
     normal with std 1/sqrt(fan_in) and zero bias, norms at identity with
     unit running variance, level embeds standard normal; then each module
     with an ``init_weights(generator)`` of its own (the MSDA layers' DETR
-    grid, the DeMF head's size prior) runs it."""
+    grid) runs it."""
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)

@@ -11,10 +11,11 @@ JAX package clamps), and the mean of the samples.  Maps are NHWC; the
 result is (R, out, out, C), channels last.
 
 A CUDA tensor launches K11 (``csrc/roi_align.cu``): one launch for the
-batch, the levels read in place.  A CPU tensor takes the plain version,
-which gathers the four corners of every sample from the concatenated
-pyramid, a chunk of RoIs at a time.  Both round as the same sequence of
-float32 operations, so their outputs are equal bit for bit.
+batch, the levels read in place, a block a RoI that first stages the RoI's
+sample table (``sample_table``) in shared memory.  A CPU tensor takes the
+plain version, which gathers the four corners of every sample from the
+concatenated pyramid, a chunk of RoIs at a time.  Both round as the same
+sequence of float32 operations, so their outputs are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -164,11 +165,49 @@ def pyramid_roi_align_plain(feats, rois, lvl, strides, out_size=7,
         (b, 0, out, out, c))
 
 
+def sample_table(rois, lvl, strides, sizes, out_size=7,
+                 samples_per_bin=2):
+    """K11's per-RoI sample table, as the kernel stages it: for each RoI
+    (..., 4) on its level ``lvl`` (...) of the ``strides`` and ``sizes``
+    ((H, W) a level), each sample of each axis: the corner indices clamped
+    to the level, the far corner's weight and the near one's.  -> dicts
+    'y' and 'x' of (near index, far index, far weight, near weight), each
+    (..., out * s).  The same roundings as ``_sample_corners`` and the
+    plain version's gather: the float clamped to [-1, size - 1] before it
+    becomes an integer."""
+    dev = rois.device
+    lvl = lvl.long()
+    scale = torch.tensor([1.0 / st for st in strides], dtype=rois.dtype,
+                         device=dev)[lvl]
+    n = out_size * samples_per_bin
+    g = _div(torch.arange(n, device=dev, dtype=rois.dtype) + 0.5,
+             samples_per_bin)
+    table = {}
+    for axis, lo_i, hi_i, dim in (('y', 1, 3, 0), ('x', 0, 2, 1)):
+        size = torch.tensor([hw[dim] for hw in sizes], device=dev)[lvl]
+        lo = rois[..., lo_i] * scale
+        hi = rois[..., hi_i] * scale
+        bin_len = _div((hi - lo).clamp_min(1e-3), out_size)
+        v = lo[..., None] + g * bin_len[..., None] - 0.5
+        v0 = torch.floor(v)
+        far = v - v0
+        top = (size - 1)[..., None].to(v.dtype)
+
+        def clamp(f):
+            i = torch.minimum(f.clamp_min(-1.0), top).long()
+            return torch.minimum(i.clamp_min(0), (size - 1)[..., None])
+
+        table[axis] = (clamp(v0), clamp(v0 + 1), far, 1 - far)
+    return table
+
+
 def pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size=7,
                            samples_per_bin=2):
     """Kernel K11 (csrc/roi_align.cu): up to 4 float32 NHWC levels with
     the same B and C (a multiple of 4), float32 RoIs, integer levels, all
-    contiguous on the card; a thread owns 4 channels of a bin."""
+    contiguous on the card; ``out_size`` at most 32 and ``out_size *
+    samples_per_bin`` at most 1024.  A block owns a RoI over 128 channels,
+    a warp a bin column, a thread 4 channels of it."""
     if not 1 <= len(feats) <= K11_MAX_LEVELS or len(strides) != len(feats):
         raise ValueError(f'K11 takes 1 to {K11_MAX_LEVELS} levels with a '
                          f'stride each, got {len(feats)} and {len(strides)}')
@@ -180,6 +219,11 @@ def pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size=7,
         if f.shape[0] != b or f.shape[-1] != c:
             raise ValueError(f'feats[{i}] {tuple(f.shape)} does not go with '
                              f'rois {tuple(rois.shape)} and C {c}')
+    if not (1 <= out_size <= 32 and samples_per_bin >= 1 and
+            out_size * samples_per_bin <= 1024):
+        raise ValueError(f'out_size {out_size}, samples_per_bin '
+                         f'{samples_per_bin}: K11 takes out_size <= 32 and '
+                         f'out_size * samples_per_bin <= 1024')
     if rois.shape[-1] != 4 or c % 4:
         raise ValueError(f'rois {tuple(rois.shape)} and C {c}: K11 takes '
                          f'(B, R, 4) xyxy and C a multiple of 4')

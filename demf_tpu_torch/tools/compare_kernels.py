@@ -1,6 +1,7 @@
 """K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward), K6
-(slot fold), K7 (M-form sampler) and K9 (box count) of this tree against
-the same kernels of another commit, in turns, on one card:
+(slot fold), K7 (M-form sampler), K9 (box count), K10 (batched 2D NMS) and
+K11 (pyramid RoIAlign) of this tree against the same kernels of another
+commit, in turns, on one card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
         tar -x -C build/parent
@@ -12,9 +13,11 @@ a name of its own and builds its kernels from its own sources, so each
 side goes through its own wrapper (``furthest_point_sample_cuda``,
 ``ball_query_cuda``, ``msda_cuda``, ``msda_backward_cuda``,
 ``weighted_slot_fold_batched`` / ``slot_major_fold``,
-``mform_sample_cuda``), whatever C interface lies below.  At every shape of the main paths (K7: the four
-levels of ``bench_msda_matmul``, bf16 and f32) each side is timed twice, in
-the order parent, this tree, this tree, parent, on tensors made beforehand;
+``mform_sample_cuda``, ``batched_nms_2d_cuda``, ``pyramid_roi_align_cuda``),
+whatever C interface lies below.  At every shape of the main paths (K7:
+the four levels of ``bench_msda_matmul``, bf16 and f32) each side is timed
+twice, in the order parent, this tree, this tree, parent, on tensors made
+beforehand;
 K1's and K2's picks and K7's outputs must be equal (K7's to the plain
 version's too) and K3's outputs within 1e-5 of the plain version's largest.
 K4 runs at the decoder's shapes (batch 16 of 256 proposals with 2 points,
@@ -29,6 +32,13 @@ boxes, batch 2 and 16) on spread and clustered points; a commit without
 K9 stands in with the non-empty-box test its ``multiclass_nms_3d`` ran (a
 Python loop of its ``core/boxes.py::points_in_boxes`` over the scenes),
 and the masks ``count > 5`` must be equal.
+K10 runs at the path's shapes (the RPN's 4,390 candidates in 5 level
+groups and the R-CNN's 10,000 in 10 class groups, batch 16 and 2) and at
+its limit of 16,384; both sides' keep masks must equal the plain
+version's.  K11 runs at 1,000 RoIs a scene into (7, 7, 256) from the four
+levels of a 608x832 image, batch 16 and 2; both sides' outputs must equal
+the plain version's bit for bit, and the share of the byte bound is
+printed.
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -44,7 +54,8 @@ every block shape and three tile sizes, and K7 at several tile and block
 sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
 ``ops.grouping.ball_query_launch_shape`` and
 ``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
-(``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count``).  Prints its lines, writes
+(``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
+roi_align``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -59,12 +70,13 @@ import sys
 import torch
 
 from ..core import boxes as box_ops
-from ..ops import box_count, grouping, mform, msda, msda_fold, sampling
+from ..ops import (box_count, grouping, mform, msda, msda_fold, nms2d,
+                   roi_align, sampling)
 from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
 from ..ops.gather_rows import gather_rows
 from . import (bench_msda_fold, bench_msda_matmul, bound_ms, cuda_device,
                encoder_sampling_locations, time_ms)
-from .nms_cases import box_count_case
+from .nms_cases import box_count_case, nms2d_case
 
 # (scenes, points, picks) of the point branch's four SA modules and the
 # vote aggregation, at the training batch and the serving batch
@@ -97,18 +109,27 @@ MSDA_BACKWARD_CASES = (
     ('encoder, its own locations, noise 4 px', 4, None, 4, 4.0))
 
 KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
-           'msda_fold', 'box_count')
+           'msda_fold', 'box_count', 'nms2d', 'roi_align')
 # K9: (scenes, points, boxes) of a request and of an eval batch
 BOX_COUNT_SHAPES = ((2, 20000, 512), (16, 20000, 512))
+# K10: (scenes, layout, candidates, IoU threshold) of the RPN's and the
+# R-CNN's calls at a step's and a request's batch, and the limit; K11: the
+# FPN's four pooled levels at 608x832 and their strides, 1,000 RoIs a scene
+NMS2D_SHAPES = ((16, 'rcnn', 10000, 0.5), (16, 'rpn', 4390, 0.7),
+                (2, 'rcnn', 10000, 0.5), (2, 'rpn', 4390, 0.7),
+                (2, 'random', 16384, 0.7))
+ROI_LEVELS = ((152, 208), (76, 104), (38, 52), (19, 26))
+ROI_STRIDES = (4, 8, 16, 32)
 
 
 def parent_ops(parent):
     """The other commit's ``ops.sampling``, ``ops.grouping``, ``ops.msda``,
-    ``ops.mform`` and ``ops.msda_fold``, loaded as the package
-    ``demf_parent_ops``, and its ``core/boxes.py`` as
+    ``ops.mform``, ``ops.msda_fold``, ``ops.nms2d`` and ``ops.roi_align``,
+    loaded as the package ``demf_parent_ops``, and its ``core/boxes.py`` as
     ``demf_parent_boxes``; this tree's without a parent."""
     if parent is None:
-        return sampling, grouping, msda, mform, msda_fold, box_ops
+        return (sampling, grouping, msda, mform, msda_fold, box_ops, nms2d,
+                roi_align)
     path = os.path.join(parent, 'demf_tpu_torch', 'ops')
     spec = importlib.util.spec_from_file_location(
         'demf_parent_ops', os.path.join(path, '__init__.py'),
@@ -121,9 +142,10 @@ def parent_ops(parent):
         os.path.join(parent, 'demf_tpu_torch', 'core', 'boxes.py'))
     boxes = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(boxes)
-    return tuple(importlib.import_module(f'demf_parent_ops.{name}')
+    mods = tuple(importlib.import_module(f'demf_parent_ops.{name}')
                  for name in ('sampling', 'grouping', 'msda', 'mform',
-                              'msda_fold')) + (boxes,)
+                              'msda_fold', 'nms2d', 'roi_align'))
+    return mods[:5] + (boxes,) + mods[5:]
 
 
 def in_turns(parent, change, iters):
@@ -484,6 +506,87 @@ def compare_box_count(old_boxes, dev, parent_has_k9):
     return rows
 
 
+def compare_nms2d(old, dev):
+    """K10 through both wrappers at ``NMS2D_SHAPES``; both sides' keep
+    masks must equal the plain version's."""
+    rows = []
+    for b, layout, n, thr in NMS2D_SHAPES:
+        boxes, scores, idxs, valid = (
+            torch.from_numpy(a).to(dev) for a in nms2d_case(
+                b, n, groups=5, seed=b, layout=layout))
+        want = nms2d.batched_nms_2d_plain(boxes, scores, idxs, thr, valid)
+        equal = [torch.equal(m.batched_nms_2d_cuda(boxes, scores, idxs, thr,
+                                                   valid), want)
+                 for m in (old, nms2d)]
+        ms = in_turns(
+            lambda: old.batched_nms_2d_cuda(boxes, scores, idxs, thr, valid),
+            lambda: nms2d.batched_nms_2d_cuda(boxes, scores, idxs, thr,
+                                              valid), 20)
+        row = dict(kernel='nms2d', b=b, layout=layout, n=n, thresh=thr,
+                   kept=int(want.sum()), valid=int(valid.sum()), equal=equal,
+                   parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+        print(f'K10 nms2d ({b}, N {n}, {layout}, thr {thr}; kept '
+              f'{row["kept"]} of {row["valid"]} valid): parent {ms[0]:.4f} / '
+              f'{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms '
+              f'through the wrappers; keep masks equal to the plain '
+              f'version\'s: parent {equal[0]}, this tree {equal[1]}',
+              flush=True)
+        if not all(equal):
+            raise AssertionError('a 2D NMS kernel differs from plain')
+        rows.append(row)
+    return rows
+
+
+def roi_case(dev, b, r=1000, c=256, seed=0):
+    """``ROI_LEVELS`` maps of ``c`` channels and ``r`` RoIs a scene the size
+    of the RPN's proposals (16 to 600 pixels, some across the borders),
+    with mmdet's levels."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    feats = tuple(torch.randn((b, h, w, c), generator=gen, device=dev)
+                  for h, w in ROI_LEVELS)
+    xy = torch.rand((b, r, 2), generator=gen, device=dev) * torch.tensor(
+        [852.0, 628.0], device=dev) - 20
+    wh = torch.exp(torch.rand((b, r, 2), generator=gen, device=dev) * 3.6 +
+                   2.8)
+    rois = torch.cat([xy, xy + wh], -1)
+    return feats, rois, roi_align.roi_levels(rois, len(ROI_LEVELS))
+
+
+def compare_roi_align(old, dev):
+    """K11 through both wrappers at (16 and 2) x 1,000 RoIs; both sides'
+    outputs must equal the plain version's; its bound: the levels read
+    once, the RoIs and levels, the output written once."""
+    rows = []
+    for b in (16, 2):
+        feats, rois, lvl = roi_case(dev, b, seed=b)
+        want = roi_align.pyramid_roi_align_plain(feats, rois, lvl,
+                                                 ROI_STRIDES)
+        equal = [torch.equal(m.pyramid_roi_align_cuda(feats, rois, lvl,
+                                                      ROI_STRIDES), want)
+                 for m in (old, roi_align)]
+        least, by = bound_ms(50 * want.numel(), 4 * (
+            sum(f.numel() for f in feats) + rois.numel() + lvl.numel() +
+            want.numel()))
+        del want
+        ms = in_turns(
+            lambda: old.pyramid_roi_align_cuda(feats, rois, lvl, ROI_STRIDES),
+            lambda: roi_align.pyramid_roi_align_cuda(feats, rois, lvl,
+                                                     ROI_STRIDES), 10)
+        row = dict(kernel='roi_align', b=b, r=1000, equal=equal,
+                   bound_ms=least, bound_by=by, parent_ms=[ms[0], ms[3]],
+                   ms=[ms[1], ms[2]])
+        print(f'K11 roi_align (B {b}, 1000 RoIs, out (7, 7, 256)): parent '
+              f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
+              f'{ms[2]:.4f} ms, bound {least:.4f} ms ({by}): parent at '
+              f'{least / min(ms[0], ms[3]):.1%}, this tree at '
+              f'{least / min(ms[1:3]):.1%} of it; equal to the plain '
+              f'version: parent {equal[0]}, this tree {equal[1]}', flush=True)
+        if not all(equal):
+            raise AssertionError('a RoIAlign kernel differs from plain')
+        rows.append(row)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', default=None,
@@ -498,7 +601,7 @@ def main(argv=None):
     if not set(only) <= set(KERNELS):
         ap.error(f'--only takes {KERNELS}')
     (old_sampling, old_grouping, old_msda, old_mform, old_fold,
-     old_boxes) = parent_ops(args.parent)
+     old_boxes, old_nms2d, old_roi_align) = parent_ops(args.parent)
     rows = []
     if 'fps' in only:
         rows += compare_fps(old_sampling, dev, args.sweep)
@@ -517,6 +620,10 @@ def main(argv=None):
         old_k9 = getattr(old_k9, 'box_point_count', None) if args.parent \
             else box_count.box_point_count_cuda
         rows += compare_box_count(old_k9 or old_boxes, dev, old_k9 is not None)
+    if 'nms2d' in only:
+        rows += compare_nms2d(old_nms2d, dev)
+    if 'roi_align' in only:
+        rows += compare_roi_align(old_roi_align, dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -1065,6 +1065,31 @@ def test_nms2d_kernel_any_size_and_group_count(dev, n, groups, options):
 
 
 @pytest.mark.cuda
+def test_nms2d_kernel_at_its_limit_and_any_int64_id(dev):
+    """K10 at its limit of 16,384 candidates in 5 groups (one launch), and
+    with ids the key cannot tell apart (equal low 16 bits, negative ids):
+    its keep masks equal the plain version's."""
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, 2, 16384, seed=2,
+                                               groups=5)
+    before = nms2d.NMS2D_KERNEL.launches
+    got = nms2d.batched_nms_2d(boxes, scores, idxs, 0.7, valid)
+    assert nms2d.NMS2D_KERNEL.launches == before + 1
+    assert torch.equal(got, nms2d.batched_nms_2d_plain(boxes, scores, idxs,
+                                                       0.7, valid))
+    boxes, scores, idxs, valid = _nms2d_inputs(dev, 2, 3000, seed=4,
+                                               groups=4, ties=True)
+    ids = torch.tensor([3, 3 + (1 << 16), -(1 << 16) + 3, -7],
+                       device=dev)[idxs]
+    got = nms2d.batched_nms_2d(boxes, scores, ids, 0.5, valid)
+    want = nms2d.batched_nms_2d_plain(boxes, scores, ids, 0.5, valid)
+    assert torch.equal(got, want)
+    assert torch.equal(want, nms2d.batched_nms_2d_plain(boxes, scores, idxs,
+                                                        0.5, valid))
+    got = nms2d.batched_nms_2d(boxes, scores, idxs.int(), 0.5, valid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_nms2d_kernel_non_finite_inputs(dev):
     boxes, scores, idxs, valid = _nms2d_inputs(dev, 2, 700, seed=9,
                                                groups=3)
@@ -1138,6 +1163,23 @@ def test_roi_align_kernel_equals_plain(dev, b, r, levels, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('out_size,samples', [(7, 1), (7, 3), (5, 2),
+                                              (14, 4)])
+def test_roi_align_kernel_other_bins_and_samples(dev, out_size, samples):
+    """K11's generic loop (samples other than 2) and other bin counts,
+    equal to the plain version bit for bit, a channel slice and a part of
+    one (C 132: 33 lanes of 16 bytes)."""
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 50, PATH_LEVELS[:3], 132,
+                                       seed=out_size * samples)
+    strides = (4, 8, 16)
+    got = roi_align.pyramid_roi_align(feats, rois, lvl, strides, out_size,
+                                      samples)
+    want = roi_align.pyramid_roi_align_plain(feats, rois, lvl, strides,
+                                             out_size, samples)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_roi_align_kernel_refuses_what_it_cannot_take(dev):
     feats, rois, lvl = _pyramid_inputs(dev, 2, 8, ((16, 24), (8, 12)), 8)
     before = roi_align.ROI_ALIGN_KERNEL.launches
@@ -1151,6 +1193,8 @@ def test_roi_align_kernel_refuses_what_it_cannot_take(dev):
                                           for f in feats), rois, lvl, (4, 8))
     with pytest.raises(ValueError, match='levels'):
         roi_align.pyramid_roi_align(feats * 3, rois, lvl, (4, 8) * 3)
+    with pytest.raises(ValueError, match='out_size'):
+        roi_align.pyramid_roi_align(feats, rois, lvl, (4, 8), 33)
     with pytest.raises(ValueError, match='CUDA'):
         roi_align.pyramid_roi_align_cuda(tuple(f.cpu() for f in feats),
                                          rois, lvl, (4, 8))

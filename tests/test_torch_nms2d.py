@@ -109,3 +109,48 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match='CUDA'):
         nms2d.batched_nms_2d_cuda(boxes, scores, scores.long(), 0.5,
                                   scores > 0)
+
+
+@pytest.mark.parametrize('options', [dict(ties=True), dict(
+    ties=True, degenerate=True, invalid=0.5), dict(layout='rpn')])
+def test_k10_packed_order_equals_two_sorts(options):
+    """K10's packed keys give the order of the two stable sorts: tied
+    scores, -0.0 beside 0.0, NaN and -inf scores (valid and invalid),
+    invalid entries last."""
+    n = 4390 if options.get('layout') == 'rpn' else 300
+    boxes, scores, idxs, valid = nms2d_case(2, n, 5, seed=n, **options)
+    scores[:, 0:40:4] = 0.0
+    scores[:, 1:40:4] = -0.0
+    scores[:, 2:60:5] = np.nan
+    scores[:, 3:60:6] = -np.inf
+    scores[:, 60:70] = np.inf
+    valid[:, 50:56] = True
+    t = [torch.from_numpy(a) for a in (scores, idxs, valid)]
+    want, groups = nms2d.k10_order(*t)
+    got, keys = nms2d.k10_packed_order(*t)
+    real = groups != nms2d.INVALID_GROUP
+    # the valid entries in the same places; the invalid ones after them,
+    # in an order that nothing reads
+    assert torch.equal(got[real], want[real])
+    assert torch.equal(got.sort(-1).values, want.sort(-1).values)
+    assert (keys >= 0).all() and (keys[:, 1:] > keys[:, :-1]).all()
+    code = keys >> nms2d.GROUP_SHIFT
+    assert torch.equal(code[real], groups[real])
+    assert (code[~real] == nms2d.INVALID_CODE).all()
+
+
+def test_k10_ids_sharing_their_low_bits_are_told_apart():
+    """Ids that the key cannot tell apart (equal low 16 bits: 3 and
+    3 + 2^16, negative ids) share a place in the order; K10's rule still
+    keeps what the plain version keeps, as for any int64 id."""
+    boxes, scores, idxs, valid = (torch.from_numpy(a) for a in nms2d_case(
+        2, 400, 4, seed=11, ties=True))
+    ids = torch.tensor([3, 3 + (1 << 16), -(1 << 16) + 3, -7])[idxs]
+    want = nms2d.batched_nms_2d_plain(boxes, scores, ids, 0.5, valid)
+    assert torch.equal(
+        want, nms2d.batched_nms_2d_plain(boxes, scores, idxs, 0.5, valid))
+    codes = nms2d.k10_packed_order(scores, ids, valid)[1] >> \
+        nms2d.GROUP_SHIFT
+    assert len(codes[0].unique()) == 3          # two ids share a code
+    assert torch.equal(
+        nms2d.batched_nms_2d_tiled(boxes, scores, ids, 0.5, valid), want)

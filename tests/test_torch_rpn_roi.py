@@ -131,6 +131,51 @@ def test_pyramid_roi_align_matches_jax():
     assert torch.equal(again, got)
 
 
+# the FPN's four pooled levels at the path's 608x832 image
+PATH_SIZES = ((152, 208), (76, 104), (38, 52), (19, 26))
+
+
+@pytest.mark.parametrize('samples', [2, 3])
+def test_k11_sample_table_equals_the_plain_corners(samples):
+    """K11's staged sample table (``sample_table``) equals, bit for bit,
+    the corners and weights of ``_sample_corners`` with the plain
+    version's clamps, on the path's four levels and strides, for RoIs of
+    every size and place (inside, across the borders, beyond them)."""
+    rng = np.random.RandomState(samples)
+    xy = rng.uniform(-60, 900, (2, 300, 2))
+    wh = np.exp(rng.uniform(np.log(1), np.log(2000), (2, 300, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32))
+    lvl = roi_align.roi_levels(rois, 4)
+    lvl[:, ::3] = torch.from_numpy(rng.randint(0, 4, lvl[:, ::3].shape)).int()
+    table = roi_align.sample_table(rois, lvl, STRIDES, PATH_SIZES, 7, samples)
+    boxes = rois * torch.tensor([1.0 / s for s in STRIDES])[lvl.long()][
+        ..., None]
+    x0, wx, y0, wy = roi_align._sample_corners(
+        boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3], 7,
+        samples)
+    for axis, v0, far, dim in (('y', y0, wy, 0), ('x', x0, wx, 1)):
+        top = torch.tensor([hw[dim] for hw in PATH_SIZES])[lvl.long()][
+            ..., None] - 1
+        near_i, far_i, far_w, near_w = table[axis]
+        assert torch.equal(near_i, torch.minimum(v0.long().clamp_min(0), top))
+        assert torch.equal(far_i, torch.minimum((v0 + 1).long().clamp_min(0),
+                                                top))
+        assert torch.equal(far_w, far) and torch.equal(near_w, 1 - far)
+        assert (near_i == 0).any() and (far_i == top).any()   # clamped
+    # the plain version the kernel must equal is unchanged: the JAX
+    # package's pyramid RoIAlign
+    feats = tuple(torch.randn((2, h, w, 4), generator=torch.Generator(
+        ).manual_seed(1)) for h, w in PATH_SIZES)
+    want = np.asarray(jax.vmap(lambda f, r, l: jrpn.pyramid_roi_align(
+        f, r, l, STRIDES, 7, samples))(
+            tuple(jnp.asarray(f.numpy()) for f in feats),
+            jnp.asarray(rois.numpy()), jnp.asarray(lvl.numpy())))
+    got = roi_align.pyramid_roi_align_plain(feats, rois, lvl, STRIDES, 7,
+                                            samples)
+    assert _rel(got, want) < 1e-5
+
+
 @pytest.mark.parametrize('scale,samples', [(0.25, 2), (0.125, 3)])
 def test_roi_align_matches_jax(scale, samples):
     feats, rois = pyramid_case(b=1, r=40, seed=1)

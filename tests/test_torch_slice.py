@@ -48,14 +48,21 @@ def _scaled_diff(got, want):
 
 
 @pytest.fixture(scope='module')
-def slice_pair():
-    """(JAX results by sample_mod, JAX detections (seed), port model, port
-    batch)."""
-    cfg = _tiny_cfg()
-    jmodel = build_from_cfg(cfg, JAX_DETECTORS)
+def jax_init():
+    """(JAX model, JAX batch, its variables as ``init`` makes them)."""
+    jmodel = build_from_cfg(_tiny_cfg(), JAX_DETECTORS)
     jbatch = jax_synth_batch(**BATCH)
     variables = jax.jit(lambda r, b: jmodel.init(r, b, train=False))(
         jax.random.PRNGKey(0), jbatch)
+    return jmodel, jbatch, variables
+
+
+@pytest.fixture(scope='module')
+def slice_pair(jax_init):
+    """(JAX results by sample_mod, JAX detections (seed), port model, port
+    batch)."""
+    cfg = _tiny_cfg()
+    jmodel, jbatch, variables = jax_init
     rng = np.random.RandomState(0)
     params = {k: np.asarray(v) + rng.randn(*v.shape).astype(np.float32) *
               0.02 for k, v in flatten_params(variables['params']).items()}
@@ -82,6 +89,28 @@ def slice_pair():
     port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     batch = zoo.synth_demf_batch(**BATCH)
     return jres, jdet, port, batch
+
+
+def test_fresh_demf_head_has_no_size_prior(jax_init):
+    """A freshly built DeMF head starts its box regression as the JAX
+    package's ``init`` does: every ``conv_reg`` bias zero, also where the
+    coder has the full config's ``mean_sizes`` (the port once started the
+    sizes at their mean)."""
+    cfg = _tiny_cfg()
+    cfg['pts_bbox_head']['bbox_coder']['mean_sizes'] = load_model_cfg(
+        'demf/demf_votenet.py').model['pts_bbox_head']['bbox_coder'][
+        'mean_sizes']
+    head = zoo.build_detector(cfg, 'cpu').pts_bbox_head
+    assert head.coder.mean_sizes is not None
+    want = flatten_params(jax_init[2]['params'])
+    stages = len(head.decoder) + 1
+    for i in range(stages):
+        key = f'pts_bbox_head/conv_pred{i}/conv_reg/bias'
+        jax_bias = np.asarray(want[key])
+        assert not jax_bias.any()
+        bias = getattr(head, f'conv_pred{i}').conv_reg.bias.detach().numpy()
+        np.testing.assert_array_equal(bias, jax_bias)
+    assert f'pts_bbox_head/conv_pred{stages}/conv_reg/bias' not in want
 
 
 def test_synth_batch_matches_jax_zoo():
