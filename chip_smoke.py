@@ -27,12 +27,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    plain version's at a request's shape (2 scenes of 20,000 points and 512
    boxes) and an eval batch's (16), on points spread over the room and
    clustered around the boxes, beside the test it replaced (a Python loop
-   of ``points_in_boxes`` over the scenes); K3 and K4 on a bf16 value
-   (their bf16 entries) at the encoder's shape at batch 2 and 4, the
-   stage-2 decoder's and the pretrain decoder's, against the plain version
-   in bf16 (one bf16 step of the largest output) and against the float32
-   kernel on the same inputs rounded to bf16, beside their bound with the
-   value's bytes at 2 a number;
+   of ``points_in_boxes`` over the scenes), with its launches a call (at
+   most 4) and two bounds: all pairs tested, and the pairs these inputs
+   need (a point in the box's bounding circle and z-range); K3 and K4 on a
+   bf16 value (their bf16 entries) at the encoder's shape at batch 2 and
+   4, the stage-2 decoder's and the pretrain decoder's, against the plain
+   version in bf16 (one bf16 step of the largest output) and against the
+   float32 kernel on the same inputs rounded to bf16, beside their bound
+   with the value's bytes at 2 a number; at the decoders' shapes K4's
+   row-owner route also gives the same d_value bits twice, equal to
+   ``msda_backward_rows_plain``, runs no rounding pass and takes no
+   memory beyond its outputs and entry lists;
 4. probes: with the launch counts at 0, the port's three probes at their
    full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
    plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
@@ -503,17 +508,28 @@ def device_ms(fn, marker, runs=5):
             sum(e.count for e in events) // runs)
 
 
+# K9's launches in one call: the yaw's cosine and sine, its bin kernel and
+# its count kernel
+BOX_COUNT_LAUNCHES = 4
+
+
 def check_box_count(dev):
     """K9 against the plain count at a request's shape and an eval batch's
     (20,000 points of (B, P, 4), read through their strides, and 512
     boxes), points spread over the room and clustered around the boxes:
-    counts equal.  Beside it, the non-empty-box test as ``multiclass_nms_3d``
-    ran it before K9: ``points_in_boxes`` in a Python loop over the scenes.
-    Its bound: 12 float32 operations a (point, box) test (3 subtracts, 4
-    multiplies, 2 adds, 3 comparisons of absolute values)."""
+    counts equal, and at most ``BOX_COUNT_LAUNCHES`` launches a call.
+    Beside it, the non-empty-box test as ``multiclass_nms_3d`` ran it before
+    K9: ``points_in_boxes`` in a Python loop over the scenes.  Two bounds,
+    each with the kernel's share of it: all pairs tested (12 float32
+    operations a (point, box) test: 3 subtracts, 4 multiplies, 2 adds, 3
+    comparisons of absolute values), and the pairs these inputs need, a
+    point within the box's bounding circle and its z-range
+    (``tools.box_pairs_in_reach``), which the culled kernel can beat only
+    by cutting work the bound counts; the row takes the second."""
     from demf_tpu_torch.core import boxes as box_ops
     from demf_tpu_torch.ops import box_count
-    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools import (bound_ms, box_pairs_in_reach,
+                                      device_kernels, time_ms)
     from demf_tpu_torch.tools.nms_cases import box_count_case
     rows = []
     for b, kind in ((16, 'clustered'), (16, 'spread'), (2, 'clustered'),
@@ -535,20 +551,34 @@ def check_box_count(dev):
         loop_ms = time_ms(loop, 3)
         alone, wrapper, kinds = device_ms(
             lambda: box_count.box_point_count_cuda(points, boxes),
-            'box_count_kernel')
+            'box_count')
+        found = device_kernels(
+            lambda: box_count.box_point_count_cuda(points, boxes))
+        launches = round(sum(n for n, _ in found.values()))
         same_mask = torch.equal(loop(), got > 5)
         p, n = points.shape[1], boxes.shape[1]
-        least, by = bound_ms(12 * b * p * n, points.numel() * 4 +
-                             boxes.numel() * 4 + got.numel() * 4)
+        nbytes = points.numel() * 4 + boxes.numel() * 4 + got.numel() * 4
+        all_pairs, all_by = bound_ms(12 * b * p * n, nbytes)
+        needed = box_pairs_in_reach(points, boxes)
+        least, by = bound_ms(12 * needed, nbytes)
         print(f'K9 box_count ({b}, {p} points, {n} boxes, {kind}): '
               f'{(got > 5).float().mean().item():.1%} of the boxes non-empty, '
               f'{differ} counts differ from plain, mask equal to the loop\'s: '
               f'{same_mask}; kernel {ms:.4f} ms through the wrapper (on the '
-              f'device: K9 {alone:.4f} ms, the wrapper\'s {kinds} launches '
-              f'{wrapper:.4f} ms), plain {plain_ms:.4f} ms, the loop it '
-              f'replaced {loop_ms:.4f} ms, bound {least:.6f} ms ({by})')
+              f'device: K9\'s kernels {alone:.4f} ms, the wrapper\'s '
+              f'{kinds} launches {wrapper:.4f} ms; launches a call '
+              f'{launches}: {", ".join(found)}), plain {plain_ms:.4f} ms, '
+              f'the loop it '
+              f'replaced {loop_ms:.4f} ms; bound of all pairs {all_pairs:.6f}'
+              f' ms ({all_by}), K9 on the device at {all_pairs / alone:.1%} '
+              f'of it; bound of the {needed} pairs in reach '
+              f'({needed / (b * p * n):.2%} of all) {least:.6f} ms ({by}), at '
+              f'{least / alone:.1%} of it', flush=True)
         if differ or not same_mask:
             raise AssertionError('box count kernel disagrees with plain')
+        if launches > BOX_COUNT_LAUNCHES:
+            raise AssertionError(f'K9 launched {launches} kernels in a call, '
+                                 f'expected at most {BOX_COUNT_LAUNCHES}')
         rows.append(kernel_row(differ, ms, plain_ms, least, by))
     return rows[0]
 
@@ -691,14 +721,6 @@ BF16_STEP = 2.0 ** -7
 BF16_HALF_STEP = 2.0 ** -8
 
 
-def _bf16_err(got, want, rel_each, rel_max):
-    """(max |got - want| - rel_each |want|, rel_max max |want|): within
-    the bound when the first is at most the second."""
-    got, want = got.float(), want.float()
-    return (((got - want).abs() - rel_each * want.abs()).max().item(),
-            rel_max * want.abs().max().item())
-
-
 def check_msda_bf16(dev, rng):
     """K3 and K4 on a bf16 value at the shapes of this slice's paths: the
     encoder at batch 2 (a request) and 4 (the pretrain step) on its own
@@ -706,11 +728,16 @@ def check_msda_bf16(dev, rng):
     decoder (batch 4, Q 300, P 4); each against the plain version in bf16
     and against the float32 kernel on the same inputs rounded to bf16,
     timed beside the plain version and the bound with the value's bytes at
-    2 a number.  Returns the rows of K3 at the request's encoder shape and
-    of K4 at the pretrain step's."""
+    2 a number.  At the decoders' shapes K4 takes its row-owner route: its
+    d_value must be the same bits from call to call and equal to
+    ``msda_backward_rows_plain``, and the call may run no rounding pass
+    and take no more memory than its outputs and entry lists.  Each
+    prints its launches a call.  Returns the rows of K3 at the request's
+    encoder shape and of K4 at the pretrain step's."""
     from demf_tpu_torch.ops import msda
-    from demf_tpu_torch.tools import (bound_ms, encoder_sampling_locations,
-                                      time_ms)
+    from demf_tpu_torch.tools import (bf16_err, bound_ms, call_bytes,
+                                      device_kernels,
+                                      encoder_sampling_locations, time_ms)
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = {}
@@ -731,9 +758,9 @@ def check_msda_bf16(dev, rng):
         shape = f'({b}, Q {q}, heads 8, hd 32, L 4, P {p}, {where})'
 
         got = msda.msda_cuda(value, shapes, locs, aw)
-        errs = [_bf16_err(got, msda.msda_plain(value, shapes, locs, aw),
+        errs = [bf16_err(got, msda.msda_plain(value, shapes, locs, aw),
                           0.0, BF16_STEP),
-                _bf16_err(got, msda.msda_cuda(value.float(), shapes, locs,
+                bf16_err(got, msda.msda_cuda(value.float(), shapes, locs,
                                               aw), BF16_HALF_STEP, 1e-5)]
         ms = time_ms(lambda: msda.msda_cuda(value, shapes, locs, aw), 10)
         plain_ms = time_ms(lambda: msda.msda_plain(value, shapes, locs, aw),
@@ -764,26 +791,60 @@ def check_msda_bf16(dev, rng):
         if [t.dtype for t in got] != [torch.bfloat16, torch.float32,
                                       torch.float32]:
             raise AssertionError('K4 bf16 returned other dtypes')
-        errs = [_bf16_err(got[0], want[0], 0.0, BF16_STEP),
-                _bf16_err(got[0], ref[0], BF16_HALF_STEP, 1e-5)]
-        errs += [_bf16_err(g, w, 0.0, 1e-5)
+        errs = [bf16_err(got[0], want[0], 0.0, BF16_STEP),
+                bf16_err(got[0], ref[0], BF16_HALF_STEP, 1e-5)]
+        errs += [bf16_err(g, w, 0.0, 1e-5)
                  for g, w in zip(got[1:] + got[1:], want[1:] + ref[1:])]
+        del ref, want
         ms = time_ms(kernel, 10)
         plain_ms = time_ms(plain, 2)
         least, by = bound_ms(30 * aw.numel() * 32, msda_bytes(
             shapes, value, locs, aw, backward=True))
+        found = device_kernels(kernel)
+        launches = round(sum(n for n, _ in found.values()))
+        route = ''
+        if q != s:
+            # the row-owner route: d_value the same bits call after call and
+            # equal to the plain row order's, no rounding pass, and no
+            # float32 buffer of the value's size: the call takes its
+            # outputs and the entry lists
+            again = kernel()[0]
+            rows_plain = msda.msda_backward_rows_plain(value, shapes, locs,
+                                                       aw, grad)
+            same, plain_order = (torch.equal(got[0], again),
+                                 torch.equal(got[0], rows_plain))
+            del again, rows_plain
+            lists = msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p)
+            # (1 MiB for the allocator's rounding of the four blocks)
+            allowed = (value.numel() * 2 + (locs.numel() + aw.numel()) * 4 +
+                       lists + 2 ** 20)
+            taken = call_bytes(kernel)
+            route = (f'; row-owner route: d_value the same bits twice: '
+                     f'{same}, equal to msda_backward_rows_plain: '
+                     f'{plain_order}, memory a call {taken / 2 ** 20:.1f} MiB'
+                     f' (outputs and entry lists {allowed / 2 ** 20:.1f} MiB;'
+                     f' a float32 plane {value.numel() * 4 / 2 ** 20:.1f} '
+                     f'MiB)')
+            if not (same and plain_order) or taken > allowed or any(
+                    'round_to_bf16' in n for n in found):
+                raise AssertionError(
+                    'K4 bf16\'s row-owner route: d_value differs between '
+                    'calls or from the plain row order, or the call rounds '
+                    'a float32 plane or takes more memory than its outputs '
+                    'and lists')
         print(f'K4 msda_backward bf16 {shape}: d_value vs plain bf16 '
               f'{errs[0][0]:.3e} (bound {errs[0][1]:.3e}), vs the f32 kernel '
               f'{errs[1][0]:.3e} (bound {errs[1][1]:.3e}); d_loc / d_aw vs '
               f'plain {errs[2][0]:.3e} / {errs[3][0]:.3e}, vs f32 '
               f'{errs[4][0]:.3e} / {errs[5][0]:.3e}; kernel {ms:.4f} ms, '
               f'plain {plain_ms:.4f} ms, least {least:.4f} ms ({by}, value '
-              f'at 2 bytes)', flush=True)
+              f'at 2 bytes), the kernel at {least / ms:.1%} of it; launches a '
+              f'call {launches}: {", ".join(found)}{route}', flush=True)
         if not all(e <= bd for e, bd in errs):
             raise AssertionError('MSDA backward bf16 kernel disagrees')
         rows['msda_backward', b, q] = kernel_row(
             max(errs[0][0], errs[2][0], errs[3][0]), ms, plain_ms, least, by)
-        del value, locs, aw, grad, got, ref, want
+        del value, locs, aw, grad, got
         torch.cuda.empty_cache()
     return rows['msda', 2, s], rows['msda_backward', 4, s]
 

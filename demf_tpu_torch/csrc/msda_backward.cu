@@ -59,9 +59,33 @@
 //   and widened in registers, windows and the tile's grad_out rows in
 //   shared memory in that type (a bfloat16 window has twice the rows).
 //   Locations, weights and their gradients are float32.  Every sum is
-//   float32: a bfloat16 d_value is summed into a float32 buffer, its
-//   16-byte global reductions as above, and rounded to bfloat16 once, by a
-//   last pass over it.
+//   float32: with tiles, a bfloat16 d_value is summed into a float32
+//   buffer, its 16-byte global reductions as above, and rounded to
+//   bfloat16 once, by a last pass over it.
+//
+// The row-owner route (a bfloat16 value without tiles: the decoders, whose
+// queries are proposals).  There the float32 buffer cost more than all the
+// rest: zeroed, summed into and read again in full (730 MB at the stage-2
+// decoder's batch of 16), while a (scene, head) touches fewer than 20,000
+// of its 22,323 rows.  So d_value is built from its rows, each written once
+// in bfloat16, and no buffer of the value's size exists:
+// - the entries kernel computes d_attn and d_loc with hd / 8 lanes a
+//   (query, head), 16 bytes of channels each (as the tile kernel), and
+//   writes each corner's entry in place of its atomics: a key (the
+//   corner's row in its level over the entry's index in the level's run,
+//   15 bits; the level's row count where the corner adds nothing) and its
+//   weight a * w_k;
+// - one block a (scene, head, level) sorts that level's entries by row in
+//   shared memory (least significant digit first, 4 bits a pass, stable,
+//   so a row's entries stay in the order of their index), writes them as
+//   (weight, query) pairs, and the first entry of every row: a row's list
+//   is [first[r], first[r + 1]);
+// - a grid over (token rows, scene) writes each row, all heads, once: a
+//   thread takes 4 rows and 8 channels of a head, reads its rows' list
+//   bounds at once and a list's entries 4 at a time, sums weight *
+//   grad_out of each list in float32 in that order (no FMA) and rounds
+//   once.  d_value is the same bit for bit
+//   from call to call, and equal to ops/msda.py::msda_backward_rows_plain.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -96,6 +120,21 @@ constexpr int kHeads = 1536;         // lists of entries, some a window row
 // a row and 16 x 16 pixels a tile)
 constexpr int kTileBytes = 227584;
 constexpr int kShareA = 729, kShareB = 361;
+// the row-owner route: bits of an entry's index in its key, the sort's
+// threads and digits, the most entries of a (scene, head, level), the
+// shared memory a sort block may take (ops/msda.py mirrors these), the
+// rows of a row block and its threads
+constexpr int kIdBits = 15;
+constexpr int kSortThreads = 512;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kDigitBits = 8;
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kMaxEntries = 22528;
+constexpr int kSortSmemLimit = 232448 - 1024;
+constexpr int kRowsPerGroup = 4;
+constexpr int kRowThreads = 256;
+constexpr int kBatch = 4;   // entries a rows thread loads at once
+constexpr unsigned kFullMask = 0xffffffffu;
 
 template <typename T>
 struct Args {
@@ -522,6 +561,395 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The row-owner route's first kernel: d_attn and d_loc of every sample, as
+// the query-major kernel computes them but with a (query, head, level)'s
+// hd / kN lanes each holding 16 bytes of its channels (the tile kernel's
+// layout), and corner k's entry in place of its atomics, written by lane k
+// % lanes:
+// at index ((level * q + query) * points + point) * 4 + k of its (scene,
+// head), the key (the corner's row in its level << kIdBits | the index in
+// the level's run of q * points * 4; the level's row count where the
+// corner is off the map) and the weight a * (w_x * w_y).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    msda_backward_entries_kernel(const T* __restrict__ value,
+                                 const int* __restrict__ level_info,
+                                 const float* __restrict__ locs,
+                                 const float* __restrict__ attn,
+                                 const T* __restrict__ grad_out,
+                                 float* __restrict__ d_locs,
+                                 float* __restrict__ d_attn,
+                                 unsigned* __restrict__ keys,
+                                 float* __restrict__ weights, int b, int s,
+                                 int q, int heads, int hd, int levels,
+                                 int points) {
+  constexpr int kN = Row<T>::kN;
+  const int lpq = hd / kN;   // lanes of a (query, head): 1, 2 or 4
+  const long long total =
+      static_cast<long long>(b) * q * heads * levels * lpq;
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // total is a multiple of lpq, so a group is wholly in or wholly out
+  const unsigned mask = __ballot_sync(0xffffffffu, tid < total);
+  if (tid >= total) return;
+  const int lane_q = static_cast<int>(tid % lpq);
+  long long r = tid / lpq;
+  const int l = static_cast<int>(r % levels);
+  r /= levels;
+  const int h = static_cast<int>(r % heads);
+  r /= heads;
+  const int qi = static_cast<int>(r % q);
+  const int bi = static_cast<int>(r / q);
+  const int c = lane_q * kN;
+  const long long row_stride = static_cast<long long>(heads) * hd;
+  const Row<T> g = ldg_row16(
+      grad_out + (static_cast<long long>(bi) * q + qi) * row_stride +
+      h * hd + c);
+  const T* vscene =
+      value + static_cast<long long>(bi) * s * row_stride + h * hd + c;
+  const long long sample0 =
+      ((static_cast<long long>(bi) * q + qi) * heads + h) * levels * points;
+  const int run = q * points * 4;   // entries of one level
+  const long long list = (static_cast<long long>(bi) * heads + h) *
+                         levels * run;
+
+  {
+    const int hl = __ldg(level_info + 3 * l);
+    const int wl = __ldg(level_info + 3 * l + 1);
+    const T* vl = vscene +
+                  static_cast<long long>(__ldg(level_info + 3 * l + 2)) *
+                      row_stride;
+    for (int p = 0; p < points; ++p) {
+      const int sp = l * points + p;
+      const float x = __fsub_rn(__fmul_rn(__ldg(locs + 2 * (sample0 + sp)),
+                                          wl), 0.5f);
+      const float y = __fsub_rn(
+          __fmul_rn(__ldg(locs + 2 * (sample0 + sp) + 1), hl), 0.5f);
+      const float at = __ldg(attn + sample0 + sp);
+      const int id = (qi * points + p) * 4;   // in the level's run
+      unsigned* key = keys + list + static_cast<long long>(l) * run + id;
+      float* weight = weights + list + static_cast<long long>(l) * run + id;
+      float part_a = 0.0f, part_x = 0.0f, part_y = 0.0f;
+      if (x >= -1.0f && y >= -1.0f && x < wl && y < hl) {
+        // some corner is inside (or on the edge, where its weight is 0
+        // but its location gradient is not, as in the plain version)
+        const float xf = floorf(x);
+        const float yf = floorf(y);
+        const int x0 = static_cast<int>(xf);
+        const int y0 = static_cast<int>(yf);
+        const float lx = x - xf;
+        const float ly = y - yf;
+        const float hx = 1.0f - lx;
+        const float hy = 1.0f - ly;
+        float gv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int yi = y0 + (k >> 1);
+          const int xi = x0 + (k & 1);
+          const bool on = yi >= 0 && yi < hl && xi >= 0 && xi < wl;
+          gv[k] = on ? dot(g.v, ldg_row16(vl + static_cast<long long>(
+                                                   yi * wl + xi) *
+                                                   row_stride).v)
+                     : 0.0f;
+          if (k % lpq == lane_q) {
+            const float wy = (k >> 1) ? ly : hy;
+            const float wx = (k & 1) ? lx : hx;
+            key[k] = (static_cast<unsigned>(on ? yi * wl + xi : hl * wl)
+                      << kIdBits) | (id + k);
+            weight[k] = on ? __fmul_rn(at, __fmul_rn(wx, wy)) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float wy = (k >> 1) ? ly : hy;
+          const float wx = (k & 1) ? lx : hx;
+          part_a += wx * wy * gv[k];
+          part_x += (k & 1) ? wy * gv[k] : -wy * gv[k];
+          part_y += (k >> 1) ? wx * gv[k] : -wx * gv[k];
+        }
+      } else {
+        for (int k = lane_q; k < 4; k += lpq) {
+          key[k] = (static_cast<unsigned>(hl * wl) << kIdBits) | (id + k);
+          weight[k] = 0.0f;
+        }
+      }
+      part_a = group_sum(part_a, lpq, mask);
+      part_x = group_sum(part_x, lpq, mask);
+      part_y = group_sum(part_y, lpq, mask);
+      if (lane_q == 0) {
+        d_attn[sample0 + sp] = part_a;
+        reinterpret_cast<float2*>(d_locs)[sample0 + sp] =
+            make_float2(at * part_x * wl, at * part_y * hl);
+      }
+    }
+  }
+}
+
+// the shared memory of a sort block of e entries over n rows: two buffers
+// of keys, then each warp's digit counts during the sort and the rows'
+// first entries after it
+int sort_smem_bytes(int e, int n) {
+  const int counts = 4 * kDigits * kSortWarps;
+  return 8 * e + (counts > 2 * (n + 1) ? counts : 2 * (n + 1));
+}
+
+// the sum of v over the sort block's threads before this one
+__device__ __forceinline__ int block_sum_before(int v, int* warp_totals) {
+  constexpr int kWarps = kSortThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_totals[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < kWarps ? warp_totals[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, t, o);
+      if (lane >= o) t += y;
+    }
+    if (lane < kWarps) warp_totals[lane] = t;
+  }
+  __syncthreads();
+  const int before = (warp ? warp_totals[warp - 1] : 0) + x - v;
+  __syncthreads();   // warp_totals is free again
+  return before;
+}
+
+// the least v of the sort block's threads after this one, 0xffff for the
+// last
+__device__ __forceinline__ int block_min_after(int v, int* warp_mins) {
+  constexpr int kWarps = kSortThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;   // the least of lanes lane..31
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_down_sync(kFullMask, x, o);
+    if (lane + o < 32) x = min(x, y);
+  }
+  if (lane == 0) warp_mins[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < kWarps ? warp_mins[lane] : 0xffff;   // warps lane..
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_down_sync(kFullMask, t, o);
+      if (lane + o < 32) t = min(t, y);
+    }
+    if (lane < kWarps) warp_mins[lane] = t;
+  }
+  __syncthreads();
+  int after = __shfl_down_sync(kFullMask, x, 1);
+  if (lane == 31) after = 0xffff;
+  if (warp + 1 < kWarps) after = min(after, warp_mins[warp + 1]);
+  __syncthreads();   // warp_mins is free again
+  return after;
+}
+
+// One level of one (scene, head) of the row-owner route: its e entries
+// sorted by their row in the level, stably, 8 bits of the row a pass
+// (row_bits bits hold n, the level's row count, which the corners off the
+// map carry); then written as (weight, query) pairs in that order, and
+// the first entry of each row 0..n, at first[0..n] (a row without entries
+// takes the next row's first; first[n] is where the corners off the map
+// begin).  Warp w owns the run of entries [w * run, (w + 1) * run) and
+// walks it 32 at a time in order: lanes of equal digit find each other
+// with __match_any_sync, and each takes its place among them by lane; the
+// warps' counts are summed digit-major, warp-minor, so that equal digits
+// keep their order.  The walk runs twice a pass, counting, then placing.
+__global__ void __launch_bounds__(kSortThreads)
+    msda_backward_sort_kernel(const unsigned* __restrict__ keys,
+                              const float* __restrict__ weights,
+                              int2* __restrict__ entries,
+                              unsigned short* __restrict__ first_out,
+                              const int* __restrict__ level_info, int e,
+                              int s, int levels, int per_query, int most) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_scan[32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int l = blockIdx.x % levels;
+  const long long list = blockIdx.x / levels;   // (scene, head)
+  const int n = __ldg(level_info + 3 * l) * __ldg(level_info + 3 * l + 1);
+  if (n > most) __trap();   // shared memory was sized for `most` rows
+  int row_bits = 0;
+  while ((n >> row_bits) != 0) ++row_bits;
+  const long long run0 = (list * levels + l) * e;   // this level's entries
+  unsigned* buf[2] = {reinterpret_cast<unsigned*>(smem),
+                      reinterpret_cast<unsigned*>(smem) + e};
+  int* counts = reinterpret_cast<int*>(buf[1] + e);   // [warp][digit]
+  for (int i = tid; i < e; i += kSortThreads) buf[0][i] = keys[run0 + i];
+  const int run = (e + kSortWarps - 1) / kSortWarps;
+  const int w0 = min(e, warp * run), w1 = min(e, w0 + run);
+  const unsigned below = (1u << lane) - 1u;
+  int src = 0;
+  for (int shift = kIdBits; shift < kIdBits + row_bits; shift += kDigitBits) {
+    for (int i = tid; i < kDigits * kSortWarps; i += kSortThreads)
+      counts[i] = 0;
+    __syncthreads();   // the keys are in; the counts are zero
+    const unsigned* from = buf[src];
+    unsigned* to = buf[src ^ 1];
+    for (int placing = 0; placing < 2; ++placing) {
+      for (int i = w0 + lane; i - lane < w1; i += 32) {
+        const bool valid = i < w1;
+        const unsigned k = valid ? from[i] : 0u;
+        const int d = valid ? static_cast<int>((k >> shift) &
+                                               (kDigits - 1))
+                            : kDigits;
+        const unsigned peers = __match_any_sync(kFullMask, d);
+        int* count = counts + warp * kDigits + d;
+        const int before = valid ? *count : 0;
+        __syncwarp();
+        if (valid) {
+          if (placing) to[before + __popc(peers & below)] = k;
+          if (lane == __ffs(peers) - 1) *count = before + __popc(peers);
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+      if (!placing) {
+        // counts -> places: in order (digit, warp), summed; thread t
+        // takes places t * kPer .. of that order (a warp's counts lie a
+        // row of kDigits apart, so that a warp's lanes of other digits
+        // fall in other banks)
+        constexpr int kPer = kDigits * kSortWarps / kSortThreads;
+        int sum = 0;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int f = tid * kPer + j;
+          sum += counts[(f % kSortWarps) * kDigits + f / kSortWarps];
+        }
+        int place = block_sum_before(sum, warp_scan);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int f = tid * kPer + j;
+          int* mine = counts + (f % kSortWarps) * kDigits + f / kSortWarps;
+          const int c = *mine;
+          *mine = place;
+          place += c;
+        }
+        __syncthreads();
+      }
+    }
+    src ^= 1;
+  }
+  const unsigned* sorted = buf[src];
+  for (int i = tid; i < e; i += kSortThreads) {
+    const unsigned k = sorted[i];
+    const int id = static_cast<int>(k & ((1u << kIdBits) - 1));
+    entries[run0 + i] =
+        make_int2(__float_as_int(__ldg(weights + run0 + id)), id / per_query);
+  }
+  // each row's first entry: where it starts in the sorted keys, then the
+  // least start at or after it (rows without entries)
+  unsigned short* first = reinterpret_cast<unsigned short*>(counts);
+  for (int r = tid; r <= n; r += kSortThreads) first[r] = 0xffff;
+  __syncthreads();
+  for (int i = tid; i < e; i += kSortThreads) {
+    const unsigned r = sorted[i] >> kIdBits;
+    if (i == 0 || (sorted[i - 1] >> kIdBits) != r)
+      first[r] = static_cast<unsigned short>(i);
+  }
+  __syncthreads();
+  if (tid == 0 && first[n] > e) first[n] = static_cast<unsigned short>(e);
+  __syncthreads();
+  const int per = (n + 1 + kSortThreads - 1) / kSortThreads;
+  const int r0 = min(n + 1, tid * per), r1 = min(n + 1, r0 + per);
+  int least = 0xffff;
+  for (int r = r1 - 1; r >= r0; --r) {
+    least = min(least, static_cast<int>(first[r]));
+    first[r] = static_cast<unsigned short>(least);
+  }
+  const int after = block_min_after(least, warp_scan);
+  for (int r = r0; r < r1; ++r)
+    first[r] = static_cast<unsigned short>(
+        min(static_cast<int>(first[r]), after));
+  __syncthreads();
+  // this level's rows of the (scene, head)'s table of s + levels: its
+  // first row at its first token, one more a level before it
+  unsigned short* out = first_out + list * (s + levels) +
+                        __ldg(level_info + 3 * l + 2) + l;
+  for (int r = tid; r <= n; r += kSortThreads) out[r] = first[r];
+}
+
+// d_value of the row-owner route: a group of heads * hd / kN threads (16
+// bytes of channels each) writes kRowsPerGroup token rows of one scene,
+// every head; a thread first reads the list bounds of all its rows, then
+// sums each (row, head)'s list in the list's order in float32 without an
+// FMA (as ops/msda.py::msda_backward_rows_plain), its entries kBatch at a
+// time, and stores the 16 bytes once in T.  A row without entries is
+// written as zero.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    msda_backward_rows_kernel(const int2* __restrict__ entries,
+                              const unsigned short* __restrict__ first,
+                              const int* __restrict__ level_info,
+                              const T* __restrict__ grad_out,
+                              T* __restrict__ d_value, int s, int q,
+                              int heads, int hd, int levels, int e) {
+  constexpr int kN = Row<T>::kN;
+  const int per_row = heads * hd / kN;   // threads of one token row
+  const int group = threadIdx.x / per_row;
+  if (group >= kRowThreads / per_row) return;
+  const int bi = blockIdx.y;
+  const int r0 = (blockIdx.x * (kRowThreads / per_row) + group) *
+                 kRowsPerGroup;
+  const int c = (threadIdx.x % per_row) * kN;
+  const long long row_stride = static_cast<long long>(heads) * hd;
+  const long long list = static_cast<long long>(bi) * heads + c / hd;
+  const unsigned short* f = first + list * (s + levels);
+  const T* grad = grad_out + static_cast<long long>(bi) * q * row_stride + c;
+  int l = 0;   // the first row's level; a level's table has one more slot
+  while (l + 1 < levels && r0 >= __ldg(level_info + 3 * (l + 1) + 2)) ++l;
+  int from[kRowsPerGroup], to[kRowsPerGroup], at[kRowsPerGroup];
+#pragma unroll
+  for (int j = 0; j < kRowsPerGroup; ++j) {
+    const int r = r0 + j;
+    while (l + 1 < levels && r >= __ldg(level_info + 3 * (l + 1) + 2)) ++l;
+    at[j] = l;
+    from[j] = r < s ? __ldg(f + r + l) : 0;
+    to[j] = r < s ? __ldg(f + r + l + 1) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsPerGroup; ++j) {
+    const int r = r0 + j;
+    if (r >= s) break;
+    const int2* ent = entries + (list * levels + at[j]) * e;
+    float acc[kN] = {};
+    // kBatch entries, then their grad_out rows, in flight at once; summed
+    // in the list's order
+    for (int i = from[j]; i < to[j]; i += kBatch) {
+      int2 en[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        en[k] = i + k < to[j] ? __ldg(ent + i + k) : make_int2(0, 0);
+      uint4 raw[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        raw[k] = __ldg(reinterpret_cast<const uint4*>(
+            grad + static_cast<long long>(en[k].y) * row_stride));
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (i + k >= to[j]) break;
+        const float w = __int_as_float(en[k].x);
+        const Row<T> g = widen<T>(raw[k]);
+#pragma unroll
+        for (int m = 0; m < kN; ++m)
+          acc[m] = __fadd_rn(acc[m], __fmul_rn(w, g.v[m]));
+      }
+    }
+    Row<T> out;
+#pragma unroll
+    for (int m = 0; m < kN; ++m) out.v[m] = acc[m];
+    store_row16(d_value + (static_cast<long long>(bi) * s + r) * row_stride +
+                    c, out);
+  }
+}
+
 // d_value's float32 sums rounded to bfloat16, once
 __global__ void __launch_bounds__(kThreads)
     round_to_bf16_kernel(const float* __restrict__ from,
@@ -608,6 +1036,73 @@ int launch(const void* value, const void* level_info, const void* tile_info,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row-owner route (no tiles): entries, their sort, the rows.  For n =
+// b * heads * levels * e entries of e = q * points * 4 a (scene, head,
+// level), scratch (16-byte aligned) holds the keys (n x 4 bytes), their
+// weights (n x 4), the sorted (weight, query) pairs (n x 8) and each
+// (scene, head)'s first entries of the rows, a level's rows and one more
+// (b * heads * (s + levels) x 2 bytes).
+template <typename T>
+int launch_rows(const void* value, const void* level_info_v,
+                const void* locs, const void* attn, const void* grad_out,
+                void* scratch, void* d_value, void* d_locs, void* d_attn,
+                int b, int s, int q, int heads, int hd, int levels,
+                int points, int most, cudaStream_t st) {
+  constexpr int kN = Row<T>::kN;
+  const long long per_level = static_cast<long long>(q) * points * 4;
+  if (b <= 0 || q <= 0 || s <= 0 || hd <= 0 || hd > 32 || 32 % hd ||
+      hd % kN || heads <= 0 || heads * hd > kRowThreads * kN ||
+      levels <= 0 || points <= 0 || b > 65535 ||
+      per_level > kMaxEntries || most <= 0 || most > s ||
+      most >= (1 << (32 - kIdBits)) - 1 ||
+      sort_smem_bytes(static_cast<int>(per_level), most) > kSortSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = static_cast<int>(per_level);
+  if ((reinterpret_cast<uintptr_t>(grad_out) |
+       reinterpret_cast<uintptr_t>(d_value) |
+       reinterpret_cast<uintptr_t>(scratch)) % 16 ||
+      reinterpret_cast<uintptr_t>(d_locs) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* level_info = static_cast<const int*>(level_info_v);
+  const long long n = static_cast<long long>(b) * heads * levels * e;
+  unsigned* keys = static_cast<unsigned*>(scratch);
+  float* weights = reinterpret_cast<float*>(keys + n);
+  int2* entries = reinterpret_cast<int2*>(weights + n);
+  unsigned short* first = reinterpret_cast<unsigned short*>(entries + n);
+  const long long threads =
+      static_cast<long long>(b) * q * heads * levels * (hd / kN);
+  msda_backward_entries_kernel<T>
+      <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads,
+         0, st>>>(static_cast<const T*>(value), level_info,
+                  static_cast<const float*>(locs),
+                  static_cast<const float*>(attn),
+                  static_cast<const T*>(grad_out),
+                  static_cast<float*>(d_locs), static_cast<float*>(d_attn),
+                  keys, weights, b, s, q, heads, hd, levels, points);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool configured = false;
+  if (!configured) {
+    err = cudaFuncSetAttribute(msda_backward_sort_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSortSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  msda_backward_sort_kernel<<<static_cast<unsigned>(b * heads * levels),
+                              kSortThreads, sort_smem_bytes(e, most), st>>>(
+      keys, weights, entries, first, level_info, e, s, levels, points * 4,
+      most);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = kRowThreads / (heads * hd / kN) * kRowsPerGroup;
+  const dim3 grid((s + rows_per_block - 1) / rows_per_block, b);
+  msda_backward_rows_kernel<T><<<grid, kRowThreads, 0, st>>>(
+      entries, first, level_info, static_cast<const T*>(grad_out),
+      static_cast<T*>(d_value), s, q, heads, hd, levels, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -636,20 +1131,34 @@ int demf_msda_backward(const void* value, const void* level_info,
 }
 
 // The same with value and grad_out in bfloat16 (with tiles, hd a multiple
-// of 8): the float32 sums go to d_value_sums (f32, like value, zeroed by
-// the caller, 16-byte aligned), and a last pass rounds them once into
-// d_value (bf16, like value).
+// of 8).  rows == 0: the float32 sums go to scratch (f32, like value,
+// zeroed by the caller, 16-byte aligned), and a last pass rounds them once
+// into d_value (bf16, like value).  rows > 0 (tiles 0, direct_from 0): the
+// row-owner route, rows being the most tokens of any level; hd a multiple
+// of 8, heads * hd at most 2,048, q * points * 4 at most 22,528, rows
+// below 131,071, the sort's
+// shared memory (ops/msda.py::msda_rows_route) within a block's, grad_out,
+// d_value and scratch 16-byte aligned and d_locs 8-byte aligned; scratch
+// holds msda_rows_scratch_bytes, not zeroed; d_value is written in full.
 int demf_msda_backward_bf16(const void* value, const void* level_info,
                             const void* tile_info, const void* locs,
                             const void* attn, const void* grad_out,
-                            void* d_value_sums, void* d_value, void* d_locs,
+                            void* scratch, void* d_value, void* d_locs,
                             void* d_attn, int b, int s, int q, int heads,
                             int hd, int levels, int points, int tiles,
-                            int direct_from, int max_tile, void* stream) {
+                            int direct_from, int max_tile, int rows,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows) {
+    if (tiles || direct_from) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_rows<__nv_bfloat16>(value, level_info, locs, attn,
+                                      grad_out, scratch, d_value, d_locs,
+                                      d_attn, b, s, q, heads, hd, levels,
+                                      points, rows, st);
+  }
   const int err = launch<__nv_bfloat16>(
-      value, level_info, tile_info, locs, attn, grad_out, d_value_sums,
-      d_locs, d_attn, b, s, q, heads, hd, levels, points, tiles, direct_from,
+      value, level_info, tile_info, locs, attn, grad_out, scratch, d_locs,
+      d_attn, b, s, q, heads, hd, levels, points, tiles, direct_from,
       max_tile, st);
   if (err) return err;
   const long long n = static_cast<long long>(b) * s * heads * hd;
@@ -657,7 +1166,7 @@ int demf_msda_backward_bf16(const void* value, const void* level_info,
     const long long need = (n + kThreads - 1) / kThreads;
     const long long blocks = need < (1LL << 16) ? need : (1LL << 16);
     round_to_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        static_cast<const float*>(d_value_sums),
+        static_cast<const float*>(scratch),
         static_cast<__nv_bfloat16*>(d_value), n);
   }
   return static_cast<int>(cudaGetLastError());

@@ -32,12 +32,13 @@ MSDA_KERNEL = CudaKernel(
     'demf_msda_forward', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 MSDA_BACKWARD_KERNEL = CudaKernel(
     'demf_msda_backward', [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10)
-# the same kernels on a bfloat16 value; K4's takes a float32 buffer for
-# d_value's sums beside the bfloat16 d_value it rounds them into
+# the same kernels on a bfloat16 value; K4's takes a scratch buffer beside
+# the bfloat16 d_value (with tiles d_value's float32 sums, which it rounds
+# once; on the row-owner route the entry lists) and the route
 MSDA_BF16_KERNEL = CudaKernel(
     'demf_msda_forward_bf16', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 MSDA_BACKWARD_BF16_KERNEL = CudaKernel(
-    'demf_msda_backward_bf16', [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10)
+    'demf_msda_backward_bf16', [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11)
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
 # csrc/msda.cu (K4 takes the same tiles): threads of a block, queries of a
@@ -51,8 +52,16 @@ MSDA_MAX_PASSES = 4
 MSDA_TILE_SIDE = 16
 MSDA_MIN_TILE = 64
 MSDA_MAX_TILE_POINTS = 16
-# csrc/msda_backward.cu: the most points a level of a tile's queries
+# csrc/msda_backward.cu: the most points a level of a tile's queries; the
+# row-owner route's bits of an entry's index in its key, its most entries
+# of a (scene, head, level), its sort's warps and digits, and the shared
+# memory a sort block may take
 MSDA_BACKWARD_MAX_TILE_POINTS = 4
+MSDA_ROWS_ID_BITS = 15
+MSDA_ROWS_MAX_ENTRIES = 22528
+MSDA_ROWS_SORT_WARPS = 16
+MSDA_ROWS_DIGITS = 256
+MSDA_ROWS_SMEM_LIMIT = 232448 - 1024
 
 # (spatial shapes, head_dim, tiled, device) -> (level table, tile table,
 # tiles, direct_from, max_tile) with the tables on the device: built once, not copied
@@ -126,6 +135,105 @@ def msda_plain(value, spatial_shapes, sampling_locations, attention_weights):
         out = out + (sampled * a[..., None]).sum(3)
         start += h * w
     return out.permute(0, 2, 1, 3).reshape(b, q, heads * hd).to(value.dtype)
+
+
+def msda_row_entries(spatial_shapes, sampling_locations, attention_weights):
+    """K4's entries on its row-owner route: every bilinear corner of every
+    sample, (B, heads, E) token rows (``sum_HW`` where the corner is off
+    the map, so that it adds nothing) and float32 weights ``a * (w_x *
+    w_y)``, at index ``((level * Q + query) * P + point) * 4 + corner`` of
+    E = L * Q * P * 4, the corner (dy, dx) being 2 * dy + dx."""
+    b, q, heads, levels, points, _ = sampling_locations.shape
+    s = sum(int(h) * int(w) for h, w in spatial_shapes)
+    loc = sampling_locations.float().permute(0, 2, 1, 3, 4, 5)
+    at = attention_weights.float().permute(0, 2, 1, 3, 4)  # (B, h, Q, L, P)
+    rows, weights = [], []
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        lx, ly = x - x0, y - y0
+        x0, y0 = x0.long(), y0.long()
+        corner_rows, corner_weights = [], []
+        for dy, wy in ((0, 1 - ly), (1, ly)):
+            for dx, wx in ((0, 1 - lx), (1, lx)):
+                xi, yi = x0 + dx, y0 + dy
+                ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+                corner_rows.append(torch.where(ok, start + yi * w + xi, s))
+                corner_weights.append(torch.where(
+                    ok, at[:, :, :, lvl] * (wx * wy), 0.0))
+        rows.append(torch.stack(corner_rows, -1))        # (B, h, Q, P, 4)
+        weights.append(torch.stack(corner_weights, -1))
+        start += h * w
+    return (torch.stack(rows, 2).reshape(b, heads, -1),
+            torch.stack(weights, 2).reshape(b, heads, -1))
+
+
+def msda_backward_rows_plain(value, spatial_shapes, sampling_locations,
+                             attention_weights, grad_out):
+    """d_value in K4's row-owner order: the entries of ``msda_row_entries``
+    sorted by row, stably (so a row's stay in the order of their index),
+    and each row summed in float32, ``weight * grad_out`` of the entry's
+    query added one after another (``index_add_``, one entry a row a step),
+    then rounded once to the value's dtype.  The kernel's route computes the
+    same sums in the same order: its d_value equals this bit for bit."""
+    b, s, heads, hd = value.shape
+    q, points = sampling_locations.shape[1], sampling_locations.shape[4]
+    rows, weights = msda_row_entries(spatial_shapes, sampling_locations,
+                                     attention_weights)
+    rows, order = torch.sort(rows, dim=-1, stable=True)
+    weights = torch.gather(weights, -1, order)
+    query = order % (q * points * 4) // (points * 4)
+    e = rows.shape[-1]
+    place = torch.arange(e, device=rows.device).expand_as(rows)
+    new_row = torch.ones_like(rows, dtype=torch.bool)
+    new_row[..., 1:] = rows[..., 1:] != rows[..., :-1]
+    rank = place - torch.cummax(torch.where(new_row, place, 0), -1).values
+    lists = (torch.arange(b * heads, device=rows.device).view(b, heads, 1) *
+             (s + 1) + rows)
+    g = grad_out.float().view(b, q, heads, hd).permute(0, 2, 1, 3)
+    g = torch.gather(g, 2, query[..., None].expand(-1, -1, -1, hd))
+    terms = (weights[..., None] * g).reshape(-1, hd)
+    lists, rank = lists.reshape(-1), rank.reshape(-1)
+    sums = torch.zeros(b * heads * (s + 1), hd, dtype=torch.float32,
+                       device=value.device)
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        at_k = rank == k
+        sums.index_add_(0, lists[at_k], terms[at_k])
+    d_value = sums.view(b, heads, s + 1, hd)[:, :, :s].permute(0, 2, 1, 3)
+    return d_value.to(value.dtype).contiguous()
+
+
+def msda_rows_route(spatial_shapes, q, heads, levels, points, head_dim):
+    """The most tokens of any level where K4's bfloat16 entry takes its
+    row-owner route for queries that are not the tokens, else 0
+    (csrc/msda_backward.cu refuses it then): 8 channels a thread and a
+    token row's threads in one block (heads * head_dim up to 2,048), at most
+    ``MSDA_ROWS_MAX_ENTRIES`` corners a (scene, head, level), a level's
+    rows that fit the keys beside the index, and the level's sort (two key
+    buffers, its warps' digit counts or the rows' first entries) in a
+    block's shared memory."""
+    most = max(int(h) * int(w) for h, w in spatial_shapes)
+    e = q * points * 4
+    smem = 8 * e + max(4 * MSDA_ROWS_DIGITS * MSDA_ROWS_SORT_WARPS,
+                       2 * (most + 1))
+    fits = (head_dim % 8 == 0 and heads * head_dim <= 2048 and
+            levels == len(spatial_shapes) and
+            0 < e <= MSDA_ROWS_MAX_ENTRIES and
+            most < (1 << (32 - MSDA_ROWS_ID_BITS)) - 1 and
+            smem <= MSDA_ROWS_SMEM_LIMIT)
+    return most if fits else 0
+
+
+def msda_rows_scratch_bytes(b, s, q, heads, levels, points):
+    """The row-owner route's scratch: keys, weights and sorted (weight,
+    query) pairs of every entry (16 bytes an entry) and each (scene,
+    head)'s first entry of every row, a level's rows and one more (2 bytes
+    each)."""
+    return (16 * b * heads * levels * q * points * 4 +
+            2 * b * heads * (s + levels))
 
 
 def msda_tiling(spatial_shapes, head_dim):
@@ -249,8 +357,13 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
     the finer levels go through the kernel's spatial tiles (K3's), which
     sum a tile's additions to d_value row by row before they reach global
     memory; that moves the speed only.  ``grad_out`` and ``d_value`` have
-    the value's dtype; a bfloat16 d_value is summed in a float32 buffer and
-    rounded once (its tiles need a head_dim that is a multiple of 8)."""
+    the value's dtype.  A bfloat16 d_value is summed in float32 and rounded
+    once: with tiles in a float32 buffer of the value's size (its tiles
+    need a head_dim that is a multiple of 8); without them (the decoders'
+    queries), where ``msda_rows_route`` allows, on the kernel's row-owner
+    route, which writes each row of d_value once from its sorted entry
+    list and allocates nothing of the value's size: its d_value equals
+    ``msda_backward_rows_plain`` bit for bit, call after call."""
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
@@ -276,11 +389,19 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
         MSDA_BACKWARD_KERNEL(*ptrs, d_value.data_ptr(), d_locs.data_ptr(),
                              d_aw.data_ptr(), *ints)
     else:
-        sums = torch.zeros(value.shape, dtype=torch.float32,
-                           device=value.device)
+        rows = 0 if tiles else msda_rows_route(spatial_shapes, q, heads,
+                                               levels, points, hd)
+        if rows:
+            scratch = torch.empty(
+                msda_rows_scratch_bytes(b, s, q, heads, levels, points),
+                dtype=torch.uint8, device=value.device)
+        else:
+            scratch = torch.zeros(value.shape, dtype=torch.float32,
+                                  device=value.device)
         d_value = torch.empty_like(value)
-        MSDA_BACKWARD_BF16_KERNEL(*ptrs, sums.data_ptr(), d_value.data_ptr(),
-                                  d_locs.data_ptr(), d_aw.data_ptr(), *ints)
+        MSDA_BACKWARD_BF16_KERNEL(*ptrs, scratch.data_ptr(),
+                                  d_value.data_ptr(), d_locs.data_ptr(),
+                                  d_aw.data_ptr(), *ints, rows)
     return d_value, d_locs, d_aw
 
 

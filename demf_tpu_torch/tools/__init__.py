@@ -92,6 +92,77 @@ def msda_rows_touched(spatial_shapes, sampling_locations):
     return int(hit.sum())
 
 
+def box_pairs_in_reach(points, boxes, eps=1e-6, chunk=1 << 22):
+    """How many (point, box) pairs of each scene the count of points in
+    boxes must test for these inputs: the point within the box's bounding
+    circle ``sqrt(hx^2 + hy^2)`` in xy and within its half height in z
+    (``h = dims / 2 + eps``), in float64; the pairs a culled count cannot
+    leave out."""
+    b, p = points.shape[:2]
+    n = boxes.shape[1]
+    pts = points[..., :3].double()
+    bx = boxes.double()
+    centre = torch.cat([bx[..., :2], bx[..., 2:3] + bx[..., 5:6] / 2], -1)
+    half = bx[..., 3:6] / 2 + eps
+    reach = half[..., 0] ** 2 + half[..., 1] ** 2                # (B, N)
+    total = 0
+    step = max(1, chunk // max(1, b * n))
+    for i in range(0, p, step):
+        d = pts[:, i:i + step, None] - centre[:, None]           # (B, c, N, 3)
+        near = ((d[..., 0] ** 2 + d[..., 1] ** 2 <= reach[:, None]) &
+                (d[..., 2].abs() <= half[:, None, :, 2]))
+        total += int(near.sum())
+    return total
+
+
+def device_kernels(fn, runs=4):
+    """The kernels one call of ``fn`` launches on the card, by torch.profiler
+    over ``runs`` calls after one unprofiled (a window of one call can lose
+    its first kernel): {function name: (launches a call, device ms a
+    call)}."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = re.findall(r'([A-Za-z_]\w*)(?:<[^()]*>)?\(', e.key)
+        name = name[0] if name else e.key
+        n, ms = out.get(name, (0.0, 0.0))
+        out[name] = (n + e.count / runs,
+                     ms + e.self_device_time_total / 1e3 / runs)
+    return out
+
+
+def call_bytes(fn):
+    """Device memory that one call of ``fn`` takes at its peak beyond what
+    was allocated before it, its outputs included."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def bf16_err(got, want, rel_each, rel_max):
+    """(max |got - want| - rel_each |want|, rel_max max |want|), compared in
+    float32: within the bound when the first is at most the second."""
+    got, want = got.float(), want.float()
+    return (((got - want).abs() - rel_each * want.abs()).max().item(),
+            rel_max * want.abs().max().item())
+
+
 def max_err(got, want):
     """(max |got - want|, 1e-5 * max |want|), compared in float32."""
     want = want.float()

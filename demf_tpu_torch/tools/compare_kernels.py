@@ -23,7 +23,15 @@ version's too) and K3's outputs within 1e-5 of the plain version's largest.
 K4 runs at the decoder's shapes (batch 16 of 256 proposals with 2 points,
 batch 4 of 300 queries with 4) and at the encoder's at batch 2 and 4 on the
 same three kinds of locations as K3; its three gradients must lie within
-1e-5 of the largest of the plain version's autograd on both sides.
+1e-5 of the largest of the plain version's autograd on both sides.  At the
+two decoder shapes it runs again on a bf16 value and bf16 ``grad_out``
+(its bf16 entry; the row-owner route in this tree): on both sides d_value
+within one bf16 step of the largest of the plain version's in bf16 and
+within half a step of each value (and 1e-5 of the largest) of the float32
+kernel's on the same rounded inputs, d_loc and d_aw within 1e-5 of the
+largest; in this tree d_value the same bit for bit from call to call and
+equal to ``ops/msda.py::msda_backward_rows_plain``; each side's kernels a
+call and the memory a call takes beyond its inputs are printed.
 K6 runs on one chunk of ``bench_msda_fold`` (16 slices x LP 16 x Q
 22,528 rows of 128 channels) in both weight layouts ((LP, Q, 4) and
 slot-major), rows in bf16 and f32; both sides must equal the plain fold.
@@ -31,7 +39,9 @@ K9 runs at a request's and an eval batch's shape (20,000 points, 512
 boxes, batch 2 and 16) on spread and clustered points; a commit without
 K9 stands in with the non-empty-box test its ``multiclass_nms_3d`` ran (a
 Python loop of its ``core/boxes.py::points_in_boxes`` over the scenes),
-and the masks ``count > 5`` must be equal.
+and the masks ``count > 5`` must be equal.  Each side's launches in one
+call are printed, and two bounds: all pairs tested, and only the pairs
+these inputs need (``tools.box_pairs_in_reach``; the bytes where larger).
 K10 runs at the path's shapes (the RPN's 4,390 candidates in 5 level
 groups and the R-CNN's 10,000 in 10 class groups, batch 16 and 2) and at
 its limit of 16,384; both sides' keep masks must equal the plain
@@ -74,7 +84,8 @@ from ..ops import (box_count, grouping, mform, msda, msda_fold, nms2d,
                    roi_align, sampling)
 from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
 from ..ops.gather_rows import gather_rows
-from . import (bench_msda_fold, bench_msda_matmul, bound_ms, cuda_device,
+from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
+               box_pairs_in_reach, call_bytes, cuda_device, device_kernels,
                encoder_sampling_locations, time_ms)
 from .nms_cases import box_count_case, nms2d_case
 
@@ -426,6 +437,97 @@ def compare_msda_backward(old, dev):
     return rows
 
 
+BF16_STEP = 2.0 ** -7
+
+
+def _ms_by_kernel(found):
+    """'name ms (launches), ...' of ``tools.device_kernels``."""
+    return ', '.join(f'{k} {ms:.4f} ({n:g})' for k, (n, ms) in found.items())
+
+
+def compare_msda_backward_bf16(old, dev):
+    """K4's bf16 entry at the decoders' shapes, each side through its own
+    wrapper, checked as ``chip_smoke.py::check_msda_bf16`` checks it."""
+    shapes = MSDA_SHAPES
+    s = sum(h * w for h, w in shapes)
+    gen = torch.Generator(dev).manual_seed(1)
+    rows = []
+    for name, b, q, p, _ in MSDA_BACKWARD_CASES:
+        if name != 'decoder':
+            continue
+        value = torch.randn((b, s, 8, 32), generator=gen,
+                            device=dev).bfloat16()
+        locs = torch.rand((b, q, 8, 4, p, 2), generator=gen,
+                          device=dev) * 1.2 - 0.1
+        aw = torch.rand((b, q, 8, 4 * p), generator=gen, device=dev)
+        aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p)
+        grad = torch.randn((b, q, 256), generator=gen, device=dev).bfloat16()
+        ins = [t.detach().requires_grad_() for t in (value, locs, aw)]
+        want = torch.autograd.grad(
+            msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+        del ins
+        ref = msda.msda_backward_cuda(value.float(), shapes, locs, aw,
+                                      grad.float())
+        errs = []
+        for m in (old, msda):
+            got = m.msda_backward_cuda(value, shapes, locs, aw, grad)
+            side = [bf16_err(got[0], want[0], 0.0, BF16_STEP),
+                    bf16_err(got[0], ref[0], BF16_STEP / 2, 1e-5)]
+            side += [bf16_err(g, w, 0.0, 1e-5) for g, w in
+                     zip(got[1:] + got[1:], want[1:] + ref[1:])]
+            errs.append(side)
+        del want, ref, got
+        first = msda.msda_backward_cuda(value, shapes, locs, aw, grad)[0]
+        again = msda.msda_backward_cuda(value, shapes, locs, aw, grad)[0]
+        same = torch.equal(first, again)
+        plain_order = torch.equal(first, msda.msda_backward_rows_plain(
+            value, shapes, locs, aw, grad))
+        del first, again
+        by_kernel = [device_kernels(
+            lambda m=m: m.msda_backward_cuda(value, shapes, locs, aw, grad))
+            for m in (old, msda)]
+        taken = [call_bytes(
+            lambda m=m: m.msda_backward_cuda(value, shapes, locs, aw, grad))
+            for m in (old, msda)]
+        ms = in_turns(
+            lambda: old.msda_backward_cuda(value, shapes, locs, aw, grad),
+            lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad),
+            10)
+        row = dict(kernel='msda_backward_bf16', case=name, b=b, q=q, p=p,
+                   parent_by_kernel=by_kernel[0], by_kernel=by_kernel[1],
+                   parent_err=[e for e, _ in errs[0]],
+                   err=[e for e, _ in errs[1]],
+                   bounds=[bd for _, bd in errs[1]], same_bits=same,
+                   equal_to_rows_plain=plain_order,
+                   parent_bytes=taken[0], bytes=taken[1],
+                   parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+        rows.append(row)
+        print(f'K4 msda_backward bf16 {name} (B {b}, Q {q}, P {p}): parent '
+              f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
+              f'{ms[2]:.4f} ms; memory a call beyond the inputs: parent '
+              f'{taken[0] / 2 ** 20:.1f} MiB, this tree '
+              f'{taken[1] / 2 ** 20:.1f} MiB; d_value vs plain bf16 / vs the '
+              f'f32 kernel, d_loc / d_aw vs plain: parent '
+              f'{errs[0][0][0]:.3e} / {errs[0][1][0]:.3e}, {errs[0][2][0]:.3e}'
+              f' / {errs[0][3][0]:.3e}, this tree {errs[1][0][0]:.3e} / '
+              f'{errs[1][1][0]:.3e}, {errs[1][2][0]:.3e} / '
+              f'{errs[1][3][0]:.3e} (bounds {errs[1][0][1]:.3e} / '
+              f'{errs[1][1][1]:.3e}, {errs[1][2][1]:.3e} / '
+              f'{errs[1][3][1]:.3e}); this tree\'s d_value the same bits '
+              f'twice: {same}, equal to msda_backward_rows_plain: '
+              f'{plain_order}; device ms (launches) a call by kernel: '
+              f'parent {_ms_by_kernel(by_kernel[0])}, this tree '
+              f'{_ms_by_kernel(by_kernel[1])}', flush=True)
+        if not all(e <= bd for side in errs for e, bd in side):
+            raise AssertionError('an MSDA backward bf16 kernel disagrees')
+        if not (same and plain_order):
+            raise AssertionError('the row-owner d_value is not the plain '
+                                 'order\'s, or not the same twice')
+        del value, locs, aw, grad
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compare_msda_fold(old, dev):
     """K6 on one chunk of the fold probe, both weight layouts, bf16 and f32
     rows; its bound: rows and weights read once, sums written once."""
@@ -489,16 +591,33 @@ def compare_box_count(old_boxes, dev, parent_has_k9):
                 return box_count.box_point_count_cuda(points, boxes) > 5
 
             equal = torch.equal(before(), after())
+            counted = [lambda: old_boxes(points, boxes) if parent_has_k9
+                       else before(),
+                       lambda: box_count.box_point_count_cuda(points, boxes)]
+            by_kernel = [device_kernels(fn) for fn in counted]
+            launches = [round(sum(n for n, _ in found.values()))
+                        for found in by_kernel]
             ms = in_turns(before, after, 5)
-            least, by = bound_ms(12 * b * p * n,
-                                 4 * (points.numel() + boxes.numel() + b * n))
+            nbytes = 4 * (points.numel() + boxes.numel() + b * n)
+            least, by = bound_ms(12 * b * p * n, nbytes)
+            needed = box_pairs_in_reach(points, boxes)
+            culled, culled_by = bound_ms(12 * needed, nbytes)
             row = dict(kernel='box_count', kind=kind, b=b, p=p, n=n,
-                       equal=equal, parent_ms=[ms[0], ms[3]],
-                       ms=[ms[1], ms[2]], bound_ms=least, bound_by=by)
+                       equal=equal, launches=launches,
+                       parent_by_kernel=by_kernel[0], by_kernel=by_kernel[1],
+                       parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                       bound_ms=least, bound_by=by, pairs_needed=needed,
+                       culled_bound_ms=culled, culled_bound_by=culled_by)
             print(f'K9 box_count {kind} (B {b}, P {p}, N {n}): parent '
                   f'{"K9" if parent_has_k9 else "loop of points_in_boxes"} '
                   f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
-                  f'{ms[2]:.4f} ms, bound {least:.6f} ms ({by}); masks equal: '
+                  f'{ms[2]:.4f} ms; kernels in one call: parent '
+                  f'{launches[0]}, this tree {launches[1]}; device ms '
+                  f'(launches) by kernel: parent '
+                  f'{_ms_by_kernel(by_kernel[0])}, this tree '
+                  f'{_ms_by_kernel(by_kernel[1])}; bound of all '
+                  f'pairs {least:.6f} ms ({by}), of the {needed} pairs in '
+                  f'reach {culled:.6f} ms ({culled_by}); masks equal: '
                   f'{equal}', flush=True)
             if not equal:
                 raise AssertionError('the non-empty masks differ')
@@ -611,6 +730,7 @@ def main(argv=None):
         rows += compare_msda(old_msda, dev)
     if 'msda_backward' in only:
         rows += compare_msda_backward(old_msda, dev)
+        rows += compare_msda_backward_bf16(old_msda, dev)
     if 'mform' in only:
         rows += compare_mform(old_mform, dev, args.sweep)
     if 'msda_fold' in only:

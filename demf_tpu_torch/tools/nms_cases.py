@@ -1,13 +1,16 @@
 """Seeded inputs for the aligned 3D NMS, the count of points in rotated
 boxes before it and the batched 2D NMS: what the tests (CPU and card) and
 the smoke run hold the kernels K8, K9 and K10, K8's and K10's rules in
-Python and the plain versions against.  Numpy only."""
+Python, K9's culling rule and the plain versions against.  Numpy only."""
 from __future__ import annotations
 
 import numpy as np
 
 KINDS = ('random', 'clustered', 'ties', 'invalid', 'degenerate', 'one_class')
 BOX_KINDS = ('spread', 'clustered', 'faces')
+BOX_GRID_CASES = ('spread', 'clustered', 'faces', 'faces, yaw 0',
+                  'faces, yaw pi/4', 'faces, yaw pi', 'cell edges',
+                  'box larger than the room', 'one x', 'non-finite')
 
 
 def nms_case(kind, b, n, seed=0, classes=10):
@@ -142,6 +145,91 @@ def _off_faces(xyz, boxes, margin):
                       shift[..., 2]], -1)
     gap = np.abs(np.abs(local) - bx[..., 3:6] * 0.5)
     return (gap >= margin).all(-1).all(-1)
+
+
+def _grid_faces(boxes, per_box, rng):
+    """(B, N * per_box, 3) float32 points on the faces, edges and corners of
+    the boxes (bottom-center), at half + 1e-6, the test's own limit."""
+    b, n = boxes.shape[:2]
+    box = np.repeat(boxes.astype(np.float64), per_box, 1)
+    half = box[..., 3:6] * 0.5 + 1e-6
+    local = rng.uniform(-1, 1, (b, n * per_box, 3)) * half
+    on = rng.rand(b, n * per_box, 3) < 0.5
+    on[..., 0] |= ~on.any(-1)
+    sign = np.where(rng.rand(b, n * per_box, 3) < 0.5, -1.0, 1.0)
+    local = np.where(on, sign * half, local)
+    c, s = np.cos(box[..., 6]), np.sin(box[..., 6])
+    x = local[..., 0] * c + local[..., 1] * s
+    y = -local[..., 0] * s + local[..., 1] * c
+    ctr = box[..., :3] + np.stack([0 * c, 0 * c, box[..., 5] * 0.5], -1)
+    return (np.stack([x, y, local[..., 2]], -1) + ctr).astype(np.float32)
+
+
+def _grid_boxes(rng, b, n, yaw=None, lo=-3.0, hi=3.0):
+    center = np.concatenate([rng.uniform(lo, hi, (b, n, 2)),
+                             rng.uniform(-1, 1, (b, n, 1))], -1)
+    dims = rng.uniform(0.3, 1.5, (b, n, 3))
+    yaws = (rng.uniform(-np.pi, np.pi, (b, n, 1)) if yaw is None
+            else np.full((b, n, 1), yaw))
+    return np.concatenate([center, dims, yaws], -1).astype(np.float32)
+
+
+def box_grid_case(name, seed=0):
+    """-> points (2, P, 3), boxes (2, N, 7) float32 for K9's culling rule
+    (``ops/box_count.py::box_cells``), one of ``BOX_GRID_CASES``:
+    ``box_count_case``'s three kinds at 300 points and 24 boxes (``spread``
+    and ``clustered`` kept 1e-4 off the faces); points on the faces, edges
+    and corners of boxes at yaw 0, pi/4 and pi; points and box faces on
+    the edges of the grid's cells (a 16 m square, four cells a metre);
+    boxes larger than the room; every point at one x; NaN and infinite
+    points and boxes."""
+    rng = np.random.RandomState(seed)
+    if name in ('spread', 'clustered', 'faces'):
+        return box_count_case(name, 2, 300, 24, seed=seed,
+                              margin=None if name == 'faces' else 1e-4)
+    if name.startswith('faces, yaw '):
+        yaw = {'0': 0.0, 'pi/4': np.pi / 4, 'pi': np.pi}[name[11:]]
+        boxes = _grid_boxes(rng, 2, 12, yaw)
+        return _grid_faces(boxes, 24, rng), boxes
+    if name == 'cell edges':
+        # a 16 m square of four cells a metre: points and box faces on
+        # quarter metres, where (x - x0) * inv is exactly a cell's edge
+        pts = rng.randint(0, 65, (2, 300, 3)).astype(np.float32) / 4
+        pts[:, 0, :2], pts[:, 1, :2] = 0.0, 16.0
+        pts[..., 2] -= 8.0
+        boxes = _grid_boxes(rng, 2, 24, 0.0)
+        boxes[..., :2] = rng.randint(8, 57, (2, 24, 2)) / 4
+        boxes[..., 2] = rng.randint(-8, 1, (2, 24)) / 4
+        boxes[..., 3:6] = rng.randint(1, 9, (2, 24, 3)) / 2
+        return pts, boxes
+    if name == 'box larger than the room':
+        points, boxes = box_count_case('spread', 2, 300, 24, seed=seed,
+                                       margin=1e-4)
+        boxes[:, :4, 3:5] = [[40.0, 25.0], [9.0, 60.0], [7.5, 7.5],
+                             [1e4, 1e4]]
+        boxes[:, :4, 5] = 10.0
+        boxes[:, :4, 2] = -5.0
+        return points, boxes
+    if name == 'one x':
+        points, boxes = box_count_case('clustered', 2, 300, 24, seed=seed)
+        points[..., 0] = 0.25
+        boxes[:, ::3, 0] = 0.25
+        return points, boxes
+    if name == 'non-finite':
+        points, boxes = box_count_case('clustered', 2, 300, 24, seed=seed,
+                                       margin=1e-4)
+        points[0, ::7, 0] = np.nan
+        points[0, 1::11, 1] = np.inf
+        points[1, 3, 2] = np.nan
+        points[1, 5, :2] = -np.inf
+        boxes[0, 2, 3] = np.nan          # a size
+        boxes[1, 4, 6] = np.nan          # a yaw
+        boxes[1, 5, 0] = np.inf          # a centre
+        boxes[1, 6, 3:6] = np.inf        # a box of no end
+        boxes[0, 7, 1] = -np.inf
+        return points, boxes
+    raise ValueError(name)
+
 
 
 # the 2D NMS's groups on ImVoteNet's path: the RPN's 5 levels (nms_pre 1000

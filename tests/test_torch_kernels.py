@@ -13,6 +13,7 @@ import torch
 
 from demf_tpu_torch.ops import (box_count, gather_rows, grouping, mform, msda,
                                 msda_fold, nms, nms2d, roi_align, sampling)
+from demf_tpu_torch.tools.nms_cases import BOX_GRID_CASES, box_grid_case
 
 
 def unambiguous_centers(points, centers, radius, k):
@@ -889,6 +890,43 @@ def test_box_count_kernel_refuses_what_it_cannot_take(dev):
     assert box_count.BOX_COUNT_KERNEL.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', BOX_GRID_CASES)
+def test_box_count_kernel_equals_plain_on_the_grid_cases(dev, name):
+    """The cases of K9's culling rule (``tools/nms_cases.py::
+    box_grid_case``: points on cell edges and box faces, yaw 0, pi/4 and
+    pi, boxes larger than the room, one x, NaN and infinite points and
+    boxes): the kernel's counts equal the plain count and the plain culled
+    count on the card (the CPU's cosine may differ in the last bit, which
+    moves points on faces), in at most four launches a call (the yaw's
+    cosine and sine, the bin and the count kernel)."""
+    from demf_tpu_torch.tools import device_kernels
+    points, boxes = (torch.from_numpy(a).to(dev)
+                     for a in box_grid_case(name))
+    got = box_count.box_point_count(points, boxes)
+    assert torch.equal(got, box_count.box_point_count_plain(points, boxes))
+    assert torch.equal(got, box_count.box_point_count_grid(points, boxes))
+    found = device_kernels(lambda: box_count.box_point_count(points, boxes))
+    assert sum(n for n, _ in found.values()) <= 4
+    assert sorted(k for k in found if 'box_count' in k) == [
+        'box_count_bin_kernel', 'box_count_kernel']
+
+
+@pytest.mark.cuda
+def test_box_count_kernel_reads_a_cloud_wider_than_its_grid(dev):
+    """A scene far from the origin (x near 1,000 m, where a float32 step
+    is 6e-5 m) and one spread over 200 m: the margins keep every point
+    the rounded test counts in a covered cell."""
+    points, boxes = _box_count_inputs(dev, 'faces', 2, 20000, 512, seed=9)
+    points[0, :, 0] += 1000.0
+    boxes[0, :, 0] += 1000.0
+    points[1, :, :2] *= 33.0
+    boxes[1, :, :2] *= 33.0
+    got = box_count.box_point_count(points, boxes)
+    assert torch.equal(got, box_count.box_point_count_plain(points, boxes))
+    assert int(got.sum()) > 0
+
+
 # -- K3 / K4 on a bfloat16 value ---------------------------------------------
 # Bounds: against the plain version in bfloat16 (float32 sums of the same
 # widened values, rounded once) an output may land one bfloat16 step apart
@@ -976,6 +1014,126 @@ def test_msda_backward_kernel_reads_a_bf16_value(dev, b, q, p, where):
     for g_, w, r in zip(got[1:], want[1:], ref32[1:]):
         assert torch.isfinite(g_).all()
         assert _within(g_, w, 0.0, 1e-5) and _within(g_, r, 0.0, 1e-5)
+
+
+# K4's row-owner route: a bf16 value whose queries are not the tokens (the
+# decoders); (B, Q, P) of the stage-2 and the pretrain decoder
+ROW_ROUTE_SHAPES = [(16, 256, 2), (4, 300, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,q,p', ROW_ROUTE_SHAPES)
+def test_msda_backward_bf16_row_route_is_its_plain_order_every_call(dev, b, q,
+                                                                    p):
+    """At both decoder shapes d_value is the same bits from call to call
+    and equals ``msda_backward_rows_plain`` (the same float32 sums in the
+    same order, rounded once), and so are d_loc and d_aw between calls."""
+    shapes, value, locs, aw, grad = _bf16_inputs(dev, b, q, p, 'whole map', 2)
+    assert msda.msda_rows_route(shapes, q, 8, 4, p, 32)
+    first = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    again = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+    assert torch.equal(first[0], msda.msda_backward_rows_plain(
+        value, shapes, locs, aw, grad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,q,p', ROW_ROUTE_SHAPES)
+def test_msda_backward_bf16_row_route_takes_no_float32_plane(dev, b, q, p):
+    """The call takes no memory beyond its outputs and the entry lists (1
+    MiB for the allocator's rounding): no float32 buffer the size of the
+    value, where the plane route took 2 bytes more a value; and it runs
+    three kernels (entries, sort, rows), no rounding pass."""
+    from demf_tpu_torch.tools import call_bytes, device_kernels
+    shapes, value, locs, aw, grad = _bf16_inputs(dev, b, q, p, 'whole map', 3)
+    s = value.shape[1]
+    msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    taken = call_bytes(
+        lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad))
+    allowed = (value.numel() * 2 + (locs.numel() + aw.numel()) * 4 +
+               msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p) + 2 ** 20)
+    assert taken <= allowed < value.numel() * 4
+    found = device_kernels(
+        lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad))
+    assert sorted(found) == ['msda_backward_entries_kernel',
+                             'msda_backward_rows_kernel',
+                             'msda_backward_sort_kernel']
+    assert all(n == 1 for n, _ in found.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where', ['off the map', 'one place', 'edges',
+                                   'whole map'])
+@pytest.mark.parametrize('heads,hd,q,p', [(8, 32, 50, 4), (4, 16, 7, 3),
+                                          (2, 8, 1, 1), (4, 32, 600, 2)])
+def test_msda_backward_bf16_row_route_matches_plain(dev, where, heads, hd, q,
+                                                    p):
+    """Small decoders on the row-owner route: every corner off the map (no
+    entry: d_value all zero), every sample at one place (a few rows with
+    long lists), locations on and beyond the map's edges (corners of weight
+    0 whose location gradient is not), and over the whole map; head_dims
+    8 to 32.  d_value equals the plain row order bit for bit and lies
+    within one bf16 step of the plain autograd's largest, d_loc and d_aw
+    within 1e-5."""
+    shapes = ((32, 48), (16, 24), (8, 12))
+    s = sum(h * w for h, w in shapes)
+    assert msda.msda_rows_route(shapes, q, heads, 3, p, hd)
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 2, q, heads, hd, p,
+                                         q + hd)
+    if where == 'off the map':
+        locs = locs - 1.5
+    elif where == 'one place':
+        locs[:] = torch.tensor([0.37, 0.58], device=dev)
+    elif where == 'edges':
+        locs = torch.round(locs * 4) / 4
+    value, grad = value.bfloat16(), grad.bfloat16()
+    before = msda.MSDA_BACKWARD_BF16_KERNEL.launches
+    got = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    assert msda.MSDA_BACKWARD_BF16_KERNEL.launches == before + 1
+    assert torch.equal(got[0], msda.msda_backward_rows_plain(
+        value, shapes, locs, aw, grad))
+    if where == 'off the map':
+        assert not got[0].any()
+    ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+    want = torch.autograd.grad(
+        msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+    assert _within(got[0], want[0], 0.0, BF16_STEP)
+    for g_, w in zip(got[1:], want[1:]):
+        assert _within(g_, w, 0.0, 1e-5)
+    assert s == value.shape[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('what', ['tiles', 'entries', 'head_dim',
+                                  'grad_out'])
+def test_msda_backward_bf16_row_route_refuses_without_a_counted_launch(dev,
+                                                                       what):
+    """The entry refuses the row-owner route with tiles, more than 22,528
+    entries a (scene, head, level), a head_dim that is not a multiple of 8,
+    or a grad_out off the 16-byte grid; a refused call counts no launch."""
+    shapes = ((32, 48), (16, 24))
+    s = sum(h * w for h, w in shapes)
+    q = 5633 if what == 'entries' else 40
+    hd = 4 if what == 'head_dim' else 32
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 1, q, 2, hd, 1, 0)
+    value, grad = value.bfloat16(), grad.bfloat16()
+    info, tile_info = msda._tables(shapes, hd, True, dev)[:2]
+    if what == 'grad_out':
+        buf = torch.empty(grad.numel() + 1, dtype=grad.dtype, device=dev)
+        grad = buf[1:].view(grad.shape)
+    scratch = torch.empty(msda.msda_rows_scratch_bytes(1, s, q, 2, 2, 1),
+                          dtype=torch.uint8, device=dev)
+    before = msda.MSDA_BACKWARD_BF16_KERNEL.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        msda.MSDA_BACKWARD_BF16_KERNEL(
+            value.data_ptr(), info.data_ptr(), tile_info.data_ptr(),
+            locs.data_ptr(), aw.data_ptr(), grad.data_ptr(),
+            scratch.data_ptr(), torch.empty_like(value).data_ptr(),
+            torch.empty_like(locs).data_ptr(),
+            torch.empty_like(aw).data_ptr(), 1, s, q, 2, hd, 2, 1,
+            1 if what == 'tiles' else 0, 0, 0, 32 * 48)
+    assert msda.MSDA_BACKWARD_BF16_KERNEL.launches == before
 
 
 @pytest.mark.cuda
