@@ -138,7 +138,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    stage-2 steps at batch 16 x 20,000 points with 64 GT, the 2D branch in
    the step and unchanged after it; ``train --synthetic --steps 2
    --profile``; the dataset path on
-   ``demf_tpu_torch/configs/imvotenet_synthetic.py`` through both entries.
+   ``demf_tpu_torch/configs/imvotenet_synthetic.py`` through both entries;
+13. the image-only Faster R-CNN (``demf_tpu_torch/configs/
+   imvotenet_frcnn_synthetic.py``: ``configs/_base_/models/
+   imvotenet_image.py`` trained, at full width): K12 (the RoIAlign's
+   backward) against the plain version's autograd within 1e-5 of the
+   largest gradient at 512 RoIs a scene, batch 16 and 2, beside its bound,
+   the zero-fill's time and the plain version's; K10 at the RPN's training
+   shape (16, 7,872), equal to plain; the kernel path against the plain
+   path at batch 2 of 608x832 on the same draws (losses 1e-4, the FPN's,
+   RPN's and RoI head's gradients 1e-3 of each tensor's largest); 3 steps
+   at batch 16 x 608x832 with 64 GT (K10, K11 and K12 once a step, nothing
+   else), two more profiled (device ms, busy share, phases; K10's, K11's
+   and K12's device ms in the step), the anchor assigner's ms; a request of batch 2 (K10 twice, K11 once) equal to the
+   plain path's; ``train --synthetic --steps 3 --profile`` and the
+   dataset mode, whose checkpoint must warm-start
+   ``configs/baseline/imvotenet.py``'s 2D branch with no key missing (the
+   smoke's AdamW at ``FRCNN_SMOKE_LR``: at the config's 0.008 random
+   weights blow up); last, a released mmcv-format file of the full-width
+   DeMF-VoteNet's weights read by the eval entry on the dataset path's
+   config (its CLASSES and epoch taken from its meta).
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
@@ -152,13 +171,16 @@ the probes phase, times and bound of K5 at the gather probe's shape, K6 in the (
 one chunk, K7 at the finest level; K8 and K9: launches counted in the
 dataset path, times and bound at an eval batch's shape; K10 and K11:
 launches counted in the ImVoteNet requests, times and bound at a request's
-shape (the R-CNN's 10,000 candidates; 2 x 1,000 RoIs); ``library_ms`` is
+shape (the R-CNN's 10,000 candidates; 2 x 1,000 RoIs); K12: launches
+counted in the image-only steps, times and bound at their shape (16 x 512
+RoIs); ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights) and null where there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
-3D NMS, the count of points in rotated boxes, and the 2D NMS and RoIAlign,
-which torchvision has and this machine does not); the
+3D NMS, the count of points in rotated boxes, and the 2D NMS and RoIAlign
+(forward and backward), which torchvision has and this machine does not);
+the
 last line is ``{"ok": true, "device": {...}}``.
 Float32 but for the bf16 phases: TF32 is switched off for matmuls and
 cuDNN convolutions.
@@ -183,7 +205,8 @@ import torch
 # float32 and their bfloat16 launches apart)
 KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'msda_backward_bf16', 'gather_rows', 'msda_fold',
-                'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align')
+                'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align',
+                'roi_align_backward')
 
 
 def launch_counts(**counts):
@@ -260,6 +283,7 @@ REPLACES = {
     'box_count': 'demf_tpu/core/boxes.py:105',
     'nms2d': 'demf_tpu/ops/nms.py:119',
     'roi_align': 'demf_tpu/models/rpn_roi.py:167',
+    'roi_align_backward': 'demf_tpu/models/rpn_roi.py:199',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -273,7 +297,8 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'nms3d': 'demf_tpu_torch/csrc/nms3d.cu',
            'box_count': 'demf_tpu_torch/csrc/box_count.cu',
            'nms2d': 'demf_tpu_torch/csrc/nms2d.cu',
-           'roi_align': 'demf_tpu_torch/csrc/roi_align.cu'}
+           'roi_align': 'demf_tpu_torch/csrc/roi_align.cu',
+           'roi_align_backward': 'demf_tpu_torch/csrc/roi_align.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -325,6 +350,28 @@ NMS2D_SHAPES = ((16, 'rcnn', 10000, 0.5), (16, 'rpn', 4390, 0.7),
                 (2, 'rcnn', 10000, 0.5), (2, 'rpn', 4390, 0.7),
                 (2, 'random', 16384, 0.7))
 ROI_LEVELS = ((152, 208), (76, 104), (38, 52), (19, 26))
+# the image-only Faster R-CNN (demf_tpu_torch/configs/imvotenet_frcnn_
+# synthetic.py: configs/_base_/models/imvotenet_image.py, trained): a step
+# runs K10 once over the RPN's training proposals (7,872 candidates in 5
+# level groups at 608x832), K11 once over the 512 RoIs an image its R-CNN
+# samples and K12 once in the backward; a request K10 over the proposals
+# and over the R-CNN's class groups, and K11 once.  The dataset mode: 32
+# scenes, 2 steps at batch 16
+FRCNN_CFG = os.path.join('demf_tpu_torch', 'configs',
+                         'imvotenet_frcnn_synthetic.py')
+FRCNN_STEPS = 3
+FRCNN_STEP_BATCH = (16, 608, 832)
+FRCNN_ROIS = 512
+LAUNCHES_PER_FRCNN_STEP = launch_counts(nms2d=1, roi_align=1,
+                                        roi_align_backward=1)
+LAUNCHES_PER_FRCNN_REQUEST = launch_counts(nms2d=2, roi_align=1)
+FRCNN_DATASET_STEPS = 2
+# AdamW at the config's lr of 0.008 moves every random weight of the
+# backbone by a quarter of its size in a step, and the losses reach 1e16 by
+# the second: proposals and sampled RoIs then pile up on the image's
+# borders.  The smoke's steps and entry runs take this lr instead, so that
+# its RoIs stay spread as a training run's do (the config is unchanged)
+FRCNN_SMOKE_LR = 8e-5
 
 
 def kernel_row(max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -496,13 +543,19 @@ def device_ms(fn, marker, runs=5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    ours = sum(e.self_device_time_total for e in events if marker in e.key)
+    # the profiler now and then records no kernel of a window: up to 3
+    # windows, until the marker's kernels are in one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ours = sum(e.self_device_time_total for e in events
+                   if marker in e.key)
+        if ours > 0:
+            break
     every = sum(e.self_device_time_total for e in events)
     return (ours / 1e3 / runs, every / 1e3 / runs,
             sum(e.count for e in events) // runs)
@@ -570,10 +623,11 @@ def check_box_count(dev):
               f'{launches}: {", ".join(found)}), plain {plain_ms:.4f} ms, '
               f'the loop it '
               f'replaced {loop_ms:.4f} ms; bound of all pairs {all_pairs:.6f}'
-              f' ms ({all_by}), K9 on the device at {all_pairs / alone:.1%} '
-              f'of it; bound of the {needed} pairs in reach '
-              f'({needed / (b * p * n):.2%} of all) {least:.6f} ms ({by}), at '
-              f'{least / alone:.1%} of it', flush=True)
+              f' ms ({all_by}), K9 on the device at '
+              f'{all_pairs / max(alone, 1e-9):.1%} of it; bound of the '
+              f'{needed} pairs in reach ({needed / (b * p * n):.2%} of all) '
+              f'{least:.6f} ms ({by}), at {least / max(alone, 1e-9):.1%} of '
+              f'it', flush=True)
         if differ or not same_mask:
             raise AssertionError('box count kernel disagrees with plain')
         if launches > BOX_COUNT_LAUNCHES:
@@ -2368,6 +2422,351 @@ def run_imvotenet_path(dev, kernels):
     return by_path
 
 
+def check_roi_align_backward(dev):
+    """K12 against the plain version's autograd at the step's shape, batch
+    16 and 2: 512 sampled RoIs a scene, (7, 7, 256) bins, the four levels
+    of a 608x832 image; within 1e-5 of the largest gradient.  Its time
+    through the wrapper (with the zero-fill of the levels' gradient), its
+    kernel's device time, the zero-fill's, the plain version's; its bound:
+    d_out read once and the levels' gradient written once, against ~50
+    operations a d_out number (16 weighted corners)."""
+    from demf_tpu_torch.ops import roi_align
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    strides = (4, 8, 16, 32)
+    rows = []
+    for b in (16, 2):
+        feats, rois, lvl = roi_case(dev, b, r=FRCNN_ROIS, seed=b + 1)
+        shapes = [f.shape for f in feats]
+        del feats
+        d_out = torch.randn((b, FRCNN_ROIS, 7, 7, 256), device=dev,
+                            generator=torch.Generator(dev).manual_seed(b))
+
+        def kernel():
+            return roi_align.pyramid_roi_align_backward_cuda(
+                d_out, shapes, rois, lvl, strides)
+
+        got = kernel()
+        want = roi_align.pyramid_roi_align_backward_plain(
+            d_out, shapes, rois, lvl, strides)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        scale = max(w.abs().max().item() for w in want)
+        del got, want
+        ms = time_ms(kernel, 20)
+        kernel_ms, _, on_device = device_ms(kernel, 'roi_align_backward')
+        zero_ms = time_ms(lambda: [torch.zeros(sh, device=dev)
+                                   for sh in shapes], 20)
+        plain_ms = time_ms(lambda: roi_align.pyramid_roi_align_backward_plain(
+            d_out, shapes, rois, lvl, strides), 1)
+        grad_bytes = 4 * sum(int(np.prod(sh)) for sh in shapes)
+        least, by = bound_ms(50 * d_out.numel(),
+                             4 * d_out.numel() + grad_bytes)
+        print(f'K12 roi_align_backward (B {b}, {FRCNN_ROIS} RoIs a scene, '
+              f'd_out {tuple(d_out.shape)}): max |kernel - plain| '
+              f'{err:.3e} (bound 1e-5 x {scale:.3f}), through the wrapper '
+              f'{ms:.4f} ms (the kernel {kernel_ms:.4f} ms on the device, '
+              f'{on_device} kernels a call; the zero-fill of '
+              f'{grad_bytes / 1e6:.1f} MB alone {zero_ms:.4f} ms), plain '
+              f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}: d_out '
+              f'{4 * d_out.numel() / 1e6:.1f} MB read, the levels\' '
+              f'gradient {grad_bytes / 1e6:.1f} MB written), '
+              f'{least / ms:.1%} of it; library call: none', flush=True)
+        if not err <= 1e-5 * scale:
+            raise AssertionError('RoIAlign backward kernel disagrees with '
+                                 'plain')
+        rows.append(kernel_row(err, ms, plain_ms, least, by))
+    return rows[0]
+
+
+def check_nms2d_training_shape(dev):
+    """K10 at the RPN's training shape (16 images, 7,872 candidates in 5
+    level groups: nms_pre 2000 of a 608x832 image's levels), keep masks
+    equal to the plain version's bit for bit; its bound as
+    ``check_nms2d`` counts it."""
+    from demf_tpu_torch.ops import nms2d
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools.nms_cases import RPN_TRAIN_LEVELS, nms2d_case
+    n = sum(RPN_TRAIN_LEVELS)
+    boxes, scores, idxs, valid = (torch.from_numpy(a).to(dev) for a in
+                                  nms2d_case(16, n, seed=17,
+                                             layout='rpn_train'))
+
+    def kernel():
+        return nms2d.batched_nms_2d_cuda(boxes, scores, idxs, 0.7, valid)
+
+    got = kernel()
+    want = nms2d.batched_nms_2d_plain(boxes, scores, idxs, 0.7, valid)
+    differ = int((got != want).sum())
+    ms = time_ms(kernel, 20)
+    kernel_ms, _, on_device = device_ms(kernel, 'nms2d_')
+    plain_ms = time_ms(lambda: nms2d.batched_nms_2d_plain(
+        boxes, scores, idxs, 0.7, valid), 1)
+    sizes = torch.stack([((idxs == g) & valid).sum(1)
+                         for g in idxs.unique()])
+    pairs = int((sizes * (sizes - 1) // 2).sum())
+    least, by = bound_ms(20 * pairs, 16 * n * (16 + 4 + 8 + 1 + 1))
+    print(f'K10 nms2d at the RPN\'s training shape (16, N {n}, 5 level '
+          f'groups): kept {int(got.sum())}, {differ} mask bits differ from '
+          f'plain, through the wrapper {ms:.4f} ms (its two kernels '
+          f'{kernel_ms:.4f} ms on the device; {on_device} kernels a call), '
+          f'plain {plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs} '
+          f'pairs of one group); library call: none', flush=True)
+    if differ:
+        raise AssertionError('2D NMS kernel keep masks differ from plain')
+
+
+def frcnn_cfg():
+    from demf_tpu_torch.utils.config import Config
+    return Config.fromfile(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), FRCNN_CFG))
+
+
+def check_frcnn_reference(dev):
+    """The full-width image-only Faster R-CNN, batch 2 of 608x832 with 64
+    GT slots: one forward + loss + backward on the kernel path against the
+    plain path, two copies of the same weights on the same draws (a
+    generator of the same seed): losses within 1e-4 relative, the FPN's,
+    RPN's and RoI head's gradients within 1e-3 of each tensor's largest."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    model = zoo.build_detector(frcnn_cfg().model, dev, seed=0).train()
+    plain_model = copy.deepcopy(model)
+    batch = batch_to_device(zoo.synth_batch_for(model, b=2, seed=5), dev)
+    branches = ('img_neck', 'img_rpn_head', 'img_roi_head')
+
+    def loss_and_grads(m):
+        results = m(batch, generator=torch.Generator(dev).manual_seed(0))
+        losses = m.loss(results, batch)
+        sum(losses.values()).backward()
+        return ({k: v.detach() for k, v in losses.items()},
+                {n: p.grad for n, p in m.named_parameters()
+                 if n.startswith(branches)})
+
+    got_l, got_g = loss_and_grads(model)
+    with plain_ops():
+        want_l, want_g = loss_and_grads(plain_model)
+    loss_err = max(abs(got_l[k].item() - w.item()) / max(abs(w.item()), 1e-6)
+                   for k, w in want_l.items())
+    largest = max(w.abs().max().item() for w in want_g.values())
+    grad_err = 0.0
+    for name, w in want_g.items():
+        scale = w.abs().max().item()
+        if scale < 1e-6 * largest:
+            if got_g[name].abs().max().item() >= 1e-6 * largest:
+                raise AssertionError(f'{name}: gradient above noise')
+            continue
+        grad_err = max(grad_err, (got_g[name] - w).abs().max().item() /
+                       scale)
+    terms = ', '.join(f'{k} {v.item():.5f}' for k, v in want_l.items())
+    print(f'frcnn reference: full width, batch 2 x 608x832, 64 GT slots: '
+          f'kernel path vs plain path, losses max rel err {loss_err:.3e} '
+          f'(bound 1e-4), FPN / RPN / RoI head gradients max err / tensor '
+          f'max {grad_err:.3e} (bound 1e-3) over {len(want_g)} tensors; '
+          f'plain losses: {terms}', flush=True)
+    if not (loss_err < 1e-4 and grad_err < 1e-3 and
+            all(torch.isfinite(v) for v in got_l.values())):
+        raise AssertionError('frcnn kernel path disagrees with plain')
+
+
+def time_anchor_assigner(batch):
+    """The RPN's anchor assigner in plain torch (ROADMAP B6): ``iou_2d``
+    and ``max_iou_assign`` over a 608x832 image's 126,360 anchors and the
+    batch's GT slots, timed on the card."""
+    from demf_tpu_torch.models import rpn_roi
+    from demf_tpu_torch.models.assign_sample import iou_2d, max_iou_assign
+    from demf_tpu_torch.tools import time_ms
+    gt, valid = batch['gt_bboxes'], batch['gt_bboxes_valid']
+    anchors = torch.cat([rpn_roi.grid_anchors(
+        (-(-FRCNN_STEP_BATCH[1] // s), -(-FRCNN_STEP_BATCH[2] // s)), s, [8],
+        [0.5, 1.0, 2.0], gt.device) for s in (4, 8, 16, 32, 64)])
+    ms = time_ms(lambda: max_iou_assign(iou_2d(anchors, gt), valid, 0.7, 0.3,
+                                        0.3, True), 5)
+    print(f'anchor assigner (iou_2d + max_iou_assign, plain torch): '
+          f'{gt.shape[0]} images x {anchors.shape[0]} anchors x '
+          f'{gt.shape[1]} GT slots, {ms:.4f} ms on the card', flush=True)
+    if anchors.shape[0] != 126360:
+        raise AssertionError(f'{anchors.shape[0]} anchors')
+
+
+def run_frcnn_path(dev, kernels):
+    """The image-only Faster R-CNN at full width: K12 and K10 at the
+    step's shapes, the kernel path against the plain path, 3 steps at
+    batch 16, a request of batch 2, the train entry's synthetic mode with
+    its profile and its dataset mode, and the checkpoint it writes warm-
+    starting the stage-2 ImVoteNet.  Returns (K12's row, the launches by
+    sub-path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from demf_tpu_torch import train as train_entry
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import (batch_to_device, latest_checkpoint,
+                                       load_weights)
+    row = check_roi_align_backward(dev)
+    check_nms2d_training_shape(dev)
+    torch.cuda.empty_cache()
+    check_frcnn_reference(dev)
+    torch.cuda.empty_cache()
+
+    cfg = frcnn_cfg()
+    cfg.optimizer['lr'] = FRCNN_SMOKE_LR
+    model, _, step = zoo.build_trainer(cfg, dev, seed=0)
+    batch = batch_to_device(zoo.synth_batch_for(model, seed=0), dev)
+    if tuple(batch['img'].shape[:3]) != FRCNN_STEP_BATCH or \
+            batch['gt_bboxes'].shape[1] != 64:
+        raise AssertionError('frcnn step batch of another shape')
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for i in range(FRCNN_STEPS):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_FRCNN_STEP:
+            raise AssertionError(f'frcnn step {i} launched {launched}')
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'frcnn step {i}: non-finite')
+    by_path = {'frcnn_step': {n: k.launches for n, k in kernels.items()}}
+    terms = ', '.join(f'{k} {v.item():.4f}' for k, v in metrics.items())
+    print(f'frcnn step: batch {FRCNN_STEP_BATCH[0]} x '
+          f'{FRCNN_STEP_BATCH[1]}x{FRCNN_STEP_BATCH[2]}, 64 GT slots, '
+          f'{FRCNN_ROIS} RoIs an image: ' +
+          ', '.join(f'{t * 1e3:.3f}' for t in times) + ' ms (host clock), '
+          f'after the first {FRCNN_STEP_BATCH[0] / np.mean(times[1:]):.3f} '
+          f'images/s; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; '
+          f'launches a step {launched}; last step: {terms}', flush=True)
+    train_entry.profile_step(step, batch, generator, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch, generator)
+        torch.cuda.synchronize()
+    k12_ms, k12_n = device_ms_of(prof, ('roi_align_backward',))
+    k11_ms, k11_n = device_ms_of(prof, ('roi_align_kernel',))
+    k10_ms, k10_n = device_ms_of(prof, ('nms2d_',))
+    busy_ms = device_ms_of(prof, ('',))[0]
+    print(f'frcnn profiled step: device kernels {busy_ms:.3f} ms, of them '
+          f'K12 {k12_ms:.3f} ms in {k12_n} launches, K11 {k11_ms:.3f} ms in '
+          f'{k11_n}, K10 {k10_ms:.3f} ms in {k10_n}', flush=True)
+    time_anchor_assigner(batch)
+    del model, step
+    torch.cuda.empty_cache()
+
+    model = zoo.build_detector(frcnn_cfg().model, dev, seed=1)
+    batch = batch_to_device(zoo.synth_batch_for(model, b=2, seed=3), dev)
+    with torch.inference_mode():
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = model.get_bboxes(model(batch), batch)
+        torch.cuda.synchronize()
+        latency = (time.perf_counter() - t0) * 1e3
+        launched = {n: k.launches for n, k in kernels.items()}
+        with plain_ops():
+            want = model.get_bboxes(model(batch), batch)
+    by_path['frcnn_request'] = launched
+    same = all(torch.equal(det[k], want[k]) for k in det)
+    print(f'frcnn request: batch 2 x 608x832, {latency:.3f} ms (host clock, '
+          f'the first at this shape), {int(det["valid"].sum())} valid 2D '
+          f'detections of {det["valid"].numel()}, equal to the plain '
+          f'path\'s: {same}; launches {launched}', flush=True)
+    if launched != LAUNCHES_PER_FRCNN_REQUEST or not same or \
+            not det['valid'].any():
+        raise AssertionError('frcnn request')
+    del model, batch, det, want
+    torch.cuda.empty_cache()
+
+    cfg_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            FRCNN_CFG)
+    lr = ['--cfg-options', f'optimizer.lr={FRCNN_SMOKE_LR}']
+    _, out, seconds, launches = run_entry(
+        train_entry.main, [cfg_file, '--synthetic', '--steps', '3',
+                           '--profile', *lr], kernels,
+        {n: 5 * c for n, c in LAUNCHES_PER_FRCNN_STEP.items()})
+    if out.count('Epoch [1/1]') != 3 or 'profiled step' not in out:
+        raise AssertionError('the frcnn entry logged no steps')
+    by_path['frcnn_entry_synthetic'] = launches
+    print(f'frcnn: train entry --synthetic --steps 3 --profile '
+          f'{seconds:.3f} s in all', flush=True)
+    torch.cuda.empty_cache()
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        np.random.seed(0)
+        _, out, seconds, launches = run_entry(
+            train_entry.main, [cfg_file, '--work-dir', work_dir, *lr],
+            kernels, {n: FRCNN_DATASET_STEPS * c
+             for n, c in LAUNCHES_PER_FRCNN_STEP.items()})
+        wait = [line for line in out.splitlines()
+                if 'waiting for the loader' in line]
+        if len(wait) != 1 or out.count('Epoch [1/1]') != \
+                FRCNN_DATASET_STEPS:
+            raise AssertionError('the frcnn train entry logged no epoch')
+        by_path['frcnn_dataset'] = launches
+        stage2 = zoo.build_detector(IMVOTENET_CFG, dev, seed=0)
+        missing, unexpected = load_weights(latest_checkpoint(work_dir),
+                                           stage2)
+        branch = [k for k in missing if k.startswith(stage2.img_branch)]
+        print(f'frcnn dataset path: train entry {seconds:.3f} s in all; '
+              f'{wait[0].split(" - ", 1)[1]}; launches {launches}; its '
+              f'checkpoint warm-starts configs/baseline/imvotenet.py with '
+              f'{len(branch)} keys of the 2D branch missing ({len(missing)} '
+              f'missing in all: the point branch, towers and image MLP), '
+              f'{len(unexpected)} unexpected', flush=True)
+        if branch or unexpected:
+            raise AssertionError('the frcnn checkpoint does not warm-start '
+                                 'the stage-2 2D branch')
+        del stage2
+    torch.cuda.empty_cache()
+    return row, by_path
+
+
+def run_mmcv_checkpoint(dev, kernels):
+    """A released mmcv-format file (its epoch and CLASSES in ``meta``, no
+    top-level epoch) of the full-width DeMF-VoteNet's seeded weights, read
+    by ``demf_tpu_torch.eval`` on the dataset path's config: the classes
+    taken from the file, the epoch read as the port's count, 18 finite
+    results.  Returns the eval entry's launches."""
+    from demf_tpu_torch import eval as eval_entry
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.utils.config import Config
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(root, DATASET_CFG)
+    cfg = Config.fromfile(cfg_file)
+    model = with_size_prior(zoo.build_detector(cfg.model, dev, seed=0))
+    classes = tuple(reversed(cfg.class_names))
+    build_dir = os.path.join(root, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        path = os.path.join(work_dir, 'released.pth')
+        torch.save(dict(state_dict=model.state_dict(), meta=dict(
+            epoch=36, iter=36 * 1200, CLASSES=classes, mmcv_version='1.4.0',
+            config=cfg.dump())), path)
+        del model
+        out_file = os.path.join(work_dir, 'results.pkl')
+        np.random.seed(7)
+        metrics, out, seconds, launches = run_entry(
+            eval_entry.main, [cfg_file, path, '--eval', 'mAP', '--out',
+                              out_file], kernels, LAUNCHES_EVAL_ENTRY)
+        with open(out_file, 'rb') as f:
+            results = pickle.load(f)
+    taken = f'using CLASSES from checkpoint meta: {classes}' in out
+    epoch_read = "'epoch': 35" in out
+    print(f'mmcv-format checkpoint: eval entry {seconds:.3f} s in all, '
+          f'{len(results)} results, CLASSES taken from its meta: {taken}, '
+          f'its epoch read as 35: {epoch_read}, mAP_0.25 '
+          f'{metrics["mAP_0.25"]:.4f} (random weights)', flush=True)
+    if not (taken and epoch_read) or len(results) != VAL_SCENES or not all(
+            np.isfinite(r['boxes_3d']).all() for r in results):
+        raise AssertionError('the mmcv-format checkpoint through eval')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -2485,6 +2884,12 @@ def main():
     # ImVoteNet requests'
     launches['nms2d'] = by_path['imvotenet_serving']['nms2d']
     launches['roi_align'] = by_path['imvotenet_serving']['roi_align']
+    # K12's row is the image-only step's shape: its launches are its steps'
+    measured['roi_align_backward'], frcnn = run_frcnn_path(dev, kernels)
+    by_path.update(frcnn)
+    launches['roi_align_backward'] = \
+        by_path['frcnn_step']['roi_align_backward']
+    by_path['mmcv_eval'] = run_mmcv_checkpoint(dev, kernels)
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

@@ -5,15 +5,25 @@ drives the LR schedule; a ``meta`` dict that makes a checkpoint
 self-describing; the params-only warm start; and the DeMF stage-1 ->
 stage-2 remap on torch keys.
 
-The JAX package writes orbax checkpoints with a ``.meta.json`` beside
-them; the two formats are not shared.  Weights cross between the packages
-through ``engine/weights.py`` and ``demf_tpu.engine.torch_port``.  Files
-load with ``weights_only=True``, so ``meta`` holds plain types only (str,
-int, float, bool, None, and lists / dicts of them).
+Three kinds of file load:
+- the port's own (``save_checkpoint``), with ``epoch`` the index of the
+  last epoch trained, the optimizer state and the update count;
+- the JAX package's orbax checkpoints, once ``convert_jax_checkpoint.py``
+  (at the repository's root: it imports both packages) has written them
+  as the port's ``.pth`` with no optimizer state;
+- released mmcv-format files as they are: the port's keys are mmdet3d's,
+  and such a file keeps its epoch in ``meta['epoch']``, the count of
+  epochs completed (the port's index is one less).  Its optimizer state is
+  not the port's grouping, so it serves eval and ``load_from``, not a
+  resume.
+Files load with ``weights_only=True``, so ``meta`` holds plain types only
+(str, int, float, bool, None, and lists / tuples / dicts of them); a file
+that needs more is refused with the names of the globals it needs.
 """
 from __future__ import annotations
 
 import os
+import pickle
 import re
 
 import torch
@@ -36,16 +46,32 @@ def _epochs(work_dir):
     return [p for _, p in sorted(found)]
 
 
-def _check_plain(value, where='meta'):
+def _read(path, device='cpu'):
+    """``torch.load`` with ``weights_only=True``; a file that needs other
+    globals raises with their names."""
+    try:
+        return torch.load(path, map_location=device, weights_only=True)
+    except pickle.UnpicklingError as e:
+        names = torch.serialization.get_unsafe_globals_in_checkpoint(path)
+        raise ValueError(f'{path} needs globals that a weights_only load '
+                         f'does not take: {names}') from e
+
+
+def _is_mmcv(ckpt):
+    """An mmcv-format file: its epoch only in ``meta``."""
+    return 'epoch' not in ckpt and 'epoch' in (ckpt.get('meta') or {})
+
+
+def check_plain(value, where='meta'):
     """Raise unless ``value`` is made of the types a ``weights_only`` load
     takes back (a ``str`` subclass such as ``torch.__version__`` is not)."""
     if isinstance(value, dict):
         for k, v in value.items():
-            _check_plain(k, where)
-            _check_plain(v, f'{where}[{k!r}]')
+            check_plain(k, where)
+            check_plain(v, f'{where}[{k!r}]')
     elif isinstance(value, (list, tuple)):
         for i, v in enumerate(value):
-            _check_plain(v, f'{where}[{i}]')
+            check_plain(v, f'{where}[{i}]')
     elif value is not None and type(value) not in (str, int, float, bool):
         raise TypeError(f'{where} is a {type(value).__name__}: checkpoint '
                         f'meta holds plain types only')
@@ -66,7 +92,7 @@ def save_checkpoint(work_dir, model, optimizer, epoch, count=0, keep=-1,
                    optimizer=optimizer.state_dict(), epoch=epoch,
                    count=int(count))
     if meta:
-        _check_plain(meta)
+        check_plain(meta)
         payload['meta'] = dict(meta, epoch=epoch)
     torch.save(payload, path)
     if keep and keep > 0:
@@ -75,12 +101,24 @@ def save_checkpoint(work_dir, model, optimizer, epoch, count=0, keep=-1,
     return path
 
 
+def _epoch(ckpt):
+    """The port's epoch (the index of the last one trained) of a file."""
+    if _is_mmcv(ckpt):
+        return int(ckpt['meta']['epoch']) - 1
+    return ckpt['epoch']
+
+
 def load_checkpoint(path, model, optimizer=None, train_step=None):
     """Load a checkpoint into ``model`` (strict) and, when given, into
     ``optimizer`` and ``train_step`` (its update ``count``); returns the
-    epoch it was written at."""
+    epoch it was written at (for an mmcv-format file ``meta['epoch'] -
+    1``; its optimizer state is refused)."""
     device = next(model.parameters()).device
-    ckpt = torch.load(path, map_location=device, weights_only=True)
+    ckpt = _read(path, device)
+    if optimizer is not None and _is_mmcv(ckpt):
+        raise ValueError(f'{path} is an mmcv-format checkpoint: its '
+                         f'optimizer state is not the port\'s param groups, '
+                         f'so it serves eval and load_from, not a resume')
     model.load_state_dict(ckpt['state_dict'], strict=True)
     if optimizer is not None:
         optimizer.load_state_dict(ckpt['optimizer'])
@@ -89,13 +127,21 @@ def load_checkpoint(path, model, optimizer=None, train_step=None):
             raise KeyError(f'{path} holds no update count: the LR schedule '
                            f'cannot resume from it')
         train_step.count = ckpt['count']
-    return ckpt['epoch']
+    return _epoch(ckpt)
 
 
 def load_meta(path):
     """The ``meta`` dict a checkpoint was saved with (None if it has
-    none): the eval entry point reads ``CLASSES`` from it."""
-    return torch.load(path, map_location='cpu', weights_only=True).get('meta')
+    none), its ``epoch`` in the port's count: the eval entry point reads
+    ``CLASSES`` from it."""
+    ckpt = _read(path)
+    meta = ckpt.get('meta')
+    if meta is None:
+        return None
+    meta = dict(meta)
+    if 'epoch' in meta or 'epoch' in ckpt:
+        meta['epoch'] = _epoch(ckpt)
+    return meta
 
 
 def latest_checkpoint(work_dir):
@@ -109,8 +155,7 @@ def load_weights(path, model):
     a checkpoint, or of a bare ``state_dict`` file, into ``model`` after
     ``remap_img_branch_keys``, not strict.  Returns (missing keys,
     unexpected keys)."""
-    device = next(model.parameters()).device
-    ckpt = torch.load(path, map_location=device, weights_only=True)
+    ckpt = _read(path, next(model.parameters()).device)
     state = remap_img_branch_keys(ckpt.get('state_dict', ckpt))
     result = model.load_state_dict(state, strict=False)
     return list(result.missing_keys), list(result.unexpected_keys)

@@ -16,9 +16,15 @@ detections of the joint tower.
 shares the fusion and takes its 2D boxes from a Faster R-CNN branch:
 caffe ResNet-50 -> FPN -> ``RPNHead`` proposals -> ``StandardRoIHead``
 detections over ``test_cfg.img_rcnn.score_thr``; the 2D NMS and the
-RoIAlign run as kernels K10 and K11 on the card.  Its image-only mode (the
-Faster R-CNN training) is not ported yet (ROADMAP M5), nor is either
-fusion mode under the bf16 policy.
+RoIAlign run as kernels K10 and K11 on the card.  Without ``points`` it is
+the image-only Faster R-CNN, the first stage of the published workflow:
+in training the RPN's loss over every anchor, proposals without a graph,
+512 RoIs an image sampled from them and the GT boxes, and the R-CNN's loss
+on those (the RoIAlign's backward is K12); in inference the R-CNN's
+detections on the proposals.  Its checkpoint warm-starts the stage-2 model
+(``load_from``).  No ``ImVoteNet`` runs under the bf16 policy yet
+(``bf16_ported``: K10 and K11 take float32), nor does the fusion mode of
+``ImVoteNet_Deformdetr``.
 
 Random draws: the half-drop and the seed sampling take their uniforms
 from the caller's ``torch.Generator`` in training, in that order; in eval
@@ -26,6 +32,10 @@ from the caller's ``torch.Generator`` in training, in that order; in eval
 where the JAX package draws from ``jax.random.PRNGKey(0)``: the same
 distribution, other numbers.  ``forward(..., draws=dict(bboxes_2d=u,
 seeds=u))`` takes the uniforms instead (the tests pass the JAX draws).
+The image-only training draws, in this order, ``FRCNN_DRAWS``: the RPN
+sampler's positive and negative keys (B, anchors), then the R-CNN
+sampler's and its order keys (B, proposals + GT slots); ``draws`` takes
+any of them by name.
 Like the JAX package, a module builds only what its modes run: without
 ``pts_backbone`` no point branch, towers or fusion.
 """
@@ -39,9 +49,13 @@ from torch import nn
 from ..ops.grouping import gather_points_last
 from ..registry import BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg
 from .pointnet2 import SharedMLP
+from .rpn_roi import rcnn_loss, rpn_loss, sample_rcnn_rois
 from .vote_fusion import VoteFusion, sample_valid_seeds
 
 TOWERS = ('joint', 'pts', 'img')
+# the image-only Faster R-CNN's uniform draws, in the order a generator
+# makes them
+FRCNN_DRAWS = ('rpn_pos', 'rpn_neg', 'rcnn_pos', 'rcnn_neg', 'rcnn_order')
 
 
 class ImgMLP(nn.Module):
@@ -90,6 +104,8 @@ class ImVoteNet_Deformdetr(nn.Module):
     # the frozen 2D branch, and the score over which its boxes are kept
     img_branch = ('img_backbone', 'img_neck', 'img_bbox_head')
     box_score_thr = 0.09
+    # whether the image-only mode runs under the bf16 policy
+    img_only_bf16 = True
 
     def __init__(self, pts_backbone=None, pts_bbox_heads=None, pts_neck=None,
                  img_backbone=None, img_neck=None, img_bbox_head=None,
@@ -105,8 +121,8 @@ class ImVoteNet_Deformdetr(nn.Module):
         self.img_neck = build_from_cfg(img_neck, NECKS)
         self._build_2d_heads(img_bbox_head=img_bbox_head, **heads_2d)
         # the stage-1 pretrain runs under the bf16 policy, the fusion not
-        # yet (``utils.precision.check_policy``)
-        self.bf16_ported = pts_backbone is None
+        # yet (``utils.precision.check_policy``), nor any ImVoteNet
+        self.bf16_ported = pts_backbone is None and self.img_only_bf16
         if pts_backbone is not None:
             self.pts_backbone = build_from_cfg(pts_backbone, BACKBONES)
             towers, self.loss_weights = self._tower_cfgs(pts_bbox_heads)
@@ -195,9 +211,10 @@ class ImVoteNet_Deformdetr(nn.Module):
         proposal sampling; ``generator`` (a ``torch.Generator`` on the
         model's device) draws the dropout masks, the half-drop and the seed
         sampling in training; ``draws`` gives the last two's uniforms
-        instead (``bboxes_2d`` (B, K), ``seeds`` (B, N * slots))."""
+        instead (``bboxes_2d`` (B, K), ``seeds`` (B, N * slots); without
+        points, the image-only mode's draws by name)."""
         if 'points' not in batch:
-            return self.forward_img_only(batch, generator)
+            return self.forward_img_only(batch, generator, draws)
         if self.pts_backbone is None:
             raise ValueError('fusion mode: the model was built without a '
                              'pts_backbone')
@@ -241,7 +258,7 @@ class ImVoteNet_Deformdetr(nn.Module):
         results['bboxes_2d_valid'] = box_valid
         return results
 
-    def forward_img_only(self, batch, generator=None):
+    def forward_img_only(self, batch, generator=None, draws=None):
         """The stage-1 2D pretrain: -> dict(img_preds=the head's output);
         ``generator`` draws the dropout masks in train mode."""
         feats = self.extract_img_feat(batch['img'])
@@ -273,12 +290,19 @@ class ImVoteNet_Deformdetr(nn.Module):
 @DETECTORS.register_module()
 class ImVoteNet(ImVoteNet_Deformdetr):
     """The ImVoteNet baseline: the Faster R-CNN 2D branch (frozen, in eval
-    mode) and the fusion of ``ImVoteNet_Deformdetr``."""
+    mode) and the fusion of ``ImVoteNet_Deformdetr``; without points the
+    Faster R-CNN alone, trained and served."""
 
-    # an ImVoteNet scene at the size Resize (1333, 600) + Pad 32 gives a
-    # 530x730 SUN RGB-D frame
-    synth_batch = ('demf', 16, 64, dict(hw=(608, 832), valid_hw=(600, 826)))
     img_branch = ('img_backbone', 'img_neck', 'img_rpn_head', 'img_roi_head')
+    img_only_bf16 = False
+
+    @property
+    def synth_batch(self):
+        """A scene at the size Resize (1333, 600) + Pad 32 gives a 530x730
+        SUN RGB-D frame; without a point branch its image and 2D boxes."""
+        if self.pts_backbone is None:
+            return ('detr2d', 16, 64, dict(hw=(608, 832)))
+        return ('demf', 16, 64, dict(hw=(608, 832), valid_hw=(600, 826)))
 
     def _build_2d_heads(self, img_bbox_head=None, img_rpn_head=None,
                         img_roi_head=None):
@@ -292,16 +316,93 @@ class ImVoteNet(ImVoteNet_Deformdetr):
         self.box_score_thr = dict(test_cfg.get('img_rcnn') or {}).get(
             'score_thr', 0.05)
 
+    def _cfg(self, train, key):
+        return dict(((self.train_cfg if train else self.test_cfg) or {}).get(
+            key) or {})
+
     def detect_2d(self, img, meta):
         """RPN proposals -> RoI head -> its per-class detections."""
         feats = self.extract_img_feat(img)
         img_shape = meta['img_shape']
         proposals, _, p_valid = self.img_rpn_head.get_proposals(
-            self.img_rpn_head(feats), img_shape,
-            dict((self.test_cfg or {}).get('img_rpn') or {}))
+            self.img_rpn_head(feats), img_shape, self._cfg(False, 'img_rpn'))
         cls_logits, bbox_deltas = self.img_roi_head(feats, proposals)
         return self.img_roi_head.get_bboxes(cls_logits, bbox_deltas,
                                             proposals, p_valid, img_shape)
 
-    def forward_img_only(self, batch, generator=None):
-        raise NotImplementedError('image-only Faster R-CNN: ROADMAP M5')
+    def forward_img_only(self, batch, generator=None, draws=None):
+        """The Faster R-CNN alone.  Training (with ``gt_bboxes``): the RPN
+        on every level, proposals of ``train_cfg.img_rpn_proposal`` without
+        a graph, ``sample_rcnn_rois`` and the RoI head on the sampled RoIs
+        -> dict(rpn_outs, rpn_draws, rcnn_sampled, rcnn_cls, rcnn_deltas).
+        Otherwise the proposals (of ``test_cfg.img_rpn`` in eval mode) and
+        the RoI head on all of them -> dict(rpn_outs, proposals,
+        proposal_valid, rcnn_cls, rcnn_deltas).  The samplers' uniforms:
+        ``draws`` by the names of ``FRCNN_DRAWS``, the rest from
+        ``generator`` in that order."""
+        feats = self.extract_img_feat(batch['img'])
+        outs = self.img_rpn_head(feats)
+        results = dict(rpn_outs=outs)
+        train = self.training and 'gt_bboxes' in batch
+        with torch.no_grad():
+            proposals, _, p_valid = self.img_rpn_head.get_proposals(
+                outs, batch['img_meta']['img_shape'], self._cfg(
+                    self.training, 'img_rpn_proposal' if self.training
+                    else 'img_rpn'))
+        if not train:
+            cls_logits, bbox_deltas = self.img_roi_head(feats, proposals)
+            return dict(results, proposals=proposals,
+                        proposal_valid=p_valid, rcnn_cls=cls_logits,
+                        rcnn_deltas=bbox_deltas)
+        b = proposals.shape[0]
+        sizes = dict.fromkeys(FRCNN_DRAWS[:2], (b, sum(
+            c.shape[1] * c.shape[2] * c.shape[3] for c, _ in outs)))
+        sizes.update(dict.fromkeys(FRCNN_DRAWS[2:], (
+            b, proposals.shape[1] + batch['gt_bboxes'].shape[1])))
+        draws = dict(draws or {})
+        if generator is None and set(draws) != set(FRCNN_DRAWS):
+            raise ValueError('the image-only training samples on a '
+                             'torch.Generator (or the draws)')
+        for name in FRCNN_DRAWS:
+            if name not in draws:
+                draws[name] = torch.rand(sizes[name], generator=generator,
+                                         device=proposals.device)
+        sampled = sample_rcnn_rois(
+            proposals, p_valid, batch['gt_bboxes'], batch['gt_labels'],
+            batch['gt_bboxes_valid'], self._cfg(True, 'img_rcnn'),
+            self.img_roi_head.num_classes, u_pos=draws['rcnn_pos'],
+            u_neg=draws['rcnn_neg'], u_order=draws['rcnn_order'])
+        cls_logits, bbox_deltas = self.img_roi_head(feats, sampled['rois'])
+        return dict(results, rpn_draws=(draws['rpn_pos'], draws['rpn_neg']),
+                    rcnn_sampled=sampled, rcnn_cls=cls_logits,
+                    rcnn_deltas=bbox_deltas)
+
+    def loss(self, results, batch):
+        """The image-only training's RPN and R-CNN losses
+        (``loss_rpn_cls``, ``loss_rpn_bbox``, ``loss_cls``, ``loss_bbox``),
+        else the fusion's."""
+        if 'rpn_outs' not in results:
+            return ImVoteNet_Deformdetr.loss(self, results, batch)
+        rpn = self.img_rpn_head
+        losses = rpn_loss(
+            results['rpn_outs'], rpn.anchor_generator, rpn.bbox_coder,
+            batch['gt_bboxes'], batch['gt_bboxes_valid'],
+            self._cfg(True, 'img_rpn'), rpn.loss_cls_cfg, rpn.loss_bbox_cfg,
+            *results['rpn_draws'])
+        head = self.img_roi_head.head_cfg
+        losses.update(rcnn_loss(
+            results['rcnn_cls'], results['rcnn_deltas'],
+            results['rcnn_sampled'], dict(head['bbox_coder']),
+            self.img_roi_head.num_classes, dict(head['loss_cls']),
+            dict(head['loss_bbox'])))
+        return losses
+
+    def get_bboxes(self, results, batch):
+        """The image-only inference's R-CNN detections (dict(bboxes (B, K,
+        5), labels, valid)), else the joint tower's."""
+        if 'proposals' in results:
+            return self.img_roi_head.get_bboxes(
+                results['rcnn_cls'], results['rcnn_deltas'],
+                results['proposals'], results['proposal_valid'],
+                batch['img_meta']['img_shape'])
+        return ImVoteNet_Deformdetr.get_bboxes(self, results, batch)

@@ -1,7 +1,8 @@
-"""The Faster R-CNN image branch of the ImVoteNet baseline, inference half
-(port of ``demf_tpu/models/rpn_roi.py``): anchors, the delta coder, the
-RPN head with its fixed-shape proposals, and the RoI head (pyramid
-RoIAlign + Shared2FC) with its per-class detections.
+"""The Faster R-CNN image branch of the ImVoteNet baseline (port of
+``demf_tpu/models/rpn_roi.py``): anchors, the delta coder, the RPN head
+with its fixed-shape proposals, the RoI head (pyramid RoIAlign +
+Shared2FC) with its per-class detections, and the training half: the RPN's
+loss over every anchor, the R-CNN's RoI sampling and its loss.
 
 Everything is fixed-shape, as in the JAX package: padded proposals and
 detections with validity masks.  The 2D NMS is ``ops/nms2d.py`` (K10 on
@@ -11,8 +12,11 @@ equal values), the port sorts stably (``topk_stable``): ``torch.topk`` does
 not promise that order on the card, and the order of the 2D boxes decides
 which box is a seed's k-th in VoteFusion.
 
-The training half (``rpn_loss``, ``sample_rcnn_rois``, ``rcnn_loss`` and
-``models/assign_sample.py``) is not ported yet (ROADMAP M5).
+The training half takes a batch where the JAX package maps a function of
+one image over it; its assigner and sampler are ``models/assign_sample.py``
+and it takes its uniform draws as arguments (the model draws them).  The
+RoIAlign trains through K12 (its backward) on the card; the proposals and
+the sampled RoIs take no gradient, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ from torch import nn
 
 from ..ops.nms2d import batched_nms_2d
 from ..ops.roi_align import pyramid_roi_align, roi_levels
-from ..registry import HEADS
+from ..registry import HEADS, LOSSES, build_from_cfg
 from ..utils.precision import conv, dense
+from .losses import sigmoid_cross_entropy
 
 
 def topk_stable(x, k):
@@ -122,7 +127,8 @@ def _img_hw(img_shape, dtype):
 class RPNHead(nn.Module):
     """mmdet ``RPNHead``: ``rpn_conv`` (3x3, ReLU), ``rpn_cls`` (an
     objectness logit an anchor) and ``rpn_reg`` (4 deltas an anchor), on
-    every level; NHWC maps in, NHWC outputs out."""
+    every level; NHWC maps in, NHWC outputs out.  Its loss configs are
+    kept for ``rpn_loss``."""
 
     def __init__(self, in_channels=256, feat_channels=256,
                  anchor_generator=None, bbox_coder=None, loss_cls=None,
@@ -130,6 +136,8 @@ class RPNHead(nn.Module):
         super().__init__()
         self.anchor_generator = dict(anchor_generator or {})
         self.bbox_coder = dict(bbox_coder or {})
+        self.loss_cls_cfg = loss_cls
+        self.loss_bbox_cfg = loss_bbox
         ag = self.anchor_generator
         num_anchors = len(ag.get('scales', [8])) * len(
             ag.get('ratios', [0.5, 1.0, 2.0]))
@@ -264,3 +272,116 @@ class StandardRoIHead(nn.Module):
                 flat_boxes, 1, topi[..., None].expand(-1, -1, 4)),
                 topv[..., None]], -1),
             labels=torch.gather(flat_labels, 1, topi), valid=topv > 0)
+
+
+def _take(x, idx):
+    """``x`` (B, N, ...) at the indices ``idx`` (B, K) of its second axis."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def rpn_anchors(outs, anchor_cfg):
+    """Every level's anchors of the RPN outputs ``outs``, concatenated in
+    the order of the flattened outputs -> (A, 4)."""
+    strides = list(anchor_cfg.get('strides', [4, 8, 16, 32, 64]))
+    scales = list(anchor_cfg.get('scales', [8]))
+    ratios = list(anchor_cfg.get('ratios', [0.5, 1.0, 2.0]))
+    return torch.cat([grid_anchors((c.shape[1], c.shape[2]), s, scales,
+                                   ratios, c.device)
+                      for (c, _), s in zip(outs, strides)], 0)
+
+
+def rpn_loss(outs, anchor_cfg, coder_cfg, gt_bboxes, gt_valid, train_cfg,
+             loss_cls_cfg, loss_bbox_cfg, u_pos, u_neg):
+    """mmdet ``RPNHead.loss`` over every anchor: ``outs`` the RPN's (cls,
+    reg) a level, ``gt_bboxes`` (B, G, 4) xyxy, ``gt_valid`` (B, G); the
+    anchors assigned by ``MaxIoUAssigner`` and sampled by
+    ``RandomSampler`` on the uniforms ``u_pos`` / ``u_neg`` (B, A) ->
+    dict(loss_rpn_cls, loss_rpn_bbox).  The objectness
+    loss is the sigmoid BCE written out, as in the JAX package, over the
+    sampled anchors and divided by their count."""
+    from .assign_sample import iou_2d, max_iou_assign, random_sample
+    asn = dict(train_cfg.get('assigner', {}))
+    smp = dict(train_cfg.get('sampler', {}))
+    anchors = rpn_anchors(outs, anchor_cfg)
+    b = gt_bboxes.shape[0]
+    cls = torch.cat([c.reshape(b, -1) for c, _ in outs], 1)
+    reg = torch.cat([r.reshape(b, -1, 4) for _, r in outs], 1)
+    assigned = max_iou_assign(
+        iou_2d(anchors, gt_bboxes), gt_valid, asn.get('pos_iou_thr', 0.7),
+        asn.get('neg_iou_thr', 0.3), asn.get('min_pos_iou', 0.3),
+        asn.get('match_low_quality', True))
+    pos, neg = random_sample(assigned, smp.get('num', 256),
+                             smp.get('pos_fraction', 0.5), u_pos=u_pos,
+                             u_neg=u_neg)
+    weights = (pos | neg).to(cls.dtype)
+    deltas = bbox2delta(anchors, _take(gt_bboxes, assigned.clamp_min(0)),
+                        coder_cfg.get('target_means', (0., 0., 0., 0.)),
+                        coder_cfg.get('target_stds', (1., 1., 1., 1.)))
+    avg = weights.sum().clamp_min(1.0)
+    bce = sigmoid_cross_entropy(cls, pos.to(cls.dtype))
+    loss_cls = (bce * weights).sum() / avg * dict(loss_cls_cfg).get(
+        'loss_weight', 1.0)
+    loss_bbox = build_from_cfg(dict(loss_bbox_cfg), LOSSES)(
+        reg, deltas, weight=pos.to(reg.dtype)[..., None], avg_factor=avg)
+    return dict(loss_rpn_cls=loss_cls, loss_rpn_bbox=loss_bbox)
+
+
+def sample_rcnn_rois(proposals, proposal_valid, gt_bboxes, gt_labels,
+                     gt_valid, train_cfg, num_classes, u_pos, u_neg,
+                     u_order):
+    """The R-CNN's assignment and sampling with ``add_gt_as_proposals``:
+    the GT boxes after the proposals (B, R + G), ``MaxIoUAssigner``,
+    ``RandomSampler`` (the uniforms ``u_pos`` / ``u_neg``), then the
+    ``num`` chosen rows in the order of the keys ``1 + u_order`` (all (B,
+    R + G)) -> dict(rois (B, num, 4), labels (B, num; the background is
+    ``num_classes``), gt_boxes (B, num, 4), pos, chosen (B, num))."""
+    from .assign_sample import iou_2d, max_iou_assign, random_sample
+    asn = dict(train_cfg.get('assigner', {}))
+    smp = dict(train_cfg.get('sampler', {}))
+    num = smp.get('num', 512)
+    rois = torch.cat([proposals, gt_bboxes], 1)
+    valid = torch.cat([proposal_valid, gt_valid], 1)
+    ious = iou_2d(rois, gt_bboxes)
+    ious = torch.where(valid[..., None], ious, torch.full_like(ious, -1.0))
+    assigned = max_iou_assign(
+        ious, gt_valid, asn.get('pos_iou_thr', 0.5),
+        asn.get('neg_iou_thr', 0.5), asn.get('min_pos_iou', 0.5),
+        asn.get('match_low_quality', False))
+    assigned = torch.where(valid, assigned, -2)
+    pos, neg = random_sample(assigned, num, smp.get('pos_fraction', 0.25),
+                             u_pos=u_pos, u_neg=u_neg)
+    chosen = pos | neg
+    _, sel = topk_stable(torch.where(chosen, 1.0 + u_order,
+                                     torch.zeros_like(u_order)), num)
+    pos_s = torch.gather(pos, 1, sel)
+    gt_of = torch.gather(assigned, 1, sel).clamp_min(0)
+    labels = torch.where(pos_s, torch.gather(gt_labels.long(), 1, gt_of),
+                         num_classes)
+    return dict(rois=_take(rois, sel), labels=labels,
+                gt_boxes=_take(gt_bboxes, gt_of), pos=pos_s,
+                chosen=torch.gather(chosen, 1, sel))
+
+
+def rcnn_loss(cls_logits, bbox_deltas, sampled, coder_cfg, num_classes,
+              loss_cls_cfg, loss_bbox_cfg):
+    """The R-CNN's classification loss over the chosen RoIs and its
+    class-specific regression (the deltas of the RoI's GT class) over the
+    positive ones, both divided by the count of chosen RoIs ->
+    dict(loss_cls, loss_bbox)."""
+    labels = sampled['labels']
+    chosen = sampled['chosen'].to(cls_logits.dtype)
+    avg = chosen.sum().clamp_min(1.0)
+    loss_cls = build_from_cfg(dict(loss_cls_cfg), LOSSES)(
+        cls_logits, labels, weight=chosen, avg_factor=avg)
+    targets = bbox2delta(sampled['rois'], sampled['gt_boxes'],
+                         coder_cfg.get('target_means', (0., 0., 0., 0.)),
+                         coder_cfg.get('target_stds', (0.1, 0.1, 0.2, 0.2)))
+    b, s = labels.shape
+    deltas = bbox_deltas.reshape(b, s, num_classes, 4)
+    cls_idx = labels.clamp(0, num_classes - 1)[..., None, None]
+    picked = torch.gather(deltas, 2, cls_idx.expand(b, s, 1, 4))[:, :, 0]
+    loss_bbox = build_from_cfg(dict(loss_bbox_cfg), LOSSES)(
+        picked, targets, weight=sampled['pos'].to(picked.dtype)[..., None],
+        avg_factor=avg)
+    return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)

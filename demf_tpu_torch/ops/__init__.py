@@ -1,6 +1,7 @@
 """Geometric ops of the port.  FPS, ball query, MSDA (forward and
 backward), the aligned 3D NMS, the count of points in rotated boxes, the
-batched 2D NMS and the pyramid RoIAlign each have a CUDA kernel
+batched 2D NMS and the pyramid RoIAlign (forward and backward) each have a
+CUDA kernel
 (``csrc/``) beside a plain PyTorch version; a CPU tensor takes the plain
 version and a CUDA tensor the kernel.  So do the
 row gather, the slot fold and the M-form sampler of the quad-plane MSDA
@@ -19,7 +20,8 @@ from .msda import (MSDA_BACKWARD_BF16_KERNEL, MSDA_BACKWARD_KERNEL,
 from .msda_fold import MSDA_FOLD_KERNEL
 from .nms import NMS3D_KERNEL, aligned_3d_nms
 from .nms2d import NMS2D_KERNEL, batched_nms_2d, nms_2d
-from .roi_align import ROI_ALIGN_KERNEL, pyramid_roi_align
+from .roi_align import (ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_KERNEL,
+                        pyramid_roi_align)
 from .sampling import FPS_KERNEL, furthest_point_sample
 
 __all__ = [
@@ -34,7 +36,8 @@ __all__ = [
 def kernels():
     """name -> CudaKernel for every kernel of the port: the serving and
     training paths' (FPS to MSDA backward, the 3D NMS and the box count,
-    the 2D NMS and the RoIAlign of ImVoteNet's image branch; MSDA
+    the 2D NMS and the RoIAlign (forward and backward) of ImVoteNet's
+    image branch; MSDA
     forward and backward on a float32 and on a bfloat16 value, each with
     its own count) and the probes'."""
     return {'fps': FPS_KERNEL, 'ball_query': BALL_QUERY_KERNEL,
@@ -44,4 +47,5 @@ def kernels():
             'gather_rows': GATHER_ROWS_KERNEL, 'msda_fold': MSDA_FOLD_KERNEL,
             'mform_sample': MFORM_KERNEL, 'nms3d': NMS3D_KERNEL,
             'box_count': BOX_COUNT_KERNEL, 'nms2d': NMS2D_KERNEL,
-            'roi_align': ROI_ALIGN_KERNEL}
+            'roi_align': ROI_ALIGN_KERNEL,
+            'roi_align_backward': ROI_ALIGN_BACKWARD_KERNEL}

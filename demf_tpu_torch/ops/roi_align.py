@@ -16,6 +16,14 @@ sample table (``sample_table``) in shared memory.  A CPU tensor takes the
 plain version, which gathers the four corners of every sample from the
 concatenated pyramid, a chunk of RoIs at a time.  Both round as the same
 sequence of float32 operations, so their outputs are equal bit for bit.
+
+The gradient with respect to the levels (the image-only Faster R-CNN trains
+through it) is K12 on the card (``demf_roi_align_backward`` in the same
+source: the forward's blocks and sample table, each sample's four weighted
+corners added into zero-filled levels with float4 atomics) and autograd of
+the plain version on the CPU (``pyramid_roi_align_backward_plain``).  The
+RoIs take no gradient in either package (proposals are stopped, GT boxes
+are data): on the card a RoI tensor that requires one is refused.
 """
 from __future__ import annotations
 
@@ -30,6 +38,11 @@ from ._cuda import CudaKernel, check_cuda
 ROI_ALIGN_KERNEL = CudaKernel(
     'demf_roi_align', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 +
     [ctypes.c_float] * 4)
+
+# K12: 4 level-gradient pointers, rois, levels, d_out; then as K11
+ROI_ALIGN_BACKWARD_KERNEL = CudaKernel(
+    'demf_roi_align_backward', [ctypes.c_void_p] * 7 +
+    [ctypes.c_int] * 14 + [ctypes.c_float] * 4)
 
 K11_MAX_LEVELS = 4
 # the plain version pools about this many output numbers at a time
@@ -118,13 +131,40 @@ def pyramid_roi_align(feats, rois, lvl, strides, out_size=7,
     feats: tuple of (B, H_l, W_l, C) maps; rois (B, R, 4) xyxy in input
     coordinates; lvl (B, R) integer levels; strides: a stride a level ->
     (B, R, out, out, C).  A CPU tensor takes the plain version; a CUDA
-    tensor launches K11 (float32 only) or raises.
+    tensor launches K11 (float32 only), with K12 as its backward where a
+    level takes a gradient, or raises; so do RoIs that require one.
     """
     if rois.device.type == 'cpu':
         return pyramid_roi_align_plain(feats, rois, lvl, strides, out_size,
                                        samples_per_bin)
-    return pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size,
-                                  samples_per_bin)
+    if rois.requires_grad:
+        raise ValueError('pyramid_roi_align: the RoIs take no gradient '
+                         '(detach them); K12 returns the levels\' only')
+    return _PyramidRoIAlign.apply(rois, lvl, tuple(strides), out_size,
+                                  samples_per_bin, *feats)
+
+
+class _PyramidRoIAlign(torch.autograd.Function):
+    """K11 forward, K12 backward (the levels' gradients only)."""
+
+    @staticmethod
+    def forward(ctx, rois, lvl, strides, out_size, samples, *feats):
+        ctx.save_for_backward(rois, lvl)
+        ctx.args = (tuple(f.shape for f in feats), strides, out_size,
+                    samples)
+        return pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size,
+                                      samples)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        rois, lvl = ctx.saved_tensors
+        shapes, strides, out_size, samples = ctx.args
+        d_feats = pyramid_roi_align_backward_cuda(
+            d_out.contiguous(), shapes, rois, lvl, strides, out_size, samples)
+        return (None,) * 5 + tuple(
+            d if need else None
+            for d, need in zip(d_feats, ctx.needs_input_grad[5:]))
 
 
 def pyramid_roi_align_plain(feats, rois, lvl, strides, out_size=7,
@@ -163,6 +203,21 @@ def pyramid_roi_align_plain(feats, rois, lvl, strides, out_size=7,
         outs.append(_bilinear_mean(gather, x0, wx, y0, wy, out, s))
     return torch.cat(outs, 1) if outs else flat.new_zeros(
         (b, 0, out, out, c))
+
+
+def pyramid_roi_align_backward_plain(d_out, shapes, rois, lvl, strides,
+                                     out_size=7, samples_per_bin=2):
+    """The levels' gradients, autograd of the plain version: ``d_out``
+    (B, R, out, out, C), the levels' ``shapes`` -> a (B, H_l, W_l, C)
+    tensor a level.  The RoIAlign is linear in the levels, so zero levels
+    stand in for them."""
+    feats = tuple(torch.zeros(shape, dtype=d_out.dtype, device=d_out.device,
+                              requires_grad=True) for shape in shapes)
+    with torch.enable_grad():
+        out = pyramid_roi_align_plain(feats, rois, lvl, strides, out_size,
+                                      samples_per_bin)
+    return torch.autograd.grad(out, feats, d_out, allow_unused=True,
+                               materialize_grads=True)
 
 
 def sample_table(rois, lvl, strides, sizes, out_size=7,
@@ -244,3 +299,43 @@ def pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size=7,
                      *(f.shape[1] for f in levels),
                      *(f.shape[2] for f in levels), *inv)
     return out
+
+
+def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
+                                    out_size=7, samples_per_bin=2):
+    """Kernel K12 (csrc/roi_align.cu): the levels' gradients from ``d_out``
+    (B, R, out, out, C) float32, as tensors of ``shapes`` zero-filled here,
+    for K11's RoIs and levels and under its limits."""
+    if not 1 <= len(shapes) <= K11_MAX_LEVELS or len(strides) != len(shapes):
+        raise ValueError(f'K12 takes 1 to {K11_MAX_LEVELS} levels with a '
+                         f'stride each, got {len(shapes)} and {len(strides)}')
+    check_cuda('d_out', d_out, torch.float32, 5)
+    check_cuda('rois', rois, torch.float32, 3)
+    b, r = rois.shape[:2]
+    c = shapes[0][-1]
+    if tuple(d_out.shape) != (b, r, out_size, out_size, c):
+        raise ValueError(f'd_out {tuple(d_out.shape)} does not go with rois '
+                         f'{tuple(rois.shape)}, out_size {out_size}, C {c}')
+    if any(len(s) != 4 or s[0] != b or s[-1] != c for s in shapes):
+        raise ValueError(f'level shapes {[tuple(s) for s in shapes]} do not '
+                         f'go with rois {tuple(rois.shape)} and C {c}')
+    if not (1 <= out_size <= 32 and samples_per_bin >= 1 and
+            out_size * samples_per_bin <= 1024) or c % 4:
+        raise ValueError(f'out_size {out_size}, samples_per_bin '
+                         f'{samples_per_bin}, C {c}: K12 takes K11\'s limits')
+    if not lvl.is_cuda or lvl.shape != (b, r) or lvl.dtype.is_floating_point:
+        raise ValueError(f'lvl must be (B, R) integers on the card, got '
+                         f'{lvl.dtype} {tuple(lvl.shape)} on {lvl.device}')
+    lvl = lvl.to(torch.int32).contiguous()
+    grads = tuple(torch.zeros(s, dtype=torch.float32, device=d_out.device)
+                  for s in shapes)
+    if d_out.numel() == 0:
+        return grads
+    levels = list(grads) + [grads[0]] * (K11_MAX_LEVELS - len(grads))
+    inv = [1.0 / st for st in strides] + [1.0] * (K11_MAX_LEVELS -
+                                                 len(strides))
+    ROI_ALIGN_BACKWARD_KERNEL(
+        *(g.data_ptr() for g in levels), rois.data_ptr(), lvl.data_ptr(),
+        d_out.data_ptr(), b, r, c, len(grads), out_size, samples_per_bin,
+        *(g.shape[1] for g in levels), *(g.shape[2] for g in levels), *inv)
+    return grads

@@ -236,6 +236,8 @@ def box_grid_case(name, seed=0):
 # of 152x208, 76x104, 38x52, 19x26 and 10x13 positions x 3 anchors), the
 # R-CNN's 10 classes of 1,000 proposals
 RPN_LEVELS = (1000, 1000, 1000, 1000, 390)
+# in training (``img_rpn_proposal``: nms_pre 2000) of the same image
+RPN_TRAIN_LEVELS = (2000, 2000, 2000, 1482, 390)
 RCNN_PROPOSALS, RCNN_CLASSES = 1000, 10
 
 
@@ -249,9 +251,10 @@ def nms2d_case(b, n, groups=1, seed=0, ties=False, degenerate=False,
     zero width and exact duplicates (boxes and scores) next to them.
     ``invalid``: the share of invalid entries.  ``layout``: ``random``
     groups; ``rpn``, the RPN's level groups in order (n = 4,390, all
-    valid); ``rcnn``, the R-CNN's proposal-major classes (n = 10,000), the
-    boxes of a proposal's classes close together, a score a class of a
-    softmax over 11 and valid where it is over 0.1.
+    valid), ``rpn_train`` those of training (n = 7,872); ``rcnn``, the
+    R-CNN's proposal-major classes (n = 10,000), the boxes of a proposal's
+    classes close together, a score a class of a softmax over 11 and valid
+    where it is over 0.1.
     """
     rng = np.random.RandomState(seed)
     centers = rng.uniform(0, 700, (b, max(n // 8, 1), 2))
@@ -262,9 +265,10 @@ def nms2d_case(b, n, groups=1, seed=0, ties=False, degenerate=False,
     scores = rng.rand(b, n).astype(np.float32)
     idxs = rng.randint(0, groups, (b, n))
     valid = rng.rand(b, n) >= invalid
-    if layout == 'rpn':
-        assert n == sum(RPN_LEVELS)
-        idxs = np.repeat(np.arange(len(RPN_LEVELS)), RPN_LEVELS)[None]
+    if layout in ('rpn', 'rpn_train'):
+        levels = RPN_LEVELS if layout == 'rpn' else RPN_TRAIN_LEVELS
+        assert n == sum(levels)
+        idxs = np.repeat(np.arange(len(levels)), levels)[None]
         idxs = np.repeat(idxs, b, 0)
         valid = np.ones((b, n), bool)
     elif layout == 'rcnn':

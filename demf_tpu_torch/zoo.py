@@ -1,8 +1,9 @@
 """Build the port's detector and its trainer from the shared ``configs/``,
-the tiny DeMF, DETR-pretrain, VoteNet and ImVoteNet model configs of the
-CPU runs, and synthetic batches (numpy) with the fields, shapes and meta of
-``demf_tpu.zoo.synth_points_batch``, ``synth_demf_batch`` and
-``synth_detr2d_batch``, value for value from the same seed."""
+the tiny DeMF, DETR-pretrain, VoteNet, ImVoteNet and Faster R-CNN model
+configs of the CPU runs, and synthetic batches (numpy) with the fields,
+shapes and meta of ``demf_tpu.zoo.synth_points_batch``,
+``synth_demf_batch`` and ``synth_detr2d_batch``, value for value from the
+same seed."""
 from __future__ import annotations
 
 import copy
@@ -303,6 +304,38 @@ def tiny_imvotenet_model_cfg():
     return m
 
 
+def tiny_frcnn_model_cfg():
+    """The image-only Faster R-CNN of ``tiny_imvotenet_model_cfg`` for CPU
+    runs: its 2D branch at the same widths (so that its checkpoint warm-
+    starts the tiny ImVoteNet), no point branch, trained, with the small
+    proposal and sampler budgets of the JAX package's
+    ``tests/test_rpn_roi.py::test_frcnn_image_only_training`` (a test holds
+    the two together)."""
+    m = tiny_imvotenet_model_cfg()
+    for key in ('pts_backbone', 'pts_bbox_heads', 'img_mlp', 'fusion_layer',
+                'num_sampled_seed'):
+        m.pop(key)
+    m['freeze_img_branch'] = False
+    tc = dict(m['train_cfg'])
+    tc.pop('pts')
+    tc['img_rpn_proposal'] = dict(nms_pre=16, max_per_img=16,
+                                  nms=dict(type='nms', iou_threshold=0.7))
+    tc['img_rcnn'] = dict(
+        assigner=dict(type='MaxIoUAssigner', pos_iou_thr=0.5,
+                      neg_iou_thr=0.5, min_pos_iou=0.5,
+                      match_low_quality=False),
+        sampler=dict(type='RandomSampler', num=16, pos_fraction=0.25))
+    tc['img_rpn'] = dict(
+        assigner=dict(type='MaxIoUAssigner', pos_iou_thr=0.7,
+                      neg_iou_thr=0.3, min_pos_iou=0.3,
+                      match_low_quality=True),
+        sampler=dict(type='RandomSampler', num=32, pos_fraction=0.5))
+    m['train_cfg'] = tc
+    m['test_cfg'] = dict(m['test_cfg'])
+    m['test_cfg'].pop('pts')
+    return m
+
+
 def tiny_votenet_model_cfg():
     """The tiny VoteNet of ``configs/synthetic/votenet_tiny.py`` (the
     baseline's ``CAVoteHead`` at small widths), which the port reads as it
@@ -318,7 +351,8 @@ def synth_batch_for(model, b=None, p=20000, g=None, hw=None, seed=0):
     for DeMF-VoteNet, and the same at 608x832 (600x826 valid) for
     ImVoteNet; ``synth_points_batch`` of 16 scenes of ``p`` points with 64
     GT slots for VoteNet; ``synth_detr2d_batch`` of 4 images of 800x1344
-    with 20 GT slots for the stage-1 pretrain."""
+    with 20 GT slots for the stage-1 pretrain, and of 16 images of 608x832
+    with 64 for ImVoteNet's image-only Faster R-CNN."""
     spec = getattr(model, 'synth_batch', None)
     if spec is None:
         raise NotImplementedError(

@@ -1357,3 +1357,78 @@ def test_roi_align_kernel_refuses_what_it_cannot_take(dev):
         roi_align.pyramid_roi_align_cuda(tuple(f.cpu() for f in feats),
                                          rois, lvl, (4, 8))
     assert roi_align.ROI_ALIGN_KERNEL.launches == before
+
+
+def _grad_err(got, want):
+    """max |kernel - plain| over the levels, and the largest plain value."""
+    return (max((g - w).abs().max().item() for g, w in zip(got, want)),
+            max(w.abs().max().item() for w in want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,r,levels,c', [
+    (2, 512, PATH_LEVELS, 256), (16, 512, PATH_LEVELS, 256),
+    (1, 37, ((16, 24), (8, 12), (4, 6), (2, 3)), 16),
+    (3, 5, ((9, 7),), 4)])
+def test_roi_align_backward_kernel_matches_plain(dev, b, r, levels, c):
+    """K12 against the plain version's autograd within 1e-5 of the
+    largest gradient: the path's sampled RoIs at batch 2 and 16, the tiny
+    model's pyramid, one level; one launch a backward, K11's forward
+    launched once, through autograd of ``pyramid_roi_align``."""
+    feats, rois, lvl = _pyramid_inputs(dev, b, r, levels, c, seed=b + r)
+    strides = (4, 8, 16, 32)[:len(levels)]
+    leaves = tuple(f.clone().requires_grad_() for f in feats)
+    d_out = torch.randn((b, r, 7, 7, c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(r))
+    fwd = roi_align.ROI_ALIGN_KERNEL.launches
+    bwd = roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches
+    out = roi_align.pyramid_roi_align(leaves, rois, lvl, strides, 7)
+    got = torch.autograd.grad(out, leaves, d_out)
+    assert roi_align.ROI_ALIGN_KERNEL.launches == fwd + 1
+    assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == bwd + 1
+    assert torch.equal(out, roi_align.pyramid_roi_align_plain(
+        feats, rois, lvl, strides, 7))
+    want = roi_align.pyramid_roi_align_backward_plain(
+        d_out, [f.shape for f in feats], rois, lvl, strides, 7)
+    err, largest = _grad_err(got, want)
+    assert err <= 1e-5 * largest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('samples', [1, 2, 3])
+def test_roi_align_backward_kernel_clamped_borders(dev, samples):
+    """RoIs across and beyond the map's borders and RoIs smaller than a
+    pixel at its corners, whose corners clamp onto one pixel (which adds
+    twice), with 1, 2 (unrolled) and 3 samples a bin axis, C 132 (a part
+    of a channel slice)."""
+    levels = ((16, 24), (8, 12))
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 40, levels, 132, seed=samples)
+    rois[:, :6] = torch.tensor(
+        [[-30.0, -30.0, 5.0, 5.0], [90.0, 60.0, 140.0, 110.0],
+         [-5.0, 0.0, 0.5, 0.5], [95.5, 63.5, 96.0, 64.0],
+         [-100.0, 10.0, -50.0, 30.0], [0.0, 0.0, 96.0, 64.0]], device=dev)
+    lvl = roi_align.roi_levels(rois, 2)
+    d_out = torch.randn((2, 40, 7, 7, 132), device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+    got = roi_align.pyramid_roi_align_backward_cuda(
+        d_out, [f.shape for f in feats], rois, lvl, (4, 8), 7, samples)
+    want = roi_align.pyramid_roi_align_backward_plain(
+        d_out, [f.shape for f in feats], rois, lvl, (4, 8), 7, samples)
+    err, largest = _grad_err(got, want)
+    assert err <= 1e-5 * largest
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_refuses_rois_that_require_grad(dev):
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 8, ((16, 24), (8, 12)), 8)
+    fwd = roi_align.ROI_ALIGN_KERNEL.launches
+    bwd = roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches
+    with pytest.raises(ValueError, match='RoIs take no gradient'):
+        roi_align.pyramid_roi_align(feats, rois.requires_grad_(), lvl,
+                                    (4, 8))
+    d_out = torch.zeros((2, 8, 7, 7, 8), device=dev)
+    with pytest.raises(ValueError, match='does not go with'):
+        roi_align.pyramid_roi_align_backward_cuda(
+            d_out[:1], [f.shape for f in feats], rois.detach(), lvl, (4, 8))
+    assert roi_align.ROI_ALIGN_KERNEL.launches == fwd
+    assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == bwd
