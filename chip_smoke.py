@@ -143,8 +143,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    imvotenet_frcnn_synthetic.py``: ``configs/_base_/models/
    imvotenet_image.py`` trained, at full width): K12 (the RoIAlign's
    backward) against the plain version's autograd within 1e-5 of the
-   largest gradient at 512 RoIs a scene, batch 16 and 2, beside its bound,
-   the zero-fill's time and the plain version's; K10 at the RPN's training
+   largest gradient at 512 RoIs a scene, batch 16 and 2 on spread RoIs and
+   batch 16 on RoIs crowded as the R-CNN's sampler hands them over and
+   piled onto one box, the same bits in two calls, equal bit for bit to
+   the plain version of its order at batch 2, beside its bound and the
+   plain version's time; K10 at the RPN's training
    shape (16, 7,872), equal to plain; the kernel path against the plain
    path at batch 2 of 608x832 on the same draws (losses 1e-4, the FPN's,
    RPN's and RoI head's gradients 1e-3 of each tensor's largest); 3 steps
@@ -343,13 +346,12 @@ LAUNCHES_IMVOTENET_TRAIN_ENTRY = {
     EVAL_BATCHES * LAUNCHES_PER_IMVOTENET_REQUEST[n] for n in KERNEL_NAMES}
 LAUNCHES_IMVOTENET_EVAL_ENTRY = {
     n: EVAL_BATCHES * c for n, c in LAUNCHES_PER_IMVOTENET_REQUEST.items()}
-# the shapes K10 and K11 are held and timed at: the RPN's 5 level groups
-# and the R-CNN's 10 class groups, at a request's batch and a step's, and
-# K10's limit; the FPN's four pooled levels at 608x832
+# the shapes K10 is held and timed at: the RPN's 5 level groups and the
+# R-CNN's 10 class groups, at a request's batch and a step's, and K10's
+# limit (K11's and K12's levels: tools/roi_cases.py)
 NMS2D_SHAPES = ((16, 'rcnn', 10000, 0.5), (16, 'rpn', 4390, 0.7),
                 (2, 'rcnn', 10000, 0.5), (2, 'rpn', 4390, 0.7),
                 (2, 'random', 16384, 0.7))
-ROI_LEVELS = ((152, 208), (76, 104), (38, 52), (19, 26))
 # the image-only Faster R-CNN (demf_tpu_torch/configs/imvotenet_frcnn_
 # synthetic.py: configs/_base_/models/imvotenet_image.py, trained): a step
 # runs K10 once over the RPN's training proposals (7,872 candidates in 5
@@ -2097,22 +2099,6 @@ def check_nms2d(dev):
     return rows[2]
 
 
-def roi_case(dev, b, r=1000, c=256, seed=0):
-    """The FPN's four pooled levels of a 608x832 image and ``r`` RoIs a
-    scene the size of the RPN's proposals (16 to 600 pixels, some across
-    the borders), with mmdet's levels."""
-    from demf_tpu_torch.ops import roi_align
-    gen = torch.Generator(dev).manual_seed(seed)
-    feats = tuple(torch.randn((b, h, w, c), generator=gen, device=dev)
-                  for h, w in ROI_LEVELS)
-    xy = torch.rand((b, r, 2), generator=gen, device=dev) * torch.tensor(
-        [852.0, 628.0], device=dev) - 20
-    wh = torch.exp(torch.rand((b, r, 2), generator=gen, device=dev) * 3.6 +
-                   2.8)
-    rois = torch.cat([xy, xy + wh], -1)
-    return feats, rois, roi_align.roi_levels(rois, len(ROI_LEVELS))
-
-
 def check_roi_align(dev):
     """K11 against the plain version at the path's shape, batch 16 and 2:
     1,000 RoIs a scene into (7, 7, 256) from the four levels of a 608x832
@@ -2122,6 +2108,7 @@ def check_roi_align(dev):
     number."""
     from demf_tpu_torch.ops import roi_align
     from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools.roi_cases import roi_case
     rows = []
     for b in (16, 2):
         feats, rois, lvl = roi_case(dev, b, seed=b)
@@ -2425,55 +2412,76 @@ def run_imvotenet_path(dev, kernels):
 def check_roi_align_backward(dev):
     """K12 against the plain version's autograd at the step's shape, batch
     16 and 2: 512 sampled RoIs a scene, (7, 7, 256) bins, the four levels
-    of a 608x832 image; within 1e-5 of the largest gradient.  Its time
-    through the wrapper (with the zero-fill of the levels' gradient), its
-    kernel's device time, the zero-fill's, the plain version's; its bound:
-    d_out read once and the levels' gradient written once, against ~50
-    operations a d_out number (16 weighted corners)."""
+    of a 608x832 image; within 1e-5 of the largest gradient, the same bits
+    in two calls, and at batch 2 equal bit for bit to the plain version of
+    its order (``pyramid_roi_align_backward_tiles_plain``).  Spread RoIs
+    (the ``kernels`` line's row, batch 16), then at batch 16 RoIs crowded
+    as the R-CNN's sampler hands them over and RoIs piled onto one box,
+    each on its own line.  Its time through the wrapper (nothing filled:
+    every pixel is written once), its kernels' device time, the plain
+    version's; its bound: d_out read once and the levels' gradient written
+    once, against ~50 operations a d_out number (16 weighted corners)."""
     from demf_tpu_torch.ops import roi_align
-    from demf_tpu_torch.tools import bound_ms, time_ms
-    strides = (4, 8, 16, 32)
+    from demf_tpu_torch.tools import bound_ms, device_kernels, time_ms
+    from demf_tpu_torch.tools.roi_cases import ROI_STRIDES, k12_case
     rows = []
-    for b in (16, 2):
-        feats, rois, lvl = roi_case(dev, b, r=FRCNN_ROIS, seed=b + 1)
-        shapes = [f.shape for f in feats]
-        del feats
-        d_out = torch.randn((b, FRCNN_ROIS, 7, 7, 256), device=dev,
-                            generator=torch.Generator(dev).manual_seed(b))
+    spread_ms = {}
+    for b, kind in ((16, 'spread'), (2, 'spread'), (16, 'crowded'),
+                    (16, 'piled')):
+        d_out, shapes, rois, lvl = k12_case(dev, b, kind, FRCNN_ROIS,
+                                            seed=b)
 
         def kernel():
             return roi_align.pyramid_roi_align_backward_cuda(
-                d_out, shapes, rois, lvl, strides)
+                d_out, shapes, rois, lvl, ROI_STRIDES)
 
-        got = kernel()
+        got, again = kernel(), kernel()
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        del again
         want = roi_align.pyramid_roi_align_backward_plain(
-            d_out, shapes, rois, lvl, strides)
+            d_out, shapes, rois, lvl, ROI_STRIDES)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         scale = max(w.abs().max().item() for w in want)
-        del got, want
+        del want
+        ordered = 'not held at batch 16'
+        if b == 2:
+            ordered = all(torch.equal(g, w) for g, w in zip(
+                got, roi_align.pyramid_roi_align_backward_tiles_plain(
+                    d_out, shapes, rois, lvl, ROI_STRIDES)))
+        del got
+        torch.cuda.empty_cache()
         ms = time_ms(kernel, 20)
-        kernel_ms, _, on_device = device_ms(kernel, 'roi_align_backward')
-        zero_ms = time_ms(lambda: [torch.zeros(sh, device=dev)
-                                   for sh in shapes], 20)
+        by_kernel = {k: v for k, v in device_kernels(kernel).items()
+                     if 'roi_align_backward' in k}
         plain_ms = time_ms(lambda: roi_align.pyramid_roi_align_backward_plain(
-            d_out, shapes, rois, lvl, strides), 1)
+            d_out, shapes, rois, lvl, ROI_STRIDES), 1)
         grad_bytes = 4 * sum(int(np.prod(sh)) for sh in shapes)
         least, by = bound_ms(50 * d_out.numel(),
                              4 * d_out.numel() + grad_bytes)
-        print(f'K12 roi_align_backward (B {b}, {FRCNN_ROIS} RoIs a scene, '
-              f'd_out {tuple(d_out.shape)}): max |kernel - plain| '
-              f'{err:.3e} (bound 1e-5 x {scale:.3f}), through the wrapper '
-              f'{ms:.4f} ms (the kernel {kernel_ms:.4f} ms on the device, '
-              f'{on_device} kernels a call; the zero-fill of '
-              f'{grad_bytes / 1e6:.1f} MB alone {zero_ms:.4f} ms), plain '
-              f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}: d_out '
-              f'{4 * d_out.numel() / 1e6:.1f} MB read, the levels\' '
-              f'gradient {grad_bytes / 1e6:.1f} MB written), '
-              f'{least / ms:.1%} of it; library call: none', flush=True)
-        if not err <= 1e-5 * scale:
-            raise AssertionError('RoIAlign backward kernel disagrees with '
-                                 'plain')
+        if kind == 'spread':
+            spread_ms[b] = ms
+        per_level = lvl.flatten().bincount(minlength=len(shapes)).tolist()
+        print(f'K12 roi_align_backward, {kind} RoIs (B {b}, {FRCNN_ROIS} '
+              f'RoIs a scene, {per_level} on the levels, d_out '
+              f'{tuple(d_out.shape)}): max |kernel - plain| '
+              f'{err:.3e} (bound 1e-5 x {scale:.3f}), the same bits in two '
+              f'calls: {same}, equal to the plain version of its order: '
+              f'{ordered}; through the wrapper {ms:.4f} ms '
+              f'({ms / spread_ms[b]:.2f}x spread; on the device, ms a '
+              f'launch (launches recorded a call): ' + ', '.join(
+                  f'{k[len("roi_align_backward_"):]} {t / n:.4f} ({n:g})'
+                  for k, (n, t) in by_kernel.items()) +
+              f'; nothing filled), plain {plain_ms:.4f} ms, bound '
+              f'{least:.6f} ms ({by}: d_out {4 * d_out.numel() / 1e6:.1f} '
+              f'MB read, the levels\' gradient {grad_bytes / 1e6:.1f} MB '
+              f'written), {least / ms:.1%} of it; library call: none',
+              flush=True)
+        if not (err <= 1e-5 * scale and same and ordered):
+            raise AssertionError(f'RoIAlign backward kernel ({kind}, B {b}) '
+                                 f'disagrees with plain or with itself')
         rows.append(kernel_row(err, ms, plain_ms, least, by))
+        del d_out
+        torch.cuda.empty_cache()
     return rows[0]
 
 
@@ -2648,7 +2656,7 @@ def run_frcnn_path(dev, kernels):
     k10_ms, k10_n = device_ms_of(prof, ('nms2d_',))
     busy_ms = device_ms_of(prof, ('',))[0]
     print(f'frcnn profiled step: device kernels {busy_ms:.3f} ms, of them '
-          f'K12 {k12_ms:.3f} ms in {k12_n} launches, K11 {k11_ms:.3f} ms in '
+          f'K12 {k12_ms:.3f} ms in {k12_n} kernels, K11 {k11_ms:.3f} ms in '
           f'{k11_n}, K10 {k10_ms:.3f} ms in {k10_n}', flush=True)
     time_anchor_assigner(batch)
     del model, step

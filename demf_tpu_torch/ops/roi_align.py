@@ -19,9 +19,11 @@ sequence of float32 operations, so their outputs are equal bit for bit.
 
 The gradient with respect to the levels (the image-only Faster R-CNN trains
 through it) is K12 on the card (``demf_roi_align_backward`` in the same
-source: the forward's blocks and sample table, each sample's four weighted
-corners added into zero-filled levels with float4 atomics) and autograd of
-the plain version on the CPU (``pyramid_roi_align_backward_plain``).  The
+source: the levels cut into tiles, each tile's list of (RoI, bin) entries
+walked in order by one block that writes every pixel of the tile once;
+no atomics into the levels, no zero-fill, the same bits on every call,
+equal to ``pyramid_roi_align_backward_tiles_plain``) and autograd of the
+plain version on the CPU (``pyramid_roi_align_backward_plain``).  The
 RoIs take no gradient in either package (proposals are stopped, GT boxes
 are data): on the card a RoI tensor that requires one is refused.
 """
@@ -39,12 +41,19 @@ ROI_ALIGN_KERNEL = CudaKernel(
     'demf_roi_align', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 +
     [ctypes.c_float] * 4)
 
-# K12: 4 level-gradient pointers, rois, levels, d_out; then as K11
+# K12: 4 level-gradient pointers, rois, levels, d_out, 8 scratch pointers;
+# B, R, C, L, out, samples, 4 heights, 4 widths; 4 scales; the chunk, the
+# partial tiles
 ROI_ALIGN_BACKWARD_KERNEL = CudaKernel(
-    'demf_roi_align_backward', [ctypes.c_void_p] * 7 +
-    [ctypes.c_int] * 14 + [ctypes.c_float] * 4)
+    'demf_roi_align_backward', [ctypes.c_void_p] * 15 +
+    [ctypes.c_int] * 14 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2)
 
 K11_MAX_LEVELS = 4
+# K12's tile (rows, columns), the entries a chunk of a tile's list takes,
+# and what its partial tiles may hold
+K12_TILE = (8, 8)
+K12_CHUNK = 256
+K12_PARTIAL_BYTES = 64 << 20
 # the plain version pools about this many output numbers at a time
 PLAIN_CHUNK = 1 << 24
 
@@ -220,6 +229,199 @@ def pyramid_roi_align_backward_plain(d_out, shapes, rois, lvl, strides,
                                materialize_grads=True)
 
 
+def k12_tiles(shapes):
+    """K12's tiles over levels of ``shapes`` (B, H, W, C): (tiles down,
+    tiles across) a level, and an image's tiles."""
+    th, tw = K12_TILE
+    grid = [(-(-sh[1] // th), -(-sh[2] // tw)) for sh in shapes]
+    return grid, sum(d * a for d, a in grid)
+
+
+def k12_slots(b, r, shapes, c, out_size, chunk):
+    """The partial tiles K12 keeps room for: what ``K12_PARTIAL_BYTES``
+    holds, and no more than its lists could ask for (a list of n > chunk
+    entries asks for fewer than 2 n / chunk; a RoI's bins reach at most
+    every tile of its level)."""
+    grid, _ = k12_tiles(shapes)
+    down = max(d for d, _ in grid)
+    across = max(a for _, a in grid)
+    entries = b * r * out_size * out_size * down * across
+    return min(K12_PARTIAL_BYTES // (K12_TILE[0] * K12_TILE[1] * c * 4),
+               2 * -(-entries // chunk))
+
+
+def k12_chunks(tile_n, chunk, slots):
+    """K12's cut of each tile's list of ``tile_n`` entries (an int64
+    tensor), as its plan kernel makes it: ceil(n / chunk) chunks, or
+    where the lists of more than one chunk would take more than ``slots``
+    partial tiles, each of those ``want * slots // demand`` (at least 1);
+    -> (chunk length, chunks) a tile, balanced."""
+    want = (tile_n + chunk - 1) // chunk
+    demand = int(want[want > 1].sum())
+    want = want.clamp_min(1)
+    if demand > slots:
+        want = torch.where(want > 1, (want * slots // demand).clamp_min(1),
+                           want)
+    one = torch.ones_like(tile_n)
+    length = torch.where(tile_n > 0, (tile_n + want - 1) // want, one)
+    return length, torch.where(tile_n > 0, (tile_n + length - 1) // length,
+                               one)
+
+
+def k12_lists(shapes, rois, lvl, strides, out_size=7, samples_per_bin=2):
+    """K12's tile lists.  A RoI's entries in a tile are the bins whose
+    corner rows meet the tile's rows times those whose corner columns meet
+    its columns (a bin reaches pixels from its first sample's near corner
+    to its last sample's far corner; both runs are of consecutive bins);
+    a tile's list holds the entries of the image's RoIs on its level in
+    RoI order, each RoI's row-major.  -> dict of the sample table
+    (``sample_table``), each RoI's first bin and bins reaching each tile
+    row (``oy``, ``ny``: (B, R, most tile rows)) and column (``ox``,
+    ``nx``), where its entries start in each tile's list (``start``:
+    (B, R, rows, columns) of its level) and the lists' lengths
+    (``tile_n``, in the kernel's tile order: image, level, row,
+    column)."""
+    b, r = rois.shape[:2]
+    out, s = out_size, samples_per_bin
+    dev = rois.device
+    th, tw = K12_TILE
+    lvl = lvl.long().clamp(0, len(shapes) - 1)
+    table = sample_table(rois, lvl, strides, [sh[1:3] for sh in shapes],
+                         out, s)
+    grid, _ = k12_tiles(shapes)
+
+    def runs(near, far, size, count):
+        lo = torch.arange(count, device=dev) * size
+        first = (far.view(b, r, out, s)[..., -1][..., None, :] <
+                 lo[:, None]).sum(-1)
+        end = (near.view(b, r, out, s)[..., 0][..., None, :] <=
+               (lo + size - 1)[:, None]).sum(-1)
+        return first, (end - first).clamp_min(0)
+
+    oy, ny = runs(*table['y'][:2], th, max(d for d, _ in grid))
+    ox, nx = runs(*table['x'][:2], tw, max(a for _, a in grid))
+    cnt = ny[..., :, None] * nx[..., None, :]
+    start = torch.zeros_like(cnt)
+    tile_n = []
+    for level, (down, across) in enumerate(grid):
+        on = (lvl == level)[..., None, None]
+        mine = cnt * on
+        ends = torch.cumsum(mine, 1)
+        start = torch.where(on, ends - mine, start)
+        tile_n.append(ends[:, -1, :down, :across].reshape(b, -1))
+    return dict(table=table, oy=oy, ny=ny, ox=ox, nx=nx, start=start,
+                tile_n=torch.cat(tile_n, 1).reshape(-1))
+
+
+def _axis_weights(near, far, w_near, w_far, out, s):
+    """A bin's weight on each pixel its corners reach on one axis: the
+    corners in (sample, near / far) order, (..., out, 2 s) each; a corner
+    is kept where it is the first of its pixel, with the weights of its
+    pixel's corners summed in that order from zero.  -> (pixels, weights,
+    kept)."""
+    pix = torch.stack([near, far], -1).reshape(*near.shape[:-1], out, 2 * s)
+    wts = torch.stack([w_near, w_far], -1).reshape(pix.shape)
+    k = torch.arange(2 * s, device=pix.device)
+    same = pix[..., :, None] == pix[..., None, :]
+    first = torch.where(same, k, 2 * s).min(-1).values
+    sums = torch.zeros_like(wts)
+    for i in range(2 * s):
+        sums = sums + torch.where(first[..., i:i + 1] == k, wts[..., i:i + 1],
+                                  0.0)
+    return pix, sums, first == k
+
+
+def pyramid_roi_align_backward_tiles_plain(d_out, shapes, rois, lvl, strides,
+                                           out_size=7, samples_per_bin=2,
+                                           chunk=K12_CHUNK, slots=None):
+    """The levels' gradients in K12's order.  A bin's weight on a pixel
+    is separable, ``w_y(y) * w_x(x)``, each the sum of its samples' corner
+    weights on that row or column (in sample then corner order, from
+    zero), so each (RoI, bin) entry adds one term to each pixel its
+    corners reach: ``(d_out * (w_y / (s * s))) * w_x``.  A pixel sums its
+    terms in (RoI, bin) order.  A tile's list
+    (``k12_lists``) is cut into chunks as ``k12_chunks`` cuts it; a pixel
+    whose tile has more than one sums each chunk's terms apart and then
+    the chunks' sums in order.  Those sums are taken one term a pixel a
+    step (``index_add_``), from zero.  The kernel equals this bit for bit.
+    ``slots`` defaults to ``k12_slots``."""
+    b, r = rois.shape[:2]
+    c = d_out.shape[-1]
+    out, s = out_size, samples_per_bin
+    dev = d_out.device
+    if d_out.numel() == 0:
+        return tuple(torch.zeros(sh, dtype=d_out.dtype, device=dev)
+                     for sh in shapes)
+    if slots is None:
+        slots = k12_slots(b, r, shapes, c, out, chunk)
+    th, tw = K12_TILE
+    lvl = lvl.long().clamp(0, len(shapes) - 1)
+    lists = k12_lists(shapes, rois, lvl, strides, out, s)
+    (y0, y1, yfar, ynear), (x0, x1, xfar, xnear) = (lists['table']['y'],
+                                                    lists['table']['x'])
+    oy, nx, ox, start = lists['oy'], lists['nx'], lists['ox'], lists['start']
+    grid, per_image = k12_tiles(shapes)
+    length, _ = k12_chunks(lists['tile_n'], chunk, slots)
+
+    # every term, in (image, RoI, bin row, bin column, row corner, column
+    # corner) order, where both corners are the first of their pixel
+    ys, wy, keep_y = _axis_weights(y0, y1, ynear, yfar, out, s)
+    xs, wx, keep_x = _axis_weights(x0, x1, xnear, xfar, out, s)
+    full = (b, r, out, out, 2 * s, 2 * s)
+    keep = (keep_y[:, :, :, None, :, None] &
+            keep_x[:, :, None, :, None, :]).expand(full).reshape(-1)
+    wy = _div(wy, s * s)
+    terms = ((d_out.view(b, r, out, out, 1, 1, c) *
+              wy[:, :, :, None, :, None, None]) *
+             wx[:, :, None, :, None, :, None]).reshape(-1, c)[keep]
+    ys = ys[:, :, :, None, :, None].expand(full).reshape(-1)[keep]
+    xs = xs[:, :, None, :, None, :].expand(full).reshape(-1)[keep]
+
+    def each(t):
+        return t.expand(full).reshape(-1)[keep]
+
+    scene = each(torch.arange(b, device=dev).view(b, 1, 1, 1, 1, 1))
+    roi = each(torch.arange(r, device=dev).view(1, r, 1, 1, 1, 1))
+    bin_y = each(torch.arange(out, device=dev).view(1, 1, out, 1, 1, 1))
+    bin_x = each(torch.arange(out, device=dev).view(1, 1, 1, out, 1, 1))
+    level = each(lvl.view(b, r, 1, 1, 1, 1))
+    ty, tx = ys // th, xs // tw
+    rank = (start[scene, roi, ty, tx] + (bin_y - oy[scene, roi, ty]) *
+            nx[scene, roi, tx] + bin_x - ox[scene, roi, tx])
+    base = torch.tensor([0] + [d * a for d, a in grid[:-1]],
+                        device=dev).cumsum(0)
+    across = torch.tensor([a for _, a in grid], device=dev)
+    chunk_of = rank // length[scene * per_image + base[level] +
+                              ty * across[level] + tx]
+    sizes = [b * sh[1] * sh[2] for sh in shapes]
+    offset = torch.tensor([0] + sizes[:-1], device=dev).cumsum(0)
+    hs = torch.tensor([sh[1] for sh in shapes], device=dev)
+    ws = torch.tensor([sh[2] for sh in shapes], device=dev)
+    pixel = offset[level] + (scene * hs[level] + ys) * ws[level] + xs
+    chunks = int(chunk_of.max()) + 1
+    key, order = torch.sort(pixel * chunks + chunk_of, stable=True)
+    terms = terms[order]
+    place = torch.arange(key.numel(), device=dev)
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = key[1:] != key[:-1]
+    group = torch.cumsum(new, 0) - 1
+    step = place - torch.cummax(torch.where(new, place, 0), 0).values
+    step, by_step = torch.sort(step, stable=True)
+    sums = torch.zeros((int(new.sum()), c), dtype=d_out.dtype, device=dev)
+    at = 0
+    for n in torch.bincount(step).tolist():
+        pick = by_step[at:at + n]
+        sums.index_add_(0, group[pick], terms[pick])
+        at += n
+    key = key[new]
+    total = torch.zeros((sum(sizes), c), dtype=d_out.dtype, device=dev)
+    for k in range(chunks):
+        pick = key % chunks == k
+        total.index_add_(0, key[pick] // chunks, sums[pick])
+    return tuple(part.view(sh) for part, sh in zip(total.split(sizes),
+                                                    shapes))
+
+
 def sample_table(rois, lvl, strides, sizes, out_size=7,
                  samples_per_bin=2):
     """K11's per-RoI sample table, as the kernel stages it: for each RoI
@@ -302,10 +504,14 @@ def pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size=7,
 
 
 def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
-                                    out_size=7, samples_per_bin=2):
+                                    out_size=7, samples_per_bin=2,
+                                    chunk=K12_CHUNK, slots=None):
     """Kernel K12 (csrc/roi_align.cu): the levels' gradients from ``d_out``
-    (B, R, out, out, C) float32, as tensors of ``shapes`` zero-filled here,
-    for K11's RoIs and levels and under its limits."""
+    (B, R, out, out, C) float32, as tensors of ``shapes`` that it writes in
+    full, for K11's RoIs and levels and under its limits; four kernels a
+    call.  ``chunk`` and ``slots`` as
+    ``pyramid_roi_align_backward_tiles_plain`` takes them, whose result
+    this equals bit for bit."""
     if not 1 <= len(shapes) <= K11_MAX_LEVELS or len(strides) != len(shapes):
         raise ValueError(f'K12 takes 1 to {K11_MAX_LEVELS} levels with a '
                          f'stride each, got {len(shapes)} and {len(strides)}')
@@ -326,16 +532,39 @@ def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
     if not lvl.is_cuda or lvl.shape != (b, r) or lvl.dtype.is_floating_point:
         raise ValueError(f'lvl must be (B, R) integers on the card, got '
                          f'{lvl.dtype} {tuple(lvl.shape)} on {lvl.device}')
-    lvl = lvl.to(torch.int32).contiguous()
-    grads = tuple(torch.zeros(s, dtype=torch.float32, device=d_out.device)
-                  for s in shapes)
+    if chunk < 1:
+        raise ValueError(f'chunk {chunk}: K12 takes a chunk of at least 1')
+    dev = d_out.device
     if d_out.numel() == 0:
-        return grads
+        return tuple(torch.zeros(s, dtype=torch.float32, device=dev)
+                     for s in shapes)
+    if slots is None:
+        slots = k12_slots(b, r, shapes, c, out_size, chunk)
+    lvl = lvl.to(torch.int32).contiguous()
+    th, tw = K12_TILE
+    tiles = b * k12_tiles(shapes)[1]
+    # int32 scratch, each part 16-byte aligned: the sample tables, the
+    # bins' first and last corners, the spans, the tiles' chunks, the
+    # lists' lengths, the work items, the arrivals
+    parts = [b * r * 2 * out_size * samples_per_bin * 4,
+             b * r * 2 * out_size * 2, b * r * 4, tiles * 2, tiles,
+             (tiles + slots) * 4, tiles * -(-c // 128)]
+    parts = [-(-n // 4) * 4 for n in parts]
+    ints = torch.empty(sum(parts), dtype=torch.int32, device=dev)
+    partials = torch.empty(slots * th * tw * c, dtype=torch.float32,
+                           device=dev)
+    grads = tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                  for s in shapes)
     levels = list(grads) + [grads[0]] * (K11_MAX_LEVELS - len(grads))
     inv = [1.0 / st for st in strides] + [1.0] * (K11_MAX_LEVELS -
                                                  len(strides))
+    at, scratch = ints.data_ptr(), []
+    for n in parts:
+        scratch.append(at)
+        at += 4 * n
     ROI_ALIGN_BACKWARD_KERNEL(
         *(g.data_ptr() for g in levels), rois.data_ptr(), lvl.data_ptr(),
-        d_out.data_ptr(), b, r, c, len(grads), out_size, samples_per_bin,
-        *(g.shape[1] for g in levels), *(g.shape[2] for g in levels), *inv)
+        d_out.data_ptr(), *scratch, partials.data_ptr(), b, r, c, len(grads),
+        out_size, samples_per_bin, *(g.shape[1] for g in levels),
+        *(g.shape[2] for g in levels), *inv, chunk, slots)
     return grads

@@ -1,7 +1,7 @@
 """K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward), K6
-(slot fold), K7 (M-form sampler), K9 (box count), K10 (batched 2D NMS) and
-K11 (pyramid RoIAlign) of this tree against the same kernels of another
-commit, in turns, on one card:
+(slot fold), K7 (M-form sampler), K9 (box count), K10 (batched 2D NMS),
+K11 (pyramid RoIAlign) and K12 (its backward) of this tree against the
+same kernels of another commit, in turns, on one card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
         tar -x -C build/parent
@@ -13,9 +13,10 @@ a name of its own and builds its kernels from its own sources, so each
 side goes through its own wrapper (``furthest_point_sample_cuda``,
 ``ball_query_cuda``, ``msda_cuda``, ``msda_backward_cuda``,
 ``weighted_slot_fold_batched`` / ``slot_major_fold``,
-``mform_sample_cuda``, ``batched_nms_2d_cuda``, ``pyramid_roi_align_cuda``),
-whatever C interface lies below.  At every shape of the main paths (K7:
-the four levels of ``bench_msda_matmul``, bf16 and f32) each side is timed
+``mform_sample_cuda``, ``batched_nms_2d_cuda``, ``pyramid_roi_align_cuda``,
+``pyramid_roi_align_backward_cuda``), whatever C interface lies below.  At
+every shape of the main paths (K7: the four levels of
+``bench_msda_matmul``, bf16 and f32) each side is timed
 twice, in the order parent, this tree, this tree, parent, on tensors made
 beforehand;
 K1's and K2's picks and K7's outputs must be equal (K7's to the plain
@@ -48,7 +49,12 @@ its limit of 16,384; both sides' keep masks must equal the plain
 version's.  K11 runs at 1,000 RoIs a scene into (7, 7, 256) from the four
 levels of a 608x832 image, batch 16 and 2; both sides' outputs must equal
 the plain version's bit for bit, and the share of the byte bound is
-printed.
+printed.  K12 runs at the image-only step's shape (512 RoIs a scene,
+(7, 7, 256) bins, batch 2 and 16) on RoIs spread, crowded as the R-CNN's
+sampler hands them over and piled onto one box (``tools/roi_cases.py``);
+each side's largest difference from the plain version's autograd (within
+1e-5 of the largest gradient) and whether two of its calls give the same
+bits are printed, and this tree's kernels' device ms.
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -65,7 +71,7 @@ sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
 ``ops.grouping.ball_query_launch_shape`` and
 ``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
 (``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
-roi_align``).  Prints its lines, writes
+roi_align,roi_align_backward``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -88,6 +94,8 @@ from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
                box_pairs_in_reach, call_bytes, cuda_device, device_kernels,
                encoder_sampling_locations, time_ms)
 from .nms_cases import box_count_case, nms2d_case
+from .roi_cases import (ROI_KINDS, ROI_STRIDES, SAMPLED_ROIS, k12_case,
+                        roi_case)
 
 # (scenes, points, picks) of the point branch's four SA modules and the
 # vote aggregation, at the training batch and the serving batch
@@ -120,17 +128,15 @@ MSDA_BACKWARD_CASES = (
     ('encoder, its own locations, noise 4 px', 4, None, 4, 4.0))
 
 KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
-           'msda_fold', 'box_count', 'nms2d', 'roi_align')
+           'msda_fold', 'box_count', 'nms2d', 'roi_align',
+           'roi_align_backward')
 # K9: (scenes, points, boxes) of a request and of an eval batch
 BOX_COUNT_SHAPES = ((2, 20000, 512), (16, 20000, 512))
 # K10: (scenes, layout, candidates, IoU threshold) of the RPN's and the
-# R-CNN's calls at a step's and a request's batch, and the limit; K11: the
-# FPN's four pooled levels at 608x832 and their strides, 1,000 RoIs a scene
+# R-CNN's calls at a step's and a request's batch, and the limit
 NMS2D_SHAPES = ((16, 'rcnn', 10000, 0.5), (16, 'rpn', 4390, 0.7),
                 (2, 'rcnn', 10000, 0.5), (2, 'rpn', 4390, 0.7),
                 (2, 'random', 16384, 0.7))
-ROI_LEVELS = ((152, 208), (76, 104), (38, 52), (19, 26))
-ROI_STRIDES = (4, 8, 16, 32)
 
 
 def parent_ops(parent):
@@ -656,21 +662,6 @@ def compare_nms2d(old, dev):
     return rows
 
 
-def roi_case(dev, b, r=1000, c=256, seed=0):
-    """``ROI_LEVELS`` maps of ``c`` channels and ``r`` RoIs a scene the size
-    of the RPN's proposals (16 to 600 pixels, some across the borders),
-    with mmdet's levels."""
-    gen = torch.Generator(dev).manual_seed(seed)
-    feats = tuple(torch.randn((b, h, w, c), generator=gen, device=dev)
-                  for h, w in ROI_LEVELS)
-    xy = torch.rand((b, r, 2), generator=gen, device=dev) * torch.tensor(
-        [852.0, 628.0], device=dev) - 20
-    wh = torch.exp(torch.rand((b, r, 2), generator=gen, device=dev) * 3.6 +
-                   2.8)
-    rois = torch.cat([xy, xy + wh], -1)
-    return feats, rois, roi_align.roi_levels(rois, len(ROI_LEVELS))
-
-
 def compare_roi_align(old, dev):
     """K11 through both wrappers at (16 and 2) x 1,000 RoIs; both sides'
     outputs must equal the plain version's; its bound: the levels read
@@ -703,6 +694,75 @@ def compare_roi_align(old, dev):
         if not all(equal):
             raise AssertionError('a RoIAlign kernel differs from plain')
         rows.append(row)
+    return rows
+
+
+def compare_roi_align_backward(old, dev, sweep):
+    """K12 through both wrappers at the image-only step's shape, batch 2
+    and 16, on spread, crowded and piled RoIs: each side within 1e-5 of the
+    largest gradient of the plain version's autograd, the same bits in two
+    calls or not, both timed in turns; this tree's kernels' device ms by
+    kernel.  ``sweep`` also times this tree at a few chunk lengths."""
+    rows = []
+    for b in (2, 16):
+        for kind in ROI_KINDS:
+            d_out, shapes, rois, lvl = k12_case(dev, b, kind, seed=b)
+            want = roi_align.pyramid_roi_align_backward_plain(
+                d_out, shapes, rois, lvl, ROI_STRIDES)
+            scale = max(w.abs().max().item() for w in want)
+            errs, same = [], []
+            for m in (old, roi_align):
+                got = m.pyramid_roi_align_backward_cuda(d_out, shapes, rois,
+                                                        lvl, ROI_STRIDES)
+                errs.append(max((g - w).abs().max().item()
+                                for g, w in zip(got, want)))
+                again = m.pyramid_roi_align_backward_cuda(
+                    d_out, shapes, rois, lvl, ROI_STRIDES)
+                same.append(all(torch.equal(g, a)
+                                for g, a in zip(got, again)))
+                del got, again
+            del want
+            torch.cuda.empty_cache()
+
+            def tree(chunk=roi_align.K12_CHUNK):
+                return roi_align.pyramid_roi_align_backward_cuda(
+                    d_out, shapes, rois, lvl, ROI_STRIDES, chunk=chunk)
+
+            ms = in_turns(lambda: old.pyramid_roi_align_backward_cuda(
+                d_out, shapes, rois, lvl, ROI_STRIDES), tree, 20)
+            by_kernel = device_kernels(tree)
+            grad_numel = sum(n * h * w * c for n, h, w, c in shapes)
+            least, by = bound_ms(50 * d_out.numel(),
+                                 4 * (d_out.numel() + grad_numel))
+            row = dict(kernel='roi_align_backward', b=b, kind=kind,
+                       r=SAMPLED_ROIS, err=errs, largest=scale, same=same,
+                       bound_ms=least, bound_by=by, by_kernel=by_kernel,
+                       parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+            print(f'K12 roi_align_backward ({kind} RoIs, B {b}, '
+                  f'{SAMPLED_ROIS} RoIs, d_out (7, 7, 256)): parent '
+                  f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
+                  f'{ms[2]:.4f} ms through the wrappers, bound {least:.4f} '
+                  f'ms ({by}): parent at {least / min(ms[0], ms[3]):.1%}, '
+                  f'this tree at {least / min(ms[1:3]):.1%}; max |kernel - '
+                  f'plain| parent {errs[0]:.3e}, this tree {errs[1]:.3e} '
+                  f'(bound 1e-5 x {scale:.3f}); the same bits in two calls: '
+                  f'parent {same[0]}, this tree {same[1]}; this tree\'s '
+                  f'kernels (launches, device ms a call): '
+                  f'{_ms_by_kernel(by_kernel)}', flush=True)
+            if max(errs) > 1e-5 * scale or not same[1]:
+                raise AssertionError('a RoIAlign backward kernel differs '
+                                     'from plain, or this tree\'s from '
+                                     'itself')
+            if sweep:
+                row['sweep'] = {
+                    chunk: time_ms(lambda: tree(chunk), 10)
+                    for chunk in (128, 256, 512, 1024)}
+                print('  sweep (chunk: ms): ' + ', '.join(
+                    f'{k}: {v:.4f}' for k, v in row['sweep'].items()),
+                    flush=True)
+            rows.append(row)
+            del d_out
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -744,6 +804,8 @@ def main(argv=None):
         rows += compare_nms2d(old_nms2d, dev)
     if 'roi_align' in only:
         rows += compare_roi_align(old_roi_align, dev)
+    if 'roi_align_backward' in only:
+        rows += compare_roi_align_backward(old_roi_align, dev, args.sweep)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

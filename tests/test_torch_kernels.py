@@ -1432,3 +1432,153 @@ def test_roi_align_backward_refuses_rois_that_require_grad(dev):
             d_out[:1], [f.shape for f in feats], rois.detach(), lvl, (4, 8))
     assert roi_align.ROI_ALIGN_KERNEL.launches == fwd
     assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == bwd
+
+
+def _piled_inputs(dev, b, r, c, seed=0, box=(20.0, 16.0, 44.0, 40.0)):
+    """The tiny pyramid of a 64x96 image and ``r`` RoIs a scene within a
+    pixel of one box, so that one tile's list is long; their d_out."""
+    levels = ((16, 24), (8, 12), (4, 6), (2, 3))
+    gen = torch.Generator().manual_seed(seed)
+    rois = (torch.tensor(box) + torch.rand((b, r, 4), generator=gen) * 2 -
+            1).to(dev)
+    d_out = torch.randn((b, r, 7, 7, c), generator=gen).to(dev)
+    return d_out, [(b, h, w, c) for h, w in levels], rois, \
+        roi_align.roi_levels(rois, len(levels))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,r,levels,c', [
+    (2, 512, PATH_LEVELS, 256), (1, 37, ((16, 24), (8, 12), (4, 6), (2, 3)),
+                                 16),
+    (3, 5, ((9, 7),), 4), (2, 40, ((16, 24), (8, 12)), 132)])
+def test_roi_align_backward_kernel_equals_tiles_plain(dev, b, r, levels, c):
+    """K12 equal bit for bit to the plain version of its order: the path's
+    sampled RoIs at batch 2, the tiny model's pyramid, one level, C 132 (a
+    part of a channel slice); one launch a call."""
+    feats, rois, lvl = _pyramid_inputs(dev, b, r, levels, c, seed=b + r)
+    shapes = [f.shape for f in feats]
+    strides = (4, 8, 16, 32)[:len(levels)]
+    d_out = torch.randn((b, r, 7, 7, c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(r))
+    before = roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches
+    got = roi_align.pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl,
+                                                    strides)
+    assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == before + 1
+    want = roi_align.pyramid_roi_align_backward_tiles_plain(
+        d_out, shapes, rois, lvl, strides)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['spread', 'piled'])
+def test_roi_align_backward_kernel_same_bits_every_call(dev, kind):
+    """Two calls of K12 give the same bits, on spread RoIs at the path's
+    shape and on RoIs piled onto one box (lists cut into chunks)."""
+    if kind == 'spread':
+        feats, rois, lvl = _pyramid_inputs(dev, 2, 512, PATH_LEVELS, 256,
+                                           seed=3)
+        shapes = [f.shape for f in feats]
+        d_out = torch.randn((2, 512, 7, 7, 256), device=dev)
+        strides = (4, 8, 16, 32)
+    else:
+        d_out, shapes, rois, lvl = _piled_inputs(dev, 2, 400, 64, seed=3)
+        strides = (4, 8, 16, 32)
+    runs = [roi_align.pyramid_roi_align_backward_cuda(
+        d_out, shapes, rois, lvl, strides) for _ in range(3)]
+    for other in runs[1:]:
+        assert all(torch.equal(g, o) for g, o in zip(runs[0], other))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('chunk,slots', [(512, None), (37, None), (16, 7),
+                                         (5, 0)])
+def test_roi_align_backward_kernel_splits_long_lists(dev, chunk, slots):
+    """RoIs piled onto one box make lists longer than a chunk: each is cut
+    into chunks summed apart and then in order (fewer chunks where the
+    partial tiles would pass ``slots``; none at 0), equal bit for bit to
+    the plain version of the same cut and within 1e-5 of the largest
+    gradient of the plain autograd."""
+    d_out, shapes, rois, lvl = _piled_inputs(dev, 2, 300, 20, seed=chunk)
+    strides = (4, 8, 16, 32)
+    kw = dict(chunk=chunk, slots=slots)
+    got = roi_align.pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl,
+                                                    strides, **kw)
+    want = roi_align.pyramid_roi_align_backward_tiles_plain(
+        d_out, shapes, rois, lvl, strides, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    autograd = roi_align.pyramid_roi_align_backward_plain(
+        d_out, shapes, rois, lvl, strides)
+    err, largest = _grad_err(got, autograd)
+    assert err <= 1e-5 * largest
+    lists = roi_align.k12_lists(shapes, rois, lvl, strides)
+    assert int(lists['tile_n'].max()) > chunk
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_kernel_writes_untouched_pixels_as_zero(dev):
+    """The gradient's memory is not filled by the wrapper: after the card's
+    allocator hands out memory that held NaN, every pixel that no corner
+    reaches is exactly 0 and every other one equals the plain version."""
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 30, PATH_LEVELS, 64, seed=9)
+    shapes = [f.shape for f in feats]
+    d_out = torch.randn((2, 30, 7, 7, 64), device=dev)
+    junk = torch.full((sum(int(np.prod(s)) for s in shapes) * 2,),
+                      float('nan'), device=dev)
+    del junk
+    got = roi_align.pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl,
+                                                    (4, 8, 16, 32))
+    reached = roi_align.pyramid_roi_align_backward_plain(
+        torch.ones_like(d_out), shapes, rois, lvl, (4, 8, 16, 32))
+    untouched = sum(int((r == 0).sum()) for r in reached)
+    assert untouched > 0
+    for g, r in zip(got, reached):
+        assert not torch.isnan(g).any()
+        assert (g[r == 0] == 0).all()
+    want = roi_align.pyramid_roi_align_backward_tiles_plain(
+        d_out, shapes, rois, lvl, (4, 8, 16, 32))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('levels', [((1, 1),), ((5, 3), (1, 1)),
+                                    ((3, 7), (2, 4), (1, 2), (1, 1))])
+@pytest.mark.parametrize('samples', [1, 2, 3])
+def test_roi_align_backward_kernel_tiny_levels(dev, levels, samples):
+    """A 1 x 1 level and levels smaller than one tile (every RoI clamped
+    onto a few pixels), with 1, 2 (unrolled) and 3 samples a bin axis:
+    equal to the plain version of K12's order, within 1e-5 of the plain
+    autograd."""
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 20, levels, 8, seed=samples)
+    shapes = [f.shape for f in feats]
+    strides = (4, 8, 16, 32)[:len(levels)]
+    d_out = torch.randn((2, 20, 7, 7, 8), device=dev)
+    got = roi_align.pyramid_roi_align_backward_cuda(
+        d_out, shapes, rois, lvl, strides, 7, samples)
+    want = roi_align.pyramid_roi_align_backward_tiles_plain(
+        d_out, shapes, rois, lvl, strides, 7, samples)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    err, largest = _grad_err(got, roi_align.pyramid_roi_align_backward_plain(
+        d_out, shapes, rois, lvl, strides, 7, samples))
+    assert err <= 1e-5 * largest
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_kernel_counts_one_launch_a_backward(dev):
+    """Autograd of ``pyramid_roi_align`` through K11 and K12 launches each
+    wrapper once a call, whatever the kernels a call; no launch where the
+    wrapper refuses."""
+    feats, rois, lvl = _pyramid_inputs(dev, 2, 64, PATH_LEVELS[:2], 132,
+                                       seed=4)
+    leaves = tuple(f.clone().requires_grad_() for f in feats)
+    fwd = roi_align.ROI_ALIGN_KERNEL.launches
+    bwd = roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches
+    for _ in range(2):
+        out = roi_align.pyramid_roi_align(leaves, rois, lvl, (4, 8), 7)
+        out.pow(2).sum().backward()
+    assert roi_align.ROI_ALIGN_KERNEL.launches == fwd + 2
+    assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == bwd + 2
+    with pytest.raises(ValueError, match='chunk'):
+        roi_align.pyramid_roi_align_backward_cuda(
+            torch.zeros((2, 64, 7, 7, 132), device=dev),
+            [f.shape for f in feats], rois, lvl, (4, 8), chunk=0)
+    assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == bwd + 2
