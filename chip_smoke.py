@@ -705,30 +705,44 @@ def check_msda(dev, rng):
 def check_msda_backward(dev, rng):
     """K4 against the plain version's autograd: at the decoder's shapes
     (batch 16, Q 256, P 2 of the stage-2 step; batch 4, Q 300, P 4 of the
-    pretrain step) and at the encoder's (Q 22,323, P 4) at batch 2 and 4,
-    with locations over the whole map, with the encoder's own (noise of
-    0.5 pixels) and with those scattered by 4 pixels.  The kernel time
-    includes zeroing d_value.  Returns the row of the pretrain step's
+    pretrain step) with locations over the whole map, crowded round 16
+    centres a scene and piled on one place
+    (``tools.decoder_sampling_locations``), and at the encoder's (Q 22,323,
+    P 4) at batch 2 and 4, with locations over the whole map, with the
+    encoder's own (noise of 0.5 pixels) and with those scattered by 4
+    pixels.  At the decoders' shapes K4 takes its lists route: its d_value
+    must be the same bits from call to call and equal to
+    ``msda_backward_rows_plain``, the call may launch nothing but the lists
+    kernel (no fill, no query-major kernel) and take no more memory than
+    its outputs; each prints its launches a call.  The encoder's kernel
+    time includes zeroing d_value.  Returns the row of the pretrain step's
     costliest launch: the encoder's own locations at batch 4."""
     from demf_tpu_torch.ops import msda
-    from demf_tpu_torch.tools import (bound_ms, encoder_sampling_locations,
-                                      time_ms)
+    from demf_tpu_torch.tools import (DECODER_LOCATIONS, bound_ms, call_bytes,
+                                      decoder_sampling_locations,
+                                      device_kernels,
+                                      encoder_sampling_locations, time_ms)
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     rows = {}
-    for b, q, p, noise in ((16, 256, 2, None), (4, 300, 4, None),
-                           (2, s, 4, None), (2, s, 4, 0.5), (2, s, 4, 4.0),
-                           (4, s, 4, None), (4, s, 4, 0.5), (4, s, 4, 4.0)):
+    cases = [(b, q, p, where) for b, q, p in ((16, 256, 2), (4, 300, 4))
+             for where in DECODER_LOCATIONS]
+    cases += [(b, s, 4, noise) for b in (2, 4) for noise in (None, 0.5, 4.0)]
+    for b, q, p, where in cases:
         value = torch.from_numpy(
             rng.randn(b, s, 8, 32).astype(np.float32)).to(dev)
-        if noise is None:
+        if q != s:
+            locs = decoder_sampling_locations(shapes, b, q, 8, p, dev, where,
+                                              seed=b)
+            where = f'{where} locations'
+        elif where is None:
             locs = torch.from_numpy(rng.uniform(
                 -0.1, 1.1, (b, q, 8, 4, p, 2)).astype(np.float32)).to(dev)
             where = 'locations over the whole map'
         else:
             locs = encoder_sampling_locations(shapes, b, 8, p, dev,
-                                              jitter=noise)
-            where = f"the encoder's own locations, noise {noise} px"
+                                              jitter=where)
+            where = f"the encoder's own locations, noise {where} px"
         aw = torch.from_numpy(rng.rand(b, q, 8, 4 * p).astype(np.float32))
         aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p).to(dev)
         grad = torch.from_numpy(
@@ -742,8 +756,9 @@ def check_msda_backward(dev, rng):
             out = msda.msda_plain(ins[0], shapes, ins[1], ins[2])
             return torch.autograd.grad(out, ins, grad)
 
+        got = kernel()
         errs, bounds = [], []
-        for g, w in zip(kernel(), plain()):
+        for g, w in zip(got, plain()):
             errs.append((g - w).abs().max().item())
             bounds.append(1e-5 * w.abs().max().item())
         ms = time_ms(kernel, 10)
@@ -753,18 +768,52 @@ def check_msda_backward(dev, rng):
         least, by = bound_ms(
             30 * aw.numel() * 32,
             msda_bytes(shapes, value, locs, aw, backward=True))
+        route = ''
+        if q != s:
+            # the lists route: d_value the same bits call after call and
+            # equal to the plain row order's, no fill and no query-major
+            # kernel, and no memory beyond the outputs (the lists stay in
+            # shared memory)
+            again = kernel()[0]
+            rows_plain = msda.msda_backward_rows_plain(value, shapes, locs,
+                                                       aw, grad)
+            same, plain_order = (torch.equal(got[0], again),
+                                 torch.equal(got[0], rows_plain))
+            del again, rows_plain
+            lists = msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p,
+                                                 torch.float32)
+            # (1 MiB for the allocator's rounding of the three blocks)
+            allowed = ((value.numel() + locs.numel() + aw.numel()) * 4 +
+                       lists + 2 ** 20)
+            taken = call_bytes(kernel)
+            found = device_kernels(kernel)
+            launches = round(sum(n for n, _ in found.values()))
+            route = (f'; lists route: d_value the same bits twice: {same}, '
+                     f'equal to msda_backward_rows_plain: {plain_order}, '
+                     f'memory a call {taken / 2 ** 20:.1f} MiB (outputs and '
+                     f'entry lists {allowed / 2 ** 20:.1f} MiB), the kernel '
+                     f'at {least / ms:.1%} of its bound; launches a call '
+                     f'{launches}: ' + ', '.join(
+                         f'{k} {t:.4f} ms' for k, (_, t) in found.items()))
+            if not (same and plain_order) or taken > allowed or list(
+                    found) != ['msda_backward_lists_kernel'] or launches != 1:
+                raise AssertionError(
+                    'K4\'s lists route: d_value differs between calls or '
+                    'from the plain row order, or the call launches other '
+                    'kernels or takes more memory than its outputs and lists')
+        del got
         print(f'K4 msda_backward ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, '
               f'sum_HW {s}, {where}): max_abs_err d_value / d_loc / d_aw '
               f'{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (bounds '
               f'{bounds[0]:.3e} / {bounds[1]:.3e} / {bounds[2]:.3e}), '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, least '
-              f'{least:.4f} ms ({by})', flush=True)
+              f'{least:.4f} ms ({by}){route}', flush=True)
         if not all(e <= bd for e, bd in zip(errs, bounds)):
             raise AssertionError('MSDA backward kernel disagrees with plain')
-        rows[b, q, noise] = kernel_row(max(errs), ms, plain_ms, least, by)
+        rows[b, q, where] = kernel_row(max(errs), ms, plain_ms, least, by)
         del value, locs, aw, grad
         torch.cuda.empty_cache()
-    return rows[4, s, 0.5]
+    return rows[4, s, "the encoder's own locations, noise 0.5 px"]
 
 
 # K3 / K4 on a bf16 value: against the plain version in bf16 an output may
@@ -870,7 +919,8 @@ def check_msda_bf16(dev, rng):
             same, plain_order = (torch.equal(got[0], again),
                                  torch.equal(got[0], rows_plain))
             del again, rows_plain
-            lists = msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p)
+            lists = msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p,
+                                                 torch.bfloat16)
             # (1 MiB for the allocator's rounding of the four blocks)
             allowed = (value.numel() * 2 + (locs.numel() + aw.numel()) * 4 +
                        lists + 2 ** 20)

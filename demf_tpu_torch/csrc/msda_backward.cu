@@ -86,6 +86,26 @@
 //   grad_out of each list in float32 in that order (no FMA) and rounds
 //   once.  d_value is the same bit for bit
 //   from call to call, and equal to ops/msda.py::msda_backward_rows_plain.
+//
+// The float32 lists route (a float32 value without tiles, the decoders).
+// The query-major kernel's float32 atomics land in no fixed order and need
+// d_value zeroed first (on an H100 the fill took nearly half the time at
+// the stage-2 decoder); the bfloat16 route's three kernels on a float32
+// value move each entry through global memory twice and write d_value
+// from long dependent chains.  So one kernel does it all, its lists in
+// shared memory:
+// - a block owns a slice of at most kListPartRows rows of one level for one
+//   (scene, head) and writes that head's channels of each row once, so
+//   that the writes spread over the card and not over the level-0 blocks
+//   alone; its share of the (scene, head)'s samples' d_attn and d_loc comes
+//   along, so the value rows are read once;
+// - it keeps the corners that land on its slice, in index order, and
+//   orders them by row, stably, in shared memory (an owner warp a row, two
+//   passes of counted places, lanes of one key found by a ballot a bit);
+// - each row is summed from its list in the plain row order, float32
+//   without an FMA, from the head's grad_out rows in shared memory, and
+//   stored once: no fill, no float atomic, the same bits every call, equal
+//   to ops/msda.py::msda_backward_rows_plain.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -105,6 +125,13 @@ using namespace msda;
 #define K4_SKIP 0
 #endif
 #define K4_RUNS(phase, batch) (K4_SKIP < (phase) || (batch) > (1 << 30))
+// The same for the float32 lists route (tools/k4_phases.py --decoder,
+// -DK4_LISTS_SKIP=1..4): 1 the rows' writes, 2 the ordering by row, 3 the
+// slice's entries, 4 d_attn and d_loc.
+#ifndef K4_LISTS_SKIP
+#define K4_LISTS_SKIP 0
+#endif
+#define K4_LISTS_RUNS(phase, q) (K4_LISTS_SKIP < (phase) || (q) > (1 << 30))
 
 constexpr int kThreads = 256;        // query-major blocks
 constexpr int kTileThreads = 1024;   // tile blocks, one an SM
@@ -135,6 +162,20 @@ constexpr int kRowsPerGroup = 4;
 constexpr int kRowThreads = 256;
 constexpr int kBatch = 4;   // entries a rows thread loads at once
 constexpr unsigned kFullMask = 0xffffffffu;
+// the float32 lists route: a block's threads and warps, the most rows of a
+// block's slice (ops/msda.py mirrors both), the bits of a row's index
+// among its owner warp's rows, the stride of the owners' counts (one more
+// than a row of them, so that a warp's lanes of other owners fall in
+// other banks)
+constexpr int kListThreads = 512;
+constexpr int kListWarps = kListThreads / 32;
+constexpr int kListPartRows = 2048;
+constexpr int kListOwnerBits = 4;   // log2(kListWarps)
+constexpr int kListRowBits = 7;     // log2(kListPartRows / kListWarps)
+constexpr int kBucketStride = kListWarps + 1;
+static_assert(kListWarps == 1 << kListOwnerBits &&
+                  kListPartRows == kListWarps << kListRowBits,
+              "the lists route's bits");
 
 template <typename T>
 struct Args {
@@ -160,6 +201,24 @@ __device__ __forceinline__ float group_sum(float v, int n, unsigned mask) {
     v += __shfl_xor_sync(mask, v, off);
   return v;
 }
+
+// The lanes whose key of `bits` bits equals this lane's, among the valid
+// ones (a lane not valid gets itself alone): a ballot a bit, where
+// __match_any_sync takes far longer on keys that are mostly distinct.
+__device__ __forceinline__ unsigned match_bits(unsigned key, int bits,
+                                               bool valid) {
+  unsigned peers = __ballot_sync(kFullMask, valid);
+  for (int b = 0; b < bits; ++b) {
+    const unsigned set = __ballot_sync(kFullMask, (key >> b) & 1u);
+    peers &= (key >> b) & 1u ? set : ~set;
+  }
+  return valid ? peers : 1u << (threadIdx.x & 31);
+}
+
+// a slice row's place among the lists kernel's counts: a slot more every
+// 32 rows, so that an owner warp's rows (kListWarps apart) fall in other
+// banks
+__host__ __device__ constexpr int count_slot(int j) { return j + (j >> 5); }
 
 // sum_i a[i] * b[i], in the order 0, 1, ... (a float32 row: the order of
 // the first kernel's float4 dot product)
@@ -693,9 +752,12 @@ int sort_smem_bytes(int e, int n) {
   return 8 * e + (counts > 2 * (n + 1) ? counts : 2 * (n + 1));
 }
 
-// the sum of v over the sort block's threads before this one
-__device__ __forceinline__ int block_sum_before(int v, int* warp_totals) {
-  constexpr int kWarps = kSortThreads / 32;
+// the sum of v over the block's kBlock threads before this one (and, where
+// asked, over all of them)
+template <int kBlock>
+__device__ __forceinline__ int block_sum_before(int v, int* warp_totals,
+                                                int* total = nullptr) {
+  constexpr int kWarps = kBlock / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
 #pragma unroll
@@ -716,6 +778,7 @@ __device__ __forceinline__ int block_sum_before(int v, int* warp_totals) {
   }
   __syncthreads();
   const int before = (warp ? warp_totals[warp - 1] : 0) + x - v;
+  if (total) *total = warp_totals[kWarps - 1];
   __syncthreads();   // warp_totals is free again
   return before;
 }
@@ -823,7 +886,7 @@ __global__ void __launch_bounds__(kSortThreads)
           const int f = tid * kPer + j;
           sum += counts[(f % kSortWarps) * kDigits + f / kSortWarps];
         }
-        int place = block_sum_before(sum, warp_scan);
+        int place = block_sum_before<kSortThreads>(sum, warp_scan);
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
           const int f = tid * kPer + j;
@@ -948,6 +1011,360 @@ __global__ void __launch_bounds__(kRowThreads)
     store_row16(d_value + (static_cast<long long>(bi) * s + r) * row_stride +
                     c, out);
   }
+}
+
+// The float32 lists route.  A (scene, head)'s blocks each own a slice of
+// at most kListPartRows rows of one level (ceil(rows / kListPartRows)
+// slices a level) and write that head's channels of each of them once.
+// - The head's grad_out rows of the scene go to shared memory first.
+// - d_attn and d_loc: the (scene, head)'s samples, level-major, are shared
+//   out evenly over its blocks, hd / 4 lanes a sample (4 channels each),
+//   the sums over the channels by warp shuffles.
+// - The slice's entries: a thread a sample of the slice's level, in index
+//   order; each corner on a row of the slice (its row in the slice, its
+//   weight a * (w_x * w_y), its query) is kept in shared memory in the
+//   order of its index (a block scan of the threads' counts), and each
+//   row's corners are counted.
+// - A scan of the counts gives each row's first entry.  Then the entries
+//   are ordered by row, stably, in two steps: into buckets by the warp
+//   that owns their row (r % kListWarps), each warp placing a run of them
+//   in order, then by row, each warp placing its bucket in order, so that
+//   a row's entries keep the order of their index and no two warps share
+//   a row's place.
+// - The rows: hd / 4 lanes a row sum weight * grad_out of its list in that
+//   order in float32 without an FMA (as
+//   ops/msda.py::msda_backward_rows_plain), all from shared memory, and
+//   store 16 bytes each once; a row without entries is stored as zero.
+// Only the locations and weights of a level are read by each of its
+// slices; the value rows once, for d_attn and d_loc.  Shared memory: the
+// grad_out rows (q * hd floats), the slice's row counts, then first
+// entries, then next places, the owners' counts, and of the kept entries
+// (at most e) the weight, row, query and the two orders.
+__global__ void __launch_bounds__(kListThreads)
+    msda_backward_lists_kernel(const float* __restrict__ value,
+                               const int* __restrict__ level_info,
+                               const float* __restrict__ locs,
+                               const float* __restrict__ attn,
+                               const float* __restrict__ grad_out,
+                               float* __restrict__ d_value,
+                               float* __restrict__ d_locs,
+                               float* __restrict__ d_attn, int s, int q,
+                               int heads, int hd, int levels, int points,
+                               int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_scan[32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int part = blockIdx.x % parts;
+  const int list = blockIdx.x / parts;   // (scene, head)
+  const int h = list % heads, bi = list / heads;
+  // this block's level and slice of its rows
+  int l = 0, first_part = 0, hl = 0, wl = 0, start = 0, slices = 0;
+  for (;; ++l) {
+    if (l == levels) __trap();   // parts does not match the levels
+    hl = __ldg(level_info + 3 * l);
+    wl = __ldg(level_info + 3 * l + 1);
+    start = __ldg(level_info + 3 * l + 2);
+    slices = (hl * wl + kListPartRows - 1) / kListPartRows;
+    if (part < first_part + slices) break;
+    first_part += slices;
+  }
+  if (part == parts - 1 && l + 1 != levels) __trap();
+  const int n = hl * wl;
+  const int r0 = static_cast<int>(
+      static_cast<long long>(part - first_part) * n / slices);
+  const int r1 = static_cast<int>(   // the slice's rows: [r0, r1)
+      static_cast<long long>(part - first_part + 1) * n / slices);
+  const int e = q * points * 4;
+  const int samples = q * points;   // of a level
+  float* g_rows = reinterpret_cast<float*>(smem);
+  unsigned* count = reinterpret_cast<unsigned*>(g_rows + q * hd);
+  float* weight = reinterpret_cast<float*>(
+      count + count_slot(kListPartRows) + 1);
+  int* bucket = reinterpret_cast<int*>(weight + e);
+  unsigned short* row_of = reinterpret_cast<unsigned short*>(
+      bucket + kListWarps * kBucketStride);
+  unsigned short* query = row_of + e;
+  unsigned short* sorted = query + e;   // the kept entries by owner
+  unsigned short* order = sorted + e;   // and by row
+  const int lanes = hd >> 2;   // lanes of a sample or a row: 1, 2, 4 or 8
+  const int lane_q = tid & (lanes - 1);
+  const int c4 = lane_q * 4;   // this thread's first channel
+  const int per_pass = kListThreads / lanes;
+  const long long row_stride = static_cast<long long>(heads) * hd;
+  const float* grad = grad_out + static_cast<long long>(bi) * q * row_stride +
+                      h * hd;
+  for (int i = tid; i < q * lanes; i += kListThreads) {
+    const int qi = i / lanes, c = (i - qi * lanes) * 4;
+    *reinterpret_cast<float4*>(g_rows + qi * hd + c) =
+        __ldg(reinterpret_cast<const float4*>(grad + qi * row_stride + c));
+  }
+  for (int i = tid; i <= count_slot(kListPartRows); i += kListThreads)
+    count[i] = 0;
+  for (int i = tid; i < kListWarps * kBucketStride; i += kListThreads)
+    bucket[i] = 0;
+  __syncthreads();
+
+  // d_attn and d_loc of this block's share of the (scene, head)'s samples
+  const long long sample0 =
+      (static_cast<long long>(bi) * q * heads + h) * levels * points;
+  const float* vscene =
+      value + static_cast<long long>(bi) * s * row_stride + h * hd + c4;
+  const int t0 = static_cast<int>(
+      static_cast<long long>(part) * levels * samples / parts);
+  const int t1 = static_cast<int>(
+      static_cast<long long>(part + 1) * levels * samples / parts);
+  for (int s0 = t0; s0 < t1 && K4_LISTS_RUNS(4, q); s0 += per_pass) {
+    const int t = s0 + tid / lanes;
+    // a sample's lanes are all valid or all not; the shuffles name only
+    // those that stay
+    const bool valid = t < t1;
+    const unsigned mask = __ballot_sync(kFullMask, valid);
+    if (!valid) continue;
+    const int tl = t / samples, within = t - tl * samples;
+    const int qi = within / points;
+    const long long sp = sample0 +
+                         (static_cast<long long>(qi) * heads * levels + tl) *
+                             points + within - qi * points;
+    const int hq = __ldg(level_info + 3 * tl);
+    const int wq = __ldg(level_info + 3 * tl + 1);
+    const float* vl =
+        vscene + static_cast<long long>(__ldg(level_info + 3 * tl + 2)) *
+                     row_stride;
+    const float2 loc = __ldg(reinterpret_cast<const float2*>(locs) + sp);
+    const float at = __ldg(attn + sp);
+    const Row<float> g = load_row16(g_rows + qi * hd + c4);
+    const float x = __fsub_rn(__fmul_rn(loc.x, wq), 0.5f);
+    const float y = __fsub_rn(__fmul_rn(loc.y, hq), 0.5f);
+    float part_a = 0.0f, part_x = 0.0f, part_y = 0.0f;
+    if (x >= -1.0f && y >= -1.0f && x < wq && y < hq) {
+      // some corner is inside (or on the edge, where its weight is 0 but
+      // its location gradient is not, as in the plain version)
+      const float xf = floorf(x);
+      const float yf = floorf(y);
+      const int x0 = static_cast<int>(xf);
+      const int y0 = static_cast<int>(yf);
+      const float lx = x - xf;
+      const float ly = y - yf;
+      const float hx = 1.0f - lx;
+      const float hy = 1.0f - ly;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int yi = y0 + (k >> 1);
+        const int xi = x0 + (k & 1);
+        const float gv =
+            yi >= 0 && yi < hq && xi >= 0 && xi < wq
+                ? dot(g.v, ldg_row16(vl + (yi * wq + xi) * row_stride).v)
+                : 0.0f;
+        const float wy = (k >> 1) ? ly : hy;
+        const float wx = (k & 1) ? lx : hx;
+        part_a += wx * wy * gv;
+        part_x += (k & 1) ? wy * gv : -wy * gv;
+        part_y += (k >> 1) ? wx * gv : -wx * gv;
+      }
+    }
+    if (lanes >= 4) {
+      // the three sums in 4 shuffles, as the tile kernel takes them: lane
+      // 0 of the sample ends with part_a, lane lanes / 2 with part_x, lane
+      // lanes / 4 with part_y
+      const int o1 = lanes >> 1, o2 = lanes >> 2;
+      const bool hi1 = lane_q & o1, hi2 = lane_q & o2;
+      float k1 = (hi1 ? part_x : part_a) +
+                 __shfl_xor_sync(mask, hi1 ? part_a : part_x, o1);
+      const float k2 = (hi1 ? 0.0f : part_y) +
+                       __shfl_xor_sync(mask, hi1 ? part_y : 0.0f, o1);
+      k1 = (hi2 ? k2 : k1) + __shfl_xor_sync(mask, hi2 ? k1 : k2, o2);
+      k1 = group_sum(k1, o2, mask);
+      if (lane_q == 0)
+        d_attn[sp] = k1;
+      else if (lane_q == o1)
+        d_locs[2 * sp] = at * k1 * wq;
+      else if (lane_q == o2)
+        d_locs[2 * sp + 1] = at * k1 * hq;
+    } else {
+      part_a = group_sum(part_a, lanes, mask);
+      part_x = group_sum(part_x, lanes, mask);
+      part_y = group_sum(part_y, lanes, mask);
+      if (lane_q == 0) {
+        d_attn[sp] = part_a;
+        reinterpret_cast<float2*>(d_locs)[sp] =
+            make_float2(at * part_x * wq, at * part_y * hq);
+      }
+    }
+  }
+
+  // the slice's entries, kept in the order of their index
+  int kept = 0;
+  for (int s0 = 0; s0 < samples && K4_LISTS_RUNS(3, q);
+       s0 += kListThreads) {
+    const int sample = s0 + tid;
+    bool in[4] = {false, false, false, false};
+    int row[4] = {0, 0, 0, 0};
+    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int qi = sample / points;
+    if (sample < samples) {
+      const long long sp = sample0 +
+                           (static_cast<long long>(qi) * heads * levels + l) *
+                               points + sample - qi * points;
+      const float2 loc = __ldg(reinterpret_cast<const float2*>(locs) + sp);
+      const float at = __ldg(attn + sp);
+      const float x = __fsub_rn(__fmul_rn(loc.x, wl), 0.5f);
+      const float y = __fsub_rn(__fmul_rn(loc.y, hl), 0.5f);
+      if (x >= -1.0f && y >= -1.0f && x < wl && y < hl) {
+        const float xf = floorf(x);
+        const float yf = floorf(y);
+        const int x0 = static_cast<int>(xf);
+        const int y0 = static_cast<int>(yf);
+        const float lx = x - xf;
+        const float ly = y - yf;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int yi = y0 + (k >> 1);
+          const int xi = x0 + (k & 1);
+          row[k] = yi * wl + xi;
+          in[k] = yi >= 0 && yi < hl && xi >= 0 && xi < wl &&
+                  row[k] >= r0 && row[k] < r1;
+          w[k] = __fmul_rn(at, __fmul_rn((k & 1) ? lx : 1.0f - lx,
+                                         (k >> 1) ? ly : 1.0f - ly));
+        }
+      }
+    }
+    int taken;
+    int place = kept + block_sum_before<kListThreads>(
+                           in[0] + in[1] + in[2] + in[3], warp_scan, &taken);
+    kept += taken;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!in[k]) continue;
+      row_of[place] = static_cast<unsigned short>(row[k] - r0);
+      query[place] = static_cast<unsigned short>(qi);
+      weight[place] = w[k];
+      atomicAdd(count + count_slot(row[k] - r0), 1u);
+      ++place;
+    }
+  }
+  __syncthreads();   // every kept entry is counted
+
+  // counts -> first entries: row r0 + j's list is [first[j], first[j + 1])
+  const int rows = r1 - r0;
+  {
+    const int per = (rows + kListThreads - 1) / kListThreads;
+    const int j0 = min(rows, tid * per), j1 = min(rows, j0 + per);
+    int sum = 0;
+    for (int j = j0; j < j1; ++j) sum += count[count_slot(j)];
+    int place = block_sum_before<kListThreads>(sum, warp_scan);
+    for (int j = j0; j < j1; ++j) {
+      const int c = count[count_slot(j)];
+      count[count_slot(j)] = place;
+      place += c;
+    }
+  }
+  __syncthreads();   // from here row r0 + j's count is its next place
+
+  // The kept entries ordered by row, stably, in two steps, each warp
+  // walking a share of them in order.  First into buckets by owner, the
+  // warp of a row (row % kListWarps): warp w takes the run [w * run, (w +
+  // 1) * run) of the kept entries, counts each owner's in it, and after a
+  // scan of the counts (owner-major, run-minor) places them; then the owner
+  // warp walks its bucket, which holds its rows' entries in index order,
+  // and places each at its row's next place.  Lanes of one owner or row
+  // find each other (match_bits) and take their places by lane.
+  const unsigned below = (1u << lane) - 1u;
+  const int run = (kept + kListWarps - 1) / kListWarps;
+  const int w0 = min(kept, warp * run), w1 = min(kept, w0 + run);
+  for (int placing = 0; placing < 2 && K4_LISTS_RUNS(2, q); ++placing) {
+    for (int i = w0 + lane; i - lane < w1; i += 32) {
+      const bool valid = i < w1;
+      const unsigned owner = valid ? row_of[i] & (kListWarps - 1) : 0;
+      const unsigned peers = match_bits(owner, kListOwnerBits, valid);
+      int* mine = bucket + owner * kBucketStride + warp;
+      const int base = valid ? *mine : 0;
+      if (valid && placing)
+        sorted[base + __popc(peers & below)] = static_cast<unsigned short>(i);
+      __syncwarp();
+      if (valid && lane == __ffs(peers) - 1) *mine = base + __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    if (!placing) {
+      // counts -> places, owner-major, run-minor (the stride's last slot
+      // of each owner counts nothing): thread t the slots t * kPer ..
+      constexpr int kSlots = kListWarps * kBucketStride;
+      constexpr int kPer = (kSlots + kListThreads - 1) / kListThreads;
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int f = tid * kPer + j;
+        sum += f < kSlots ? bucket[f] : 0;
+      }
+      int place = block_sum_before<kListThreads>(sum, warp_scan);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int f = tid * kPer + j;
+        if (f >= kSlots) break;
+        const int c = bucket[f];
+        bucket[f] = place;
+        place += c;
+      }
+      __syncthreads();
+    }
+  }
+  {
+    // the last slot of owner o's counts now holds the end of its bucket,
+    // which holds its rows' entries in index order
+    const int b0 = warp ? bucket[warp * kBucketStride - 1] : 0;
+    const int b1 = K4_LISTS_RUNS(2, q)
+                       ? bucket[warp * kBucketStride + kListWarps]
+                       : b0;
+    for (int i = b0 + lane; i - lane < b1; i += 32) {
+      const bool valid = i < b1;
+      const int id = valid ? sorted[i] : 0;
+      const int r = valid ? row_of[id] : 0;
+      const unsigned peers =
+          match_bits(static_cast<unsigned>(r) >> kListOwnerBits, kListRowBits,
+                     valid);
+      unsigned* next = count + count_slot(r);
+      const int base = valid ? *next : 0;
+      if (valid) order[base + __popc(peers & below)] =
+          static_cast<unsigned short>(id);
+      __syncwarp();
+      if (valid && lane == __ffs(peers) - 1) *next = base + __popc(peers);
+      __syncwarp();
+    }
+  }
+  __syncthreads();   // row r0 + j's count is where its list ends
+
+  // the rows, each written once
+  float* dvl = d_value +
+               (static_cast<long long>(bi) * s + start + r0) * row_stride +
+               h * hd + c4;
+  for (int j = tid / lanes; j < rows && K4_LISTS_RUNS(1, q); j += per_pass) {
+    const int from = j ? count[count_slot(j - 1)] : 0;
+    const int to = count[count_slot(j)];
+    float acc[4] = {};
+#pragma unroll 4
+    for (int i = from; i < to; ++i) {
+      const int id = order[i];
+      const float w = weight[id];
+      const float4 g = *reinterpret_cast<const float4*>(
+          g_rows + query[id] * hd + c4);
+      acc[0] = __fadd_rn(acc[0], __fmul_rn(w, g.x));
+      acc[1] = __fadd_rn(acc[1], __fmul_rn(w, g.y));
+      acc[2] = __fadd_rn(acc[2], __fmul_rn(w, g.z));
+      acc[3] = __fadd_rn(acc[3], __fmul_rn(w, g.w));
+    }
+    *reinterpret_cast<float4*>(dvl + j * row_stride) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// the shared memory of a lists block of q queries' grad_out rows (hd
+// floats each) and e entries: the rows, a slice's row counts, the kept
+// entries' weights, the owners' counts of each warp's run, the kept
+// entries' rows, queries and their two orders
+int lists_smem_bytes(int q, int hd, int e) {
+  return 4 * q * hd + 4 * (count_slot(kListPartRows) + 1) + 4 * e +
+         4 * kListWarps * kBucketStride + 8 * e;
 }
 
 // d_value's float32 sums rounded to bfloat16, once
@@ -1103,6 +1520,47 @@ int launch_rows(const void* value, const void* level_info_v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The float32 lists route (no tiles): one kernel, no scratch; parts is
+// the blocks of a (scene, head), the levels' slices.
+int launch_lists(const void* value, const void* level_info,
+                 const void* locs, const void* attn, const void* grad_out,
+                 void* d_value, void* d_locs, void* d_attn, int b, int s,
+                 int q, int heads, int hd, int levels, int points, int parts,
+                 cudaStream_t st) {
+  const long long per_level = static_cast<long long>(q) * points * 4;
+  if (b <= 0 || q <= 0 || s <= 0 || hd <= 0 || hd > 32 || 32 % hd ||
+      hd % 4 || heads <= 0 || levels <= 0 || points <= 0 ||
+      per_level > kMaxEntries || parts < levels || parts > s ||
+      lists_smem_bytes(q, hd, static_cast<int>(per_level)) > kSortSmemLimit ||
+      static_cast<long long>(b) * heads * parts > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(value) |
+       reinterpret_cast<uintptr_t>(grad_out) |
+       reinterpret_cast<uintptr_t>(d_value)) % 16 ||
+      (reinterpret_cast<uintptr_t>(locs) |
+       reinterpret_cast<uintptr_t>(d_locs)) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        msda_backward_lists_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSortSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  msda_backward_lists_kernel<<<static_cast<unsigned>(b * heads * parts),
+                               kListThreads,
+                               lists_smem_bytes(q, hd,
+                                                static_cast<int>(per_level)),
+                               st>>>(
+      static_cast<const float*>(value), static_cast<const int*>(level_info),
+      static_cast<const float*>(locs), static_cast<const float*>(attn),
+      static_cast<const float*>(grad_out), static_cast<float*>(d_value),
+      static_cast<float*>(d_locs), static_cast<float*>(d_attn), s, q, heads,
+      hd, levels, points, parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1111,23 +1569,36 @@ extern "C" {
 // of (H, W, first token); tile_info: (levels, 5) int32 device array, as
 // demf_msda_forward takes it, read only when tiles > 0: then hd is a
 // multiple of 4, queries [0, direct_from) are the tokens of the tiled
-// levels, points <= 4, max_tile is the most queries of any tile (at most 256), value,
-// grad_out and d_value are 16-byte aligned and locs and d_locs 8-byte
-// aligned; locs: (B, Q, heads, levels, points, 2) f32; attn: (B, Q, heads,
-// levels, points) f32; grad_out: (B, Q, heads * hd) f32.  Outputs: d_value
-// like value, zeroed by the caller; d_locs like locs and d_attn like attn,
-// every element written here.  hd must divide 32.  Anything else is
-// refused with cudaErrorInvalidValue.
+// levels, points <= 4, max_tile is the most queries of any tile (at most
+// 256), value, grad_out and d_value are 16-byte aligned and locs and d_locs
+// 8-byte aligned; locs: (B, Q, heads, levels, points, 2) f32; attn: (B, Q,
+// heads, levels, points) f32; grad_out: (B, Q, heads * hd) f32.  parts ==
+// 0: d_value like value, zeroed by the caller.  parts > 0 (tiles 0,
+// direct_from 0): the lists route, parts being the blocks of a (scene,
+// head): the levels' slices of at most 2,048 rows
+// (ops/msda.py::msda_lists_parts); hd a multiple of 4, q * points * 4 at
+// most 22,528, the block's shared memory (ops/msda.py::msda_rows_route)
+// within a block's, value, grad_out and d_value 16-byte aligned, locs and
+// d_locs 8-byte aligned; d_value is written in full.  d_locs like locs and
+// d_attn like attn, every element written here.  hd must divide 32.
+// Anything else is refused with cudaErrorInvalidValue.
 int demf_msda_backward(const void* value, const void* level_info,
                        const void* tile_info, const void* locs,
                        const void* attn, const void* grad_out, void* d_value,
                        void* d_locs, void* d_attn, int b, int s, int q,
                        int heads, int hd, int levels, int points, int tiles,
-                       int direct_from, int max_tile, void* stream) {
+                       int direct_from, int max_tile, int parts,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (parts) {
+    if (tiles || direct_from) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_lists(value, level_info, locs, attn, grad_out, d_value,
+                        d_locs, d_attn, b, s, q, heads, hd, levels, points,
+                        parts, st);
+  }
   return launch<float>(value, level_info, tile_info, locs, attn, grad_out,
                        d_value, d_locs, d_attn, b, s, q, heads, hd, levels,
-                       points, tiles, direct_from, max_tile,
-                       static_cast<cudaStream_t>(stream));
+                       points, tiles, direct_from, max_tile, st);
 }
 
 // The same with value and grad_out in bfloat16 (with tiles, hd a multiple

@@ -30,11 +30,13 @@ from ._cuda import CudaKernel, check_cuda
 
 MSDA_KERNEL = CudaKernel(
     'demf_msda_forward', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
+# K4 takes the route last: on its float32 lists route the blocks of a
+# (scene, head) (``msda_lists_parts``), else 0
 MSDA_BACKWARD_KERNEL = CudaKernel(
-    'demf_msda_backward', [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10)
+    'demf_msda_backward', [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11)
 # the same kernels on a bfloat16 value; K4's takes a scratch buffer beside
 # the bfloat16 d_value (with tiles d_value's float32 sums, which it rounds
-# once; on the row-owner route the entry lists) and the route
+# once; on the row-owner route the entry lists)
 MSDA_BF16_KERNEL = CudaKernel(
     'demf_msda_forward_bf16', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 MSDA_BACKWARD_BF16_KERNEL = CudaKernel(
@@ -55,14 +57,22 @@ MSDA_MAX_TILE_POINTS = 16
 # csrc/msda_backward.cu: the most points a level of a tile's queries; the
 # row-owner route's bits of an entry's index in its key, its most entries
 # of a (scene, head, level), its sort's warps and digits, and the shared
-# memory a sort block may take
+# memory a sort block (or, on a float32 value, a lists block) may take
 MSDA_BACKWARD_MAX_TILE_POINTS = 4
 MSDA_ROWS_ID_BITS = 15
 MSDA_ROWS_MAX_ENTRIES = 22528
 MSDA_ROWS_SORT_WARPS = 16
 MSDA_ROWS_DIGITS = 256
 MSDA_ROWS_SMEM_LIMIT = 232448 - 1024
+# the float32 row-owner route (its lists route): the most rows of a block's
+# slice of a level, and the block's warps
+MSDA_LISTS_PART_ROWS = 2048
+MSDA_LISTS_WARPS = 16
 
+# (spatial shapes, q, heads, levels, points, head_dim, dtype) -> K4's route
+# without tiles: (msda_rows_route, and in float32 msda_lists_parts), worked
+# out once a shape and not at every call
+_ROUTES = {}
 # (spatial shapes, head_dim, tiled, device) -> (level table, tile table,
 # tiles, direct_from, max_tile) with the tables on the device: built once, not copied
 # from the host at every call
@@ -206,34 +216,66 @@ def msda_backward_rows_plain(value, spatial_shapes, sampling_locations,
     return d_value.to(value.dtype).contiguous()
 
 
-def msda_rows_route(spatial_shapes, q, heads, levels, points, head_dim):
-    """The most tokens of any level where K4's bfloat16 entry takes its
-    row-owner route for queries that are not the tokens, else 0
-    (csrc/msda_backward.cu refuses it then): 8 channels a thread and a
-    token row's threads in one block (heads * head_dim up to 2,048), at most
-    ``MSDA_ROWS_MAX_ENTRIES`` corners a (scene, head, level), a level's
-    rows that fit the keys beside the index, and the level's sort (two key
-    buffers, its warps' digit counts or the rows' first entries) in a
-    block's shared memory."""
+def msda_rows_route(spatial_shapes, q, heads, levels, points, head_dim,
+                    dtype):
+    """The most tokens of any level where K4 takes its row-owner route for
+    queries that are not the tokens on a value of ``dtype``, else 0
+    (csrc/msda_backward.cu refuses it then): at most
+    ``MSDA_ROWS_MAX_ENTRIES`` corners a (scene, head, level) and levels
+    that are the shapes'.  In bfloat16 8 channels a thread and a token
+    row's threads in one block (a head_dim that is a multiple of 8, heads *
+    head_dim up to 2,048), rows that fit the keys beside the index, and the
+    sort (two key buffers, its warps' digit counts or the rows' first
+    entries) in a block's shared memory.  In float32 4 channels a thread (a
+    head_dim that is a multiple of 4), any heads, and a lists block's
+    shared memory holding the head's grad_out rows, a slice's row counts,
+    its warps' counts of each owner warp, and each kept entry's weight,
+    row, query and two orders."""
     most = max(int(h) * int(w) for h, w in spatial_shapes)
     e = q * points * 4
-    smem = 8 * e + max(4 * MSDA_ROWS_DIGITS * MSDA_ROWS_SORT_WARPS,
-                       2 * (most + 1))
-    fits = (head_dim % 8 == 0 and heads * head_dim <= 2048 and
-            levels == len(spatial_shapes) and
-            0 < e <= MSDA_ROWS_MAX_ENTRIES and
-            most < (1 << (32 - MSDA_ROWS_ID_BITS)) - 1 and
-            smem <= MSDA_ROWS_SMEM_LIMIT)
+    if dtype == torch.float32:
+        part = MSDA_LISTS_PART_ROWS
+        fits = (head_dim % 4 == 0 and
+                4 * q * head_dim + 4 * (part + part // 32 + 1) +
+                4 * MSDA_LISTS_WARPS * (MSDA_LISTS_WARPS + 1) + 12 * e <=
+                MSDA_ROWS_SMEM_LIMIT)
+    else:
+        fits = (head_dim % 8 == 0 and heads * head_dim <= 2048 and
+                most < (1 << (32 - MSDA_ROWS_ID_BITS)) - 1 and
+                8 * e + max(4 * MSDA_ROWS_DIGITS * MSDA_ROWS_SORT_WARPS,
+                            2 * (most + 1)) <= MSDA_ROWS_SMEM_LIMIT)
+    fits = (fits and levels == len(spatial_shapes) and
+            0 < e <= MSDA_ROWS_MAX_ENTRIES)
     return most if fits else 0
 
 
-def msda_rows_scratch_bytes(b, s, q, heads, levels, points):
-    """The row-owner route's scratch: keys, weights and sorted (weight,
-    query) pairs of every entry (16 bytes an entry) and each (scene,
-    head)'s first entry of every row, a level's rows and one more (2 bytes
-    each)."""
+def msda_lists_parts(spatial_shapes):
+    """The blocks of a (scene, head) on K4's float32 lists route: each
+    level cut into ceil(rows / ``MSDA_LISTS_PART_ROWS``) slices of rows."""
+    return sum(-(-int(h) * int(w) // MSDA_LISTS_PART_ROWS)
+               for h, w in spatial_shapes)
+
+
+def msda_rows_scratch_bytes(b, s, q, heads, levels, points, dtype):
+    """The row-owner route's scratch on a value of ``dtype``.  In bfloat16:
+    keys, weights and sorted (weight, query) pairs of every entry (16 bytes
+    an entry) and each (scene, head)'s first entry of every row, a level's
+    rows and one more (2 bytes each).  In float32 none: its lists stay in
+    a block's shared memory."""
+    if dtype == torch.float32:
+        return 0
     return (16 * b * heads * levels * q * points * 4 +
             2 * b * heads * (s + levels))
+
+
+def _route(spatial_shapes, q, heads, levels, points, head_dim, dtype):
+    key = (tuple((int(h), int(w)) for h, w in spatial_shapes), q, heads,
+           levels, points, head_dim, dtype)
+    if key not in _ROUTES:
+        rows = msda_rows_route(*key)
+        _ROUTES[key] = (rows, msda_lists_parts(key[0])
+                        if rows and dtype == torch.float32 else 0)
+    return _ROUTES[key]
 
 
 def msda_tiling(spatial_shapes, head_dim):
@@ -357,13 +399,16 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
     the finer levels go through the kernel's spatial tiles (K3's), which
     sum a tile's additions to d_value row by row before they reach global
     memory; that moves the speed only.  ``grad_out`` and ``d_value`` have
-    the value's dtype.  A bfloat16 d_value is summed in float32 and rounded
-    once: with tiles in a float32 buffer of the value's size (its tiles
-    need a head_dim that is a multiple of 8); without them (the decoders'
-    queries), where ``msda_rows_route`` allows, on the kernel's row-owner
-    route, which writes each row of d_value once from its sorted entry
-    list and allocates nothing of the value's size: its d_value equals
-    ``msda_backward_rows_plain`` bit for bit, call after call."""
+    the value's dtype.  Without tiles (the decoders' queries), where
+    ``msda_rows_route`` allows, the kernel takes its row-owner route, which
+    writes each row of d_value once from its sorted entry list, with no
+    float atomic and no fill (in float32 one kernel, a block a slice of a
+    level's rows, its lists in shared memory; in bfloat16 three, the lists
+    in a scratch buffer): its d_value equals ``msda_backward_rows_plain``
+    bit for bit, call after call.
+    Elsewhere a float32 d_value is zeroed and summed into, and a bfloat16
+    one summed in float32 in a buffer of the value's size and rounded once
+    (its tiles need a head_dim that is a multiple of 8)."""
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, heads, hd = value.shape
     _, q, _, levels, points, _ = sampling_locations.shape
@@ -384,24 +429,23 @@ def msda_backward_cuda(value, spatial_shapes, sampling_locations,
     ptrs = (value.data_ptr(), level_info.data_ptr(), tile_info.data_ptr(),
             sampling_locations.data_ptr(), attention_weights.data_ptr(),
             grad_out.data_ptr())
+    rows, parts = (0, 0) if tiles else _route(
+        spatial_shapes, q, heads, levels, points, hd, value.dtype)
     if value.dtype == torch.float32:
-        d_value = torch.zeros_like(value)
+        d_value = torch.empty_like(value) if rows else torch.zeros_like(value)
         MSDA_BACKWARD_KERNEL(*ptrs, d_value.data_ptr(), d_locs.data_ptr(),
-                             d_aw.data_ptr(), *ints)
+                             d_aw.data_ptr(), *ints, parts)
+        return d_value, d_locs, d_aw
+    if rows:
+        scratch = torch.empty(msda_rows_scratch_bytes(
+            b, s, q, heads, levels, points, value.dtype), dtype=torch.uint8,
+            device=value.device)
     else:
-        rows = 0 if tiles else msda_rows_route(spatial_shapes, q, heads,
-                                               levels, points, hd)
-        if rows:
-            scratch = torch.empty(
-                msda_rows_scratch_bytes(b, s, q, heads, levels, points),
-                dtype=torch.uint8, device=value.device)
-        else:
-            scratch = torch.zeros(value.shape, dtype=torch.float32,
-                                  device=value.device)
-        d_value = torch.empty_like(value)
-        MSDA_BACKWARD_BF16_KERNEL(*ptrs, scratch.data_ptr(),
-                                  d_value.data_ptr(), d_locs.data_ptr(),
-                                  d_aw.data_ptr(), *ints, rows)
+        scratch = torch.zeros(value.shape, dtype=torch.float32,
+                              device=value.device)
+    d_value = torch.empty_like(value)
+    MSDA_BACKWARD_BF16_KERNEL(*ptrs, scratch.data_ptr(), d_value.data_ptr(),
+                              d_locs.data_ptr(), d_aw.data_ptr(), *ints, rows)
     return d_value, d_locs, d_aw
 
 

@@ -198,3 +198,34 @@ def encoder_sampling_locations(spatial_shapes, b, heads, points, device,
                       dtype=torch.float32, device=device)
     return (ref[None, :, None, None, None, :] +
             offsets / wh[None, None, None, :, None, :]).contiguous()
+
+
+DECODER_LOCATIONS = ('whole map', 'crowded', 'piled')
+
+
+def decoder_sampling_locations(spatial_shapes, b, q, heads, points, device,
+                               where='whole map', seed=0):
+    """Sampling locations of queries that are not the tokens (a decoder's),
+    (B, Q, heads, L, P, 2), drawn three ways: ``'whole map'`` uniform over
+    the map and a tenth of it around (corners off the map too);
+    ``'crowded'`` each sample within 3 pixels of the first level of one of
+    16 centres of its scene (long lists on a few rows); ``'piled'`` every
+    sample at one place, (0.43, 0.61) (four rows a level take every
+    corner)."""
+    levels = len(spatial_shapes)
+    shape = (b, q, heads, levels, points, 2)
+    gen = torch.Generator(device).manual_seed(seed)
+    if where == 'whole map':
+        return torch.rand(shape, generator=gen, device=device) * 1.2 - 0.1
+    if where == 'piled':
+        return torch.tensor([0.43, 0.61], device=device).expand(
+            shape).contiguous()
+    if where != 'crowded':
+        raise ValueError(f'no locations {where!r}')
+    centres = torch.rand((b, 16, 2), generator=gen, device=device) * 0.8 + 0.1
+    pick = torch.randint(0, 16, shape[:-1], generator=gen, device=device)
+    at = torch.gather(centres, 1, pick.reshape(b, -1, 1).expand(-1, -1, 2))
+    h0, w0 = spatial_shapes[0]
+    px = torch.tensor([1.0 / w0, 1.0 / h0], device=device)
+    noise = (torch.rand(shape, generator=gen, device=device) * 2 - 1) * 3 * px
+    return (at.reshape(shape) + noise).contiguous()

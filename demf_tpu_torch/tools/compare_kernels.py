@@ -22,10 +22,16 @@ beforehand;
 K1's and K2's picks and K7's outputs must be equal (K7's to the plain
 version's too) and K3's outputs within 1e-5 of the plain version's largest.
 K4 runs at the decoder's shapes (batch 16 of 256 proposals with 2 points,
-batch 4 of 300 queries with 4) and at the encoder's at batch 2 and 4 on the
-same three kinds of locations as K3; its three gradients must lie within
-1e-5 of the largest of the plain version's autograd on both sides.  At the
-two decoder shapes it runs again on a bf16 value and bf16 ``grad_out``
+batch 4 of 300 queries with 4) on locations over the whole map, crowded
+round 16 centres a scene and piled on one place
+(``tools.decoder_sampling_locations``), and at the encoder's at batch 2
+and 4 on the same three kinds of locations as K3; its three gradients must
+lie within 1e-5 of the largest of the plain version's autograd on both
+sides.  At the decoder's shapes each side's kernels a call with their
+device ms and the memory a call takes are printed, and this tree's d_value
+must be the same bits in two calls and equal
+``ops/msda.py::msda_backward_rows_plain``.  At the two decoder shapes on
+whole-map locations it runs again on a bf16 value and bf16 ``grad_out``
 (its bf16 entry; the row-owner route in this tree): on both sides d_value
 within one bf16 step of the largest of the plain version's in bf16 and
 within half a step of each value (and 1e-5 of the largest) of the float32
@@ -91,7 +97,8 @@ from ..ops import (box_count, grouping, mform, msda, msda_fold, nms2d,
 from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
 from ..ops.gather_rows import gather_rows
 from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
-               box_pairs_in_reach, call_bytes, cuda_device, device_kernels,
+               box_pairs_in_reach, call_bytes, cuda_device,
+               decoder_sampling_locations, device_kernels,
                encoder_sampling_locations, time_ms)
 from .nms_cases import box_count_case, nms2d_case
 from .roi_cases import (ROI_KINDS, ROI_STRIDES, SAMPLED_ROIS, k12_case,
@@ -117,9 +124,13 @@ MSDA_CASES = (('decoder', 16, 2, None), ('decoder', 2, 2, None),
               ('encoder, its own locations, noise 4 px', 2, 4, 4.0))
 
 
-# K4: (name, scenes, queries or None for the tokens, points, noise)
-MSDA_BACKWARD_CASES = (
-    ('decoder', 16, 256, 2, None), ('decoder', 4, 300, 4, None),
+# K4: (name, scenes, queries or None for the tokens, points, the
+# decoder's locations (``tools.decoder_sampling_locations``) or the noise
+# of the encoder's)
+MSDA_BACKWARD_CASES = tuple(
+    (f'decoder, {where} locations', b, q, p, where)
+    for b, q, p in ((16, 256, 2), (4, 300, 4))
+    for where in ('whole map', 'crowded', 'piled')) + (
     ('encoder, locations over the whole map', 2, None, 4, None),
     ('encoder, its own locations, noise 0.5 px', 2, None, 4, 0.5),
     ('encoder, its own locations, noise 4 px', 2, None, 4, 4.0),
@@ -396,21 +407,27 @@ def compare_msda(old, dev):
 
 
 def compare_msda_backward(old, dev):
-    """K4 at the shapes the paths launch it; the time includes the
-    wrapper's zero-fill of d_value."""
+    """K4 at the shapes the paths launch it, each side through its own
+    wrapper (the parent's zero-fill of d_value included).  At the decoders'
+    shapes also each side's kernels a call with their device ms and the
+    memory a call takes, and whether this tree's d_value is the same bits
+    in two calls and equals ``ops/msda.py::msda_backward_rows_plain``."""
     shapes = MSDA_SHAPES
     s = sum(h * w for h, w in shapes)
     gen = torch.Generator(dev).manual_seed(0)
     rows = []
-    for name, b, q, p, noise in MSDA_BACKWARD_CASES:
+    for name, b, q, p, where in MSDA_BACKWARD_CASES:
+        decoder = q is not None
         q = q or s
         value = torch.randn((b, s, 8, 32), generator=gen, device=dev)
-        if noise is None:
+        if decoder:
+            locs = decoder_sampling_locations(shapes, b, q, 8, p, dev, where)
+        elif where is None:
             locs = torch.rand((b, q, 8, 4, p, 2), generator=gen,
                               device=dev) * 1.2 - 0.1
         else:
             locs = encoder_sampling_locations(shapes, b, 8, p, dev,
-                                              jitter=noise)
+                                              jitter=where)
         aw = torch.rand((b, q, 8, 4 * p), generator=gen, device=dev)
         aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p)
         grad = torch.randn((b, q, 256), generator=gen, device=dev)
@@ -423,23 +440,53 @@ def compare_msda_backward(old, dev):
             m.msda_backward_cuda(value, shapes, locs, aw, grad), want)]
             for m in (old, msda)]
         del want
+        row = dict(kernel='msda_backward', case=name, b=b, q=q, p=p,
+                   parent_err=errs[0], err=errs[1], bounds=bounds)
+        more = ''
+        if decoder:
+            first = msda.msda_backward_cuda(value, shapes, locs, aw, grad)[0]
+            again = msda.msda_backward_cuda(value, shapes, locs, aw, grad)[0]
+            row['same_bits'] = torch.equal(first, again)
+            del again
+            row['equal_to_rows_plain'] = torch.equal(
+                first, msda.msda_backward_rows_plain(value, shapes, locs, aw,
+                                                     grad))
+            del first
+            row['parent_by_kernel'], row['by_kernel'] = [device_kernels(
+                lambda m=m: m.msda_backward_cuda(value, shapes, locs, aw,
+                                                 grad)) for m in (old, msda)]
+            row['parent_bytes'], row['bytes'] = [call_bytes(
+                lambda m=m: m.msda_backward_cuda(value, shapes, locs, aw,
+                                                 grad)) for m in (old, msda)]
+            more = (f'; memory a call beyond the inputs: parent '
+                    f'{row["parent_bytes"] / 2 ** 20:.1f} MiB, this tree '
+                    f'{row["bytes"] / 2 ** 20:.1f} MiB; this tree\'s d_value '
+                    f'the same bits twice: {row["same_bits"]}, equal to '
+                    f'msda_backward_rows_plain: {row["equal_to_rows_plain"]};'
+                    f' device ms (launches) a call by kernel: parent '
+                    f'{_ms_by_kernel(row["parent_by_kernel"])}, this tree '
+                    f'{_ms_by_kernel(row["by_kernel"])}')
         ms = in_turns(
             lambda: old.msda_backward_cuda(value, shapes, locs, aw, grad),
             lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad),
             10)
-        rows.append(dict(kernel='msda_backward', case=name, b=b, q=q, p=p,
-                         parent_err=errs[0], err=errs[1], bounds=bounds,
-                         parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]]))
+        row.update(parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]])
+        rows.append(row)
         fmt = ' / '.join(['{:.3e}'] * 3)
         print(f'K4 msda_backward {name} (B {b}, Q {q}, P {p}): parent '
               f'{ms[0]:.4f} / {ms[3]:.4f} ms, this tree {ms[1]:.4f} / '
               f'{ms[2]:.4f} ms; max err of d_value / d_loc / d_aw vs plain: '
               f'parent {fmt.format(*errs[0])}, this tree '
-              f'{fmt.format(*errs[1])} (bounds {fmt.format(*bounds)})',
+              f'{fmt.format(*errs[1])} (bounds {fmt.format(*bounds)}){more}',
               flush=True)
         if not all(e <= bd for side in errs for e, bd in zip(side, bounds)):
             raise AssertionError('an MSDA backward kernel disagrees with '
                                  'plain')
+        if decoder and not (row['same_bits'] and row['equal_to_rows_plain']):
+            raise AssertionError('the decoder\'s d_value is not the plain '
+                                 'row order\'s, or not the same twice')
+        del value, locs, aw, grad
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -458,8 +505,8 @@ def compare_msda_backward_bf16(old, dev):
     s = sum(h * w for h, w in shapes)
     gen = torch.Generator(dev).manual_seed(1)
     rows = []
-    for name, b, q, p, _ in MSDA_BACKWARD_CASES:
-        if name != 'decoder':
+    for name, b, q, p, where in MSDA_BACKWARD_CASES:
+        if where != 'whole map':
             continue
         value = torch.randn((b, s, 8, 32), generator=gen,
                             device=dev).bfloat16()

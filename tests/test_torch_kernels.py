@@ -473,12 +473,15 @@ def test_msda_backward_kernel_tiles_match_plain(dev, shapes, heads, hd, p,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('q,p', [(300, 4), (None, 5), (None, 16)])
+@pytest.mark.parametrize('q,p', [(1409, 4), (None, 5), (None, 16)])
 def test_msda_backward_kernel_takes_the_query_major_route(dev, q, p):
-    """Queries that are not the tokens, and tokens with more points a level
-    than a tile's entries hold, all go through the query-major kernel."""
+    """Queries that are not the tokens with more corners a level than the
+    lists route takes, and tokens with more points a level than a tile's
+    entries hold, all go through the query-major kernel."""
     shapes = ((32, 48), (16, 24), (8, 12))
     s = sum(h * w for h, w in shapes)
+    if q:
+        assert not msda.msda_rows_route(shapes, q, 4, 3, p, 32, torch.float32)
     value, locs, aw, grad = _msda_inputs(dev, shapes, 2, q or s, 4, 32, p, p)
     got = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
     ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
@@ -523,7 +526,7 @@ def test_msda_backward_kernel_refuses_without_a_counted_launch(dev, what):
             t['locs'].data_ptr(), aw.data_ptr(), t['grad_out'].data_ptr(),
             t['d_value'].data_ptr(), t['d_locs'].data_ptr(),
             torch.empty_like(aw).data_ptr(), 1, s, s, 2, 32, 2, points,
-            tiles, direct_from, max_tile)
+            tiles, direct_from, max_tile, 0)
     assert msda.MSDA_BACKWARD_KERNEL.launches == before
 
 
@@ -1029,7 +1032,7 @@ def test_msda_backward_bf16_row_route_is_its_plain_order_every_call(dev, b, q,
     and equals ``msda_backward_rows_plain`` (the same float32 sums in the
     same order, rounded once), and so are d_loc and d_aw between calls."""
     shapes, value, locs, aw, grad = _bf16_inputs(dev, b, q, p, 'whole map', 2)
-    assert msda.msda_rows_route(shapes, q, 8, 4, p, 32)
+    assert msda.msda_rows_route(shapes, q, 8, 4, p, 32, torch.bfloat16)
     first = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
     again = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
     for x, y in zip(first, again):
@@ -1052,7 +1055,8 @@ def test_msda_backward_bf16_row_route_takes_no_float32_plane(dev, b, q, p):
     taken = call_bytes(
         lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad))
     allowed = (value.numel() * 2 + (locs.numel() + aw.numel()) * 4 +
-               msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p) + 2 ** 20)
+               msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p, torch.bfloat16) +
+               2 ** 20)
     assert taken <= allowed < value.numel() * 4
     found = device_kernels(
         lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad))
@@ -1078,7 +1082,7 @@ def test_msda_backward_bf16_row_route_matches_plain(dev, where, heads, hd, q,
     within 1e-5."""
     shapes = ((32, 48), (16, 24), (8, 12))
     s = sum(h * w for h, w in shapes)
-    assert msda.msda_rows_route(shapes, q, heads, 3, p, hd)
+    assert msda.msda_rows_route(shapes, q, heads, 3, p, hd, torch.bfloat16)
     value, locs, aw, grad = _msda_inputs(dev, shapes, 2, q, heads, hd, p,
                                          q + hd)
     if where == 'off the map':
@@ -1122,8 +1126,9 @@ def test_msda_backward_bf16_row_route_refuses_without_a_counted_launch(dev,
     if what == 'grad_out':
         buf = torch.empty(grad.numel() + 1, dtype=grad.dtype, device=dev)
         grad = buf[1:].view(grad.shape)
-    scratch = torch.empty(msda.msda_rows_scratch_bytes(1, s, q, 2, 2, 1),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(
+        msda.msda_rows_scratch_bytes(1, s, q, 2, 2, 1, torch.bfloat16),
+        dtype=torch.uint8, device=dev)
     before = msda.MSDA_BACKWARD_BF16_KERNEL.launches
     with pytest.raises(RuntimeError, match='CUDA error'):
         msda.MSDA_BACKWARD_BF16_KERNEL(
@@ -1134,6 +1139,145 @@ def test_msda_backward_bf16_row_route_refuses_without_a_counted_launch(dev,
             torch.empty_like(aw).data_ptr(), 1, s, q, 2, hd, 2, 1,
             1 if what == 'tiles' else 0, 0, 0, 32 * 48)
     assert msda.MSDA_BACKWARD_BF16_KERNEL.launches == before
+
+
+# K4's lists route on a float32 value: (B, Q, P) of the stage-2 and the
+# pretrain decoder and a small decoder, on the encoder's levels
+F32_ROUTE_SHAPES = [(16, 256, 2), (4, 300, 4), (2, 40, 3)]
+
+
+def _f32_route_inputs(dev, b, q, p, where, seed=0):
+    from demf_tpu_torch.tools import decoder_sampling_locations
+    shapes = ENCODER_SHAPES
+    s = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    value = torch.randn(b, s, 8, 32, device=dev, generator=g)
+    locs = decoder_sampling_locations(shapes, b, q, 8, p, dev, where, seed)
+    aw = torch.rand(b, q, 8, 4 * p, device=dev, generator=g)
+    aw = (aw / aw.sum(-1, keepdim=True)).reshape(b, q, 8, 4, p)
+    grad = torch.randn(b, q, 256, device=dev, generator=g)
+    return shapes, value, locs, aw, grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where', ['whole map', 'crowded', 'piled'])
+@pytest.mark.parametrize('b,q,p', F32_ROUTE_SHAPES)
+def test_msda_backward_f32_route_is_its_plain_order_every_call(dev, b, q, p,
+                                                               where):
+    """A float32 decoder's d_value is the same bits from call to call and
+    equals ``msda_backward_rows_plain`` (the same float32 sums in the same
+    order), though its memory is handed over full of NaN (freed just
+    before): every row is written, none is skipped; d_loc and d_aw lie
+    within 1e-5 of the largest of the plain autograd's."""
+    shapes, value, locs, aw, grad = _f32_route_inputs(dev, b, q, p, where, 4)
+    s = value.shape[1]
+    assert msda.msda_rows_route(shapes, q, 8, 4, p, 32, torch.float32)
+    junk = torch.full((value.numel() + 2 ** 20,), float('nan'), device=dev)
+    del junk
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    first = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before + 1
+    assert not torch.isnan(first[0]).any()
+    again = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+    del again
+    assert torch.equal(first[0], msda.msda_backward_rows_plain(
+        value, shapes, locs, aw, grad))
+    ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+    want = torch.autograd.grad(
+        msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+    for g_, w in zip(first, want):
+        assert (g_ - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,q,p', F32_ROUTE_SHAPES)
+def test_msda_backward_f32_route_takes_no_fill_and_no_atomics(dev, b, q, p):
+    """The call runs one kernel, the lists kernel: no fill of d_value and
+    not the query-major kernel with its float atomics; it takes no memory
+    beyond its outputs (1 MiB for the allocator's rounding): the lists
+    stay in shared memory."""
+    from demf_tpu_torch.tools import call_bytes, device_kernels
+    shapes, value, locs, aw, grad = _f32_route_inputs(dev, b, q, p,
+                                                      'whole map', 5)
+    s = value.shape[1]
+    assert msda.msda_rows_scratch_bytes(b, s, q, 8, 4, p, torch.float32) == 0
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    found = device_kernels(
+        lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad), 4)
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before + 5
+    assert sorted(found) == ['msda_backward_lists_kernel']
+    taken = call_bytes(
+        lambda: msda.msda_backward_cuda(value, shapes, locs, aw, grad))
+    assert taken <= (value.numel() + locs.numel() + aw.numel()) * 4 + 2 ** 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where', ['off the map', 'one place', 'edges',
+                                   'whole map'])
+@pytest.mark.parametrize('heads,hd,q,p', [(8, 32, 50, 4), (4, 16, 7, 3),
+                                          (2, 8, 1, 1), (4, 4, 600, 2),
+                                          (33, 32, 20, 2)])
+def test_msda_backward_f32_route_matches_plain(dev, where, heads, hd, q, p):
+    """Small float32 decoders on the lists route, as the bfloat16 row
+    route's test takes them, with head_dims 4 to 32 and 33 heads (a token
+    row of 1,056 channels): d_value equals the plain row order bit for bit
+    and lies within 1e-5 of the plain autograd's largest, and so do d_loc
+    and d_aw."""
+    shapes = ((32, 48), (16, 24), (8, 12))
+    assert msda.msda_rows_route(shapes, q, heads, 3, p, hd, torch.float32)
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 2, q, heads, hd, p,
+                                         q + hd)
+    if where == 'off the map':
+        locs = locs - 1.5
+    elif where == 'one place':
+        locs[:] = torch.tensor([0.37, 0.58], device=dev)
+    elif where == 'edges':
+        locs = torch.round(locs * 4) / 4
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    got = msda.msda_backward_cuda(value, shapes, locs, aw, grad)
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before + 1
+    assert torch.equal(got[0], msda.msda_backward_rows_plain(
+        value, shapes, locs, aw, grad))
+    if where == 'off the map':
+        assert not got[0].any()
+    ins = [t.clone().requires_grad_() for t in (value, locs, aw)]
+    want = torch.autograd.grad(
+        msda.msda_plain(ins[0], shapes, ins[1], ins[2]), ins, grad)
+    for g_, w in zip(got, want):
+        assert (g_ - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('what', ['tiles', 'entries', 'head_dim',
+                                  'shared memory', 'grad_out'])
+def test_msda_backward_f32_route_refuses_without_a_counted_launch(dev, what):
+    """The float32 entry refuses the lists route with tiles, more than
+    22,528 entries a (scene, head, level), a head_dim that is not a
+    multiple of 4, a head's grad_out rows and entries beyond a block's
+    shared memory (Q 1,408, P 4), or a grad_out off the 16-byte grid; a
+    refused call counts no launch."""
+    shapes = ((32, 48), (16, 24))
+    s = sum(h * w for h, w in shapes)
+    q = {'entries': 5633, 'shared memory': 1408}.get(what, 40)
+    p = 4 if what == 'shared memory' else 1
+    hd = 2 if what == 'head_dim' else 32
+    value, locs, aw, grad = _msda_inputs(dev, shapes, 1, q, 2, hd, p, 0)
+    info, tile_info = msda._tables(shapes, 32, True, dev)[:2]
+    if what == 'grad_out':
+        buf = torch.empty(grad.numel() + 1, dtype=grad.dtype, device=dev)
+        grad = buf[1:].view(grad.shape)
+    before = msda.MSDA_BACKWARD_KERNEL.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        msda.MSDA_BACKWARD_KERNEL(
+            value.data_ptr(), info.data_ptr(), tile_info.data_ptr(),
+            locs.data_ptr(), aw.data_ptr(), grad.data_ptr(),
+            torch.empty_like(value).data_ptr(),
+            torch.empty_like(locs).data_ptr(),
+            torch.empty_like(aw).data_ptr(), 1, s, q, 2, hd, 2, p,
+            1 if what == 'tiles' else 0, 0, 0, msda.msda_lists_parts(shapes))
+    assert msda.MSDA_BACKWARD_KERNEL.launches == before
 
 
 @pytest.mark.cuda

@@ -1,14 +1,15 @@
 """K4's row-owner route on the CPU (``ops/msda.py::msda_row_entries`` and
 ``msda_backward_rows_plain``: the corner entries, sorted by row and summed
 a row at a time in float32, rounded once), which ``csrc/msda_backward.cu``
-implements for a bfloat16 value at the decoders' shapes.  At a small
-decoder shape (B 2, Q 16, 2 heads, hd 8, 2 levels, P 2) its d_value is held
-against the autograd of ``msda_plain`` (float32: 1e-5 of the largest; a
-bfloat16 value: one bf16 step of the largest, 2^-7, where the two float32
-sums straddle a rounding boundary) and against ``jax.vjp`` of the JAX
-package's small-Q MSDA (``_make_small_q_msda``) on a bfloat16 value: with
-float32 gather planes one bf16 step of the largest, with its bf16 planes
-(the policy's default, which round the products) the 2e-2 of
+implements for a bfloat16 and a float32 value at the decoders' shapes.  At
+a small decoder shape (B 2, Q 16, 2 heads, hd 8, 2 levels, P 2) its d_value
+is held against the autograd of ``msda_plain`` (float32: 1e-5 of the
+largest; a bfloat16 value: one bf16 step of the largest, 2^-7, where the
+two float32 sums straddle a rounding boundary) and against ``jax.vjp`` of
+the JAX package's small-Q MSDA (``_make_small_q_msda``): on a float32 value
+with float32 gather planes 1e-5 of the largest; on a bfloat16 value with
+float32 planes one bf16 step of the largest, with its bf16 planes (the
+policy's default, which round the products) the 2e-2 of
 ``tests/test_torch_precision.py``.
 """
 import jax
@@ -81,10 +82,14 @@ def test_entries_are_the_corners_in_index_order():
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('spread', [1.0, 1.6])
+@pytest.mark.parametrize('spread', [1.0, 1.6, 'piled'])
 def test_row_order_d_value_equals_the_plain_autograd(dtype, spread):
+    """Locations over the map, over and around it, and every sample piled
+    on one place (four rows a level take every corner: lists of Q * P)."""
     value, locs, aw, grad = (torch.from_numpy(a) for a in inputs(
-        1, spread))
+        1, 1.0 if spread == 'piled' else spread))
+    if spread == 'piled':
+        locs[:] = torch.tensor([0.43, 0.61])
     value, grad = value.to(dtype), grad.to(dtype)
     got = msda.msda_backward_rows_plain(value, SHAPES, locs, aw, grad)
     assert got.dtype == dtype and got.shape == value.shape
@@ -111,36 +116,73 @@ def test_row_order_sums_a_row_in_the_order_of_its_entries():
     assert torch.equal(got[b, row, h], want)
 
 
-@pytest.mark.parametrize('gather', ['float32', 'bfloat16'])
-def test_row_order_d_value_matches_jax_small_q_vjp(gather):
-    """The JAX package's small-Q MSDA (the decoder's route) on a bf16
-    value, its d_value by ``jax.vjp``."""
+@pytest.mark.parametrize('gather,dtype', [
+    pytest.param('float32', 'bfloat16', id='float32'),
+    pytest.param('bfloat16', 'bfloat16', id='bfloat16'),
+    pytest.param('float32', 'float32', id='float32 value')])
+def test_row_order_d_value_matches_jax_small_q_vjp(gather, dtype):
+    """The JAX package's small-Q MSDA (the decoder's route) on a bf16 or a
+    float32 value, its d_value by ``jax.vjp``."""
     value, locs, aw, grad = inputs(3)
     fn = jmsda._make_small_q_msda(SHAPES, gather)
-    _, vjp = jax.vjp(fn, jnp.asarray(value, jnp.bfloat16), jnp.asarray(locs),
+    _, vjp = jax.vjp(fn, jnp.asarray(value, dtype), jnp.asarray(locs),
                      jnp.asarray(aw))
-    want = vjp(jnp.asarray(grad, jnp.bfloat16))[0]
-    assert want.dtype == jnp.bfloat16
+    want = vjp(jnp.asarray(grad, dtype))[0]
+    assert want.dtype == jnp.dtype(dtype)
+    to = getattr(torch, dtype)
     got = msda.msda_backward_rows_plain(
-        torch.from_numpy(value).bfloat16(), SHAPES, torch.from_numpy(locs),
-        torch.from_numpy(aw), torch.from_numpy(grad).bfloat16())
-    assert within(got, torch.from_numpy(np.asarray(want, np.float32)),
-                  BF16_STEP if gather == 'float32' else 2e-2)
+        torch.from_numpy(value).to(to), SHAPES, torch.from_numpy(locs),
+        torch.from_numpy(aw), torch.from_numpy(grad).to(to))
+    assert got.dtype == to
+    bound = (1e-5 if dtype == 'float32' else
+             BF16_STEP if gather == 'float32' else 2e-2)
+    assert within(got, torch.from_numpy(np.asarray(want, np.float32)), bound)
 
 
-@pytest.mark.parametrize('q,levels,points,hd,fits', [
-    (256, 4, 2, 32, True), (300, 4, 4, 32, True), (1408, 4, 4, 32, True),
-    (1409, 4, 4, 32, False), (256, 4, 2, 4, False), (256, 3, 2, 32, False),
-    (22323, 4, 4, 32, False)])
-def test_rows_route_takes_the_decoders_shapes(q, levels, points, hd, fits):
+# (Q, levels, P, head_dim, fits in bfloat16, fits in float32)
+ROUTE_CASES = [(256, 4, 2, 32, True, True), (300, 4, 4, 32, True, True),
+               (1408, 4, 4, 32, True, False), (1409, 4, 4, 32, False, False),
+               (256, 4, 2, 4, False, True), (256, 3, 2, 32, False, False),
+               (22323, 4, 4, 32, False, False)]
+
+
+@pytest.mark.parametrize('q,levels,points,hd,fits,dtype', [
+    pytest.param(q, levels, points, hd, fits, torch.bfloat16,
+                 id=f'{q}-{levels}-{points}-{hd}-{fits}')
+    for q, levels, points, hd, fits, _ in ROUTE_CASES] + [
+    pytest.param(q, levels, points, hd, fits, torch.float32,
+                 id=f'{q}-{levels}-{points}-{hd}-{fits}-float32')
+    for q, levels, points, hd, _, fits in ROUTE_CASES])
+def test_rows_route_takes_the_decoders_shapes(q, levels, points, hd, fits,
+                                              dtype):
     """The stage-2 decoder (Q 256, P 2) and the pretrain decoder (Q 300, P
     4) take the route, the largest level's 16,800 rows given to the kernel;
-    more than 22,528 entries a (scene, head, level), a head_dim that is
-    not a multiple of 8, a token row wider than 2,048 channels, levels that
-    are not the shapes', or the encoder's one query a token do not."""
+    more than 22,528 entries a (scene, head, level), levels that are not
+    the shapes', or the encoder's one query a token do not.  In bfloat16 a
+    head_dim that is not a multiple of 8 and a token row wider than 2,048
+    channels do not either (a token row's threads, 8 channels each, in one
+    block); in float32 a head_dim that is a multiple of 4 does, with any
+    number of heads (a block a head and a slice of a level's rows), while
+    the head's grad_out rows, a slice's row counts and the entries fit a
+    block's shared memory (at Q 1,408, P 4 they do not).  The scratch: 16
+    bytes an entry in bfloat16 (keys and weights, then the sorted pairs)
+    and 2 a row and level of each (scene, head); none in float32."""
     shapes = ((100, 168), (50, 84), (25, 42), (13, 21))
-    assert msda.msda_rows_route(shapes, q, 8, levels, points, hd) == (
+    assert msda.msda_rows_route(shapes, q, 8, levels, points, hd, dtype) == (
         16800 if fits else 0)
-    assert not msda.msda_rows_route(shapes, q, 65, levels, points, 32)
-    assert msda.msda_rows_scratch_bytes(16, 22323, 256, 8, 4, 2) == \
-        16 * 16 * 8 * 4 * 256 * 2 * 4 + 2 * 16 * 8 * (22323 + 4)
+    at_32 = msda.msda_rows_route(shapes, q, 8, levels, points, 32, dtype)
+    if dtype == torch.bfloat16:
+        assert msda.msda_rows_route(shapes, q, 64, levels, points, 32,
+                                    dtype) == at_32
+        assert not msda.msda_rows_route(shapes, q, 65, levels, points, 32,
+                                        dtype)
+        assert msda.msda_rows_scratch_bytes(16, 22323, 256, 8, 4, 2,
+                                            dtype) == \
+            16 * 16 * 8 * 4 * 256 * 2 * 4 + 2 * 16 * 8 * (22323 + 4)
+    else:
+        assert msda.msda_rows_route(shapes, q, 65, levels, points, 32,
+                                    dtype) == at_32
+        assert msda.msda_rows_scratch_bytes(16, 22323, 256, 8, 4, 2,
+                                            dtype) == 0
+        # a block a slice of at most 2,048 rows: 9 + 3 + 1 + 1
+        assert msda.msda_lists_parts(shapes) == 14
