@@ -37,7 +37,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    with the value's bytes at 2 a number; at the decoders' shapes K4's
    row-owner route also gives the same d_value bits twice, equal to
    ``msda_backward_rows_plain``, runs no rounding pass and takes no
-   memory beyond its outputs and entry lists;
+   memory beyond its outputs and entry lists; K11 and K12 on bf16 levels
+   (their bf16 entries) at (2 and 16) x 1,000 and 16 x 512 RoIs on
+   spread, crowded and piled RoIs: K11 bit for bit K11 on the levels
+   widened and the plain version, K12 bf16 bit for bit the float32 K12
+   rounded once (at batch 2 the plain version of its order rounded) and
+   the same bits twice, beside their bounds with the levels at 2 bytes;
 4. probes: with the launch counts at 0, the port's three probes at their
    full shapes (``demf_tpu_torch.tools``: K5 row gather bit-equal to the
    plain gather at BH 128 x N 22,336 x S 90,112 and at N 999 in bf16 and
@@ -78,7 +83,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    move; then the same step under the bf16 policy from the same weights,
    batch and dropout draws: its first step's losses within 0.2 of the
    float32 first step's, step time, peak memory, float32 master weights,
-   optimizer state and BatchNorm statistics;
+   optimizer state and BatchNorm statistics; between the two, the float32
+   step in turns with the same step on the raw points through
+   ``TrainStep(preprocess=)`` on the config's point ops (the device
+   pipeline of ``data/device_pipeline.py``), and the preprocess's device
+   ms;
 9. dataset path: ``SyntheticSUNRGBD`` scenes of the real raw size (24,000
    points, 480x640 images) under the unchanged train and test pipelines
    of ``configs/demf/demf_votenet.py`` (20,000 points, ``Resize`` to
@@ -139,6 +148,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the step and unchanged after it; ``train --synthetic --steps 2
    --profile``; the dataset path on
    ``demf_tpu_torch/configs/imvotenet_synthetic.py`` through both entries;
+   then under the bf16 policy beside float32: 3 requests of each (host
+   ms, peak memory, launches: K11's bf16 entry), one profiled of each; the
+   bf16 towers against float32's on the float32 run's 2D boxes (the mean
+   error of each prediction within ``IMVOTENET_BF16_BOUND``; a vote that
+   joins another group in bf16 moves one proposal wholesale, so the max is
+   printed beside it) and the float32 run's 2D boxes the bf16 run keeps; 3
+   bf16 steps at 16 (launches, first-step losses within 0.2 of float32's,
+   device ms a step, busy share, peak memory); last one request of
+   ``ImVoteNet_Deformdetr``'s fusion mode at full width under the policy;
 13. the image-only Faster R-CNN (``demf_tpu_torch/configs/
    imvotenet_frcnn_synthetic.py``: ``configs/_base_/models/
    imvotenet_image.py`` trained, at full width): K12 (the RoIAlign's
@@ -158,9 +176,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    dataset mode, whose checkpoint must warm-start
    ``configs/baseline/imvotenet.py``'s 2D branch with no key missing (the
    smoke's AdamW at ``FRCNN_SMOKE_LR``: at the config's 0.008 random
-   weights blow up); last, a released mmcv-format file of the full-width
-   DeMF-VoteNet's weights read by the eval entry on the dataset path's
-   config (its CLASSES and epoch taken from its meta).
+   weights blow up); then under the bf16 policy: 3 steps (K10, K11 bf16
+   and K12 bf16 once a step), the first step's losses within 0.2 of the
+   float32 first step's, K11's and K12's device ms a step
+   (``tools.device_kernels``), a request of batch 2; last, a released
+   mmcv-format file of the full-width DeMF-VoteNet's weights read by the
+   eval entry on the dataset path's config (its CLASSES and epoch taken
+   from its meta);
+14. the device pipeline (M7) on ``SyntheticSUNRGBD`` at the raw size: the
+   host pipeline's scenes/s against the raw loader's (``LoadRaw`` +
+   ``collate_raw``) for DeMF's and ImVoteNet's train pipelines with the
+   configs' 4 workers; ImVoteNet's train pipeline on the card at 16 (its
+   device ms, TF32 off; its images within 5 grey levels of the host
+   pipeline's on the same scenes); an epoch of ImVoteNet's step through
+   ``Runner`` on the host loader and on the raw loader with
+   ``TrainStep(preprocess=)``, each with its loader-wait share.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
@@ -176,7 +206,9 @@ dataset path, times and bound at an eval batch's shape; K10 and K11:
 launches counted in the ImVoteNet requests, times and bound at a request's
 shape (the R-CNN's 10,000 candidates; 2 x 1,000 RoIs); K12: launches
 counted in the image-only steps, times and bound at their shape (16 x 512
-RoIs); ``library_ms`` is
+RoIs); K11 bf16: launches of the bf16 ImVoteNet requests, times and bound
+at a request's shape (2 x 1,000 RoIs); K12 bf16: launches of the bf16
+image-only steps, times and bound at (16, 512); ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights) and null where there is
@@ -209,7 +241,8 @@ import torch
 KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'msda_backward_bf16', 'gather_rows', 'msda_fold',
                 'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align',
-                'roi_align_backward')
+                'roi_align_backward', 'roi_align_bf16',
+                'roi_align_backward_bf16')
 
 
 def launch_counts(**counts):
@@ -287,6 +320,8 @@ REPLACES = {
     'nms2d': 'demf_tpu/ops/nms.py:119',
     'roi_align': 'demf_tpu/models/rpn_roi.py:167',
     'roi_align_backward': 'demf_tpu/models/rpn_roi.py:199',
+    'roi_align_bf16': 'demf_tpu/models/rpn_roi.py:167',
+    'roi_align_backward_bf16': 'demf_tpu/models/rpn_roi.py:199',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -301,7 +336,9 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'box_count': 'demf_tpu_torch/csrc/box_count.cu',
            'nms2d': 'demf_tpu_torch/csrc/nms2d.cu',
            'roi_align': 'demf_tpu_torch/csrc/roi_align.cu',
-           'roi_align_backward': 'demf_tpu_torch/csrc/roi_align.cu'}
+           'roi_align_backward': 'demf_tpu_torch/csrc/roi_align.cu',
+           'roi_align_bf16': 'demf_tpu_torch/csrc/roi_align.cu',
+           'roi_align_backward_bf16': 'demf_tpu_torch/csrc/roi_align.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -329,6 +366,20 @@ LAUNCHES_PER_IMVOTENET_REQUEST = launch_counts(
     fps=7, ball_query=7, nms2d=2, roi_align=1, nms3d=1, box_count=1)
 LAUNCHES_PER_IMVOTENET_STEP = launch_counts(fps=7, ball_query=7, nms2d=2,
                                             roi_align=1)
+# under the bf16 policy the FPN's levels are bf16: K11 runs its bf16 entry
+LAUNCHES_PER_IMVOTENET_REQUEST_BF16 = launch_counts(
+    fps=7, ball_query=7, nms2d=2, roi_align_bf16=1, nms3d=1, box_count=1)
+LAUNCHES_PER_IMVOTENET_STEP_BF16 = launch_counts(
+    fps=7, ball_query=7, nms2d=2, roi_align_bf16=1)
+# bf16 against float32 towers of a full-width ImVoteNet request on the
+# same 2D boxes, of each tensor's largest: the bound the CPU tests hold the
+# port's bf16 predictions to its float32 ones (tests/test_engine.py's 0.2);
+# SERVE_BF16_BOUND is DeMF's, whose measured gap it was set above
+IMVOTENET_BF16_BOUND = 0.2
+# ImVoteNet_Deformdetr's fusion under the bf16 policy: the DETR's 6 encoder
+# and 6 decoder MSDA layers on bf16 values, the point branch and towers
+LAUNCHES_DEFORMDETR_FUSION_BF16 = launch_counts(
+    fps=7, ball_query=7, msda_bf16=12, nms3d=1, box_count=1)
 IMVOTENET_STEPS = 3
 IMVOTENET_STEP_BATCH = (16, 608, 832)          # scenes, image
 # random weights score the R-CNN's 11 classes near 1 / 11, under the
@@ -367,6 +418,9 @@ FRCNN_ROIS = 512
 LAUNCHES_PER_FRCNN_STEP = launch_counts(nms2d=1, roi_align=1,
                                         roi_align_backward=1)
 LAUNCHES_PER_FRCNN_REQUEST = launch_counts(nms2d=2, roi_align=1)
+LAUNCHES_PER_FRCNN_STEP_BF16 = launch_counts(
+    nms2d=1, roi_align_bf16=1, roi_align_backward_bf16=1)
+LAUNCHES_PER_FRCNN_REQUEST_BF16 = launch_counts(nms2d=2, roi_align_bf16=1)
 FRCNN_DATASET_STEPS = 2
 # AdamW at the config's lr of 0.008 moves every random weight of the
 # backbone by a quarter of its size in a step, and the losses reach 1e16 by
@@ -537,30 +591,31 @@ def check_nms(dev):
     return rows[0]
 
 
+def kernels_a_call(fn, groups, runs=5):
+    """{label: (device ms a call, kernels a call)} of the kernels whose
+    name holds one of the label's markers, and 'all' for every kernel of
+    ``fn`` (``tools.device_kernels`` over ``runs`` calls).  Deep in this
+    script torch.profiler records a kernel in only some calls, so each
+    kernel's time is its ms a recorded launch times its launches a call
+    (the recorded mean, rounded up)."""
+    from demf_tpu_torch.tools import device_kernels
+    out = {label: [0.0, 0] for label in list(groups) + ['all']}
+    for name, (n, ms) in device_kernels(fn, runs).items():
+        launches = int(np.ceil(n - 1e-6))
+        hit = [label for label, markers in groups.items()
+               if any(m in name for m in markers)] + ['all']
+        for label in hit:
+            out[label][0] += ms / n * launches
+            out[label][1] += launches
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def device_ms(fn, marker, runs=5):
-    """Device ms of one run of ``fn`` by torch.profiler, mean of ``runs``:
-    (the kernels whose name holds ``marker``, all its kernels, how many of
-    them); without the host's time between launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    # the profiler now and then records no kernel of a window: up to 3
-    # windows, until the marker's kernels are in one
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        ours = sum(e.self_device_time_total for e in events
-                   if marker in e.key)
-        if ours > 0:
-            break
-    every = sum(e.self_device_time_total for e in events)
-    return (ours / 1e3 / runs, every / 1e3 / runs,
-            sum(e.count for e in events) // runs)
+    """Device ms of one call of ``fn`` (``kernels_a_call``): (the kernels
+    whose name holds ``marker``, all its kernels, how many kernels a
+    call)."""
+    found = kernels_a_call(fn, {'ours': (marker,)}, runs)
+    return found['ours'][0], found['all'][0], found['all'][1]
 
 
 # K9's launches in one call: the yaw's cosine and sine, its bin kernel and
@@ -1295,6 +1350,7 @@ def run_training_path(dev, kernels):
             moved += not same
     print(f'training: {frozen} frozen image-branch tensors unchanged, '
           f'{moved} trained tensors moved')
+    compare_devpipe_step(model, step, batch, generator, kernels)
     return launches, first
 
 
@@ -1458,22 +1514,9 @@ def run_training_bf16(dev, kernels, fp32_first):
     return launches
 
 
-def device_ms_of(prof, markers):
-    """Device ms and launches of the kernels whose name holds a marker (the
-    train step's phase ranges, which span kernels, are not kernels)."""
-    from torch.autograd import DeviceType
-    from demf_tpu_torch.engine.trainer import PHASES
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in PHASES and
-            any(m in e.key for m in markers)]
-    return (sum(e.self_device_time_total for e in hits) / 1e3,
-            sum(e.count for e in hits))
-
-
 def run_pretrain_bf16(dev, kernels):
     """The stage-1 pretrain step at full width under the bf16 policy:
     step time, peak memory, K4's device ms in a profiled step."""
-    from torch.profiler import ProfilerActivity, profile
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device
     cfg = pretrain_cfg()
@@ -1502,17 +1545,15 @@ def run_pretrain_bf16(dev, kernels):
               f'{metrics["loss"].item():.5f}', flush=True)
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(batch, generator)
-        torch.cuda.synchronize()
-    k4_ms, k4_n = device_ms_of(prof, ('msda_backward', 'round_to_bf16'))
-    k3_ms, k3_n = device_ms_of(prof, ('msda_forward',))
-    busy_ms = device_ms_of(prof, ('',))[0]
+    found = kernels_a_call(lambda: step(batch, generator), dict(
+        k4=('msda_backward', 'round_to_bf16'), k3=('msda_forward',)), runs=2)
+    (k4_ms, k4_n), (k3_ms, k3_n), (busy_ms, _) = (found[k] for k in (
+        'k4', 'k3', 'all'))
     print(f'bf16 pretrain: peak memory {peak:.1f} MiB at batch '
-          f'{PRETRAIN_BATCH["b"]}; a profiled step: device kernels '
-          f'{busy_ms:.3f} ms, K4 (bf16) {k4_ms:.3f} ms in {k4_n} launches, '
-          f'K3 (bf16) {k3_ms:.3f} ms in {k3_n}', flush=True)
+          f'{PRETRAIN_BATCH["b"]}; device ms a step (tools.device_kernels, '
+          f'2 profiled steps): all kernels {busy_ms:.3f} ms, K4 (bf16) '
+          f'{k4_ms:.3f} ms in {k4_n} launches, K3 (bf16) {k3_ms:.3f} ms in '
+          f'{k3_n}', flush=True)
     del model, step, batch
     torch.cuda.empty_cache()
     return launches
@@ -2252,13 +2293,16 @@ def in_view(batch):
     return batch
 
 
-def confident_imvotenet(dev, trainer=False):
+def confident_imvotenet(dev, trainer=False, bf16=False):
     """The full-width ImVoteNet with seeded weights, its R-CNN's fc_cls
     scaled by ``RCNN_CONFIDENCE`` and the RPN's and R-CNN's regressors by
-    ``REGRESSOR_SCALE``; with ``trainer`` its AdamW and train step too."""
+    ``REGRESSOR_SCALE``; with ``trainer`` its AdamW and train step too
+    (under the bf16 policy with ``bf16``)."""
     from demf_tpu_torch import zoo
     if trainer:
-        model, _, step = zoo.build_trainer(IMVOTENET_CFG, dev, seed=0)
+        cfg = zoo.load_model_cfg(IMVOTENET_CFG)
+        cfg['bf16'] = bf16
+        model, _, step = zoo.build_trainer(cfg, dev, seed=0)
     else:
         model, step = zoo.build_detector(IMVOTENET_CFG, dev, seed=0), None
     with torch.no_grad():
@@ -2378,6 +2422,8 @@ def run_imvotenet_path(dev, kernels):
                                      f'{launched}')
             if not all(torch.isfinite(v) for v in metrics.values()):
                 raise AssertionError(f'imvotenet step {i}: non-finite')
+            if i == 0:
+                first = {k: v.item() for k, v in metrics.items()}
     by_path['imvotenet_step'] = {n: k.launches for n, k in kernels.items()}
     frozen = moved = 0
     for name, param in model.named_parameters():
@@ -2456,6 +2502,9 @@ def run_imvotenet_path(dev, kernels):
               f'{eval_launches}', flush=True)
     by_path['imvotenet_dataset'] = {n: launches[n] + eval_launches[n]
                                     for n in launches}
+    by_path.update(run_imvotenet_bf16(dev, kernels, first))
+    by_path['deformdetr_fusion_bf16'] = run_deformdetr_fusion_bf16(
+        dev, kernels)
     return by_path
 
 
@@ -2645,6 +2694,19 @@ def time_anchor_assigner(batch):
         raise AssertionError(f'{anchors.shape[0]} anchors')
 
 
+def frcnn_step_kernels(label, step, batch, generator):
+    """K12's, K11's and K10's device ms in an image-only step, and all the
+    step's kernels' (``kernels_a_call`` over 2 steps)."""
+    found = kernels_a_call(lambda: step(batch, generator), dict(
+        k12=('roi_align_backward',), k11=('roi_align_kernel',),
+        k10=('nms2d_',)), runs=2)
+    print(f'{label} step on the device (tools.device_kernels, 2 profiled '
+          f'steps): all kernels {found["all"][0]:.3f} ms a step, of them ' +
+          ', '.join(f'{k.upper()} {found[k][0]:.3f} ms in {found[k][1]} '
+                    f'kernels' for k in ('k12', 'k11', 'k10')), flush=True)
+    return found
+
+
 def run_frcnn_path(dev, kernels):
     """The image-only Faster R-CNN at full width: K12 and K10 at the
     step's shapes, the kernel path against the plain path, 3 steps at
@@ -2652,8 +2714,6 @@ def run_frcnn_path(dev, kernels):
     its profile and its dataset mode, and the checkpoint it writes warm-
     starting the stage-2 ImVoteNet.  Returns (K12's row, the launches by
     sub-path)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from demf_tpu_torch import train as train_entry
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import (batch_to_device, latest_checkpoint,
@@ -2687,6 +2747,8 @@ def run_frcnn_path(dev, kernels):
             raise AssertionError(f'frcnn step {i} launched {launched}')
         if not all(torch.isfinite(v) for v in metrics.values()):
             raise AssertionError(f'frcnn step {i}: non-finite')
+        if i == 0:
+            first = {k: v.item() for k, v in metrics.items()}
     by_path = {'frcnn_step': {n: k.launches for n, k in kernels.items()}}
     terms = ', '.join(f'{k} {v.item():.4f}' for k, v in metrics.items())
     print(f'frcnn step: batch {FRCNN_STEP_BATCH[0]} x '
@@ -2698,16 +2760,7 @@ def run_frcnn_path(dev, kernels):
           f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; '
           f'launches a step {launched}; last step: {terms}', flush=True)
     train_entry.profile_step(step, batch, generator, dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(batch, generator)
-        torch.cuda.synchronize()
-    k12_ms, k12_n = device_ms_of(prof, ('roi_align_backward',))
-    k11_ms, k11_n = device_ms_of(prof, ('roi_align_kernel',))
-    k10_ms, k10_n = device_ms_of(prof, ('nms2d_',))
-    busy_ms = device_ms_of(prof, ('',))[0]
-    print(f'frcnn profiled step: device kernels {busy_ms:.3f} ms, of them '
-          f'K12 {k12_ms:.3f} ms in {k12_n} kernels, K11 {k11_ms:.3f} ms in '
-          f'{k11_n}, K10 {k10_ms:.3f} ms in {k10_n}', flush=True)
+    frcnn_step_kernels('frcnn', step, batch, generator)
     time_anchor_assigner(batch)
     del model, step
     torch.cuda.empty_cache()
@@ -2781,6 +2834,7 @@ def run_frcnn_path(dev, kernels):
                                  'the stage-2 2D branch')
         del stage2
     torch.cuda.empty_cache()
+    by_path.update(run_frcnn_bf16(dev, kernels, first))
     return row, by_path
 
 
@@ -2823,6 +2877,607 @@ def run_mmcv_checkpoint(dev, kernels):
             np.isfinite(r['boxes_3d']).all() for r in results):
         raise AssertionError('the mmcv-format checkpoint through eval')
     return launches
+
+
+def check_roi_align_bf16(dev):
+    """K11 and K12 on bf16 levels (their bf16 entries), the FPN's dtype
+    under the bf16 policy.  K11 at (2 and 16) x 1,000 RoIs a scene, spread,
+    and at 16 x 512 on spread, crowded and piled RoIs: float32 out, equal
+    bit for bit to K11 on the levels widened and to the plain version.
+    K12 at (16 and 2) x 512, spread, and at 16 on crowded and piled RoIs:
+    bf16 gradients, the same bits in two calls, equal bit for bit to the
+    float32 K12 rounded once (which equals the plain version of its order)
+    and at batch 2 to ``pyramid_roi_align_backward_tiles_plain`` rounded.
+    Each beside its bound with the levels at 2 bytes a number; K12's
+    kernels' device ms by ``tools.device_kernels``.  -> (K11 bf16's row at
+    (2, 1,000), K12 bf16's at (16, 512) spread)."""
+    from demf_tpu_torch.ops import roi_align
+    from demf_tpu_torch.tools import bound_ms, device_kernels, time_ms
+    from demf_tpu_torch.tools.roi_cases import (ROI_STRIDES, k12_case,
+                                                roi_case)
+    bf16 = torch.bfloat16
+    rows = {}
+    cases = [(2, 'spread', 1000), (16, 'spread', 1000)] + [
+        (16, kind, FRCNN_ROIS) for kind in ('spread', 'crowded', 'piled')]
+    for b, kind, r in cases:
+        if r == 1000:
+            feats, rois, lvl = roi_case(dev, b, seed=b)
+        else:
+            _, shapes, rois, lvl = k12_case(dev, b, kind, r, seed=b)
+            gen = torch.Generator(dev).manual_seed(b)
+            feats = tuple(torch.randn(sh, device=dev, generator=gen)
+                          for sh in shapes)
+        feats = tuple(f.to(bf16) for f in feats)
+        widened = tuple(f.float() for f in feats)
+        got = roi_align.pyramid_roi_align_cuda(feats, rois, lvl, ROI_STRIDES)
+        same = torch.equal(got, roi_align.pyramid_roi_align_cuda(
+            widened, rois, lvl, ROI_STRIDES))
+        want = roi_align.pyramid_roi_align_plain(feats, rois, lvl,
+                                                 ROI_STRIDES)
+        err = (got - want).abs().max().item()
+        plain_same = torch.equal(got, want)
+        del widened, want
+        ms = time_ms(lambda: roi_align.pyramid_roi_align_cuda(
+            feats, rois, lvl, ROI_STRIDES), 20)
+        plain_ms = time_ms(lambda: roi_align.pyramid_roi_align_plain(
+            feats, rois, lvl, ROI_STRIDES), 1)
+        least, by = bound_ms(50 * got.numel(), 2 * sum(
+            f.numel() for f in feats) + 4 * (rois.numel() + lvl.numel() +
+                                              got.numel()))
+        print(f'K11 roi_align_bf16 (B {b}, {r} RoIs a scene, {kind}, bf16 '
+              f'levels, out {tuple(got.shape)} {got.dtype}): equal bit for '
+              f'bit to K11 on the levels widened: {same}, to the plain '
+              f'version: {plain_same} (max |kernel - plain| {err:.3e}); '
+              f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+              f'{least:.6f} ms ({by}, the levels at 2 bytes), {least / ms:.1%}'
+              f' of it; library call: none', flush=True)
+        if not (same and plain_same):
+            raise AssertionError('K11 on bf16 levels disagrees')
+        if (b, r, kind) == (2, 1000, 'spread'):
+            rows['roi_align_bf16'] = kernel_row(err, ms, plain_ms, least, by)
+        del feats, got
+        torch.cuda.empty_cache()
+
+    for b, kind in ((16, 'spread'), (2, 'spread'), (16, 'crowded'),
+                    (16, 'piled')):
+        d_out, shapes, rois, lvl = k12_case(dev, b, kind, FRCNN_ROIS,
+                                            seed=b)
+
+        def kernel():
+            return roi_align.pyramid_roi_align_backward_cuda(
+                d_out, shapes, rois, lvl, ROI_STRIDES, dtype=bf16)
+
+        got, again = kernel(), kernel()
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        del again
+        f32 = roi_align.pyramid_roi_align_backward_cuda(
+            d_out, shapes, rois, lvl, ROI_STRIDES)
+        rounded = all(torch.equal(g, w.to(bf16)) for g, w in zip(got, f32))
+        # against its plain version (the float32 sums rounded once), and
+        # the rounding itself against the float32 gradient
+        err = max((g - w.to(bf16)).abs().max().item()
+                  for g, w in zip(got, f32))
+        rounding = max((g.float() - w).abs().max().item()
+                       for g, w in zip(got, f32))
+        del f32
+        ordered = 'held through the float32 kernel at batch 16'
+        if b == 2:
+            ordered = all(torch.equal(g, w.to(bf16)) for g, w in zip(
+                got, roi_align.pyramid_roi_align_backward_tiles_plain(
+                    d_out, shapes, rois, lvl, ROI_STRIDES)))
+        dtypes = {str(g.dtype) for g in got}
+        del got
+        torch.cuda.empty_cache()
+        ms = time_ms(kernel, 20)
+        by_kernel = {k: v for k, v in device_kernels(kernel).items()
+                     if 'roi_align_backward' in k}
+        plain_ms = time_ms(lambda: roi_align.pyramid_roi_align_backward_plain(
+            d_out, shapes, rois, lvl, ROI_STRIDES), 1)
+        grad_bytes = 2 * sum(int(np.prod(sh)) for sh in shapes)
+        least, by = bound_ms(50 * d_out.numel(),
+                             4 * d_out.numel() + grad_bytes)
+        print(f'K12 roi_align_backward_bf16, {kind} RoIs (B {b}, '
+              f'{FRCNN_ROIS} RoIs a scene): gradients {dtypes}, the same '
+              f'bits in two calls: {same}, equal bit for bit to the float32 '
+              f'kernel rounded once: {rounded} (max |bf16 - float32| '
+              f'{rounding:.3e}), to the plain version of its order rounded: '
+              f'{ordered}; through the wrapper {ms:.4f} ms (on the device, '
+              f'ms a launch (launches recorded a call): ' + ', '.join(
+                  f'{k[len("roi_align_backward_"):]} {t / n:.4f} ({n:g})'
+                  for k, (n, t) in by_kernel.items()) +
+              f'), plain (float32 autograd) {plain_ms:.4f} ms, bound '
+              f'{least:.6f} ms ({by}: d_out {4 * d_out.numel() / 1e6:.1f} MB '
+              f'read, the bf16 gradient {grad_bytes / 1e6:.1f} MB written), '
+              f'{least / ms:.1%} of it; library call: none', flush=True)
+        if not (same and rounded and ordered is not False and
+                dtypes == {'torch.bfloat16'}):
+            raise AssertionError(f'K12 bf16 ({kind}, B {b}) disagrees')
+        if (b, kind) == (16, 'spread'):
+            rows['roi_align_backward_bf16'] = kernel_row(
+                err, ms, plain_ms, least, by)
+        del d_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def towers_gap(got, want):
+    """The ImVoteNet towers' predictions against another run's, key by key
+    over the three towers: {key: (max error over the tensor's largest, mean
+    error over the tensor's mean magnitude)}, float32 against float32."""
+    from demf_tpu_torch.models import imvotenet
+    out = {}
+    for key in ('vote_points', 'vote_features', 'aggregated_points',
+                'obj_scores', 'sem_scores', 'distance', 'dir_class',
+                'dir_res_norm'):
+        worst = mean = 0.0
+        for tower in imvotenet.TOWERS:
+            g, w = got[tower][key].float(), want[tower][key].float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f'non-finite {tower} {key}')
+            err = (g - w).abs()
+            worst = max(worst, err.max().item() /
+                        max(w.abs().max().item(), 1e-3))
+            mean = max(mean, err.mean().item() /
+                       max(w.abs().mean().item(), 1e-3))
+        out[key] = (worst, mean)
+    return out
+
+
+def boxes_both_keep(got, got_valid, want, want_valid, iou=0.9):
+    """How many of ``want``'s valid 2D boxes [xyxy, score, class] a valid
+    box of ``got`` of the same class overlaps by ``iou`` or more."""
+    from demf_tpu_torch.models.assign_sample import iou_2d
+    ious = iou_2d(want[..., :4], got[..., :4])
+    same = want[..., None, 5] == got[..., None, :, 5]
+    hit = ((ious >= iou) & same & got_valid[..., None, :]).any(-1)
+    return int((hit & want_valid).sum()), int(want_valid.sum())
+
+
+def timed_requests(eval_step, batches, kernels, expected, label):
+    """Each batch through ``eval_step``: its host ms, peak memory and
+    launches (which must be ``expected``).  -> the host ms."""
+    walls = []
+    for i, batch in enumerate(batches):
+        before = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = eval_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launched = {n: k.launches - before[n] for n, k in kernels.items()}
+        if launched != expected:
+            raise AssertionError(f'{label} request {i} launched {launched}')
+        if not all(torch.isfinite(det[k]).all() for k in ('boxes_3d',
+                                                          'scores_3d')):
+            raise AssertionError(f'{label} request {i}: non-finite')
+        print(f'{label} request {i}: {walls[-1]:.3f} ms (host clock), '
+              f'{int(det["valid"].sum())} valid detections, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, '
+              f'launches {launched}', flush=True)
+    return walls
+
+
+def run_imvotenet_bf16(dev, kernels, f32_first):
+    """ImVoteNet (``configs/baseline/imvotenet.py``, ``confident_imvotenet``)
+    under the bf16 policy beside float32 in this run: 3 requests of batch
+    2 in each (host ms, peak memory, launches: K11's bf16 entry under the
+    policy), one more profiled in each (device ms, busy share); the bf16
+    towers against float32 on the float32 run's 2D boxes within
+    ``IMVOTENET_BF16_BOUND`` and the 2D boxes that both runs keep; 3 bf16
+    stage-2 steps at 16 (launches, first step's losses within 0.2 of the
+    float32 first step's, device ms a step).  Returns the launches by
+    sub-path."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    from demf_tpu_torch.utils import precision
+    bf16 = torch.bfloat16
+    model, _ = confident_imvotenet(dev)
+    batches = [batch_to_device(in_view(zoo.synth_demf_batch(
+        seed=seed, **IMVOTENET_REQUEST)), dev) for seed in REQUESTS]
+    by_path = {}
+    for label, dtype, expected in (
+            ('imvotenet f32', None, LAUNCHES_PER_IMVOTENET_REQUEST),
+            ('imvotenet bf16', bf16, LAUNCHES_PER_IMVOTENET_REQUEST_BF16)):
+        eval_step = make_eval_step(model, dtype)
+        for k in kernels.values():
+            k.launches = 0
+        timed_requests(eval_step, batches, kernels, expected, label)
+        if dtype is not None:
+            by_path['imvotenet_serving_bf16'] = {
+                n: k.launches for n, k in kernels.items()}
+        profile_request(eval_step, batches[-1])
+    batch = batches[0]
+    with torch.inference_mode():
+        want = precision.cast_floating(model(batch), torch.float32)
+        boxes = (want['bboxes_2d'], want['bboxes_2d_valid'])
+        own = precision.cast_floating(precision.policy_call(
+            model, bf16, precision.cast_batch(batch, bf16)), torch.float32)
+        saved = model.extract_bboxes_2d
+        model.extract_bboxes_2d = lambda *a, **k: boxes
+        try:
+            got = precision.cast_floating(precision.policy_call(
+                model, bf16, precision.cast_batch(batch, bf16)),
+                torch.float32)
+        finally:
+            model.extract_bboxes_2d = saved
+    gaps = towers_gap(got, want)
+    mean = max(m for _, m in gaps.values())
+    kept, total = boxes_both_keep(own['bboxes_2d'], own['bboxes_2d_valid'],
+                                  *boxes)
+    print(f'imvotenet bf16 against float32 (batch 2): towers on the float32 '
+          f'run\'s 2D boxes, by key (max err over the tensor\'s largest / '
+          f'mean err over its mean magnitude, worst tower): ' + ', '.join(
+              f'{k} {w:.3e} / {m:.3e}' for k, (w, m) in gaps.items()) +
+          f'; largest mean err {mean:.3e} (bound {IMVOTENET_BF16_BOUND}); '
+          f'the bf16 run\'s own 2D boxes keep {kept} of the float32 run\'s '
+          f'{total} (same class, IoU >= 0.9)', flush=True)
+    if not (mean < IMVOTENET_BF16_BOUND and total and 2 * kept >= total):
+        raise AssertionError('imvotenet bf16 against float32')
+    del model, batches, batch, want, got, own
+    torch.cuda.empty_cache()
+
+    model, step = confident_imvotenet(dev, trainer=True, bf16=True)
+    batch = batch_to_device(in_view(zoo.synth_batch_for(model, seed=0)),
+                            dev)
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for i in range(IMVOTENET_STEPS):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_IMVOTENET_STEP_BF16:
+            raise AssertionError(f'imvotenet bf16 step {i} launched '
+                                 f'{launched}')
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'imvotenet bf16 step {i}: non-finite')
+        if i == 0:
+            first = {k: v.item() for k, v in metrics.items()}
+    by_path['imvotenet_step_bf16'] = {n: k.launches
+                                      for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    worst = max(abs(first[k] - v) / max(abs(v), 1e-6)
+                for k, v in f32_first.items() if k != 'grad_norm')
+    found = kernels_a_call(lambda: step(batch, generator), {}, runs=2)
+    b = IMVOTENET_STEP_BATCH[0]
+    print(f'imvotenet bf16 step: batch {b}, the 2D branch in the step: ' +
+          ', '.join(f'{t * 1e3:.3f}' for t in times) + ' ms (host clock), '
+          f'after the first {b / np.mean(times[1:]):.3f} scenes/s; device '
+          f'kernels {found["all"][0]:.3f} ms a step (tools.device_kernels, '
+          f'{found["all"][1]} kernels), busy share '
+          f'{found["all"][0] / (np.mean(times[1:]) * 1e3):.1%}; peak memory '
+          f'{peak:.1f} MiB; first step\'s losses against float32\'s: max '
+          f'rel err {worst:.3e} (bound 0.2)', flush=True)
+    if not worst < 0.2:
+        raise AssertionError('imvotenet bf16 step losses against float32')
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def deformdetr_fusion_cfg():
+    """``ImVoteNet_Deformdetr`` in its fusion mode at full width: the
+    Deformable-DETR image branch of ``configs/deformdetr/imvotenet_deform.py``
+    (frozen) with the point branch, image MLP, VoteFusion and three towers
+    of ``configs/baseline/imvotenet.py``."""
+    from demf_tpu_torch import zoo
+    im = copy.deepcopy(zoo.load_model_cfg(IMVOTENET_CFG).model)
+    detr = copy.deepcopy(zoo.load_model_cfg(PRETRAIN_CFG).model)
+    cfg = {k: v for k, v in im.items() if k not in (
+        'type', 'img_backbone', 'img_neck', 'img_rpn_head', 'img_roi_head',
+        'train_cfg', 'test_cfg')}
+    cfg.update(type='ImVoteNet_Deformdetr',
+               img_backbone=detr['img_backbone'], img_neck=detr['img_neck'],
+               img_bbox_head=detr['img_bbox_head'],
+               train_cfg=dict(detr['train_cfg'], pts=im['train_cfg']['pts']),
+               test_cfg=dict(detr['test_cfg'], pts=im['test_cfg']['pts']))
+    return cfg
+
+
+def run_deformdetr_fusion_bf16(dev, kernels):
+    """One request of batch 2 x 20,000 points at 800x1344 of
+    ``deformdetr_fusion_cfg`` under the bf16 policy (its DETR classifier's
+    bias raised by 4, as the CPU tests raise it, so that 2D boxes pass its
+    0.09 at random weights): launches, finite detections, host ms.
+    Returns the launches."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    model = zoo.build_detector(deformdetr_fusion_cfg(), dev, seed=0)
+    with torch.no_grad():
+        model.img_bbox_head.fc_cls.bias.add_(4.0)
+    batch = batch_to_device(in_view(zoo.synth_demf_batch(
+        2, p=20000, hw=(800, 1344), valid_hw=(784, 1312), seed=4)), dev)
+    eval_step = make_eval_step(model, torch.bfloat16)
+    eval_step(batch)
+    for k in kernels.values():
+        k.launches = 0
+    walls = timed_requests(eval_step, [batch], kernels,
+                           LAUNCHES_DEFORMDETR_FUSION_BF16,
+                           'deformdetr fusion bf16')
+    with torch.inference_mode():
+        _, valid = model.extract_bboxes_2d(batch['img'], batch['img_meta'])
+    print(f'deformdetr fusion bf16: ImVoteNet_Deformdetr with points, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, '
+          f'{walls[0]:.3f} ms a request after one untimed; 2D boxes over '
+          f'0.09 a scene in float32 {valid.sum(1).tolist()}', flush=True)
+    launches = {n: k.launches for n, k in kernels.items()}
+    del model, batch, eval_step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def points_only(pipeline):
+    """A train pipeline's point ops: what the cached stage-2 step's
+    preprocess runs on the card (``bench.py``'s ``demf_devpipe``)."""
+    ops = {'LoadPointsFromFile', 'LoadAnnotations3D', 'RandomFlip3D',
+           'GlobalRotScaleTrans', 'PointSample', 'DefaultFormatBundle3D',
+           'Collect3D'}
+    return [t for t in pipeline if t['type'] in ops]
+
+
+def compare_devpipe_step(model, step, batch, generator, kernels):
+    """The DeMF stage-2 step at 16 x 20,000 on cached image features, in
+    turns with the same step given the raw points (their first 3 columns,
+    all 20,000 a scene) and ``TrainStep(preprocess=)`` on the config's
+    point ops (height, flip, rotation and scale, the sample): host ms a
+    step, launches."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.data import build_device_pipeline
+    from demf_tpu_torch.engine.trainer import TrainStep
+    from demf_tpu_torch.tools import time_ms
+    cfg = zoo.load_model_cfg('demf/demf_votenet.py')
+    p = batch['points'].shape[1]
+    _, _, preprocess, _ = build_device_pipeline(
+        points_only(cfg.data['train']['dataset']['pipeline']),
+        points_cap=p, max_gt=64)
+    raw = {k: v for k, v in batch.items() if k != 'points'}
+    raw['raw_points'] = batch['points'][..., :3].contiguous()
+    raw['raw_points_count'] = torch.full(
+        (batch['points'].shape[0],), p, dtype=torch.int32,
+        device=batch['points'].device)
+    devpipe = TrainStep(model, step.optimizer, step.scheduler, step.max_norm,
+                        preprocess=preprocess)
+    times = {'cached': [], 'devpipe': []}
+    for i in range(2 * 3 + 2):
+        name = ('cached', 'devpipe')[i % 2]
+        fn, b = (step, batch) if name == 'cached' else (devpipe, raw)
+        start = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = fn(b, generator)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_STEP or not all(
+                torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'{name} step launched {launched} or is '
+                                 f'non-finite')
+    pre_ms = time_ms(lambda: preprocess(raw, generator), 5)
+    print(f'device pipeline: DeMF stage-2 step at {batch["points"].shape[0]}'
+          f' x {p}, in turns after one of each: cached ' +
+          ', '.join(f'{t:.3f}' for t in times['cached']) + ' ms, with '
+          'preprocess= on the raw points ' +
+          ', '.join(f'{t:.3f}' for t in times['devpipe']) + ' ms (host '
+          f'clock; means {np.mean(times["cached"]):.3f} / '
+          f'{np.mean(times["devpipe"]):.3f}); the points preprocess alone '
+          f'{pre_ms:.4f} ms (CUDA events)', flush=True)
+
+
+def loader_rate(dataset, workers, batch, collate_fn=None):
+    """Scenes/s of the loader alone over the dataset (its threads, one
+    pass)."""
+    from demf_tpu_torch.data import build_dataloader
+    loader = build_dataloader(dataset, samples_per_gpu=batch,
+                              workers_per_gpu=workers, shuffle=True, seed=0,
+                              collate_fn=collate_fn)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader) * batch
+    return n / (time.perf_counter() - t0)
+
+
+def run_device_pipeline(dev, kernels):
+    """On-device preprocessing (``data/device_pipeline.py``, M7) on
+    ``SyntheticSUNRGBD`` at the raw size (24,000 points, 480x640): the
+    host pipeline's scenes/s against the raw loader's (``LoadRaw`` +
+    ``collate_raw``) with the same workers, for DeMF's and ImVoteNet's
+    train pipelines (``bench.py``'s ``loader_host`` / ``loader_raw``);
+    ImVoteNet's whole train pipeline on the card at 16 (images and
+    points): the preprocess's device ms, its images against the host
+    pipeline's on the same scenes within 5 grey levels (the JAX test's
+    5/57 at its std of 57; OpenCV resizes uint8 in fixed point), the
+    matrix products without TF32; an epoch of ImVoteNet's stage-2 step
+    through ``Runner`` on the raw loader + ``TrainStep(preprocess=)``
+    against the host loader: each epoch's loader-wait share.  Returns the
+    launches of the two epochs."""
+    from demf_tpu_torch.data import (SyntheticSUNRGBD, build_dataloader,
+                                     build_device_pipeline)
+    from demf_tpu_torch.data.pipeline import Compose
+    from demf_tpu_torch.engine import Runner, batch_to_device
+    from demf_tpu_torch.engine.trainer import TrainStep
+    from demf_tpu_torch.tools import time_ms
+    from demf_tpu_torch.utils.config import Config
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('the device resize needs TF32 off')
+    root = os.path.dirname(os.path.abspath(__file__))
+    for cfg_file in (DATASET_CFG, IMVOTENET_DATASET_CFG):
+        cfg = Config.fromfile(os.path.join(root, cfg_file))
+        pipeline = cfg.data['train']['pipeline']
+        workers, batch = cfg.data['workers_per_gpu'], cfg.data[
+            'samples_per_gpu']
+        host_load, collate_raw, _, _ = build_device_pipeline(
+            pipeline, points_cap=24000, raw_img_hw=(480, 640))
+        np.random.seed(0)
+        host = loader_rate(SyntheticSUNRGBD(num_scenes=32, seed=0,
+                                            pipeline=pipeline), workers,
+                           batch)
+        raw = loader_rate(SyntheticSUNRGBD(num_scenes=32, seed=0,
+                                           pipeline=[host_load]), workers,
+                          batch, collate_raw)
+        print(f'device pipeline: {os.path.basename(cfg_file)}\'s train '
+              f'pipeline on SyntheticSUNRGBD (24000 points, 480x640), '
+              f'{workers} workers, batches of {batch}: host pipeline '
+              f'{host:.3f} scenes/s, raw loader (LoadRaw + collate_raw) '
+              f'{raw:.3f} scenes/s', flush=True)
+
+    # ImVoteNet's train pipeline on the card, against the host's images
+    pipeline = cfg.data['train']['pipeline']
+    host_load, collate_raw, preprocess, spec = build_device_pipeline(
+        pipeline, points_cap=24000, raw_img_hw=(480, 640))
+    scenes = SyntheticSUNRGBD(num_scenes=16, seed=0)
+    raw = batch_to_device(collate_raw([host_load(scenes[i])
+                                       for i in range(16)]), dev)
+    generator = torch.Generator(dev).manual_seed(0)
+    out = preprocess(raw, generator)
+    ms = time_ms(lambda: preprocess(raw, generator), 5)
+    host = Compose(pipeline)
+    worst = 0.0
+    for i in range(16):
+        np.random.seed(i)
+        want = host(scenes[i])
+        img = np.asarray(want['img'])
+        nh, nw = out['img_meta']['img_shape'][i].tolist()
+        if (nh, nw) != tuple(want['img_meta']['img_shape'][:2]) or \
+                out['img'][i, nh:].abs().max() > 0 or \
+                out['img'][i, :, nw:].abs().max() > 0:
+            raise AssertionError('device image shape or pad')
+        got = out['img'][i, :nh, :nw].cpu().numpy()
+        worst = max(worst, float(np.abs(got - img[:nh, :nw]).max()))
+    bound = 5.0 / float(spec.norm_std.min())
+    print(f'device pipeline: ImVoteNet\'s train pipeline on the card, batch '
+          f'16 raw (24000 points, 480x640 uint8) -> points '
+          f'{tuple(out["points"].shape)}, images {tuple(out["img"].shape)}: '
+          f'{ms:.4f} ms on the device (CUDA events, TF32 off); images '
+          f'against the host pipeline\'s, max |device - host| {worst:.4f} '
+          f'(bound {bound:.4f}: 5 grey levels)', flush=True)
+    if not worst <= bound:
+        raise AssertionError('device images differ from the host pipeline')
+
+    # an epoch of ImVoteNet's step on each loader
+    model, step = confident_imvotenet(dev, trainer=True)
+    devpipe = TrainStep(model, step.optimizer, step.scheduler, step.max_norm,
+                        preprocess=preprocess)
+    workers, batch = cfg.data['workers_per_gpu'], cfg.data['samples_per_gpu']
+    shares, launches = {}, {}
+    for name in ('host', 'devpipe'):
+        if name == 'host':
+            loader = build_dataloader(
+                SyntheticSUNRGBD(num_scenes=32, seed=0, pipeline=pipeline),
+                samples_per_gpu=batch, workers_per_gpu=workers, seed=0)
+            train_step = step
+        else:
+            loader = build_dataloader(
+                SyntheticSUNRGBD(num_scenes=32, seed=0,
+                                 pipeline=[host_load]),
+                samples_per_gpu=batch, workers_per_gpu=workers, seed=0,
+                collate_fn=collate_raw)
+            train_step = devpipe
+        for k in kernels.values():
+            k.launches = 0
+        np.random.seed(0)
+        runner = Runner(model, step.optimizer, train_step, loader,
+                        max_epochs=1, log_interval=1000, logger=lambda m: None)
+        runner.run()
+        launches[name] = {n: k.launches for n, k in kernels.items()}
+        if launches[name] != {n: 2 * c for n, c in
+                              LAUNCHES_PER_IMVOTENET_STEP.items()}:
+            raise AssertionError(f'{name} epoch launched {launches[name]}')
+        shares[name] = runner.loader_wait_s / runner.epoch_s
+        print(f'device pipeline: an epoch of ImVoteNet\'s step (32 scenes, '
+              f'2 steps at {batch}) on the {name} loader: '
+              f'{runner.epoch_s:.3f} s, of which {runner.loader_wait_s:.3f} '
+              f's ({shares[name]:.1%}) waiting for the loader', flush=True)
+    del model, step, devpipe, raw, out
+    torch.cuda.empty_cache()
+    return {f'devpipe_epoch_{k}': v for k, v in launches.items()}
+
+
+def run_frcnn_bf16(dev, kernels, f32_first):
+    """The image-only Faster R-CNN under the bf16 policy (bf16 FPN levels:
+    K11 and K12 through their bf16 entries), at ``FRCNN_SMOKE_LR`` from
+    the float32 run's weights and batch: 3 steps at 16 x 608x832 with 512
+    RoIs an image (host ms, launches: K10, K11 bf16 and K12 bf16 once a
+    step), the first step's losses within 0.2 of the float32 first
+    step's, K11's and K12's device ms a step (``tools.device_kernels``),
+    and a request of batch 2 (K10 twice, K11 bf16 once).  Returns the
+    launches by sub-path."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    cfg = frcnn_cfg()
+    cfg.optimizer['lr'] = FRCNN_SMOKE_LR
+    cfg['bf16'] = True
+    model, _, step = zoo.build_trainer(cfg, dev, seed=0)
+    batch = batch_to_device(zoo.synth_batch_for(model, seed=0), dev)
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for i in range(FRCNN_STEPS):
+        start = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = {n: k.launches - start[n] for n, k in kernels.items()}
+        if launched != LAUNCHES_PER_FRCNN_STEP_BF16:
+            raise AssertionError(f'frcnn bf16 step {i} launched {launched}')
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'frcnn bf16 step {i}: non-finite')
+        if i == 0:
+            first = {k: v.item() for k, v in metrics.items()}
+    by_path = {'frcnn_step_bf16': {n: k.launches
+                                   for n, k in kernels.items()}}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    worst = max(abs(first[k] - v) / max(abs(v), 1e-6)
+                for k, v in f32_first.items() if k != 'grad_norm')
+    terms = ', '.join(f'{k} {first[k]:.4f} ({f32_first[k]:.4f})'
+                      for k in f32_first)
+    b = FRCNN_STEP_BATCH[0]
+    print(f'frcnn bf16 step: batch {b} x {FRCNN_STEP_BATCH[1]}x'
+          f'{FRCNN_STEP_BATCH[2]}, {FRCNN_ROIS} RoIs an image: ' +
+          ', '.join(f'{t * 1e3:.3f}' for t in times) + ' ms (host clock), '
+          f'after the first {b / np.mean(times[1:]):.3f} images/s; peak '
+          f'memory {peak:.1f} MiB; first step (float32\'s): {terms}; max '
+          f'rel err {worst:.3e} (bound 0.2)', flush=True)
+    if not worst < 0.2:
+        raise AssertionError('frcnn bf16 losses against float32')
+    found = frcnn_step_kernels('frcnn bf16', step, batch, generator)
+    print(f'frcnn bf16 step: busy share '
+          f'{found["all"][0] / (np.mean(times[1:]) * 1e3):.1%} (device '
+          f'kernels over the host clock)', flush=True)
+    del step, batch
+    torch.cuda.empty_cache()
+    model.eval()
+    batch = batch_to_device(zoo.synth_batch_for(model, b=2, seed=3), dev)
+    eval_step = make_eval_step(model, torch.bfloat16)
+    with torch.inference_mode():
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = eval_step(batch)
+        torch.cuda.synchronize()
+        latency = (time.perf_counter() - t0) * 1e3
+    launched = {n: k.launches for n, k in kernels.items()}
+    by_path['frcnn_request_bf16'] = launched
+    print(f'frcnn bf16 request: batch 2 x 608x832, {latency:.3f} ms (host '
+          f'clock, the first at this shape), {int(det["valid"].sum())} valid '
+          f'2D detections, float32: {det["bboxes"].dtype}; launches '
+          f'{launched}', flush=True)
+    if launched != LAUNCHES_PER_FRCNN_REQUEST_BF16 or \
+            det['bboxes'].dtype != torch.float32 or \
+            not torch.isfinite(det['bboxes']).all():
+        raise AssertionError('frcnn bf16 request')
+    del model, batch, det
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def main():
@@ -2868,6 +3523,7 @@ def main():
                 'roi_align': check_roi_align(dev)}
     measured['msda_bf16'], measured['msda_backward_bf16'] = \
         check_msda_bf16(dev, rng)
+    measured.update(check_roi_align_bf16(dev))
     kernels = ops.kernels()
     probed, probe_launches = run_probes(dev, rng, kernels)
     measured.update(probed)
@@ -2948,6 +3604,13 @@ def main():
     launches['roi_align_backward'] = \
         by_path['frcnn_step']['roi_align_backward']
     by_path['mmcv_eval'] = run_mmcv_checkpoint(dev, kernels)
+    # K11 bf16's row is a request's shape: its launches are the bf16
+    # ImVoteNet requests'; K12 bf16's the bf16 image-only steps'
+    launches['roi_align_bf16'] = \
+        by_path['imvotenet_serving_bf16']['roi_align_bf16']
+    launches['roi_align_backward_bf16'] = \
+        by_path['frcnn_step_bf16']['roi_align_backward_bf16']
+    by_path.update(run_device_pipeline(dev, kernels))
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

@@ -1,7 +1,7 @@
 // RoIAlign over an FPN pyramid, forward, a whole batch in one launch:
 // out[b, r, oy, ox, :] is the mean of samples x samples bilinear samples of
-// RoI r's bin (oy, ox) on its assigned level, from up to 4 NHWC float32
-// levels read in place.
+// RoI r's bin (oy, ox) on its assigned level, from up to 4 NHWC float32 or
+// bfloat16 levels read in place; the output is float32 either way.
 //
 // Replaces: demf_tpu/models/rpn_roi.py::pyramid_roi_align (one XLA gather
 // of the four corners of every sample from the concatenated pyramid),
@@ -24,6 +24,14 @@
 // 1,000 RoIs, is written once; the pyramid (43 MB an image) is read through
 // the cache, each pixel by the few samples near it.  The operations (~4e8
 // an image) are far below the float32 rate.
+//
+// Bfloat16 levels (the FPN's under the bf16 policy; demf_roi_align_bf16):
+// the JAX package gathers the bf16 corners and multiplies them by float32
+// weights, so the products, the sums and the output are float32.  A lane
+// reads its 4 channels as 8 bytes, widens them in registers (a bfloat16 is
+// the high half of the float32 it widens to, exactly) and goes on as the
+// float32 kernel does, so the output equals the float32 kernel's on the
+// levels widened, bit for bit, from half the bytes of the pyramid.
 //
 // The design: a block owns one RoI for all its bins over a slice of 128
 // channels (32 lanes of 16 bytes), a warp a bin column (ox), walking the
@@ -48,6 +56,11 @@
 // RoIs an image, once a step of the image-only Faster R-CNN training.  What
 // bounds it: bytes, d_out read once and the levels' gradient written once
 // (1.10 GB at batch 16).
+//
+// A bfloat16 level's gradient (demf_roi_align_backward_bf16) is summed in
+// float32 as the float32 one is, partial tiles included, and rounded to
+// bfloat16 once, at the store: it equals the float32 kernel's result
+// rounded, bit for bit, and no float32 plane of it is made.
 //
 // The design: each pixel of each level has one writer that sums its terms
 // in a fixed order, so nothing is added atomically into the levels, nothing
@@ -85,6 +98,7 @@
 //   level.
 // ops/roi_align.py::pyramid_roi_align_backward_tiles_plain sums the same
 // terms in the same order, and this equals it bit for bit.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -92,8 +106,9 @@ namespace {
 constexpr int kLanes = 32;  // float4 channel lanes a block (128 channels)
 constexpr int kMaxLevels = 4;
 
-// the levels read by the forward (P = const float4*) or written by the
-// backward (P = float4*)
+// the levels read by the forward (P = const V*) or written by the
+// backward (P = V*), V the type of 4 channels: float4 for float32 levels,
+// uint2 (4 bfloat16s) for bfloat16 ones
 template <typename P>
 struct LevelsOf {
   P ptr[kMaxLevels];
@@ -102,6 +117,30 @@ struct LevelsOf {
   float scale[kMaxLevels];
 };
 using Levels = LevelsOf<const float4*>;
+
+// 4 channels of a level, read through the read-only cache, in float32: a
+// bfloat16 widens exactly (its bits are the float32's high half; the first
+// channel in the low half of the first word)
+__device__ inline float4 load4(const float4* p) { return __ldg(p); }
+
+__device__ inline float4 load4(const uint2* p) {
+  const uint2 u = __ldg(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// 4 float32 sums stored as 4 channels of a level: a bfloat16 rounded to
+// nearest even once, here
+__device__ inline void store4(float4* p, float4 v) { *p = v; }
+
+__device__ inline void store4(uint2* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *p = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                  *reinterpret_cast<const unsigned*>(&hi));
+}
 
 // a level's entry by a runtime index, as selects: indexing the kernel's
 // parameter struct with it would copy the struct to local memory
@@ -177,20 +216,22 @@ __device__ inline void stage_table(Sample* table, float4 box, float scale,
   }
 }
 
-__device__ inline float4 bilinear(const float4* __restrict__ base, Sample y,
+template <typename V>
+__device__ inline float4 bilinear(const V* __restrict__ base, Sample y,
                                   Sample x) {
-  const float4 v00 = __ldg(base + y.a + x.a);
-  const float4 v01 = __ldg(base + y.a + x.b);
-  const float4 v10 = __ldg(base + y.b + x.a);
-  const float4 v11 = __ldg(base + y.b + x.b);
+  const float4 v00 = load4(base + y.a + x.a);
+  const float4 v01 = load4(base + y.a + x.b);
+  const float4 v10 = load4(base + y.b + x.a);
+  const float4 v11 = load4(base + y.b + x.b);
   return add4(add4(add4(scale2(v00, y.h, x.h), scale2(v01, y.h, x.w)),
                    scale2(v10, y.w, x.h)),
               scale2(v11, y.w, x.w));
 }
 
-// S: samples a bin axis at compile time, or 0 for the runtime `samples`
-template <int S>
-__global__ void roi_align_kernel(Levels levels,
+// S: samples a bin axis at compile time, or 0 for the runtime `samples`;
+// V: 4 channels of a level (float4 or uint2 for bfloat16)
+template <int S, typename V>
+__global__ void roi_align_kernel(LevelsOf<const V*> levels,
                                  const float4* __restrict__ rois,
                                  const int* __restrict__ lvl,
                                  float4* __restrict__ out, int r, int c4,
@@ -212,8 +253,8 @@ __global__ void roi_align_kernel(Levels levels,
   const int lane = threadIdx.x % kLanes, ox = threadIdx.x / kLanes;
   const int ch = blockIdx.y * kLanes + lane;
   if (ch >= c4) return;
-  const float4* base = of_level(levels.ptr, lv) +
-                       static_cast<size_t>(image) * h * w * c4 + ch;
+  const V* base = of_level(levels.ptr, lv) +
+                  static_cast<size_t>(image) * h * w * c4 + ch;
   float4* dst = out + static_cast<size_t>(roi) * out_size * out_size * c4 +
                 ox * c4 + ch;
   const float count = static_cast<float>(s * s);
@@ -525,10 +566,10 @@ struct TilesSmem {
 // K12 step 4: a block a work item (a chunk of a tile's list) over kSlices
 // slices of 128 channels: a warp a row of a slice, a lane 4 channels; S
 // as the forward's
-template <int S>
+template <int S, typename V>
 __global__ void __launch_bounds__(kTileH * 32 * kSlices, 2)
     roi_align_backward_tiles_kernel(
-        LevelsOf<float4*> levels, const float4* __restrict__ d_out,
+        LevelsOf<V*> levels, const float4* __restrict__ d_out,
         const Sample* __restrict__ table, const int2* __restrict__ bounds,
         const int4* __restrict__ spans, const int* __restrict__ lvl,
         TileGrid grid, const int2* __restrict__ plan,
@@ -682,13 +723,13 @@ __global__ void __launch_bounds__(kTileH * 32 * kSlices, 2)
 
   const int h = of_level(levels.h, tile.level);
   const int w = of_level(levels.w, tile.level);
-  float4* level = of_level(levels.ptr, tile.level) +
-                  (static_cast<size_t>(tile.image) * h + row) * w * c4 + ch;
+  V* level = of_level(levels.ptr, tile.level) +
+             (static_cast<size_t>(tile.image) * h + row) * w * c4 + ch;
   if (it.w < 0) {
     if (row < h && live)
 #pragma unroll
       for (int x = 0; x < kTileW; ++x)
-        if (tile.x0 + x < w) level[(tile.x0 + x) * c4] = acc[x];
+        if (tile.x0 + x < w) store4(level + (tile.x0 + x) * c4, acc[x]);
     return;
   }
   // a chunk of a longer list: its partial tile in slot it.w, then the last
@@ -716,14 +757,14 @@ __global__ void __launch_bounds__(kTileH * 32 * kSlices, 2)
     float4 sum = __ldcg(first + x * c4);
     for (int j = 1; j < chunks.x; ++j)
       sum = add4(sum, __ldcg(first + j * slot_size + x * c4));
-    level[(tile.x0 + x) * c4] = sum;
+    store4(level + (tile.x0 + x) * c4, sum);
   }
 }
 
 // launches the tiles kernel, its shared memory allowed once
-template <int S>
+template <int S, typename V>
 cudaError_t launch_tiles(dim3 blocks, cudaStream_t st,
-                         LevelsOf<float4*> levels, const float4* d_out,
+                         LevelsOf<V*> levels, const float4* d_out,
                          const Sample* table, const int2* bounds,
                          const int4* spans, const int* lvl, TileGrid grid,
                          const int2* plan, const int4* items, int* arrivals,
@@ -731,10 +772,10 @@ cudaError_t launch_tiles(dim3 blocks, cudaStream_t st,
                          int out_size, int samples) {
   constexpr int kBytes = sizeof(TilesSmem<S>);
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      roi_align_backward_tiles_kernel<S>,
+      roi_align_backward_tiles_kernel<S, V>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (allowed != cudaSuccess) return allowed;
-  roi_align_backward_tiles_kernel<S>
+  roi_align_backward_tiles_kernel<S, V>
       <<<blocks, TilesSmem<S>::kThreads, kBytes, st>>>(
           levels, d_out, table, bounds, spans, lvl, grid, plan, items,
           arrivals, partials, r, c4, num_levels, out_size, samples);
@@ -761,26 +802,17 @@ bool bad_shape(int out_size, int samples) {
          out_size * samples > 1024;
 }
 
-}  // namespace
-
-extern "C" {
-
-// f0..f3: (B, H_l, W_l, C) f32 levels (unused ones may repeat f0); rois
-// (B, R, 4) f32; lvl (B, R) int32; out (B, R, out, out, C) f32, every
-// element written; C a multiple of 4, every pointer 16-byte aligned;
-// out_size <= 32, out_size * samples <= 1024, a level's H * W * C / 4
-// below 2^31.
-int demf_roi_align(const void* f0, const void* f1, const void* f2,
-                   const void* f3, const void* rois, const void* lvl,
-                   void* out, int b, int r, int c, int num_levels,
-                   int out_size, int samples, int h0, int h1, int h2, int h3,
-                   int w0, int w1, int w2, int w3, float s0, float s1,
-                   float s2, float s3, void* stream) {
+// K11 with levels of V (float4: float32, uint2: bfloat16)
+template <typename V>
+int launch_forward(const void* const (&f)[kMaxLevels], const void* rois,
+                   const void* lvl, void* out, int b, int r, int c,
+                   int num_levels, int out_size, int samples,
+                   const int (&hs)[kMaxLevels], const int (&ws)[kMaxLevels],
+                   const float (&ss)[kMaxLevels], void* stream) {
   if (b == 0 || r == 0 || c == 0) return 0;
   if (bad_shape(out_size, samples))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Levels levels = levels_of<const float4*>(
-      {f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3});
+  const LevelsOf<const V*> levels = levels_of<const V*>(f, hs, ws, ss);
   const int c4 = c / 4;
   const dim3 grid(b * r, (c4 + kLanes - 1) / kLanes);
   const int threads = kLanes * out_size;
@@ -790,42 +822,32 @@ int demf_roi_align(const void* f0, const void* f1, const void* f2,
   const int* levels_of_roi = static_cast<const int*>(lvl);
   float4* dst = static_cast<float4*>(out);
   if (samples == 2)
-    roi_align_kernel<2><<<grid, threads, shared, s>>>(
+    roi_align_kernel<2, V><<<grid, threads, shared, s>>>(
         levels, boxes, levels_of_roi, dst, r, c4, num_levels, out_size,
         samples);
   else
-    roi_align_kernel<0><<<grid, threads, shared, s>>>(
+    roi_align_kernel<0, V><<<grid, threads, shared, s>>>(
         levels, boxes, levels_of_roi, dst, r, c4, num_levels, out_size,
         samples);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K12. g0..g3: (B, H_l, W_l, C) f32 gradients of the levels, every
-// element written (unused ones may repeat g0); rois, lvl and the sizes as
-// the forward's; d_out (B, R, out, out, C) f32.  The same limits.  A
-// tile's list is cut into chunks of about `chunk` entries, with at most
-// `slots` partial tiles.  Scratch,
-// 16-byte aligned: table (B R 2 out samples Samples), bounds (B R 2 out
-// int2), spans (B R int4), plan (T int2), tile_n (T ints), items (T +
-// slots int4), arrivals (T ceil(C / 128) ints), partials (slots 64 C
-// f32), T the tiles of 8 x 8 pixels of the batch.
-int demf_roi_align_backward(
-    void* g0, void* g1, void* g2, void* g3, const void* rois,
-    const void* lvl, const void* d_out, void* table, void* bounds,
-    void* spans, void* plan, void* tile_n, void* items, void* arrivals,
-    void* partials, int b,
-    int r, int c, int num_levels, int out_size, int samples, int h0, int h1,
-    int h2, int h3, int w0, int w1, int w2, int w3, float s0, float s1,
-    float s2, float s3, int chunk, int slots,
-    void* stream) {
+// K12 writing level gradients of V
+template <typename V>
+int launch_backward(const void* const (&g)[kMaxLevels], const void* rois,
+                    const void* lvl, const void* d_out, void* table,
+                    void* bounds, void* spans, void* plan, void* tile_n,
+                    void* items, void* arrivals, void* partials, int b, int r,
+                    int c, int num_levels, int out_size, int samples,
+                    const int (&hs)[kMaxLevels], const int (&ws)[kMaxLevels],
+                    const float (&ss)[kMaxLevels], int chunk, int slots,
+                    void* stream) {
   if (b == 0 || c == 0) return 0;
   if (bad_shape(out_size, samples) || chunk < 1 || slots < 0 ||
       num_levels < 1 || num_levels > kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
-  const LevelsOf<float4*> levels = levels_of<float4*>(
-      {g0, g1, g2, g3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3});
-  const Levels sizes = levels_of<const float4*>(
-      {g0, g1, g2, g3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3});
+  const LevelsOf<V*> levels = levels_of<V*>(g, hs, ws, ss);
+  const Levels sizes = levels_of<const float4*>(g, hs, ws, ss);
   TileGrid grid;
   int per_image = 0;
   for (int i = 0; i < kMaxLevels; ++i) {
@@ -866,14 +888,90 @@ int demf_roi_align_backward(
   float4* parts = static_cast<float4*>(partials);
   const cudaError_t err =
       samples == 2
-          ? launch_tiles<2>(blocks, st, levels, grad, tab, bins, span,
-                            roi_lvl, grid, plans, work, arrive, parts, r, c4,
-                            num_levels, out_size, samples)
-          : launch_tiles<0>(blocks, st, levels, grad, tab, bins, span,
-                            roi_lvl, grid, plans, work, arrive, parts, r, c4,
-                            num_levels, out_size, samples);
+          ? launch_tiles<2, V>(blocks, st, levels, grad, tab, bins, span,
+                               roi_lvl, grid, plans, work, arrive, parts, r,
+                               c4, num_levels, out_size, samples)
+          : launch_tiles<0, V>(blocks, st, levels, grad, tab, bins, span,
+                               roi_lvl, grid, plans, work, arrive, parts, r,
+                               c4, num_levels, out_size, samples);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// f0..f3: (B, H_l, W_l, C) f32 levels (unused ones may repeat f0); rois
+// (B, R, 4) f32; lvl (B, R) int32; out (B, R, out, out, C) f32, every
+// element written; C a multiple of 4, every pointer 16-byte aligned;
+// out_size <= 32, out_size * samples <= 1024, a level's H * W * C / 4
+// below 2^31.
+int demf_roi_align(const void* f0, const void* f1, const void* f2,
+                   const void* f3, const void* rois, const void* lvl,
+                   void* out, int b, int r, int c, int num_levels,
+                   int out_size, int samples, int h0, int h1, int h2, int h3,
+                   int w0, int w1, int w2, int w3, float s0, float s1,
+                   float s2, float s3, void* stream) {
+  return launch_forward<float4>({f0, f1, f2, f3}, rois, lvl, out, b, r, c,
+                                num_levels, out_size, samples,
+                                {h0, h1, h2, h3}, {w0, w1, w2, w3},
+                                {s0, s1, s2, s3}, stream);
+}
+
+// The same with bfloat16 levels (8-byte aligned); out is float32.
+int demf_roi_align_bf16(const void* f0, const void* f1, const void* f2,
+                        const void* f3, const void* rois, const void* lvl,
+                        void* out, int b, int r, int c, int num_levels,
+                        int out_size, int samples, int h0, int h1, int h2,
+                        int h3, int w0, int w1, int w2, int w3, float s0,
+                        float s1, float s2, float s3, void* stream) {
+  return launch_forward<uint2>({f0, f1, f2, f3}, rois, lvl, out, b, r, c,
+                               num_levels, out_size, samples,
+                               {h0, h1, h2, h3}, {w0, w1, w2, w3},
+                               {s0, s1, s2, s3}, stream);
+}
+
+// K12. g0..g3: (B, H_l, W_l, C) f32 gradients of the levels, every
+// element written (unused ones may repeat g0); rois, lvl and the sizes as
+// the forward's; d_out (B, R, out, out, C) f32.  The same limits.  A
+// tile's list is cut into chunks of about `chunk` entries, with at most
+// `slots` partial tiles.  Scratch,
+// 16-byte aligned: table (B R 2 out samples Samples), bounds (B R 2 out
+// int2), spans (B R int4), plan (T int2), tile_n (T ints), items (T +
+// slots int4), arrivals (T ceil(C / 128) ints), partials (slots 64 C
+// f32), T the tiles of 8 x 8 pixels of the batch.
+int demf_roi_align_backward(
+    void* g0, void* g1, void* g2, void* g3, const void* rois,
+    const void* lvl, const void* d_out, void* table, void* bounds,
+    void* spans, void* plan, void* tile_n, void* items, void* arrivals,
+    void* partials, int b,
+    int r, int c, int num_levels, int out_size, int samples, int h0, int h1,
+    int h2, int h3, int w0, int w1, int w2, int w3, float s0, float s1,
+    float s2, float s3, int chunk, int slots,
+    void* stream) {
+  return launch_backward<float4>(
+      {g0, g1, g2, g3}, rois, lvl, d_out, table, bounds, spans, plan, tile_n,
+      items, arrivals, partials, b, r, c, num_levels, out_size, samples,
+      {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3}, chunk, slots,
+      stream);
+}
+
+// The same with bfloat16 gradients of the levels (8-byte aligned): summed
+// in float32, partial tiles too, each rounded once at its store.
+int demf_roi_align_backward_bf16(
+    void* g0, void* g1, void* g2, void* g3, const void* rois,
+    const void* lvl, const void* d_out, void* table, void* bounds,
+    void* spans, void* plan, void* tile_n, void* items, void* arrivals,
+    void* partials, int b, int r, int c, int num_levels, int out_size,
+    int samples, int h0, int h1, int h2, int h3, int w0, int w1, int w2,
+    int w3, float s0, float s1, float s2, float s3, int chunk, int slots,
+    void* stream) {
+  return launch_backward<uint2>(
+      {g0, g1, g2, g3}, rois, lvl, d_out, table, bounds, spans, plan, tile_n,
+      items, arrivals, partials, b, r, c, num_levels, out_size, samples,
+      {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3}, chunk, slots,
+      stream);
 }
 
 }  // extern "C"

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from ..data.loader import collate_fixed
-from ..utils.precision import (cast_batch, cast_floating, check_policy,
-                               policy_call)
+from ..utils.precision import cast_batch, cast_floating, policy_call
 
 
 def batch_to_device(batch, device):
@@ -38,8 +37,6 @@ def batch_to_device(batch, device):
 def make_eval_step(model, compute_dtype=None):
     """batch (tensors on the model's device) -> padded detections:
     boxes_3d (B, K, 7), scores_3d (B, K), labels_3d (B, K), valid (B, K)."""
-    check_policy(model, compute_dtype)
-
     @torch.inference_mode()
     def eval_step(batch):
         results = cast_floating(policy_call(

@@ -21,8 +21,7 @@ import time
 import torch
 from torch.profiler import record_function
 
-from ..utils.precision import (cast_batch, cast_floating, check_policy,
-                               policy_call)
+from ..utils.precision import cast_batch, cast_floating, policy_call
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluation import batch_to_device
 from .optim import clip_grad_global_norm, global_norm, set_lr
@@ -42,20 +41,24 @@ class TrainStep:
     clip), all 0-dim tensors.
 
     ``compute_dtype`` (None or ``torch.bfloat16``) selects the precision
-    policy.  ``count`` is the number of updates taken; ``lr`` the base rate
-    of the last one.  A checkpoint saves the count and a resume restores it, so
-    the schedule goes on where it stopped (in the JAX package the count
-    lives in the optax state).
+    policy.  ``preprocess`` (``data.device_pipeline.make_device_preprocess``)
+    turns a raw batch into the model's batch on the card first, without
+    gradients and with the step's generator, as the JAX package's
+    ``make_train_step(preprocess=)`` does inside its step; the loss reads
+    the preprocessed batch.  ``count`` is the number of updates taken;
+    ``lr`` the base rate of the last one.  A checkpoint saves the count and
+    a resume restores it, so the schedule goes on where it stopped (in the
+    JAX package the count lives in the optax state).
     """
 
     def __init__(self, model, optimizer, scheduler=None, max_norm=None,
-                 compute_dtype=None):
+                 compute_dtype=None, preprocess=None):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.max_norm = max_norm
-        check_policy(model, compute_dtype)
         self.compute_dtype = compute_dtype
+        self.preprocess = preprocess
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.count = 0
         self.lr = None
@@ -65,6 +68,9 @@ class TrainStep:
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with record_function(PHASES[0]):
+            if self.preprocess is not None:
+                with torch.no_grad():
+                    batch = self.preprocess(batch, generator)
             dtype = self.compute_dtype
             # the float32 loss island (the reference's @force_fp32)
             results = cast_floating(policy_call(

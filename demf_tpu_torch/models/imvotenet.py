@@ -22,9 +22,10 @@ in training the RPN's loss over every anchor, proposals without a graph,
 512 RoIs an image sampled from them and the GT boxes, and the R-CNN's loss
 on those (the RoIAlign's backward is K12); in inference the R-CNN's
 detections on the proposals.  Its checkpoint warm-starts the stage-2 model
-(``load_from``).  No ``ImVoteNet`` runs under the bf16 policy yet
-(``bf16_ported``: K10 and K11 take float32), nor does the fusion mode of
-``ImVoteNet_Deformdetr``.
+(``load_from``).  Every mode runs under the bf16 policy as in the JAX
+package: the FPN levels are bf16, K11 reads them in bf16 and pools in
+float32 (so the R-CNN computes in float32 from there), K12 writes their
+bf16 gradient, and the RPN's bf16 scores meet K10 widened exactly.
 
 Random draws: the half-drop and the seed sampling take their uniforms
 from the caller's ``torch.Generator`` in training, in that order; in eval
@@ -104,8 +105,6 @@ class ImVoteNet_Deformdetr(nn.Module):
     # the frozen 2D branch, and the score over which its boxes are kept
     img_branch = ('img_backbone', 'img_neck', 'img_bbox_head')
     box_score_thr = 0.09
-    # whether the image-only mode runs under the bf16 policy
-    img_only_bf16 = True
 
     def __init__(self, pts_backbone=None, pts_bbox_heads=None, pts_neck=None,
                  img_backbone=None, img_neck=None, img_bbox_head=None,
@@ -120,9 +119,6 @@ class ImVoteNet_Deformdetr(nn.Module):
         self.img_backbone = build_from_cfg(img_backbone, BACKBONES)
         self.img_neck = build_from_cfg(img_neck, NECKS)
         self._build_2d_heads(img_bbox_head=img_bbox_head, **heads_2d)
-        # the stage-1 pretrain runs under the bf16 policy, the fusion not
-        # yet (``utils.precision.check_policy``), nor any ImVoteNet
-        self.bf16_ported = pts_backbone is None and self.img_only_bf16
         if pts_backbone is not None:
             self.pts_backbone = build_from_cfg(pts_backbone, BACKBONES)
             towers, self.loss_weights = self._tower_cfgs(pts_bbox_heads)
@@ -294,7 +290,6 @@ class ImVoteNet(ImVoteNet_Deformdetr):
     Faster R-CNN alone, trained and served."""
 
     img_branch = ('img_backbone', 'img_neck', 'img_rpn_head', 'img_roi_head')
-    img_only_bf16 = False
 
     @property
     def synth_batch(self):

@@ -62,14 +62,21 @@ def grid_anchors(feat_hw, stride, scales, ratios, device=None):
     return torch.as_tensor(anchors.astype(np.float32), device=device)
 
 
+def _coder_terms(values, like):
+    """A coder's ``means`` / ``stds`` as a float32 tensor, as the JAX
+    package's ``jnp.asarray`` makes them: an array, not a weak Python
+    scalar, so that bf16 deltas meeting it are computed in float32."""
+    return torch.tensor(values, dtype=torch.float32, device=like.device)
+
+
 def delta2bbox(anchors, deltas, means=(0., 0., 0., 0.),
                stds=(1., 1., 1., 1.), max_shape=None, wh_ratio_clip=0.016):
     """mmdet ``DeltaXYWHBBoxCoder.decode``; ``max_shape`` (H, W), scalars
     or tensors broadcasting over the boxes' leading axes, clips the
-    corners to the image."""
-    means = deltas.new_tensor(means)
-    stds = deltas.new_tensor(stds)
-    d = deltas * stds + means
+    corners to the image.  The boxes are float32 whatever the deltas'
+    dtype (the RPN's are bf16 under the bf16 policy), as in the JAX
+    package."""
+    d = deltas * _coder_terms(stds, deltas) + _coder_terms(means, deltas)
     dx, dy, dw, dh = d.unbind(-1)
     max_ratio = abs(float(np.log(wh_ratio_clip)))
     dw = dw.clamp(-max_ratio, max_ratio)
@@ -114,7 +121,7 @@ def bbox2delta(anchors, boxes, means=(0., 0., 0., 0.),
     bh = (boxes[..., 3] - boxes[..., 1]).clamp_min(1e-6)
     d = torch.stack([(bx - ax) / aw, (by - ay) / ah,
                      torch.log(bw / aw), torch.log(bh / ah)], -1)
-    return (d - d.new_tensor(means)) / d.new_tensor(stds)
+    return (d - _coder_terms(means, d)) / _coder_terms(stds, d)
 
 
 def _img_hw(img_shape, dtype):
@@ -186,8 +193,8 @@ class RPNHead(nn.Module):
             all_boxes.append(boxes)
             all_lvl.append(torch.full_like(topi, lvl))
         scores = torch.cat(all_scores, 1)
-        boxes = clip_boxes(torch.cat(all_boxes, 1),
-                           *_img_hw(img_shape, scores.dtype))
+        boxes = torch.cat(all_boxes, 1)
+        boxes = clip_boxes(boxes, *_img_hw(img_shape, boxes.dtype))
         keep = batched_nms_2d(boxes, scores, torch.cat(all_lvl, 1), iou_thr)
         topv, topi = topk_stable(torch.where(keep, scores, -1.0),
                                  max_per_img)

@@ -20,8 +20,9 @@ from .msda import (MSDA_BACKWARD_BF16_KERNEL, MSDA_BACKWARD_KERNEL,
 from .msda_fold import MSDA_FOLD_KERNEL
 from .nms import NMS3D_KERNEL, aligned_3d_nms
 from .nms2d import NMS2D_KERNEL, batched_nms_2d, nms_2d
-from .roi_align import (ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_KERNEL,
-                        pyramid_roi_align)
+from .roi_align import (ROI_ALIGN_BACKWARD_BF16_KERNEL,
+                        ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_BF16_KERNEL,
+                        ROI_ALIGN_KERNEL, pyramid_roi_align)
 from .sampling import FPS_KERNEL, furthest_point_sample
 
 __all__ = [
@@ -37,8 +38,8 @@ def kernels():
     """name -> CudaKernel for every kernel of the port: the serving and
     training paths' (FPS to MSDA backward, the 3D NMS and the box count,
     the 2D NMS and the RoIAlign (forward and backward) of ImVoteNet's
-    image branch; MSDA
-    forward and backward on a float32 and on a bfloat16 value, each with
+    image branch; MSDA forward and backward on a float32 and on a bfloat16
+    value, and the RoIAlign on float32 and on bfloat16 levels, each with
     its own count) and the probes'."""
     return {'fps': FPS_KERNEL, 'ball_query': BALL_QUERY_KERNEL,
             'msda': MSDA_KERNEL, 'msda_backward': MSDA_BACKWARD_KERNEL,
@@ -48,4 +49,6 @@ def kernels():
             'mform_sample': MFORM_KERNEL, 'nms3d': NMS3D_KERNEL,
             'box_count': BOX_COUNT_KERNEL, 'nms2d': NMS2D_KERNEL,
             'roi_align': ROI_ALIGN_KERNEL,
-            'roi_align_backward': ROI_ALIGN_BACKWARD_KERNEL}
+            'roi_align_backward': ROI_ALIGN_BACKWARD_KERNEL,
+            'roi_align_bf16': ROI_ALIGN_BF16_KERNEL,
+            'roi_align_backward_bf16': ROI_ALIGN_BACKWARD_BF16_KERNEL}

@@ -67,12 +67,16 @@ def batched_nms_2d(boxes, scores, idxs, thresh, valid=None):
     boxes (B, N, 4) xyxy, scores (B, N), idxs (B, N) integer groups, valid
     (B, N) bool or None -> (B, N) bool keep mask in the original order.  A
     CPU tensor takes the plain version; a CUDA tensor launches K10 (on
-    contiguous copies where an input is a view) or raises.
+    contiguous copies where an input is a view) or raises.  Bfloat16 scores
+    (the RPN's under the bf16 policy) are widened to float32 first: the
+    cast is exact, so the order and its ties are those of the bf16 values.
     """
     if not thresh >= 0:
         raise ValueError(f'thresh must be >= 0, got {thresh}')
     if valid is None:
         valid = torch.ones_like(scores, dtype=torch.bool)
+    if scores.dtype == torch.bfloat16:
+        scores = scores.float()
     if boxes.device.type == 'cpu':
         return batched_nms_2d_plain(boxes, scores, idxs, thresh, valid)
     return batched_nms_2d_cuda(boxes.contiguous(), scores.contiguous(),

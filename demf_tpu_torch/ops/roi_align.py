@@ -26,6 +26,19 @@ equal to ``pyramid_roi_align_backward_tiles_plain``) and autograd of the
 plain version on the CPU (``pyramid_roi_align_backward_plain``).  The
 RoIs take no gradient in either package (proposals are stopped, GT boxes
 are data): on the card a RoI tensor that requires one is refused.
+
+Under the bf16 policy the levels are bfloat16.  The JAX package gathers
+the bf16 corners and weighs them in float32, so the output is float32 and
+equals the float32 RoIAlign of the levels widened; K11 reads bf16 levels
+in its own entry (``demf_roi_align_bf16``: 8 bytes a lane, widened in
+registers), which equals K11 on ``level.float()`` bit for bit, with no
+widened copy of the pyramid.  The gradient of a bf16 level is bf16: K12's
+bf16 entry sums in float32 as the float32 one does and rounds once at the
+store (equal to ``pyramid_roi_align_backward_tiles_plain(...).to(
+torch.bfloat16)``), where the JAX package rounds each corner's share to
+bf16 and adds in bf16.  The plain version on the CPU widens the levels
+(``.float()``), so that its gradient too is summed in float32 and rounded
+once.
 """
 from __future__ import annotations
 
@@ -40,6 +53,8 @@ from ._cuda import CudaKernel, check_cuda
 ROI_ALIGN_KERNEL = CudaKernel(
     'demf_roi_align', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 +
     [ctypes.c_float] * 4)
+ROI_ALIGN_BF16_KERNEL = CudaKernel(
+    'demf_roi_align_bf16', ROI_ALIGN_KERNEL.argtypes)
 
 # K12: 4 level-gradient pointers, rois, levels, d_out, 8 scratch pointers;
 # B, R, C, L, out, samples, 4 heights, 4 widths; 4 scales; the chunk, the
@@ -47,6 +62,10 @@ ROI_ALIGN_KERNEL = CudaKernel(
 ROI_ALIGN_BACKWARD_KERNEL = CudaKernel(
     'demf_roi_align_backward', [ctypes.c_void_p] * 15 +
     [ctypes.c_int] * 14 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2)
+ROI_ALIGN_BACKWARD_BF16_KERNEL = CudaKernel(
+    'demf_roi_align_backward_bf16', ROI_ALIGN_BACKWARD_KERNEL.argtypes)
+# the levels' dtypes the kernels read and write
+LEVEL_DTYPES = (torch.float32, torch.bfloat16)
 
 K11_MAX_LEVELS = 4
 # K12's tile (rows, columns), the entries a chunk of a tile's list takes,
@@ -139,13 +158,16 @@ def pyramid_roi_align(feats, rois, lvl, strides, out_size=7,
 
     feats: tuple of (B, H_l, W_l, C) maps; rois (B, R, 4) xyxy in input
     coordinates; lvl (B, R) integer levels; strides: a stride a level ->
-    (B, R, out, out, C).  A CPU tensor takes the plain version; a CUDA
-    tensor launches K11 (float32 only), with K12 as its backward where a
-    level takes a gradient, or raises; so do RoIs that require one.
+    (B, R, out, out, C) float32.  The levels are float32 or bfloat16 (all
+    of one dtype); a level's gradient has its dtype.  A CPU tensor takes
+    the plain version (bf16 levels widened first); a CUDA tensor launches
+    K11, with K12 as its backward where a level takes a gradient, or
+    raises; so do RoIs that require one.
     """
     if rois.device.type == 'cpu':
-        return pyramid_roi_align_plain(feats, rois, lvl, strides, out_size,
-                                       samples_per_bin)
+        return pyramid_roi_align_plain(
+            tuple(f.float() for f in feats), rois, lvl, strides, out_size,
+            samples_per_bin)
     if rois.requires_grad:
         raise ValueError('pyramid_roi_align: the RoIs take no gradient '
                          '(detach them); K12 returns the levels\' only')
@@ -160,7 +182,7 @@ class _PyramidRoIAlign(torch.autograd.Function):
     def forward(ctx, rois, lvl, strides, out_size, samples, *feats):
         ctx.save_for_backward(rois, lvl)
         ctx.args = (tuple(f.shape for f in feats), strides, out_size,
-                    samples)
+                    samples, feats[0].dtype)
         return pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size,
                                       samples)
 
@@ -168,9 +190,10 @@ class _PyramidRoIAlign(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
         rois, lvl = ctx.saved_tensors
-        shapes, strides, out_size, samples = ctx.args
+        shapes, strides, out_size, samples, dtype = ctx.args
         d_feats = pyramid_roi_align_backward_cuda(
-            d_out.contiguous(), shapes, rois, lvl, strides, out_size, samples)
+            d_out.contiguous(), shapes, rois, lvl, strides, out_size, samples,
+            dtype=dtype)
         return (None,) * 5 + tuple(
             d if need else None
             for d, need in zip(d_feats, ctx.needs_input_grad[5:]))
@@ -460,19 +483,23 @@ def sample_table(rois, lvl, strides, sizes, out_size=7,
 
 def pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size=7,
                            samples_per_bin=2):
-    """Kernel K11 (csrc/roi_align.cu): up to 4 float32 NHWC levels with
-    the same B and C (a multiple of 4), float32 RoIs, integer levels, all
-    contiguous on the card; ``out_size`` at most 32 and ``out_size *
-    samples_per_bin`` at most 1024.  A block owns a RoI over 128 channels,
-    a warp a bin column, a thread 4 channels of it."""
+    """Kernel K11 (csrc/roi_align.cu): up to 4 NHWC levels, float32 or
+    bfloat16 (all of one dtype), with the same B and C (a multiple of 4),
+    float32 RoIs, integer levels, all contiguous on the card; ``out_size``
+    at most 32 and ``out_size * samples_per_bin`` at most 1024.  A block
+    owns a RoI over 128 channels, a warp a bin column, a thread 4 channels
+    of it.  The output is float32; bf16 levels launch the bf16 entry."""
     if not 1 <= len(feats) <= K11_MAX_LEVELS or len(strides) != len(feats):
         raise ValueError(f'K11 takes 1 to {K11_MAX_LEVELS} levels with a '
                          f'stride each, got {len(feats)} and {len(strides)}')
     check_cuda('rois', rois, torch.float32, 3)
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
+    dtype = feats[0].dtype
+    if dtype not in LEVEL_DTYPES:
+        raise TypeError(f'K11 takes float32 or bfloat16 levels, got {dtype}')
     for i, f in enumerate(feats):
-        check_cuda(f'feats[{i}]', f, torch.float32, 4)
+        check_cuda(f'feats[{i}]', f, dtype, 4)
         if f.shape[0] != b or f.shape[-1] != c:
             raise ValueError(f'feats[{i}] {tuple(f.shape)} does not go with '
                              f'rois {tuple(rois.shape)} and C {c}')
@@ -495,23 +522,28 @@ def pyramid_roi_align_cuda(feats, rois, lvl, strides, out_size=7,
     levels = list(feats) + [feats[0]] * (K11_MAX_LEVELS - len(feats))
     inv = [1.0 / st for st in strides] + [1.0] * (K11_MAX_LEVELS -
                                                  len(strides))
-    ROI_ALIGN_KERNEL(*(f.data_ptr() for f in levels), rois.data_ptr(),
-                     lvl.data_ptr(), out.data_ptr(), b, r, c, len(feats),
-                     out_size, samples_per_bin,
-                     *(f.shape[1] for f in levels),
-                     *(f.shape[2] for f in levels), *inv)
+    kernel = (ROI_ALIGN_KERNEL if dtype == torch.float32 else
+              ROI_ALIGN_BF16_KERNEL)
+    kernel(*(f.data_ptr() for f in levels), rois.data_ptr(), lvl.data_ptr(),
+           out.data_ptr(), b, r, c, len(feats), out_size, samples_per_bin,
+           *(f.shape[1] for f in levels), *(f.shape[2] for f in levels),
+           *inv)
     return out
 
 
 def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
                                     out_size=7, samples_per_bin=2,
-                                    chunk=K12_CHUNK, slots=None):
+                                    chunk=K12_CHUNK, slots=None,
+                                    dtype=torch.float32):
     """Kernel K12 (csrc/roi_align.cu): the levels' gradients from ``d_out``
-    (B, R, out, out, C) float32, as tensors of ``shapes`` that it writes in
-    full, for K11's RoIs and levels and under its limits; four kernels a
-    call.  ``chunk`` and ``slots`` as
-    ``pyramid_roi_align_backward_tiles_plain`` takes them, whose result
-    this equals bit for bit."""
+    (B, R, out, out, C) float32, as tensors of ``shapes`` and ``dtype``
+    (float32, or bfloat16 through the bf16 entry: summed in float32,
+    rounded once at the store) that it writes in full, for K11's RoIs and
+    levels and under its limits; four kernels a call.  ``chunk`` and
+    ``slots`` as ``pyramid_roi_align_backward_tiles_plain`` takes them,
+    whose result (rounded to ``dtype``) this equals bit for bit."""
+    if dtype not in LEVEL_DTYPES:
+        raise TypeError(f'K12 writes float32 or bfloat16 levels, got {dtype}')
     if not 1 <= len(shapes) <= K11_MAX_LEVELS or len(strides) != len(shapes):
         raise ValueError(f'K12 takes 1 to {K11_MAX_LEVELS} levels with a '
                          f'stride each, got {len(shapes)} and {len(strides)}')
@@ -536,8 +568,7 @@ def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
         raise ValueError(f'chunk {chunk}: K12 takes a chunk of at least 1')
     dev = d_out.device
     if d_out.numel() == 0:
-        return tuple(torch.zeros(s, dtype=torch.float32, device=dev)
-                     for s in shapes)
+        return tuple(torch.zeros(s, dtype=dtype, device=dev) for s in shapes)
     if slots is None:
         slots = k12_slots(b, r, shapes, c, out_size, chunk)
     lvl = lvl.to(torch.int32).contiguous()
@@ -553,8 +584,7 @@ def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
     ints = torch.empty(sum(parts), dtype=torch.int32, device=dev)
     partials = torch.empty(slots * th * tw * c, dtype=torch.float32,
                            device=dev)
-    grads = tuple(torch.empty(s, dtype=torch.float32, device=dev)
-                  for s in shapes)
+    grads = tuple(torch.empty(s, dtype=dtype, device=dev) for s in shapes)
     levels = list(grads) + [grads[0]] * (K11_MAX_LEVELS - len(grads))
     inv = [1.0 / st for st in strides] + [1.0] * (K11_MAX_LEVELS -
                                                  len(strides))
@@ -562,7 +592,9 @@ def pyramid_roi_align_backward_cuda(d_out, shapes, rois, lvl, strides,
     for n in parts:
         scratch.append(at)
         at += 4 * n
-    ROI_ALIGN_BACKWARD_KERNEL(
+    kernel = (ROI_ALIGN_BACKWARD_KERNEL if dtype == torch.float32 else
+              ROI_ALIGN_BACKWARD_BF16_KERNEL)
+    kernel(
         *(g.data_ptr() for g in levels), rois.data_ptr(), lvl.data_ptr(),
         d_out.data_ptr(), *scratch, partials.data_ptr(), b, r, c, len(grads),
         out_size, samples_per_bin, *(g.shape[1] for g in levels),

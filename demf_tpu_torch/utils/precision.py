@@ -102,15 +102,6 @@ def resolve_compute_dtype(cfg):
     return None
 
 
-def check_policy(model, dtype):
-    """Raise where ``model`` has no port under the policy of ``dtype`` (a
-    model says so with ``bf16_ported = False``: the ImVoteNet fusion)."""
-    if dtype is not None and not getattr(model, 'bf16_ported', True):
-        raise NotImplementedError(
-            f'{type(model).__name__} under the bf16 policy: not ported yet '
-            f'(ROADMAP M5)')
-
-
 # model -> {parameter name: (parameter, (storage, version, dtype), copy)}
 _KEPT_COPIES = weakref.WeakKeyDictionary()
 

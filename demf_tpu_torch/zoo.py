@@ -51,7 +51,8 @@ def build_detector(model_cfg, device='cuda', seed=0):
     return model.to(device).eval()
 
 
-def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
+def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1,
+                  preprocess=None):
     """Detector (seeded random weights, train mode) plus its AdamW and train
     step, as the JAX package's ``train.py`` and ``bench.py`` set them up:
     the config's optimizer with the frozen image branch at lr_mult 0, its
@@ -62,8 +63,9 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
     ``cfg``: a path under ``configs/``, or a config / dict with ``model``,
     ``optimizer`` and optionally ``optimizer_config``, ``lr_config`` and
     ``bf16`` / ``fp16`` (the bf16 policy of ``utils/precision.py``).
-    ``device`` as in ``build_detector``.  Returns (model, optimizer,
-    train_step).
+    ``device`` as in ``build_detector``; ``preprocess`` goes to the
+    ``TrainStep`` (on-device preprocessing of raw batches).  Returns
+    (model, optimizer, train_step).
     """
     from .engine.optim import build_optimizer, step_lr_schedule
     from .engine.trainer import TrainStep
@@ -82,7 +84,8 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1):
     clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
     step = TrainStep(model, optimizer, scheduler,
                      clip['max_norm'] if clip else None,
-                     compute_dtype=resolve_compute_dtype(cfg))
+                     compute_dtype=resolve_compute_dtype(cfg),
+                     preprocess=preprocess)
     return model, optimizer, step
 
 

@@ -18,7 +18,15 @@ its training half against the JAX package's, on the CPU.
   the inference's R-CNN detections;
 * ``demf_tpu_torch/configs/imvotenet_frcnn_tiny.py`` through the train
   entry (dataset and synthetic modes), its checkpoint warm-starting the
-  tiny stage-2 ImVoteNet with no key of its 2D branch missing.
+  tiny stage-2 ImVoteNet with no key of its 2D branch missing;
+* under the bf16 policy, on JAX's bf16 proposals and draws: the sampled
+  RoIs equal, each loss term within 3e-2 relative, each gradient of the
+  RPN, the RoI head and the FPN within twice the largest difference JAX's
+  own bf16 step makes from its float32 step in that branch;
+* the RoIAlign on bf16 levels: its float32 output against JAX's gather,
+  and its bf16 gradient equal to the float32 one rounded once (K12's
+  order on the card) and within twice JAX's own bf16 - float32 gap of
+  JAX's gradient, which rounds each corner's share.
 """
 import os
 
@@ -32,6 +40,7 @@ import jax.numpy as jnp
 import demf_tpu.models  # noqa: F401  (registers the JAX detectors)
 from demf_tpu.engine.torch_port import flatten_params, unflatten_params
 from demf_tpu.models import rpn_roi as jrpn
+from demf_tpu.utils import precision as jprec
 from demf_tpu.utils.registry import DETECTORS as JAX_DETECTORS
 from demf_tpu.utils.registry import build_from_cfg
 from demf_tpu_torch import train, zoo
@@ -39,6 +48,7 @@ from demf_tpu_torch.engine import (batch_to_device, latest_checkpoint,
                                    load_weights, state_dict_from_jax)
 from demf_tpu_torch.models import imvotenet, rpn_roi
 from demf_tpu_torch.ops import roi_align
+from demf_tpu_torch.utils import precision as prec
 from demf_tpu_torch.utils.config import Config
 from test_detr_imvotenet import img_only_batch
 from test_rpn_roi import tiny_imvotenet_cfg
@@ -477,3 +487,175 @@ def test_train_entry_and_warm_start_of_stage_2(tmp_path, capsys):
     train.main([TINY_CFG, '--device', 'cpu', '--synthetic', '--steps', '2',
                 '--batch', '2', '--hw', '64', '96', '--gt', '4'])
     assert capsys.readouterr().out.count('loss_cls') == 2
+
+
+# -- under the bf16 policy ---------------------------------------------------
+
+@pytest.fixture(scope='module')
+def bf16_model_pair(model_pair):
+    """``model_pair``'s training step under the bf16 policy in both
+    packages: JAX's as ``make_train_step(compute_dtype='bfloat16')`` runs
+    it (the results cast to float32 before the loss), the port's through
+    ``policy_call`` on bf16 copies of the float32 weights, on JAX's bf16
+    proposals and draws."""
+    jmodel = build_from_cfg(jax_frcnn_cfg(), JAX_DETECTORS)
+    params, stats = model_pair['jax']['params'], model_pair['jax']['stats']
+    batch = jax.tree_util.tree_map(np.array,
+                                   img_only_batch(np.random.RandomState(5)))
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    jstats = unflatten_params(stats)
+    original = jrpn.sample_rcnn_rois
+
+    def sample_rcnn_rois(proposals, valid, *args):
+        out = original(proposals, valid, *args)
+        return dict(out, rng=args[-1], proposals=proposals,
+                    proposal_valid=valid)
+
+    def loss_fn(p, b):
+        with jprec.compute_dtype_scope('bfloat16'):
+            results, _ = jmodel.apply(
+                {'params': jprec.cast_floating(p, jnp.bfloat16),
+                 'batch_stats': jstats}, jprec.cast_batch(b, jnp.bfloat16),
+                train=True, mutable=['batch_stats'],
+                rngs={'sample': jax.random.PRNGKey(4)})
+        results = jprec.cast_floating(results, 'float32')
+        losses = jmodel.loss(results, b)
+        return sum(losses.values()), (results, losses)
+
+    @jax.jit
+    def run(p, b):
+        (_, (results, losses)), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(p, b)
+        return results['sample_rng'], results['rcnn_sampled'], losses, grads
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jrpn, 'sample_rcnn_rois', sample_rcnn_rois)
+        rpn_rng, sampled, losses, grads = jax.device_get(
+            run(unflatten_params(params), jbatch))
+
+    model = zoo.build_detector(zoo.tiny_frcnn_model_cfg(), 'cpu')
+    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    tbatch = batch_to_device(batch, 'cpu')
+    n_anchors = sum(h * w * 3 for h, w in LEVELS)
+    draws = dict(rpn_draws(rpn_rng, 2, n_anchors),
+                 **rcnn_draws(sampled['rng'], 2, 16 + 4))
+    proposals = (torch.tensor(sampled['proposals']), None,
+                 torch.tensor(sampled['proposal_valid']))
+    model.train()
+    with pytest.MonkeyPatch.context() as mp, \
+            torch.backends.mkldnn.flags(enabled=False):
+        mp.setattr(model.img_rpn_head, 'get_proposals',
+                   lambda *a: proposals)
+        results = prec.cast_floating(prec.policy_call(
+            model, torch.bfloat16, prec.cast_batch(tbatch, torch.bfloat16),
+            draws=draws), torch.float32)
+        got_losses = model.loss(results, tbatch)
+        sum(got_losses.values()).backward()
+    return dict(jax=dict(losses=losses, grads=flatten_params(grads),
+                         sampled=sampled),
+                port=dict(losses=got_losses, results=results, model=model))
+
+
+def test_image_only_sampling_under_the_policy_matches_jax(bf16_model_pair):
+    """On JAX's bf16 proposals and draws the same RoIs are sampled (the
+    sampler's IoUs are float32 under the policy in both packages)."""
+    want = bf16_model_pair['jax']['sampled']
+    got = bf16_model_pair['port']['results']['rcnn_sampled']
+    for k in ('labels', 'pos', 'chosen', 'rois', 'gt_boxes'):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    assert got['rois'].dtype == torch.float32
+
+
+def test_image_only_losses_under_the_policy_match_jax(model_pair,
+                                                      bf16_model_pair):
+    """Each loss term within 3e-2 relative of JAX's under the policy, and
+    within twice JAX's own bf16 - float32 gap of it where that gap is
+    larger."""
+    want = bf16_model_pair['jax']['losses']
+    want32 = model_pair['jax']['losses']
+    got = bf16_model_pair['port']['losses']
+    assert set(got) == set(want)
+    for k, w in want.items():
+        gap = _rel(float(w), float(want32[k]))
+        assert _rel(got[k].item(), float(w)) <= max(3e-2, 2 * gap), k
+
+
+@pytest.mark.parametrize('branch', ['img_rpn_head', 'img_roi_head',
+                                    'img_neck'])
+def test_image_only_gradients_under_the_policy_match_jax(
+        model_pair, bf16_model_pair, branch):
+    """Each float32 master's gradient of the branch within twice the
+    largest difference JAX's own bf16 step makes from its float32 step in
+    that branch (seen: a tensor's port - JAX difference 0.2 to 1.1 times
+    that gap; tensor by tensor the port's bf16 - float32 gap is 0.2 to 3.5
+    times JAX's: the levels' gradient, K12's on the card, is summed in
+    float32 and rounded once where JAX rounds each corner's share to bf16,
+    and XLA keeps some products in float32 that torch rounds), a tensor
+    whose gradient is noise beside the branch's largest noise on both
+    sides."""
+    grads, grads32 = (state_dict_from_jax(
+        {k: v for k, v in g.items() if k.startswith(branch)}, {})
+        for g in (bf16_model_pair['jax']['grads'],
+                  model_pair['jax']['grads']))
+    params = {n: p for n, p in
+              bf16_model_pair['port']['model'].named_parameters()
+              if n.startswith(branch)}
+    assert set(grads) == set(params) and params
+    largest = max(np.abs(w.numpy()).max() for w in grads.values())
+    gap = max(np.abs(grads[k].numpy() - grads32[k].numpy()).max()
+              for k in grads)
+    assert gap > 1e-3 * largest
+    for name, p in params.items():
+        assert p.grad.dtype == torch.float32
+        w, g = grads[name].numpy(), p.grad.numpy()
+        if np.abs(w).max() < 1e-6 * largest:
+            assert np.abs(g).max() < 1e-6 * largest, name
+            continue
+        assert np.abs(g - w).max() <= 2 * gap, name
+
+
+@pytest.mark.parametrize('seed', [0, 3])
+def test_plain_roi_align_on_bf16_levels_matches_jax(seed):
+    """The RoIAlign on bf16 levels: the output float32, within 1e-5 of the
+    largest of JAX's gather of the bf16 corners weighed in float32 (XLA
+    fuses the products), and equal to the float32 RoIAlign of the widened
+    levels; the levels' gradient bf16, equal to the
+    float32 gradient rounded once (the port's order, K12's on the card),
+    and within twice JAX's own bf16 - float32 gap of JAX's bf16 gradient,
+    whose scatter rounds each corner's share."""
+    feats, rois, lvl, d_out = roi_grad_case(seed=seed)
+    bf = [torch.from_numpy(f).to(torch.bfloat16).requires_grad_()
+          for f in feats]
+    f32 = [f.detach().float() for f in bf]
+    trois = torch.from_numpy(rois)
+
+    def jax_run(fs):
+        return jax.vjp(jax.jit(lambda fs: jax.vmap(
+            lambda f, r, l: jrpn.pyramid_roi_align(f, r, l, STRIDES, 7))(
+                fs, jnp.asarray(rois), jnp.asarray(lvl.numpy()))), fs)
+
+    jbf = tuple(jnp.asarray(f.detach().float().numpy()).astype(jnp.bfloat16)
+                for f in bf)
+    jout, vjp = jax_run(jbf)
+    jgrad = vjp(jnp.asarray(d_out))[0]
+    _, vjp32 = jax_run(tuple(jnp.asarray(f.numpy()) for f in f32))
+    jgrad32 = vjp32(jnp.asarray(d_out))[0]
+    out = roi_align.pyramid_roi_align(bf, trois, lvl, STRIDES, 7)
+    assert out.dtype == torch.float32 and jout.dtype == jnp.float32
+    jout = np.asarray(jout)
+    assert np.abs(out.detach().numpy() - jout).max() <= 1e-5 * np.abs(
+        jout).max()
+    assert torch.equal(out, roi_align.pyramid_roi_align(f32, trois, lvl,
+                                                        STRIDES, 7))
+    out.backward(torch.from_numpy(d_out))
+    want32 = roi_align.pyramid_roi_align_backward_plain(
+        torch.from_numpy(d_out), [f.shape for f in feats], trois, lvl,
+        STRIDES, 7)
+    for g, w32, jg, jg32 in zip((f.grad for f in bf), want32, jgrad,
+                                jgrad32):
+        assert g.dtype == torch.bfloat16 and jg.dtype == jnp.bfloat16
+        assert torch.equal(g, w32.to(torch.bfloat16))
+        jg = np.asarray(jg.astype(jnp.float32))
+        gap = np.abs(jg - np.asarray(jg32)).max()
+        assert gap > 0
+        assert np.abs(g.float().numpy() - jg).max() <= 2 * gap

@@ -1726,3 +1726,135 @@ def test_roi_align_backward_kernel_counts_one_launch_a_backward(dev):
             torch.zeros((2, 64, 7, 7, 132), device=dev),
             [f.shape for f in feats], rois, lvl, (4, 8), chunk=0)
     assert roi_align.ROI_ALIGN_BACKWARD_KERNEL.launches == bwd + 2
+
+
+# -- K11 / K12 on bf16 levels (the bf16 policy's FPN) -------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,r,levels,c', [
+    (2, 1000, PATH_LEVELS, 256), (16, 1000, PATH_LEVELS, 256),
+    (16, 512, PATH_LEVELS, 256),
+    (1, 37, ((16, 24), (8, 12), (4, 6), (2, 3)), 16),
+    (3, 5, ((9, 7),), 4)])
+def test_roi_align_bf16_kernel_equals_widened_levels_and_plain(dev, b, r,
+                                                               levels, c):
+    """K11's bf16 entry: float32 out, equal bit for bit to the float32
+    kernel on the levels widened and to the plain version; one launch of
+    the bf16 entry and none of the float32 one."""
+    feats, rois, lvl = _pyramid_inputs(dev, b, r, levels, c, seed=b + r)
+    feats = tuple(f.to(torch.bfloat16) for f in feats)
+    strides = (4, 8, 16, 32)[:len(levels)]
+    f32 = roi_align.ROI_ALIGN_KERNEL.launches
+    before = roi_align.ROI_ALIGN_BF16_KERNEL.launches
+    got = roi_align.pyramid_roi_align(feats, rois, lvl, strides, 7)
+    assert roi_align.ROI_ALIGN_BF16_KERNEL.launches == before + 1
+    assert roi_align.ROI_ALIGN_KERNEL.launches == f32
+    assert got.dtype == torch.float32 and got.shape == (b, r, 7, 7, c)
+    widened = tuple(f.float() for f in feats)
+    assert torch.equal(got, roi_align.pyramid_roi_align_cuda(
+        widened, rois, lvl, strides, 7))
+    assert torch.equal(got, roi_align.pyramid_roi_align_plain(
+        widened, rois, lvl, strides, 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,r,levels,c,chunk,slots', [
+    (2, 512, PATH_LEVELS, 256, 256, None),
+    (16, 512, PATH_LEVELS, 256, 256, None),
+    (1, 37, ((16, 24), (8, 12), (4, 6), (2, 3)), 16, 256, None),
+    (2, 40, ((16, 24), (8, 12)), 132, 16, 7)])
+def test_roi_align_backward_bf16_kernel_equals_rounded_tiles_plain(
+        dev, b, r, levels, c, chunk, slots):
+    """K12's bf16 entry: bf16 gradients equal bit for bit to the plain
+    version of its order rounded once (long lists cut into chunks whose
+    float32 partial tiles are summed before the rounding, too), the same
+    bits in two calls; through autograd of bf16 levels one launch of the
+    bf16 entry and a bf16 gradient."""
+    feats, rois, lvl = _pyramid_inputs(dev, b, r, levels, c, seed=b + r)
+    strides = (4, 8, 16, 32)[:len(levels)]
+    shapes = [f.shape for f in feats]
+    d_out = torch.randn((b, r, 7, 7, c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(r))
+
+    def kernel():
+        return roi_align.pyramid_roi_align_backward_cuda(
+            d_out, shapes, rois, lvl, strides, chunk=chunk, slots=slots,
+            dtype=torch.bfloat16)
+
+    got, again = kernel(), kernel()
+    want = roi_align.pyramid_roi_align_backward_tiles_plain(
+        d_out, shapes, rois, lvl, strides, chunk=chunk, slots=slots)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, a)
+        assert torch.equal(g, w.to(torch.bfloat16))
+    leaves = tuple(f.to(torch.bfloat16).requires_grad_() for f in feats)
+    bwd = roi_align.ROI_ALIGN_BACKWARD_BF16_KERNEL.launches
+    out = roi_align.pyramid_roi_align(leaves, rois, lvl, strides, 7)
+    grads = torch.autograd.grad(out, leaves, d_out)
+    assert roi_align.ROI_ALIGN_BACKWARD_BF16_KERNEL.launches == bwd + 1
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    if chunk == roi_align.K12_CHUNK and slots is None:
+        assert all(torch.equal(g, k) for g, k in zip(grads, got))
+
+
+@pytest.mark.cuda
+def test_device_preprocess_on_the_card_equals_the_cpu(dev):
+    """``data.device_pipeline``'s preprocess of one raw batch (uint8
+    images of two sizes, clouds of 3,000 and 5,000 points in a cap of
+    5,000) on the card and on the CPU from the same draws: images within
+    1e-4, points, boxes and meta within 1e-5 (the card's cos, sin and
+    float32 matrix products round their own way)."""
+    from demf_tpu_torch.data import device_pipeline as dp
+    cfg = [dict(type='LoadPointsFromFile', coord_type='DEPTH',
+                shift_height=True, load_dim=6, use_dim=[0, 1, 2]),
+           dict(type='LoadImageFromFile'),
+           dict(type='LoadAnnotations3D'),
+           dict(type='Resize', img_scale=(1333, 600), keep_ratio=True),
+           dict(type='RandomFlip', flip_ratio=0.5),
+           dict(type='Normalize', mean=[103.53, 116.28, 123.675],
+                std=[1.0, 1.0, 1.0], to_rgb=False),
+           dict(type='Pad', size_divisor=32),
+           dict(type='RandomFlip3D', flip_ratio_bev_horizontal=0.5),
+           dict(type='GlobalRotScaleTrans', rot_range=[-0.5, 0.5],
+                scale_ratio_range=[0.85, 1.15], shift_height=True),
+           dict(type='PointSample', num_points=4000)]
+    spec = dp.DevicePreprocessSpec(cfg, points_cap=5000,
+                                   raw_img_hw=(480, 640))
+    rng = np.random.RandomState(0)
+    raw = dict(raw_points=rng.uniform(-3, 3, (2, 5000, 3)).astype(np.float32),
+               raw_points_count=np.array([3000, 5000], np.int32),
+               raw_img=rng.randint(0, 256, (2, 480, 640, 3)).astype(np.uint8),
+               raw_img_shape=np.array([[480, 640], [427, 561]], np.int32),
+               gt_bboxes_3d=rng.uniform(-2, 2, (2, 8, 7)).astype(np.float32),
+               gt_labels_3d=np.zeros((2, 8), np.int32),
+               gt_valid=np.ones((2, 8), bool), img_meta={})
+    cpu = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in raw.items()}
+    preprocess = dp.make_device_preprocess(spec)
+    want = preprocess(cpu, torch.Generator().manual_seed(0))
+    # the same draws, in the order of ``dp.DRAW_ORDER`` from a generator of
+    # the same seed, handed over (no translation: its std is 0)
+    gen = torch.Generator().manual_seed(0)
+    b = 2
+    recorded = dict(flip2d=torch.rand(b, generator=gen) < 0.5,
+                    flip3d=torch.rand(b, generator=gen) < 0.5,
+                    angle=-0.5 + torch.rand(b, generator=gen),
+                    scale=0.85 + 0.3 * torch.rand(b, generator=gen),
+                    keys=torch.rand((b, 5000), generator=gen),
+                    with_replacement=torch.rand((b, 4000), generator=gen))
+    again = preprocess(cpu, None, draws=recorded)
+    assert torch.equal(again['points'], want['points'])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = preprocess({k: (v.to(dev) if torch.is_tensor(v) else v)
+                      for k, v in cpu.items()}, None,
+                     draws={k: v.to(dev) for k, v in recorded.items()})
+    assert got['img'].is_cuda and got['img'].dtype == torch.float32
+    assert (got['img'].cpu() - want['img']).abs().max() <= 1e-4 * \
+        want['img'].abs().max()
+    for key in ('points', 'gt_bboxes_3d'):
+        assert torch.allclose(got[key].cpu(), want[key], atol=1e-5,
+                              rtol=0), key
+    for key, value in want['img_meta'].items():
+        assert torch.allclose(got['img_meta'][key].cpu().float(),
+                              value.float(), atol=1e-5, rtol=0), key
