@@ -190,7 +190,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    device ms, TF32 off; its images within 5 grey levels of the host
    pipeline's on the same scenes); an epoch of ImVoteNet's step through
    ``Runner`` on the host loader and on the raw loader with
-   ``TrainStep(preprocess=)``, each with its loader-wait share.
+   ``TrainStep(preprocess=)``, each with its loader-wait share;
+15. FCAF3D (``configs/fcaf3d/fcaf3d_sunrgbd.py``, full width: MinkResNet34
+   and the FCAF3D head, 67 M parameters, seeded weights whose
+   ``MaskedBatchNorm`` statistics are set from the first request's valid
+   voxels by ``calibrate_batch_norms``, else random weights through 34
+   layers overflow): a request of 2 scenes of 100,000 points (32,768
+   voxels a scene) on the kernel path against the plain path (per-voxel
+   predictions within 2e-3 relative; K15's keep masks against the plain
+   NMS on the same candidates, each differing bit explained by a pair
+   within 1e-5 of iou_thr, with the count printed); the request's own
+   calls of K13 (17 kernel maps, equal to the plain search), K14 (47
+   sparse convolutions, float32 within 1e-5 of each output's largest, and
+   the same in bf16 within one bf16 step) and K15 (IoUs within 1e-6 of
+   ``iou3d_matrix`` for distinct boxes, masks equal to the plain sweep fed
+   its own IoUs; also on spread, piled and coincident boxes), each timed
+   beside its bound, its plain version and its yardstick
+   (``torch.searchsorted`` + the equality test; one gather of (M, K * C)
+   and one ``torch.matmul``); the request, an eval batch of 8 and a bf16
+   request (K14's bf16 entry) with their launches (K13 17, K14 47, K15 1),
+   host ms, device ms by kernel, busy share and peak memory, the bf16
+   predictions within ``FCAF3D_BF16_BOUND`` of float32's;
+16. DeMF-FCAF3D (``configs/demf/demf_fcaf3d.py``, full width, its norms
+   calibrated likewise): the kernel path against the plain path at 2 x
+   100,000 points and 800x1344 images (MSDA on the plain side too), then
+   a request with the image branch uncached (K3 7, K13 17, K14 47, K15 1)
+   and with its output carried as ``img_features`` (K3 1), which must give
+   the uncached request's predictions, each with host ms, device ms by
+   kernel, busy share and peak memory.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
@@ -208,10 +235,13 @@ shape (the R-CNN's 10,000 candidates; 2 x 1,000 RoIs); K12: launches
 counted in the image-only steps, times and bound at their shape (16 x 512
 RoIs); K11 bf16: launches of the bf16 ImVoteNet requests, times and bound
 at a request's shape (2 x 1,000 RoIs); K12 bf16: launches of the bf16
-image-only steps, times and bound at (16, 512); ``library_ms`` is
+image-only steps, times and bound at (16, 512); K13-K15: launches of an
+FCAF3D request, times and bounds summed over that request's own calls (K14
+bf16: launches of the bf16 request); ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
-an einsum, K7 an ``embedding_bag`` with weights) and null where there is
+an einsum, K7 an ``embedding_bag`` with weights, K13 ``searchsorted``, K14
+a gather and a matmul) and null where there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
 3D NMS, the count of points in rotated boxes, and the 2D NMS and RoIAlign
 (forward and backward), which torchvision has and this machine does not);
@@ -232,6 +262,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -242,7 +273,8 @@ KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'msda_backward_bf16', 'gather_rows', 'msda_fold',
                 'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align',
                 'roi_align_backward', 'roi_align_bf16',
-                'roi_align_backward_bf16')
+                'roi_align_backward_bf16', 'kernel_map', 'sparse_conv',
+                'sparse_conv_bf16', 'nms3d_rotated')
 
 
 def launch_counts(**counts):
@@ -322,6 +354,10 @@ REPLACES = {
     'roi_align_backward': 'demf_tpu/models/rpn_roi.py:199',
     'roi_align_bf16': 'demf_tpu/models/rpn_roi.py:167',
     'roi_align_backward_bf16': 'demf_tpu/models/rpn_roi.py:199',
+    'kernel_map': 'demf_tpu/ops/sparse.py:321',
+    'sparse_conv': 'demf_tpu/ops/sparse.py:393',
+    'sparse_conv_bf16': 'demf_tpu/ops/sparse.py:393',
+    'nms3d_rotated': 'demf_tpu/models/fcaf3d.py:314',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -338,7 +374,11 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'roi_align': 'demf_tpu_torch/csrc/roi_align.cu',
            'roi_align_backward': 'demf_tpu_torch/csrc/roi_align.cu',
            'roi_align_bf16': 'demf_tpu_torch/csrc/roi_align.cu',
-           'roi_align_backward_bf16': 'demf_tpu_torch/csrc/roi_align.cu'}
+           'roi_align_backward_bf16': 'demf_tpu_torch/csrc/roi_align.cu',
+           'kernel_map': 'demf_tpu_torch/csrc/kernel_map.cu',
+           'sparse_conv': 'demf_tpu_torch/csrc/sparse_conv.cu',
+           'sparse_conv_bf16': 'demf_tpu_torch/csrc/sparse_conv.cu',
+           'nms3d_rotated': 'demf_tpu_torch/csrc/nms3d_rotated.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -3479,6 +3519,516 @@ def run_frcnn_bf16(dev, kernels, f32_first):
     torch.cuda.empty_cache()
     return by_path
 
+# -- the FCAF3D family served: K13 kernel map, K14 sparse conv, K15 NMS ------
+
+FCAF3D_CFG = 'fcaf3d/fcaf3d_sunrgbd.py'
+DEMF_FCAF3D_CFG = 'demf/demf_fcaf3d.py'
+FCAF3D_POINTS = 100000
+FCAF3D_EVAL_SCENES = 8
+# a request's launches: 17 kernel maps (the stem's, the pool's, 3 a stage:
+# the stride-2 conv's, the shortcut's and the stage's 27-tap table; one
+# parent lookup an up block), 47 sparse convs (the stem, 36 in MinkResNet34,
+# 2 an up block and 1 an out block), one class-wise NMS; DeMF-FCAF3D adds
+# the encoder's 6 MSDA layers (uncached) and its decoder's one
+SPARSE_PATH = dict(kernel_map=17, sparse_conv=47, nms3d_rotated=1)
+LAUNCHES_PER_FCAF3D_REQUEST = launch_counts(**SPARSE_PATH)
+LAUNCHES_PER_FCAF3D_REQUEST_BF16 = launch_counts(
+    kernel_map=17, sparse_conv_bf16=47, nms3d_rotated=1)
+LAUNCHES_PER_DEMF_FCAF3D_REQUEST = launch_counts(msda=7, **SPARSE_PATH)
+LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
+FCAF3D_MARKERS = {'K13': ('kernel_map_kernel',),
+                  'K14': ('sparse_conv_kernel',),
+                  'K15': ('rotated_iou_kernel', 'classwise_sweep_kernel'),
+                  'K3': ('msda_forward_kernel',)}
+# an IoU this close to iou_thr may fall on either side between two
+# roundings of the same pair: a keep bit it decides may differ
+IOU_THR_BAND = 1e-5
+# bf16 against float32 per-voxel predictions of a full-width FCAF3D
+# request, of each tensor's largest (the exp of the box regression through
+# 34 bf16 layers leads): 0.1008 on an H100.  The run prints the readings
+# the bound sits between: under it the policy on the request and on the
+# eval batch (they must be), beside the policy through the plain path;
+# over it a control whose K14 rows and weights are rounded to float8 e4m3
+# (4 significant bits where bf16 keeps 8; it must be).  At the tiny size
+# on the CPU the port's own gap is within 0.55-1.6x the JAX package's
+# (tests/test_torch_fcaf3d.py)
+FCAF3D_BF16_BOUND = 0.2
+# operations of one rotated IoU (the corners, 8 inside tests, 16 edge
+# crossings, 24 angles sorted, the area; counted from the kernel's source).
+# K15's bound counts one IoU a pair of distinct boxes that take part in
+# some class's sweep (valid, a score above score_thr): IoU is symmetric
+IOU_PAIR_OPS = 600
+# K15's IoUs against iou3d_matrix's at room coordinates (within ~10 m of
+# the origin): 1e-6 for two distinct boxes.  A box and a copy of itself
+# (the diagonal, and coincident boxes of other indices, which decide NMS)
+# have parallel edges whose crossings both versions compute from
+# denominators of rounding noise: up to 2.5e-6 on a request and 4.8e-7 on
+# the synthetic cases on an H100, held to 1e-5.  Boxes hundreds of metres
+# out are a case of their own in the card tests
+# (test_rotated_nms_far_from_the_origin)
+K15_COPY_TOL = 1e-5
+
+
+def calibrate_batch_norms(model, batch):
+    """Random weights through MinkResNet34 with every BatchNorm at its
+    identity grow without bound (exp of the regression overflows): give each
+    ``MaskedBatchNorm`` the statistics of this batch's valid voxels, as a
+    trained model's would normalize (one forward with only those norms in
+    train mode, momentum 0).  Applied here, not by any config or entry."""
+    from demf_tpu_torch.models.mink_resnet import MaskedBatchNorm
+    norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+        m.train()
+    with torch.no_grad():
+        model(batch)
+    for m in norms:
+        m.momentum = 0.9
+        m.eval()
+    return model
+
+
+def patched(*changes):
+    """Module attributes set until the returned stack closes: (module,
+    name, value)."""
+    stack = contextlib.ExitStack()
+    for module, name, value in changes:
+        stack.enter_context(mock.patch.object(module, name, value))
+    return stack
+
+
+def plain_sparse_ops():
+    """The FCAF3D family's K13, K14, K15 and the decoders' MSDA routed to
+    their plain versions."""
+    from demf_tpu_torch.models import fcaf3d, transformer
+    from demf_tpu_torch.ops import msda, nms_rotated, sparse
+    return patched(
+        (sparse, 'kernel_map_cuda', sparse.kernel_map_plain),
+        (sparse, 'sparse_conv_cuda', sparse.sparse_conv_plain),
+        (fcaf3d, 'rotated_nms_classwise',
+         nms_rotated.rotated_nms_classwise_plain),
+        (transformer, 'multi_scale_deformable_attention', msda.msda_plain))
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Keep the arguments of every K13, K14 and K15 launch in the block
+    (yielded by kernel): the shapes and data the main path gives them."""
+    from demf_tpu_torch.ops import nms_rotated, sparse
+    calls = {'kernel_map': [], 'sparse_conv': [], 'nms3d_rotated': []}
+
+    def recorder(module, name, key):
+        fn = getattr(module, name)
+
+        def call(*args):
+            calls[key].append(args)
+            return fn(*args)
+        return module, name, call
+
+    with patched(recorder(sparse, 'kernel_map_cuda', 'kernel_map'),
+                 recorder(sparse, 'sparse_conv_cuda', 'sparse_conv'),
+                 recorder(nms_rotated, 'rotated_nms_classwise_cuda',
+                          'nms3d_rotated')):
+        yield calls
+
+
+def check_kernel_map(calls):
+    """K13 on a request's 17 tables against its plain version (equal),
+    timed over all of them, beside one ``torch.searchsorted`` a table over
+    the flattened query keys plus the equality test (the yardstick)."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    lookups = nbytes = ops = 0
+    keys = []
+    for skeys, order, coords, valid, offs, stride in calls:
+        got = sparse.kernel_map_cuda(skeys, order, coords, valid, offs,
+                                     stride)
+        want = sparse.kernel_map_plain(skeys, order, coords, valid, offs,
+                                       stride)
+        if not torch.equal(got, want):
+            raise AssertionError(f'K13 table {tuple(got.shape)} differs '
+                                 f'from plain')
+        lookups += got.numel()
+        nbytes += (skeys.numel() * 4 + (0 if order is None else
+                                        order.numel() * 4) +
+                   coords.numel() * 4 + valid.numel() + offs.numel() * 4 +
+                   got.numel() * 4)
+        ops += got.numel() * (12 + 2 * int(np.ceil(np.log2(
+            skeys.shape[1] + 1))))
+        q = (coords[:, :, None] + offs * stride).clamp(0, sparse.MAX_COORD)
+        keys.append((skeys, sparse.linearize(q).reshape(skeys.shape[0], -1)))
+
+    def kernel():
+        for args in calls:
+            sparse.kernel_map_cuda(*args)
+
+    def plain():
+        for args in calls:
+            sparse.kernel_map_plain(*args)
+
+    def library():
+        for skeys, qk in keys:
+            pos = torch.searchsorted(skeys, qk).clamp(max=skeys.shape[1] - 1)
+            _ = skeys.gather(1, pos) == qk
+
+    ms, plain_ms, lib_ms = (time_ms(kernel, 20), time_ms(plain, 5),
+                            time_ms(library, 20))
+    least, by = bound_ms(ops, nbytes)
+    print(f'K13 kernel_map: {len(calls)} tables of a request, {lookups} '
+          f'lookups, equal to plain; kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, searchsorted + equality {lib_ms:.4f} ms, '
+          f'bound {least:.6f} ms ({by})')
+    return kernel_row(0, ms, plain_ms, least, by, lib_ms)
+
+
+def check_sparse_conv(calls, dtype):
+    """K14 on a request's 47 convolutions (their own features, tables and
+    weights; in bf16 the same rounded) against its plain version: float32
+    within 1e-5 of each output's largest, bf16 within one bf16 step of it.
+    Timed over all of them, beside one gather of (M, K * C) and one
+    ``torch.matmul`` a convolution (the yardstick).  Its bound counts the
+    taps that exist, at the peak of their operands' type: float32 outside
+    the tensor cores, bf16 on them (float32 sums, as K14 keeps)."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_FLOPS, bound_ms,
+                                      time_ms)
+    size = torch.finfo(dtype).bits // 8
+    calls = [(f.to(dtype), n, w.to(dtype)) for f, n, w in calls]
+    worst = flops = nbytes = 0.0
+    gathers = []
+    for feats, nbr, w in calls:
+        got = sparse.sparse_conv_cuda(feats, nbr, w).float()
+        want = sparse.sparse_conv_plain(feats, nbr, w).float()
+        top = max(want.abs().max().item(), 1e-30)
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * top if dtype == torch.float32 else \
+            2.0 ** (np.floor(np.log2(top)) - 7)
+        if not err <= tol:
+            raise AssertionError(f'K14 {dtype} {tuple(nbr.shape)} x '
+                                 f'{tuple(w.shape)}: {err} above {tol}')
+        worst = max(worst, err / top)
+        b, m, c = feats.shape
+        flops += 2.0 * int((nbr >= 0).sum()) * c * w.shape[2]
+        nbytes += (feats.numel() + w.numel() + got.numel()) * size + \
+            nbr.numel() * 4
+        flat = torch.cat([feats.reshape(b * m, c),
+                          feats.new_zeros((1, c))])
+        base = (torch.arange(b, device=nbr.device) * m)[:, None, None]
+        idx = torch.where(nbr >= 0, nbr + base, b * m).reshape(-1)
+        gathers.append((flat, idx, w.reshape(-1, w.shape[2]), nbr.shape))
+
+    def kernel():
+        for args in calls:
+            sparse.sparse_conv_cuda(*args)
+
+    def plain():
+        for args in calls:
+            sparse.sparse_conv_plain(*args)
+
+    def library():
+        for flat, idx, w2, shape in gathers:
+            rows = flat[idx].reshape(shape[0] * shape[1], -1)
+            torch.matmul(rows, w2)
+
+    ms, plain_ms, lib_ms = (time_ms(kernel, 5), time_ms(plain, 2),
+                            time_ms(library, 5))
+    least, by = bound_ms(flops, nbytes, PEAK_FLOPS if dtype == torch.float32
+                         else PEAK_BF16_FLOPS)
+    print(f'K14 sparse_conv {str(dtype)[6:]}: {len(calls)} convolutions of '
+          f'a request, {flops / 1e9:.3f} GFLOP of existing taps, max rel err '
+          f'{worst:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather '
+          f'+ matmul {lib_ms:.4f} ms, bound {least:.6f} ms ({by}; '
+          f'{flops / 1e9 / max(ms, 1e-9):.1f} TFLOP/s)')
+    return kernel_row(worst, ms, plain_ms, least, by, lib_ms)
+
+
+def check_nms3d_rotated(calls):
+    """K15 on a request's call: its IoUs within 1e-6 of ``iou3d_matrix``'s
+    for two distinct boxes and within ``K15_COPY_TOL`` for a box and a copy
+    of itself, its masks equal to the plain sweep fed its own IoUs; then on
+    spread, piled and coincident boxes at the same shape."""
+    from demf_tpu_torch.core.rotated_iou import iou3d_matrix
+    from demf_tpu_torch.ops import nms_rotated
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools.nms_cases import rotated_nms_case
+    boxes, scores, valid, iou_thr, score_thr = calls[0]
+    b, n, c = scores.shape
+    cases = [('request', boxes, scores, valid)] + [
+        (kind, *(torch.from_numpy(a).to(boxes.device) for a in
+                 rotated_nms_case(kind, b, n, c, seed=1)))
+        for kind in ('spread', 'piled', 'coincident')]
+    iou_err = 0.0
+    for kind, bx, sc, va in cases:
+        keep, iou = nms_rotated.rotated_nms_classwise_cuda(
+            bx, sc, va, iou_thr, score_thr)
+        err = (iou - iou3d_matrix(bx, bx)).abs()
+        copies = (bx[:, :, None] == bx[:, None]).all(-1)
+        iou_err = max(iou_err, err[~copies].max().item())
+        copy_err = err[copies].max().item()
+        differ = int((keep != nms_rotated.classwise_sweep(
+            iou, sc, va, iou_thr, score_thr)).sum())
+        print(f'K15 nms3d_rotated ({b}, N {n}, {c} classes, {kind}): kept '
+              f'{int(keep.sum())}, {differ} bits differ from the plain sweep '
+              f'on its IoUs, IoU max abs err {iou_err:.3e} (a box and its '
+              f'copy {copy_err:.3e})')
+        if differ or not iou_err <= 1e-6 or not copy_err <= K15_COPY_TOL:
+            raise AssertionError('K15 differs from its plain version')
+    args = calls[0]
+    ms = time_ms(lambda: nms_rotated.rotated_nms_classwise_cuda(*args), 20)
+    plain_ms = time_ms(
+        lambda: nms_rotated.rotated_nms_classwise_plain(*args), 2)
+    part = (valid & (scores > score_thr).any(-1)).sum(1).double()
+    pairs = float((part * (part - 1) / 2).sum())
+    least, by = bound_ms(IOU_PAIR_OPS * pairs,
+                         boxes.numel() * 4 + scores.numel() * 4 +
+                         valid.numel() + b * c * n)
+    print(f'K15 nms3d_rotated at the request: kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs:.0f} '
+          f'pairs of boxes that take part)')
+    return kernel_row(iou_err, ms, plain_ms, least, by)
+
+
+def level_errors(got, want, keys=('centerness', 'bbox_pred', 'cls_scores'),
+                 strict=True):
+    """Max error over each per-voxel output's largest, over the levels and
+    the fused stages.  A non-finite output raises, or with ``strict``
+    False counts as an infinite error."""
+    worst = 0.0
+    pools = list(got['head_outs']) + list(got.get('fusion_stages', []))
+    ref = list(want['head_outs']) + list(want.get('fusion_stages', []))
+    for g, w in zip(pools, ref):
+        for key in keys:
+            if not torch.isfinite(g[key]).all():
+                if not strict:
+                    return float('inf')
+                raise AssertionError(f'non-finite {key}')
+            scale = max(w[key].float().abs().max().item(), 1e-3)
+            worst = max(worst, (g[key].float() - w[key].float()).abs().max()
+                        .item() / scale)
+    return worst
+
+
+def compare_sparse_paths(model, batch, label):
+    """The kernel path against the plain path on a full-width request:
+    per-voxel predictions within 2e-3 relative; the keep masks of K15 and
+    of the plain NMS on the kernel path's candidates equal, or each
+    differing bit that of a box in a pair whose IoU lies within
+    ``IOU_THR_BAND`` of iou_thr."""
+    from demf_tpu_torch.ops import nms_rotated
+    head = model.head
+    tcfg = head.test_cfg
+    with torch.inference_mode():
+        got = model(batch)
+        with plain_sparse_ops():
+            want = model(batch)
+        boxes, probs, valid = head.candidates(head.pools(got))
+        keep, iou = nms_rotated.rotated_nms_classwise_cuda(
+            boxes, probs, valid, tcfg['iou_thr'], tcfg['score_thr'])
+        plain = nms_rotated.rotated_nms_classwise_plain(
+            boxes, probs, valid, tcfg['iou_thr'], tcfg['score_thr'])
+    worst = level_errors(got, want)
+    near = ((iou - tcfg['iou_thr']).abs() <= IOU_THR_BAND) & \
+        valid[:, :, None] & valid[:, None, :]
+    differ = keep != plain
+    in_near_pair = (near.any(2) | near.any(1))[:, None, :]
+    unexplained = int((differ & ~in_near_pair).sum())
+    print(f'{label}: kernel path vs plain path, max rel err {worst:.3e} '
+          f'(bound 2e-3); K15 vs plain NMS on the same candidates: kept '
+          f'{int(keep.sum())} / {int(plain.sum())}, {int(differ.sum())} '
+          f'bits differ, {int(near.sum())} pairs within {IOU_THR_BAND} of '
+          f'iou_thr, {unexplained} differences unexplained', flush=True)
+    if not worst < 2e-3 or unexplained:
+        raise AssertionError(f'{label}: kernel path disagrees with plain')
+
+
+def request_profile(eval_step, batch, kernels, expected, label):
+    """A full-width request: launches (which must be ``expected``), host ms
+    (median of 3 after one untimed), device ms of K3, K13-K15 and of all
+    kernels (``kernels_a_call``), busy share and peak memory."""
+    eval_step(batch)
+    before = {n: k.launches for n, k in kernels.items()}
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = eval_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launched = {n: (k.launches - before[n]) // 3 for n, k in kernels.items()}
+    if launched != expected:
+        raise AssertionError(f'{label} launched {launched}, expected '
+                             f'{ {n: c for n, c in expected.items() if c} }')
+    if not all(torch.isfinite(det[k]).all() for k in ('boxes_3d',
+                                                      'scores_3d')):
+        raise AssertionError(f'{label}: non-finite detections')
+    wall = float(np.median(walls))
+    found = kernels_a_call(lambda: eval_step(batch), FCAF3D_MARKERS, runs=3)
+    ours = ', '.join(f'{k} {ms:.3f} ms in {n} launches'
+                     for k, (ms, n) in found.items() if k != 'all' and n)
+    print(f'{label}: {wall:.3f} ms (host clock, median of ' +
+          ' / '.join(f'{w:.3f}' for w in walls) + f'), device kernels '
+          f'{found["all"][0]:.3f} ms in {found["all"][1]} launches, busy '
+          f'share {found["all"][0] / wall:.1%}, peak memory {peak:.1f} MiB, '
+          f'{int(det["valid"].sum())} kept; {ours}; launches a request '
+          f'{ {n: c for n, c in launched.items() if c} }', flush=True)
+    return launched
+
+
+def run_fcaf3d_path(dev, kernels):
+    """FCAF3D (``configs/fcaf3d/fcaf3d_sunrgbd.py``, full width, seeded
+    random weights, its norms calibrated) served: the kernel path against
+    the plain path on a request of 2 scenes of 100,000 points (32,768
+    voxels a scene), K13-K15 checked and timed on that request's own calls,
+    the request and an eval batch of 8 timed with their launches, then a
+    request under the bf16 policy (K14's bf16 entry) against float32."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    t0 = time.perf_counter()
+    model = zoo.build_detector(FCAF3D_CFG, device=dev, seed=0)
+    request = batch_to_device(zoo.synth_fcaf3d_batch(
+        2, p=FCAF3D_POINTS, seed=0), dev)
+    calibrate_batch_norms(model, request)
+    print(f'model: FCAF3D full width, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, built '
+          f'in {time.perf_counter() - t0:.2f} s', flush=True)
+    compare_sparse_paths(model, request, 'FCAF3D request (2 x 100000)')
+    eval_step = make_eval_step(model)
+    for k in kernels.values():
+        k.launches = 0
+    with recorded_calls() as calls:
+        eval_step(request)
+        torch.cuda.synchronize()
+    serving = {n: k.launches for n, k in kernels.items()}
+    if serving != LAUNCHES_PER_FCAF3D_REQUEST:
+        raise AssertionError(f'FCAF3D request launched {serving}')
+    # the request's tensors were made in inference mode
+    with torch.inference_mode():
+        measured = {
+            'kernel_map': check_kernel_map(calls['kernel_map']),
+            'sparse_conv': check_sparse_conv(calls['sparse_conv'],
+                                             torch.float32),
+            'sparse_conv_bf16': check_sparse_conv(calls['sparse_conv'],
+                                                  torch.bfloat16),
+            'nms3d_rotated': check_nms3d_rotated(calls['nms3d_rotated'])}
+    del calls
+    request_profile(eval_step, request, kernels,
+                    LAUNCHES_PER_FCAF3D_REQUEST, 'FCAF3D request of 2')
+    batch = batch_to_device(zoo.synth_fcaf3d_batch(
+        FCAF3D_EVAL_SCENES, p=FCAF3D_POINTS, seed=1), dev)
+    request_profile(eval_step, batch, kernels, LAUNCHES_PER_FCAF3D_REQUEST,
+                    f'FCAF3D eval batch of {FCAF3D_EVAL_SCENES}')
+    bf16_step = make_eval_step(model, torch.bfloat16)
+    for k in kernels.values():
+        k.launches = 0
+    bf16_step(request)
+    serving_bf16 = {n: k.launches for n, k in kernels.items()}
+    request_profile(bf16_step, request, kernels,
+                    LAUNCHES_PER_FCAF3D_REQUEST_BF16, 'FCAF3D bf16 request')
+    check_fcaf3d_bf16(model, request, batch)
+    del model, eval_step, bf16_step, batch
+    torch.cuda.empty_cache()
+    return measured, {'fcaf3d_serving': serving,
+                      'fcaf3d_serving_bf16': serving_bf16}
+
+
+def check_fcaf3d_bf16(model, request, batch):
+    """The bf16 policy's per-voxel predictions against float32's: on the
+    request and on the eval batch under ``FCAF3D_BF16_BOUND``; the request
+    also through the plain path (printed beside them), and through the
+    control (K14 fed rows and weights rounded to float8 e4m3), which must
+    exceed the bound."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.utils import precision as prec
+    k14 = sparse.sparse_conv_cuda
+
+    def e4m3(x):
+        return x.float().clamp(-448, 448).to(torch.float8_e4m3fn).to(x.dtype)
+
+    def coarse_k14(feats, nbr, w):
+        return k14(e4m3(feats), nbr, e4m3(w))
+
+    def gap(scenes, strict=True, keys=('centerness', 'bbox_pred',
+                                       'cls_scores')):
+        with torch.inference_mode():
+            return level_errors(prec.policy_call(model, torch.bfloat16,
+                                                 scenes), model(scenes),
+                                keys, strict)
+
+    gaps = {'request': gap(request),
+            f'eval batch of {FCAF3D_EVAL_SCENES}': gap(batch)}
+    by_key = {key: gap(request, keys=(key,))
+              for key in ('centerness', 'bbox_pred', 'cls_scores')}
+    with plain_sparse_ops():
+        plain = gap(request)
+    with patched((sparse, 'sparse_conv_cuda', coarse_k14)):
+        control = gap(request, strict=False)
+    print(f'FCAF3D bf16: predictions within ' +
+          ', '.join(f'{v:.4e} ({k})' for k, v in gaps.items()) +
+          f' of float32 (relative to each tensor\'s largest; the request by '
+          f'key ' + ', '.join(f'{k} {v:.4e}' for k, v in by_key.items()) +
+          f'); the request through the plain path {plain:.4e}; the control '
+          f'(K14 on e4m3-rounded rows and weights) {control:.4e}; bound '
+          f'{FCAF3D_BF16_BOUND}', flush=True)
+    if not max(gaps.values()) < FCAF3D_BF16_BOUND:
+        raise AssertionError('the bf16 FCAF3D predictions stray from float32')
+    if not control >= FCAF3D_BF16_BOUND:
+        raise AssertionError('the bf16 bound does not catch the e4m3 control')
+
+
+def run_demf_fcaf3d_path(dev, kernels):
+    """DeMF-FCAF3D (``configs/demf/demf_fcaf3d.py``, full width, seeded
+    random weights, its norms calibrated) served: the kernel path against
+    the plain path, then a request of 2 scenes of 100,000 points with the
+    image branch at 800x1344 uncached, and the same scenes with the
+    branch's output carried as ``img_features`` (the cached path), which
+    must agree with the uncached request."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    t0 = time.perf_counter()
+    model = zoo.build_detector(DEMF_FCAF3D_CFG, device=dev, seed=0)
+    request = batch_to_device(zoo.synth_demf_fcaf3d_batch(
+        2, p=FCAF3D_POINTS, hw=(800, 1344), valid_hw=(784, 1312), seed=0),
+        dev)
+    calibrate_batch_norms(model, request)
+    print(f'model: DeMF-FCAF3D full width, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, built '
+          f'in {time.perf_counter() - t0:.2f} s', flush=True)
+    compare_sparse_paths(model, request, 'DeMF-FCAF3D request (2 x 100000, '
+                                         '800x1344)')
+    eval_step = make_eval_step(model)
+    for k in kernels.values():
+        k.launches = 0
+    eval_step(request)
+    serving = {n: k.launches for n, k in kernels.items()}
+    if serving != LAUNCHES_PER_DEMF_FCAF3D_REQUEST:
+        raise AssertionError(f'DeMF-FCAF3D request launched {serving}')
+    request_profile(eval_step, request, kernels,
+                    LAUNCHES_PER_DEMF_FCAF3D_REQUEST,
+                    'DeMF-FCAF3D request of 2 (image branch uncached)')
+    with torch.inference_mode():
+        levels = model.extract_img_feat(request['img'],
+                                        request['img_meta']['img_shape'])
+        cached = dict(request, img_features=levels)
+        del cached['img']
+        gap = level_errors(model(cached), model(request))
+    print(f'DeMF-FCAF3D cached path: predictions within {gap:.3e} of the '
+          f'uncached request')
+    if not gap < 2e-3:
+        raise AssertionError('the cached DeMF-FCAF3D path strays')
+    for k in kernels.values():
+        k.launches = 0
+    eval_step(cached)
+    cached_launches = {n: k.launches for n, k in kernels.items()}
+    request_profile(eval_step, cached, kernels,
+                    LAUNCHES_PER_DEMF_FCAF3D_CACHED,
+                    'DeMF-FCAF3D request of 2 (img_features cached)')
+    del model, eval_step, levels, cached
+    torch.cuda.empty_cache()
+    return {'demf_fcaf3d_serving': serving,
+            'demf_fcaf3d_serving_cached': cached_launches}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3611,6 +4161,16 @@ def main():
     launches['roi_align_backward_bf16'] = \
         by_path['frcnn_step_bf16']['roi_align_backward_bf16']
     by_path.update(run_device_pipeline(dev, kernels))
+    sparse_rows, fcaf3d = run_fcaf3d_path(dev, kernels)
+    measured.update(sparse_rows)
+    by_path.update(fcaf3d)
+    by_path.update(run_demf_fcaf3d_path(dev, kernels))
+    # K13-K15's rows are an FCAF3D request's own calls: their launches are
+    # its; K14 bf16's the bf16 request's
+    for n in ('kernel_map', 'sparse_conv', 'nms3d_rotated'):
+        launches[n] = by_path['fcaf3d_serving'][n]
+    launches['sparse_conv_bf16'] = \
+        by_path['fcaf3d_serving_bf16']['sparse_conv_bf16']
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

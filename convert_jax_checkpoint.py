@@ -11,9 +11,11 @@ port's mmdet3d keys (``demf_tpu.engine.torch_port.flatten_params``, then
 config's text, ``converted_from``) in plain types, which
 ``python -m demf_tpu_torch.eval <config> <out.pth>`` loads strictly and a
 config's ``load_from`` warm-starts from.  It covers the detectors
-``state_dict_from_jax`` covers: DeMF-VoteNet, the stage-1 DETR, VoteNet
-and ImVoteNet (its fusion and its image-only Faster R-CNN).  The optimizer
-state (optax's) is not AdamW's, so the file resumes no training.
+``state_dict_from_jax`` covers: DeMF-VoteNet, the stage-1 DETR, VoteNet,
+ImVoteNet (its fusion and its image-only Faster R-CNN), FCAF3D and
+DeMF-FCAF3D (their sparse kernels in MinkowskiEngine's tap order, as
+mmdet3d stores them).  The optimizer state (optax's) is not AdamW's, so
+the file resumes no training.
 
 It imports both packages, so it lives outside ``demf_tpu_torch`` and runs
 where JAX and orbax are installed.
@@ -22,10 +24,6 @@ from __future__ import annotations
 
 import argparse
 import os
-
-# detectors of the JAX package that the port has no module for yet
-NOT_PORTED = {'FCAF3D': 'ROADMAP M8', 'DeMFFcaf3D': 'ROADMAP M8'}
-
 
 def convert(config, ckpt_dir, out):
     """Write ``out`` from the orbax checkpoint ``ckpt_dir`` of a model of
@@ -39,10 +37,6 @@ def convert(config, ckpt_dir, out):
     from demf_tpu_torch.utils.config import Config
 
     cfg = Config.fromfile(config)
-    kind = cfg.model['type']
-    if kind in NOT_PORTED:
-        raise NotImplementedError(f'{kind} is not ported yet '
-                                  f'({NOT_PORTED[kind]})')
     params, stats = load_params(ckpt_dir, with_batch_stats=True)
     state_dict = state_dict_from_jax(flatten_params(params),
                                      flatten_params(stats or {}))

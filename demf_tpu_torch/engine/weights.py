@@ -1,11 +1,21 @@
 """Weights from the JAX package into the port (DeMF-VoteNet, the stage-1
-DETR pretrain model, VoteNet, ImVoteNet and its Faster R-CNN branch).
+DETR pretrain model, VoteNet, ImVoteNet and its Faster R-CNN branch, FCAF3D
+and DeMF-FCAF3D).
 
 ``state_dict_from_jax`` is the exact inverse of
-``demf_tpu.engine.torch_port.port_demf_checkpoint``: it takes the flax
-variables as flat ``{'a/b/c': ndarray}`` dicts (the form of
+``demf_tpu.engine.torch_port.port_demf_checkpoint`` and, for the FCAF3D
+family's MinkResNet and FCAF3DHead, of ``port_fcaf3d_checkpoint``: it takes
+the flax variables as flat ``{'a/b/c': ndarray}`` dicts (the form of
 ``torch_port.flatten_params``) and returns the port's state_dict under the
-mmdet3d key names.  It reads no jax; callers flatten on the JAX side.
+mmdet3d key names.  A sparse kernel goes from the JAX package's tap order
+(the last axis fastest) to MinkowskiEngine's (the first axis fastest, the
+inverse of ``torch_port._me_tap_perm``), the order in which mmdet3d stores
+it and the port's models use it (``ops/sparse.py``).  DeMF-FCAF3D's fusion
+head (``query_proj``, ``fuse_proj{i}``, ``conv_center{i}`` /
+``conv_reg{i}`` / ``conv_cls{i}``: Linear layers under the port's names,
+and the decoder layers under DeMF-VoteNet's rules) and its image branch
+take the rules of the other detectors.  It reads no jax; callers flatten on
+the JAX side.
 """
 from __future__ import annotations
 
@@ -108,12 +118,42 @@ _RULES = [
     (r'(?P<p>.*)/gn_(\d+)', '{p}.convs.{1}.gn', 'norm'),
     (r'(?P<p>.*)/extra_convs_(\d+)', '{p}.extra_convs.{1}.conv', 'hwio'),
     (r'(?P<p>.*)/extra_gn_(\d+)', '{p}.extra_convs.{1}.gn', 'norm'),
+    # DeMF-FCAF3D's fusion head
+    (r'(?P<p>.*)/(query_proj|fuse_proj\d+|conv_(?:center|reg|cls)\d+)',
+     '{p}.{1}', 'lin'),
 ]
 _RULES = [(re.compile(pat + '$'), tmpl, kind) for pat, tmpl, kind in _RULES]
 # the decoder's self-attention: the DeMF head's layer, the DETR head's layers
 _MHA = re.compile(r'(?P<p>.*)/decoder_(\d+)(?P<demf>/layer)?/self_attn/attn$')
 _LEAF = dict(kernel='weight', bias='bias', scale='weight',
              mean='running_mean', var='running_var')
+# MinkResNet and FCAF3DHead (the JAX package's flat names -> mmdet3d's);
+# a sparse kernel is a leaf of its own, a BN a module with the usual leaves
+_MINK_KERNELS = [
+    (r'(?P<p>.*)/stem_conv', '{p}.conv1.kernel'),
+    (r'(?P<p>(?:.*/)?backbone)/layer(\d)_(\d+)/conv(\d)',
+     '{p}.layer{1}.{2}.conv{3}.kernel'),
+    (r'(?P<p>(?:.*/)?backbone)/layer(\d)_(\d+)/down',
+     '{p}.layer{1}.{2}.downsample.0.kernel'),
+    (r'(?P<p>.*)/up_block_(\d+)_tconv', '{p}.up_block_{1}.0.kernel'),
+    (r'(?P<p>.*)/up_block_(\d+)_conv', '{p}.up_block_{1}.3.kernel'),
+    (r'(?P<p>.*)/out_block_(\d+)_conv', '{p}.out_block_{1}.0.kernel'),
+]
+_MINK_NORMS = [
+    (r'(?P<p>.*)/stem_bn', '{p}.norm1.bn'),
+    (r'(?P<p>(?:.*/)?backbone)/layer(\d)_(\d+)/bn(\d)',
+     '{p}.layer{1}.{2}.norm{3}.bn'),
+    (r'(?P<p>(?:.*/)?backbone)/layer(\d)_(\d+)/bn_down',
+     '{p}.layer{1}.{2}.downsample.1.bn'),
+    (r'(?P<p>.*)/up_block_(\d+)_tbn', '{p}.up_block_{1}.1.bn'),
+    (r'(?P<p>.*)/up_block_(\d+)_bn', '{p}.up_block_{1}.4.bn'),
+    (r'(?P<p>.*)/out_block_(\d+)_bn', '{p}.out_block_{1}.1.bn'),
+]
+_MINK_KERNELS = [(re.compile(p + '$'), t) for p, t in _MINK_KERNELS]
+_MINK_NORMS = [(re.compile(p + '$'), t) for p, t in _MINK_NORMS]
+# FCAF3DHead's shared 1x1x1 convs: flax Dense name -> MinkowskiConvolution
+_MINK_DENSE = {'conv_center': 'centerness_conv', 'conv_reg': 'reg_conv',
+               'conv_cls': 'cls_conv'}
 
 
 def _torch_module(path):
@@ -143,6 +183,41 @@ def _convert(kind, leaf, v):
     return v.T   # Linear
 
 
+def me_tap_order(kernel):
+    """A (k^3, C_in, C_out) kernel from the JAX package's tap order (the
+    last axis fastest) to MinkowskiEngine's (the first axis fastest)."""
+    k = round(kernel.shape[0] ** (1 / 3))
+    return kernel.reshape(k, k, k, *kernel.shape[1:]).transpose(
+        2, 1, 0, 3, 4).reshape(kernel.shape)
+
+
+def _sub(match, template):
+    g = match.groups()
+    return template.format(*g, p=g[0].replace('/', '.'))
+
+
+def _mink_entry(key, v):
+    """(torch key, value) of a MinkResNet / FCAF3DHead leaf, or None."""
+    for pat, tmpl in _MINK_KERNELS:
+        m = pat.match(key)
+        if m:
+            if v.shape[0] == 1:           # a 1x1x1 kernel: (C_in, C_out)
+                return _sub(m, tmpl), v[0]
+            return _sub(m, tmpl), me_tap_order(v)
+    path, leaf = key.rsplit('/', 1)
+    for pat, tmpl in _MINK_NORMS:
+        m = pat.match(path)
+        if m:
+            return f'{_sub(m, tmpl)}.{_LEAF[leaf]}', v
+    prefix, name = path.rsplit('/', 1) if '/' in path else ('', path)
+    if name in _MINK_DENSE and leaf in ('kernel', 'bias'):
+        module = '.'.join(filter(None, (prefix.replace('/', '.'),
+                                        _MINK_DENSE[name])))
+        # MinkowskiConvolution keeps its kernel (C_in, C_out), a bias (1, C)
+        return f'{module}.{leaf}', v if leaf == 'kernel' else v[None]
+    return None
+
+
 def state_dict_from_jax(params, batch_stats):
     """Flat flax ``params`` / ``batch_stats`` -> the port's state_dict.
 
@@ -151,8 +226,16 @@ def state_dict_from_jax(params, batch_stats):
     """
     sd = {}
     mha = {}
+    mink = any(k.endswith('/stem_conv') for k in params)
     for key, v in list(params.items()) + list(batch_stats.items()):
         v = np.asarray(v)
+        entry = _mink_entry(key, v) if mink else None
+        if entry is not None:
+            sd[entry[0]] = entry[1]
+            if entry[0].endswith('.running_mean'):
+                sd[entry[0][:-len('running_mean')] + 'num_batches_tracked'] \
+                    = np.asarray(0)
+            continue
         path, leaf = key.rsplit('/', 1)
         if leaf == 'level_embeds':
             # a DETR head keeps them under ``transformer``, beside its

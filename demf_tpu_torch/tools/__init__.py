@@ -54,16 +54,20 @@ def time_ms(fn, iters):
 
 
 # published peaks of one NVIDIA H100 SXM: float32 outside the tensor cores,
-# and device memory
+# bf16 on the tensor cores (dense; bf16 operands, float32 sums), and device
+# memory
 PEAK_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound_ms(flops, nbytes):
-    """The least time the card could take for work of ``flops`` float32
-    operations that must move ``nbytes`` (each input read once, each output
-    written once): (ms, 'operations' or 'bytes'), whichever is larger."""
-    by_ops = flops / PEAK_FLOPS * 1e3
+def bound_ms(flops, nbytes, peak_flops=PEAK_FLOPS):
+    """The least time the card could take for work of ``flops`` operations
+    at ``peak_flops`` (float32 by default; ``PEAK_BF16_FLOPS`` for
+    multiply-adds of bf16 operands) that must move ``nbytes`` (each input
+    read once, each output written once): (ms, 'operations' or 'bytes'),
+    whichever is larger."""
+    by_ops = flops / peak_flops * 1e3
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (by_ops, 'operations') if by_ops > by_bytes else (by_bytes, 'bytes')
 

@@ -1,13 +1,16 @@
 """Seeded inputs for the aligned 3D NMS, the count of points in rotated
-boxes before it and the batched 2D NMS: what the tests (CPU and card) and
-the smoke run hold the kernels K8, K9 and K10, K8's and K10's rules in
-Python, K9's culling rule and the plain versions against.  Numpy only."""
+boxes before it, the batched 2D NMS and the FCAF3D family's class-wise
+rotated 3D NMS: what the tests (CPU and card) and the smoke run hold the
+kernels K8, K9, K10 and K15, K8's and K10's rules in Python, K9's culling
+rule and the plain versions against.  Numpy only."""
 from __future__ import annotations
 
 import numpy as np
 
 KINDS = ('random', 'clustered', 'ties', 'invalid', 'degenerate', 'one_class')
 BOX_KINDS = ('spread', 'clustered', 'faces')
+ROTATED_KINDS = ('spread', 'piled', 'coincident', 'apart', 'aligned',
+                 'far')
 BOX_GRID_CASES = ('spread', 'clustered', 'faces', 'faces, yaw 0',
                   'faces, yaw pi/4', 'faces, yaw pi', 'cell edges',
                   'box larger than the room', 'one x', 'non-finite')
@@ -289,3 +292,54 @@ def nms2d_case(b, n, groups=1, seed=0, ties=False, degenerate=False,
         boxes[:, 1::7][:, :m] = boxes[:, 2::7]
         scores[:, 1::7][:, :m] = scores[:, 2::7]
     return boxes, scores, idxs.astype(np.int64), valid
+
+
+def rotated_nms_case(kind, b, n, classes=10, seed=0):
+    """-> boxes (b, n, 7) f32 depth boxes (x, y, z_bottom, dx, dy, dz, yaw)
+    of 0.3-1.5 m, class scores (b, n, classes) f32 (a fifth below 0.01,
+    one NaN a scene) and valid (b, n) bool, as FCAF3D's get_bboxes hands
+    them to the class-wise rotated NMS (K15).
+
+    ``spread``: over a cube of 4 m.  ``piled``: around 4 centres, most
+    overlapping.  ``coincident``: the second half copies the first.
+    ``apart``: on a grid of 2.2 m (a box's BEV diagonal is at most 2.13
+    m), no overlap, within 8 m of the origin as a room's boxes are.
+    ``aligned``: one yaw.  ``far``: the first half 8 m apart along x, out
+    to 4 n m from the origin (512 m at n 256), the second half copies of
+    the first: corners hundreds of metres out carry roundings of
+    R * 2**-23, and the shoelace sums cancel them into a box's IoU with
+    its copy.
+    """
+    if kind not in ROTATED_KINDS:
+        raise ValueError(f'kind must be one of {ROTATED_KINDS}, got {kind!r}')
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((b, n, 7), np.float32)
+    boxes[..., 3:6] = rng.uniform(0.3, 1.5, (b, n, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    if kind == 'spread':
+        boxes[..., :3] = rng.uniform(-2, 2, (b, n, 3))
+    elif kind == 'piled':
+        centres = rng.uniform(-2, 2, (b, 4, 3))
+        which = rng.randint(0, 4, (b, n))
+        boxes[..., :3] = np.take_along_axis(centres, which[..., None], 1) + \
+            rng.normal(0, 0.1, (b, n, 3))
+    elif kind == 'coincident':
+        boxes[..., :3] = rng.uniform(-2, 2, (b, n, 3))
+        boxes[:, n // 2:] = boxes[:, :n - n // 2]
+    elif kind == 'apart':
+        side = int(np.ceil(n ** (1 / 3)))
+        cell = np.stack(np.unravel_index(np.arange(n), (side,) * 3), -1)
+        boxes[..., :3] = (cell - (side - 1) / 2) * 2.2
+    elif kind == 'aligned':
+        boxes[..., :3] = rng.uniform(-1, 1, (b, n, 3))
+        boxes[..., 6] = 0.25
+    else:
+        half = n - n // 2
+        boxes[..., :3] = rng.uniform(-2, 2, (b, n, 3))
+        boxes[:, :half, 0] = (np.arange(half) - half / 2) * 8.0
+        boxes[:, half:] = boxes[:, :n - half]
+    scores = rng.rand(b, n, classes).astype(np.float32)
+    scores[rng.rand(b, n, classes) < 0.2] = 0.005
+    scores[:, min(3, n - 1), 1 % classes] = np.nan
+    valid = rng.rand(b, n) < 0.9
+    return boxes, scores, valid

@@ -2,8 +2,8 @@
 the tiny DeMF, DETR-pretrain, VoteNet, ImVoteNet and Faster R-CNN model
 configs of the CPU runs, and synthetic batches (numpy) with the fields,
 shapes and meta of ``demf_tpu.zoo.synth_points_batch``,
-``synth_demf_batch`` and ``synth_detr2d_batch``, value for value from the
-same seed."""
+``synth_demf_batch``, ``synth_detr2d_batch`` and ``synth_fcaf3d_batch``,
+value for value from the same seed."""
 from __future__ import annotations
 
 import copy
@@ -65,7 +65,8 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1,
     ``bf16`` / ``fp16`` (the bf16 policy of ``utils/precision.py``).
     ``device`` as in ``build_detector``; ``preprocess`` goes to the
     ``TrainStep`` (on-device preprocessing of raw batches).  Returns
-    (model, optimizer, train_step).
+    (model, optimizer, train_step).  A detector whose training is not
+    ported yet (the FCAF3D family) refuses train mode by name.
     """
     from .engine.optim import build_optimizer, step_lr_schedule
     from .engine.trainer import TrainStep
@@ -355,13 +356,15 @@ def synth_batch_for(model, b=None, p=20000, g=None, hw=None, seed=0):
     ImVoteNet; ``synth_points_batch`` of 16 scenes of ``p`` points with 64
     GT slots for VoteNet; ``synth_detr2d_batch`` of 4 images of 800x1344
     with 20 GT slots for the stage-1 pretrain, and of 16 images of 608x832
-    with 64 for ImVoteNet's image-only Faster R-CNN."""
+    with 64 for ImVoteNet's image-only Faster R-CNN; ``synth_fcaf3d_batch``
+    of 8 scenes of ``p`` xyz + rgb points with 16 GT slots for FCAF3D, and
+    the same with 800x1344 images for DeMF-FCAF3D."""
     spec = getattr(model, 'synth_batch', None)
     if spec is None:
         raise NotImplementedError(
             f'no synthetic batch for a {type(model).__name__}: DeMF-VoteNet, '
-            f'ImVoteNet, VoteNet and the stage-1 pretrain model name theirs '
-            f'(synth_batch)')
+            f'ImVoteNet, VoteNet, the FCAF3D family and the stage-1 pretrain '
+            f'model name theirs (synth_batch)')
     kind, scenes, slots = spec[:3]
     sizes = dict(dict(hw=(800, 1344)), **(spec[3] if len(spec) > 3 else {}))
     if hw is not None:
@@ -371,6 +374,10 @@ def synth_batch_for(model, b=None, p=20000, g=None, hw=None, seed=0):
         return synth_demf_batch(b, p=p, g=g, seed=seed, **sizes)
     if kind == 'points':
         return synth_points_batch(b, p=p, g=g, seed=seed)
+    if kind == 'fcaf3d':
+        return synth_fcaf3d_batch(b, p=p, g=g, seed=seed)
+    if kind == 'demf_fcaf3d':
+        return synth_demf_fcaf3d_batch(b, p=p, g=g, seed=seed, **sizes)
     return synth_detr2d_batch(b, g=g, seed=seed, **sizes)
 
 
@@ -414,3 +421,32 @@ def synth_demf_batch(b, p=20000, g=32, hw=(800, 1344), seed=0,
         pcd_horizontal_flip=np.zeros((b,), bool))
     return dict(batch, img=rng.rand(b, h, w, 3).astype(np.float32),
                 img_meta=meta)
+
+
+def synth_fcaf3d_batch(b, p=20000, g=16, seed=0):
+    """Synthetic 6-dim (xyz + rgb) point batch of the FCAF3D family (numpy),
+    value for value ``demf_tpu.zoo.synth_fcaf3d_batch``: points over a room
+    of 6 x 6 x 2.8 m, ``g`` GT slots of rotated boxes, all valid."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((b, p, 6), np.float32)
+    pts[..., 0] = rng.uniform(-3, 3, (b, p))
+    pts[..., 1] = rng.uniform(0, 6, (b, p))
+    pts[..., 2] = rng.uniform(-1.8, 1.0, (b, p))
+    pts[..., 3:] = rng.rand(b, p, 3)
+    boxes = np.zeros((b, g, 7), np.float32)
+    boxes[..., :3] = rng.rand(b, g, 3) * 4 - 2
+    boxes[..., 1] += 2.5
+    boxes[..., 3:6] = rng.rand(b, g, 3) + 0.3
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (b, g))
+    return dict(points=pts, gt_bboxes_3d=boxes,
+                gt_labels_3d=rng.randint(0, 10, (b, g)),
+                gt_valid=np.ones((b, g), bool))
+
+
+def synth_demf_fcaf3d_batch(b, p=20000, g=16, hw=(800, 1344), seed=0,
+                            valid_hw=None):
+    """``synth_fcaf3d_batch`` with an image and the calibration / aug meta
+    of ``synth_demf_batch`` (DeMF-FCAF3D's batch)."""
+    demf = synth_demf_batch(b, p=8, g=1, hw=hw, seed=seed, valid_hw=valid_hw)
+    return dict(synth_fcaf3d_batch(b, p, g, seed), img=demf['img'],
+                img_meta=demf['img_meta'])

@@ -6,8 +6,10 @@
   ``convert_jax_checkpoint.py``; the ``.pth`` loads strictly into the port
   and gives the JAX model's eval detections: DeMF through ``python -m
   demf_tpu_torch.eval`` against the JAX package's dataset inference,
-  ImVoteNet through its forward and ``get_bboxes`` on the same seed draws.
-  An FCAF3D config is refused by name.
+  ImVoteNet through its forward and ``get_bboxes`` on the same seed draws;
+  the tiny FCAF3D's ``.pth`` holds ``state_dict_from_jax``'s tensors, loads
+  strictly and serves through ``python -m demf_tpu_torch.eval``.  The
+  converter takes an FCAF3D config; training one is refused by name.
 * A released mmcv-format file (``state_dict``, ``meta`` with ``epoch``,
   ``iter``, ``CLASSES`` as a tuple, ``mmcv_version``, the config's text,
   and mmcv's optimizer state) runs through ``python -m
@@ -183,10 +185,41 @@ def test_imvotenet_jax_checkpoint_gives_the_jax_detections(tmp_path):
 
 
 def test_an_fcaf3d_config_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match=r'ROADMAP M8'):
+    """The FCAF3D family is served (ROADMAP M8's first half): the converter
+    takes its configs and goes on to read the checkpoint; what is refused
+    by name is training it (M8's second half)."""
+    with pytest.raises(FileNotFoundError):
         converter().convert(os.path.join(ROOT, 'configs', 'fcaf3d',
                                          'fcaf3d_sunrgbd.py'),
                             str(tmp_path / 'none'), str(tmp_path / 'x.pth'))
+    with pytest.raises(NotImplementedError, match=r'ROADMAP M8'):
+        zoo.build_trainer('fcaf3d/fcaf3d_sunrgbd.py', 'cpu')
+
+
+def test_fcaf3d_jax_checkpoint_serves_through_the_eval_entry(tmp_path,
+                                                            capsys):
+    from demf_tpu.zoo import synth_fcaf3d_batch
+    from demf_tpu_torch.engine.weights import state_dict_from_jax
+    cfg_path = os.path.join(ROOT, 'configs', 'synthetic', 'fcaf3d_tiny.py')
+    cfg = Config.fromfile(cfg_path)
+    jmodel = build_from_cfg(dict(cfg.model), JAX_DETECTORS)
+    params, stats = random_variables(
+        jmodel, synth_fcaf3d_batch(1, p=512, g=2), seed=2)
+    ckpt = save_jax(str(tmp_path / 'jax'), params, stats, epoch=1)
+    out = str(tmp_path / 'fcaf3d.pth')
+    converter().main([cfg_path, ckpt, out])
+    assert 'epoch 1, 10 classes' in capsys.readouterr().out
+    payload = torch.load(out, weights_only=True)
+    want = state_dict_from_jax(params, stats)
+    assert set(payload['state_dict']) == set(want)
+    for k, v in want.items():
+        assert torch.equal(payload['state_dict'][k], v), k
+    model = zoo.build_detector(cfg.model, 'cpu')
+    assert load_checkpoint(out, model) == 1
+    metrics = eval_entry.main([cfg_path, out, '--device', 'cpu', '--eval',
+                               'mAP'])
+    assert "'epoch': 1" in capsys.readouterr().out
+    assert 'mAP_0.25' in metrics
 
 
 @pytest.fixture(scope='module')

@@ -1858,3 +1858,149 @@ def test_device_preprocess_on_the_card_equals_the_cpu(dev):
     for key, value in want['img_meta'].items():
         assert torch.allclose(got['img_meta'][key].cpu().float(),
                               value.float(), atol=1e-5, rtol=0), key
+
+
+# -- K13 kernel map, K14 sparse conv, K15 class-wise rotated NMS -------------
+
+def voxel_level(dev, b=2, n=20000, m=4096, stride=1, seed=0, spread=3.0):
+    """Voxel tables of ``b`` clouds at 2 cm (capacity ``m``; a dense cloud
+    overflows it), taken down to ``stride``; the last scene empty when
+    ``b`` > 2."""
+    from demf_tpu_torch.ops import sparse
+    rng = np.random.RandomState(seed)
+    pts = torch.from_numpy(rng.uniform(0, spread, (b, n, 3)).astype(
+        np.float32)).to(dev)
+    if b > 2:
+        pts[-1] = -1.0                      # off the grid: no voxel
+    coords, _, valid = sparse.voxelize(pts, pts, 0.02, (0.0, 0.0, 0.0), m)
+    if stride > 1:
+        coords, valid = sparse.downsample_coords(coords, valid, stride, m)
+    return coords, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('presorted', [True, False])
+@pytest.mark.parametrize('k,stride', [(1, 1), (2, 2), (3, 1), (3, 4)])
+@pytest.mark.parametrize('b,m,spread', [(3, 4096, 3.0), (1, 512, 0.3)])
+def test_kernel_map_equals_plain(dev, b, m, spread, k, stride, presorted):
+    """An empty scene, a scene at capacity (0.3 m of dense points), rows
+    shuffled (the table sorted first), invalid query rows, and taps with
+    no neighbour: the tables are equal."""
+    from demf_tpu_torch.ops import sparse
+    coords, valid = voxel_level(dev, b=b, m=m, stride=stride, spread=spread)
+    if m == 512 and stride == 1:
+        assert valid.all()
+    if not presorted:
+        perm = torch.randperm(coords.shape[1], device=dev,
+                              generator=torch.Generator(dev).manual_seed(k))
+        coords, valid = coords[:, perm].contiguous(), \
+            valid[:, perm].contiguous()
+    table = (sparse.key_table_presorted if presorted else
+             sparse.build_key_table)(coords, valid)
+    offs = sparse.kernel_offsets(k, me_order=True, device=dev)
+    before = sparse.KERNEL_MAP_KERNEL.launches
+    got = sparse.kernel_map_cuda(*table, coords, valid, offs, stride)
+    assert sparse.KERNEL_MAP_KERNEL.launches == before + 1
+    want = sparse.kernel_map_plain(*table, coords, valid, offs, stride)
+    assert torch.equal(got, want)
+    if b > 2:
+        assert (got[-1] == -1).all()
+    assert (got >= 0).any() and ((got < 0).any() or k == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c,co,k', [(3, 64, 27), (64, 64, 27), (128, 256, 8),
+                                    (16, 40, 1), (512, 512, 27)])
+def test_sparse_conv_equals_plain(dev, c, co, k, dtype):
+    """Rows of an empty scene and past the valid prefix (all taps absent),
+    taps with no neighbour, channels that no tile divides: float32 within
+    1e-5 of the largest output, bf16 within one bf16 step of it."""
+    from demf_tpu_torch.ops import sparse
+    coords, valid = voxel_level(dev, b=3, m=2048 if c < 512 else 512)
+    taps = {27: 3, 8: 2, 1: 1}[k]
+    nbr = sparse.neighbor_table_batched(
+        coords, valid, coords, valid, sparse.kernel_offsets(taps, device=dev),
+        sorted_input=True)
+    g = torch.Generator(dev).manual_seed(c + co)
+    feats = (torch.randn(*coords.shape[:2], c, device=dev, generator=g) *
+             valid[..., None]).to(dtype)
+    w = (torch.randn(k, c, co, device=dev, generator=g) /
+         (k * c) ** 0.5).to(dtype)
+    kernel = (sparse.SPARSE_CONV_BF16_KERNEL if dtype == torch.bfloat16
+              else sparse.SPARSE_CONV_KERNEL)
+    before = kernel.launches
+    got = sparse.sparse_conv_cuda(feats, nbr, w)
+    assert kernel.launches == before + 1 and got.dtype == dtype
+    want = sparse.sparse_conv_plain(feats, nbr, w).float()
+    top = want.abs().max().item()
+    tol = 1e-5 * top if dtype == torch.float32 else \
+        2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (got[-1] == 0).all() and (got[~valid] == 0).all()
+
+
+# K15's IoU of a box and a copy of itself (the diagonal, and coincident
+# boxes of other indices) against iou3d_matrix's at room coordinates: both
+# versions cross parallel edges at denominators of rounding noise; up to
+# 2.5e-6 seen on an H100 (chip_smoke.py, a FCAF3D request)
+K15_COPY_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [256, 64, 1])
+@pytest.mark.parametrize('kind', ['spread', 'piled', 'coincident', 'apart',
+                                  'aligned'])
+def test_rotated_nms_equals_plain(dev, kind, n):
+    """K15's IoUs within 1e-6 of ``iou3d_matrix``'s for two distinct boxes
+    and within ``K15_COPY_TOL`` for a box and its copy, its masks equal to
+    the plain sweep fed its own IoUs bit for bit (NaN scores, scores below
+    score_thr and invalid boxes take no part), and a scene whose boxes are
+    all invalid keeps none."""
+    from demf_tpu_torch.core.rotated_iou import iou3d_matrix
+    from demf_tpu_torch.ops import nms_rotated
+    from demf_tpu_torch.tools.nms_cases import rotated_nms_case
+    boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in
+                            rotated_nms_case(kind, 3, n, seed=n))
+    valid[-1] = False
+    before = nms_rotated.NMS3D_ROTATED_KERNEL.launches
+    keep, iou = nms_rotated.rotated_nms_classwise_cuda(boxes, scores, valid,
+                                                       0.5, 0.01)
+    assert nms_rotated.NMS3D_ROTATED_KERNEL.launches == before + 1
+    err = (iou - iou3d_matrix(boxes, boxes)).abs()
+    copies = (boxes[:, :, None] == boxes[:, None]).all(-1)
+    if n > 1:
+        assert err[~copies].max().item() <= 1e-6
+    assert err[copies].max().item() <= K15_COPY_TOL
+    want = nms_rotated.classwise_sweep(iou, scores, valid, 0.5, 0.01)
+    assert torch.equal(keep, want)
+    assert not keep[-1].any() and (n == 1 or keep[:-1].any())
+    assert not keep[:, 1, min(3, n - 1)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [256, 64])
+def test_rotated_nms_far_from_the_origin(dev, n):
+    """Boxes out to 4 n m from the origin (``rotated_nms_case('far')``),
+    each with a copy: corners R out carry roundings of R * 2**-23, which
+    the shoelace sums of a box and its copy cancel into their IoU in both
+    versions, so there the IoUs agree within 4 R 2**-23 over the smallest
+    side (0.3 m); distinct boxes, which do not overlap, within 1e-6; the
+    masks equal the plain sweep fed K15's IoUs bit for bit."""
+    from demf_tpu_torch.core.rotated_iou import iou3d_matrix
+    from demf_tpu_torch.ops import nms_rotated
+    from demf_tpu_torch.tools.nms_cases import rotated_nms_case
+    boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in
+                            rotated_nms_case('far', 3, n, seed=n))
+    keep, iou = nms_rotated.rotated_nms_classwise_cuda(boxes, scores, valid,
+                                                       0.5, 0.01)
+    err = (iou - iou3d_matrix(boxes, boxes)).abs()
+    copies = (boxes[:, :, None] == boxes[:, None]).all(-1)
+    reach = boxes[..., :2].abs().max().item()
+    print(f'far (N {n}, out to {reach} m): distinct boxes '
+          f'{err[~copies].max().item():.3e}, a box and its copy '
+          f'{err[copies].max().item():.3e}')
+    assert err[~copies].max().item() <= 1e-6
+    assert err[copies].max().item() <= 4 * reach * 2.0 ** -23 / 0.3
+    want = nms_rotated.classwise_sweep(iou, scores, valid, 0.5, 0.01)
+    assert torch.equal(keep, want)

@@ -43,6 +43,9 @@ PRETRAIN_PATH_MODULES = ('ops.assignment', 'models.detr_head',
                          'tools.compare_kernels')
 IMVOTENET_PATH_MODULES = ('ops.nms2d', 'ops.roi_align', 'models.rpn_roi',
                           'models.vote_fusion', 'models.image_neck')
+FCAF3D_PATH_MODULES = ('ops.sparse', 'ops.nms_rotated', 'core.rotated_iou',
+                       'models.mink_resnet', 'models.fcaf3d',
+                       'models.demf_fcaf3d')
 
 
 def test_port_imports_without_jax_or_nvcc():
@@ -54,7 +57,7 @@ def test_port_imports_without_jax_or_nvcc():
     names = proc.stdout.strip().splitlines()[-1].split()
     assert len(names) >= 50
     for name in (DATASET_PATH_MODULES + PRETRAIN_PATH_MODULES +
-                 IMVOTENET_PATH_MODULES):
+                 IMVOTENET_PATH_MODULES + FCAF3D_PATH_MODULES):
         assert f'demf_tpu_torch.{name}' in names
 
 
