@@ -201,10 +201,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    NMS on the same candidates, each differing bit explained by a pair
    within 1e-5 of iou_thr, with the count printed); the request's own
    calls of K13 (17 kernel maps, equal to the plain search), K14 (47
-   sparse convolutions, float32 within 1e-5 of each output's largest, and
-   the same in bf16 within one bf16 step) and K15 (IoUs within 1e-6 of
-   ``iou3d_matrix`` for distinct boxes, masks equal to the plain sweep fed
-   its own IoUs; also on spread, piled and coincident boxes), each timed
+   sparse convolutions on their tables' row plans, float32 within 1e-5 of
+   each output's largest, and the same in bf16 within one bf16 step, the
+   same bits twice; the GFLOP of the taps that exist and those computed on
+   the tiles; timed with the plans made anew; then a dense cube and a
+   scattered level at layers 1, 3 and 4's widths) and K15 (IoUs within
+   1e-6 of ``iou3d_matrix`` for distinct boxes, masks equal to the plain
+   sweep fed its own IoUs; also on spread, piled and coincident boxes),
+   each timed
    beside its bound, its plain version and its yardstick
    (``torch.searchsorted`` + the equality test; one gather of (M, K * C)
    and one ``torch.matmul``); the request, an eval batch of 8 and a bf16
@@ -237,7 +241,8 @@ RoIs); K11 bf16: launches of the bf16 ImVoteNet requests, times and bound
 at a request's shape (2 x 1,000 RoIs); K12 bf16: launches of the bf16
 image-only steps, times and bound at (16, 512); K13-K15: launches of an
 FCAF3D request, times and bounds summed over that request's own calls (K14
-bf16: launches of the bf16 request); ``library_ms`` is
+bf16: launches of the bf16 request; K14's plan: its 16 tables, bound by
+their bytes); ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights, K13 ``searchsorted``, K14
@@ -274,7 +279,7 @@ KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align',
                 'roi_align_backward', 'roi_align_bf16',
                 'roi_align_backward_bf16', 'kernel_map', 'sparse_conv',
-                'sparse_conv_bf16', 'nms3d_rotated')
+                'sparse_conv_bf16', 'sparse_conv_plan', 'nms3d_rotated')
 
 
 def launch_counts(**counts):
@@ -357,6 +362,8 @@ REPLACES = {
     'kernel_map': 'demf_tpu/ops/sparse.py:321',
     'sparse_conv': 'demf_tpu/ops/sparse.py:393',
     'sparse_conv_bf16': 'demf_tpu/ops/sparse.py:393',
+    # the plan has no JAX code of its own: index plumbing of K14's function
+    'sparse_conv_plan': 'demf_tpu/ops/sparse.py:393',
     'nms3d_rotated': 'demf_tpu/models/fcaf3d.py:314',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
@@ -378,6 +385,7 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'kernel_map': 'demf_tpu_torch/csrc/kernel_map.cu',
            'sparse_conv': 'demf_tpu_torch/csrc/sparse_conv.cu',
            'sparse_conv_bf16': 'demf_tpu_torch/csrc/sparse_conv.cu',
+           'sparse_conv_plan': 'demf_tpu_torch/csrc/sparse_conv.cu',
            'nms3d_rotated': 'demf_tpu_torch/csrc/nms3d_rotated.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
@@ -3528,16 +3536,22 @@ FCAF3D_EVAL_SCENES = 8
 # a request's launches: 17 kernel maps (the stem's, the pool's, 3 a stage:
 # the stride-2 conv's, the shortcut's and the stage's 27-tap table; one
 # parent lookup an up block), 47 sparse convs (the stem, 36 in MinkResNet34,
-# 2 an up block and 1 an out block), one class-wise NMS; DeMF-FCAF3D adds
-# the encoder's 6 MSDA layers (uncached) and its decoder's one
-SPARSE_PATH = dict(kernel_map=17, sparse_conv=47, nms3d_rotated=1)
+# 2 an up block and 1 an out block; K14's count is one a call, whose tiles
+# kernel is followed by its sum of parts where the taps are split) on the
+# row plans of their 16 tables (the stem's, 3 a stage, one an up block),
+# one class-wise NMS; DeMF-FCAF3D adds the encoder's 6 MSDA layers
+# (uncached) and its decoder's one
+SPARSE_PATH = dict(kernel_map=17, sparse_conv=47, sparse_conv_plan=16,
+                   nms3d_rotated=1)
 LAUNCHES_PER_FCAF3D_REQUEST = launch_counts(**SPARSE_PATH)
 LAUNCHES_PER_FCAF3D_REQUEST_BF16 = launch_counts(
-    kernel_map=17, sparse_conv_bf16=47, nms3d_rotated=1)
+    kernel_map=17, sparse_conv_bf16=47, sparse_conv_plan=16,
+    nms3d_rotated=1)
 LAUNCHES_PER_DEMF_FCAF3D_REQUEST = launch_counts(msda=7, **SPARSE_PATH)
 LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
 FCAF3D_MARKERS = {'K13': ('kernel_map_kernel',),
-                  'K14': ('sparse_conv_kernel',),
+                  'K14': ('sparse_conv_tiles', 'sparse_conv_sum_parts',
+                          'sparse_conv_plan'),
                   'K15': ('rotated_iou_kernel', 'classwise_sweep_kernel'),
                   'K3': ('msda_forward_kernel',)}
 # an IoU this close to iou_thr may fall on either side between two
@@ -3569,25 +3583,6 @@ IOU_PAIR_OPS = 600
 K15_COPY_TOL = 1e-5
 
 
-def calibrate_batch_norms(model, batch):
-    """Random weights through MinkResNet34 with every BatchNorm at its
-    identity grow without bound (exp of the regression overflows): give each
-    ``MaskedBatchNorm`` the statistics of this batch's valid voxels, as a
-    trained model's would normalize (one forward with only those norms in
-    train mode, momentum 0).  Applied here, not by any config or entry."""
-    from demf_tpu_torch.models.mink_resnet import MaskedBatchNorm
-    norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
-    for m in norms:
-        m.momentum = 0.0
-        m.train()
-    with torch.no_grad():
-        model(batch)
-    for m in norms:
-        m.momentum = 0.9
-        m.eval()
-    return model
-
-
 def patched(*changes):
     """Module attributes set until the returned stack closes: (module,
     name, value)."""
@@ -3598,13 +3593,15 @@ def patched(*changes):
 
 
 def plain_sparse_ops():
-    """The FCAF3D family's K13, K14, K15 and the decoders' MSDA routed to
-    their plain versions."""
+    """The FCAF3D family's K13, K14 with its plan, K15 and the decoders'
+    MSDA routed to their plain versions."""
     from demf_tpu_torch.models import fcaf3d, transformer
     from demf_tpu_torch.ops import msda, nms_rotated, sparse
     return patched(
         (sparse, 'kernel_map_cuda', sparse.kernel_map_plain),
-        (sparse, 'sparse_conv_cuda', sparse.sparse_conv_plain),
+        (sparse, 'conv_plan', sparse.conv_plan_plain),
+        (sparse, 'sparse_conv_cuda',
+         lambda feats, nbr, w, plan: sparse.sparse_conv_plain(feats, nbr, w)),
         (fcaf3d, 'rotated_nms_classwise',
          nms_rotated.rotated_nms_classwise_plain),
         (transformer, 'multi_scale_deformable_attention', msda.msda_plain))
@@ -3682,64 +3679,157 @@ def check_kernel_map(calls):
 
 
 def check_sparse_conv(calls, dtype):
-    """K14 on a request's 47 convolutions (their own features, tables and
-    weights; in bf16 the same rounded) against its plain version: float32
-    within 1e-5 of each output's largest, bf16 within one bf16 step of it.
-    Timed over all of them, beside one gather of (M, K * C) and one
-    ``torch.matmul`` a convolution (the yardstick).  Its bound counts the
-    taps that exist, at the peak of their operands' type: float32 outside
-    the tensor cores, bf16 on them (float32 sums, as K14 keeps)."""
+    """K14 on a request's 47 convolutions (their own features, tables, row
+    plans and weights; in bf16 the same rounded) against its plain version:
+    float32 within 1e-5 of each output's largest, bf16 within one bf16 step
+    of it, the same bits on two calls.  Timed over all of them with the
+    plans of their tables made anew (a plan counts with the kernel), beside
+    one gather of (M, K * C) and one ``torch.matmul`` a convolution (the
+    yardstick); the plans' time alone is printed.  The operations of the
+    taps that exist are printed beside those K14 computes on its tiles.
+    Its bound counts the taps that exist, at the peak of their operands'
+    type: float32 outside the tensor cores, bf16 on them (float32 sums, as
+    K14 keeps).  The float32 entry also prints a second bound at the rate
+    of what it runs, 3xTF32: three TF32 products a multiply-add on the
+    tensor cores, TF32's dense peak over 3 (or the bytes, if larger)."""
     from demf_tpu_torch.ops import sparse
-    from demf_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_FLOPS, bound_ms,
-                                      time_ms)
+    from demf_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_FLOPS,
+                                      PEAK_TF32_FLOPS, bound_ms, time_ms)
+    from demf_tpu_torch.tools.sparse_cases import (conv_flops,
+                                                   gather_matmul, tolerance)
     size = torch.finfo(dtype).bits // 8
-    calls = [(f.to(dtype), n, w.to(dtype)) for f, n, w in calls]
-    worst = flops = nbytes = 0.0
+    tables = {}
+    for _, nbr, _, plan in calls:
+        tables.setdefault(id(plan), nbr)
+    keys = list(tables)
+    calls = [(f.to(dtype), n, w.to(dtype), plan, keys.index(id(plan)))
+             for f, n, w, plan in calls]
+    worst = flops = computed = nbytes = 0.0
     gathers = []
-    for feats, nbr, w in calls:
-        got = sparse.sparse_conv_cuda(feats, nbr, w).float()
+    for feats, nbr, w, plan, _ in calls:
+        got = sparse.sparse_conv_cuda(feats, nbr, w, plan)
+        if not torch.equal(got, sparse.sparse_conv_cuda(feats, nbr, w,
+                                                        plan)):
+            raise AssertionError(f'K14 {dtype} {tuple(nbr.shape)}: other '
+                                 f'bits on a second call')
         want = sparse.sparse_conv_plain(feats, nbr, w).float()
         top = max(want.abs().max().item(), 1e-30)
-        err = (got - want).abs().max().item()
-        tol = 1e-5 * top if dtype == torch.float32 else \
-            2.0 ** (np.floor(np.log2(top)) - 7)
+        err = (got.float() - want).abs().max().item()
+        tol = tolerance(want, dtype)
         if not err <= tol:
             raise AssertionError(f'K14 {dtype} {tuple(nbr.shape)} x '
                                  f'{tuple(w.shape)}: {err} above {tol}')
         worst = max(worst, err / top)
-        b, m, c = feats.shape
-        flops += 2.0 * int((nbr >= 0).sum()) * c * w.shape[2]
+        existing, work = conv_flops(nbr, plan, feats.shape[2], w.shape[2])
+        flops += existing
+        computed += work
         nbytes += (feats.numel() + w.numel() + got.numel()) * size + \
             nbr.numel() * 4
-        flat = torch.cat([feats.reshape(b * m, c),
-                          feats.new_zeros((1, c))])
-        base = (torch.arange(b, device=nbr.device) * m)[:, None, None]
-        idx = torch.where(nbr >= 0, nbr + base, b * m).reshape(-1)
-        gathers.append((flat, idx, w.reshape(-1, w.shape[2]), nbr.shape))
+        gathers.append(gather_matmul(feats, nbr, w))
+    nbrs = list(tables.values())
+
+    def plans():
+        return [sparse.conv_plan(n) for n in nbrs]
 
     def kernel():
-        for args in calls:
-            sparse.sparse_conv_cuda(*args)
+        made = plans()
+        for feats, nbr, w, _, t in calls:
+            sparse.sparse_conv_cuda(feats, nbr, w, made[t])
 
     def plain():
-        for args in calls:
-            sparse.sparse_conv_plain(*args)
+        for feats, nbr, w, _, _ in calls:
+            sparse.sparse_conv_plain(feats, nbr, w)
 
     def library():
-        for flat, idx, w2, shape in gathers:
-            rows = flat[idx].reshape(shape[0] * shape[1], -1)
-            torch.matmul(rows, w2)
+        for fn in gathers:
+            fn()
 
-    ms, plain_ms, lib_ms = (time_ms(kernel, 5), time_ms(plain, 2),
-                            time_ms(library, 5))
+    ms, plan_ms, plain_ms, lib_ms = (time_ms(kernel, 5), time_ms(plans, 5),
+                                     time_ms(plain, 2), time_ms(library, 5))
     least, by = bound_ms(flops, nbytes, PEAK_FLOPS if dtype == torch.float32
                          else PEAK_BF16_FLOPS)
+    if dtype == torch.float32:
+        tf32, tf32_by = bound_ms(flops, nbytes, PEAK_TF32_FLOPS / 3)
+        print(f'K14 sparse_conv float32 beside its 3xTF32 bound: kernel '
+              f'{ms:.4f} ms, bound at TF32\'s {PEAK_TF32_FLOPS / 1e12:.0f} '
+              f'TFLOP/s over 3 {tf32:.6f} ms ({tf32_by}): '
+              f'{tf32 / ms:.1%} of it (the pinned bound {least:.6f} ms: '
+              f'{least / ms:.1%})')
     print(f'K14 sparse_conv {str(dtype)[6:]}: {len(calls)} convolutions of '
-          f'a request, {flops / 1e9:.3f} GFLOP of existing taps, max rel err '
-          f'{worst:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather '
-          f'+ matmul {lib_ms:.4f} ms, bound {least:.6f} ms ({by}; '
-          f'{flops / 1e9 / max(ms, 1e-9):.1f} TFLOP/s)')
+          f'a request on {len(nbrs)} tables, {flops / 1e9:.3f} GFLOP of '
+          f'existing taps, {computed / 1e9:.3f} GFLOP computed on the '
+          f'plans\' tiles, max rel err {worst:.3e}, the same bits twice; '
+          f'kernel {ms:.4f} ms with the plans made anew (the plans alone '
+          f'{plan_ms:.4f} ms), plain {plain_ms:.4f} ms, gather + matmul '
+          f'{lib_ms:.4f} ms, bound {least:.6f} ms ({by}; '
+          f'{flops / 1e9 / max(ms, 1e-9):.1f} TFLOP/s of existing taps)')
     return kernel_row(worst, ms, plain_ms, least, by, lib_ms)
+
+
+def check_conv_plans(calls):
+    """K14's plan kernel on the request's tables (one a table, however
+    many convolutions read it): mask, order and tile taps equal to
+    ``conv_plan_plain``'s; timed over the tables beside the plain plans.
+    Its bound: the tables read once, the plans written once (bytes)."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    tables = {}
+    for _, nbr, _, plan in calls:
+        tables.setdefault(id(plan), nbr)
+    nbrs = list(tables.values())
+    nbytes = 0
+    for nbr in nbrs:
+        got, want = sparse.conv_plan_cuda(nbr), sparse.conv_plan_plain(nbr)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f'K14 plan of {tuple(nbr.shape)} differs '
+                                 f'from plain')
+        nbytes += 4 * (nbr.numel() + sum(t.numel() for t in got))
+    ms = time_ms(lambda: [sparse.conv_plan_cuda(n) for n in nbrs], 10)
+    plain_ms = time_ms(lambda: [sparse.conv_plan_plain(n) for n in nbrs], 5)
+    least, by = bound_ms(0, nbytes)
+    print(f'K14 sparse_conv_plan: {len(nbrs)} tables of a request, equal to '
+          f'plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{least:.6f} ms ({by})')
+    return kernel_row(0, ms, plain_ms, least, by)
+
+
+def time_sparse_levels(dev):
+    """K14 off the request's own scenes (``tools/sparse_cases.py``): a
+    dense cube (every tap inside it exists: the plan saves nothing) and a
+    scattered level (few taps a row) at layers 1, 3 and 4's widths, batch
+    2, float32 and bf16: within the request's tolerances of the plain
+    version; the existing and the computed GFLOP, its ms with the plan
+    made anew beside the gather + matmul yardstick's."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import time_ms
+    from demf_tpu_torch.tools.sparse_cases import (SPARSE_LEVELS,
+                                                   conv_flops,
+                                                   gather_matmul, level,
+                                                   tolerance)
+    for kind, b, m, c, co in SPARSE_LEVELS:
+        nbr, m_in = level(dev, kind, b, m)
+        plan = sparse.conv_plan(nbr)
+        gen = torch.Generator(dev).manual_seed(m + c)
+        feats32 = torch.randn(b, m_in, c, device=dev, generator=gen)
+        w32 = torch.randn(27, c, co, device=dev, generator=gen) / \
+            (27 * c) ** 0.5
+        existing, computed = conv_flops(nbr, plan, c, co)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats, w = feats32.to(dtype), w32.to(dtype)
+            got = sparse.sparse_conv_cuda(feats, nbr, w, plan)
+            want = sparse.sparse_conv_plain(feats, nbr, w)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= tolerance(want, dtype):
+                raise AssertionError(f'K14 {kind} {dtype}: {err}')
+            ms = time_ms(lambda: sparse.sparse_conv_cuda(
+                feats, nbr, w, sparse.conv_plan(nbr)), 10)
+            lib_ms = time_ms(gather_matmul(feats, nbr, w), 10)
+            print(f'K14 sparse_conv {str(dtype)[6:]} on a {kind} level (B '
+                  f'{b}, M {m}, {c} -> {co}, K 27): {existing / 1e9:.3f} '
+                  f'GFLOP of existing taps, {computed / 1e9:.3f} computed; '
+                  f'kernel {ms:.4f} ms with its plan, gather + matmul '
+                  f'{lib_ms:.4f} ms ({existing / 1e9 / ms:.1f} TFLOP/s of '
+                  f'existing taps)', flush=True)
 
 
 def check_nms3d_rotated(calls):
@@ -3885,6 +3975,7 @@ def run_fcaf3d_path(dev, kernels):
     request under the bf16 policy (K14's bf16 entry) against float32."""
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    from demf_tpu_torch.tools.sparse_cases import calibrate_batch_norms
     t0 = time.perf_counter()
     model = zoo.build_detector(FCAF3D_CFG, device=dev, seed=0)
     request = batch_to_device(zoo.synth_fcaf3d_batch(
@@ -3911,7 +4002,9 @@ def run_fcaf3d_path(dev, kernels):
                                              torch.float32),
             'sparse_conv_bf16': check_sparse_conv(calls['sparse_conv'],
                                                   torch.bfloat16),
+            'sparse_conv_plan': check_conv_plans(calls['sparse_conv']),
             'nms3d_rotated': check_nms3d_rotated(calls['nms3d_rotated'])}
+        time_sparse_levels(dev)
     del calls
     request_profile(eval_step, request, kernels,
                     LAUNCHES_PER_FCAF3D_REQUEST, 'FCAF3D request of 2')
@@ -3946,8 +4039,8 @@ def check_fcaf3d_bf16(model, request, batch):
     def e4m3(x):
         return x.float().clamp(-448, 448).to(torch.float8_e4m3fn).to(x.dtype)
 
-    def coarse_k14(feats, nbr, w):
-        return k14(e4m3(feats), nbr, e4m3(w))
+    def coarse_k14(feats, nbr, w, *plan):
+        return k14(e4m3(feats), nbr, e4m3(w), *plan)
 
     def gap(scenes, strict=True, keys=('centerness', 'bbox_pred',
                                        'cls_scores')):
@@ -3986,6 +4079,7 @@ def run_demf_fcaf3d_path(dev, kernels):
     must agree with the uncached request."""
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    from demf_tpu_torch.tools.sparse_cases import calibrate_batch_norms
     t0 = time.perf_counter()
     model = zoo.build_detector(DEMF_FCAF3D_CFG, device=dev, seed=0)
     request = batch_to_device(zoo.synth_demf_fcaf3d_batch(
@@ -4167,7 +4261,8 @@ def main():
     by_path.update(run_demf_fcaf3d_path(dev, kernels))
     # K13-K15's rows are an FCAF3D request's own calls: their launches are
     # its; K14 bf16's the bf16 request's
-    for n in ('kernel_map', 'sparse_conv', 'nms3d_rotated'):
+    for n in ('kernel_map', 'sparse_conv', 'sparse_conv_plan',
+              'nms3d_rotated'):
         launches[n] = by_path['fcaf3d_serving'][n]
     launches['sparse_conv_bf16'] = \
         by_path['fcaf3d_serving_bf16']['sparse_conv_bf16']

@@ -82,7 +82,7 @@ class FCAF3DHead(nn.Module):
             self.cls_conv.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
     def _up_block(self, i, coarse, fine_coords, fine_valid, fine_stride,
-                  nbr):
+                  nbr, plan):
         """Generative transpose conv (k=2, s=2) onto the skip level's voxels,
         then a 3x3x3 conv, each with BN and ELU."""
         tconv, tbn, _, conv, bn, _ = getattr(self, f'up_block_{i}')
@@ -92,21 +92,23 @@ class FCAF3DHead(nn.Module):
             tensor_stride=fine_stride, sorted_input=True)
         y = F.elu(tbn(y, fine_valid))
         y = S.submanifold_conv_batched(fine_coords, fine_valid, y, conv.taps,
-                                       tensor_stride=fine_stride, nbr=nbr)
+                                       tensor_stride=fine_stride, nbr=nbr,
+                                       plan=plan)
         y = F.elu(bn(y, fine_valid))
         return torch.where(fine_valid[..., None], y, 0)
 
-    def _out_block(self, i, coords, valid, x, stride, nbr):
+    def _out_block(self, i, coords, valid, x, stride, nbr, plan):
         conv, bn, _ = getattr(self, f'out_block_{i}')
         y = S.submanifold_conv_batched(coords, valid, x, conv.taps,
-                                       tensor_stride=stride, nbr=nbr)
+                                       tensor_stride=stride, nbr=nbr,
+                                       plan=plan)
         y = F.elu(bn(y, valid))
         return torch.where(valid[..., None], y, 0)
 
     def forward(self, backbone_outs):
-        """backbone_outs: the stages' (coords, valid, feats[, nbr]), fine to
-        coarse -> per-level dicts (fine to coarse) of centerness (B, M),
-        bbox_pred (B, M, 8), cls_scores (B, M, C), points (B, M, 3) in
+        """backbone_outs: the stages' (coords, valid, feats[, nbr, plan]),
+        fine to coarse -> per-level dicts (fine to coarse) of centerness (B,
+        M), bbox_pred (B, M, 8), cls_scores (B, M, C), points (B, M, 3) in
         metres, valid and the out block's features."""
         n = len(backbone_outs)
         strides = [8 * 2 ** i for i in range(n)]
@@ -115,15 +117,20 @@ class FCAF3DHead(nn.Module):
         for i in range(n - 1, -1, -1):
             entry = backbone_outs[i]
             coords, valid, feats = entry[:3]
-            nbr = entry[3] if len(entry) > 3 else S.neighbor_table_batched(
-                coords, valid, coords, valid,
-                S.kernel_offsets(3, True, coords.device),
-                in_stride=strides[i], sorted_input=True)
+            if len(entry) > 3:
+                nbr, plan = entry[3:5]
+            else:
+                nbr = S.neighbor_table_batched(
+                    coords, valid, coords, valid,
+                    S.kernel_offsets(3, True, coords.device),
+                    in_stride=strides[i], sorted_input=True)
+                plan = S.conv_plan(nbr)
             if i < n - 1:
                 feats = feats + self._up_block(i + 1, x, coords, valid,
-                                               strides[i], nbr)
+                                               strides[i], nbr, plan)
             x = (coords, valid, feats)
-            of = self._out_block(i, coords, valid, feats, strides[i], nbr)
+            of = self._out_block(i, coords, valid, feats, strides[i], nbr,
+                                 plan)
             reg = self.reg_conv.dense(of)
             points = coords.float() * self.voxel_size + coords.new_tensor(
                 self.pc_start, dtype=torch.float32)

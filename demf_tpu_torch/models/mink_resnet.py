@@ -116,9 +116,10 @@ class SparseBasicBlock(nn.Module):
         elif in_channels != channels:
             raise ValueError('a stride-1 block keeps its width')
 
-    def forward(self, st, nbr=None):
+    def forward(self, st, nbr=None, plan=None):
         """st (coords, valid, feats); ``nbr``: the (B, M, 27) table of this
-        block's output level (stride-1 blocks).  Returns (st, nbr)."""
+        block's output level (stride-1 blocks) and ``plan`` its
+        ``conv_plan``.  Returns (st, nbr, plan)."""
         coords, valid, x = st
         ts = self.tensor_stride
         if self.stride > 1:
@@ -131,7 +132,7 @@ class SparseBasicBlock(nn.Module):
             coords_o, valid_o = coords, valid
             y = S.submanifold_conv_batched(coords, valid, x, self.conv1.taps,
                                            tensor_stride=ts, nbr=nbr,
-                                           sorted_input=True)
+                                           sorted_input=True, plan=plan)
             out_ts = ts
         y = F.relu(self.norm1(y, valid_o))
         if nbr is None:
@@ -139,8 +140,10 @@ class SparseBasicBlock(nn.Module):
                 coords_o, valid_o, coords_o, valid_o,
                 S.kernel_offsets(3, True, coords.device), in_stride=out_ts,
                 sorted_input=True)
+            plan = S.conv_plan(nbr)
         y = S.submanifold_conv_batched(coords_o, valid_o, y, self.conv2.taps,
-                                       tensor_stride=out_ts, nbr=nbr)
+                                       tensor_stride=out_ts, nbr=nbr,
+                                       plan=plan)
         y = self.norm2(y, valid_o)
         idn = x
         if self.downsample is not None:
@@ -153,14 +156,17 @@ class SparseBasicBlock(nn.Module):
             idn = norm(S.sparse_conv_apply_batched(x, dn_nbr, conv.taps),
                        valid_o)
         y = F.relu(y + idn)
-        return (coords_o, valid_o, torch.where(valid_o[..., None], y, 0)), nbr
+        return ((coords_o, valid_o, torch.where(valid_o[..., None], y, 0)),
+                nbr, plan)
 
 
 @BACKBONES.register_module()
 class MinkResNet(nn.Module):
     """mmdet3d MinkResNet on the port's sparse ops.  Input (coords (B, M, 3)
     int32, valid (B, M), feats (B, M, C)), a key-sorted table; returns a
-    list of the stages' (coords, valid, feats, nbr)."""
+    list of the stages' (coords, valid, feats, nbr, plan): each stage's
+    27-tap table and its K14 row plan, which the head's convs at that level
+    share."""
 
     BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
@@ -203,8 +209,8 @@ class MinkResNet(nn.Module):
                 sorted_input=True)
         outs = []
         for si in range(self.num_stages):
-            nbr = None
+            nbr = plan = None
             for block in getattr(self, f'layer{si + 1}'):
-                st, nbr = block(st, nbr)
-            outs.append((*st, nbr))
+                st, nbr, plan = block(st, nbr, plan)
+            outs.append((*st, nbr, plan))
         return outs

@@ -27,7 +27,7 @@ from .roi_align import (ROI_ALIGN_BACKWARD_BF16_KERNEL,
                         ROI_ALIGN_KERNEL, pyramid_roi_align)
 from .sampling import FPS_KERNEL, furthest_point_sample
 from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BF16_KERNEL,
-                     SPARSE_CONV_KERNEL)
+                     SPARSE_CONV_KERNEL, SPARSE_CONV_PLAN_KERNEL)
 
 __all__ = [
     'aligned_3d_nms', 'ball_query', 'batched_nms_2d', 'box_point_count',
@@ -44,10 +44,11 @@ def kernels():
     training paths' (FPS to MSDA backward, the 3D NMS and the box count,
     the 2D NMS and the RoIAlign (forward and backward) of ImVoteNet's
     image branch; the kernel map, the sparse convolution (float32 and
-    bfloat16 rows, each with its own count) and the class-wise rotated NMS
-    of the FCAF3D family; MSDA forward and backward on a float32 and on a
-    bfloat16 value, and the RoIAlign on float32 and on bfloat16 levels,
-    each with its own count) and the probes'."""
+    bfloat16 rows, each with its own count, and the row plan of its
+    tables) and the class-wise rotated NMS of the FCAF3D family; MSDA
+    forward and backward on a float32 and on a bfloat16 value, and the
+    RoIAlign on float32 and on bfloat16 levels, each with its own count)
+    and the probes'."""
     return {'fps': FPS_KERNEL, 'ball_query': BALL_QUERY_KERNEL,
             'msda': MSDA_KERNEL, 'msda_backward': MSDA_BACKWARD_KERNEL,
             'msda_bf16': MSDA_BF16_KERNEL,
@@ -62,4 +63,5 @@ def kernels():
             'kernel_map': KERNEL_MAP_KERNEL,
             'sparse_conv': SPARSE_CONV_KERNEL,
             'sparse_conv_bf16': SPARSE_CONV_BF16_KERNEL,
+            'sparse_conv_plan': SPARSE_CONV_PLAN_KERNEL,
             'nms3d_rotated': NMS3D_ROTATED_KERNEL}

@@ -21,7 +21,11 @@ keys as they stand (``key_table_presorted``).
 * ``sparse_conv_apply_batched``: ``out[b, m] = sum_t feats[b, nbr[b, m,
   t]] @ W[t]``, absent taps adding 0.  A CUDA tensor launches K14
   (``csrc/sparse_conv.cu``, float32 or bfloat16 rows and weights, float32
-  sums); a CPU tensor takes the plain per-tap gather and matmul.  The
+  sums) on the table's row plan (``conv_plan``: each row's tap mask, the
+  rows sorted by it, each 64-row tile's taps), which the model builds once
+  a table and hands to every convolution that reads it (``plan=``); a CPU
+  tensor takes the plain per-tap gather and matmul
+  (``sparse_conv_tiles_plain`` walks the kernel's order instead).  The
   forward only: the backward (the reverse tables of ``_conv_sym`` /
   ``_conv_revgeo``) comes with the training slice, so on the card a
   feature or weight that takes a gradient is refused.
@@ -37,10 +41,11 @@ permutes the JAX package's taps once, at conversion (``me_tap_order``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from ._cuda import CudaKernel, check_cuda
+from ._cuda import SM_COUNT, CudaKernel, check_cuda
 
 _SPAN = 1290                       # per-axis key span; _SPAN**3 < 2**31
 _SHIFT = 16                        # headroom for negative tap queries
@@ -52,12 +57,15 @@ KEY_PAD = 2 ** 31 - 1              # the key of a padding row
 # coords, query valid, offsets, out; B, M_in, Q, K, stride
 KERNEL_MAP_KERNEL = CudaKernel(
     'demf_kernel_map', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5)
-# K14: feats, nbr, weights, out; B, M_in, C, M_out, K, C_out (an entry a
-# dtype)
+# K14: feats, nbr, weights, the plan's order and tile taps, scratch, out;
+# B, M_in, C, M_out, K, C_out, taps a part (an entry a dtype)
 SPARSE_CONV_KERNEL = CudaKernel(
-    'demf_sparse_conv', [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6)
+    'demf_sparse_conv', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7)
 SPARSE_CONV_BF16_KERNEL = CudaKernel(
     'demf_sparse_conv_bf16', SPARSE_CONV_KERNEL.argtypes)
+# K14's row plan: nbr, mask, order, tile taps; B, M, K
+SPARSE_CONV_PLAN_KERNEL = CudaKernel(
+    'demf_sparse_conv_plan', [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 
 
 def linearize(coords):
@@ -230,11 +238,114 @@ def kernel_map_cuda(skeys, order, query_coords, query_valid, offsets,
     return out
 
 
-def sparse_conv_apply_batched(feats, nbr, weights):
+# K14's tiles (csrc/sparse_conv.cu): 64 plan-ordered rows x 64 output
+# channels a block, 32 input channels a stage of the walk
+CONV_TILE_ROWS = 64
+CONV_TILE_COLS = 64
+CONV_TILE_DEPTH = 32
+# the tap split: below this many blocks an SM the tap lists are cut, into
+# parts that walk at least this many chunks of 32 channels
+SPLIT_BELOW_BLOCKS = 8
+SPLIT_MIN_CHUNKS = 16
+# the plan sorts a scene's rows in chunks of this many (one block each)
+PLAN_CHUNK = 16384
+
+
+class ConvPlan(NamedTuple):
+    """A neighbour table's row plan (``conv_plan``): ``mask`` (B, M_out)
+    int32, bit t set where the row has tap t; ``order`` (B, M_out) int32,
+    each scene's rows sorted stably by mask (a permutation of 0 .. M_out -
+    1); ``tile_taps`` (B, ceil(M_out / 64)) int32, the taps of each tile of
+    64 consecutive rows of ``order``, the OR of their masks: the tile's tap
+    list, its set bits walked from the lowest."""
+    mask: torch.Tensor
+    order: torch.Tensor
+    tile_taps: torch.Tensor
+
+
+def _tap_bits(k, device):
+    return torch.ones((), dtype=torch.int32, device=device) << torch.arange(
+        k, dtype=torch.int32, device=device)
+
+
+def conv_plan(nbr):
+    """K14's row plan of a (B, M_out, K) neighbour table (K <= 32), made
+    once a table and shared by every convolution that reads it.  A CUDA
+    tensor launches the plan kernel (``csrc/sparse_conv.cu``), a CPU
+    tensor takes ``conv_plan_plain``."""
+    if nbr.device.type == 'cpu':
+        return conv_plan_plain(nbr)
+    return conv_plan_cuda(nbr.contiguous())
+
+
+def conv_plan_plain(nbr):
+    """The plan, a few torch ops: each row's mask; each scene's rows
+    sorted stably by it, in chunks of ``PLAN_CHUNK`` rows (a whole scene in
+    every config; tiles never straddle two chunks); each 64-row tile's OR
+    of its rows' masks.  A row with no tap (padding past the valid prefix,
+    an empty scene) keeps its place in the order and is written as 0."""
+    b, m, k = nbr.shape
+    if k > 32:
+        raise ValueError(f'a tap mask holds 32 taps, the table has {k}')
+    bits = _tap_bits(k, nbr.device)
+    hit = nbr >= 0
+    mask = torch.where(hit, bits, 0).sum(-1, dtype=torch.int32)
+    chunks = -(-m // PLAN_CHUNK)
+    keys = torch.full((b, chunks * PLAN_CHUNK), 1 << 32, dtype=torch.long,
+                      device=nbr.device)
+    keys[:, :m] = mask.long() & 0xffffffff
+    order = torch.argsort(keys.reshape(b, chunks, PLAN_CHUNK), dim=2,
+                          stable=True)
+    order = (order + torch.arange(chunks, device=nbr.device)[:, None] *
+             PLAN_CHUNK).reshape(b, -1)[:, :m]
+    tiles = -(-m // CONV_TILE_ROWS)
+    rows = hit.gather(1, order[..., None].expand(-1, -1, k))
+    if tiles * CONV_TILE_ROWS > m:
+        rows = torch.cat([rows, rows.new_zeros(
+            (b, tiles * CONV_TILE_ROWS - m, k))], 1)
+    tile_hit = rows.reshape(b, tiles, CONV_TILE_ROWS, k).any(2)
+    tile_taps = torch.where(tile_hit, bits, 0).sum(-1, dtype=torch.int32)
+    return ConvPlan(mask, order.to(torch.int32), tile_taps)
+
+
+def conv_plan_cuda(nbr):
+    """K14's plan kernel: int32 nbr (B, M, K) contiguous on the card ->
+    the ``ConvPlan``, equal to ``conv_plan_plain``'s."""
+    check_cuda('nbr', nbr, torch.int32, 3)
+    b, m, k = nbr.shape
+    if k > 32:
+        raise ValueError(f'a tap mask holds 32 taps, the table has {k}')
+    mask = torch.empty((b, m), dtype=torch.int32, device=nbr.device)
+    order = torch.empty_like(mask)
+    tile_taps = torch.empty((b, -(-m // CONV_TILE_ROWS)), dtype=torch.int32,
+                            device=nbr.device)
+    if mask.numel():
+        SPARSE_CONV_PLAN_KERNEL(nbr.data_ptr(), mask.data_ptr(),
+                                order.data_ptr(), tile_taps.data_ptr(), b, m,
+                                k)
+    return ConvPlan(mask, order, tile_taps)
+
+
+def taps_a_part(b, m_out, c, c_out, k, dtype=torch.float32):
+    """How many taps of a tile's list one K14 block takes (``group``): the
+    whole list where the grid fills the card (``SPLIT_BELOW_BLOCKS`` x 132
+    blocks) or the rows go by element (C or C_out not a multiple of a
+    16-byte copy: the stem); else the fewest taps whose chunks of 32
+    channels number ``SPLIT_MIN_CHUNKS`` (2 at C 256, 1 at 512), so that
+    the blocks' work is even and the heaviest tile does not set the time."""
+    vec = 128 // torch.finfo(dtype).bits        # elements a 16-byte copy
+    blocks = b * -(-m_out // CONV_TILE_ROWS) * -(-c_out // CONV_TILE_COLS)
+    if c % vec or c_out % vec or blocks >= SPLIT_BELOW_BLOCKS * SM_COUNT:
+        return k
+    return min(k, -(-SPLIT_MIN_CHUNKS // -(-c // CONV_TILE_DEPTH)))
+
+
+def sparse_conv_apply_batched(feats, nbr, weights, plan=None):
     """Gather-GEMM sparse convolution: feats (B, M, C), nbr (B, M_out, K),
     weights (K, C, C_out) -> (B, M_out, C_out) in the features' dtype (the
     weights go to it, as the JAX package casts them to the rows').  A CUDA
-    tensor launches K14, a CPU tensor takes the plain version."""
+    tensor launches K14 on ``plan`` (the table's ``conv_plan``, made here
+    when not given), a CPU tensor takes the plain version."""
     weights = weights.to(feats.dtype)
     if feats.device.type == 'cpu':
         return sparse_conv_plain(feats, nbr, weights)
@@ -244,7 +355,8 @@ def sparse_conv_apply_batched(feats, nbr, weights):
             'the sparse convolution\'s backward is not ported yet '
             '(ROADMAP M8, the training half): K14 is forward only')
     return sparse_conv_cuda(feats.contiguous(), nbr.contiguous(),
-                            weights.contiguous())
+                            weights.contiguous(),
+                            conv_plan(nbr) if plan is None else plan)
 
 
 def sparse_conv_plain(feats, nbr, weights):
@@ -266,10 +378,47 @@ def sparse_conv_plain(feats, nbr, weights):
     return acc.to(feats.dtype)
 
 
-def sparse_conv_cuda(feats, nbr, weights):
+def sparse_conv_tiles_plain(feats, nbr, weights, plan, group=None):
+    """K14's walk, plainly: the rows in the plan's order, each 64-row tile
+    taking the taps of its list only, cut into parts of ``group`` taps as
+    the kernel cuts them (part p: list positions [p G, (p + 1) G); None:
+    the whole list); each part's float32 sums in tap order, the parts
+    summed in order 0, 1, .., rounded once, and each row written to its own
+    place ``out[b, order[i]]``.  Equal to ``sparse_conv_plain`` up to the
+    order of the float32 sums."""
+    b, m, c = feats.shape
+    mo, k = nbr.shape[1:]
+    dev = feats.device
+    order = plan.order.long()
+    rows = nbr.gather(1, order[..., None].expand(-1, -1, k)).long()
+    listed = (plan.tile_taps[..., None] & _tap_bits(k, dev)) != 0
+    pos = listed.cumsum(-1) - 1                         # place in the list
+    group = group or k
+    tile = torch.arange(mo, device=dev) // CONV_TILE_ROWS
+    flat = feats.reshape(b * m, c)
+    base = (torch.arange(b, device=dev) * m)[:, None]
+    total = None
+    for p in range(-(-k // group)):
+        mine = listed & (pos >= p * group) & (pos < (p + 1) * group)
+        acc = torch.zeros((b, mo, weights.shape[2]), dtype=torch.float32,
+                          device=dev)
+        for t in range(k):
+            take = mine[:, tile, t] & (rows[..., t] >= 0)
+            g = flat[(rows[..., t].clamp(min=0) + base).reshape(-1)]
+            g = torch.where(take[..., None], g.reshape(b, mo, c), 0).float()
+            acc = acc + g @ weights[t].float()
+        total = acc if total is None else total + acc
+    out = torch.empty_like(total)
+    out.scatter_(1, order[..., None].expand_as(total), total)
+    return out.to(feats.dtype)
+
+
+def sparse_conv_cuda(feats, nbr, weights, plan=None, group=None):
     """Kernel K14 (csrc/sparse_conv.cu): float32 or bfloat16 feats (B, M,
-    C) and weights (K, C, C_out) of one dtype, int32 nbr (B, M_out, K), all
-    contiguous on the card -> (B, M_out, C_out) in their dtype."""
+    C) and weights (K, C, C_out) of one dtype, int32 nbr (B, M_out, K) and
+    its ``conv_plan`` (made here when not given), all contiguous on the
+    card -> (B, M_out, C_out) in their dtype.  ``group`` (the taps a part
+    takes) overrides ``taps_a_part``."""
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'feats must be float32 or bfloat16, got '
                         f'{feats.dtype}')
@@ -279,30 +428,46 @@ def sparse_conv_cuda(feats, nbr, weights):
     b, m, c = feats.shape
     mo, k = nbr.shape[1:]
     co = weights.shape[2]
-    if nbr.shape[0] != b or weights.shape[:2] != (k, c):
+    if nbr.shape[0] != b or weights.shape[:2] != (k, c) or k > 32:
         raise ValueError(
             f'feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)} and '
             f'weights {tuple(weights.shape)} do not go together')
+    if plan is None:
+        plan = conv_plan(nbr)
+    check_cuda('plan.order', plan.order, torch.int32, 2)
+    check_cuda('plan.tile_taps', plan.tile_taps, torch.int32, 2)
+    if plan.order.shape != (b, mo) or \
+            plan.tile_taps.shape != (b, -(-mo // CONV_TILE_ROWS)):
+        raise ValueError(f'the plan ({tuple(plan.order.shape)}, '
+                         f'{tuple(plan.tile_taps.shape)}) is not that of nbr '
+                         f'{tuple(nbr.shape)}')
+    group = min(k, group or taps_a_part(b, mo, c, co, k, feats.dtype))
     out = torch.empty((b, mo, co), dtype=feats.dtype, device=feats.device)
     if out.numel():
+        parts = -(-k // group)
+        scratch = torch.empty((parts, b, mo, co), dtype=torch.float32,
+                              device=feats.device) if parts > 1 else None
         kernel = (SPARSE_CONV_BF16_KERNEL if feats.dtype == torch.bfloat16
                   else SPARSE_CONV_KERNEL)
         kernel(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-               out.data_ptr(), b, m, c, mo, k, co)
+               plan.order.data_ptr(), plan.tile_taps.data_ptr(),
+               0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+               b, m, c, mo, k, co, group)
     return out
 
 
 def submanifold_conv_batched(coords, valid, feats, weights, kernel_size=3,
-                             tensor_stride=1, nbr=None, sorted_input=False):
+                             tensor_stride=1, nbr=None, sorted_input=False,
+                             plan=None):
     """MinkowskiConvolution(stride=1) on the same coordinate set; ``nbr``
-    may be the level's table (taps in MinkowskiEngine's order), built once
-    and shared by its convs."""
+    may be the level's table (taps in MinkowskiEngine's order) and ``plan``
+    its ``conv_plan``, built once and shared by its convs."""
     if nbr is None:
         offs = kernel_offsets(kernel_size, True, coords.device)
         nbr = neighbor_table_batched(coords, valid, coords, valid, offs,
                                      in_stride=tensor_stride,
                                      sorted_input=sorted_input)
-    out = sparse_conv_apply_batched(feats, nbr, weights)
+    out = sparse_conv_apply_batched(feats, nbr, weights, plan)
     return torch.where(valid[..., None], out, 0)
 
 
@@ -373,17 +538,14 @@ def sparse_max_pool_batched(coords, valid, feats, stride=2, kernel_size=2,
     return oc, ov, torch.where(ov[..., None], out, 0)
 
 
-def transposed_conv_to_batched(coords_fine, valid_fine, coords_coarse,
-                               valid_coarse, feats_coarse, weights, stride=2,
-                               kernel_size=2, tensor_stride=1,
-                               sorted_input=False):
-    """MinkowskiConvolutionTranspose(kernel=2, stride=2) onto a known fine
-    coordinate set (the encoder skip's table), as FCAF3D's decoder
-    upsamples: each fine voxel's parent ``coords_fine // cs * cs`` is found
-    with a one-tap K13 lookup, its tap is the offset ``(fine - parent) //
-    tensor_stride``, and the (B, M_f, K) table holding the parent at that
-    tap goes through K14.  ``tensor_stride`` is the fine level's
-    granularity."""
+def transposed_table(coords_fine, valid_fine, coords_coarse, valid_coarse,
+                     stride=2, kernel_size=2, tensor_stride=1,
+                     sorted_input=False):
+    """The (B, M_f, K) table of a transposed conv onto a known fine set:
+    each fine voxel's parent ``coords_fine // cs * cs`` found with a
+    one-tap K13 lookup, held at the tap of its offset ``(fine - parent) //
+    tensor_stride`` (the first axis fastest); each row has one tap at
+    most."""
     cs = stride * tensor_stride
     parent = torch.div(coords_fine, cs, rounding_mode='floor') * cs
     zero = torch.zeros((1, 3), dtype=torch.int32, device=coords_fine.device)
@@ -393,10 +555,23 @@ def transposed_conv_to_batched(coords_fine, valid_fine, coords_coarse,
     off = torch.div(coords_fine - parent, tensor_stride,
                     rounding_mode='floor')
     k = kernel_size
-    tap = off[..., 0] + k * (off[..., 1] + k * off[..., 2])  # the first
-    taps = torch.arange(k ** 3, device=tap.device)          # axis fastest
-    tnbr = torch.where((tap[..., None] == taps) & (prow[..., None] >= 0),
+    tap = off[..., 0] + k * (off[..., 1] + k * off[..., 2])
+    taps = torch.arange(k ** 3, device=tap.device)
+    return torch.where((tap[..., None] == taps) & (prow[..., None] >= 0),
                        prow[..., None], -1).to(torch.int32)
+
+
+def transposed_conv_to_batched(coords_fine, valid_fine, coords_coarse,
+                               valid_coarse, feats_coarse, weights, stride=2,
+                               kernel_size=2, tensor_stride=1,
+                               sorted_input=False):
+    """MinkowskiConvolutionTranspose(kernel=2, stride=2) onto a known fine
+    coordinate set (the encoder skip's table), as FCAF3D's decoder
+    upsamples: the ``transposed_table`` goes through K14.
+    ``tensor_stride`` is the fine level's granularity."""
+    tnbr = transposed_table(coords_fine, valid_fine, coords_coarse,
+                            valid_coarse, stride, kernel_size,
+                            tensor_stride, sorted_input)
     out = sparse_conv_apply_batched(feats_coarse, tnbr, weights)
     return torch.where(valid_fine[..., None], out, 0)
 

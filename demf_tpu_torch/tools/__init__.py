@@ -4,7 +4,8 @@
     python -m demf_tpu_torch.tools.bench_msda_matmul               # K7
     python -m demf_tpu_torch.tools.bench_msda_fold [--batch B]     # K5 + K6
     python -m demf_tpu_torch.tools.compare_kernels [--parent DIR]  # K1-K4,
-                                                      # K6, K7, K9-K12
+                                                      # K6, K7, K9-K12,
+                                                      # K14
     python -m demf_tpu_torch.tools.k4_phases [--batch B]           # K4 by phase
     python -m demf_tpu_torch.tools.k12_phases                      # K12 by phase
 
@@ -14,8 +15,8 @@ Each checks its kernel against the plain version on the kernel's own
 output, then times both with CUDA events, prints its lines and returns
 the numbers.  Inputs come from a seeded generator on the card.  Without a
 card each raises: none falls back to the CPU.  ``compare_kernels`` times
-K1-K4, K6, K7 and K9-K12 in turns with another commit's, each through its own
-wrapper.
+K1-K4, K6, K7, K9-K12 and K14 in turns with another commit's, each through
+its own wrapper; ``sparse_cases`` makes K14's levels off the model path.
 """
 from __future__ import annotations
 
@@ -54,10 +55,11 @@ def time_ms(fn, iters):
 
 
 # published peaks of one NVIDIA H100 SXM: float32 outside the tensor cores,
-# bf16 on the tensor cores (dense; bf16 operands, float32 sums), and device
-# memory
+# bf16 on the tensor cores (dense; bf16 operands, float32 sums), TF32 on
+# them (dense), and device memory
 PEAK_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 

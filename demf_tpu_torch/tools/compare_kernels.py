@@ -1,7 +1,8 @@
 """K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward), K6
 (slot fold), K7 (M-form sampler), K9 (box count), K10 (batched 2D NMS),
-K11 (pyramid RoIAlign) and K12 (its backward) of this tree against the
-same kernels of another commit, in turns, on one card:
+K11 (pyramid RoIAlign), K12 (its backward) and K14 (the sparse
+convolution) of this tree against the same kernels of another commit, in
+turns, on one card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
         tar -x -C build/parent
@@ -14,7 +15,8 @@ side goes through its own wrapper (``furthest_point_sample_cuda``,
 ``ball_query_cuda``, ``msda_cuda``, ``msda_backward_cuda``,
 ``weighted_slot_fold_batched`` / ``slot_major_fold``,
 ``mform_sample_cuda``, ``batched_nms_2d_cuda``, ``pyramid_roi_align_cuda``,
-``pyramid_roi_align_backward_cuda``), whatever C interface lies below.  At
+``pyramid_roi_align_backward_cuda``, ``sparse_conv_cuda``), whatever C
+interface lies below.  At
 every shape of the main paths (K7: the four levels of
 ``bench_msda_matmul``, bf16 and f32) each side is timed
 twice, in the order parent, this tree, this tree, parent, on tensors made
@@ -61,6 +63,16 @@ sampler hands them over and piled onto one box (``tools/roi_cases.py``);
 each side's largest difference from the plain version's autograd (within
 1e-5 of the largest gradient) and whether two of its calls give the same
 bits are printed, and this tree's kernels' device ms.
+K14 runs on the 47 convolutions of a FCAF3D request (full width, 2 scenes
+of 100,000 points, seeded weights, norms calibrated: their own features,
+tables and weights) summed, in float32 and in bf16, and on a dense cube
+and a scattered level at layers 1, 3 and 4's widths
+(``tools/sparse_cases.py``); this tree's calls make their tables' row
+plans anew inside the timed call (once a table, as the model does), a
+parent without plans goes as it is.  Every output of both sides must lie
+within 1e-5 of the plain version's largest (bf16: one bf16 step); the
+GFLOP of the taps that exist and of those this tree computes are printed,
+and this tree's device ms of the request's convolutions by shape.
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -77,7 +89,7 @@ sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
 ``ops.grouping.ball_query_launch_shape`` and
 ``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
 (``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
-roi_align,roi_align_backward``).  Prints its lines, writes
+roi_align,roi_align_backward,sparse_conv``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -93,7 +105,7 @@ import torch
 
 from ..core import boxes as box_ops
 from ..ops import (box_count, grouping, mform, msda, msda_fold, nms2d,
-                   roi_align, sampling)
+                   roi_align, sampling, sparse)
 from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
 from ..ops.gather_rows import gather_rows
 from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
@@ -103,6 +115,8 @@ from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
 from .nms_cases import box_count_case, nms2d_case
 from .roi_cases import (ROI_KINDS, ROI_STRIDES, SAMPLED_ROIS, k12_case,
                         roi_case)
+from .sparse_cases import (SPARSE_LEVELS, calibrate_batch_norms, conv_flops,
+                           level, tolerance)
 
 # (scenes, points, picks) of the point branch's four SA modules and the
 # vote aggregation, at the training batch and the serving batch
@@ -140,7 +154,7 @@ MSDA_BACKWARD_CASES = tuple(
 
 KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
            'msda_fold', 'box_count', 'nms2d', 'roi_align',
-           'roi_align_backward')
+           'roi_align_backward', 'sparse_conv')
 # K9: (scenes, points, boxes) of a request and of an eval batch
 BOX_COUNT_SHAPES = ((2, 20000, 512), (16, 20000, 512))
 # K10: (scenes, layout, candidates, IoU threshold) of the RPN's and the
@@ -152,27 +166,23 @@ NMS2D_SHAPES = ((16, 'rcnn', 10000, 0.5), (16, 'rpn', 4390, 0.7),
 
 def parent_ops(parent):
     """The other commit's ``ops.sampling``, ``ops.grouping``, ``ops.msda``,
-    ``ops.mform``, ``ops.msda_fold``, ``ops.nms2d`` and ``ops.roi_align``,
-    loaded as the package ``demf_parent_ops``, and its ``core/boxes.py`` as
-    ``demf_parent_boxes``; this tree's without a parent."""
+    ``ops.mform``, ``ops.msda_fold``, ``core.boxes``, ``ops.nms2d`` and
+    ``ops.roi_align``, its ``demf_tpu_torch`` loaded as the package
+    ``demf_parent``; this tree's without a parent."""
     if parent is None:
         return (sampling, grouping, msda, mform, msda_fold, box_ops, nms2d,
                 roi_align)
-    path = os.path.join(parent, 'demf_tpu_torch', 'ops')
+    path = os.path.join(parent, 'demf_tpu_torch')
     spec = importlib.util.spec_from_file_location(
-        'demf_parent_ops', os.path.join(path, '__init__.py'),
+        'demf_parent', os.path.join(path, '__init__.py'),
         submodule_search_locations=[path])
     package = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = package
     spec.loader.exec_module(package)
-    spec = importlib.util.spec_from_file_location(
-        'demf_parent_boxes',
-        os.path.join(parent, 'demf_tpu_torch', 'core', 'boxes.py'))
-    boxes = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(boxes)
-    mods = tuple(importlib.import_module(f'demf_parent_ops.{name}')
+    mods = tuple(importlib.import_module(f'demf_parent.ops.{name}')
                  for name in ('sampling', 'grouping', 'msda', 'mform',
                               'msda_fold', 'nms2d', 'roi_align'))
+    boxes = importlib.import_module('demf_parent.core.boxes')
     return mods[:5] + (boxes,) + mods[5:]
 
 
@@ -813,6 +823,158 @@ def compare_roi_align_backward(old, dev, sweep):
     return rows
 
 
+def request_convs(dev):
+    """The (feats, nbr, weights, plan) of each of the 47 K14 calls of a
+    FCAF3D request at full width (2 scenes of 100,000 points, seeded
+    weights, norms calibrated), as this tree's model makes them."""
+    from .. import zoo
+    from ..engine import batch_to_device
+    model = zoo.build_detector('fcaf3d/fcaf3d_sunrgbd.py', device=dev,
+                               seed=0)
+    request = batch_to_device(zoo.synth_fcaf3d_batch(2, p=100000, seed=0),
+                              dev)
+    calibrate_batch_norms(model, request)
+    calls = []
+    run = sparse.sparse_conv_cuda
+
+    def record(*args):
+        calls.append(args)
+        return run(*args)
+
+    sparse.sparse_conv_cuda = record
+    try:
+        with torch.inference_mode():
+            model(request)
+    finally:
+        sparse.sparse_conv_cuda = run
+    del model, request
+    torch.cuda.empty_cache()
+    return calls
+
+
+def _k14_side(fn, calls, dtype):
+    """The largest |kernel - plain| over ``calls`` relative to its bound
+    (at most 1 within it)."""
+    worst = 0.0
+    for feats, nbr, w, *_ in calls:
+        want = sparse.sparse_conv_plain(feats, nbr, w)
+        err = (fn(feats, nbr, w).float() - want.float()).abs().max().item()
+        worst = max(worst, err / tolerance(want, dtype))
+    return worst
+
+
+def compare_sparse_conv(old, dev):
+    """K14 through both wrappers on a request's 47 convolutions summed and
+    on the cube and scattered levels, float32 and bf16, in turns; this
+    tree's plans made inside its timed call, once a table."""
+    rows = []
+    with torch.inference_mode():
+        recorded = request_convs(dev)
+        cases = [('request (47 convolutions)', [
+            (f, n, w, id(p)) for f, n, w, p in recorded])]
+        for kind, b, m, c, co in SPARSE_LEVELS:
+            nbr, m_in = level(dev, kind, b, m)
+            gen = torch.Generator(dev).manual_seed(m + c)
+            cases.append((f'{kind} (B {b}, M {m}, {c} -> {co}, K 27)', [(
+                torch.randn(b, m_in, c, device=dev, generator=gen), nbr,
+                torch.randn(27, c, co, device=dev, generator=gen) /
+                (27 * c) ** 0.5, 0)]))
+        for name, calls32 in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                rows.append(_compare_k14(old, name, calls32, dtype))
+        rows += k14_by_shape(recorded)
+    return rows
+
+
+def k14_by_shape(calls32):
+    """This tree's device ms (torch.profiler) of the request's 47
+    convolutions in float32 and bf16, summed by shape (rows, C, C_out, K,
+    taps a part), with the GFLOP of the taps that exist and of those
+    computed on the tiles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        calls = [(f.to(dtype), n, w.to(dtype), p) for f, n, w, p in calls32]
+        for args in calls:
+            sparse.sparse_conv_cuda(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for args in calls:
+                sparse.sparse_conv_cuda(*args)
+            torch.cuda.synchronize()
+        kernels = iter(sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and 'sparse_conv' in e.name), key=lambda e: e.time_range.start))
+        by = {}
+        for feats, nbr, w, plan in calls:
+            b, _, c = feats.shape
+            mo, k = nbr.shape[1:]
+            co = w.shape[2]
+            group = sparse.taps_a_part(b, mo, c, co, k, dtype)
+            ms = sum(next(kernels).time_range.elapsed_us()
+                     for _ in range(1 if group >= k else 2)) / 1e3
+            existing, computed = conv_flops(nbr, plan, c, co)
+            row = by.setdefault((mo, c, co, k, group), [0, 0.0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += ms
+            row[2] += existing / 1e9
+            row[3] += computed / 1e9
+        total = sum(r[1] for r in by.values())
+        print(f'K14 sparse_conv {str(dtype)[6:]}, the request\'s 47 '
+              f'convolutions: {total:.4f} ms of device time', flush=True)
+        for (mo, c, co, k, group), (n, ms, ex, cp) in sorted(
+                by.items(), key=lambda x: -x[1][1]):
+            print(f'  M {mo}, {c} -> {co}, K {k}, {group} taps a part, x{n}: '
+                  f'{ms:.4f} ms, {ex:.2f} GFLOP existing / {cp:.2f} computed, '
+                  f'{cp / ms:.1f} TFLOP/s computed', flush=True)
+            rows.append(dict(kernel='sparse_conv_by_shape',
+                             dtype=str(dtype)[6:], m_out=mo, c=c, c_out=co,
+                             k=k, group=group, convs=n, ms=ms,
+                             gflop_existing=ex, gflop_computed=cp))
+    return rows
+
+
+def _compare_k14(old, name, calls32, dtype):
+    calls = [(f.to(dtype), n, w.to(dtype), t) for f, n, w, t in calls32]
+    tables = {}
+    for _, nbr, _, t in calls:
+        tables.setdefault(t, nbr)
+    existing = computed = 0.0
+    for feats, nbr, w, t in calls:
+        e, c = conv_flops(nbr, sparse.conv_plan(nbr), feats.shape[2],
+                          w.shape[2])
+        existing += e
+        computed += c
+
+    def tree():
+        plans = {t: sparse.conv_plan(n) for t, n in tables.items()}
+        for feats, nbr, w, t in calls:
+            sparse.sparse_conv_cuda(feats, nbr, w, plans[t])
+
+    def parent():
+        for feats, nbr, w, _ in calls:
+            old.sparse_conv_cuda(feats, nbr, w)
+
+    errs = [_k14_side(old.sparse_conv_cuda, calls, dtype),
+            _k14_side(sparse.sparse_conv_cuda, calls, dtype)]
+    ms = in_turns(parent, tree, 5)
+    row = dict(kernel='sparse_conv', case=name, dtype=str(dtype)[6:],
+               err_over_bound=errs, gflop_existing=existing / 1e9,
+               gflop_computed=computed / 1e9, parent_ms=[ms[0], ms[3]],
+               ms=[ms[1], ms[2]])
+    print(f'K14 sparse_conv {str(dtype)[6:]}, {name}: parent {ms[0]:.4f} / '
+          f'{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms (its '
+          f'plans included); {existing / 1e9:.3f} GFLOP of existing taps, '
+          f'{computed / 1e9:.3f} computed on this tree\'s tiles; largest '
+          f'|kernel - plain| over its bound: parent {errs[0]:.3f}, this '
+          f'tree {errs[1]:.3f}', flush=True)
+    if max(errs) > 1:
+        raise AssertionError('a sparse convolution kernel differs from '
+                             'plain')
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', default=None,
@@ -843,7 +1005,7 @@ def main(argv=None):
     if 'msda_fold' in only:
         rows += compare_msda_fold(old_fold, dev)
     if 'box_count' in only:
-        old_k9 = sys.modules.get('demf_parent_ops')
+        old_k9 = sys.modules.get('demf_parent.ops')
         old_k9 = getattr(old_k9, 'box_point_count', None) if args.parent \
             else box_count.box_point_count_cuda
         rows += compare_box_count(old_k9 or old_boxes, dev, old_k9 is not None)
@@ -853,6 +1015,10 @@ def main(argv=None):
         rows += compare_roi_align(old_roi_align, dev)
     if 'roi_align_backward' in only:
         rows += compare_roi_align_backward(old_roi_align, dev, args.sweep)
+    if 'sparse_conv' in only:
+        old_sparse = importlib.import_module('demf_parent.ops.sparse') \
+            if args.parent else sparse
+        rows += compare_sparse_conv(old_sparse, dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -1908,36 +1908,104 @@ def test_kernel_map_equals_plain(dev, b, m, spread, k, stride, presorted):
     assert (got >= 0).any() and ((got < 0).any() or k == 1)
 
 
+def conv_table(dev, level, b, m, k):
+    """A K14 input: (nbr (B, M_out, K), M_in, valid output rows).  Levels:
+    ``spread`` (a 2 cm cloud, the last scene empty when ``b`` > 2),
+    ``transposed`` (the decoder's table onto it: one tap a row at most),
+    and ``tools/sparse_cases.py``'s ``cube`` (every tap inside exists),
+    ``scattered`` (few taps a row) and ``distinct`` (a tap mask a row)."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import sparse_cases
+    if level in ('cube', 'scattered', 'distinct'):
+        nbr, m_in = sparse_cases.level(dev, level, b, m, k)
+        return nbr, m_in, torch.ones((b, m), dtype=torch.bool, device=dev)
+    coords, valid = voxel_level(dev, b=b, m=m)
+    if level == 'transposed':
+        cc, cv = sparse.downsample_coords(coords, valid, 2, m // 2)
+        return sparse.transposed_table(coords, valid, cc, cv,
+                                       sorted_input=True), m // 2, valid
+    return sparse_cases.level_table(coords, valid, k), m, valid
+
+
+# (level, scenes, rows, C, C_out, K): the FCAF3D path's kinds of call and
+# the levels the row plan meets
+SPARSE_CONV_CASES = [
+    ('spread', 3, 2048, 3, 64, 27), ('spread', 3, 2048, 64, 64, 27),
+    ('spread', 3, 2048, 128, 256, 8), ('spread', 3, 2048, 16, 40, 1),
+    ('spread', 3, 512, 512, 512, 27), ('spread', 2, 512, 512, 512, 27),
+    ('cube', 2, 4096, 64, 64, 27), ('cube', 2, 512, 256, 256, 27),
+    ('scattered', 3, 2048, 128, 128, 27),
+    ('distinct', 2, 1024, 64, 128, 27),
+    ('transposed', 3, 2048, 128, 64, 8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('c,co,k', [(3, 64, 27), (64, 64, 27), (128, 256, 8),
-                                    (16, 40, 1), (512, 512, 27)])
-def test_sparse_conv_equals_plain(dev, c, co, k, dtype):
+@pytest.mark.parametrize('level,b,m,c,co,k', SPARSE_CONV_CASES)
+def test_sparse_conv_equals_plain(dev, level, b, m, c, co, k, dtype):
     """Rows of an empty scene and past the valid prefix (all taps absent),
-    taps with no neighbour, channels that no tile divides: float32 within
-    1e-5 of the largest output, bf16 within one bf16 step of it."""
+    taps with no neighbour, channels that no tile divides, a dense cube, a
+    scattered level, a mask a row, one-tap rows, the tap split (layer 4's
+    (512, 512, 27) at batch 2): float32 within 1e-5 of the largest output,
+    bf16 within one bf16 step of it, against the plain version and against
+    the plain walk of the plan in the kernel's order; the same bits on two
+    calls, with the tap lists cut into parts of 1, 3 and all taps; rows
+    with no tap exactly 0."""
     from demf_tpu_torch.ops import sparse
-    coords, valid = voxel_level(dev, b=3, m=2048 if c < 512 else 512)
-    taps = {27: 3, 8: 2, 1: 1}[k]
-    nbr = sparse.neighbor_table_batched(
-        coords, valid, coords, valid, sparse.kernel_offsets(taps, device=dev),
-        sorted_input=True)
+    nbr, m_in, valid = conv_table(dev, level, b, m, k)
     g = torch.Generator(dev).manual_seed(c + co)
-    feats = (torch.randn(*coords.shape[:2], c, device=dev, generator=g) *
-             valid[..., None]).to(dtype)
+    feats = torch.randn(b, m_in, c, device=dev, generator=g).to(dtype)
     w = (torch.randn(k, c, co, device=dev, generator=g) /
          (k * c) ** 0.5).to(dtype)
     kernel = (sparse.SPARSE_CONV_BF16_KERNEL if dtype == torch.bfloat16
               else sparse.SPARSE_CONV_KERNEL)
+    plan = sparse.conv_plan(nbr)
+    group = sparse.taps_a_part(b, m, c, co, k, dtype)
+    if (level, b, m, c) == ('spread', 2, 512, 512):
+        assert group < k
     before = kernel.launches
-    got = sparse.sparse_conv_cuda(feats, nbr, w)
+    got = sparse.sparse_conv_cuda(feats, nbr, w, plan)
     assert kernel.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, sparse.sparse_conv_cuda(feats, nbr, w, plan))
     want = sparse.sparse_conv_plain(feats, nbr, w).float()
     top = want.abs().max().item()
     tol = 1e-5 * top if dtype == torch.float32 else \
         2.0 ** (np.floor(np.log2(top)) - 7)
+    walked = sparse.sparse_conv_tiles_plain(feats, nbr, w, plan,
+                                            group).float()
+    assert (walked - want).abs().max().item() <= tol
     assert (got.float() - want).abs().max().item() <= tol
-    assert (got[-1] == 0).all() and (got[~valid] == 0).all()
+    assert (got.float() - walked).abs().max().item() <= tol
+    for other in {k, 1, 3} - {group}:
+        again = sparse.sparse_conv_cuda(feats, nbr, w, plan, group=other)
+        assert (again.float() - want).abs().max().item() <= tol
+        assert torch.equal(again, sparse.sparse_conv_cuda(
+            feats, nbr, w, plan, group=other))
+    assert (got[plan.mask == 0] == 0).all()
+    if level != 'distinct':
+        assert (got[~valid] == 0).all()
+    if b > 2 and level in ('spread', 'transposed'):
+        assert (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('level,b,m,k', [
+    ('spread', 3, 2048, 27), ('spread', 2, 16384, 27), ('spread', 1, 20000, 8),
+    ('cube', 2, 4096, 27), ('scattered', 2, 512, 27),
+    ('distinct', 2, 1024, 27), ('transposed', 3, 2048, 8),
+    ('spread', 2, 100, 1)])
+def test_conv_plan_equals_plain(dev, level, b, m, k):
+    """K14's plan kernel: masks, order (each scene's rows sorted stably by
+    mask, in chunks of 16,384: a scene of 20,000 rows takes two) and tile
+    taps equal to the plain plan's, at each of its block sizes."""
+    from demf_tpu_torch.ops import sparse
+    nbr = conv_table(dev, level, b, m, k)[0]
+    before = sparse.SPARSE_CONV_PLAN_KERNEL.launches
+    got = sparse.conv_plan(nbr)
+    assert sparse.SPARSE_CONV_PLAN_KERNEL.launches == before + 1
+    want = sparse.conv_plan_plain(nbr)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
 
 
 # K15's IoU of a box and a copy of itself (the diagonal, and coincident

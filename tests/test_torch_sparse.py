@@ -14,7 +14,15 @@ same inputs made with numpy from a seed.
   version; the port's kernels in MinkowskiEngine's tap order, the JAX
   package's permuted by ``engine/weights.py::me_tap_order``) and the max
   pool within 1e-5 of each output's largest value;
-* a bfloat16 convolution held to the JAX package's own bf16 - float32 gap.
+* a bfloat16 convolution held to the JAX package's own bf16 - float32 gap;
+* K14's row plan (``conv_plan``) of every table those convolutions read
+  (the ``tiles`` cases): every row once in the order, sorted stably by its
+  tap mask, every tap a row has in its tile's list; and the plain walk of
+  the plan's tiles in the kernel's order (``sparse_conv_tiles_plain``, the
+  whole list a part and 2 taps a part) within 1e-5 of
+  ``sparse_conv_plain``, rows with no tap
+  exactly 0, and the convolution so computed held to the JAX package's as
+  the plain one is.
 """
 import jax
 import jax.numpy as jnp
@@ -153,8 +161,53 @@ def close(got, want, tol=1e-5):
     assert err <= tol * np.abs(want).max(), err
 
 
+def check_plan(nbr, plan):
+    """K14's row plan of ``nbr``: each row's mask, every row once in the
+    order, the order sorted stably by mask, and every (row, tap) with a
+    neighbour inside its tile's tap list."""
+    b, m, k = nbr.shape
+    hit = nbr >= 0
+    bits = 1 << torch.arange(k)
+    assert torch.equal(plan.mask, (hit.long() * bits).sum(-1).int())
+    order = plan.order.long()
+    rows = torch.arange(m).expand(b, m)
+    assert torch.equal(order.sort(1).values, rows)
+    smask = plan.mask.gather(1, order)
+    assert (smask[:, 1:] >= smask[:, :-1]).all()
+    same = smask[:, 1:] == smask[:, :-1]
+    assert (order[:, 1:] > order[:, :-1])[same].all()
+    place = torch.empty_like(order).scatter_(1, order, rows)
+    listed = plan.tile_taps.gather(1, place // P.CONV_TILE_ROWS)
+    assert ((listed[..., None].long() & bits) != 0)[hit].all()
+    assert plan.tile_taps.shape == (b, -(-m // P.CONV_TILE_ROWS))
+
+
+def route_through_tiles(monkeypatch):
+    """Make the port's convolutions go through the plain walk of their
+    plans' tiles (whole lists, and parts of 2 taps), each checked against
+    the plain version on the way."""
+    plain = P.sparse_conv_plain
+
+    def walk(feats, nbr, weights):
+        plan = P.conv_plan(nbr)
+        check_plan(nbr, plan)
+        want = plain(feats, nbr, weights)
+        empty = plan.mask == 0
+        assert empty.any()
+        outs = [P.sparse_conv_tiles_plain(feats, nbr, weights, plan, group)
+                for group in (None, 2)]
+        for got in outs:
+            close(got, want.numpy())
+            assert (got[empty] == 0).all()
+        return outs[1]
+    monkeypatch.setattr(P, 'sparse_conv_plain', walk)
+
+
+@pytest.mark.parametrize('route', ['plain', 'tiles'])
 @pytest.mark.parametrize('stride', [1, 2, 4])
-def test_submanifold_conv_equals_jax(level, stride):
+def test_submanifold_conv_equals_jax(level, stride, route, monkeypatch):
+    if route == 'tiles':
+        route_through_tiles(monkeypatch)
     coords, valid = at_stride(level, stride)
     x, w = feats_of(valid, 8, 1), weights(2, 3, 8, 16)
     want = J.submanifold_conv_batched(
@@ -167,9 +220,12 @@ def test_submanifold_conv_equals_jax(level, stride):
     close(got, want)
 
 
+@pytest.mark.parametrize('route', ['plain', 'tiles'])
 @pytest.mark.parametrize('stride', [1, 2])
 @pytest.mark.parametrize('k', [2, 3])
-def test_strided_conv_equals_jax(level, k, stride):
+def test_strided_conv_equals_jax(level, k, stride, route, monkeypatch):
+    if route == 'tiles':
+        route_through_tiles(monkeypatch)
     coords, valid = at_stride(level, stride)
     x, w = feats_of(valid, 8, 3), weights(4, k, 8, 16)
     want = J.strided_conv_batched(
@@ -197,8 +253,11 @@ def test_max_pool_equals_jax(level):
     close(got[2], want[2], 0)
 
 
+@pytest.mark.parametrize('route', ['plain', 'tiles'])
 @pytest.mark.parametrize('fine_stride', [1, 2, 4])
-def test_transposed_conv_equals_jax(level, fine_stride):
+def test_transposed_conv_equals_jax(level, fine_stride, route, monkeypatch):
+    if route == 'tiles':
+        route_through_tiles(monkeypatch)
     fine_c, fine_v = at_stride(level, fine_stride)
     coarse_c, coarse_v = P.downsample_coords(fine_c, fine_v, 2 * fine_stride,
                                              fine_c.shape[1] // 2)
