@@ -3533,26 +3533,29 @@ FCAF3D_CFG = 'fcaf3d/fcaf3d_sunrgbd.py'
 DEMF_FCAF3D_CFG = 'demf/demf_fcaf3d.py'
 FCAF3D_POINTS = 100000
 FCAF3D_EVAL_SCENES = 8
-# a request's launches: 17 kernel maps (the stem's, the pool's, 3 a stage:
-# the stride-2 conv's, the shortcut's and the stage's 27-tap table; one
-# parent lookup an up block), 47 sparse convs (the stem, 36 in MinkResNet34,
-# 2 an up block and 1 an out block; K14's count is one a call, whose tiles
-# kernel is followed by its sum of parts where the taps are split) on the
-# row plans of their 16 tables (the stem's, 3 a stage, one an up block),
-# one class-wise NMS; DeMF-FCAF3D adds the encoder's 6 MSDA layers
-# (uncached) and its decoder's one
-SPARSE_PATH = dict(kernel_map=17, sparse_conv=47, sparse_conv_plan=16,
+# a request's launches: 7 kernel-map launches for its 13 tables (the
+# stem's, the pool's, one a stage for its strided table and its level's
+# 27-tap table, whose tap 0 the shortcut reads; one for the head's 3 parent
+# lookups), 47 sparse convs (the stem, 36 in MinkResNet34, 2 an up block
+# and 1 an out block; K14's count is one a call, whose tiles kernel is
+# followed by its sum of parts where the taps are split) on the row plans
+# of their 16 tables (the stem's, 3 a stage, one an up block), one
+# class-wise NMS (its pairs kernel and its sweep kernel); DeMF-FCAF3D adds
+# the encoder's 6 MSDA layers (uncached) and its decoder's one
+SPARSE_PATH = dict(kernel_map=7, sparse_conv=47, sparse_conv_plan=16,
                    nms3d_rotated=1)
 LAUNCHES_PER_FCAF3D_REQUEST = launch_counts(**SPARSE_PATH)
 LAUNCHES_PER_FCAF3D_REQUEST_BF16 = launch_counts(
-    kernel_map=17, sparse_conv_bf16=47, sparse_conv_plan=16,
+    kernel_map=7, sparse_conv_bf16=47, sparse_conv_plan=16,
     nms3d_rotated=1)
 LAUNCHES_PER_DEMF_FCAF3D_REQUEST = launch_counts(msda=7, **SPARSE_PATH)
 LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
+# a FCAF3D request's tables (13, in the 7 launches above)
+FCAF3D_TABLES = 13
 FCAF3D_MARKERS = {'K13': ('kernel_map_kernel',),
                   'K14': ('sparse_conv_tiles', 'sparse_conv_sum_parts',
                           'sparse_conv_plan'),
-                  'K15': ('rotated_iou_kernel', 'classwise_sweep_kernel'),
+                  'K15': ('nms3d_pairs_kernel', 'nms3d_sweep_kernel'),
                   'K3': ('msda_forward_kernel',)}
 # an IoU this close to iou_thr may fall on either side between two
 # roundings of the same pair: a keep bit it decides may differ
@@ -3570,8 +3573,14 @@ FCAF3D_BF16_BOUND = 0.2
 # operations of one rotated IoU (the corners, 8 inside tests, 16 edge
 # crossings, 24 angles sorted, the area; counted from the kernel's source).
 # K15's bound counts one IoU a pair of distinct boxes that take part in
-# some class's sweep (valid, a score above score_thr): IoU is symmetric
+# some class's sweep (valid, a score above score_thr) and can meet (the
+# pairs apart, ``tools/nms_cases.py::rotated_pairs_apart``, cost no clip):
+# IoU is symmetric
 IOU_PAIR_OPS = 600
+# K15's sweep floor: one class's N dependent steps of ~8 clocks at the
+# card's 1,980 MHz (K8's row in PERF.md counts its sweep so)
+SWEEP_STEP_CLOCKS = 8
+SM_CLOCK_HZ = 1.98e9
 # K15's IoUs against iou3d_matrix's at room coordinates (within ~10 m of
 # the origin): 1e-6 for two distinct boxes.  A box and a copy of itself
 # (the diagonal, and coincident boxes of other indices, which decide NMS)
@@ -3598,7 +3607,8 @@ def plain_sparse_ops():
     from demf_tpu_torch.models import fcaf3d, transformer
     from demf_tpu_torch.ops import msda, nms_rotated, sparse
     return patched(
-        (sparse, 'kernel_map_cuda', sparse.kernel_map_plain),
+        (sparse, 'kernel_tables_cuda',
+         lambda jobs: [sparse.kernel_table_plain(j) for j in jobs]),
         (sparse, 'conv_plan', sparse.conv_plan_plain),
         (sparse, 'sparse_conv_cuda',
          lambda feats, nbr, w, plan: sparse.sparse_conv_plain(feats, nbr, w)),
@@ -3622,7 +3632,7 @@ def recorded_calls():
             return fn(*args)
         return module, name, call
 
-    with patched(recorder(sparse, 'kernel_map_cuda', 'kernel_map'),
+    with patched(recorder(sparse, 'kernel_tables_cuda', 'kernel_map'),
                  recorder(sparse, 'sparse_conv_cuda', 'sparse_conv'),
                  recorder(nms_rotated, 'rotated_nms_classwise_cuda',
                           'nms3d_rotated')):
@@ -3630,38 +3640,63 @@ def recorded_calls():
 
 
 def check_kernel_map(calls):
-    """K13 on a request's 17 tables against its plain version (equal),
-    timed over all of them, beside one ``torch.searchsorted`` a table over
-    the flattened query keys plus the equality test (the yardstick)."""
+    """K13 on a request's launches (its 13 tables in 7) against its plain
+    version (equal, each table also equal to the same table made alone),
+    timed over all of them beside one ``torch.searchsorted`` a table over
+    the flattened query keys plus the equality test (the yardstick).  Its
+    bound: each coordinate and valid tensor of the request read once, the
+    tables written once (bytes); beside it the time of a one-lookup launch
+    times the launches, the least that a chain of launches in stream order
+    takes."""
     from demf_tpu_torch.ops import sparse
     from demf_tpu_torch.tools import bound_ms, time_ms
-    lookups = nbytes = ops = 0
+    lookups = nbytes = ops = tables = 0
     keys = []
-    for skeys, order, coords, valid, offs, stride in calls:
-        got = sparse.kernel_map_cuda(skeys, order, coords, valid, offs,
-                                     stride)
-        want = sparse.kernel_map_plain(skeys, order, coords, valid, offs,
-                                       stride)
-        if not torch.equal(got, want):
-            raise AssertionError(f'K13 table {tuple(got.shape)} differs '
-                                 f'from plain')
-        lookups += got.numel()
-        nbytes += (skeys.numel() * 4 + (0 if order is None else
-                                        order.numel() * 4) +
-                   coords.numel() * 4 + valid.numel() + offs.numel() * 4 +
-                   got.numel() * 4)
-        ops += got.numel() * (12 + 2 * int(np.ceil(np.log2(
-            skeys.shape[1] + 1))))
-        q = (coords[:, :, None] + offs * stride).clamp(0, sparse.MAX_COORD)
-        keys.append((skeys, sparse.linearize(q).reshape(skeys.shape[0], -1)))
+    # each coordinate and valid tensor read once a request, however many
+    # jobs read it (a level's coordinates are the keys and queries of its
+    # own table and the queries or keys of the next level's)
+    inputs = {}
+    for (jobs,) in calls:
+        got = sparse.kernel_tables_cuda(jobs)
+        for job, table in zip(jobs, got):
+            want = sparse.kernel_table_plain(job)
+            if not (torch.equal(table, want) and torch.equal(
+                    table, sparse.kernel_tables_cuda([job])[0])):
+                raise AssertionError(f'K13 table {tuple(table.shape)} '
+                                     f'differs from plain')
+            tables += 1
+            lookups += table.numel() if not job.cell else table.shape[1] * \
+                table.shape[0]
+            for t in (job.coords, job.valid, job.query_coords,
+                      job.query_valid):
+                inputs[t.data_ptr()] = max(inputs.get(t.data_ptr(), 0),
+                                           t.numel() * t.element_size())
+            nbytes += table.numel() * 4
+            ops += table.numel() * (12 + 2 * int(np.ceil(np.log2(
+                job.valid.shape[1] + 1))))
+            skeys = sparse.key_table_presorted(job.coords, job.valid)[0]
+            base = job.query_coords if not job.cell else torch.div(
+                job.query_coords, job.cell, rounding_mode='floor') * job.cell
+            offs = sparse.kernel_offsets(
+                job.kernel_size if not job.cell else 1, job.me_order,
+                skeys.device) * job.stride
+            q = (base[:, :, None] + offs).clamp(0, sparse.MAX_COORD)
+            keys.append((skeys, sparse.linearize(q).reshape(
+                skeys.shape[0], -1)))
+    if tables != FCAF3D_TABLES:
+        raise AssertionError(f'K13: {tables} tables a request, expected '
+                             f'{FCAF3D_TABLES}')
+    nbytes += sum(inputs.values())
+    one = [sparse.one_lookup(calls[0][0][0])]
 
     def kernel():
-        for args in calls:
-            sparse.kernel_map_cuda(*args)
+        for (jobs,) in calls:
+            sparse.kernel_tables_cuda(jobs)
 
     def plain():
-        for args in calls:
-            sparse.kernel_map_plain(*args)
+        for (jobs,) in calls:
+            for j in jobs:
+                sparse.kernel_table_plain(j)
 
     def library():
         for skeys, qk in keys:
@@ -3670,11 +3705,14 @@ def check_kernel_map(calls):
 
     ms, plain_ms, lib_ms = (time_ms(kernel, 20), time_ms(plain, 5),
                             time_ms(library, 20))
+    one_ms = time_ms(lambda: sparse.kernel_tables_cuda(one), 50)
     least, by = bound_ms(ops, nbytes)
-    print(f'K13 kernel_map: {len(calls)} tables of a request, {lookups} '
-          f'lookups, equal to plain; kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, searchsorted + equality {lib_ms:.4f} ms, '
-          f'bound {least:.6f} ms ({by})')
+    print(f'K13 kernel_map: {tables} tables of a request in {len(calls)} '
+          f'launches, {lookups} lookups, equal to plain and to each table '
+          f'made alone; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'searchsorted + equality {lib_ms:.4f} ms, bound {least:.6f} ms '
+          f'({by}); a one-lookup launch {one_ms:.4f} ms, x {len(calls)} '
+          f'launches {one_ms * len(calls):.4f} ms')
     return kernel_row(0, ms, plain_ms, least, by, lib_ms)
 
 
@@ -3833,48 +3871,80 @@ def time_sparse_levels(dev):
 
 
 def check_nms3d_rotated(calls):
-    """K15 on a request's call: its IoUs within 1e-6 of ``iou3d_matrix``'s
-    for two distinct boxes and within ``K15_COPY_TOL`` for a box and a copy
-    of itself, its masks equal to the plain sweep fed its own IoUs; then on
-    spread, piled and coincident boxes at the same shape."""
+    """K15 on a request's call: its IoUs (asked for) within 1e-6 of
+    ``iou3d_matrix``'s for two distinct boxes and within ``K15_COPY_TOL``
+    for a box and a copy of itself, exactly 0 as the plain version's for
+    the pairs that cannot meet, its masks equal to the plain sweep fed its
+    own IoUs and to those of the model path's call (no IoU asked for);
+    then on spread, piled, coincident, apart and far boxes at the same
+    shape.  Timed as the model calls it (its two kernels' device ms come
+    from the request profiles: deep in this script torch.profiler records
+    no event of so short a call); its bound counts the pairs that take part
+    and can meet, beside its sweep floor (N dependent steps of
+    ``SWEEP_STEP_CLOCKS``)."""
     from demf_tpu_torch.core.rotated_iou import iou3d_matrix
     from demf_tpu_torch.ops import nms_rotated
     from demf_tpu_torch.tools import bound_ms, time_ms
-    from demf_tpu_torch.tools.nms_cases import rotated_nms_case
+    from demf_tpu_torch.tools.nms_cases import (rotated_nms_case,
+                                                rotated_pairs_apart)
     boxes, scores, valid, iou_thr, score_thr = calls[0]
     b, n, c = scores.shape
     cases = [('request', boxes, scores, valid)] + [
         (kind, *(torch.from_numpy(a).to(boxes.device) for a in
                  rotated_nms_case(kind, b, n, c, seed=1)))
-        for kind in ('spread', 'piled', 'coincident')]
+        for kind in ('spread', 'piled', 'coincident', 'apart', 'far')]
     iou_err = 0.0
     for kind, bx, sc, va in cases:
-        keep, iou = nms_rotated.rotated_nms_classwise_cuda(
+        iou = torch.empty((b, n, n), device=bx.device)
+        keep = nms_rotated.rotated_nms_classwise_cuda(
+            bx, sc, va, iou_thr, score_thr, iou)
+        model = nms_rotated.rotated_nms_classwise_cuda(
             bx, sc, va, iou_thr, score_thr)
-        err = (iou - iou3d_matrix(bx, bx)).abs()
+        plain_iou = iou3d_matrix(bx, bx)
+        err = (iou - plain_iou).abs()
         copies = (bx[:, :, None] == bx[:, None]).all(-1)
-        iou_err = max(iou_err, err[~copies].max().item())
+        apart = rotated_pairs_apart(bx)
         copy_err = err[copies].max().item()
         differ = int((keep != nms_rotated.classwise_sweep(
             iou, sc, va, iou_thr, score_thr)).sum())
         print(f'K15 nms3d_rotated ({b}, N {n}, {c} classes, {kind}): kept '
               f'{int(keep.sum())}, {differ} bits differ from the plain sweep '
-              f'on its IoUs, IoU max abs err {iou_err:.3e} (a box and its '
-              f'copy {copy_err:.3e})')
-        if differ or not iou_err <= 1e-6 or not copy_err <= K15_COPY_TOL:
+              f'on its IoUs, {int((model != keep).sum())} from the model '
+              f'path\'s call; IoU max abs err '
+              f'{err[~copies].max().item():.3e} (a box and its copy '
+              f'{copy_err:.3e}); {int(apart.sum())} of {b * n * n} pairs '
+              f'cannot meet, their IoUs exactly 0: '
+              f'{bool((iou[apart] == 0).all() and (plain_iou[apart] == 0).all())}')
+        if kind == 'far':
+            # corners hundreds of metres out: a box and its copy within
+            # 4 R 2^-23 over the smallest side (test_rotated_nms_far_from_
+            # the_origin); distinct boxes as everywhere
+            copy_tol = 4 * bx[..., :2].abs().max().item() * 2.0 ** -23 / 0.3
+        else:
+            copy_tol = K15_COPY_TOL
+            iou_err = max(iou_err, err[~copies].max().item())
+        if differ or not torch.equal(model, keep) or \
+                not err[~copies].max().item() <= 1e-6 or \
+                not copy_err <= copy_tol or not (iou[apart] == 0).all() or \
+                not (plain_iou[apart] == 0).all():
             raise AssertionError('K15 differs from its plain version')
     args = calls[0]
     ms = time_ms(lambda: nms_rotated.rotated_nms_classwise_cuda(*args), 20)
     plain_ms = time_ms(
         lambda: nms_rotated.rotated_nms_classwise_plain(*args), 2)
-    part = (valid & (scores > score_thr).any(-1)).sum(1).double()
-    pairs = float((part * (part - 1) / 2).sum())
-    least, by = bound_ms(IOU_PAIR_OPS * pairs,
+    part = valid & (scores > score_thr).any(-1)
+    both = (part[:, :, None] & part[:, None]).triu(1)
+    pairs = int(both.sum())
+    meet = int((both & ~rotated_pairs_apart(boxes)).sum())
+    least, by = bound_ms(IOU_PAIR_OPS * meet,
                          boxes.numel() * 4 + scores.numel() * 4 +
                          valid.numel() + b * c * n)
-    print(f'K15 nms3d_rotated at the request: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs:.0f} '
-          f'pairs of boxes that take part)')
+    sweep_ms = n * SWEEP_STEP_CLOCKS / SM_CLOCK_HZ * 1e3
+    print(f'K15 nms3d_rotated at the request: kernel {ms:.4f} ms through '
+          f'its wrapper (its device ms: the request profiles), plain '
+          f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {pairs} pairs of '
+          f'boxes that take part, {meet} of them can meet), sweep floor '
+          f'{sweep_ms:.6f} ms ({n} dependent steps)')
     return kernel_row(iou_err, ms, plain_ms, least, by)
 
 
@@ -3912,8 +3982,9 @@ def compare_sparse_paths(model, batch, label):
         with plain_sparse_ops():
             want = model(batch)
         boxes, probs, valid = head.candidates(head.pools(got))
-        keep, iou = nms_rotated.rotated_nms_classwise_cuda(
-            boxes, probs, valid, tcfg['iou_thr'], tcfg['score_thr'])
+        iou = torch.empty(valid.shape + valid.shape[-1:], device=valid.device)
+        keep = nms_rotated.rotated_nms_classwise_cuda(
+            boxes, probs, valid, tcfg['iou_thr'], tcfg['score_thr'], iou)
         plain = nms_rotated.rotated_nms_classwise_plain(
             boxes, probs, valid, tcfg['iou_thr'], tcfg['score_thr'])
     worst = level_errors(got, want)

@@ -82,14 +82,14 @@ class FCAF3DHead(nn.Module):
             self.cls_conv.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
     def _up_block(self, i, coarse, fine_coords, fine_valid, fine_stride,
-                  nbr, plan):
-        """Generative transpose conv (k=2, s=2) onto the skip level's voxels,
-        then a 3x3x3 conv, each with BN and ELU."""
+                  nbr, plan, up_nbr):
+        """Generative transpose conv (k=2, s=2) onto the skip level's voxels
+        (its table ``up_nbr``), then a 3x3x3 conv, each with BN and ELU."""
         tconv, tbn, _, conv, bn, _ = getattr(self, f'up_block_{i}')
         cc, cv, cf = coarse
         y = S.transposed_conv_to_batched(
             fine_coords, fine_valid, cc, cv, cf, tconv.taps,
-            tensor_stride=fine_stride, sorted_input=True)
+            tensor_stride=fine_stride, sorted_input=True, nbr=up_nbr)
         y = F.elu(tbn(y, fine_valid))
         y = S.submanifold_conv_batched(fine_coords, fine_valid, y, conv.taps,
                                        tensor_stride=fine_stride, nbr=nbr,
@@ -112,6 +112,7 @@ class FCAF3DHead(nn.Module):
         metres, valid and the out block's features."""
         n = len(backbone_outs)
         strides = [8 * 2 ** i for i in range(n)]
+        up_nbrs = self.up_tables(backbone_outs, strides)
         outs = []
         x = None
         for i in range(n - 1, -1, -1):
@@ -120,14 +121,12 @@ class FCAF3DHead(nn.Module):
             if len(entry) > 3:
                 nbr, plan = entry[3:5]
             else:
-                nbr = S.neighbor_table_batched(
-                    coords, valid, coords, valid,
-                    S.kernel_offsets(3, True, coords.device),
-                    in_stride=strides[i], sorted_input=True)
+                nbr = S.submanifold_table(coords, valid, 3, strides[i])
                 plan = S.conv_plan(nbr)
             if i < n - 1:
                 feats = feats + self._up_block(i + 1, x, coords, valid,
-                                               strides[i], nbr, plan)
+                                               strides[i], nbr, plan,
+                                               up_nbrs[i])
             x = (coords, valid, feats)
             of = self._out_block(i, coords, valid, feats, strides[i], nbr,
                                  plan)
@@ -141,6 +140,17 @@ class FCAF3DHead(nn.Module):
                 cls_scores=self.cls_conv.dense(of), points=points,
                 valid=valid, features=of))
         return outs[::-1]
+
+    @staticmethod
+    def up_tables(backbone_outs, strides):
+        """The up blocks' transposed-conv tables, all known from the
+        backbone's levels: level i's voxels looked up among level i + 1's,
+        one K13 launch for all of them."""
+        jobs = [S.parent_job(fine[0], fine[1], coarse[0], coarse[1],
+                             tensor_stride=s)
+                for fine, coarse, s in zip(backbone_outs, backbone_outs[1:],
+                                           strides)]
+        return S.kernel_tables(jobs) if jobs else []
 
     @staticmethod
     def bbox_pred_to_bbox(points, bbox_pred):

@@ -118,43 +118,39 @@ class SparseBasicBlock(nn.Module):
 
     def forward(self, st, nbr=None, plan=None):
         """st (coords, valid, feats); ``nbr``: the (B, M, 27) table of this
-        block's output level (stride-1 blocks) and ``plan`` its
-        ``conv_plan``.  Returns (st, nbr, plan)."""
+        block's output level (stride-1 blocks; made here when not given)
+        and ``plan`` its ``conv_plan``.  A stride-2 block makes its strided
+        table and its output level's table in one K13 launch.  Returns
+        (st, nbr, plan)."""
         coords, valid, x = st
         ts = self.tensor_stride
         if self.stride > 1:
-            coords_o, valid_o, y = S.strided_conv_batched(
+            coords_o, valid_o, y, nbr_s, nbr = S.strided_conv_batched(
                 coords, valid, x, self.conv1.taps, stride=self.stride,
                 kernel_size=2, max_out=max(1, coords.shape[1] // 2),
-                tensor_stride=ts, sorted_input=True)
+                tensor_stride=ts, sorted_input=True, level_kernel=3)
+            plan = S.conv_plan(nbr)
             out_ts = ts * self.stride
         else:
-            coords_o, valid_o = coords, valid
+            coords_o, valid_o, out_ts = coords, valid, ts
+            if nbr is None:
+                nbr = S.submanifold_table(coords, valid, 3, ts)
+                plan = S.conv_plan(nbr)
             y = S.submanifold_conv_batched(coords, valid, x, self.conv1.taps,
                                            tensor_stride=ts, nbr=nbr,
-                                           sorted_input=True, plan=plan)
-            out_ts = ts
+                                           plan=plan)
         y = F.relu(self.norm1(y, valid_o))
-        if nbr is None:
-            nbr = S.neighbor_table_batched(
-                coords_o, valid_o, coords_o, valid_o,
-                S.kernel_offsets(3, True, coords.device), in_stride=out_ts,
-                sorted_input=True)
-            plan = S.conv_plan(nbr)
         y = S.submanifold_conv_batched(coords_o, valid_o, y, self.conv2.taps,
                                        tensor_stride=out_ts, nbr=nbr,
                                        plan=plan)
         y = self.norm2(y, valid_o)
         idn = x
         if self.downsample is not None:
-            # each output voxel reads the input voxel at its coordinate
+            # each output voxel reads the input voxel at its coordinate:
+            # tap 0, (0, 0, 0), of the strided table
             conv, norm = self.downsample
-            dn_nbr = S.neighbor_table_batched(
-                coords, valid, coords_o, valid_o,
-                S.kernel_offsets(1, device=coords.device), in_stride=ts,
-                sorted_input=True)
-            idn = norm(S.sparse_conv_apply_batched(x, dn_nbr, conv.taps),
-                       valid_o)
+            idn = norm(S.sparse_conv_apply_batched(x, nbr_s[..., :1],
+                                                   conv.taps), valid_o)
         y = F.relu(y + idn)
         return ((coords_o, valid_o, torch.where(valid_o[..., None], y, 0)),
                 nbr, plan)
@@ -197,7 +193,7 @@ class MinkResNet(nn.Module):
         self.num_stages = min(num_stages, 4)
 
     def forward(self, coords, valid, feats):
-        c_s, v_s, x = S.strided_conv_batched(
+        c_s, v_s, x, _, _ = S.strided_conv_batched(
             coords, valid, feats, self.conv1.taps, stride=2, kernel_size=3,
             max_out=max(1, coords.shape[1] // 2), tensor_stride=1,
             sorted_input=True)

@@ -8,13 +8,16 @@ rotated IoU matrix over the top-``nms_pre`` candidates
 over that one matrix.  A candidate takes part in class c's sweep when it is
 valid and its score of class c is above ``score_thr``.
 
-A CUDA tensor launches K15 (``csrc/nms3d_rotated.cu``: the pair IoUs and
-their bits above ``iou_thr``, then a block a (scene, class) that orders by
-counting, as K8 does, and sweeps); a CPU tensor takes the plain version,
-``iou3d_matrix`` and ``ops/nms.py::greedy_suppress`` class by class.  The
-kernel's IoUs agree with ``iou3d_matrix``'s to the roundings of the
-transcendentals and of the sums' order; its masks equal the plain sweep fed
-the kernel's own IoUs bit for bit.
+A CUDA tensor launches K15 (``csrc/nms3d_rotated.cu``, one call, two
+kernels: the IoUs of the pairs of boxes that take part, each pair once,
+culled where the boxes cannot meet, into bits above ``iou_thr``; then a
+block a (class, scene) that orders its class by counting and sweeps it, 32
+boxes a step); a CPU tensor takes the plain version, ``iou3d_matrix`` and
+``ops/nms.py::greedy_suppress`` class by class.  The kernel writes the IoU
+matrix only when given one (the checks; every pair then), and the model
+path gives none.  The kernel's IoUs agree with ``iou3d_matrix``'s to the
+roundings of the transcendentals and of the sums' order; its masks equal
+the plain sweep fed the kernel's own IoUs bit for bit.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from ..core.rotated_iou import iou3d_matrix
 from ._cuda import SMEM_PER_BLOCK, CudaKernel, check_cuda
 from .nms import greedy_suppress
 
-# boxes, scores, valid, iou, bits, keep; B, N, classes; iou_thr, score_thr
+# boxes, scores, valid, iou (or null), bits (scratch the call zeroes),
+# keep; B, N, classes; iou_thr, score_thr
 NMS3D_ROTATED_KERNEL = CudaKernel(
     'demf_nms3d_rotated', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 +
     [ctypes.c_float] * 2)
@@ -42,7 +46,7 @@ def rotated_nms_classwise(boxes, scores, valid, iou_thr, score_thr):
                                            score_thr)
     return rotated_nms_classwise_cuda(
         boxes.contiguous(), scores.contiguous(), valid.contiguous(), iou_thr,
-        score_thr)[0]
+        score_thr)
 
 
 def classwise_sweep(iou, scores, valid, iou_thr, score_thr):
@@ -63,18 +67,21 @@ def rotated_nms_classwise_plain(boxes, scores, valid, iou_thr, score_thr):
 
 
 def sweep_shared_bytes(n):
-    """Shared memory of K15's sweep for N candidates (as
-    ``csrc/nms3d_rotated.cu::sweep_shared_bytes``): the scene's bits, the
-    keys, the order, the removed mask and the kept flags."""
+    """Shared memory of K15's sweep block for N candidates (as
+    ``csrc/nms3d_rotated.cu::sweep_shared_bytes``): the scene's bits (rows
+    at an odd stride), the class's keys (later its steps' masks), its order
+    and its kept mask."""
     w = (n + 31) // 32
-    return 4 * (n * w + 2 * n + w) + n
+    return 4 * (n * (w | 1) + 2 * n + w)
 
 
-def rotated_nms_classwise_cuda(boxes, scores, valid, iou_thr, score_thr):
+def rotated_nms_classwise_cuda(boxes, scores, valid, iou_thr, score_thr,
+                               iou=None):
     """Kernel K15 (csrc/nms3d_rotated.cu): float32 boxes (B, N, 7) and
-    scores (B, N, C), bool valid (B, N), contiguous on the card ->
-    (keep (B, C, N), the kernel's IoU matrix (B, N, N)).  Raises when a
-    scene's bits do not fit a block's shared memory (N above 1,312)."""
+    scores (B, N, C), bool valid (B, N), contiguous on the card -> keep
+    (B, C, N).  With ``iou``, a float32 (B, N, N) tensor on the card, the
+    kernel also writes every pair's IoU there.  Raises when a scene's
+    bits do not fit a block's shared memory (N above 1,312)."""
     check_cuda('boxes', boxes, torch.float32, 3)
     check_cuda('scores', scores, torch.float32, 3)
     check_cuda('valid', valid, torch.bool, 2)
@@ -83,17 +90,24 @@ def rotated_nms_classwise_cuda(boxes, scores, valid, iou_thr, score_thr):
         raise ValueError(
             f'boxes {tuple(boxes.shape)}, scores {tuple(scores.shape)} and '
             f'valid {tuple(valid.shape)} do not go together')
+    if iou is not None:
+        check_cuda('iou', iou, torch.float32, 3)
+        if iou.shape != (b, n, n):
+            raise ValueError(f'iou {tuple(iou.shape)} is not ({b}, {n}, '
+                             f'{n})')
     if sweep_shared_bytes(n) > SMEM_PER_BLOCK:
         raise ValueError(
             f'{n} candidates a scene need {sweep_shared_bytes(n)} bytes of '
             f'shared memory, a block has {SMEM_PER_BLOCK}')
     dev = boxes.device
-    iou = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    bits = torch.empty((b, n, (n + 31) // 32), dtype=torch.int32, device=dev)
     keep = torch.empty((b, classes, n), dtype=torch.bool, device=dev)
     if keep.numel():
+        # each row's bits: the boxes it suppresses
+        bits = torch.empty(b * n * ((n + 31) // 32), dtype=torch.int32,
+                           device=dev)
         NMS3D_ROTATED_KERNEL(boxes.data_ptr(), scores.data_ptr(),
-                             valid.data_ptr(), iou.data_ptr(),
+                             valid.data_ptr(),
+                             0 if iou is None else iou.data_ptr(),
                              bits.data_ptr(), keep.data_ptr(), b, n, classes,
                              float(iou_thr), float(score_thr))
-    return keep, iou
+    return keep

@@ -11,13 +11,21 @@ write rows in the order of ``linearize``'s keys, padding last), which is
 what ``sorted_input=True`` asserts, so that a table's keys are its rows'
 keys as they stand (``key_table_presorted``).
 
-* ``neighbor_table_batched``: for each query row and tap t, the input row
-  whose coordinate is ``query + offsets[t] * in_stride``, or -1.  A CUDA
-  tensor launches K13 (``csrc/kernel_map.cu``: a thread a (query, tap), a
-  binary search in the scene's sorted keys); a CPU tensor takes
-  ``torch.searchsorted``.  The JAX package's bucketed and z-run lookups
-  exist only to suit the TPU and are not ported: both give the exact match
-  of the coordinate, which is what the search gives.
+* ``kernel_tables``: the tables a model knows together, one K13 launch on
+  the card (``csrc/kernel_map.cu``: a job a table, passed by value; a
+  block 64 query rows, the window of the sorted table that holds their
+  targets searched in shared memory), each a ``TableJob``: for each query
+  row and tap t, the row of the presorted key table whose coordinate is
+  ``query + offset_t * stride`` (the offsets of a cubic kernel of
+  ``kernel_size`` in either tap order), or -1; or with ``cell`` a
+  transposed convolution's table (``transposed_table``).  The kernel
+  linearizes the keys and makes the offsets itself, so no torch op runs
+  around it; a CPU tensor takes ``kernel_table_plain`` (``torch.
+  searchsorted``).  ``neighbor_table_batched`` takes explicit offsets and
+  a table in any order (sorted first: ``build_key_table``), the tests'
+  route.  The JAX package's bucketed and z-run lookups exist only to suit
+  the TPU and are not ported: both give the exact match of the coordinate,
+  which is what the search gives.
 * ``sparse_conv_apply_batched``: ``out[b, m] = sum_t feats[b, nbr[b, m,
   t]] @ W[t]``, absent taps adding 0.  A CUDA tensor launches K14
   (``csrc/sparse_conv.cu``, float32 or bfloat16 rows and weights, float32
@@ -41,6 +49,7 @@ permutes the JAX package's taps once, at conversion (``me_tap_order``).
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple
 
 import torch
@@ -53,10 +62,18 @@ INVALID = _SPAN - _SHIFT - 1       # sentinel coordinate (=1273)
 MAX_COORD = _SPAN - _SHIFT - 2     # largest real coordinate
 KEY_PAD = 2 ** 31 - 1              # the key of a padding row
 
-# K13: sorted keys, their rows (or null: the rows are the positions), query
-# coords, query valid, offsets, out; B, M_in, Q, K, stride
-KERNEL_MAP_KERNEL = CudaKernel(
-    'demf_kernel_map', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5)
+# K13: the packed jobs (``_JOB`` each, as csrc/kernel_map.cu's Job), their
+# count
+KERNEL_MAP_KERNEL = CudaKernel('demf_kernel_map',
+                               [ctypes.c_char_p, ctypes.c_int])
+# a job: key table coords, valid, sorted keys, rows of the ranks, query
+# coords, query valid, offsets, out (pointers, null where not given); B,
+# M_in, Q, K, kernel size, MinkowskiEngine's tap order, stride, cell, and
+# the first block (the launcher's)
+_JOB = struct.Struct('<8Q9i4x')
+MAX_JOBS = 8
+# taps a table's row may have (a block's threads beside its 64 rows)
+MAX_TAPS = 192
 # K14: feats, nbr, weights, the plan's order and tile taps, scratch, out;
 # B, M_in, C, M_out, K, C_out, taps a part (an entry a dtype)
 SPARSE_CONV_KERNEL = CudaKernel(
@@ -171,13 +188,124 @@ def kernel_offsets(kernel_size, me_order=False, device=None):
     return torch.stack(axes, -1).to(torch.int32)
 
 
+class TableJob(NamedTuple):
+    """One table of a K13 launch.  ``coords`` (B, M_in, 3) int32 and
+    ``valid`` (B, M_in): the key table, in sorted-key, valid-prefix order;
+    ``query_coords`` (B, Q, 3) int32 and ``query_valid`` (B, Q): the rows
+    of the table, in any order.  ``cell`` 0: a convolution's table, tap t
+    of a query at ``query + offset_t * stride`` (``kernel_offsets(
+    kernel_size, me_order)``), (B, Q, kernel_size ** 3).  ``cell`` > 0: a
+    transposed convolution's (``transposed_table``): each query's parent
+    ``query // cell * cell``, held at the tap of its offset ``(query -
+    parent) // stride`` (the first axis fastest), -1 at the others."""
+    coords: torch.Tensor
+    valid: torch.Tensor
+    query_coords: torch.Tensor
+    query_valid: torch.Tensor
+    kernel_size: int
+    me_order: bool = True
+    stride: int = 1
+    cell: int = 0
+
+
+def kernel_tables(jobs, sorted_input=True):
+    """The tables of ``jobs`` (``TableJob``s, at most ``MAX_JOBS``), a
+    list of (B, Q, K) int32.  A CUDA tensor launches K13 once for all of
+    them; a CPU tensor takes ``kernel_table_plain``.  Key tables that are
+    not presorted (``sorted_input`` False, the tests' route) are sorted
+    first, and each goes through ``kernel_map_cuda``."""
+    cpu = jobs[0].query_coords.device.type == 'cpu'
+    if sorted_input and not cpu:
+        return kernel_tables_cuda(jobs)
+    table_fn = key_table_presorted if sorted_input else build_key_table
+    search = kernel_map_plain if cpu else kernel_map_cuda
+    return [_table_by_search(job, *table_fn(job.coords, job.valid), search)
+            for job in jobs]
+
+
+def one_lookup(job):
+    """A job of one lookup (the first query row of the first scene, one
+    tap) on ``job``'s key table: a K13 launch with next to no work, the
+    least time a launch takes."""
+    return job._replace(coords=job.coords[:1].contiguous(),
+                        valid=job.valid[:1].contiguous(),
+                        query_coords=job.query_coords[:1, :1].contiguous(),
+                        query_valid=job.query_valid[:1, :1].contiguous(),
+                        kernel_size=1, cell=0)
+
+
+def kernel_table_plain(job):
+    """K13's function for one ``TableJob``, plain torch on any device:
+    ``kernel_map_plain`` over the presorted key table."""
+    return _table_by_search(job, *key_table_presorted(job.coords, job.valid),
+                            kernel_map_plain)
+
+
+def _table_by_search(job, skeys, order, search):
+    qc = job.query_coords.to(torch.int32)
+    dev = qc.device
+    if not job.cell:
+        return search(skeys, order, qc, job.query_valid, kernel_offsets(
+            job.kernel_size, job.me_order, dev), job.stride)
+    parent = torch.div(qc, job.cell, rounding_mode='floor') * job.cell
+    zero = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+    prow = search(skeys, order, parent, job.query_valid, zero, 1)[..., 0]
+    off = torch.div(qc - parent, job.stride, rounding_mode='floor')
+    k = job.kernel_size
+    tap = off[..., 0] + k * (off[..., 1] + k * off[..., 2])
+    taps = torch.arange(k ** 3, device=dev)
+    return torch.where((tap[..., None] == taps) & (prow[..., None] >= 0),
+                       prow[..., None], -1).to(torch.int32)
+
+
+def kernel_tables_cuda(jobs):
+    """Kernel K13 (csrc/kernel_map.cu) on at most ``MAX_JOBS`` jobs in one
+    launch: int32 coordinates and bool valid flags, contiguous on the
+    card."""
+    if not 1 <= len(jobs) <= MAX_JOBS:
+        raise ValueError(f'a K13 launch takes 1 to {MAX_JOBS} tables, got '
+                         f'{len(jobs)}')
+    shapes = []
+    for job in jobs:
+        check_cuda('coords', job.coords, torch.int32, 3)
+        check_cuda('valid', job.valid, torch.bool, 2)
+        check_cuda('query_coords', job.query_coords, torch.int32, 3)
+        check_cuda('query_valid', job.query_valid, torch.bool, 2)
+        b, m = job.valid.shape
+        q = job.query_valid.shape[1]
+        k = job.kernel_size ** 3
+        if job.coords.shape != (b, m, 3) or \
+                job.query_coords.shape != (b, q, 3) or not 1 <= k <= MAX_TAPS:
+            raise ValueError(
+                f'key table {tuple(job.coords.shape)} / '
+                f'{tuple(job.valid.shape)}, queries '
+                f'{tuple(job.query_coords.shape)} / '
+                f'{tuple(job.query_valid.shape)} and kernel size '
+                f'{job.kernel_size} do not go together')
+        shapes.append((b, q, k))
+    dev = jobs[0].coords.device
+    outs = [torch.empty(shape, dtype=torch.int32, device=dev)
+            for shape in shapes]
+    if any(out.numel() for out in outs):
+        KERNEL_MAP_KERNEL(b''.join(
+            _JOB.pack(j.coords.data_ptr(), j.valid.data_ptr(), 0, 0,
+                      j.query_coords.data_ptr(), j.query_valid.data_ptr(), 0,
+                      out.data_ptr(), b, j.valid.shape[1], q, k,
+                      j.kernel_size, int(j.me_order), int(j.stride),
+                      int(j.cell), 0)
+            for j, out, (b, q, k) in zip(jobs, outs, shapes)), len(jobs))
+    return outs
+
+
 def neighbor_table_batched(in_coords, in_valid, out_coords, out_valid,
                            offsets, in_stride=1, sorted_input=False):
     """(B, M_out, K) int32 rows of the input table (-1 = no neighbor): tap
     t of output row q reads the input row at ``out_coords[q] + offsets[t]
     * in_stride``; an invalid output row has none.  ``sorted_input``
     asserts that ``in_coords`` is in sorted-key, valid-prefix order.  A
-    CUDA tensor launches K13; a CPU tensor takes the plain search."""
+    CUDA tensor launches K13 on the sorted keys (``kernel_map_cuda``); a
+    CPU tensor takes the plain search.  The model's tables go through
+    ``kernel_tables`` instead, with no torch op around the launch."""
     table_fn = key_table_presorted if sorted_input else build_key_table
     skeys, order = table_fn(in_coords, in_valid)
     offsets = offsets.to(device=out_coords.device, dtype=torch.int32)
@@ -185,7 +313,7 @@ def neighbor_table_batched(in_coords, in_valid, out_coords, out_valid,
         return kernel_map_plain(skeys, order, out_coords, out_valid,
                                 offsets, in_stride)
     return kernel_map_cuda(skeys, order, out_coords.to(torch.int32),
-                           out_valid, offsets, in_stride)
+                           out_valid, offsets.contiguous(), in_stride)
 
 
 def kernel_map_plain(skeys, order, query_coords, query_valid, offsets,
@@ -208,10 +336,11 @@ def kernel_map_plain(skeys, order, query_coords, query_valid, offsets,
 
 def kernel_map_cuda(skeys, order, query_coords, query_valid, offsets,
                     stride):
-    """Kernel K13 (csrc/kernel_map.cu): int32 sorted keys (B, M) and, when
+    """Kernel K13 on given sorted keys: int32 sorted keys (B, M) and, when
     the table is not presorted, their rows; int32 query coords (B, Q, 3),
     bool valid (B, Q) and int32 offsets (K, 3), all contiguous on the
-    card."""
+    card.  One job in one launch (the tests' route and
+    ``neighbor_table_batched``'s)."""
     check_cuda('skeys', skeys, torch.int32, 2)
     if order is not None:
         check_cuda('order', order, torch.int32, 2)
@@ -222,19 +351,19 @@ def kernel_map_cuda(skeys, order, query_coords, query_valid, offsets,
     q = query_coords.shape[1]
     k = offsets.shape[0]
     if query_coords.shape != (b, q, 3) or query_valid.shape != (b, q) or \
-            offsets.shape != (k, 3) or (order is not None and
-                                        order.shape != (b, m)):
+            offsets.shape != (k, 3) or not 1 <= k <= MAX_TAPS or (
+                order is not None and order.shape != (b, m)):
         raise ValueError(
             f'keys {tuple(skeys.shape)}, queries '
             f'{tuple(query_coords.shape)}, valid {tuple(query_valid.shape)} '
             f'and offsets {tuple(offsets.shape)} do not go together')
     out = torch.empty((b, q, k), dtype=torch.int32, device=skeys.device)
     if out.numel():
-        KERNEL_MAP_KERNEL(skeys.data_ptr(),
-                          0 if order is None else order.data_ptr(),
-                          query_coords.data_ptr(), query_valid.data_ptr(),
-                          offsets.data_ptr(), out.data_ptr(), b, m, q, k,
-                          int(stride))
+        KERNEL_MAP_KERNEL(_JOB.pack(
+            0, 0, skeys.data_ptr(), 0 if order is None else order.data_ptr(),
+            query_coords.data_ptr(), query_valid.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), b, m, q, k, 0, 0,
+            int(stride), 0, 0), 1)
     return out
 
 
@@ -456,6 +585,14 @@ def sparse_conv_cuda(feats, nbr, weights, plan=None, group=None):
     return out
 
 
+def submanifold_table(coords, valid, kernel_size=3, tensor_stride=1,
+                      sorted_input=True):
+    """A level's own (B, M, K) table, taps in MinkowskiEngine's order."""
+    return kernel_tables([TableJob(coords, valid, coords, valid,
+                                   kernel_size, True, tensor_stride)],
+                         sorted_input)[0]
+
+
 def submanifold_conv_batched(coords, valid, feats, weights, kernel_size=3,
                              tensor_stride=1, nbr=None, sorted_input=False,
                              plan=None):
@@ -463,10 +600,8 @@ def submanifold_conv_batched(coords, valid, feats, weights, kernel_size=3,
     may be the level's table (taps in MinkowskiEngine's order) and ``plan``
     its ``conv_plan``, built once and shared by its convs."""
     if nbr is None:
-        offs = kernel_offsets(kernel_size, True, coords.device)
-        nbr = neighbor_table_batched(coords, valid, coords, valid, offs,
-                                     in_stride=tensor_stride,
-                                     sorted_input=sorted_input)
+        nbr = submanifold_table(coords, valid, kernel_size, tensor_stride,
+                                sorted_input)
     out = sparse_conv_apply_batched(feats, nbr, weights, plan)
     return torch.where(valid[..., None], out, 0)
 
@@ -495,20 +630,27 @@ def downsample_coords(coords, valid, stride, max_out):
 
 def strided_conv_batched(coords, valid, feats, weights, stride=2,
                          kernel_size=2, max_out=None, tensor_stride=1,
-                         sorted_input=False):
+                         sorted_input=False, level_kernel=None):
     """MinkowskiConvolution(kernel=k, stride=s): ``tensor_stride`` is the
     input level's granularity, the output's is ``tensor_stride * stride``
     (coords stay in finest units).  Returns (out_coords, out_valid,
-    out_feats)."""
+    out_feats, nbr, level_nbr): ``nbr`` the conv's table (for an even
+    kernel its tap 0 is the output voxel's own coordinate, which a stride-2
+    block's shortcut reads), ``level_nbr`` with ``level_kernel`` the output
+    level's own table of that size (MinkowskiEngine's order), made in the
+    same K13 launch, else None."""
     max_out = max_out or coords.shape[1]
-    offs = kernel_offsets(kernel_size, True, coords.device)
     oc, ov = downsample_coords(coords, valid, stride * tensor_stride,
                                max_out)
-    nbr = neighbor_table_batched(coords, valid, oc, ov, offs,
-                                 in_stride=tensor_stride,
-                                 sorted_input=sorted_input)
-    out = sparse_conv_apply_batched(feats, nbr, weights)
-    return oc, ov, torch.where(ov[..., None], out, 0)
+    jobs = [TableJob(coords, valid, oc, ov, kernel_size, True,
+                     tensor_stride)]
+    if level_kernel:
+        jobs.append(TableJob(oc, ov, oc, ov, level_kernel, True,
+                             stride * tensor_stride))
+    tables = kernel_tables(jobs, sorted_input)
+    out = sparse_conv_apply_batched(feats, tables[0], weights)
+    return (oc, ov, torch.where(ov[..., None], out, 0), tables[0],
+            tables[1] if level_kernel else None)
 
 
 def sparse_max_pool_batched(coords, valid, feats, stride=2, kernel_size=2,
@@ -517,12 +659,10 @@ def sparse_max_pool_batched(coords, valid, feats, stride=2, kernel_size=2,
     """MinkowskiMaxPooling(kernel=k, stride=s): the max over each output
     voxel's taps (0 where it has none)."""
     max_out = max_out or coords.shape[1]
-    offs = kernel_offsets(kernel_size, device=coords.device)
     oc, ov = downsample_coords(coords, valid, stride * tensor_stride,
                                max_out)
-    nbr = neighbor_table_batched(coords, valid, oc, ov, offs,
-                                 in_stride=tensor_stride,
-                                 sorted_input=sorted_input)
+    nbr = kernel_tables([TableJob(coords, valid, oc, ov, kernel_size, False,
+                                  tensor_stride)], sorted_input)[0]
     b, m, c = feats.shape
     flat = feats.reshape(b * m, c)
     base = (torch.arange(b, device=feats.device) * m)[:, None]
@@ -538,41 +678,41 @@ def sparse_max_pool_batched(coords, valid, feats, stride=2, kernel_size=2,
     return oc, ov, torch.where(ov[..., None], out, 0)
 
 
+def parent_job(coords_fine, valid_fine, coords_coarse, valid_coarse,
+               stride=2, kernel_size=2, tensor_stride=1):
+    """The ``TableJob`` of a transposed conv's table onto a known fine
+    set: each fine voxel's parent ``coords_fine // cs * cs`` (``cs =
+    stride * tensor_stride``) found among the coarse voxels and held at the
+    tap of its offset ``(fine - parent) // tensor_stride`` (the first axis
+    fastest); each row has one tap at most."""
+    return TableJob(coords_coarse, valid_coarse, coords_fine, valid_fine,
+                    kernel_size, True, tensor_stride, stride * tensor_stride)
+
+
 def transposed_table(coords_fine, valid_fine, coords_coarse, valid_coarse,
                      stride=2, kernel_size=2, tensor_stride=1,
                      sorted_input=False):
-    """The (B, M_f, K) table of a transposed conv onto a known fine set:
-    each fine voxel's parent ``coords_fine // cs * cs`` found with a
-    one-tap K13 lookup, held at the tap of its offset ``(fine - parent) //
-    tensor_stride`` (the first axis fastest); each row has one tap at
-    most."""
-    cs = stride * tensor_stride
-    parent = torch.div(coords_fine, cs, rounding_mode='floor') * cs
-    zero = torch.zeros((1, 3), dtype=torch.int32, device=coords_fine.device)
-    prow = neighbor_table_batched(coords_coarse, valid_coarse, parent,
-                                  valid_fine, zero,
-                                  sorted_input=sorted_input)[..., 0]
-    off = torch.div(coords_fine - parent, tensor_stride,
-                    rounding_mode='floor')
-    k = kernel_size
-    tap = off[..., 0] + k * (off[..., 1] + k * off[..., 2])
-    taps = torch.arange(k ** 3, device=tap.device)
-    return torch.where((tap[..., None] == taps) & (prow[..., None] >= 0),
-                       prow[..., None], -1).to(torch.int32)
+    """The (B, M_f, K) table of a transposed conv onto a known fine set
+    (``parent_job``), one K13 launch on the card."""
+    return kernel_tables([parent_job(coords_fine, valid_fine, coords_coarse,
+                                     valid_coarse, stride, kernel_size,
+                                     tensor_stride)], sorted_input)[0]
 
 
 def transposed_conv_to_batched(coords_fine, valid_fine, coords_coarse,
                                valid_coarse, feats_coarse, weights, stride=2,
                                kernel_size=2, tensor_stride=1,
-                               sorted_input=False):
+                               sorted_input=False, nbr=None):
     """MinkowskiConvolutionTranspose(kernel=2, stride=2) onto a known fine
     coordinate set (the encoder skip's table), as FCAF3D's decoder
-    upsamples: the ``transposed_table`` goes through K14.
-    ``tensor_stride`` is the fine level's granularity."""
-    tnbr = transposed_table(coords_fine, valid_fine, coords_coarse,
-                            valid_coarse, stride, kernel_size,
-                            tensor_stride, sorted_input)
-    out = sparse_conv_apply_batched(feats_coarse, tnbr, weights)
+    upsamples: the ``transposed_table`` (or ``nbr``, that table made
+    beforehand) goes through K14.  ``tensor_stride`` is the fine level's
+    granularity."""
+    if nbr is None:
+        nbr = transposed_table(coords_fine, valid_fine, coords_coarse,
+                               valid_coarse, stride, kernel_size,
+                               tensor_stride, sorted_input)
+    out = sparse_conv_apply_batched(feats_coarse, nbr, weights)
     return torch.where(valid_fine[..., None], out, 0)
 
 

@@ -1,8 +1,8 @@
 """K1 (FPS), K2 (ball query), K3 (MSDA forward), K4 (MSDA backward), K6
 (slot fold), K7 (M-form sampler), K9 (box count), K10 (batched 2D NMS),
-K11 (pyramid RoIAlign), K12 (its backward) and K14 (the sparse
-convolution) of this tree against the same kernels of another commit, in
-turns, on one card:
+K11 (pyramid RoIAlign), K12 (its backward), K13 (the kernel map), K14
+(the sparse convolution) and K15 (the class-wise rotated NMS) of this tree
+against the same kernels of another commit, in turns, on one card:
 
     mkdir -p build/parent && git archive <commit> demf_tpu_torch | \\
         tar -x -C build/parent
@@ -73,6 +73,18 @@ parent without plans goes as it is.  Every output of both sides must lie
 within 1e-5 of the plain version's largest (bf16: one bf16 step); the
 GFLOP of the taps that exist and of those this tree computes are printed,
 and this tree's device ms of the request's convolutions by shape.
+K13 runs on a FCAF3D request's tables (the same request) at the functions
+the model calls, the key tables and offsets included: the parent's
+``neighbor_table_batched`` / ``transposed_table`` calls as its model made
+them (17) against this tree's ``kernel_tables`` launches (7); the tables
+must be equal, and each side's kernels a request and their device ms are
+printed.  K15 runs through both ``rotated_nms_classwise`` (the model's
+call, no IoU matrix) on the request's call and on spread, piled,
+coincident, apart and far boxes (``tools/nms_cases.py``) at its shape;
+this tree's masks must equal the plain sweep fed its own IoUs, and each
+side's kernels a call with their device ms are printed.
+``--parent-only`` times the parent alone (K13 and K15): its numbers
+before this tree's are timed.
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -89,7 +101,7 @@ sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
 ``ops.grouping.ball_query_launch_shape`` and
 ``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
 (``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
-roi_align,roi_align_backward,sparse_conv``).  Prints its lines, writes
+roi_align,roi_align_backward,sparse_conv,kernel_map,nms3d_rotated``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -154,7 +166,9 @@ MSDA_BACKWARD_CASES = tuple(
 
 KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
            'msda_fold', 'box_count', 'nms2d', 'roi_align',
-           'roi_align_backward', 'sparse_conv')
+           'roi_align_backward', 'sparse_conv', 'kernel_map', 'nms3d_rotated')
+# the kernels whose comparison can time the parent alone (--parent-only)
+PARENT_ONLY = ('kernel_map', 'nms3d_rotated')
 # K9: (scenes, points, boxes) of a request and of an eval batch
 BOX_COUNT_SHAPES = ((2, 20000, 512), (16, 20000, 512))
 # K10: (scenes, layout, candidates, IoU threshold) of the RPN's and the
@@ -823,33 +837,224 @@ def compare_roi_align_backward(old, dev, sweep):
     return rows
 
 
-def request_convs(dev):
-    """The (feats, nbr, weights, plan) of each of the 47 K14 calls of a
-    FCAF3D request at full width (2 scenes of 100,000 points, seeded
-    weights, norms calibrated), as this tree's model makes them."""
+def request_calls(dev):
+    """The arguments of a FCAF3D request's K13, K14 and K15 calls at full
+    width (2 scenes of 100,000 points, seeded weights, norms calibrated),
+    as this tree's model makes them: {'kernel_map': [(jobs,), ...] (its 7
+    launches), 'sparse_conv': [(feats, nbr, weights, plan), ...] (47),
+    'nms3d_rotated': [(boxes, scores, valid, iou_thr, score_thr)]}."""
     from .. import zoo
     from ..engine import batch_to_device
+    from ..ops import nms_rotated
     model = zoo.build_detector('fcaf3d/fcaf3d_sunrgbd.py', device=dev,
                                seed=0)
     request = batch_to_device(zoo.synth_fcaf3d_batch(2, p=100000, seed=0),
                               dev)
     calibrate_batch_norms(model, request)
-    calls = []
-    run = sparse.sparse_conv_cuda
+    calls = {'kernel_map': [], 'sparse_conv': [], 'nms3d_rotated': []}
+    hooks = [(sparse, 'kernel_tables_cuda', 'kernel_map'),
+             (sparse, 'sparse_conv_cuda', 'sparse_conv'),
+             (nms_rotated, 'rotated_nms_classwise_cuda', 'nms3d_rotated')]
+    saved = [getattr(module, name) for module, name, _ in hooks]
 
-    def record(*args):
-        calls.append(args)
-        return run(*args)
+    def recorder(fn, key):
+        def call(*args):
+            calls[key].append(args)
+            return fn(*args)
+        return call
 
-    sparse.sparse_conv_cuda = record
+    for (module, name, key), fn in zip(hooks, saved):
+        setattr(module, name, recorder(fn, key))
     try:
         with torch.inference_mode():
-            model(request)
+            model.get_bboxes(model(request))
     finally:
-        sparse.sparse_conv_cuda = run
+        for (module, name, _), fn in zip(hooks, saved):
+            setattr(module, name, fn)
     del model, request
     torch.cuda.empty_cache()
     return calls
+
+
+def _sides(parent, change, iters, parent_only):
+    """ms of parent, change, change, parent; of the parent alone (twice)
+    with ``parent_only``."""
+    if parent_only:
+        return [time_ms(parent, iters), None, None, time_ms(parent, iters)]
+    return in_turns(parent, change, iters)
+
+
+def _kernels_a_call(fn):
+    """(kernels a call, their device ms) by torch.profiler."""
+    found = device_kernels(fn)
+    return (sum(n for n, _ in found.values()),
+            sum(ms for _, ms in found.values()))
+
+
+def _fmt(ms):
+    return 'not timed' if ms is None else f'{ms:.4f}'
+
+
+def parent_table_calls(old, launches, dev):
+    """The parent's calls for a request's tables, as its model made them:
+    one ``neighbor_table_batched`` a conv table (the offsets made in the
+    call), one more with the one-tap offsets for each stride-2 block's
+    shortcut, one ``transposed_table`` an up block."""
+    calls = []
+    for (jobs,) in launches:
+        for j in jobs:
+            if j.cell:
+                calls.append(lambda j=j: old.transposed_table(
+                    j.query_coords, j.query_valid, j.coords, j.valid,
+                    stride=j.cell // j.stride, kernel_size=j.kernel_size,
+                    tensor_stride=j.stride, sorted_input=True))
+                continue
+            calls.append(lambda j=j: old.neighbor_table_batched(
+                j.coords, j.valid, j.query_coords, j.query_valid,
+                old.kernel_offsets(j.kernel_size, j.me_order, dev),
+                in_stride=j.stride, sorted_input=True))
+            if j.kernel_size == 2 and j.me_order:
+                calls.append(lambda j=j: old.neighbor_table_batched(
+                    j.coords, j.valid, j.query_coords, j.query_valid,
+                    old.kernel_offsets(1, device=dev), in_stride=j.stride,
+                    sorted_input=True))
+    return calls
+
+
+def compare_kernel_map(old, dev, parent_only):
+    """K13 at the functions the model calls, a FCAF3D request's tables:
+    the parent's 17 calls (``parent_table_calls``, key tables and offsets
+    made in them) against this tree's 7 ``kernel_tables`` launches, in
+    turns; the tables equal (the parent's one-tap tables equal tap 0 of
+    the strided tables); each side's kernels a request and their device
+    ms; a one-lookup launch, the least a launch takes."""
+    with torch.inference_mode():
+        launches = request_calls(dev)['kernel_map']
+        old_calls = parent_table_calls(old, launches, dev)
+        got = [t for (jobs,) in launches for t in sparse.kernel_tables(jobs)]
+        want = [fn() for fn in old_calls]
+        strided = [t[..., :1] for (jobs,) in launches for j, t in zip(
+            jobs, sparse.kernel_tables(jobs))
+            if j.kernel_size == 2 and j.me_order and not j.cell]
+        if not all(torch.equal(a, b) for a, b in zip(
+                got + strided, [w for w in want if w.shape[-1] != 1] +
+                [w for w in want if w.shape[-1] == 1])):
+            raise AssertionError('K13: the tables differ from the parent\'s')
+
+        def parent():
+            for fn in old_calls:
+                fn()
+
+        def tree():
+            for (jobs,) in launches:
+                sparse.kernel_tables(jobs)
+
+        ms = _sides(parent, tree, 20, parent_only)
+        sides = [('parent', parent)] + ([] if parent_only else
+                                        [('this tree', tree)])
+        counts = {name: _kernels_a_call(fn) for name, fn in sides}
+        one = [sparse.one_lookup(launches[0][0][0])]
+        one_ms = None if parent_only else time_ms(
+            lambda: sparse.kernel_tables(one), 50)
+        by_launch = [] if parent_only else k13_by_launch(launches)
+    tables = sum(len(jobs) for (jobs,) in launches)
+    print(f'K13 kernel_map, a FCAF3D request\'s tables at the model\'s '
+          f'functions: parent {len(old_calls)} calls {_fmt(ms[0])} / '
+          f'{_fmt(ms[3])} ms, this tree {tables} tables in {len(launches)} '
+          f'launches {_fmt(ms[1])} / {_fmt(ms[2])} ms; kernels a request '
+          + ', '.join(f'{name} {n:.0f} ({dms:.4f} ms on the device)'
+                      for name, (n, dms) in counts.items()) +
+          f'; a one-lookup launch {_fmt(one_ms)} ms', flush=True)
+    return [dict(kernel='kernel_map', case='request', parent_ms=[ms[0], ms[3]],
+                 ms=[ms[1], ms[2]], parent_calls=len(old_calls),
+                 launches=len(launches), tables=tables,
+                 kernels_a_request={k: v[0] for k, v in counts.items()},
+                 device_ms={k: v[1] for k, v in counts.items()},
+                 one_lookup_ms=one_ms, by_launch=by_launch)]
+
+
+def k13_by_launch(launches):
+    """This tree's device us of each K13 launch of the request
+    (torch.profiler), with its tables: query rows x taps in a key table of
+    M rows a scene."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for (jobs,) in launches:
+        sparse.kernel_tables(jobs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for (jobs,) in launches:
+            sparse.kernel_tables(jobs)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and
+                     'kernel_map' in e.name),
+                    key=lambda e: e.time_range.start)
+    rows = []
+    for (jobs,), e in zip(launches, events):
+        tables = ', '.join(
+            f'{j.query_coords.shape[1]} x {j.kernel_size ** 3}'
+            f'{" (parents)" if j.cell else ""} in {j.coords.shape[1]}'
+            for j in jobs)
+        us = e.time_range.elapsed_us()
+        print(f'  K13 launch ({tables}): {us:.1f} us on the device',
+              flush=True)
+        rows.append(dict(tables=tables, us=us))
+    return rows
+
+
+def compare_nms3d_rotated(old, dev, parent_only):
+    """K15 through both wrappers as the model calls them (no IoU matrix),
+    on a request's call and on spread, piled, coincident, apart and far
+    boxes at its shape, in turns; this tree's masks equal the plain sweep
+    fed its own IoUs, the bits in which the two sides differ printed;
+    each side's kernels a call and their device ms."""
+    from ..ops import nms_rotated
+    from .nms_cases import rotated_nms_case
+    with torch.inference_mode():
+        args = request_calls(dev)['nms3d_rotated'][0]
+    boxes, scores, valid, iou_thr, score_thr = args
+    b, n, c = scores.shape
+    cases = [('request', args)] + [
+        (kind, (*(torch.from_numpy(a).to(dev) for a in rotated_nms_case(
+            kind, b, n, c, seed=1)), iou_thr, score_thr))
+        for kind in ('spread', 'piled', 'coincident', 'apart', 'far')]
+    rows = []
+    for kind, call in cases:
+        bx, sc, va = call[:3]
+        want = old.rotated_nms_classwise(*call)
+        if not parent_only:
+            iou = torch.empty((b, n, n), device=dev)
+            keep = nms_rotated.rotated_nms_classwise_cuda(*call, iou=iou)
+            got = nms_rotated.rotated_nms_classwise(*call)
+            if not (torch.equal(got, keep) and torch.equal(
+                    keep, nms_rotated.classwise_sweep(iou, sc, va, iou_thr,
+                                                      score_thr))):
+                raise AssertionError(f'K15 {kind}: the masks differ from '
+                                     f'the plain sweep on its IoUs')
+        ms = _sides(lambda: old.rotated_nms_classwise(*call),
+                    lambda: nms_rotated.rotated_nms_classwise(*call), 20,
+                    parent_only)
+        sides = [('parent', lambda: old.rotated_nms_classwise(*call))]
+        if not parent_only:
+            sides.append(('this tree',
+                          lambda: nms_rotated.rotated_nms_classwise(*call)))
+        split = {name: device_kernels(fn) for name, fn in sides}
+        differ = None if parent_only else int((got != want).sum())
+        print(f'K15 nms3d_rotated ({b}, N {n}, {c} classes, {kind}): parent '
+              f'{_fmt(ms[0])} / {_fmt(ms[3])} ms, this tree {_fmt(ms[1])} / '
+              f'{_fmt(ms[2])} ms through the wrappers; kept '
+              f'{int(want.sum())} (parent), {differ} bits differ; device '
+              + '; '.join(f'{name}: ' + ', '.join(
+                  f'{k} {cnt:.0f} x {t:.4f} ms' for k, (cnt, t) in
+                  found.items()) for name, found in split.items()),
+              flush=True)
+        rows.append(dict(kernel='nms3d_rotated', case=kind,
+                         parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                         bits_differ=differ,
+                         device={name: {k: list(v) for k, v in found.items()}
+                                 for name, found in split.items()}))
+    return rows
 
 
 def _k14_side(fn, calls, dtype):
@@ -869,7 +1074,7 @@ def compare_sparse_conv(old, dev):
     tree's plans made inside its timed call, once a table."""
     rows = []
     with torch.inference_mode():
-        recorded = request_convs(dev)
+        recorded = request_calls(dev)['sparse_conv']
         cases = [('request (47 convolutions)', [
             (f, n, w, id(p)) for f, n, w, p in recorded])]
         for kind, b, m, c, co in SPARSE_LEVELS:
@@ -983,11 +1188,18 @@ def main(argv=None):
     ap.add_argument('--only', default=','.join(KERNELS),
                     help='comma-separated kernels among ' + ', '.join(KERNELS))
     ap.add_argument('--out', default=None, help='write the rows here as JSON')
+    ap.add_argument('--parent-only', action='store_true',
+                    help='time the parent alone (' + ', '.join(PARENT_ONLY) +
+                    ')')
     args = ap.parse_args(argv)
-    dev = cuda_device()
     only = args.only.split(',')
     if not set(only) <= set(KERNELS):
         ap.error(f'--only takes {KERNELS}')
+    if args.parent_only and (args.parent is None or
+                             not set(only) <= set(PARENT_ONLY)):
+        ap.error(f'--parent-only takes --parent and --only among '
+                 f'{PARENT_ONLY}')
+    dev = cuda_device()
     (old_sampling, old_grouping, old_msda, old_mform, old_fold,
      old_boxes, old_nms2d, old_roi_align) = parent_ops(args.parent)
     rows = []
@@ -1019,6 +1231,15 @@ def main(argv=None):
         old_sparse = importlib.import_module('demf_parent.ops.sparse') \
             if args.parent else sparse
         rows += compare_sparse_conv(old_sparse, dev)
+    if 'kernel_map' in only:
+        old_sparse = importlib.import_module('demf_parent.ops.sparse') \
+            if args.parent else sparse
+        rows += compare_kernel_map(old_sparse, dev, args.parent_only)
+    if 'nms3d_rotated' in only:
+        from ..ops import nms_rotated
+        old_nms = importlib.import_module('demf_parent.ops.nms_rotated') \
+            if args.parent else nms_rotated
+        rows += compare_nms3d_rotated(old_nms, dev, args.parent_only)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -10,7 +10,7 @@ import numpy as np
 KINDS = ('random', 'clustered', 'ties', 'invalid', 'degenerate', 'one_class')
 BOX_KINDS = ('spread', 'clustered', 'faces')
 ROTATED_KINDS = ('spread', 'piled', 'coincident', 'apart', 'aligned',
-                 'far')
+                 'far', 'stacked')
 BOX_GRID_CASES = ('spread', 'clustered', 'faces', 'faces, yaw 0',
                   'faces, yaw pi/4', 'faces, yaw pi', 'cell edges',
                   'box larger than the room', 'one x', 'non-finite')
@@ -304,7 +304,10 @@ def rotated_nms_case(kind, b, n, classes=10, seed=0):
     overlapping.  ``coincident``: the second half copies the first.
     ``apart``: on a grid of 2.2 m (a box's BEV diagonal is at most 2.13
     m), no overlap, within 8 m of the origin as a room's boxes are.
-    ``aligned``: one yaw.  ``far``: the first half 8 m apart along x, out
+    ``aligned``: one yaw.  ``stacked``: pairs of boxes with one footprint,
+    one above the other (their z-ranges 5 cm apart), the pairs on a grid of
+    2.2 m: no two boxes overlap, a pair only by its z-ranges.  ``far``:
+    the first half 8 m apart along x, out
     to 4 n m from the origin (512 m at n 256), the second half copies of
     the first: corners hundreds of metres out carry roundings of
     R * 2**-23, and the shoelace sums cancel them into a box's IoU with
@@ -333,6 +336,16 @@ def rotated_nms_case(kind, b, n, classes=10, seed=0):
     elif kind == 'aligned':
         boxes[..., :3] = rng.uniform(-1, 1, (b, n, 3))
         boxes[..., 6] = 0.25
+    elif kind == 'stacked':
+        pair = np.arange(n) // 2
+        side = int(np.ceil(np.sqrt((n + 1) // 2)))
+        cell = np.stack([pair % side, pair // side], -1)
+        boxes[..., :2] = (cell - (side - 1) / 2) * 2.2
+        lower = boxes[:, ::2]
+        boxes[:, 1::2, 3:5] = lower[:, :n // 2, 3:5]
+        boxes[:, 1::2, 6] = lower[:, :n // 2, 6]
+        boxes[:, 1::2, 2] = lower[:, :n // 2, 2] + lower[:, :n // 2, 5] + \
+            0.05
     else:
         half = n - n // 2
         boxes[..., :3] = rng.uniform(-2, 2, (b, n, 3))
@@ -343,3 +356,21 @@ def rotated_nms_case(kind, b, n, classes=10, seed=0):
     scores[:, min(3, n - 1), 1 % classes] = np.nan
     valid = rng.rand(b, n) < 0.9
     return boxes, scores, valid
+
+
+def rotated_pairs_apart(boxes):
+    """(B, N, N) bool: the pairs of (B, N, 7) boxes whose z-ranges do not
+    overlap or whose BEV bounding circles lie apart by more than twice
+    K15's cull margin (in float64): pairs that K15 culls and to which the
+    plain arithmetic gives an IoU of exactly 0."""
+    import torch
+    bx = boxes.double()
+    z0, z1 = bx[..., 2], bx[..., 2] + bx[..., 5]
+    zover = torch.minimum(z1[:, :, None], z1[:, None]) - torch.maximum(
+        z0[:, :, None], z0[:, None])
+    r = 0.5 * (bx[..., 3] ** 2 + bx[..., 4] ** 2).sqrt()
+    a = bx[..., 0].abs() + bx[..., 1].abs()
+    reach = r[:, :, None] + r[:, None] + 2e-4 * (
+        1 + a[:, :, None] + a[:, None] + r[:, :, None] + r[:, None])
+    d2 = (bx[:, :, None, :2] - bx[:, None, :, :2]).pow(2).sum(-1)
+    return (zover < -1e-6) | (d2 > reach ** 2)

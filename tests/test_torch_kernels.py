@@ -1879,17 +1879,44 @@ def voxel_level(dev, b=2, n=20000, m=4096, stride=1, seed=0, spread=3.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('presorted', [True, False])
+@pytest.mark.parametrize('presorted', [True, False, 'grouped'])
 @pytest.mark.parametrize('k,stride', [(1, 1), (2, 2), (3, 1), (3, 4)])
 @pytest.mark.parametrize('b,m,spread', [(3, 4096, 3.0), (1, 512, 0.3)])
 def test_kernel_map_equals_plain(dev, b, m, spread, k, stride, presorted):
     """An empty scene, a scene at capacity (0.3 m of dense points), rows
     shuffled (the table sorted first), invalid query rows, and taps with
-    no neighbour: the tables are equal."""
+    no neighbour: the tables are equal.  ``grouped``: the level's table,
+    its strided table onto the coarser level, that level's table, the
+    pool's (the last axis fastest) and the transposed conv's back onto the
+    level in one launch, each equal to the same table made alone and to
+    the plain one."""
     from demf_tpu_torch.ops import sparse
     coords, valid = voxel_level(dev, b=b, m=m, stride=stride, spread=spread)
     if m == 512 and stride == 1:
         assert valid.all()
+    if presorted == 'grouped':
+        oc, ov = sparse.downsample_coords(coords, valid, 2 * stride,
+                                          m // 2)
+        jobs = [sparse.TableJob(coords, valid, coords, valid, k, True,
+                                stride),
+                sparse.TableJob(coords, valid, oc, ov, 2, True, stride),
+                sparse.TableJob(oc, ov, oc, ov, 3, True, 2 * stride),
+                sparse.TableJob(coords, valid, oc, ov, 2, False, stride),
+                sparse.parent_job(coords, valid, oc, ov,
+                                  tensor_stride=stride)]
+        before = sparse.KERNEL_MAP_KERNEL.launches
+        got = sparse.kernel_tables(jobs)
+        assert sparse.KERNEL_MAP_KERNEL.launches == before + 1
+        for job, table in zip(jobs, got):
+            assert table.shape == (b, job.query_coords.shape[1],
+                                   job.kernel_size ** 3)
+            assert torch.equal(table, sparse.kernel_tables_cuda([job])[0])
+            assert torch.equal(table, sparse.kernel_table_plain(job))
+        assert torch.equal(got[0], sparse.kernel_map_cuda(
+            *sparse.key_table_presorted(coords, valid), coords, valid,
+            sparse.kernel_offsets(k, me_order=True, device=dev), stride))
+        assert (got[4] >= 0).sum(-1).le(1).all() and (got[4] >= 0).any()
+        return
     if not presorted:
         perm = torch.randperm(coords.shape[1], device=dev,
                               generator=torch.Generator(dev).manual_seed(k))
@@ -2018,32 +2045,61 @@ K15_COPY_TOL = 1e-5
 @pytest.mark.cuda
 @pytest.mark.parametrize('n', [256, 64, 1])
 @pytest.mark.parametrize('kind', ['spread', 'piled', 'coincident', 'apart',
-                                  'aligned'])
+                                  'aligned', 'stacked'])
 def test_rotated_nms_equals_plain(dev, kind, n):
     """K15's IoUs within 1e-6 of ``iou3d_matrix``'s for two distinct boxes
-    and within ``K15_COPY_TOL`` for a box and its copy, its masks equal to
-    the plain sweep fed its own IoUs bit for bit (NaN scores, scores below
-    score_thr and invalid boxes take no part), and a scene whose boxes are
-    all invalid keeps none."""
+    and within ``K15_COPY_TOL`` for a box and its copy, exactly 0 as the
+    plain version's where two boxes cannot meet (circles apart, z-ranges
+    apart: ``stacked``), its masks equal to the plain sweep fed its own
+    IoUs bit for bit (NaN scores, scores below score_thr and invalid boxes
+    take no part), the model path's masks (no IoU matrix asked for) equal
+    to those and to calls on two streams at once, a scene whose boxes are
+    all invalid keeps none, and one whose scores are all below score_thr
+    keeps none."""
     from demf_tpu_torch.core.rotated_iou import iou3d_matrix
     from demf_tpu_torch.ops import nms_rotated
-    from demf_tpu_torch.tools.nms_cases import rotated_nms_case
+    from demf_tpu_torch.tools.nms_cases import (rotated_nms_case,
+                                                rotated_pairs_apart)
     boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in
                             rotated_nms_case(kind, 3, n, seed=n))
     valid[-1] = False
     before = nms_rotated.NMS3D_ROTATED_KERNEL.launches
-    keep, iou = nms_rotated.rotated_nms_classwise_cuda(boxes, scores, valid,
-                                                       0.5, 0.01)
+    iou = torch.full((3, n, n), float('nan'), device=dev)
+    keep = nms_rotated.rotated_nms_classwise_cuda(boxes, scores, valid,
+                                                  0.5, 0.01, iou)
     assert nms_rotated.NMS3D_ROTATED_KERNEL.launches == before + 1
-    err = (iou - iou3d_matrix(boxes, boxes)).abs()
+    plain_iou = iou3d_matrix(boxes, boxes)
+    err = (iou - plain_iou).abs()
     copies = (boxes[:, :, None] == boxes[:, None]).all(-1)
     if n > 1:
         assert err[~copies].max().item() <= 1e-6
     assert err[copies].max().item() <= K15_COPY_TOL
+    apart = rotated_pairs_apart(boxes)
+    assert (iou[apart] == 0).all() and (plain_iou[apart] == 0).all()
+    if kind in ('apart', 'stacked') and n > 1:
+        assert apart[~copies].all()
     want = nms_rotated.classwise_sweep(iou, scores, valid, 0.5, 0.01)
     assert torch.equal(keep, want)
+    assert torch.equal(nms_rotated.rotated_nms_classwise_cuda(
+        boxes, scores, valid, 0.5, 0.01), keep)
+    # each call zeroes its own bits on its stream: calls on two streams at
+    # once give the same masks
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            outs.append(nms_rotated.rotated_nms_classwise_cuda(
+                boxes, scores, valid, 0.5, 0.01))
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(o, keep) for o in outs)
     assert not keep[-1].any() and (n == 1 or keep[:-1].any())
     assert not keep[:, 1, min(3, n - 1)].any()
+    low = scores.clone()
+    low[1] = 0.005
+    none = nms_rotated.rotated_nms_classwise_cuda(boxes, low, valid, 0.5,
+                                                  0.01)
+    assert not none[1].any() and torch.equal(none[0], keep[0])
 
 
 @pytest.mark.cuda
@@ -2060,8 +2116,9 @@ def test_rotated_nms_far_from_the_origin(dev, n):
     from demf_tpu_torch.tools.nms_cases import rotated_nms_case
     boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in
                             rotated_nms_case('far', 3, n, seed=n))
-    keep, iou = nms_rotated.rotated_nms_classwise_cuda(boxes, scores, valid,
-                                                       0.5, 0.01)
+    iou = torch.empty((3, n, n), device=dev)
+    keep = nms_rotated.rotated_nms_classwise_cuda(boxes, scores, valid,
+                                                  0.5, 0.01, iou)
     err = (iou - iou3d_matrix(boxes, boxes)).abs()
     copies = (boxes[:, :, None] == boxes[:, None]).all(-1)
     reach = boxes[..., :2].abs().max().item()

@@ -116,8 +116,9 @@ def test_classwise_nms_equals_jax(kind):
 
 
 def test_sweep_shared_bytes_fits_nms_pre():
-    """K15's sweep holds a scene's bits in shared memory: nms_pre 256 (the
-    SUN RGB-D configs) takes 10.5 KB."""
-    assert nms_rotated.sweep_shared_bytes(256) == 4 * (256 * 8 + 512 + 8) + 256
+    """K15's sweep holds a scene's bits (rows at an odd stride) and a
+    class's keys, order and kept mask in shared memory: nms_pre 256 (the
+    SUN RGB-D configs) takes 11.0 KB."""
+    assert nms_rotated.sweep_shared_bytes(256) == 4 * (256 * 9 + 512 + 8)
     assert nms_rotated.sweep_shared_bytes(1312) <= 232448 < \
         nms_rotated.sweep_shared_bytes(1313)

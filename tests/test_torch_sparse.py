@@ -13,7 +13,11 @@ same inputs made with numpy from a seed.
 * the submanifold, strided and transposed convolutions (K14's plain
   version; the port's kernels in MinkowskiEngine's tap order, the JAX
   package's permuted by ``engine/weights.py::me_tap_order``) and the max
-  pool within 1e-5 of each output's largest value;
+  pool within 1e-5 of each output's largest value; the tables a strided
+  conv hands out (its own, whose tap 0 a stride-2 block's shortcut reads,
+  and the coarse level's, from one launch) and the transposed conv's made
+  up front as the FCAF3D head makes them, equal to the JAX package's
+  and to ``transposed_table``'s;
 * a bfloat16 convolution held to the JAX package's own bf16 - float32 gap;
 * K14's row plan (``conv_plan``) of every table those convolutions read
   (the ``tiles`` cases): every row once in the order, sorted stably by its
@@ -32,6 +36,7 @@ import torch
 
 from demf_tpu.ops import sparse as J
 from demf_tpu_torch.engine.weights import me_tap_order
+from demf_tpu_torch.models.fcaf3d import FCAF3DHead
 from demf_tpu_torch.ops import sparse as P
 
 VOXEL = 0.1
@@ -220,10 +225,24 @@ def test_submanifold_conv_equals_jax(level, stride, route, monkeypatch):
     close(got, want)
 
 
+def me_perm(k):
+    """Tap t of MinkowskiEngine's order (the first axis fastest) at the JAX
+    package's index (the last axis fastest)."""
+    t = np.arange(k ** 3)
+    return (t % k) * k * k + (t // k % k) * k + t // (k * k)
+
+
+@pytest.mark.parametrize('level_kernel', [None, 3])
 @pytest.mark.parametrize('route', ['plain', 'tiles'])
 @pytest.mark.parametrize('stride', [1, 2])
 @pytest.mark.parametrize('k', [2, 3])
-def test_strided_conv_equals_jax(level, k, stride, route, monkeypatch):
+def test_strided_conv_equals_jax(level, k, stride, route, level_kernel,
+                                 monkeypatch):
+    """The strided conv, its coordinate set and its table; for k = 2 the
+    table's tap 0, which a stride-2 block's shortcut reads, equal to the
+    JAX package's one-tap table onto the coarse set; with
+    ``level_kernel`` the coarse level's own table from the same launch
+    equal to the JAX package's 27-tap table in MinkowskiEngine's order."""
     if route == 'tiles':
         route_through_tiles(monkeypatch)
     coords, valid = at_stride(level, stride)
@@ -234,10 +253,26 @@ def test_strided_conv_equals_jax(level, k, stride, route, monkeypatch):
         kernel_size=k, max_out=1024, tensor_stride=stride, sorted_input=True)
     got = P.strided_conv_batched(
         coords, valid, torch.from_numpy(x), torch.from_numpy(me_tap_order(w)),
-        kernel_size=k, max_out=1024, tensor_stride=stride, sorted_input=True)
+        kernel_size=k, max_out=1024, tensor_stride=stride, sorted_input=True,
+        level_kernel=level_kernel)
     assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
     assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
     close(got[2], want[2])
+    oc, ov = (jnp.asarray(t.numpy()) for t in got[:2])
+    jc, jv = jnp.asarray(coords.numpy()), jnp.asarray(valid.numpy())
+    if k == 2:
+        one_tap = J.neighbor_table_batched(jc, jv, oc, ov, J.kernel_offsets(1),
+                                           in_stride=stride,
+                                           sorted_input=True)
+        assert np.array_equal(got[3][..., :1].numpy(), np.asarray(one_tap))
+    if level_kernel:
+        table = J.neighbor_table_batched(oc, ov, oc, ov, J.kernel_offsets(3),
+                                         in_stride=2 * stride,
+                                         sorted_input=True)
+        assert np.array_equal(got[4].numpy(),
+                              np.asarray(table)[..., me_perm(3)])
+    else:
+        assert got[4] is None
 
 
 def test_max_pool_equals_jax(level):
@@ -253,9 +288,13 @@ def test_max_pool_equals_jax(level):
     close(got[2], want[2], 0)
 
 
-@pytest.mark.parametrize('route', ['plain', 'tiles'])
+@pytest.mark.parametrize('route', ['plain', 'tiles', 'head'])
 @pytest.mark.parametrize('fine_stride', [1, 2, 4])
 def test_transposed_conv_equals_jax(level, fine_stride, route, monkeypatch):
+    """The transposed conv onto the fine set.  ``head``: its table made up
+    front, as ``FCAF3DHead.up_tables`` makes the up blocks' tables in one
+    launch (here beside the coarse level's own up table), equal to
+    ``transposed_table``'s and handed to the conv."""
     if route == 'tiles':
         route_through_tiles(monkeypatch)
     fine_c, fine_v = at_stride(level, fine_stride)
@@ -267,10 +306,23 @@ def test_transposed_conv_equals_jax(level, fine_stride, route, monkeypatch):
         jnp.asarray(coarse_c.numpy()), jnp.asarray(coarse_v.numpy()),
         jnp.asarray(x), jnp.asarray(w),
         tensor_stride=fine_stride, sorted_input=True, sorted_fine=True)
+    tnbr = None
+    if route == 'head':
+        coarser = P.downsample_coords(coarse_c, coarse_v, 4 * fine_stride,
+                                      coarse_c.shape[1] // 2)
+        tnbr, up = FCAF3DHead.up_tables(
+            [(fine_c, fine_v), (coarse_c, coarse_v), coarser],
+            [fine_stride, 2 * fine_stride])
+        assert torch.equal(tnbr, P.transposed_table(
+            fine_c, fine_v, coarse_c, coarse_v, tensor_stride=fine_stride,
+            sorted_input=True))
+        assert torch.equal(up, P.transposed_table(
+            coarse_c, coarse_v, *coarser, tensor_stride=2 * fine_stride,
+            sorted_input=True))
     got = P.transposed_conv_to_batched(
         fine_c, fine_v, coarse_c, coarse_v, torch.from_numpy(x),
         torch.from_numpy(me_tap_order(w)), tensor_stride=fine_stride,
-        sorted_input=True)
+        sorted_input=True, nbr=tnbr)
     close(got, want)
 
 
