@@ -221,7 +221,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    a request with the image branch uncached (K3 7, K13 17, K14 47, K15 1)
    and with its output carried as ``img_features`` (K3 1), which must give
    the uncached request's predictions, each with host ms, device ms by
-   kernel, busy share and peak memory.
+   kernel, busy share and peak memory;
+17. FCAF3D trained (``zoo.build_trainer`` on the same config, AdamW, grad
+   clip 10, 8 scenes x 100,000 points): the first step's losses and every
+   gradient against the same step with the sparse ops routed to their plain
+   versions and in float64 (``TRAIN_LOSS_BOUND``; each gradient within
+   ``grad_bound``, from ``TRAIN_GRAD_BOUND`` and ``TRAIN_GRAD_NOISE``; the
+   GT boxes moved where the voxel capacity keeps voxels:
+   ``fcaf3d_train_batch``); K16, the weight
+   gradient, against its plain version on that step's own 47 calls (the
+   same bits twice, its time, bound and a ``torch.matmul`` a tap); K14 on
+   the step's 46 reverse tables (the backward's d_feats) against its plain
+   version; then 3 steps with their launches (``LAUNCHES_PER_FCAF3D_STEP``),
+   finite losses, host ms, device ms by kernel, busy share and peak memory;
+18. DeMF-FCAF3D trained (decoder lr_mult 0.05, the frozen image branch's
+   800x1344 features cached once): the same first-step comparison (MSDA
+   plain on that side too) and 3 steps (``LAUNCHES_PER_DEMF_FCAF3D_STEP``);
+   then the train entry, ``--synthetic --steps 2``, on both tiny FCAF3D
+   configs.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
@@ -242,11 +259,15 @@ at a request's shape (2 x 1,000 RoIs); K12 bf16: launches of the bf16
 image-only steps, times and bound at (16, 512); K13-K15: launches of an
 FCAF3D request, times and bounds summed over that request's own calls (K14
 bf16: launches of the bf16 request; K14's plan: its 16 tables, bound by
-their bytes); ``library_ms`` is
+their bytes; K14's row also carries ``backward_launches``, a FCAF3D train
+step's); K14 on reverse tables (``sparse_conv_backward``) and K16: launches
+of a FCAF3D train step, times and bounds summed over its own calls;
+``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights, K13 ``searchsorted``, K14
-a gather and a matmul) and null where there is
+a gather and a matmul, K16 a gather and a matmul a tap) and null where
+there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
 3D NMS, the count of points in rotated boxes, and the 2D NMS and RoIAlign
 (forward and backward), which torchvision has and this machine does not);
@@ -279,7 +300,8 @@ KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'mform_sample', 'nms3d', 'box_count', 'nms2d', 'roi_align',
                 'roi_align_backward', 'roi_align_bf16',
                 'roi_align_backward_bf16', 'kernel_map', 'sparse_conv',
-                'sparse_conv_bf16', 'sparse_conv_plan', 'nms3d_rotated')
+                'sparse_conv_bf16', 'sparse_conv_plan', 'nms3d_rotated',
+                'sparse_conv_backward', 'sparse_conv_dweights')
 
 
 def launch_counts(**counts):
@@ -365,6 +387,10 @@ REPLACES = {
     # the plan has no JAX code of its own: index plumbing of K14's function
     'sparse_conv_plan': 'demf_tpu/ops/sparse.py:393',
     'nms3d_rotated': 'demf_tpu/models/fcaf3d.py:314',
+    # d_feats: the same gather-GEMM on the reverse table (_conv_sym_bwd,
+    # _conv_revgeo_bwd)
+    'sparse_conv_backward': 'demf_tpu/ops/sparse.py:450',
+    'sparse_conv_dweights': 'demf_tpu/ops/sparse.py:414',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -386,7 +412,9 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'sparse_conv': 'demf_tpu_torch/csrc/sparse_conv.cu',
            'sparse_conv_bf16': 'demf_tpu_torch/csrc/sparse_conv.cu',
            'sparse_conv_plan': 'demf_tpu_torch/csrc/sparse_conv.cu',
-           'nms3d_rotated': 'demf_tpu_torch/csrc/nms3d_rotated.cu'}
+           'nms3d_rotated': 'demf_tpu_torch/csrc/nms3d_rotated.cu',
+           'sparse_conv_backward': 'demf_tpu_torch/csrc/sparse_conv.cu',
+           'sparse_conv_dweights': 'demf_tpu_torch/csrc/sparse_dweights.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -3550,6 +3578,21 @@ LAUNCHES_PER_FCAF3D_REQUEST_BF16 = launch_counts(
     nms3d_rotated=1)
 LAUNCHES_PER_DEMF_FCAF3D_REQUEST = launch_counts(msda=7, **SPARSE_PATH)
 LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
+# a train step's launches: the forward's (a request's without K15), then in
+# the backward K14 on the reverse table of every convolution whose input
+# takes a gradient (all 47 but the stem's, whose colours take none), K16 on
+# every convolution's table, and the reverse tables: each stage's parent
+# table (4 K13 launches, its tap 0 the shortcut's reverse) and the plans of
+# 12 reverse tables (the 4 level tables flipped, the 4 parent tables and
+# their 4 one-tap cuts); the up blocks' transposed convs read back the 3
+# strided tables on the plans their forward made
+SPARSE_TRAIN_STEP = dict(kernel_map=11, sparse_conv=47,
+                         sparse_conv_backward=46, sparse_conv_plan=28,
+                         sparse_conv_dweights=47)
+LAUNCHES_PER_FCAF3D_STEP = launch_counts(**SPARSE_TRAIN_STEP)
+# the decoder's one MSDA layer, forward and backward
+LAUNCHES_PER_DEMF_FCAF3D_STEP = launch_counts(msda=1, msda_backward=1,
+                                              **SPARSE_TRAIN_STEP)
 # a FCAF3D request's tables (13, in the 7 launches above)
 FCAF3D_TABLES = 13
 FCAF3D_MARKERS = {'K13': ('kernel_map_kernel',),
@@ -3602,8 +3645,9 @@ def patched(*changes):
 
 
 def plain_sparse_ops():
-    """The FCAF3D family's K13, K14 with its plan, K15 and the decoders'
-    MSDA routed to their plain versions."""
+    """The FCAF3D family's K13, K14 with its plan (forward, and on reverse
+    tables in the backward), K16, K15 and the decoders' MSDA routed to
+    their plain versions."""
     from demf_tpu_torch.models import fcaf3d, transformer
     from demf_tpu_torch.ops import msda, nms_rotated, sparse
     return patched(
@@ -3612,6 +3656,11 @@ def plain_sparse_ops():
         (sparse, 'conv_plan', sparse.conv_plan_plain),
         (sparse, 'sparse_conv_cuda',
          lambda feats, nbr, w, plan: sparse.sparse_conv_plain(feats, nbr, w)),
+        (sparse, 'sparse_conv_backward_cuda',
+         lambda g, rev, wt, plan: sparse.sparse_conv_plain(g, rev, wt)),
+        (sparse, 'sparse_conv_dweights_cuda',
+         lambda feats, nbr, g, plan: sparse.sparse_conv_dweights_plain(
+             feats, nbr, g)),
         (fcaf3d, 'rotated_nms_classwise',
          nms_rotated.rotated_nms_classwise_plain),
         (transformer, 'multi_scale_deformable_attention', msda.msda_plain))
@@ -3619,10 +3668,12 @@ def plain_sparse_ops():
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Keep the arguments of every K13, K14 and K15 launch in the block
-    (yielded by kernel): the shapes and data the main path gives them."""
+    """Keep the arguments of every K13, K14 (forward and on reverse
+    tables), K16 and K15 launch in the block (yielded by kernel): the shapes
+    and data the main path gives them."""
     from demf_tpu_torch.ops import nms_rotated, sparse
-    calls = {'kernel_map': [], 'sparse_conv': [], 'nms3d_rotated': []}
+    calls = {'kernel_map': [], 'sparse_conv': [], 'nms3d_rotated': [],
+             'sparse_conv_backward': [], 'sparse_conv_dweights': []}
 
     def recorder(module, name, key):
         fn = getattr(module, name)
@@ -3634,6 +3685,10 @@ def recorded_calls():
 
     with patched(recorder(sparse, 'kernel_tables_cuda', 'kernel_map'),
                  recorder(sparse, 'sparse_conv_cuda', 'sparse_conv'),
+                 recorder(sparse, 'sparse_conv_backward_cuda',
+                          'sparse_conv_backward'),
+                 recorder(sparse, 'sparse_conv_dweights_cuda',
+                          'sparse_conv_dweights'),
                  recorder(nms_rotated, 'rotated_nms_classwise_cuda',
                           'nms3d_rotated')):
         yield calls
@@ -3716,7 +3771,7 @@ def check_kernel_map(calls):
     return kernel_row(0, ms, plain_ms, least, by, lib_ms)
 
 
-def check_sparse_conv(calls, dtype):
+def check_sparse_conv(calls, dtype, label='a request'):
     """K14 on a request's 47 convolutions (their own features, tables, row
     plans and weights; in bf16 the same rounded) against its plain version:
     float32 within 1e-5 of each output's largest, bf16 within one bf16 step
@@ -3794,7 +3849,7 @@ def check_sparse_conv(calls, dtype):
               f'{tf32 / ms:.1%} of it (the pinned bound {least:.6f} ms: '
               f'{least / ms:.1%})')
     print(f'K14 sparse_conv {str(dtype)[6:]}: {len(calls)} convolutions of '
-          f'a request on {len(nbrs)} tables, {flops / 1e9:.3f} GFLOP of '
+          f'{label} on {len(nbrs)} tables, {flops / 1e9:.3f} GFLOP of '
           f'existing taps, {computed / 1e9:.3f} GFLOP computed on the '
           f'plans\' tiles, max rel err {worst:.3e}, the same bits twice; '
           f'kernel {ms:.4f} ms with the plans made anew (the plans alone '
@@ -4195,6 +4250,360 @@ def run_demf_fcaf3d_path(dev, kernels):
             'demf_fcaf3d_serving_cached': cached_launches}
 
 
+# -- the FCAF3D family trained: K14 on reverse tables, K16 ------------------
+
+FCAF3D_TRAIN_SCENES = 8
+FCAF3D_TRAIN_STEPS = 3
+# the tiny configs (MinkResNet18: 31 convolutions, 30 reading features that
+# take a gradient) through the train entry, 2 steps each; DeMF-FCAF3D's
+# cache fill runs its 1-layer encoder once
+FCAF3D_TINY_CFGS = (os.path.join('configs', 'synthetic', 'fcaf3d_tiny.py'),
+                    os.path.join('configs', 'synthetic',
+                                 'demf_fcaf3d_tiny.py'))
+TINY_TRAIN_STEP = dict(kernel_map=11, sparse_conv=31, sparse_conv_backward=30,
+                       sparse_conv_plan=28, sparse_conv_dweights=31)
+LAUNCHES_TINY_TRAIN_ENTRY = (
+    launch_counts(**{k: 2 * v for k, v in TINY_TRAIN_STEP.items()}),
+    launch_counts(msda=3, msda_backward=2,
+                  **{k: 2 * v for k, v in TINY_TRAIN_STEP.items()}))
+# the first step on the kernel path against the same step on the plain path
+# (the same weights, batch and dropout draws): losses within 1e-4 relative,
+# the bound the CPU tests hold the port to against the JAX package (the two
+# paths sum in other orders: K14's 3xTF32 tiles, K16's slices, K4's lists).
+# The gradients are held to the plain path run in float64: each tensor's
+# kernel-path error, of the tensor's largest, within max(TRAIN_GRAD_BOUND,
+# TRAIN_GRAD_NOISE x the float32 plain path's).  Where float32 resolves a
+# gradient the first term binds, the CPU tests' bound.  Where it cannot (the
+# exact gradient cancels: the convs and norms of a level whose every
+# consumer is a train-mode BatchNorm, layers 3-4 at random weights, where
+# the float32 plain path strays up to 19% of a tensor's largest from
+# float64) the same amplification takes the kernel path's own rounding,
+# larger than float32 FMAs' (3xTF32, K14's ~1e-6 against its plain version
+# in ``check_sparse_conv``), and the ratio of the two errors is a draw:
+# ``demf_tpu_torch/tools/train_grad_noise.py`` read it at 0.0001-72.8 over
+# 4 seeds of each model on an H100 (PERF.md), and TRAIN_GRAD_NOISE
+# lies above the largest.  A bound that reaches 0.1 of its tensor's largest
+# checks little: the line says how many; K14 on reverse tables and K16 are
+# held on the step's own calls at 1e-5 besides (``check_sparse_conv``,
+# ``check_sparse_dweights``).  The whole gradient is held to its norm the
+# same way.
+TRAIN_LOSS_BOUND = 1e-4
+TRAIN_GRAD_BOUND = 1e-3
+TRAIN_GRAD_NOISE = 100.0
+TRAIN_MARKERS = {'K13': ('kernel_map_kernel',),
+                 'K14': ('sparse_conv_tiles', 'sparse_conv_sum_parts',
+                         'sparse_conv_plan'),
+                 'K16': ('dweights_tiles', 'dweights_sum'),
+                 'K3-K4': ('msda_',)}
+
+
+def check_sparse_dweights(calls):
+    """K16 on a train step's own calls (each convolution's features, table,
+    row plan and output gradient) against ``sparse_conv_dweights_plain``:
+    within 1e-5 of each result's largest, the same bits on two calls; timed
+    over all of them beside the plain version and one ``torch.matmul`` a
+    tap over the gathered rows (the yardstick).  Its bound: 2 x the (row,
+    tap) pairs that exist x C x C_out operations at float32's 67 TFLOP/s,
+    or the bytes (features, table and output gradient read once, the
+    weight gradient written once), whichever is larger."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools.sparse_cases import gather_dweights
+    worst = flops = nbytes = 0.0
+    yardsticks = []
+    for feats, nbr, g, plan in calls:
+        got = sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan)
+        if not torch.equal(got, sparse.sparse_conv_dweights_cuda(
+                feats, nbr, g, plan)):
+            raise AssertionError(f'K16 {tuple(nbr.shape)}: other bits on a '
+                                 f'second call')
+        want = sparse.sparse_conv_dweights_plain(feats, nbr, g)
+        top = max(want.abs().max().item(), 1e-30)
+        err = (got - want).abs().max().item() / top
+        if not err <= 1e-5:
+            raise AssertionError(f'K16 {tuple(feats.shape)} x '
+                                 f'{tuple(nbr.shape)} -> {tuple(got.shape)}: '
+                                 f'{err} of the largest')
+        worst = max(worst, err)
+        flops += 2.0 * int((nbr >= 0).sum()) * feats.shape[2] * g.shape[2]
+        nbytes += 4 * (feats.numel() + nbr.numel() + g.numel() + got.numel())
+        yardsticks.append(gather_dweights(feats, nbr, g))
+
+    def kernel():
+        for feats, nbr, g, plan in calls:
+            sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan)
+
+    def plain():
+        for feats, nbr, g, _ in calls:
+            sparse.sparse_conv_dweights_plain(feats, nbr, g)
+
+    def library():
+        for fn in yardsticks:
+            fn()
+
+    ms, plain_ms, lib_ms = (time_ms(kernel, 5), time_ms(plain, 2),
+                            time_ms(library, 5))
+    least, by = bound_ms(flops, nbytes)
+    print(f'K16 sparse_conv_dweights: {len(calls)} weight gradients of a '
+          f'train step, {flops / 1e9:.3f} GFLOP of existing taps, max rel '
+          f'err {worst:.3e}, the same bits twice; kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, gather + matmul a tap {lib_ms:.4f} ms, bound '
+          f'{least:.6f} ms ({by}; {flops / 1e9 / max(ms, 1e-9):.1f} TFLOP/s)',
+          flush=True)
+    return kernel_row(worst, ms, plain_ms, least, by, lib_ms)
+
+
+def fcaf3d_train_batch(maker, **kw):
+    """``maker``'s scenes (numpy) with the GT boxes twice the size and 1.5 m
+    further down the x axis.  The voxel capacity keeps each scene's lowest
+    keys, a slab at low x that the synthetic boxes seldom reach: without
+    positives a step leaves the centerness and box losses at 0 and their
+    backward unexercised."""
+    batch = maker(**kw)
+    batch['gt_bboxes_3d'][..., 3:6] *= 2
+    batch['gt_bboxes_3d'][..., 0] -= 1.5
+    return batch
+
+
+def train_pass(model, batch, seed=0):
+    """One forward, loss and backward in train mode, no update: (losses,
+    {parameter name: gradient})."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(batch['points'].device).manual_seed(seed)
+    losses = model.loss(model(batch, generator=gen), batch)
+    sum(losses.values()).backward()
+    return ({k: v.detach() for k, v in losses.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def in_float64(obj):
+    """A batch (dicts, tuples, tensors) with its floating tensors in
+    float64."""
+    if isinstance(obj, dict):
+        return {k: in_float64(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(in_float64(v) for v in obj)
+    if torch.is_tensor(obj) and obj.is_floating_point():
+        return obj.double()
+    return obj
+
+
+def train_grad_errors(model, batch, label):
+    """The first train step's losses and gradients on the kernel path (its
+    K13, K14 and K16 calls recorded), on the plain path from the same state,
+    and on the plain path in float64; the model's state is put back.
+    Returns (kernel losses, plain losses, {parameter: (kernel error, float32
+    plain error)} of the tensor's largest float64 gradient, the whole
+    gradient's (kernel, plain) error of its norm, whether every loss and
+    gradient is finite, the calls)."""
+    state = copy.deepcopy(model.state_dict())
+    with recorded_calls() as calls:
+        got_l, got_g = train_pass(model, batch)
+        torch.cuda.synchronize()
+    model.load_state_dict(state)
+    with plain_sparse_ops():
+        want_l, want_g = train_pass(model, batch)
+        model.load_state_dict(state)
+        model64 = copy.deepcopy(model).double()
+        _, ref_g = train_pass(model64, in_float64(batch))
+    del model64
+    model.load_state_dict(state)
+    model.zero_grad(set_to_none=True)
+    if set(got_g) != set(want_g) or set(got_l) != set(want_l):
+        raise AssertionError(f'{label}: the two paths train other tensors')
+    finite = all(torch.isfinite(v).all() for v in list(got_l.values()) +
+                 list(got_g.values()))
+    errors = {}
+    diff = plain_diff = norm = 0.0
+    for name, ref in ref_g.items():
+        top = max(ref.abs().max().item(), 1e-300)
+        got, plain = got_g[name].double(), want_g[name].double()
+        errors[name] = ((got - ref).abs().max().item() / top,
+                        (plain - ref).abs().max().item() / top)
+        diff += (got - ref).square().sum().item()
+        plain_diff += (plain - ref).square().sum().item()
+        norm += ref.square().sum().item()
+    whole = ((diff / max(norm, 1e-300)) ** 0.5,
+             (plain_diff / max(norm, 1e-300)) ** 0.5)
+    return got_l, want_l, errors, whole, finite, calls
+
+
+def grad_bound(plain):
+    """A gradient's bound, of its tensor's largest, where the float32 plain
+    path strays ``plain`` from float64."""
+    return max(TRAIN_GRAD_BOUND, TRAIN_GRAD_NOISE * plain)
+
+
+def compare_train_paths(model, batch, label):
+    """``train_grad_errors`` held to ``TRAIN_LOSS_BOUND`` and ``grad_bound``
+    (the comment above them says why).  Returns the calls."""
+    got_l, want_l, errors, (whole, whole_plain), finite, calls = \
+        train_grad_errors(model, batch, label)
+    loss_err = max((got_l[k] - w).abs().item() / max(w.abs().item(), 1e-30)
+                   for k, w in want_l.items())
+    rows = sorted((k / grad_bound(p), k, p, n) for n, (k, p) in
+                  errors.items())
+    over = [r for r in rows if r[0] > 1]
+    by_factor = sum(TRAIN_GRAD_NOISE * p > TRAIN_GRAD_BOUND
+                    for _, _, p, _ in rows)
+    loose = sum(grad_bound(p) >= 0.1 for _, _, p, _ in rows)
+    print(f'{label}: kernel path vs plain path on the first step, losses ' +
+          ', '.join(f'{k} {float(v):.5f}' for k, v in got_l.items()) +
+          f'; max rel err {loss_err:.3e} (bound {TRAIN_LOSS_BOUND}); '
+          f'{len(rows)} gradients against the plain path in float64, each '
+          f'within max({TRAIN_GRAD_BOUND:g}, {TRAIN_GRAD_NOISE:g} x the '
+          f'float32 plain error) of its largest ({by_factor} bounds set by '
+          f'the factor, {loose} of them 0.1 or more), the closest (kernel / '
+          f'plain error) ' +
+          ', '.join(f'{n} {k:.2e} / {p:.2e}' for _, k, p, n in rows[-3:]) +
+          f'; the whole gradient {whole:.3e} / {whole_plain:.3e} of its '
+          f'norm; K14 {len(calls["sparse_conv"])} forward, '
+          f'{len(calls["sparse_conv_backward"])} on reverse tables, K16 '
+          f'{len(calls["sparse_conv_dweights"])}', flush=True)
+    if not finite or not loss_err <= TRAIN_LOSS_BOUND or over or not \
+            whole <= grad_bound(whole_plain):
+        raise AssertionError(f'{label}: the kernel path strays from plain: '
+                             f'{over[-5:]}')
+    return calls
+
+
+def run_train_steps(step, batch, kernels, expected, label):
+    """``FCAF3D_TRAIN_STEPS`` train steps with every count at 0 before each:
+    each must launch ``expected`` and give finite losses; then each step's
+    host ms, one profiled step's device ms by kernel and busy share, and
+    the peak memory.  Returns a step's launches."""
+    gen = torch.Generator(batch['points'].device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(FCAF3D_TRAIN_STEPS):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launched = {n: k.launches for n, k in kernels.items()}
+        if launched != expected:
+            raise AssertionError(
+                f'{label} step {i} launched '
+                f'{ {n: c for n, c in launched.items() if c} }, expected '
+                f'{ {n: c for n, c in expected.items() if c} }')
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'{label} step {i}: non-finite {metrics}')
+        print(f'{label} step {i}: {walls[-1]:.3f} ms (host clock), ' +
+              ', '.join(f'{k} {float(v):.4f}'
+                        for k, v in sorted(metrics.items())), flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    found = kernels_a_call(lambda: step(batch, gen), TRAIN_MARKERS, runs=2)
+    wall = float(np.median(walls[1:]))
+    ours = ', '.join(f'{k} {ms:.3f} ms in {n} launches'
+                     for k, (ms, n) in found.items() if k != 'all' and n)
+    print(f'{label}: a step {wall:.3f} ms (host clock, median of steps 2-'
+          f'{FCAF3D_TRAIN_STEPS}), device kernels {found["all"][0]:.3f} ms '
+          f'in {found["all"][1]} launches, busy share '
+          f'{found["all"][0] / wall:.1%}, peak memory {peak:.1f} MiB; {ours}; '
+          f'launches a step { {n: c for n, c in launched.items() if c} }',
+          flush=True)
+    return launched
+
+
+def fcaf3d_trainer(dev, seed=0):
+    """FCAF3D's full-width trainer (``configs/fcaf3d/fcaf3d_sunrgbd.py``
+    through ``zoo.build_trainer``: AdamW, grad clip 10, the step schedule)
+    and 8 scenes of 100,000 points, weights and scenes made from ``seed``:
+    (model, step, batch)."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device
+    model, _, step = zoo.build_trainer(FCAF3D_CFG, device=dev, seed=seed)
+    batch = batch_to_device(fcaf3d_train_batch(
+        zoo.synth_fcaf3d_batch, b=FCAF3D_TRAIN_SCENES, p=FCAF3D_POINTS,
+        seed=seed), dev)
+    return model, step, batch
+
+
+def demf_fcaf3d_trainer(dev, seed=0):
+    """DeMF-FCAF3D's full-width trainer (``configs/demf/demf_fcaf3d.py``:
+    decoder lr_mult 0.05, the frozen image branch) and 8 scenes of 100,000
+    points with 800x1344 images, whose features the frozen branch makes
+    once (the cache), all made from ``seed``: (model, step, batch)."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, compute_image_features
+    model, _, step = zoo.build_trainer(DEMF_FCAF3D_CFG, device=dev,
+                                       seed=seed)
+    batch = batch_to_device(fcaf3d_train_batch(
+        zoo.synth_demf_fcaf3d_batch, b=FCAF3D_TRAIN_SCENES, p=FCAF3D_POINTS,
+        hw=(800, 1344), valid_hw=(784, 1312), seed=seed), dev)
+    batch['img_features'] = compute_image_features(model, batch)
+    del batch['img']
+    torch.cuda.synchronize()
+    return model, step, batch
+
+
+def run_fcaf3d_train_path(dev, kernels):
+    """FCAF3D trained at full width (``fcaf3d_trainer``): the first step
+    against the plain path, K16 and K14 on reverse tables checked on that
+    step's own calls, then 3 steps.  Returns (the kernel rows, the launches
+    by path)."""
+    t0 = time.perf_counter()
+    model, step, batch = fcaf3d_trainer(dev)
+    print(f'model: FCAF3D trainer, full width, built in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    calls = compare_train_paths(model, batch, f'FCAF3D train step '
+                                              f'({FCAF3D_TRAIN_SCENES} x '
+                                              f'{FCAF3D_POINTS})')
+    measured = {
+        'sparse_conv_dweights': check_sparse_dweights(
+            calls['sparse_conv_dweights']),
+        'sparse_conv_backward': check_sparse_conv(
+            calls['sparse_conv_backward'], torch.float32,
+            'a train step\'s backward (reverse tables)')}
+    del calls
+    torch.cuda.empty_cache()
+    launched = run_train_steps(step, batch, kernels, LAUNCHES_PER_FCAF3D_STEP,
+                               'FCAF3D train')
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return measured, {'fcaf3d_train': launched}
+
+
+def run_demf_fcaf3d_train_path(dev, kernels):
+    """DeMF-FCAF3D trained at full width (``demf_fcaf3d_trainer``): the
+    first step against the plain path (MSDA plain there too), then 3 steps;
+    then the train entry on both tiny configs."""
+    from demf_tpu_torch import train as train_entry
+    t0 = time.perf_counter()
+    model, step, batch = demf_fcaf3d_trainer(dev)
+    print(f'model: DeMF-FCAF3D trainer, full width, built and its image '
+          f'features cached in {time.perf_counter() - t0:.2f} s', flush=True)
+    compare_train_paths(model, batch, f'DeMF-FCAF3D train step '
+                                      f'({FCAF3D_TRAIN_SCENES} x '
+                                      f'{FCAF3D_POINTS}, 800x1344 cached)')
+    torch.cuda.empty_cache()
+    launched = run_train_steps(step, batch, kernels,
+                               LAUNCHES_PER_DEMF_FCAF3D_STEP,
+                               'DeMF-FCAF3D train')
+    del model, step, batch
+    torch.cuda.empty_cache()
+    by_path = {'demf_fcaf3d_train': launched}
+    for cfg, expected in zip(FCAF3D_TINY_CFGS, LAUNCHES_TINY_TRAIN_ENTRY):
+        with tempfile.TemporaryDirectory() as wd:
+            _, out, seconds, launches = run_entry(
+                train_entry.main, [cfg, '--synthetic', '--steps', '2',
+                                   '--points', '1024', '--work-dir', wd],
+                kernels, expected)
+            if not os.path.exists(os.path.join(wd, 'checkpoints',
+                                               'epoch_1.pth')):
+                raise AssertionError(f'{cfg}: no checkpoint')
+        print(f'train entry {cfg} --synthetic --steps 2: {seconds:.2f} s, '
+              f'launches { {n: c for n, c in launches.items() if c} }',
+              flush=True)
+        by_path[f'train_entry_{os.path.basename(cfg)[:-3]}'] = launches
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -4337,6 +4746,16 @@ def main():
         launches[n] = by_path['fcaf3d_serving'][n]
     launches['sparse_conv_bf16'] = \
         by_path['fcaf3d_serving_bf16']['sparse_conv_bf16']
+    train_rows, train = run_fcaf3d_train_path(dev, kernels)
+    measured.update(train_rows)
+    by_path.update(train)
+    by_path.update(run_demf_fcaf3d_train_path(dev, kernels))
+    # K14 on reverse tables and K16: launches of a FCAF3D train step, rows
+    # from that step's own calls; K14's row carries them as its backward
+    for n in ('sparse_conv_backward', 'sparse_conv_dweights'):
+        launches[n] = by_path['fcaf3d_train'][n]
+    measured['sparse_conv']['backward_launches'] = \
+        by_path['fcaf3d_train']['sparse_conv_backward']
 
     table = [dict(name=n, route='cuda', source=SOURCES[n],
                   replaces=REPLACES[n], launches=launches[n],

@@ -1,14 +1,16 @@
-"""DeMF-FCAF3D served (port of ``demf_tpu/models/demf_fcaf3d.py``): the
-FCAF3D detector, its top-K voxels across the levels taken as queries that
+"""DeMF-FCAF3D (port of ``demf_tpu/models/demf_fcaf3d.py``): the FCAF3D
+detector, its top-K voxels across the levels taken as queries that
 cross-attend into the frozen image branch's encoded levels at their boxes'
-projected centres (the DeMF decoder layers, MSDA through kernel K3), a
-refined prediction a decoder layer, and ``get_bboxes`` over the pools that
-``test_cfg['fusion_ensemble']`` names.
+projected centres (the DeMF decoder layers, MSDA through kernels K3 / K4),
+a refined prediction a decoder layer, and ``get_bboxes`` over the pools
+that ``test_cfg['fusion_ensemble']`` names.
 
 The image branch (ResNet-50 -> ChannelMapper -> deformable encoder) and its
 feature cache are DeMF-VoteNet's (``models/demfnet.py``); a batch may carry
-the branch's output as ``img_features``.  The stage losses come with the
-training slice (ROADMAP M8, the training half).
+the branch's output as ``img_features``, and a frozen branch stays in eval
+mode when the detector trains.  The loss: FCAF3D's on the levels, then one
+set a fusion stage (suffix ``.f{i}``) on the base targets at the selected
+voxels, all keys over the N + 1 stages.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ from ..core.transforms import project_points_to_image
 from ..registry import (BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg)
 from ..utils.precision import dense
 from .demfnet import IMG_BRANCH, DeMFVoteNet
-from .fcaf3d import (FCAF3D, TRAINING_NOT_PORTED, FCAF3DHead,
-                     concat_levels, take_rows, voxelize_batch)
+from .fcaf3d import (FCAF3D, FCAF3DHead, concat_levels, take_rows,
+                     voxelize_batch)
 from .rpn_roi import topk_stable
 from .transformer import (DeMFTransformerDecoderLayer, get_valid_ratios,
                           make_level_masks)
@@ -119,6 +121,24 @@ class DeMFFcaf3DHead(FCAF3DHead):
         results['sel_idx'] = sel
         return results
 
+    def loss(self, results, gt_bboxes, gt_labels, gt_valid):
+        """FCAF3D's loss on the levels and, for each fusion stage, the same
+        terms (suffix ``.f{i}``) on the levels' targets at the selected
+        voxels; every key over the N + 1 stages, as DeMF-VoteNet's head
+        averages its stages."""
+        cat, (cent_t, bbox_t, labels) = self.targets(
+            results['head_outs'], gt_bboxes, gt_labels, gt_valid)
+        losses = self.named_losses(cat, cent_t, bbox_t, labels)
+        stages = results.get('fusion_stages', [])
+        if not stages:
+            return losses
+        sel = results['sel_idx']
+        sel_t = (cent_t.gather(1, sel), take_rows(bbox_t, sel),
+                 labels.gather(1, sel))
+        for i, st in enumerate(stages):
+            losses.update(self.named_losses(st, *sel_t, suffix=f'.f{i}'))
+        return {k: v / (len(stages) + 1) for k, v in losses.items()}
+
     def pools(self, results):
         """What ``get_bboxes`` draws candidates from, as
         ``test_cfg['fusion_ensemble']`` says: 'selected_base+fusion' (the
@@ -179,11 +199,20 @@ class DeMFFcaf3D(nn.Module):
                 module.requires_grad_(False)
         self.eval()
 
-    # the image branch as DeMF-VoteNet has it
+    # the image branch as DeMF-VoteNet has it: its features cached when
+    # frozen, and a frozen branch kept in eval mode (norm_eval) in training
+    caches_img_features = True
+    bf16_training_refused = FCAF3D.bf16_training_refused
     _img_branch = DeMFVoteNet._img_branch
     extract_img_feat = DeMFVoteNet.extract_img_feat
-    # eval mode only, as FCAF3D: training is refused by name
-    train = FCAF3D.train
+
+    def train(self, mode=True):
+        """Train mode everywhere but a frozen image branch."""
+        nn.Module.train(self, mode)
+        if self.freeze_img_branch:
+            for module in self._img_branch():
+                module.eval()
+        return self
 
     def frozen_param_patterns(self):
         return list(IMG_BRANCH) if self.freeze_img_branch else []
@@ -204,7 +233,8 @@ class DeMFFcaf3D(nn.Module):
                                     img_meta=meta), generator)
 
     def loss(self, results, batch):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        return self.head.loss(results, batch['gt_bboxes_3d'],
+                              batch['gt_labels_3d'], batch['gt_valid'])
 
     def get_bboxes(self, results, batch=None):
         return self.head.get_bboxes(self.head.pools(results))

@@ -1,4 +1,4 @@
-"""FCAF3D, the anchor-free sparse-voxel detector, served (port of
+"""FCAF3D, the anchor-free sparse-voxel detector (port of
 ``demf_tpu/models/fcaf3d.py``): voxelize -> MinkResNet -> ``FCAF3DHead``
 (a top-down decoder of generative transpose convs onto the skip levels'
 voxels, an out block a level, shared per-voxel centerness / 8-dof
@@ -6,10 +6,14 @@ regression with the Moebius yaw / classification) -> ``get_bboxes``
 (the top ``nms_pre`` candidates a scene, one rotated IoU matrix and one
 greedy sweep a class: kernel K15, ``ops/nms_rotated.py``).
 
-The targets and the loss (``get_targets`` / ``loss``) come with the
-training slice (ROADMAP M8, the training half); until then the detector
-stays in eval mode and refuses ``train()``, and ``loss`` raises, by
-name.  Module names are mmdet3d's (``up_block_{i}.{0,1,3,4}``,
+Training: ``get_targets`` (each box's level by ``pts_assign_threshold``,
+its top ``pts_center_threshold`` voxels by centerness, the least-volume
+box a voxel) and ``loss`` (focal classification over the valid voxels,
+centerness BCE on the positives, the rotated-IoU loss weighted by
+centerness), batched over the scenes; the sparse convolutions' backward
+is ``ops/sparse.py``'s (K14 on reverse tables, K16).  The family trains
+in float32: a bf16 policy is refused by name (``BF16_TRAINING_NOT_PORTED``).
+Module names are mmdet3d's (``up_block_{i}.{0,1,3,4}``,
 ``out_block_{i}.{0,1}``, ``centerness_conv`` / ``reg_conv`` /
 ``cls_conv``), sparse kernels in MinkowskiEngine's tap order.
 """
@@ -21,15 +25,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.rotated_iou import iou3d_aligned
 from ..ops import sparse as S
 from ..ops.nms_rotated import rotated_nms_classwise
 from ..registry import BACKBONES, DETECTORS, HEADS, build_from_cfg
 from ..utils.precision import cast_compute
+from .losses import FocalLoss, sigmoid_cross_entropy
 from .mink_resnet import MaskedBatchNorm, SparseConv
 from .rpn_roi import topk_stable
 
-TRAINING_NOT_PORTED = ('training the FCAF3D family is not ported yet '
-                       '(ROADMAP M8, the training half): the port serves it')
+BF16_TRAINING_NOT_PORTED = (
+    'bf16 training of the FCAF3D family is not ported yet (ROADMAP: a bf16 '
+    'entry of K16, the sparse convolution\'s weight gradient); train it in '
+    'float32')
+FLOAT_MAX = 1e8
+# a non-positive voxel's box prediction before the decode (its IoU loss
+# weighs 0; the dummy keeps its gradient finite)
+DUMMY_BBOX_PRED = (0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.1, 0.1)
 
 
 def concat_levels(head_outs, keys=('centerness', 'bbox_pred', 'cls_scores',
@@ -62,6 +74,11 @@ class FCAF3DHead(nn.Module):
         self.voxel_size = voxel_size
         self.pc_start = tuple(pc_start)
         self.test_cfg = test_cfg
+        self.pts_assign_threshold = pts_assign_threshold
+        self.pts_center_threshold = pts_center_threshold
+        self.center_loss_weight = center_loss_weight
+        self.bbox_loss_weight = bbox_loss_weight
+        self.cls_loss_weight = cls_loss_weight
         n = len(self.in_channels)
         for i in range(1, n):
             cin, cout = self.in_channels[i], self.in_channels[i - 1]
@@ -82,54 +99,54 @@ class FCAF3DHead(nn.Module):
             self.cls_conv.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
     def _up_block(self, i, coarse, fine_coords, fine_valid, fine_stride,
-                  nbr, plan, up_nbr):
+                  table, up_nbr, up_rev):
         """Generative transpose conv (k=2, s=2) onto the skip level's voxels
-        (its table ``up_nbr``), then a 3x3x3 conv, each with BN and ELU."""
+        (its table ``up_nbr``, its reverse ``up_rev``), then a 3x3x3 conv on
+        the level's ``table`` (nbr, plan, rev), each with BN and ELU."""
         tconv, tbn, _, conv, bn, _ = getattr(self, f'up_block_{i}')
         cc, cv, cf = coarse
         y = S.transposed_conv_to_batched(
             fine_coords, fine_valid, cc, cv, cf, tconv.taps,
-            tensor_stride=fine_stride, sorted_input=True, nbr=up_nbr)
+            tensor_stride=fine_stride, sorted_input=True, nbr=up_nbr,
+            rev=up_rev)
         y = F.elu(tbn(y, fine_valid))
-        y = S.submanifold_conv_batched(fine_coords, fine_valid, y, conv.taps,
-                                       tensor_stride=fine_stride, nbr=nbr,
-                                       plan=plan)
+        y = S.submanifold_conv_batched(
+            fine_coords, fine_valid, y, conv.taps, tensor_stride=fine_stride,
+            nbr=table[0], plan=table[1], rev=table[2])
         y = F.elu(bn(y, fine_valid))
         return torch.where(fine_valid[..., None], y, 0)
 
-    def _out_block(self, i, coords, valid, x, stride, nbr, plan):
+    def _out_block(self, i, coords, valid, x, stride, table):
         conv, bn, _ = getattr(self, f'out_block_{i}')
         y = S.submanifold_conv_batched(coords, valid, x, conv.taps,
-                                       tensor_stride=stride, nbr=nbr,
-                                       plan=plan)
+                                       tensor_stride=stride, nbr=table[0],
+                                       plan=table[1], rev=table[2])
         y = F.elu(bn(y, valid))
         return torch.where(valid[..., None], y, 0)
 
     def forward(self, backbone_outs):
-        """backbone_outs: the stages' (coords, valid, feats[, nbr, plan]),
-        fine to coarse -> per-level dicts (fine to coarse) of centerness (B,
-        M), bbox_pred (B, M, 8), cls_scores (B, M, C), points (B, M, 3) in
-        metres, valid and the out block's features."""
+        """backbone_outs: the stages' (coords, valid, feats, nbr, plan, rev,
+        down) as ``MinkResNet`` returns them, fine to coarse -> per-level
+        dicts (fine to coarse) of centerness (B, M), bbox_pred (B, M, 8),
+        cls_scores (B, M, C), points (B, M, 3) in metres, valid and the out
+        block's features.  An up block's transposed conv takes the next
+        stage's ``down`` (its strided table and plan) as its reverse: the
+        backward makes neither anew."""
         n = len(backbone_outs)
         strides = [8 * 2 ** i for i in range(n)]
         up_nbrs = self.up_tables(backbone_outs, strides)
         outs = []
         x = None
         for i in range(n - 1, -1, -1):
-            entry = backbone_outs[i]
-            coords, valid, feats = entry[:3]
-            if len(entry) > 3:
-                nbr, plan = entry[3:5]
-            else:
-                nbr = S.submanifold_table(coords, valid, 3, strides[i])
-                plan = S.conv_plan(nbr)
+            coords, valid, feats, nbr, plan, rev, _ = backbone_outs[i]
+            table = (nbr, plan, rev)
             if i < n - 1:
                 feats = feats + self._up_block(i + 1, x, coords, valid,
-                                               strides[i], nbr, plan,
-                                               up_nbrs[i])
+                                               strides[i], table,
+                                               up_nbrs[i],
+                                               backbone_outs[i + 1][6])
             x = (coords, valid, feats)
-            of = self._out_block(i, coords, valid, feats, strides[i], nbr,
-                                 plan)
+            of = self._out_block(i, coords, valid, feats, strides[i], table)
             reg = self.reg_conv.dense(of)
             points = coords.float() * self.voxel_size + coords.new_tensor(
                 self.pc_start, dtype=torch.float32)
@@ -171,8 +188,126 @@ class FCAF3DHead(nn.Module):
         dz = bbox_pred[..., 5] + bbox_pred[..., 4]
         return torch.stack([x, y, z - dz / 2, dx, dy, dz, alpha], -1)
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    @staticmethod
+    def _face_distances(points, boxes):
+        """(B, N, 3) points x (B, G, 7) boxes -> (B, N, G, 6) signed
+        distances to each box's faces in its yaw frame (mmdet3d
+        ``_get_face_distances``)."""
+        centers = boxes[..., :3] + torch.cat(
+            [torch.zeros_like(boxes[..., :2]), boxes[..., 5:6] / 2], -1)
+        shift = points[:, :, None, :] - centers[:, None]
+        yaw = boxes[..., 6]
+        c, s = torch.cos(yaw)[:, None], torch.sin(yaw)[:, None]
+        lx = shift[..., 0] * c - shift[..., 1] * s
+        ly = shift[..., 0] * s + shift[..., 1] * c
+        lz = shift[..., 2]
+        half = boxes[:, None, :, 3:6] / 2
+        return torch.stack([half[..., 0] + lx, half[..., 0] - lx,
+                            half[..., 1] + ly, half[..., 1] - ly,
+                            half[..., 2] + lz, half[..., 2] - lz], -1)
+
+    @staticmethod
+    def _centerness(face):
+        """The square root of the per-axis min / max distance ratios'
+        product (FCOS in 3D), in the JAX package's order of operations."""
+        x, y, z = face[..., 0:2], face[..., 2:4], face[..., 4:6]
+        r = (x.min(-1).values / x.max(-1).values.clamp(min=1e-6) *
+             y.min(-1).values / y.max(-1).values.clamp(min=1e-6) *
+             z.min(-1).values / z.max(-1).values.clamp(min=1e-6))
+        return torch.sqrt(r.clamp(min=0.0))
+
+    def get_targets(self, points, levels, pt_valid, gt_bboxes, gt_labels,
+                    gt_valid):
+        """points (B, N, 3) of all levels, levels (N,) each voxel's level,
+        pt_valid (B, N), GT boxes (B, G, 7), labels (B, G), gt_valid (B, G)
+        -> (centerness target (B, N), box target (B, N, 7), labels (B, N),
+        -1 the background).  A box takes the coarsest level before the first
+        with fewer than ``pts_assign_threshold`` of its voxels inside (the
+        last level if none has too few), its voxels there with a centerness
+        above its (k + 1)-th largest (k = ``pts_center_threshold``), and a
+        voxel the box of least volume among those that take it."""
+        n_levels = len(self.in_channels)
+        face = self._face_distances(points, gt_bboxes)
+        inside = (face.min(-1).values > 0) & gt_valid[:, None] & \
+            pt_valid[..., None]
+        at = levels[:, None] == torch.arange(n_levels,
+                                             device=levels.device)
+        n_pos = (inside[:, :, None] & at[None, :, :, None]).sum(1)
+        too_few = n_pos < self.pts_assign_threshold          # (B, L, G)
+        # bool has no argmax: the first level with too few, as JAX's
+        first_fail = too_few.int().argmax(1)
+        best = torch.where(too_few.any(1), (first_fail - 1).clamp(min=0),
+                           n_levels - 1)
+        level_ok = best[:, None, :] == levels[None, :, None]
+        centerness = self._centerness(face)                  # (B, N, G)
+        cand = inside & level_ok
+        cent_masked = torch.where(cand, centerness, -1.0)
+        # only the value of the (k + 1)-th is used: ties do not matter
+        top = cent_masked.topk(self.pts_center_threshold + 1, 1).values[
+            :, -1]
+        cond = cand & (cent_masked > top[:, None])
+        volumes = gt_bboxes[..., 3] * gt_bboxes[..., 4] * gt_bboxes[..., 5]
+        vol = torch.where(cond, volumes[:, None], FLOAT_MAX)
+        min_vol, min_idx = vol.min(-1).values, vol.argmin(-1)
+        pos = min_vol < FLOAT_MAX
+        labels = torch.where(pos, gt_labels.long().gather(1, min_idx), -1)
+        cent_t = torch.where(pos, centerness.gather(
+            2, min_idx[..., None])[..., 0], 0.0)
+        return cent_t, take_rows(gt_bboxes, min_idx), labels
+
+    def targets(self, head_outs, gt_bboxes, gt_labels, gt_valid):
+        """The levels' outputs joined and their targets (no gradient)."""
+        cat = concat_levels(head_outs)
+        levels = torch.cat([torch.full(o['points'].shape[1:2], i,
+                                       device=o['points'].device)
+                            for i, o in enumerate(head_outs)])
+        with torch.no_grad():
+            return cat, self.get_targets(cat['points'], levels, cat['valid'],
+                                         gt_bboxes.float(), gt_labels,
+                                         gt_valid)
+
+    def named_losses(self, outs, cent_t, bbox_t, labels, suffix=''):
+        """``loss_cls``, ``loss_centerness`` and ``loss_bbox`` (with
+        ``suffix``) of per-voxel outputs ``outs`` (centerness, bbox_pred,
+        cls_scores, points, valid) against their targets: each the mean over
+        the scenes of a scene's loss, times its weight.  A scene's: focal
+        over the valid voxels and centerness BCE on the positives, each over
+        the positives' count, and 1 - the rotated IoU of the decoded box,
+        weighted by its centerness target.  A non-positive voxel decodes
+        ``DUMMY_BBOX_PRED`` against itself, both sides with no gradient but
+        the decode's, as the JAX package."""
+        cls = outs['cls_scores']
+        b, n, c = cls.shape
+        pos = (labels >= 0) & outs['valid']
+        n_pos = pos.sum(1).clamp(min=1)
+        focal = FocalLoss(use_sigmoid=True, gamma=2.0, alpha=0.25,
+                          reduction='none')
+        cls_loss = focal(cls.reshape(b * n, c),
+                         torch.where(pos, labels, self.n_classes).reshape(-1),
+                         weight=outs['valid'].reshape(-1).float()).reshape(
+                             b, n, c).sum((1, 2)) / n_pos
+        center_loss = torch.where(pos, sigmoid_cross_entropy(
+            outs['centerness'], cent_t), 0.0).sum(1) / n_pos
+        bbox_pred = outs['bbox_pred']
+        bbox_safe = torch.where(pos[..., None], bbox_pred,
+                                bbox_pred.new_tensor(DUMMY_BBOX_PRED))
+        decoded = self.bbox_pred_to_bbox(outs['points'], bbox_safe)
+        safe_t = torch.where(pos[..., None], bbox_t, decoded.detach())
+        iou = iou3d_aligned(decoded.reshape(-1, 7),
+                            safe_t.detach().reshape(-1, 7)).reshape(b, n)
+        w = torch.where(pos, cent_t, 0.0)
+        bbox_loss = ((1.0 - iou) * w).sum(1) / w.sum(1).clamp(min=1e-6)
+        return {f'loss_cls{suffix}': self.cls_loss_weight * cls_loss.mean(),
+                f'loss_centerness{suffix}':
+                    self.center_loss_weight * center_loss.mean(),
+                f'loss_bbox{suffix}': self.bbox_loss_weight * bbox_loss.mean()}
+
+    def loss(self, head_outs, gt_bboxes, gt_labels, gt_valid):
+        """The batch's loss over every level (mmdet3d
+        ``FCAF3DHead._loss``)."""
+        cat, targets = self.targets(head_outs, gt_bboxes, gt_labels,
+                                    gt_valid)
+        return self.named_losses(cat, *targets)
 
     def pools(self, results):
         """The per-voxel outputs that ``get_bboxes`` draws candidates from:
@@ -245,11 +380,12 @@ class FCAF3D(nn.Module):
         self.head = build_from_cfg(head, HEADS)
         self.eval()
 
-    def train(self, mode=True):
-        """Eval mode only: training is refused (``TRAINING_NOT_PORTED``)."""
-        if mode:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        return nn.Module.train(self, False)
+    # the family trains in float32 only: zoo.build_trainer refuses a bf16
+    # policy with this reason
+    bf16_training_refused = BF16_TRAINING_NOT_PORTED
+
+    def frozen_param_patterns(self):
+        return []
 
     def extract_feat(self, batch):
         coords, feats, valid = voxelize_batch(
@@ -260,7 +396,8 @@ class FCAF3D(nn.Module):
         return dict(head_outs=self.head(self.extract_feat(batch)))
 
     def loss(self, results, batch):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        return self.head.loss(results['head_outs'], batch['gt_bboxes_3d'],
+                              batch['gt_labels_3d'], batch['gt_valid'])
 
     def get_bboxes(self, results, batch=None):
         return self.head.get_bboxes(self.head.pools(results))

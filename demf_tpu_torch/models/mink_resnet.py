@@ -5,8 +5,9 @@ mmdet3d's ``MinkResNet`` on the port's fixed-capacity voxel tables
 (``ops/sparse.py``): a stem conv (k=3, s=2) + BN + ReLU and a 2x2x2 stride-2
 max-pool, then 4 stages of BasicBlocks whose first block has stride 2, at
 tensor strides 8 / 16 / 32 / 64.  A stage returns its 27-tap submanifold
-table as a 4th element, built once by its first block and reused by the
-rest and by the FCAF3D head.
+table (with its row plan and its reverse for the backward), built once by
+its first block and reused by the rest and by the FCAF3D head, and the
+strided table into it.
 
 Module and parameter names are mmdet3d's (``conv1.kernel``, ``norm1.bn``,
 ``layer{s}.{i}.conv1`` / ``norm1`` / ``conv2`` / ``norm2`` /
@@ -29,8 +30,8 @@ class MaskedBatchNorm(nn.Module):
     valid rows only (``MinkowskiBatchNorm``: a BatchNorm1d under ``.bn``).
     Eval mode normalizes with the running statistics; train mode with the
     valid rows' mean and biased variance, moving the running ones as flax
-    does (momentum 0.9).  Computes in float32 and returns the input's
-    dtype."""
+    does (momentum 0.9).  Computes in float32 (float64 rows, a reference
+    run's: in float64) and returns the input's dtype."""
 
     def __init__(self, channels, eps=1e-5, momentum=0.9):
         super().__init__()
@@ -39,9 +40,10 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, valid):
         bn = self.bn
-        xf = x.float()
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dtype)
         if self.training:
-            w = valid[..., None].float()
+            w = valid[..., None].to(dtype)
             cnt = w.sum((0, 1)).clamp(min=1.0)
             mean = (xf * w).sum((0, 1)) / cnt
             var = ((xf - mean) ** 2 * w).sum((0, 1)) / cnt
@@ -51,8 +53,8 @@ class MaskedBatchNorm(nn.Module):
                 bn.running_var.mul_(m).add_(var, alpha=1 - m)
         else:
             mean, var = bn.running_mean, bn.running_var
-        y = (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight.float() + \
-            bn.bias.float()
+        y = (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight.to(dtype) + \
+            bn.bias.to(dtype)
         return y.to(x.dtype)
 
 
@@ -116,53 +118,64 @@ class SparseBasicBlock(nn.Module):
         elif in_channels != channels:
             raise ValueError('a stride-1 block keeps its width')
 
-    def forward(self, st, nbr=None, plan=None):
-        """st (coords, valid, feats); ``nbr``: the (B, M, 27) table of this
-        block's output level (stride-1 blocks; made here when not given)
-        and ``plan`` its ``conv_plan``.  A stride-2 block makes its strided
-        table and its output level's table in one K13 launch.  Returns
-        (st, nbr, plan)."""
+    def forward(self, st, table=None):
+        """st (coords, valid, feats); ``table``: (nbr, plan, rev), the (B,
+        M, 27) table of this block's output level, its ``conv_plan`` and its
+        ``Reverse`` (stride-1 blocks; made here when not given).  A stride-2
+        block makes its strided table and its output level's table in one
+        K13 launch; the strided table's reverse (a parent table, one K13
+        launch in the backward) is shared by the conv and the shortcut.
+        Returns (st, table, down): ``down`` (stride-2 blocks, else None) the
+        strided table with its plan as a ``Reverse``, the reverse of the
+        transposed conv from this block's output level back to its input
+        level."""
         coords, valid, x = st
         ts = self.tensor_stride
+        down = None
         if self.stride > 1:
-            coords_o, valid_o, y, nbr_s, nbr = S.strided_conv_batched(
-                coords, valid, x, self.conv1.taps, stride=self.stride,
-                kernel_size=2, max_out=max(1, coords.shape[1] // 2),
-                tensor_stride=ts, sorted_input=True, level_kernel=3)
-            plan = S.conv_plan(nbr)
+            coords_o, valid_o, y, nbr_s, nbr, plan_s, rev_s = \
+                S.strided_conv_batched(
+                    coords, valid, x, self.conv1.taps, stride=self.stride,
+                    kernel_size=2, max_out=max(1, coords.shape[1] // 2),
+                    tensor_stride=ts, sorted_input=True, level_kernel=3)
+            table = (nbr, S.conv_plan(nbr), S.submanifold_reverse(nbr))
+            down = S.Reverse.of(nbr_s, plan_s)
             out_ts = ts * self.stride
         else:
             coords_o, valid_o, out_ts = coords, valid, ts
-            if nbr is None:
+            if table is None:
                 nbr = S.submanifold_table(coords, valid, 3, ts)
-                plan = S.conv_plan(nbr)
+                table = (nbr, S.conv_plan(nbr), S.submanifold_reverse(nbr))
             y = S.submanifold_conv_batched(coords, valid, x, self.conv1.taps,
-                                           tensor_stride=ts, nbr=nbr,
-                                           plan=plan)
+                                           tensor_stride=ts, nbr=table[0],
+                                           plan=table[1], rev=table[2])
+        nbr, plan, rev = table
         y = F.relu(self.norm1(y, valid_o))
         y = S.submanifold_conv_batched(coords_o, valid_o, y, self.conv2.taps,
                                        tensor_stride=out_ts, nbr=nbr,
-                                       plan=plan)
+                                       plan=plan, rev=rev)
         y = self.norm2(y, valid_o)
         idn = x
         if self.downsample is not None:
             # each output voxel reads the input voxel at its coordinate:
             # tap 0, (0, 0, 0), of the strided table
             conv, norm = self.downsample
-            idn = norm(S.sparse_conv_apply_batched(x, nbr_s[..., :1],
-                                                   conv.taps), valid_o)
+            idn = norm(S.sparse_conv_apply_batched(
+                x, nbr_s[..., :1], conv.taps, rev=rev_s.taps(1)), valid_o)
         y = F.relu(y + idn)
         return ((coords_o, valid_o, torch.where(valid_o[..., None], y, 0)),
-                nbr, plan)
+                table, down)
 
 
 @BACKBONES.register_module()
 class MinkResNet(nn.Module):
     """mmdet3d MinkResNet on the port's sparse ops.  Input (coords (B, M, 3)
     int32, valid (B, M), feats (B, M, C)), a key-sorted table; returns a
-    list of the stages' (coords, valid, feats, nbr, plan): each stage's
-    27-tap table and its K14 row plan, which the head's convs at that level
-    share."""
+    list of the stages' (coords, valid, feats, nbr, plan, rev, down): each
+    stage's 27-tap table, its K14 row plan and its ``Reverse``, which the
+    head's convs at that level share, and the stage's strided table from
+    the level before with its plan, as a ``Reverse`` (that of the head's
+    transposed conv between the two levels)."""
 
     BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
@@ -193,10 +206,10 @@ class MinkResNet(nn.Module):
         self.num_stages = min(num_stages, 4)
 
     def forward(self, coords, valid, feats):
-        c_s, v_s, x, _, _ = S.strided_conv_batched(
+        c_s, v_s, x = S.strided_conv_batched(
             coords, valid, feats, self.conv1.taps, stride=2, kernel_size=3,
             max_out=max(1, coords.shape[1] // 2), tensor_stride=1,
-            sorted_input=True)
+            sorted_input=True)[:3]
         x = F.relu(self.norm1(x, v_s))
         st = (c_s, v_s, torch.where(v_s[..., None], x, 0))
         if self.pool:
@@ -205,8 +218,9 @@ class MinkResNet(nn.Module):
                 sorted_input=True)
         outs = []
         for si in range(self.num_stages):
-            nbr = plan = None
-            for block in getattr(self, f'layer{si + 1}'):
-                st, nbr, plan = block(st, nbr, plan)
-            outs.append((*st, nbr, plan))
+            first, *rest = getattr(self, f'layer{si + 1}')
+            st, table, down = first(st)
+            for block in rest:
+                st, table, _ = block(st, table)
+            outs.append((*st, *table, down))
         return outs

@@ -1,7 +1,8 @@
 """Geometric ops of the port.  FPS, ball query, MSDA (forward and
 backward), the aligned 3D NMS, the count of points in rotated boxes, the
 batched 2D NMS, the pyramid RoIAlign (forward and backward), and the
-FCAF3D family's sparse-convolution kernel map and gather-GEMM and its
+FCAF3D family's sparse-convolution kernel map, gather-GEMM (forward, and
+on reverse tables the backward's d_feats) and weight gradient and its
 class-wise rotated 3D NMS each have a CUDA kernel
 (``csrc/``) beside a plain PyTorch version; a CPU tensor takes the plain
 version and a CUDA tensor the kernel.  So do the
@@ -26,8 +27,9 @@ from .roi_align import (ROI_ALIGN_BACKWARD_BF16_KERNEL,
                         ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_BF16_KERNEL,
                         ROI_ALIGN_KERNEL, pyramid_roi_align)
 from .sampling import FPS_KERNEL, furthest_point_sample
-from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BF16_KERNEL,
-                     SPARSE_CONV_KERNEL, SPARSE_CONV_PLAN_KERNEL)
+from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BACKWARD_KERNEL,
+                     SPARSE_CONV_BF16_KERNEL, SPARSE_CONV_KERNEL,
+                     SPARSE_CONV_PLAN_KERNEL, SPARSE_DWEIGHTS_KERNEL)
 
 __all__ = [
     'aligned_3d_nms', 'ball_query', 'batched_nms_2d', 'box_point_count',
@@ -44,8 +46,10 @@ def kernels():
     training paths' (FPS to MSDA backward, the 3D NMS and the box count,
     the 2D NMS and the RoIAlign (forward and backward) of ImVoteNet's
     image branch; the kernel map, the sparse convolution (float32 and
-    bfloat16 rows, each with its own count, and the row plan of its
-    tables) and the class-wise rotated NMS of the FCAF3D family; MSDA
+    bfloat16 rows, each with its own count, the row plan of its tables,
+    its launches on reverse tables for the backward's d_feats, counted
+    apart, and its weight gradient K16) and the class-wise rotated NMS of
+    the FCAF3D family; MSDA
     forward and backward on a float32 and on a bfloat16 value, and the
     RoIAlign on float32 and on bfloat16 levels, each with its own count)
     and the probes'."""
@@ -64,4 +68,6 @@ def kernels():
             'sparse_conv': SPARSE_CONV_KERNEL,
             'sparse_conv_bf16': SPARSE_CONV_BF16_KERNEL,
             'sparse_conv_plan': SPARSE_CONV_PLAN_KERNEL,
+            'sparse_conv_backward': SPARSE_CONV_BACKWARD_KERNEL,
+            'sparse_conv_dweights': SPARSE_DWEIGHTS_KERNEL,
             'nms3d_rotated': NMS3D_ROTATED_KERNEL}

@@ -27,16 +27,25 @@ keys as they stand (``key_table_presorted``).
   the TPU and are not ported: both give the exact match of the coordinate,
   which is what the search gives.
 * ``sparse_conv_apply_batched``: ``out[b, m] = sum_t feats[b, nbr[b, m,
-  t]] @ W[t]``, absent taps adding 0.  A CUDA tensor launches K14
-  (``csrc/sparse_conv.cu``, float32 or bfloat16 rows and weights, float32
-  sums) on the table's row plan (``conv_plan``: each row's tap mask, the
-  rows sorted by it, each 64-row tile's taps), which the model builds once
-  a table and hands to every convolution that reads it (``plan=``); a CPU
-  tensor takes the plain per-tap gather and matmul
-  (``sparse_conv_tiles_plain`` walks the kernel's order instead).  The
-  forward only: the backward (the reverse tables of ``_conv_sym`` /
-  ``_conv_revgeo``) comes with the training slice, so on the card a
-  feature or weight that takes a gradient is refused.
+  t]] @ W[t]``, absent taps adding 0, as the autograd Function
+  ``SparseConv``.  A CUDA tensor launches K14 (``csrc/sparse_conv.cu``,
+  float32 or bfloat16 rows and weights, float32 sums) on the table's row
+  plan (``conv_plan``: each row's tap mask, the rows sorted by it, each
+  64-row tile's taps), which the model builds once a table and hands to
+  every convolution that reads it (``plan=``); a CPU tensor takes the
+  plain per-tap gather and matmul (``sparse_conv_tiles_plain`` walks the
+  kernel's order instead).
+* The backward, on the CPU too (the plain versions there): d_feats is K14
+  again on the table's reverse table (``Reverse``: tap t of input row i
+  holds the output row that reads i at tap t) with each tap's kernel
+  transposed, as the JAX package's ``_conv_sym`` / ``_conv_revgeo`` take
+  it; d_weights is kernel K16 (``csrc/sparse_dweights.cu``, float32),
+  ``dW[t] = sum over rows of gather_t(feats)^T g``, on the forward table's
+  row plan.  A reverse table and its plan are made once a table a step,
+  at the first backward that asks, and shared by every convolution on the
+  table; a transposed conv's reverse, the strided conv's table between the
+  same two levels, is that table with the plan its forward made
+  (``Reverse.of``).
 
 Tap order.  ``kernel_offsets(k)`` enumerates taps with the last axis
 fastest, as the JAX package does; ``kernel_offsets(k, me_order=True)``
@@ -80,6 +89,13 @@ SPARSE_CONV_KERNEL = CudaKernel(
     'demf_sparse_conv', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7)
 SPARSE_CONV_BF16_KERNEL = CudaKernel(
     'demf_sparse_conv_bf16', SPARSE_CONV_KERNEL.argtypes)
+# K14 on a reverse table (the backward's d_feats), counted apart
+SPARSE_CONV_BACKWARD_KERNEL = CudaKernel('demf_sparse_conv',
+                                         SPARSE_CONV_KERNEL.argtypes)
+# K16: feats, nbr, g, the plan's order and tile taps, scratch, out; B, M_in,
+# C, M_out, K, C_out, slices
+SPARSE_DWEIGHTS_KERNEL = CudaKernel(
+    'demf_sparse_conv_dweights', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7)
 # K14's row plan: nbr, mask, order, tile taps; B, M, K
 SPARSE_CONV_PLAN_KERNEL = CudaKernel(
     'demf_sparse_conv_plan', [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
@@ -469,41 +485,158 @@ def taps_a_part(b, m_out, c, c_out, k, dtype=torch.float32):
     return min(k, -(-SPLIT_MIN_CHUNKS // -(-c // CONV_TILE_DEPTH)))
 
 
-def sparse_conv_apply_batched(feats, nbr, weights, plan=None):
+class Reverse:
+    """A convolution table's reverse table, for the backward's d_feats: tap
+    t of input row i holds the output row that reads i at tap t (-1: none;
+    an invalid row has none).  ``make`` returns it; it is made at the first
+    backward that asks, with its ``conv_plan`` on the card, and kept, so
+    that every convolution on the table shares one, made once a step.
+    Calling the record returns (table, plan or None on the CPU)."""
+
+    def __init__(self, make, made=None):
+        self._make = make
+        self._made = made
+
+    @classmethod
+    def of(cls, table, plan):
+        """A reverse table that the forward has made already, with its
+        ``conv_plan`` (None on the CPU): the strided conv's table read back
+        by the transposed conv between the same two levels."""
+        return cls(None, (table, plan))
+
+    def __call__(self):
+        if self._made is None:
+            rev = self._make().contiguous()
+            self._made = (rev, None if rev.device.type == 'cpu' else
+                          conv_plan(rev))
+        return self._made
+
+    def taps(self, n):
+        """The reverse of the table's first ``n`` taps (a stride-2 block's
+        shortcut reads tap 0 of the strided table), cut from this one."""
+        return Reverse(lambda: self()[0][..., :n])
+
+
+def submanifold_reverse(nbr):
+    """A centred odd kernel's table on one coordinate set is its own
+    reverse with the taps flipped: every tap order of a centred cube is
+    centrally symmetric (``offs[K - 1 - t] == -offs[t]``), as the JAX
+    package's ``_conv_sym`` uses."""
+    return Reverse(lambda: nbr.flip(-1))
+
+
+def strided_reverse(coords, valid, out_coords, out_valid, kernel_size,
+                    stride, tensor_stride=1):
+    """The reverse of a strided conv's table from ``coords`` (at
+    ``tensor_stride``) onto ``out_coords``: output o reads input o +
+    offset_t * ts, so input i is read at tap t by output i - offset_t * ts.
+    An even kernel of the stride's size (MinkResNet's 2x2x2): each input
+    row's parent among the outputs at the tap of its offset
+    (``parent_job``), one reader at most; a centred odd kernel (the stem's
+    3x3x3): the outputs' own table at the input rows, taps flipped.  One
+    K13 launch on the card."""
+    if kernel_size % 2:
+        job = TableJob(out_coords, out_valid, coords, valid, kernel_size,
+                       True, tensor_stride)
+        return Reverse(lambda: kernel_tables([job])[0].flip(-1))
+    job = parent_job(coords, valid, out_coords, out_valid, stride,
+                     kernel_size, tensor_stride)
+
+    def make():
+        if kernel_size != stride:
+            raise ValueError(f'an even kernel ({kernel_size}) has a reverse '
+                             f'table here only at its own stride, not '
+                             f'{stride}')
+        return kernel_tables([job])[0]
+    return Reverse(make)
+
+
+def transposed_reverse(coords_fine, valid_fine, coords_coarse, valid_coarse,
+                       kernel_size=2, tensor_stride=1, sorted_input=True):
+    """The reverse of a transposed conv's table (fine rows reading their
+    parents): tap t of coarse row c holds the fine row at c + offset_t *
+    ts, the strided conv's table from the fine keys onto the coarse
+    queries, the same table as MinkResNet's strided conv between those
+    levels.  ``sorted_input`` asserts the fine set's key order."""
+    job = TableJob(coords_fine, valid_fine, coords_coarse, valid_coarse,
+                   kernel_size, True, tensor_stride)
+    return Reverse(lambda: kernel_tables([job], sorted_input)[0])
+
+
+class SparseConv(torch.autograd.Function):
+    """K14's function with its backward: ``apply(feats, weights, nbr, plan,
+    rev)``.  Forward: K14 on ``plan`` (a CUDA tensor) or the plain version
+    (a CPU tensor).  Backward, as ``ctx.needs_input_grad`` asks: d_feats =
+    the convolution of the output gradient on ``rev`` (a ``Reverse``) with
+    each tap's kernel transposed, K14 on the reverse table's plan (counted
+    as ``sparse_conv_backward``); d_weights = ``sparse_conv_dweights``
+    (K16) on the forward table and plan.  On the CPU both take the plain
+    versions, never autograd of the plain forward."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, nbr, plan, rev):
+        ctx.save_for_backward(feats, weights)
+        ctx.table = (nbr, plan, rev)
+        if feats.device.type == 'cpu':
+            return sparse_conv_plain(feats, nbr, weights)
+        return sparse_conv_cuda(feats, nbr, weights, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weights = ctx.saved_tensors
+        nbr, plan, rev = ctx.table
+        g = g.contiguous()
+        d_feats = d_weights = None
+        if ctx.needs_input_grad[0]:
+            if rev is None:
+                raise ValueError('the features of this convolution take a '
+                                 'gradient, and it was given no reverse '
+                                 'table (rev=)')
+            rnbr, rplan = rev()
+            wt = weights.transpose(1, 2).contiguous()
+            d_feats = (sparse_conv_plain(g, rnbr, wt) if g.device.type ==
+                       'cpu' else sparse_conv_backward_cuda(g, rnbr, wt,
+                                                            rplan))
+        if ctx.needs_input_grad[1]:
+            d_weights = sparse_conv_dweights(feats, nbr, g, plan)
+        return d_feats, d_weights, None, None, None
+
+
+def sparse_conv_apply_batched(feats, nbr, weights, plan=None, rev=None):
     """Gather-GEMM sparse convolution: feats (B, M, C), nbr (B, M_out, K),
     weights (K, C, C_out) -> (B, M_out, C_out) in the features' dtype (the
-    weights go to it, as the JAX package casts them to the rows').  A CUDA
-    tensor launches K14 on ``plan`` (the table's ``conv_plan``, made here
-    when not given), a CPU tensor takes the plain version."""
+    weights go to it, as the JAX package casts them to the rows'), through
+    ``SparseConv``.  A CUDA tensor launches K14 on ``plan`` (the table's
+    ``conv_plan``, made here when not given), a CPU tensor takes the plain
+    version.  ``rev`` (a ``Reverse``) is the table's reverse, which the
+    backward needs when the features take a gradient."""
     weights = weights.to(feats.dtype)
-    if feats.device.type == 'cpu':
-        return sparse_conv_plain(feats, nbr, weights)
-    if torch.is_grad_enabled() and (feats.requires_grad or
-                                    weights.requires_grad):
-        raise NotImplementedError(
-            'the sparse convolution\'s backward is not ported yet '
-            '(ROADMAP M8, the training half): K14 is forward only')
-    return sparse_conv_cuda(feats.contiguous(), nbr.contiguous(),
-                            weights.contiguous(),
-                            conv_plan(nbr) if plan is None else plan)
+    if feats.device.type != 'cpu':
+        feats, nbr, weights = (feats.contiguous(), nbr.contiguous(),
+                               weights.contiguous())
+        if plan is None:
+            plan = conv_plan(nbr)
+    return SparseConv.apply(feats, weights, nbr, plan, rev)
 
 
 def sparse_conv_plain(feats, nbr, weights):
     """K14's function, a tap at a time: the rows gathered (absent ones 0)
-    times the tap's kernel, summed in float32 in tap order and returned in
-    the features' dtype (a float32 product of bfloat16 operands is exact,
-    so a bfloat16 call rounds once, at the end)."""
+    times the tap's kernel, summed in float32 (float64 rows: in float64) in
+    tap order and returned in the features' dtype (a float32 product of
+    bfloat16 operands is exact, so a bfloat16 call rounds once, at the
+    end)."""
     b, m, c = feats.shape
     mo, k = nbr.shape[1:]
     flat = feats.reshape(b * m, c)
     base = (torch.arange(b, device=feats.device) * m)[:, None]
-    acc = torch.zeros((b, mo, weights.shape[2]), dtype=torch.float32,
+    dtype = torch.promote_types(feats.dtype, torch.float32)
+    acc = torch.zeros((b, mo, weights.shape[2]), dtype=dtype,
                       device=feats.device)
     for t in range(k):
         idx = nbr[..., t].long()
         g = flat[(idx.clamp(min=0) + base).reshape(-1)].reshape(b, mo, c)
-        g = torch.where((idx >= 0)[..., None], g, 0).float()
-        acc = acc + g @ weights[t].float()
+        g = torch.where((idx >= 0)[..., None], g, 0).to(dtype)
+        acc = acc + g @ weights[t].to(dtype)
     return acc.to(feats.dtype)
 
 
@@ -548,6 +681,25 @@ def sparse_conv_cuda(feats, nbr, weights, plan=None, group=None):
     its ``conv_plan`` (made here when not given), all contiguous on the
     card -> (B, M_out, C_out) in their dtype.  ``group`` (the taps a part
     takes) overrides ``taps_a_part``."""
+    kernel = (SPARSE_CONV_BF16_KERNEL if feats.dtype == torch.bfloat16
+              else SPARSE_CONV_KERNEL)
+    return _sparse_conv_launch(kernel, feats, nbr, weights, plan, group)
+
+
+def sparse_conv_backward_cuda(g, rev, weights_t, plan):
+    """K14 on a reverse table, the backward's d_feats: the float32 output
+    gradient (B, M_out, C_out), the reverse table (B, M_in, K) with its
+    ``conv_plan`` and each tap's kernel transposed (K, C_out, C) ->
+    (B, M_in, C), counted as ``sparse_conv_backward``."""
+    if g.dtype != torch.float32:
+        raise TypeError(f'the sparse convolution trains in float32 (bf16 '
+                        f'training of the FCAF3D family is ROADMAP work), '
+                        f'got {g.dtype}')
+    return _sparse_conv_launch(SPARSE_CONV_BACKWARD_KERNEL, g, rev,
+                               weights_t, plan, None)
+
+
+def _sparse_conv_launch(kernel, feats, nbr, weights, plan, group):
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'feats must be float32 or bfloat16, got '
                         f'{feats.dtype}')
@@ -563,25 +715,117 @@ def sparse_conv_cuda(feats, nbr, weights, plan=None, group=None):
             f'weights {tuple(weights.shape)} do not go together')
     if plan is None:
         plan = conv_plan(nbr)
-    check_cuda('plan.order', plan.order, torch.int32, 2)
-    check_cuda('plan.tile_taps', plan.tile_taps, torch.int32, 2)
-    if plan.order.shape != (b, mo) or \
-            plan.tile_taps.shape != (b, -(-mo // CONV_TILE_ROWS)):
-        raise ValueError(f'the plan ({tuple(plan.order.shape)}, '
-                         f'{tuple(plan.tile_taps.shape)}) is not that of nbr '
-                         f'{tuple(nbr.shape)}')
+    check_plan(plan, b, mo)
     group = min(k, group or taps_a_part(b, mo, c, co, k, feats.dtype))
     out = torch.empty((b, mo, co), dtype=feats.dtype, device=feats.device)
     if out.numel():
         parts = -(-k // group)
         scratch = torch.empty((parts, b, mo, co), dtype=torch.float32,
                               device=feats.device) if parts > 1 else None
-        kernel = (SPARSE_CONV_BF16_KERNEL if feats.dtype == torch.bfloat16
-                  else SPARSE_CONV_KERNEL)
         kernel(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
                plan.order.data_ptr(), plan.tile_taps.data_ptr(),
                0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
                b, m, c, mo, k, co, group)
+    return out
+
+
+def check_plan(plan, b, m_out):
+    """Raise unless ``plan`` is the ``conv_plan`` of a (B, M_out, K) table
+    on the card."""
+    check_cuda('plan.order', plan.order, torch.int32, 2)
+    check_cuda('plan.tile_taps', plan.tile_taps, torch.int32, 2)
+    if plan.order.shape != (b, m_out) or \
+            plan.tile_taps.shape != (b, -(-m_out // CONV_TILE_ROWS)):
+        raise ValueError(f'the plan ({tuple(plan.order.shape)}, '
+                         f'{tuple(plan.tile_taps.shape)}) is not that of a '
+                         f'table of {m_out} rows in {b} scenes')
+
+
+# K16's tiles (csrc/sparse_dweights.cu): 64 x 64 of (C, C_out) a block, its
+# tap's rows in tiles of 64; below this many blocks the row tiles are cut
+# into slices (a block each), summed in order by a second pass
+DWEIGHTS_TILE = 64
+DWEIGHTS_BLOCKS = 4 * SM_COUNT
+
+
+def dweights_slices(b, m_out, c, c_out, k):
+    """How many slices of the (scene, row tile) list K16 cuts a tap's rows
+    into: enough that the grid has ``DWEIGHTS_BLOCKS`` blocks, no more than
+    one row tile a slice."""
+    tiles = b * -(-m_out // CONV_TILE_ROWS)
+    blocks = k * -(-c // DWEIGHTS_TILE) * -(-c_out // DWEIGHTS_TILE)
+    return max(1, min(tiles, -(-DWEIGHTS_BLOCKS // blocks)))
+
+
+def sparse_conv_dweights(feats, nbr, g, plan=None):
+    """The sparse convolution's weight gradient: ``dW[t] = sum over scenes
+    and output rows m of feats[b, nbr[b, m, t]]^T g[b, m]`` (absent taps
+    adding 0) -> (K, C, C_out) float32.  A CUDA tensor launches K16 on the
+    table's ``plan`` (made here when not given), a CPU tensor takes
+    ``sparse_conv_dweights_plain``."""
+    if feats.device.type == 'cpu':
+        return sparse_conv_dweights_plain(feats, nbr, g)
+    return sparse_conv_dweights_cuda(feats.contiguous(), nbr.contiguous(),
+                                     g.contiguous(),
+                                     conv_plan(nbr) if plan is None else plan)
+
+
+def sparse_conv_dweights_plain(feats, nbr, g):
+    """K16's function, a tap at a time: the rows gathered (absent ones 0)
+    and the output gradient, one float32 ``einsum`` over scenes and rows a
+    tap (float64 rows: float64), as the JAX package's ``_conv_dweights``.
+    The kernel sums each slice's rows in the plan's order and the slices
+    in order 0, 1, ..; the two agree to a float32 rounding of the sums."""
+    b, m, c = feats.shape
+    k = nbr.shape[2]
+    dtype = torch.promote_types(feats.dtype, torch.float32)
+    flat = feats.reshape(b * m, c).to(dtype)
+    base = (torch.arange(b, device=feats.device) * m)[:, None]
+    gf = g.to(dtype)
+    out = []
+    for t in range(k):
+        idx = nbr[..., t].long()
+        rows = flat[(idx.clamp(min=0) + base).reshape(-1)].reshape(
+            b, -1, c)
+        rows = torch.where((idx >= 0)[..., None], rows, 0)
+        out.append(torch.einsum('bmc,bmo->co', rows, gf))
+    return torch.stack(out)
+
+
+def sparse_conv_dweights_cuda(feats, nbr, g, plan, slices=None):
+    """Kernel K16 (csrc/sparse_dweights.cu): float32 feats (B, M_in, C),
+    int32 nbr (B, M_out, K) with its ``conv_plan`` and the float32 output
+    gradient g (B, M_out, C_out), all contiguous on the card -> (K, C,
+    C_out) float32, the same bits every call.  ``slices`` overrides
+    ``dweights_slices``.  bfloat16 is refused by name: the family trains in
+    float32 (a bf16 entry is ROADMAP work)."""
+    for name, t in (('feats', feats), ('g', g)):
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f'K16 (the sparse convolution\'s weight gradient) takes '
+                f'float32 {name}, got {t.dtype}: bf16 training of the FCAF3D '
+                f'family is not ported (ROADMAP, a bf16 entry of K16)')
+    check_cuda('feats', feats, torch.float32, 3)
+    check_cuda('nbr', nbr, torch.int32, 3)
+    check_cuda('g', g, torch.float32, 3)
+    b, m, c = feats.shape
+    mo, k = nbr.shape[1:]
+    co = g.shape[2]
+    if nbr.shape[0] != b or g.shape[:2] != (b, mo) or k > 32:
+        raise ValueError(f'feats {tuple(feats.shape)}, nbr '
+                         f'{tuple(nbr.shape)} and g {tuple(g.shape)} do not '
+                         f'go together')
+    check_plan(plan, b, mo)
+    out = torch.empty((k, c, co), dtype=torch.float32, device=feats.device)
+    if out.numel():
+        slices = slices or dweights_slices(b, mo, c, co, k)
+        scratch = torch.empty((slices, k, c, co), dtype=torch.float32,
+                              device=feats.device) if slices > 1 else None
+        SPARSE_DWEIGHTS_KERNEL(
+            feats.data_ptr(), nbr.data_ptr(), g.data_ptr(),
+            plan.order.data_ptr(), plan.tile_taps.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            b, m, c, mo, k, co, slices)
     return out
 
 
@@ -595,14 +839,17 @@ def submanifold_table(coords, valid, kernel_size=3, tensor_stride=1,
 
 def submanifold_conv_batched(coords, valid, feats, weights, kernel_size=3,
                              tensor_stride=1, nbr=None, sorted_input=False,
-                             plan=None):
+                             plan=None, rev=None):
     """MinkowskiConvolution(stride=1) on the same coordinate set; ``nbr``
-    may be the level's table (taps in MinkowskiEngine's order) and ``plan``
-    its ``conv_plan``, built once and shared by its convs."""
+    may be the level's table (taps in MinkowskiEngine's order), ``plan``
+    its ``conv_plan`` and ``rev`` its ``submanifold_reverse``, built once
+    and shared by its convs."""
     if nbr is None:
         nbr = submanifold_table(coords, valid, kernel_size, tensor_stride,
                                 sorted_input)
-    out = sparse_conv_apply_batched(feats, nbr, weights, plan)
+    if rev is None:
+        rev = submanifold_reverse(nbr)
+    out = sparse_conv_apply_batched(feats, nbr, weights, plan, rev)
     return torch.where(valid[..., None], out, 0)
 
 
@@ -634,11 +881,13 @@ def strided_conv_batched(coords, valid, feats, weights, stride=2,
     """MinkowskiConvolution(kernel=k, stride=s): ``tensor_stride`` is the
     input level's granularity, the output's is ``tensor_stride * stride``
     (coords stay in finest units).  Returns (out_coords, out_valid,
-    out_feats, nbr, level_nbr): ``nbr`` the conv's table (for an even
-    kernel its tap 0 is the output voxel's own coordinate, which a stride-2
-    block's shortcut reads), ``level_nbr`` with ``level_kernel`` the output
-    level's own table of that size (MinkowskiEngine's order), made in the
-    same K13 launch, else None."""
+    out_feats, nbr, level_nbr, plan, rev): ``nbr`` the conv's table (for an
+    even kernel its tap 0 is the output voxel's own coordinate, which a
+    stride-2 block's shortcut reads), ``level_nbr`` with ``level_kernel``
+    the output level's own table of that size (MinkowskiEngine's order),
+    made in the same K13 launch, else None; ``plan`` the conv's
+    ``conv_plan`` (None on the CPU) and ``rev`` its ``strided_reverse``,
+    for the callers that read the table again."""
     max_out = max_out or coords.shape[1]
     oc, ov = downsample_coords(coords, valid, stride * tensor_stride,
                                max_out)
@@ -648,9 +897,12 @@ def strided_conv_batched(coords, valid, feats, weights, stride=2,
         jobs.append(TableJob(oc, ov, oc, ov, level_kernel, True,
                              stride * tensor_stride))
     tables = kernel_tables(jobs, sorted_input)
-    out = sparse_conv_apply_batched(feats, tables[0], weights)
+    plan = None if feats.device.type == 'cpu' else conv_plan(tables[0])
+    rev = strided_reverse(coords, valid, oc, ov, kernel_size, stride,
+                          tensor_stride)
+    out = sparse_conv_apply_batched(feats, tables[0], weights, plan, rev)
     return (oc, ov, torch.where(ov[..., None], out, 0), tables[0],
-            tables[1] if level_kernel else None)
+            tables[1] if level_kernel else None, plan, rev)
 
 
 def sparse_max_pool_batched(coords, valid, feats, stride=2, kernel_size=2,
@@ -702,17 +954,22 @@ def transposed_table(coords_fine, valid_fine, coords_coarse, valid_coarse,
 def transposed_conv_to_batched(coords_fine, valid_fine, coords_coarse,
                                valid_coarse, feats_coarse, weights, stride=2,
                                kernel_size=2, tensor_stride=1,
-                               sorted_input=False, nbr=None):
+                               sorted_input=False, nbr=None, rev=None):
     """MinkowskiConvolutionTranspose(kernel=2, stride=2) onto a known fine
     coordinate set (the encoder skip's table), as FCAF3D's decoder
     upsamples: the ``transposed_table`` (or ``nbr``, that table made
     beforehand) goes through K14.  ``tensor_stride`` is the fine level's
-    granularity."""
+    granularity; ``rev`` the table's ``Reverse`` (``transposed_reverse``
+    by default)."""
     if nbr is None:
         nbr = transposed_table(coords_fine, valid_fine, coords_coarse,
                                valid_coarse, stride, kernel_size,
                                tensor_stride, sorted_input)
-    out = sparse_conv_apply_batched(feats_coarse, nbr, weights)
+    if rev is None:
+        rev = transposed_reverse(coords_fine, valid_fine, coords_coarse,
+                                 valid_coarse, kernel_size, tensor_stride,
+                                 sorted_input)
+    out = sparse_conv_apply_batched(feats_coarse, nbr, weights, rev=rev)
     return torch.where(valid_fine[..., None], out, 0)
 
 

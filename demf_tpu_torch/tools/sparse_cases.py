@@ -138,6 +138,20 @@ def tolerance(want, dtype):
         2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def gather_dweights(feats, nbr, g):
+    """K16's yardstick: for each tap, the rows it reads gathered into (B *
+    M_out, C) (zeros where absent) and one ``torch.matmul`` of their
+    transpose with the output gradient (B * M_out, C_out).  Returns the
+    call as a closure over its prepared indices."""
+    b, m, c = feats.shape
+    flat = torch.cat([feats.reshape(b * m, c), feats.new_zeros((1, c))])
+    base = (torch.arange(b, device=nbr.device) * m)[:, None]
+    idx = [torch.where(nbr[..., t] >= 0, nbr[..., t] + base, b * m).reshape(
+        -1) for t in range(nbr.shape[2])]
+    g2 = g.reshape(-1, g.shape[2])
+    return lambda: [torch.matmul(flat[i].t(), g2) for i in idx]
+
+
 def gather_matmul(feats, nbr, w):
     """K14's yardstick, one PyTorch call of each kind: the rows of every
     (row, tap) gathered into (B * M_out, K * C) (zeros where absent) and

@@ -13,11 +13,17 @@ the same synthetic scenes (``synth_fcaf3d_batch``).
   every torch key used once, the sparse kernels in MinkowskiEngine's tap
   order;
 * the eval entry serves the tiny config from a ``.pth`` of the port's
-  weights to an mAP dict; the train entry refuses the family by name;
+  weights to an mAP dict; the train entry trains the family (two
+  ``--synthetic`` steps, a checkpoint the eval entry serves, and which the
+  JAX package's ``port_fcaf3d_checkpoint`` ports back to JAX's eval forward
+  within 1e-4 of the port's), the loss is a finite named dict, and a bf16
+  policy on the family's training is refused by name;
 * the bf16 policy: the eval step under it gives float32 detections, and
   the port's own bf16 - float32 gap of every level output lies within a
   third and three times the JAX package's (seen: 0.55 to 1.6 times).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -101,7 +107,8 @@ def detections_agree(got, want, tol=1e-4):
 def fcaf3d():
     """JAX and the port on the same weights and scenes: (JAX results and
     detections, the port's model, the torch batch, params, stats, JAX's
-    results under its bf16 policy)."""
+    results under its bf16 policy, the jitted JAX step of (params, stats,
+    batch) -> those three, the JAX batch)."""
     cfg = dict(zoo.load_model_cfg('synthetic/fcaf3d_tiny.py').model)
     jmodel = build_from_cfg(cfg, JAX_DETECTORS)
     batch = zoo.synth_fcaf3d_batch(2, p=2048, g=4, seed=0)
@@ -122,7 +129,7 @@ def fcaf3d():
     model = zoo.build_detector(cfg, 'cpu')
     model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     return want, want_det, model, batch_to_device(batch, 'cpu'), params, \
-        stats, want_bf16
+        stats, want_bf16, serve, jbatch
 
 
 @pytest.fixture(scope='module')
@@ -199,17 +206,83 @@ def test_eval_entry_serves_the_tiny_config(fcaf3d, tmp_path, capsys):
     assert 'mAP_0.25' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize('cfg', [CFG, 'configs/synthetic/demf_fcaf3d_tiny.py'])
-def test_train_entry_refuses_the_family_by_name(cfg, tmp_path):
-    with pytest.raises(NotImplementedError, match=r'ROADMAP M8'):
-        train_entry.main([cfg, '--device', 'cpu', '--work-dir',
-                          str(tmp_path)])
+FAMILY = [CFG, 'configs/synthetic/demf_fcaf3d_tiny.py']
 
 
-def test_loss_is_refused_by_name(fcaf3d, port_run):
-    model, tbatch = fcaf3d[2:4]
-    with pytest.raises(NotImplementedError, match=r'ROADMAP M8'):
-        model.loss(port_run[0], tbatch)
+@pytest.fixture(scope='module')
+def trained(tmp_path_factory):
+    """config -> the checkpoint of two ``--synthetic`` steps of the train
+    entry on the CPU (2 scenes of 1,024 points, 64x96 images), made once."""
+    made = {}
+
+    def checkpoint(cfg):
+        if cfg not in made:
+            wd = tmp_path_factory.mktemp('train')
+            train_entry.main([cfg, '--device', 'cpu', '--synthetic',
+                              '--steps', '2', '--batch', '2', '--points',
+                              '1024', '--hw', '64', '96', '--work-dir',
+                              str(wd)])
+            made[cfg] = wd / 'checkpoints' / 'epoch_1.pth'
+        return made[cfg]
+    return checkpoint
+
+
+@pytest.mark.parametrize('cfg', FAMILY)
+def test_train_entry_trains_the_family(cfg, trained):
+    """Two ``--synthetic`` steps write a checkpoint of finite weights,
+    which the eval entry serves to an mAP dict."""
+    path = trained(cfg)
+    weights = [v for v in torch.load(path, weights_only=False)[
+        'state_dict'].values() if v.is_floating_point()]
+    assert weights and all(torch.isfinite(v).all() for v in weights)
+    metrics = eval_entry.main([cfg, str(path), '--device', 'cpu', '--eval',
+                               'mAP'])
+    assert 'mAP_0.25' in metrics
+    assert all(np.isfinite(v) for v in metrics.values())
+
+
+def test_trained_checkpoint_ports_back_to_jax(fcaf3d, trained):
+    """The train entry's checkpoint, ported back by the JAX package's
+    ``port_fcaf3d_checkpoint`` (strict: every leaf, no key left): JAX's
+    eval forward on it within 1e-4 of the port's on the same checkpoint."""
+    params, stats, serve, jbatch = fcaf3d[4], fcaf3d[5], fcaf3d[7], fcaf3d[8]
+    sd = torch.load(trained(CFG), weights_only=False)['state_dict']
+    template = {'params': unflatten_params(params),
+                'batch_stats': unflatten_params(stats)}
+    back, report = port_fcaf3d_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, template, depth=18,
+        strict=True)
+    assert not report['unmatched_flax_keys']
+    want = jax.device_get(serve(back['params'], back['batch_stats'],
+                                jbatch))[0]
+    model = copy.deepcopy(fcaf3d[2])
+    model.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        got = model(fcaf3d[3])
+    errs = level_errors(got['head_outs'], want['head_outs'])
+    assert max(errs.values()) <= 1e-4, errs
+    # the two steps moved the weights away from the fixture's
+    assert not torch.equal(sd['head.cls_conv.bias'],
+                           fcaf3d[2].state_dict()['head.cls_conv.bias'])
+
+
+def test_loss_is_a_finite_named_dict(fcaf3d):
+    # a copy: train mode moves the BatchNorm statistics of the shared model
+    model = copy.deepcopy(fcaf3d[2]).train()
+    tbatch = fcaf3d[3]
+    losses = model.loss(model(tbatch), tbatch)
+    assert set(losses) == {'loss_cls', 'loss_centerness', 'loss_bbox'}
+    assert all(v.dim() == 0 and torch.isfinite(v) for v in losses.values())
+    assert losses['loss_cls'] > 0
+
+
+@pytest.mark.parametrize('cfg', FAMILY)
+def test_bf16_training_of_the_family_is_refused_by_name(cfg, tmp_path):
+    with pytest.raises(NotImplementedError,
+                       match=r'bf16 training of the FCAF3D family'):
+        train_entry.main([cfg, '--device', 'cpu', '--synthetic', '--steps',
+                          '1', '--work-dir', str(tmp_path), '--cfg-options',
+                          'bf16=True'])
 
 
 def test_eval_step_under_the_bf16_policy(fcaf3d, port_run):

@@ -2035,6 +2035,112 @@ def test_conv_plan_equals_plain(dev, level, b, m, k):
         assert g.dtype == torch.int32 and torch.equal(g, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('level,b,m,c,co,k', SPARSE_CONV_CASES)
+def test_sparse_dweights_equals_plain(dev, level, b, m, c, co, k):
+    """K16 (the weight gradient) on K14's cases (the stem's C 3, one-tap
+    and transposed tables, an empty scene, rows past the valid prefix):
+    within 1e-5 of the largest against ``sparse_conv_dweights_plain``, the
+    same bits on two calls, and the same sums in one slice or cut into 1,
+    7 and its own number of slices; a bf16 call refused by name."""
+    from demf_tpu_torch.ops import sparse
+    nbr, m_in, _ = conv_table(dev, level, b, m, k)
+    gen = torch.Generator(dev).manual_seed(c + co + k)
+    feats = torch.randn(b, m_in, c, device=dev, generator=gen)
+    g = torch.randn(b, nbr.shape[1], co, device=dev, generator=gen)
+    plan = sparse.conv_plan(nbr)
+    before = sparse.SPARSE_DWEIGHTS_KERNEL.launches
+    got = sparse.sparse_conv_dweights(feats, nbr, g, plan)
+    assert sparse.SPARSE_DWEIGHTS_KERNEL.launches == before + 1
+    assert got.shape == (k, c, co) and got.dtype == torch.float32
+    assert torch.equal(got, sparse.sparse_conv_dweights_cuda(feats, nbr, g,
+                                                             plan))
+    want = sparse.sparse_conv_dweights_plain(feats, nbr, g)
+    tol = 1e-5 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    for slices in (1, 7, sparse.dweights_slices(b, nbr.shape[1], c, co, k)):
+        again = sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan, slices)
+        assert (again - want).abs().max().item() <= tol
+        assert torch.equal(again, sparse.sparse_conv_dweights_cuda(
+            feats, nbr, g, plan, slices))
+    with pytest.raises(TypeError, match='bf16 training of the FCAF3D'):
+        sparse.sparse_conv_dweights_cuda(feats.bfloat16(), nbr, g, plan)
+
+
+def backward_case(dev, kind):
+    """(inputs on ``dev``, f(x, w) through the model's convolution of that
+    table kind): a 2 cm cloud of 3 scenes (the last empty) at capacity
+    2048, 16 -> 24 channels."""
+    from demf_tpu_torch.ops import sparse
+    coords, valid = voxel_level(dev, b=3, m=2048, stride=2)
+    oc, ov = sparse.downsample_coords(coords, valid, 4, 1024)
+    rng = np.random.RandomState(len(kind))
+    k = {'submanifold': 27, 'strided': 8, 'stem': 27, 'shortcut': 1,
+         'transposed': 8}[kind]
+    rows = oc.shape[1] if kind == 'transposed' else coords.shape[1]
+    x = torch.from_numpy(rng.randn(3, rows, 16).astype(np.float32)).to(dev)
+    x = x * (ov if kind == 'transposed' else valid)[..., None]
+    w = torch.from_numpy((rng.randn(k, 16, 24) / np.sqrt(16 * k)).astype(
+        np.float32)).to(dev)
+
+    def fn(xx, ww):
+        if kind == 'submanifold':
+            return sparse.submanifold_conv_batched(
+                coords, valid, xx, ww, tensor_stride=2, sorted_input=True)
+        if kind in ('strided', 'stem'):
+            return sparse.strided_conv_batched(
+                coords, valid, xx, ww, kernel_size=2 if k == 8 else 3,
+                max_out=1024, tensor_stride=2, sorted_input=True)[2]
+        if kind == 'shortcut':
+            nbr = sparse.kernel_tables([sparse.TableJob(
+                coords, valid, oc, ov, 2, True, 2)])[0]
+            return sparse.sparse_conv_apply_batched(
+                xx, nbr[..., :1], ww, rev=sparse.strided_reverse(
+                    coords, valid, oc, ov, 2, 2, 2).taps(1))
+        return sparse.transposed_conv_to_batched(
+            coords, valid, oc, ov, xx, ww, tensor_stride=2,
+            sorted_input=True)
+    return (coords, valid, oc, ov), x, w, fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['submanifold', 'strided', 'stem',
+                                  'shortcut', 'transposed'])
+def test_sparse_conv_backward_equals_plain(dev, kind):
+    """The autograd Function's backward on the card (K14 on the reverse
+    table for d_feats, counted as ``sparse_conv_backward``, and K16)
+    against its plain route on the CPU on the same inputs, in float32 and
+    in float64 (the route ``gradcheck`` holds to finite differences,
+    tests/test_torch_sparse_backward.py), within 1e-5 of each gradient's
+    largest; the d_feats of invalid rows exactly 0."""
+    from demf_tpu_torch.ops import sparse
+
+    def grads(device, dtype):
+        tables, x, w, fn = backward_case(device, kind)
+        x = x.to(dtype).requires_grad_()
+        w = w.to(dtype).requires_grad_()
+        out = fn(x, w)
+        ct = torch.from_numpy(np.random.RandomState(3).randn(
+            *out.shape)).to(device, dtype)
+        out.backward(ct)
+        return tables, x.grad, w.grad
+
+    before = (sparse.SPARSE_CONV_BACKWARD_KERNEL.launches,
+              sparse.SPARSE_DWEIGHTS_KERNEL.launches)
+    tables, dx, dw = grads(dev, torch.float32)
+    assert sparse.SPARSE_CONV_BACKWARD_KERNEL.launches == before[0] + 1
+    assert sparse.SPARSE_DWEIGHTS_KERNEL.launches == before[1] + 1
+    for dtype in (torch.float32, torch.float64):
+        _, want_x, want_w = grads(torch.device('cpu'), dtype)
+        for got, want in ((dx, want_x), (dw, want_w)):
+            want = want.double()
+            err = (got.cpu().double() - want).abs().max().item()
+            assert err <= 1e-5 * want.abs().max().item(), (dtype, err)
+    in_valid = tables[3] if kind == 'transposed' else tables[1]
+    assert (dx[~in_valid] == 0).all()
+    assert dw.abs().max() > 0 and dx.abs().max() > 0
+
+
 # K15's IoU of a box and a copy of itself (the diagonal, and coincident
 # boxes of other indices) against iou3d_matrix's at room coordinates: both
 # versions cross parallel edges at denominators of rounding noise; up to
