@@ -233,11 +233,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    same bits twice, its time, bound and a ``torch.matmul`` a tap); K14 on
    the step's 46 reverse tables (the backward's d_feats) against its plain
    version; then 3 steps with their launches (``LAUNCHES_PER_FCAF3D_STEP``),
-   finite losses, host ms, device ms by kernel, busy share and peak memory;
+   finite losses, host ms, device ms by kernel, busy share, the rest of a
+   profiled step's device ms by the op that launched it
+   (``device_ms_by_op``) and peak memory; then the same trainer under the
+   bf16 policy (``run_train_bf16``): 3 steps with their launches
+   (``LAUNCHES_PER_FCAF3D_STEP_BF16``: K14, K14 on reverse tables and K16
+   on their bf16 entries), the first step's losses within 0.2 of the
+   float32 first step's, float32 masters, AdamW state and statistics, and
+   K16's and K14's bf16 entries against their plain versions on that
+   step's own calls;
 18. DeMF-FCAF3D trained (decoder lr_mult 0.05, the frozen image branch's
    800x1344 features cached once): the same first-step comparison (MSDA
-   plain on that side too) and 3 steps (``LAUNCHES_PER_DEMF_FCAF3D_STEP``);
-   then the train entry, ``--synthetic --steps 2``, on both tiny FCAF3D
+   plain on that side too), 3 steps (``LAUNCHES_PER_DEMF_FCAF3D_STEP``) and
+   3 under the bf16 policy (``LAUNCHES_PER_DEMF_FCAF3D_STEP_BF16``); then
+   the train entry, ``--synthetic --steps 2``, on both tiny FCAF3D
    configs.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
@@ -261,7 +270,9 @@ FCAF3D request, times and bounds summed over that request's own calls (K14
 bf16: launches of the bf16 request; K14's plan: its 16 tables, bound by
 their bytes; K14's row also carries ``backward_launches``, a FCAF3D train
 step's); K14 on reverse tables (``sparse_conv_backward``) and K16: launches
-of a FCAF3D train step, times and bounds summed over its own calls;
+of a FCAF3D train step, times and bounds summed over its own calls (their
+bf16 entries, ``sparse_conv_backward_bf16`` and
+``sparse_conv_dweights_bf16``: the bf16 step's, bound at bf16's peak);
 ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
@@ -301,7 +312,8 @@ KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'roi_align_backward', 'roi_align_bf16',
                 'roi_align_backward_bf16', 'kernel_map', 'sparse_conv',
                 'sparse_conv_bf16', 'sparse_conv_plan', 'nms3d_rotated',
-                'sparse_conv_backward', 'sparse_conv_dweights')
+                'sparse_conv_backward', 'sparse_conv_dweights',
+                'sparse_conv_backward_bf16', 'sparse_conv_dweights_bf16')
 
 
 def launch_counts(**counts):
@@ -391,6 +403,8 @@ REPLACES = {
     # _conv_revgeo_bwd)
     'sparse_conv_backward': 'demf_tpu/ops/sparse.py:450',
     'sparse_conv_dweights': 'demf_tpu/ops/sparse.py:414',
+    'sparse_conv_backward_bf16': 'demf_tpu/ops/sparse.py:450',
+    'sparse_conv_dweights_bf16': 'demf_tpu/ops/sparse.py:414',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -414,7 +428,10 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'sparse_conv_plan': 'demf_tpu_torch/csrc/sparse_conv.cu',
            'nms3d_rotated': 'demf_tpu_torch/csrc/nms3d_rotated.cu',
            'sparse_conv_backward': 'demf_tpu_torch/csrc/sparse_conv.cu',
-           'sparse_conv_dweights': 'demf_tpu_torch/csrc/sparse_dweights.cu'}
+           'sparse_conv_dweights': 'demf_tpu_torch/csrc/sparse_dweights.cu',
+           'sparse_conv_backward_bf16': 'demf_tpu_torch/csrc/sparse_conv.cu',
+           'sparse_conv_dweights_bf16':
+               'demf_tpu_torch/csrc/sparse_dweights.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -1557,31 +1574,16 @@ def run_training_bf16(dev, kernels, fp32_first):
         if bad:
             raise AssertionError(f'bf16 step {i}: non-finite {bad}')
         if i == 0:
-            rel = {k: abs(metrics[k].item() - v) / max(abs(v), 1e-6)
-                   for k, v in fp32_first.items() if k != 'grad_norm'}
-            worst = max(rel, key=rel.get)
-            print(f'bf16 train step 0 vs the float32 step 0: losses max rel '
-                  f'err {rel[worst]:.3e} ({worst}; bound 0.2); grad_norm '
-                  f'{metrics["grad_norm"].item():.3f} against '
-                  f'{fp32_first["grad_norm"]:.3f}', flush=True)
-            if not rel[worst] < 0.2:
-                raise AssertionError('bf16 step strays from float32')
+            losses_against({k: float(v) for k, v in metrics.items()},
+                           fp32_first, 'bf16 train')
         print(f'bf16 train step {i}: {seconds * 1e3:.3f} ms (host clock), '
               f'{TRAIN_BATCH["b"] / seconds:.3f} scenes/s, launches '
               f'{launched}; loss {metrics["loss"].item():.5f}', flush=True)
     launches = {n: k.launches for n, k in kernels.items()}
-    states = [v for st in optimizer.state.values() for v in st.values()
-              if torch.is_tensor(v) and v.is_floating_point()]
-    buffers = [b for n, b in model.named_buffers() if 'running' in n]
-    if not states or not buffers or any(
-            t.dtype != torch.float32
-            for t in list(model.parameters()) + states + buffers):
-        raise AssertionError('bf16 step: masters, optimizer state or BN '
-                             'statistics left float32')
     print(f'bf16 training: peak memory '
           f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB over '
-          f'{TRAIN_STEPS - 1} steps; {len(buffers)} BN statistics, '
-          f'{len(states)} optimizer tensors and every master weight float32')
+          f'{TRAIN_STEPS - 1} steps')
+    masters_in_float32(model, optimizer, 'bf16 training')
     (made, kept), cast, n = weight_copy_ms(model, step.compute_dtype,
                                           inference=False)
     print(f'bf16 step weight copies: {made:.3f} ms all made anew, {kept:.3f} '
@@ -3593,6 +3595,17 @@ LAUNCHES_PER_FCAF3D_STEP = launch_counts(**SPARSE_TRAIN_STEP)
 # the decoder's one MSDA layer, forward and backward
 LAUNCHES_PER_DEMF_FCAF3D_STEP = launch_counts(msda=1, msda_backward=1,
                                               **SPARSE_TRAIN_STEP)
+# under the bf16 policy the same launches on the bf16 entries: the voxel
+# features go to bf16 before the stem, so every convolution's rows, its
+# output gradient and its reverse-table call are bf16; the decoder's MSDA
+# reads a bf16 value
+SPARSE_TRAIN_STEP_BF16 = dict(kernel_map=11, sparse_conv_bf16=47,
+                              sparse_conv_backward_bf16=46,
+                              sparse_conv_plan=28,
+                              sparse_conv_dweights_bf16=47)
+LAUNCHES_PER_FCAF3D_STEP_BF16 = launch_counts(**SPARSE_TRAIN_STEP_BF16)
+LAUNCHES_PER_DEMF_FCAF3D_STEP_BF16 = launch_counts(
+    msda_bf16=1, msda_backward_bf16=1, **SPARSE_TRAIN_STEP_BF16)
 # a FCAF3D request's tables (13, in the 7 launches above)
 FCAF3D_TABLES = 13
 FCAF3D_MARKERS = {'K13': ('kernel_map_kernel',),
@@ -4297,21 +4310,28 @@ TRAIN_MARKERS = {'K13': ('kernel_map_kernel',),
                  'K3-K4': ('msda_',)}
 
 
-def check_sparse_dweights(calls):
+def check_sparse_dweights(calls, dtype=torch.float32):
     """K16 on a train step's own calls (each convolution's features, table,
-    row plan and output gradient) against ``sparse_conv_dweights_plain``:
-    within 1e-5 of each result's largest, the same bits on two calls; timed
-    over all of them beside the plain version and one ``torch.matmul`` a
-    tap over the gathered rows (the yardstick).  Its bound: 2 x the (row,
-    tap) pairs that exist x C x C_out operations at float32's 67 TFLOP/s,
-    or the bytes (features, table and output gradient read once, the
-    weight gradient written once), whichever is larger."""
+    row plan and output gradient; in bf16 the bf16 step's own) against
+    ``sparse_conv_dweights_plain``: within 1e-5 of each result's largest
+    (a bf16 product is exact in float32: both entries alike), the same bits
+    on two calls; timed over all of them beside the plain version and one
+    ``torch.matmul`` a tap over the gathered rows (the yardstick, in the
+    calls' dtype).  Its bound: 2 x the (row, tap) pairs that exist x C x
+    C_out operations at the peak of the operands' type (float32's 67
+    TFLOP/s outside the tensor cores, bf16's 989 on them), or the bytes
+    (features, table and output gradient read once, the float32 weight
+    gradient written once), whichever is larger.  The float32 entry also
+    prints its bound at the rate it runs, 3xTF32 (TF32's 495 over 3)."""
     from demf_tpu_torch.ops import sparse
-    from demf_tpu_torch.tools import bound_ms, time_ms
+    from demf_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_FLOPS,
+                                      PEAK_TF32_FLOPS, bound_ms, time_ms)
     from demf_tpu_torch.tools.sparse_cases import gather_dweights
     worst = flops = nbytes = 0.0
     yardsticks = []
     for feats, nbr, g, plan in calls:
+        if feats.dtype != dtype or g.dtype != dtype:
+            raise AssertionError(f'K16 {dtype}: a call of {feats.dtype}')
         got = sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan)
         if not torch.equal(got, sparse.sparse_conv_dweights_cuda(
                 feats, nbr, g, plan)):
@@ -4321,12 +4341,13 @@ def check_sparse_dweights(calls):
         top = max(want.abs().max().item(), 1e-30)
         err = (got - want).abs().max().item() / top
         if not err <= 1e-5:
-            raise AssertionError(f'K16 {tuple(feats.shape)} x '
+            raise AssertionError(f'K16 {dtype} {tuple(feats.shape)} x '
                                  f'{tuple(nbr.shape)} -> {tuple(got.shape)}: '
                                  f'{err} of the largest')
         worst = max(worst, err)
         flops += 2.0 * int((nbr >= 0).sum()) * feats.shape[2] * g.shape[2]
-        nbytes += 4 * (feats.numel() + nbr.numel() + g.numel() + got.numel())
+        nbytes += (feats.element_size() * (feats.numel() + g.numel()) +
+                   4 * (nbr.numel() + got.numel()))
         yardsticks.append(gather_dweights(feats, nbr, g))
 
     def kernel():
@@ -4343,10 +4364,19 @@ def check_sparse_dweights(calls):
 
     ms, plain_ms, lib_ms = (time_ms(kernel, 5), time_ms(plain, 2),
                             time_ms(library, 5))
-    least, by = bound_ms(flops, nbytes)
-    print(f'K16 sparse_conv_dweights: {len(calls)} weight gradients of a '
-          f'train step, {flops / 1e9:.3f} GFLOP of existing taps, max rel '
-          f'err {worst:.3e}, the same bits twice; kernel {ms:.4f} ms, plain '
+    least, by = bound_ms(flops, nbytes, PEAK_FLOPS if dtype == torch.float32
+                         else PEAK_BF16_FLOPS)
+    name = 'sparse_conv_dweights' + ('' if dtype == torch.float32 else
+                                     '_bf16')
+    if dtype == torch.float32:
+        tf32, tf32_by = bound_ms(flops, nbytes, PEAK_TF32_FLOPS / 3)
+        print(f'K16 {name} beside its 3xTF32 bound: kernel {ms:.4f} ms, '
+              f'bound at TF32\'s {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s over 3 '
+              f'{tf32:.6f} ms ({tf32_by}): {tf32 / ms:.1%} of it (the pinned '
+              f'bound {least:.6f} ms: {least / ms:.1%})', flush=True)
+    print(f'K16 {name}: {len(calls)} weight gradients of a train step, '
+          f'{flops / 1e9:.3f} GFLOP of existing taps, max rel err '
+          f'{worst:.3e}, the same bits twice; kernel {ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms, gather + matmul a tap {lib_ms:.4f} ms, bound '
           f'{least:.6f} ms ({by}; {flops / 1e9 / max(ms, 1e-9):.1f} TFLOP/s)',
           flush=True)
@@ -4469,22 +4499,58 @@ def compare_train_paths(model, batch, label):
     return calls
 
 
-def run_train_steps(step, batch, kernels, expected, label):
+def device_ms_by_op(fn, rows=14):
+    """One call of ``fn`` under torch.profiler: the device ms of its
+    kernels by the op whose host range launched them (each op's self
+    device time: an aten op, an autograd node's evaluation, or the
+    trainer's phase for the port's own kernels, which launch through
+    ctypes outside any aten op), the largest ``rows``: [(op, device ms,
+    calls)], and the device ms under no op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from demf_tpu_torch.engine.trainer import PHASES
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    # the phases' ranges also show on the device's timeline: not kernels
+    busy = sum(e.self_device_time_total for e in averages
+               if e.device_type == DeviceType.CUDA and
+               e.key not in PHASES) / 1e3
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in averages if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return ops[:rows], busy - sum(ms for _, ms, _ in ops)
+
+
+def run_train_steps(step, batch, kernels, expected, label, record=False):
     """``FCAF3D_TRAIN_STEPS`` train steps with every count at 0 before each:
     each must launch ``expected`` and give finite losses; then each step's
-    host ms, one profiled step's device ms by kernel and busy share, and
-    the peak memory.  Returns a step's launches."""
+    host ms, one profiled step's device ms by kernel and busy share, the
+    rest of its device time by op, and the peak memory.  With ``record``
+    the first step's K13, K14, K16 and K15 calls are kept
+    (``recorded_calls``).  Returns (a step's launches, the first step's
+    metrics as floats, the calls or None)."""
     gen = torch.Generator(batch['points'].device).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     walls = []
+    first = calls = None
     for i in range(FCAF3D_TRAIN_STEPS):
         for k in kernels.values():
             k.launches = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = step(batch, gen)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        with recorded_calls() if record and i == 0 else \
+                contextlib.nullcontext() as kept:
+            t0 = time.perf_counter()
+            metrics = step(batch, gen)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first, calls = {k: float(v) for k, v in metrics.items()}, kept
         launched = {n: k.launches for n, k in kernels.items()}
         if launched != expected:
             raise AssertionError(
@@ -4507,48 +4573,93 @@ def run_train_steps(step, batch, kernels, expected, label):
           f'{found["all"][0] / wall:.1%}, peak memory {peak:.1f} MiB; {ours}; '
           f'launches a step { {n: c for n, c in launched.items() if c} }',
           flush=True)
-    return launched
+    ops, loose = device_ms_by_op(lambda: step(batch, gen))
+    print(f'{label}: a profiled step\'s device ms by the op that launched '
+          f'them (self time; the port\'s kernels under the phase or autograd '
+          f'node that called them): ' +
+          '; '.join(f'{op} {ms:.3f} ({n}x)' for op, ms, n in ops) +
+          f'; under no op {loose:.3f}', flush=True)
+    return launched, first, calls
 
 
-def fcaf3d_trainer(dev, seed=0):
+def losses_against(first, fp32_first, label):
+    """A bf16 step's losses within 0.2 of the float32 step's on the same
+    weights and batch (``run_training_bf16``'s bound, the JAX package's)."""
+    rel = {k: abs(first[k] - v) / max(abs(v), 1e-6)
+           for k, v in fp32_first.items() if k != 'grad_norm'}
+    worst = max(rel, key=rel.get)
+    print(f'{label} step 0 vs the float32 step 0: losses max rel err '
+          f'{rel[worst]:.3e} ({worst}; bound 0.2); grad_norm '
+          f'{first["grad_norm"]:.3f} against {fp32_first["grad_norm"]:.3f}',
+          flush=True)
+    if not rel[worst] < 0.2:
+        raise AssertionError(f'{label} strays from float32')
+
+
+def masters_in_float32(model, optimizer, label):
+    """The master weights, the AdamW state and the BatchNorm statistics of
+    a bf16 trainer stay float32."""
+    states = [v for st in optimizer.state.values() for v in st.values()
+              if torch.is_tensor(v) and v.is_floating_point()]
+    buffers = [b for n, b in model.named_buffers() if 'running' in n]
+    if not states or not buffers or any(
+            t.dtype != torch.float32
+            for t in list(model.parameters()) + states + buffers):
+        raise AssertionError(f'{label}: masters, optimizer state or BN '
+                             f'statistics left float32')
+    print(f'{label}: {len(buffers)} BN statistics, {len(states)} optimizer '
+          f'tensors and every master weight float32', flush=True)
+
+
+def fcaf3d_trainer(dev, seed=0, bf16=False):
     """FCAF3D's full-width trainer (``configs/fcaf3d/fcaf3d_sunrgbd.py``
-    through ``zoo.build_trainer``: AdamW, grad clip 10, the step schedule)
-    and 8 scenes of 100,000 points, weights and scenes made from ``seed``:
-    (model, step, batch)."""
+    through ``zoo.build_trainer``: AdamW, grad clip 10, the step schedule;
+    under the bf16 policy with ``bf16``) and 8 scenes of 100,000 points,
+    weights and scenes made from ``seed``: (model, optimizer, step,
+    batch)."""
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device
-    model, _, step = zoo.build_trainer(FCAF3D_CFG, device=dev, seed=seed)
+    cfg = copy.deepcopy(zoo.load_model_cfg(FCAF3D_CFG))
+    cfg.bf16 = bf16
+    model, optimizer, step = zoo.build_trainer(cfg, device=dev, seed=seed)
+    if step.compute_dtype != (torch.bfloat16 if bf16 else None):
+        raise AssertionError(f'bf16={bf16} did not select its policy')
     batch = batch_to_device(fcaf3d_train_batch(
         zoo.synth_fcaf3d_batch, b=FCAF3D_TRAIN_SCENES, p=FCAF3D_POINTS,
         seed=seed), dev)
-    return model, step, batch
+    return model, optimizer, step, batch
 
 
-def demf_fcaf3d_trainer(dev, seed=0):
+def demf_fcaf3d_trainer(dev, seed=0, bf16=False):
     """DeMF-FCAF3D's full-width trainer (``configs/demf/demf_fcaf3d.py``:
-    decoder lr_mult 0.05, the frozen image branch) and 8 scenes of 100,000
-    points with 800x1344 images, whose features the frozen branch makes
-    once (the cache), all made from ``seed``: (model, step, batch)."""
+    decoder lr_mult 0.05, the frozen image branch; under the bf16 policy
+    with ``bf16``) and 8 scenes of 100,000 points with 800x1344 images,
+    whose features the frozen branch makes once (the cache), all made from
+    ``seed``: (model, optimizer, step, batch)."""
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device, compute_image_features
-    model, _, step = zoo.build_trainer(DEMF_FCAF3D_CFG, device=dev,
-                                       seed=seed)
+    cfg = copy.deepcopy(zoo.load_model_cfg(DEMF_FCAF3D_CFG))
+    cfg.bf16 = bf16
+    model, optimizer, step = zoo.build_trainer(cfg, device=dev, seed=seed)
+    if step.compute_dtype != (torch.bfloat16 if bf16 else None):
+        raise AssertionError(f'bf16={bf16} did not select its policy')
     batch = batch_to_device(fcaf3d_train_batch(
         zoo.synth_demf_fcaf3d_batch, b=FCAF3D_TRAIN_SCENES, p=FCAF3D_POINTS,
         hw=(800, 1344), valid_hw=(784, 1312), seed=seed), dev)
     batch['img_features'] = compute_image_features(model, batch)
     del batch['img']
     torch.cuda.synchronize()
-    return model, step, batch
+    return model, optimizer, step, batch
 
 
 def run_fcaf3d_train_path(dev, kernels):
     """FCAF3D trained at full width (``fcaf3d_trainer``): the first step
     against the plain path, K16 and K14 on reverse tables checked on that
-    step's own calls, then 3 steps.  Returns (the kernel rows, the launches
-    by path)."""
+    step's own calls, then 3 steps; then the same under the bf16 policy
+    (``run_train_bf16``), whose first step's calls hold the bf16 entries.
+    Returns (the kernel rows, the launches by path)."""
     t0 = time.perf_counter()
-    model, step, batch = fcaf3d_trainer(dev)
+    model, _, step, batch = fcaf3d_trainer(dev)
     print(f'model: FCAF3D trainer, full width, built in '
           f'{time.perf_counter() - t0:.2f} s', flush=True)
     calls = compare_train_paths(model, batch, f'FCAF3D train step '
@@ -4562,32 +4673,69 @@ def run_fcaf3d_train_path(dev, kernels):
             'a train step\'s backward (reverse tables)')}
     del calls
     torch.cuda.empty_cache()
-    launched = run_train_steps(step, batch, kernels, LAUNCHES_PER_FCAF3D_STEP,
-                               'FCAF3D train')
+    launched, first, _ = run_train_steps(step, batch, kernels,
+                                         LAUNCHES_PER_FCAF3D_STEP,
+                                         'FCAF3D train')
     del model, step, batch
     torch.cuda.empty_cache()
-    return measured, {'fcaf3d_train': launched}
+    by_path = {'fcaf3d_train': launched}
+    launched, calls = run_train_bf16(fcaf3d_trainer, dev, kernels, first,
+                                     LAUNCHES_PER_FCAF3D_STEP_BF16,
+                                     'FCAF3D train bf16')
+    by_path['fcaf3d_train_bf16'] = launched
+    measured['sparse_conv_dweights_bf16'] = check_sparse_dweights(
+        calls['sparse_conv_dweights'], torch.bfloat16)
+    measured['sparse_conv_backward_bf16'] = check_sparse_conv(
+        calls['sparse_conv_backward'], torch.bfloat16,
+        'a bf16 train step\'s backward (reverse tables)')
+    del calls
+    torch.cuda.empty_cache()
+    return measured, by_path
+
+
+def run_train_bf16(trainer, dev, kernels, fp32_first, expected, label):
+    """``trainer``'s model under the bf16 policy from the weights, batch and
+    draws of its float32 phase: 3 steps with ``expected`` launches each
+    (the first step's calls kept), the first step's losses within 0.2 of
+    the float32 first step's; the masters, optimizer state and BatchNorm
+    statistics float32.  Returns (a step's launches, the first step's
+    calls)."""
+    t0 = time.perf_counter()
+    model, optimizer, step, batch = trainer(dev, bf16=True)
+    print(f'model: {label}, full width, built in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    launched, first, calls = run_train_steps(step, batch, kernels, expected,
+                                             label, record=True)
+    losses_against(first, fp32_first, label)
+    masters_in_float32(model, optimizer, label)
+    del model, optimizer, step, batch
+    torch.cuda.empty_cache()
+    return launched, calls
 
 
 def run_demf_fcaf3d_train_path(dev, kernels):
     """DeMF-FCAF3D trained at full width (``demf_fcaf3d_trainer``): the
-    first step against the plain path (MSDA plain there too), then 3 steps;
-    then the train entry on both tiny configs."""
+    first step against the plain path (MSDA plain there too), then 3 steps,
+    then 3 under the bf16 policy; then the train entry on both tiny
+    configs."""
     from demf_tpu_torch import train as train_entry
     t0 = time.perf_counter()
-    model, step, batch = demf_fcaf3d_trainer(dev)
+    model, _, step, batch = demf_fcaf3d_trainer(dev)
     print(f'model: DeMF-FCAF3D trainer, full width, built and its image '
           f'features cached in {time.perf_counter() - t0:.2f} s', flush=True)
     compare_train_paths(model, batch, f'DeMF-FCAF3D train step '
                                       f'({FCAF3D_TRAIN_SCENES} x '
                                       f'{FCAF3D_POINTS}, 800x1344 cached)')
     torch.cuda.empty_cache()
-    launched = run_train_steps(step, batch, kernels,
-                               LAUNCHES_PER_DEMF_FCAF3D_STEP,
-                               'DeMF-FCAF3D train')
+    launched, first, _ = run_train_steps(step, batch, kernels,
+                                         LAUNCHES_PER_DEMF_FCAF3D_STEP,
+                                         'DeMF-FCAF3D train')
     del model, step, batch
     torch.cuda.empty_cache()
     by_path = {'demf_fcaf3d_train': launched}
+    by_path['demf_fcaf3d_train_bf16'], _ = run_train_bf16(
+        demf_fcaf3d_trainer, dev, kernels, first,
+        LAUNCHES_PER_DEMF_FCAF3D_STEP_BF16, 'DeMF-FCAF3D train bf16')
     for cfg, expected in zip(FCAF3D_TINY_CFGS, LAUNCHES_TINY_TRAIN_ENTRY):
         with tempfile.TemporaryDirectory() as wd:
             _, out, seconds, launches = run_entry(
@@ -4751,9 +4899,11 @@ def main():
     by_path.update(train)
     by_path.update(run_demf_fcaf3d_train_path(dev, kernels))
     # K14 on reverse tables and K16: launches of a FCAF3D train step, rows
-    # from that step's own calls; K14's row carries them as its backward
+    # from that step's own calls (bf16: the bf16 step's); K14's row carries
+    # them as its backward
     for n in ('sparse_conv_backward', 'sparse_conv_dweights'):
         launches[n] = by_path['fcaf3d_train'][n]
+        launches[f'{n}_bf16'] = by_path['fcaf3d_train_bf16'][f'{n}_bf16']
     measured['sparse_conv']['backward_launches'] = \
         by_path['fcaf3d_train']['sparse_conv_backward']
 

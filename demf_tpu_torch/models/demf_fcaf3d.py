@@ -24,8 +24,7 @@ from ..core.transforms import project_points_to_image
 from ..registry import (BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg)
 from ..utils.precision import dense
 from .demfnet import IMG_BRANCH, DeMFVoteNet
-from .fcaf3d import (FCAF3D, FCAF3DHead, concat_levels, take_rows,
-                     voxelize_batch)
+from .fcaf3d import FCAF3DHead, concat_levels, take_rows, voxelize_batch
 from .rpn_roi import topk_stable
 from .transformer import (DeMFTransformerDecoderLayer, get_valid_ratios,
                           make_level_masks)
@@ -202,7 +201,6 @@ class DeMFFcaf3D(nn.Module):
     # the image branch as DeMF-VoteNet has it: its features cached when
     # frozen, and a frozen branch kept in eval mode (norm_eval) in training
     caches_img_features = True
-    bf16_training_refused = FCAF3D.bf16_training_refused
     _img_branch = DeMFVoteNet._img_branch
     extract_img_feat = DeMFVoteNet.extract_img_feat
 

@@ -12,7 +12,8 @@ box a voxel) and ``loss`` (focal classification over the valid voxels,
 centerness BCE on the positives, the rotated-IoU loss weighted by
 centerness), batched over the scenes; the sparse convolutions' backward
 is ``ops/sparse.py``'s (K14 on reverse tables, K16).  The family trains
-in float32: a bf16 policy is refused by name (``BF16_TRAINING_NOT_PORTED``).
+in float32 and under the bf16 policy (bf16 copies of the float32 weights,
+bf16 voxel features, float32 norms, K14 and K16 on their bf16 entries).
 Module names are mmdet3d's (``up_block_{i}.{0,1,3,4}``,
 ``out_block_{i}.{0,1}``, ``centerness_conv`` / ``reg_conv`` /
 ``cls_conv``), sparse kernels in MinkowskiEngine's tap order.
@@ -34,10 +35,6 @@ from .losses import FocalLoss, sigmoid_cross_entropy
 from .mink_resnet import MaskedBatchNorm, SparseConv
 from .rpn_roi import topk_stable
 
-BF16_TRAINING_NOT_PORTED = (
-    'bf16 training of the FCAF3D family is not ported yet (ROADMAP: a bf16 '
-    'entry of K16, the sparse convolution\'s weight gradient); train it in '
-    'float32')
 FLOAT_MAX = 1e8
 # a non-positive voxel's box prediction before the decode (its IoU loss
 # weighs 0; the dummy keeps its gradient finite)
@@ -379,10 +376,6 @@ class FCAF3D(nn.Module):
         head.setdefault('pc_start', self.pc_start)
         self.head = build_from_cfg(head, HEADS)
         self.eval()
-
-    # the family trains in float32 only: zoo.build_trainer refuses a bf16
-    # policy with this reason
-    bf16_training_refused = BF16_TRAINING_NOT_PORTED
 
     def frozen_param_patterns(self):
         return []

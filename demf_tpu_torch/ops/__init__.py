@@ -27,9 +27,10 @@ from .roi_align import (ROI_ALIGN_BACKWARD_BF16_KERNEL,
                         ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_BF16_KERNEL,
                         ROI_ALIGN_KERNEL, pyramid_roi_align)
 from .sampling import FPS_KERNEL, furthest_point_sample
-from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BACKWARD_KERNEL,
-                     SPARSE_CONV_BF16_KERNEL, SPARSE_CONV_KERNEL,
-                     SPARSE_CONV_PLAN_KERNEL, SPARSE_DWEIGHTS_KERNEL)
+from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BACKWARD_BF16_KERNEL,
+                     SPARSE_CONV_BACKWARD_KERNEL, SPARSE_CONV_BF16_KERNEL,
+                     SPARSE_CONV_KERNEL, SPARSE_CONV_PLAN_KERNEL,
+                     SPARSE_DWEIGHTS_BF16_KERNEL, SPARSE_DWEIGHTS_KERNEL)
 
 __all__ = [
     'aligned_3d_nms', 'ball_query', 'batched_nms_2d', 'box_point_count',
@@ -48,7 +49,8 @@ def kernels():
     image branch; the kernel map, the sparse convolution (float32 and
     bfloat16 rows, each with its own count, the row plan of its tables,
     its launches on reverse tables for the backward's d_feats, counted
-    apart, and its weight gradient K16) and the class-wise rotated NMS of
+    apart, and its weight gradient K16, on float32 and on bfloat16 rows,
+    each with its own count) and the class-wise rotated NMS of
     the FCAF3D family; MSDA
     forward and backward on a float32 and on a bfloat16 value, and the
     RoIAlign on float32 and on bfloat16 levels, each with its own count)
@@ -69,5 +71,7 @@ def kernels():
             'sparse_conv_bf16': SPARSE_CONV_BF16_KERNEL,
             'sparse_conv_plan': SPARSE_CONV_PLAN_KERNEL,
             'sparse_conv_backward': SPARSE_CONV_BACKWARD_KERNEL,
+            'sparse_conv_backward_bf16': SPARSE_CONV_BACKWARD_BF16_KERNEL,
             'sparse_conv_dweights': SPARSE_DWEIGHTS_KERNEL,
+            'sparse_conv_dweights_bf16': SPARSE_DWEIGHTS_BF16_KERNEL,
             'nms3d_rotated': NMS3D_ROTATED_KERNEL}

@@ -39,9 +39,11 @@ keys as they stand (``key_table_presorted``).
   again on the table's reverse table (``Reverse``: tap t of input row i
   holds the output row that reads i at tap t) with each tap's kernel
   transposed, as the JAX package's ``_conv_sym`` / ``_conv_revgeo`` take
-  it; d_weights is kernel K16 (``csrc/sparse_dweights.cu``, float32),
-  ``dW[t] = sum over rows of gather_t(feats)^T g``, on the forward table's
-  row plan.  A reverse table and its plan are made once a table a step,
+  it; d_weights is kernel K16 (``csrc/sparse_dweights.cu``, float32 or
+  bfloat16 rows and output gradient, float32 sums), ``dW[t] = sum over
+  rows of gather_t(feats)^T g``, on the forward table's row plan, cast to
+  the weights' dtype.  Under the bf16 policy both run their bf16 entries,
+  each with its own count.  A reverse table and its plan are made once a table a step,
   at the first backward that asks, and shared by every convolution on the
   table; a transposed conv's reverse, the strided conv's table between the
   same two levels, is that table with the plan its forward made
@@ -89,13 +91,18 @@ SPARSE_CONV_KERNEL = CudaKernel(
     'demf_sparse_conv', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7)
 SPARSE_CONV_BF16_KERNEL = CudaKernel(
     'demf_sparse_conv_bf16', SPARSE_CONV_KERNEL.argtypes)
-# K14 on a reverse table (the backward's d_feats), counted apart
+# K14 on a reverse table (the backward's d_feats), counted apart, an entry
+# a dtype
 SPARSE_CONV_BACKWARD_KERNEL = CudaKernel('demf_sparse_conv',
                                          SPARSE_CONV_KERNEL.argtypes)
-# K16: feats, nbr, g, the plan's order and tile taps, scratch, out; B, M_in,
-# C, M_out, K, C_out, slices
+SPARSE_CONV_BACKWARD_BF16_KERNEL = CudaKernel('demf_sparse_conv_bf16',
+                                              SPARSE_CONV_KERNEL.argtypes)
+# K16: feats, nbr, g, the plan's order and tile taps, scratch, counts, out;
+# B, M_in, C, M_out, K, C_out, chunk (an entry a dtype)
 SPARSE_DWEIGHTS_KERNEL = CudaKernel(
-    'demf_sparse_conv_dweights', [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7)
+    'demf_sparse_conv_dweights', [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7)
+SPARSE_DWEIGHTS_BF16_KERNEL = CudaKernel(
+    'demf_sparse_conv_dweights_bf16', SPARSE_DWEIGHTS_KERNEL.argtypes)
 # K14's row plan: nbr, mask, order, tile taps; B, M, K
 SPARSE_CONV_PLAN_KERNEL = CudaKernel(
     'demf_sparse_conv_plan', [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
@@ -569,8 +576,9 @@ class SparseConv(torch.autograd.Function):
     (a CPU tensor).  Backward, as ``ctx.needs_input_grad`` asks: d_feats =
     the convolution of the output gradient on ``rev`` (a ``Reverse``) with
     each tap's kernel transposed, K14 on the reverse table's plan (counted
-    as ``sparse_conv_backward``); d_weights = ``sparse_conv_dweights``
-    (K16) on the forward table and plan.  On the CPU both take the plain
+    as ``sparse_conv_backward``, bf16 rows as ``sparse_conv_backward_bf16``);
+    d_weights = ``sparse_conv_dweights`` (K16) on the forward table and
+    plan, cast to the weights' dtype.  On the CPU both take the plain
     versions, never autograd of the plain forward."""
 
     @staticmethod
@@ -585,7 +593,9 @@ class SparseConv(torch.autograd.Function):
     def backward(ctx, g):
         feats, weights = ctx.saved_tensors
         nbr, plan, rev = ctx.table
-        g = g.contiguous()
+        # the output gradient in the rows' dtype, as the JAX package casts
+        # it (``_conv_sym_bwd``: ``g.astype(feats.dtype)``)
+        g = g.to(feats.dtype).contiguous()
         d_feats = d_weights = None
         if ctx.needs_input_grad[0]:
             if rev is None:
@@ -598,7 +608,10 @@ class SparseConv(torch.autograd.Function):
                        'cpu' else sparse_conv_backward_cuda(g, rnbr, wt,
                                                             rplan))
         if ctx.needs_input_grad[1]:
-            d_weights = sparse_conv_dweights(feats, nbr, g, plan)
+            # float32 sums, rounded to the weights' dtype here, where the
+            # JAX package rounds them (``.astype(weights.dtype)``)
+            d_weights = sparse_conv_dweights(feats, nbr, g, plan).to(
+                weights.dtype)
         return d_feats, d_weights, None, None, None
 
 
@@ -687,16 +700,14 @@ def sparse_conv_cuda(feats, nbr, weights, plan=None, group=None):
 
 
 def sparse_conv_backward_cuda(g, rev, weights_t, plan):
-    """K14 on a reverse table, the backward's d_feats: the float32 output
-    gradient (B, M_out, C_out), the reverse table (B, M_in, K) with its
-    ``conv_plan`` and each tap's kernel transposed (K, C_out, C) ->
-    (B, M_in, C), counted as ``sparse_conv_backward``."""
-    if g.dtype != torch.float32:
-        raise TypeError(f'the sparse convolution trains in float32 (bf16 '
-                        f'training of the FCAF3D family is ROADMAP work), '
-                        f'got {g.dtype}')
-    return _sparse_conv_launch(SPARSE_CONV_BACKWARD_KERNEL, g, rev,
-                               weights_t, plan, None)
+    """K14 on a reverse table, the backward's d_feats: the output gradient
+    (B, M_out, C_out), the reverse table (B, M_in, K) with its
+    ``conv_plan`` and each tap's kernel transposed (K, C_out, C), float32
+    or bfloat16 (one dtype) -> (B, M_in, C) in it, counted as
+    ``sparse_conv_backward`` / ``sparse_conv_backward_bf16``."""
+    kernel = (SPARSE_CONV_BACKWARD_BF16_KERNEL if g.dtype == torch.bfloat16
+              else SPARSE_CONV_BACKWARD_KERNEL)
+    return _sparse_conv_launch(kernel, g, rev, weights_t, plan, None)
 
 
 def _sparse_conv_launch(kernel, feats, nbr, weights, plan, group):
@@ -741,20 +752,50 @@ def check_plan(plan, b, m_out):
                          f'table of {m_out} rows in {b} scenes')
 
 
-# K16's tiles (csrc/sparse_dweights.cu): 64 x 64 of (C, C_out) a block, its
-# tap's rows in tiles of 64; below this many blocks the row tiles are cut
-# into slices (a block each), summed in order by a second pass
+# K16's tiles (csrc/sparse_dweights.cu): 64 channels of C by 64 of C_out a
+# block, or a narrow side of 8 or 16 (``dweights_widths``); its tap's rows
+# in stages of 32 over the plan's tiles that list the tap, in chunks of W
+# tiles a block (``dweights_chunk``), a tap's chunks summed in order by a
+# second pass.  The grid aims at DWEIGHTS_BLOCKS blocks by dtype (float32
+# stages take three times the tensor-core work of bf16 ones: its blocks
+# are best smaller), a grid of DWEIGHTS_WHOLE blocks without chunks takes
+# whole taps, and a chunk holds DWEIGHTS_MIN_CHUNK to DWEIGHTS_MAX_CHUNK
+# tiles (``tools/compare_kernels.py --only sparse_dweights --sweep``, PERF.md)
 DWEIGHTS_TILE = 64
-DWEIGHTS_BLOCKS = 4 * SM_COUNT
+DWEIGHTS_BLOCKS = {torch.float32: 32 * SM_COUNT,
+                   torch.bfloat16: 8 * SM_COUNT}
+DWEIGHTS_WHOLE = 8 * SM_COUNT
+DWEIGHTS_MIN_CHUNK = 6
+DWEIGHTS_MAX_CHUNK = 1024
 
 
-def dweights_slices(b, m_out, c, c_out, k):
-    """How many slices of the (scene, row tile) list K16 cuts a tap's rows
-    into: enough that the grid has ``DWEIGHTS_BLOCKS`` blocks, no more than
-    one row tile a slice."""
+def dweights_widths(c, c_out):
+    """K16's tile (channels of C, channels of C_out) a block: 64 x 64, or
+    where one side has at most 16 channels (the stem's C 3, a one-tap
+    conv's C_out 1-10) that side at 8 or 16 (the narrower side where both
+    are; C_out on a tie), the other at 64."""
+    if c_out <= 16 and c_out <= c:
+        return DWEIGHTS_TILE, 8 if c_out <= 8 else 16
+    if c <= 16:
+        return 8 if c <= 8 else 16, DWEIGHTS_TILE
+    return DWEIGHTS_TILE, DWEIGHTS_TILE
+
+
+def dweights_chunk(b, m_out, c, c_out, k, dtype=torch.float32):
+    """How many of a tap's listed row tiles one K16 block takes (W): all
+    of them where the grid (K x the tiles of C x C_out) has
+    ``DWEIGHTS_WHOLE`` blocks already, else the (scene, row tile)s cut into
+    as many chunks as bring it to ``DWEIGHTS_BLOCKS[dtype]``, each of at
+    least ``DWEIGHTS_MIN_CHUNK`` tiles and at most ``DWEIGHTS_MAX_CHUNK``; a
+    tap that lists fewer tiles than the rest fills fewer chunks (its blocks
+    past them return at once)."""
     tiles = b * -(-m_out // CONV_TILE_ROWS)
-    blocks = k * -(-c // DWEIGHTS_TILE) * -(-c_out // DWEIGHTS_TILE)
-    return max(1, min(tiles, -(-DWEIGHTS_BLOCKS // blocks)))
+    pw, qw = dweights_widths(c, c_out)
+    blocks = k * -(-c // pw) * -(-c_out // qw)
+    chunks = 1 if blocks >= DWEIGHTS_WHOLE else \
+        -(-DWEIGHTS_BLOCKS[dtype] // blocks)
+    return min(DWEIGHTS_MAX_CHUNK, max(min(tiles, DWEIGHTS_MIN_CHUNK),
+                                       -(-tiles // chunks)))
 
 
 def sparse_conv_dweights(feats, nbr, g, plan=None):
@@ -773,9 +814,11 @@ def sparse_conv_dweights(feats, nbr, g, plan=None):
 def sparse_conv_dweights_plain(feats, nbr, g):
     """K16's function, a tap at a time: the rows gathered (absent ones 0)
     and the output gradient, one float32 ``einsum`` over scenes and rows a
-    tap (float64 rows: float64), as the JAX package's ``_conv_dweights``.
-    The kernel sums each slice's rows in the plan's order and the slices
-    in order 0, 1, ..; the two agree to a float32 rounding of the sums."""
+    tap (float64 rows: float64; bfloat16 rows and gradient promoted to
+    float32, whose products they give exactly), as the JAX package's
+    ``_conv_dweights``.  The kernel sums a chunk of each tap's tiles a
+    block, its rows in the plan's order, and the chunks in order 0, 1, ..;
+    the two agree to a float32 rounding of the sums."""
     b, m, c = feats.shape
     k = nbr.shape[2]
     dtype = torch.promote_types(feats.dtype, torch.float32)
@@ -792,22 +835,19 @@ def sparse_conv_dweights_plain(feats, nbr, g):
     return torch.stack(out)
 
 
-def sparse_conv_dweights_cuda(feats, nbr, g, plan, slices=None):
-    """Kernel K16 (csrc/sparse_dweights.cu): float32 feats (B, M_in, C),
-    int32 nbr (B, M_out, K) with its ``conv_plan`` and the float32 output
-    gradient g (B, M_out, C_out), all contiguous on the card -> (K, C,
-    C_out) float32, the same bits every call.  ``slices`` overrides
-    ``dweights_slices``.  bfloat16 is refused by name: the family trains in
-    float32 (a bf16 entry is ROADMAP work)."""
-    for name, t in (('feats', feats), ('g', g)):
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f'K16 (the sparse convolution\'s weight gradient) takes '
-                f'float32 {name}, got {t.dtype}: bf16 training of the FCAF3D '
-                f'family is not ported (ROADMAP, a bf16 entry of K16)')
-    check_cuda('feats', feats, torch.float32, 3)
+def sparse_conv_dweights_cuda(feats, nbr, g, plan, chunk=None):
+    """Kernel K16 (csrc/sparse_dweights.cu): float32 or bfloat16 feats (B,
+    M_in, C) and output gradient g (B, M_out, C_out) of one dtype (its own
+    entry and count each), int32 nbr (B, M_out, K) with its ``conv_plan``,
+    all contiguous on the card -> (K, C, C_out) float32, the same bits
+    every call.  ``chunk`` (the listed tiles a block takes, 1 to
+    ``DWEIGHTS_MAX_CHUNK``) overrides ``dweights_chunk``."""
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'K16 takes float32 or bfloat16 feats, got '
+                        f'{feats.dtype}')
+    check_cuda('feats', feats, feats.dtype, 3)
     check_cuda('nbr', nbr, torch.int32, 3)
-    check_cuda('g', g, torch.float32, 3)
+    check_cuda('g', g, feats.dtype, 3)
     b, m, c = feats.shape
     mo, k = nbr.shape[1:]
     co = g.shape[2]
@@ -818,14 +858,23 @@ def sparse_conv_dweights_cuda(feats, nbr, g, plan, slices=None):
     check_plan(plan, b, mo)
     out = torch.empty((k, c, co), dtype=torch.float32, device=feats.device)
     if out.numel():
-        slices = slices or dweights_slices(b, mo, c, co, k)
-        scratch = torch.empty((slices, k, c, co), dtype=torch.float32,
-                              device=feats.device) if slices > 1 else None
-        SPARSE_DWEIGHTS_KERNEL(
-            feats.data_ptr(), nbr.data_ptr(), g.data_ptr(),
-            plan.order.data_ptr(), plan.tile_taps.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            b, m, c, mo, k, co, slices)
+        chunk = chunk or dweights_chunk(b, mo, c, co, k, feats.dtype)
+        if not 1 <= chunk <= DWEIGHTS_MAX_CHUNK:
+            raise ValueError(f'a K16 block takes 1 to {DWEIGHTS_MAX_CHUNK} '
+                             f'tiles, not {chunk}')
+        chunks = -(-b * -(-mo // CONV_TILE_ROWS) // chunk)
+        scratch = counts = None
+        if chunks > 1:
+            scratch = torch.empty((chunks, k, c, co), dtype=torch.float32,
+                                  device=feats.device)
+            counts = torch.empty(k, dtype=torch.int32, device=feats.device)
+        kernel = (SPARSE_DWEIGHTS_BF16_KERNEL if feats.dtype ==
+                  torch.bfloat16 else SPARSE_DWEIGHTS_KERNEL)
+        kernel(feats.data_ptr(), nbr.data_ptr(), g.data_ptr(),
+               plan.order.data_ptr(), plan.tile_taps.data_ptr(),
+               0 if scratch is None else scratch.data_ptr(),
+               0 if counts is None else counts.data_ptr(), out.data_ptr(),
+               b, m, c, mo, k, co, chunk)
     return out
 
 

@@ -85,6 +85,17 @@ this tree's masks must equal the plain sweep fed its own IoUs, and each
 side's kernels a call with their device ms are printed.
 ``--parent-only`` times the parent alone (K13 and K15): its numbers
 before this tree's are timed.
+K16 (``sparse_dweights``) and K14 on reverse tables
+(``sparse_conv_backward``) run on the calls of one FCAF3D train step
+(full width, 8 scenes of 100,000 points, seeded weights, the GT boxes
+moved where the voxels are kept, as ``chip_smoke.py`` trains it): their
+own features or output gradients, tables, plans and (transposed)
+weights, summed, in float32 and in bf16 (the same calls rounded); each
+side's results within 1e-5 of the largest of the plain version's (K14
+bf16: one bf16 step), K16's the same bits on two calls; this tree's and
+the parent's device ms by shape.  A parent whose K16 or K14-backward
+wrapper refuses bf16 is timed on float32 only (K14-backward in bf16
+through its forward's bf16 entry, the same kernel).
 K2 runs at two densities: points drawn over a cube of 6 m (about 3 in the
 first SA module's ball) and over one of 2 m with an eighth of them twice
 (about 84 in that ball, so every center fills its K slots and equal
@@ -96,12 +107,14 @@ training, and with noise of 4 pixels, which scatters a share of the
 samples out of the kernel's windows as learned offsets may.  Without
 ``--parent`` only this tree is timed.  ``--sweep`` also times this tree's
 K1 at every cluster size and block size that holds the points, K2 at
-every block shape and three tile sizes, and K7 at several tile and block
-sizes: the numbers behind ``ops.sampling.fps_launch_shape``,
-``ops.grouping.ball_query_launch_shape`` and
-``ops.mform.mform_launch_shape``.  ``--only`` names the kernels to run
+every block shape and three tile sizes, K7 at several tile and block
+sizes, and K16 at grids of 2 to 32 blocks an SM: the numbers behind
+``ops.sampling.fps_launch_shape``,
+``ops.grouping.ball_query_launch_shape``,
+``ops.mform.mform_launch_shape`` and ``ops.sparse.dweights_chunk``.  ``--only`` names the kernels to run
 (``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
-roi_align,roi_align_backward,sparse_conv,kernel_map,nms3d_rotated``).  Prints its lines, writes
+roi_align,roi_align_backward,sparse_conv,kernel_map,nms3d_rotated,
+sparse_dweights,sparse_conv_backward``).  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -118,7 +131,7 @@ import torch
 from ..core import boxes as box_ops
 from ..ops import (box_count, grouping, mform, msda, msda_fold, nms2d,
                    roi_align, sampling, sparse)
-from ..ops._cuda import DTYPE_CODES, SMEM_PER_BLOCK
+from ..ops._cuda import DTYPE_CODES, SM_COUNT, SMEM_PER_BLOCK
 from ..ops.gather_rows import gather_rows
 from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
                box_pairs_in_reach, call_bytes, cuda_device,
@@ -166,7 +179,8 @@ MSDA_BACKWARD_CASES = tuple(
 
 KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
            'msda_fold', 'box_count', 'nms2d', 'roi_align',
-           'roi_align_backward', 'sparse_conv', 'kernel_map', 'nms3d_rotated')
+           'roi_align_backward', 'sparse_conv', 'kernel_map', 'nms3d_rotated',
+           'sparse_dweights', 'sparse_conv_backward')
 # the kernels whose comparison can time the parent alone (--parent-only)
 PARENT_ONLY = ('kernel_map', 'nms3d_rotated')
 # K9: (scenes, points, boxes) of a request and of an eval batch
@@ -1180,6 +1194,225 @@ def _compare_k14(old, name, calls32, dtype):
     return row
 
 
+def train_step_calls(dev):
+    """The arguments of one FCAF3D train step's K16 and K14-on-reverse-table
+    calls at full width (``configs/fcaf3d/fcaf3d_sunrgbd.py`` through
+    ``zoo.build_trainer``, 8 scenes of 100,000 points, weights and scenes
+    from seed 0, the GT boxes twice the size and 1.5 m down the x axis,
+    where the voxels are kept): {'sparse_dweights': [(feats, nbr, g, plan),
+    ...] (47), 'sparse_conv_backward': [(g, rev, weights_t, plan), ...]
+    (46)}."""
+    from .. import zoo
+    from ..engine import batch_to_device
+    model, _, _ = zoo.build_trainer('fcaf3d/fcaf3d_sunrgbd.py', device=dev,
+                                    seed=0)
+    batch = zoo.synth_fcaf3d_batch(b=8, p=100000, seed=0)
+    batch['gt_bboxes_3d'][..., 3:6] *= 2
+    batch['gt_bboxes_3d'][..., 0] -= 1.5
+    batch = batch_to_device(batch, dev)
+    calls = {'sparse_dweights': [], 'sparse_conv_backward': []}
+    hooks = [(sparse, 'sparse_conv_dweights_cuda', 'sparse_dweights'),
+             (sparse, 'sparse_conv_backward_cuda', 'sparse_conv_backward')]
+    saved = [getattr(module, name) for module, name, _ in hooks]
+
+    def recorder(fn, key):
+        def call(*args):
+            calls[key].append(args)
+            return fn(*args)
+        return call
+
+    for (module, name, key), fn in zip(hooks, saved):
+        setattr(module, name, recorder(fn, key))
+    try:
+        model.train()
+        gen = torch.Generator(dev).manual_seed(0)
+        losses = model.loss(model(batch, generator=gen), batch)
+        sum(losses.values()).backward()
+    finally:
+        for (module, name, _), fn in zip(hooks, saved):
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    del model, batch, losses
+    torch.cuda.empty_cache()
+    return calls
+
+
+def _by_shape(fn, calls, marker, key):
+    """Device ms (torch.profiler) of the kernels named ``marker`` that
+    ``fn`` launches over ``calls`` (all of them a run), summed by ``key``
+    of each call's arguments: [(key, calls, ms)], the slowest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for args in calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    by = {}
+    for args in calls:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and marker in e.name)
+        row = by.setdefault(key(*args), [0, 0.0])
+        row[0] += 1
+        row[1] += us / 1e3
+    return sorted(((k, n, ms) for k, (n, ms) in by.items()),
+                  key=lambda r: -r[2])
+
+
+def sweep_sparse_dweights(calls32):
+    """This tree's K16 device ms by shape (float32 and bf16) at grids of
+    2 to 32 blocks an SM (``ops.sparse.DWEIGHTS_BLOCKS`` of the dtype, which
+    sets the chunk a block takes; ``DWEIGHTS_WHOLE`` as it stands): the
+    numbers behind ``dweights_chunk``."""
+    rows = []
+    shape = (lambda f, n, g, p: (n.shape[1], f.shape[2], g.shape[2],
+                                 n.shape[2]))
+    kept = sparse.DWEIGHTS_BLOCKS
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            calls = [(f.to(dtype), n, g.to(dtype), p)
+                     for f, n, g, p in calls32]
+            for per_sm in (2, 4, 8, 16, 32):
+                sparse.DWEIGHTS_BLOCKS = {**kept, dtype: per_sm * SM_COUNT}
+                found = _by_shape(sparse.sparse_conv_dweights_cuda, calls,
+                                  'dweights', shape)
+                total = sum(t for _, _, t in found)
+                print(f'K16 sweep {str(dtype)[6:]}, {per_sm} blocks an SM: '
+                      f'{total:.4f} ms of device time; ' + ', '.join(
+                          f'{k} x{n} {t:.4f}' for k, n, t in sorted(found)),
+                      flush=True)
+                rows.append(dict(kernel='sparse_dweights_sweep',
+                                 dtype=str(dtype)[6:], blocks_an_sm=per_sm,
+                                 device_ms=total,
+                                 by_shape=[[list(k), n, t]
+                                           for k, n, t in found]))
+    finally:
+        sparse.DWEIGHTS_BLOCKS = kept
+    return rows
+
+
+def compare_sparse_dweights(old, dev, calls32):
+    """K16 through both wrappers on a train step's 47 calls summed, float32
+    and bf16, in turns; each result within 1e-5 of the plain version's
+    largest, this tree's the same bits twice; device ms by shape."""
+    from . import PEAK_TF32_FLOPS, bound_ms as bound
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        calls = [(f.to(dtype), n, g.to(dtype), p) for f, n, g, p in calls32]
+        flops = sum(2.0 * int((n >= 0).sum()) * f.shape[2] * g.shape[2]
+                    for f, n, g, _ in calls)
+        nbytes = sum(f.numel() * f.element_size() + n.numel() * 4 +
+                     g.numel() * g.element_size() +
+                     4 * n.shape[2] * f.shape[2] * g.shape[2]
+                     for f, n, g, _ in calls)
+        refused = False
+        try:
+            old.sparse_conv_dweights_cuda(*calls[0])
+        except TypeError:
+            refused = True
+        errs = [0.0, 0.0]
+        for feats, nbr, g, plan in calls:
+            want = sparse.sparse_conv_dweights_plain(feats, nbr, g)
+            top = max(want.abs().max().item(), 1e-30)
+            got = sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan)
+            if not torch.equal(got, sparse.sparse_conv_dweights_cuda(
+                    feats, nbr, g, plan)):
+                raise AssertionError(f'K16 {tuple(nbr.shape)}: other bits '
+                                     f'on a second call')
+            errs[1] = max(errs[1], (got - want).abs().max().item() / top)
+            if not refused:
+                errs[0] = max(errs[0], (old.sparse_conv_dweights_cuda(
+                    feats, nbr, g, plan) - want).abs().max().item() / top)
+
+        def tree():
+            for args in calls:
+                sparse.sparse_conv_dweights_cuda(*args)
+
+        def parent():
+            for args in calls:
+                old.sparse_conv_dweights_cuda(*args)
+
+        ms = ([None, time_ms(tree, 5), time_ms(tree, 5), None] if refused
+              else in_turns(parent, tree, 5))
+        least, by = bound(flops, nbytes)
+        tf32, _ = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
+        shape = (lambda f, n, g, p: (n.shape[1], f.shape[2], g.shape[2],
+                                     n.shape[2]))
+        sides = [('this tree', sparse.sparse_conv_dweights_cuda)] + (
+            [] if refused else [('parent', old.sparse_conv_dweights_cuda)])
+        split = {name: _by_shape(fn, calls, 'dweights', shape)
+                 for name, fn in sides}
+        print(f'K16 sparse_dweights {str(dtype)[6:]}, a train step\'s '
+              f'{len(calls)} calls: parent {_fmt(ms[0])} / {_fmt(ms[3])} ms'
+              f'{" (refuses bf16)" if refused else ""}, this tree '
+              f'{ms[1]:.4f} / {ms[2]:.4f} ms; {flops / 1e9:.3f} GFLOP of '
+              f'existing taps ({flops / 1e9 / ms[1]:.1f} TFLOP/s); bound '
+              f'{least:.4f} ms ({by}), at 3xTF32\'s rate {tf32:.4f}; largest '
+              f'|kernel - plain| of the largest: parent {errs[0]:.2e}, this '
+              f'tree {errs[1]:.2e}', flush=True)
+        for name, found in split.items():
+            print(f'  {name}, device ms by (M_out, C, C_out, K): ' + ', '.join(
+                f'{k} x{n} {t:.4f}' for k, n, t in found), flush=True)
+        if max(errs) > 1e-5:
+            raise AssertionError('K16 differs from plain')
+        rows.append(dict(kernel='sparse_dweights', dtype=str(dtype)[6:],
+                         parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                         gflop=flops / 1e9, bound_ms=least, bound_by=by,
+                         tf32_bound_ms=tf32, err=errs,
+                         by_shape={name: [[list(k), n, t] for k, n, t in f]
+                                   for name, f in split.items()}))
+    return rows
+
+
+def compare_sparse_conv_backward(old, dev, calls32):
+    """K14 on a train step's 46 reverse tables through both wrappers,
+    float32 and bf16, in turns; each within its bound of the plain
+    version; device ms by shape."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        calls = [(g.to(dtype), r, w.to(dtype), p) for g, r, w, p in calls32]
+        fn_old = old.sparse_conv_backward_cuda
+        try:
+            fn_old(*calls[0])
+        except TypeError:
+            fn_old = old.sparse_conv_cuda   # the same kernel, its bf16 entry
+        errs = [_k14_side(lambda f, n, w, c=c: fn_old(f, n, w, c[3]),
+                          [c], dtype) for c in calls]
+        errs_new = [_k14_side(lambda f, n, w, c=c:
+                              sparse.sparse_conv_backward_cuda(f, n, w, c[3]),
+                              [c], dtype) for c in calls]
+
+        def tree():
+            for args in calls:
+                sparse.sparse_conv_backward_cuda(*args)
+
+        def parent():
+            for args in calls:
+                fn_old(*args)
+
+        ms = in_turns(parent, tree, 5)
+        shape = (lambda g, r, w, p: (r.shape[1], g.shape[2], w.shape[2],
+                                     r.shape[2]))
+        split = {name: _by_shape(fn, calls, 'sparse_conv', shape) for name, fn
+                 in (('this tree', sparse.sparse_conv_backward_cuda),
+                     ('parent', fn_old))}
+        print(f'K14 sparse_conv_backward {str(dtype)[6:]}, a train step\'s '
+              f'{len(calls)} reverse tables: parent {ms[0]:.4f} / '
+              f'{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms; '
+              f'largest |kernel - plain| over its bound: parent '
+              f'{max(errs):.3f}, this tree {max(errs_new):.3f}', flush=True)
+        for name, found in split.items():
+            print(f'  {name}, device ms by (M_in, C_out, C, K): ' + ', '.join(
+                f'{k} x{n} {t:.4f}' for k, n, t in found[:8]), flush=True)
+        if max(errs + errs_new) > 1:
+            raise AssertionError('K14 on reverse tables differs from plain')
+        rows.append(dict(kernel='sparse_conv_backward', dtype=str(dtype)[6:],
+                         parent_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                         err_over_bound=[max(errs), max(errs_new)]))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', default=None,
@@ -1240,6 +1473,21 @@ def main(argv=None):
         old_nms = importlib.import_module('demf_parent.ops.nms_rotated') \
             if args.parent else nms_rotated
         rows += compare_nms3d_rotated(old_nms, dev, args.parent_only)
+    if {'sparse_dweights', 'sparse_conv_backward'} & set(only):
+        old_sparse = importlib.import_module('demf_parent.ops.sparse') \
+            if args.parent else sparse
+        calls = train_step_calls(dev)
+        with torch.no_grad():
+            if 'sparse_dweights' in only:
+                rows += compare_sparse_dweights(
+                    old_sparse, dev, calls['sparse_dweights'])
+                if args.sweep:
+                    rows += sweep_sparse_dweights(calls['sparse_dweights'])
+            if 'sparse_conv_backward' in only:
+                rows += compare_sparse_conv_backward(
+                    old_sparse, dev, calls['sparse_conv_backward'])
+        del calls
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

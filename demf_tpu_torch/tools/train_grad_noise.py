@@ -20,10 +20,11 @@ fault planted in the kernel path.  On one card, from the repo root:
   is), held by ``compare_train_paths``:
   ``reverse_taps``: taps 0 and 1 swapped in layer 4's reverse table (the
   d_feats of its five 27-tap convs, C_out 512, K14 on the flipped table);
-  ``dweights_slice_64`` / ``_512``: the first slice of K16's sum dropped in
-  every call at 27 taps and C = C_out = 64 (layer 1's five convs, several
-  slices a call) / 512 (layer 4's five, one slice a call: their whole
-  weight gradients), as if ``dweights_sum`` skipped it.  Each row gives
+  ``dweights_slice_64`` / ``_512``: the plan's first (scene, row tile)s,
+  as many as a K16 block takes (``dweights_chunk``), dropped in every call
+  at 27 taps and C = C_out = 64 (layer 1's five convs, 6 tiles of 512)
+  / 512 (layer 4's five, 64 of 64: their whole weight gradients).  Each
+  row gives
   the factor below which the check reports the fault (``caught_below``:
   the largest kernel-to-plain ratio among the tensors past
   ``TRAIN_GRAD_BOUND``), and for K16's faults whether
@@ -91,20 +92,20 @@ def reverse_taps_fault(smoke):
 
 
 def dweights_slice_fault(smoke, width, dropped):
-    """The first slice of K16's sum dropped in every call at 27 taps and C
-    = C_out = ``width``: that slice's (scene, row tile) entries list no tap
-    in the plan the kernel walks.  ``dropped`` gets each call's slices and
-    share of the table's (row, tap) pairs left out."""
+    """The first (scene, row tile)s of the plan, as many as a K16 block
+    takes (its chunk), dropped in every call at 27 taps and C = C_out =
+    ``width``: their entries list no tap in the plan the kernel walks.
+    ``dropped`` gets each call's chunk and share of the table's (row, tap)
+    pairs left out."""
     from demf_tpu_torch.ops import sparse
     real = sparse.sparse_conv_dweights_cuda
 
-    def faulty(feats, nbr, g, plan, slices=None):
+    def faulty(feats, nbr, g, plan, chunk=None):
         if nbr.shape[2] == 27 and feats.shape[2] == g.shape[2] == width:
             b, mo, k = nbr.shape
-            n = slices or sparse.dweights_slices(b, mo, feats.shape[2],
-                                                 g.shape[2], k)
+            per = chunk or sparse.dweights_chunk(b, mo, feats.shape[2],
+                                                 g.shape[2], k, feats.dtype)
             tiles = plan.tile_taps.shape[1]
-            per = -(-b * tiles // n)
             taps = plan.tile_taps.clone().reshape(-1)
             taps[:per] = 0
             rows = torch.zeros(b * tiles * sparse.CONV_TILE_ROWS,
@@ -115,10 +116,10 @@ def dweights_slice_fault(smoke, width, dropped):
             pad = tiles * sparse.CONV_TILE_ROWS - mo
             hit = torch.cat([hit, hit.new_zeros((b, pad, k))], 1)
             left_out = hit.reshape(-1, k)[rows].sum().item()
-            dropped[tuple(nbr.shape)] = (n, left_out / max(
+            dropped[tuple(nbr.shape)] = (per, left_out / max(
                 1, int(hit.sum().item())))
             plan = plan._replace(tile_taps=taps.reshape(b, tiles))
-        return real(feats, nbr, g, plan, slices)
+        return real(feats, nbr, g, plan, chunk)
     return smoke.patched((sparse, 'sparse_conv_dweights_cuda', faulty))
 
 
@@ -185,7 +186,7 @@ def main(argv=None):
     dev = torch.device('cuda', 0)
     rows = dict(noise=[], faults=[])
     if args.faults:
-        model, _, batch = smoke.fcaf3d_trainer(dev, 0)
+        model, _, _, batch = smoke.fcaf3d_trainer(dev, 0)
         rows['faults'].append(fault_row(
             smoke, model, batch, 'reverse_taps',
             lambda: reverse_taps_fault(smoke)))
@@ -200,7 +201,7 @@ def main(argv=None):
     for name, make in (('FCAF3D', smoke.fcaf3d_trainer),
                        ('DeMF-FCAF3D', smoke.demf_fcaf3d_trainer)):
         for seed in range(args.seeds):
-            model, _, batch = make(dev, seed)
+            model, _, _, batch = make(dev, seed)
             rows['noise'].append(dict(model=name, seed=seed, **noise_row(
                 smoke, model, batch, f'{name} seed {seed}')))
             del model, batch

@@ -65,10 +65,8 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1,
     ``bf16`` / ``fp16`` (the bf16 policy of ``utils/precision.py``).
     ``device`` as in ``build_detector``; ``preprocess`` goes to the
     ``TrainStep`` (on-device preprocessing of raw batches).  Returns
-    (model, optimizer, train_step).  Every detector of the port trains; a
-    detector that does not train under the bf16 policy (the FCAF3D family:
-    its ``bf16_training_refused`` reason) refuses it by name before it is
-    built.
+    (model, optimizer, train_step).  Every detector of the port trains, in
+    float32 and under the bf16 policy.
     """
     from . import models  # noqa: F401  (registers the detectors)
     from .engine.optim import build_optimizer, step_lr_schedule
@@ -76,10 +74,6 @@ def build_trainer(cfg, device='cuda', seed=0, steps_per_epoch=1,
     from .utils.precision import resolve_compute_dtype
     if isinstance(cfg, str):
         cfg = load_model_cfg(cfg)
-    refused = getattr(DETECTORS.get(cfg['model']['type']),
-                      'bf16_training_refused', None)
-    if refused and resolve_compute_dtype(cfg) is not None:
-        raise NotImplementedError(f'{cfg["model"]["type"]}: {refused}')
     model = build_detector(cfg['model'], device, seed).train()
     optimizer = build_optimizer(model, cfg['optimizer'],
                                 model.frozen_param_patterns())

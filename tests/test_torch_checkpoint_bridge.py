@@ -9,7 +9,8 @@
   ImVoteNet through its forward and ``get_bboxes`` on the same seed draws;
   the tiny FCAF3D's ``.pth`` holds ``state_dict_from_jax``'s tensors, loads
   strictly and serves through ``python -m demf_tpu_torch.eval``.  The
-  converter takes an FCAF3D config; training one is refused by name.
+  converter takes an FCAF3D config, and the family trains under the bf16
+  policy too (nothing of it is refused any more).
 * A released mmcv-format file (``state_dict``, ``meta`` with ``epoch``,
   ``iter``, ``CLASSES`` as a tuple, ``mmcv_version``, the config's text,
   and mmcv's optimizer state) runs through ``python -m
@@ -185,19 +186,18 @@ def test_imvotenet_jax_checkpoint_gives_the_jax_detections(tmp_path):
 
 
 def test_an_fcaf3d_config_is_refused_by_name(tmp_path):
-    """The FCAF3D family is served and trained: the converter takes its
-    configs and goes on to read the checkpoint; what is refused by name is
-    training it under the bf16 policy (a bf16 entry of K16 is ROADMAP
-    work), before the full-width model is built."""
+    """The FCAF3D family is served and trained, in float32 and under the
+    bf16 policy: the converter takes its configs and goes on to read the
+    checkpoint, and a bf16 config of the family, which was refused by name
+    until its training was ported, builds a trainer under the policy."""
     with pytest.raises(FileNotFoundError):
         converter().convert(os.path.join(ROOT, 'configs', 'fcaf3d',
                                          'fcaf3d_sunrgbd.py'),
                             str(tmp_path / 'none'), str(tmp_path / 'x.pth'))
-    cfg = zoo.load_model_cfg('fcaf3d/fcaf3d_sunrgbd.py')
+    cfg = zoo.load_model_cfg('synthetic/fcaf3d_tiny.py')
     cfg.merge_from_dict({'bf16': True})
-    with pytest.raises(NotImplementedError,
-                       match=r'bf16 training of the FCAF3D family'):
-        zoo.build_trainer(cfg, 'cpu')
+    _, _, step = zoo.build_trainer(cfg, 'cpu')
+    assert step.compute_dtype == torch.bfloat16
 
 
 def test_fcaf3d_jax_checkpoint_serves_through_the_eval_entry(tmp_path,

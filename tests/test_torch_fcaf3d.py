@@ -16,13 +16,16 @@ the same synthetic scenes (``synth_fcaf3d_batch``).
   weights to an mAP dict; the train entry trains the family (two
   ``--synthetic`` steps, a checkpoint the eval entry serves, and which the
   JAX package's ``port_fcaf3d_checkpoint`` ports back to JAX's eval forward
-  within 1e-4 of the port's), the loss is a finite named dict, and a bf16
-  policy on the family's training is refused by name;
+  within 1e-4 of the port's), the loss is a finite named dict, and one
+  step under the bf16 policy through the train entry keeps float32 master
+  weights (the step itself against JAX's bf16 step:
+  ``tests/test_torch_fcaf3d_train.py``);
 * the bf16 policy: the eval step under it gives float32 detections, and
   the port's own bf16 - float32 gap of every level output lies within a
   third and three times the JAX package's (seen: 0.55 to 1.6 times).
 """
 import copy
+import re
 
 import numpy as np
 import pytest
@@ -277,12 +280,30 @@ def test_loss_is_a_finite_named_dict(fcaf3d):
 
 
 @pytest.mark.parametrize('cfg', FAMILY)
-def test_bf16_training_of_the_family_is_refused_by_name(cfg, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=r'bf16 training of the FCAF3D family'):
-        train_entry.main([cfg, '--device', 'cpu', '--synthetic', '--steps',
-                          '1', '--work-dir', str(tmp_path), '--cfg-options',
-                          'bf16=True'])
+def test_bf16_train_entry_trains_the_family(cfg, tmp_path, capsys):
+    """One ``--synthetic`` step under the bf16 policy (``bf16=True``: bf16
+    copies of the weights, K14 and K16 on their bf16 entries on the card,
+    their plain versions here): every logged loss finite and the
+    classification loss positive; the checkpoint's weights, BatchNorm
+    statistics and AdamW state float32 and finite (the master
+    weights)."""
+    train_entry.main([cfg, '--device', 'cpu', '--synthetic', '--steps', '1',
+                      '--batch', '2', '--points', '1024', '--hw', '64', '96',
+                      '--work-dir', str(tmp_path), '--cfg-options',
+                      'bf16=True'])
+    line = re.search(r'Epoch \[1/1\]\[1\] (.*) \(',
+                     capsys.readouterr().out).group(1)
+    logged = {k: float(v) for k, v in re.findall(r'(\S+): (\S+)', line)}
+    assert logged['loss_cls'] > 0
+    assert all(np.isfinite(v) for v in logged.values()), logged
+    ckpt = torch.load(tmp_path / 'checkpoints' / 'epoch_1.pth',
+                      weights_only=False)
+    floats = [v for v in ckpt['state_dict'].values()
+              if v.is_floating_point()]
+    floats += [v for st in ckpt['optimizer']['state'].values()
+               for v in st.values() if torch.is_tensor(v) and v.numel() > 1]
+    assert floats and all(v.dtype == torch.float32 and
+                          torch.isfinite(v).all() for v in floats)
 
 
 def test_eval_step_under_the_bf16_policy(fcaf3d, port_run):

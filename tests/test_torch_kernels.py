@@ -2035,36 +2035,51 @@ def test_conv_plan_equals_plain(dev, level, b, m, k):
         assert g.dtype == torch.int32 and torch.equal(g, w)
 
 
+# K16's narrow tiles beside K14's cases: a one-tap conv's C_out 1 and 10
+# (the head's centerness and classes), C 3 onto 8 (both sides narrow)
+DWEIGHTS_CASES = SPARSE_CONV_CASES + [
+    ('spread', 3, 2048, 128, 1, 1), ('spread', 3, 2048, 128, 10, 1),
+    ('spread', 3, 2048, 3, 8, 27)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('level,b,m,c,co,k', SPARSE_CONV_CASES)
+@pytest.mark.parametrize('level,b,m,c,co,k', DWEIGHTS_CASES)
 def test_sparse_dweights_equals_plain(dev, level, b, m, c, co, k):
     """K16 (the weight gradient) on K14's cases (the stem's C 3, one-tap
-    and transposed tables, an empty scene, rows past the valid prefix):
-    within 1e-5 of the largest against ``sparse_conv_dweights_plain``, the
-    same bits on two calls, and the same sums in one slice or cut into 1,
-    7 and its own number of slices; a bf16 call refused by name."""
+    and transposed tables, an empty scene, rows past the valid prefix) and
+    its narrow tiles (C_out 1 and 10, C 3 onto 8), on float32 and on bf16
+    rows and output gradient (each entry its own count; a bf16 product is
+    exact in float32, so both are held alike): within 1e-5 of the largest
+    against ``sparse_conv_dweights_plain``, the same bits on two calls, and
+    the same sums with a tap's tiles in one block, in chunks of 7 and of
+    its own size (``dweights_chunk``)."""
     from demf_tpu_torch.ops import sparse
     nbr, m_in, _ = conv_table(dev, level, b, m, k)
     gen = torch.Generator(dev).manual_seed(c + co + k)
-    feats = torch.randn(b, m_in, c, device=dev, generator=gen)
-    g = torch.randn(b, nbr.shape[1], co, device=dev, generator=gen)
     plan = sparse.conv_plan(nbr)
-    before = sparse.SPARSE_DWEIGHTS_KERNEL.launches
-    got = sparse.sparse_conv_dweights(feats, nbr, g, plan)
-    assert sparse.SPARSE_DWEIGHTS_KERNEL.launches == before + 1
-    assert got.shape == (k, c, co) and got.dtype == torch.float32
-    assert torch.equal(got, sparse.sparse_conv_dweights_cuda(feats, nbr, g,
-                                                             plan))
-    want = sparse.sparse_conv_dweights_plain(feats, nbr, g)
-    tol = 1e-5 * want.abs().max().item()
-    assert (got - want).abs().max().item() <= tol
-    for slices in (1, 7, sparse.dweights_slices(b, nbr.shape[1], c, co, k)):
-        again = sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan, slices)
-        assert (again - want).abs().max().item() <= tol
-        assert torch.equal(again, sparse.sparse_conv_dweights_cuda(
-            feats, nbr, g, plan, slices))
-    with pytest.raises(TypeError, match='bf16 training of the FCAF3D'):
-        sparse.sparse_conv_dweights_cuda(feats.bfloat16(), nbr, g, plan)
+    for dtype, kernel in ((torch.float32, sparse.SPARSE_DWEIGHTS_KERNEL),
+                          (torch.bfloat16,
+                           sparse.SPARSE_DWEIGHTS_BF16_KERNEL)):
+        feats = torch.randn(b, m_in, c, device=dev, generator=gen).to(dtype)
+        g = torch.randn(b, nbr.shape[1], co, device=dev,
+                        generator=gen).to(dtype)
+        before = kernel.launches
+        got = sparse.sparse_conv_dweights(feats, nbr, g, plan)
+        assert kernel.launches == before + 1
+        assert got.shape == (k, c, co) and got.dtype == torch.float32
+        assert torch.equal(got, sparse.sparse_conv_dweights_cuda(
+            feats, nbr, g, plan))
+        want = sparse.sparse_conv_dweights_plain(feats, nbr, g)
+        tol = 1e-5 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol, dtype
+        tiles = b * plan.tile_taps.shape[1]
+        for chunk in (tiles, 7, sparse.dweights_chunk(b, nbr.shape[1], c, co,
+                                                      k, dtype)):
+            again = sparse.sparse_conv_dweights_cuda(feats, nbr, g, plan,
+                                                     chunk)
+            assert (again - want).abs().max().item() <= tol, (dtype, chunk)
+            assert torch.equal(again, sparse.sparse_conv_dweights_cuda(
+                feats, nbr, g, plan, chunk))
 
 
 def backward_case(dev, kind):
@@ -2136,6 +2151,47 @@ def test_sparse_conv_backward_equals_plain(dev, kind):
             want = want.double()
             err = (got.cpu().double() - want).abs().max().item()
             assert err <= 1e-5 * want.abs().max().item(), (dtype, err)
+    in_valid = tables[3] if kind == 'transposed' else tables[1]
+    assert (dx[~in_valid] == 0).all()
+    assert dw.abs().max() > 0 and dx.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['submanifold', 'strided', 'stem',
+                                  'shortcut', 'transposed'])
+def test_sparse_conv_backward_bf16_equals_plain(dev, kind):
+    """The same backward under the bf16 policy (bf16 rows, weights and
+    output gradient): K14's bf16 entry on the reverse table, counted as
+    ``sparse_conv_backward_bf16``, and K16's bf16 entry, counted as
+    ``sparse_conv_dweights_bf16``, against the plain route on the CPU on
+    the same bf16 inputs: each a float32 sum rounded once to bf16, so
+    within one bf16 step of each gradient's largest; bf16 gradients, the
+    d_feats of invalid rows exactly 0."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools.sparse_cases import tolerance
+
+    def grads(device):
+        tables, x, w, fn = backward_case(device, kind)
+        x = x.bfloat16().requires_grad_()
+        w = w.bfloat16().requires_grad_()
+        out = fn(x, w)
+        ct = torch.from_numpy(np.random.RandomState(3).randn(
+            *out.shape)).to(device, torch.bfloat16)
+        out.backward(ct)
+        return tables, x.grad, w.grad
+
+    kernels = (sparse.SPARSE_CONV_BACKWARD_BF16_KERNEL,
+               sparse.SPARSE_DWEIGHTS_BF16_KERNEL,
+               sparse.SPARSE_CONV_BACKWARD_KERNEL,
+               sparse.SPARSE_DWEIGHTS_KERNEL)
+    before = [k.launches for k in kernels]
+    tables, dx, dw = grads(dev)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0]
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    _, want_x, want_w = grads(torch.device('cpu'))
+    for got, want in ((dx, want_x), (dw, want_w)):
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= tolerance(want, torch.bfloat16), err
     in_valid = tables[3] if kind == 'transposed' else tables[1]
     assert (dx[~in_valid] == 0).all()
     assert dw.abs().max() > 0 and dx.abs().max() > 0

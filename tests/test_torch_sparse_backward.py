@@ -10,6 +10,15 @@ the CPU, on the same inputs made with numpy from a seed.
   reverse made anew, or the backbone's strided table between the two
   levels), within 1e-5 of each gradient's largest; the d_feats of padding
   rows exactly 0;
+* the submanifold and strided kinds in bfloat16 (the bf16 policy's rows,
+  weights and output gradient) against ``jax.vjp`` of the same functions
+  on the same bf16 inputs.  The JAX package sums each tap into a bf16
+  accumulator (``_conv_scan_math``, forward and d_feats), the port in
+  float32 rounded once, so the output and d_feats are held to the JAX
+  package's own bf16 - float32 gap (JAX's bf16 result against its float32
+  one on the unrounded inputs): within twice it of JAX's bf16 result (seen
+  at most 1.13 of it; the strided conv's d_feats, one tap a row, equal).  d_weights is a float32 sum of exact products rounded
+  to bf16 in both packages: within 2^-8 of its largest (seen equal);
 * every tap order of a centred cube centrally symmetric (why a flipped
   table is the reverse);
 * the transposed conv's reverse equal to the strided conv's table;
@@ -106,23 +115,47 @@ def case(level, kind, stride):
             sorted_input=True, rev=rev), x, w, cv, 2)
 
 
-@pytest.mark.parametrize('stride', [1, 2])
-@pytest.mark.parametrize('kind', KINDS)
-def test_backward_equals_jax_vjp(level, kind, stride):
-    jfn, pfn, x, w, in_valid, k = case(level, kind, stride)
-    out, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w))
+def jax_vjp(jfn, x, w, dtype):
+    """JAX's output, d_feats and d_weights in float32 numpy, from x, w and
+    the cotangent (the same seed) cast to ``dtype``."""
+    out, vjp = jax.vjp(jfn, jnp.asarray(x).astype(dtype),
+                       jnp.asarray(w).astype(dtype))
     ct = np.random.RandomState(11).randn(*out.shape).astype(np.float32)
-    dx, dw = vjp(jnp.asarray(ct))
-    xt = torch.from_numpy(x).requires_grad_()
-    wt = torch.from_numpy(me_tap_order(w) if k > 1 else w).requires_grad_()
+    dx, dw = vjp(jnp.asarray(ct).astype(dtype))
+    return tuple(np.asarray(a.astype(jnp.float32)) for a in (out, dx, dw)) + (
+        ct,)
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('kind,dtype', [
+    *(pytest.param(k, 'float32', id=k) for k in KINDS),
+    *(pytest.param(k, 'bfloat16', id=f'{k}-bf16')
+      for k in ('submanifold', 'strided'))])
+def test_backward_equals_jax_vjp(level, kind, dtype, stride):
+    jfn, pfn, x, w, in_valid, k = case(level, kind, stride)
+    out, dx, dw, ct = jax_vjp(jfn, x, w, dtype)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    wt = torch.from_numpy(me_tap_order(w) if k > 1 else w).to(
+        tdt).requires_grad_()
     got = pfn(xt, wt)
-    assert rel(got, out) <= 1e-5
-    got.backward(torch.from_numpy(ct))
-    assert rel(xt.grad, dx) <= 1e-5, rel(xt.grad, dx)
-    dw = np.asarray(dw)
-    assert rel(wt.grad, me_tap_order(dw) if k > 1 else dw) <= 1e-5
-    assert (xt.grad[~in_valid] == 0).all()
-    assert np.abs(np.asarray(dx)).max() > 0 and np.abs(dw).max() > 0
+    got.backward(torch.from_numpy(ct).to(tdt))
+    assert got.dtype == xt.grad.dtype == wt.grad.dtype == tdt
+    got, gx, gw = (t.detach().float() for t in (got, xt.grad, wt.grad))
+    dw_ = me_tap_order(dw) if k > 1 else dw
+    if dtype == 'float32':
+        assert rel(got, out) <= 1e-5
+        assert rel(gx, dx) <= 1e-5, rel(gx, dx)
+        assert rel(gw, dw_) <= 1e-5
+    else:
+        out32, dx32, _, _ = jax_vjp(jfn, x, w, 'float32')
+        for name, mine, want, ref in (('out', got, out, out32),
+                                      ('d_feats', gx, dx, dx32)):
+            gap = np.abs(want - ref).max() / np.abs(ref).max()
+            assert rel(mine, want) <= 2 * gap, (name, rel(mine, want), gap)
+        assert rel(gw, dw_) <= 2 ** -8
+    assert (gx[~in_valid] == 0).all()
+    assert np.abs(dx).max() > 0 and np.abs(dw).max() > 0
 
 
 @pytest.mark.parametrize('me_order', [True, False])

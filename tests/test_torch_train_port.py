@@ -330,9 +330,11 @@ def test_load_weights_warm_starts_through_the_remap(tiny, tmp_path):
 
 def test_train_entry_point_takes_the_epochs_length_for_its_schedule(
         tmp_path, monkeypatch):
-    """``schedule_3x`` (milestones at epochs 24 and 32) over an epoch of 30
-    steps: step 24 still runs at the base rate, in the dataset mode (the
-    loader's length) and in the synthetic mode (``--steps``)."""
+    """A step schedule (milestones at epochs 4 and 5, as ``schedule_3x``
+    has them at 24 and 32) over an epoch of 6 steps: step 4, where a
+    schedule that took the milestones for step counts would decay, still
+    runs at the base rate, in the dataset mode (the loader's length) and in
+    the synthetic mode (``--steps``)."""
     rates = []
     build = zoo.build_trainer
 
@@ -346,15 +348,14 @@ def test_train_entry_point_takes_the_epochs_length_for_its_schedule(
                        'demf_tiny.py')
     train.main([cfg, '--device', 'cpu', '--work-dir', str(tmp_path / 'wd'),
                 '--no-validate', '--cfg-options', 'data.samples_per_gpu=1',
-                'data.train.num_scenes=30', 'lr_config.step=[24,32]',
+                'data.train.num_scenes=6', 'lr_config.step=[4,5]',
                 'cached_img_features=False'])
-    train.main([cfg, '--synthetic', '--steps', '26', '--batch', '1',
+    train.main([cfg, '--synthetic', '--steps', '6', '--batch', '1',
                 '--points', '256', '--hw', '64', '96', '--gt', '4',
-                '--device', 'cpu', '--cfg-options',
-                'lr_config.step=[24,32]'])
-    assert len(rates[0]) == 30 and len(rates[1]) == 26
+                '--device', 'cpu', '--cfg-options', 'lr_config.step=[4,5]'])
+    assert len(rates[0]) == 6 and len(rates[1]) == 6
     for run in rates:
-        assert run[24] == pytest.approx(0.004) and set(run) == {run[24]}
+        assert run[4] == pytest.approx(0.004) and set(run) == {run[4]}
 
 
 def test_entry_points_stop_without_a_card_and_refuse_what_is_not_ported(
