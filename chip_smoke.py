@@ -249,6 +249,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the train entry, ``--synthetic --steps 2``, on both tiny FCAF3D
    configs.
 
+The entry surface of the JAX package (M4), in four more phases, each with
+its launches counted: after the serving requests, the flip aug-test
+(``engine/aug_test.py::aug_test_3d``) on a request of batch 2: twice a
+request's launches and one K8 for the merge, whose 10,240 detections a
+scene are merged by (scene, class) rows, equal to the merge's plain
+version, and its latency; after the training path, the train entry under
+``--launcher pytorch`` in a subprocess (NCCL, rank 0 of 1:
+``run_launcher_path``): each of its 3 steps launches what a training-path
+step launches, its step ms printed beside theirs; then two ranks on the
+one card over gloo (``run_two_rank_step``, ``tools/dp_equivalence.py``):
+DeMF-VoteNet stage 2 at full width, every dropout 0, 16 scenes split 8 + 8,
+against one process on the 16 and one on the 16 in reverse order (the
+float32 noise of regrouping the sums over scenes): the first step's loss,
+every gradient after the all-reduce and every running statistic within
+``TWO_RANK_NOISE`` times that noise (or an absolute floor), the ranks'
+parameters the same bits after 2 steps, the step's ms and its gloo
+all-reduce's share; in the dataset path, the eval entry again with
+``--fuse-conv-bn --show-dir`` on the same checkpoint and draws
+(``check_fused_eval``): each scene's detections held to the unfused ones
+and three ``.obj`` files a scene.
+
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
 first row above; K4: launches counted in the pretrain path's 3 steps, times
@@ -1422,6 +1443,7 @@ def run_training_path(dev, kernels):
         if i == 0:
             first = {k: v.item() for k, v in metrics.items()}
         terms = ', '.join(f'{k} {v.item():.5f}' for k, v in metrics.items())
+        STEP_MS.append(seconds * 1e3)
         print(f'train step {i}: {seconds * 1e3:.3f} ms (host clock), '
               f'{TRAIN_BATCH["b"] / seconds:.3f} scenes/s, launches '
               f'{launched}; {terms}')
@@ -1856,7 +1878,9 @@ def run_entry(main, argv, kernels, expected):
 
 def run_dataset_path(kernels):
     """dataset -> train -> checkpoint -> eval -> mAP through the entry
-    points, at full width; returns the launches of the two entries."""
+    points, at full width, then the eval entry again with
+    ``--fuse-conv-bn --show-dir`` (``check_fused_eval``); returns the
+    launches of the two entries and those of the fused eval."""
     from demf_tpu_torch import eval as eval_entry
     from demf_tpu_torch import train as train_entry
     from demf_tpu_torch.data import build_dataloader, build_dataset
@@ -1935,6 +1959,9 @@ def run_dataset_path(kernels):
               f'{metrics["mAP_0.50"]:.4f} (random weights), launches '
               f'{eval_launches}')
 
+        fused_launches = check_fused_eval(eval_entry, cfg_file, ckpt,
+                                          results, work_dir, kernels)
+
         # the first result is scene 0's: the same draws, the scene alone
         from demf_tpu_torch import zoo
         model = zoo.build_detector(cfg.model, seed=0)
@@ -1949,7 +1976,7 @@ def run_dataset_path(kernels):
             raise AssertionError('the first result is not scene 0')
     for n in launches:
         launches[n] += eval_launches[n]
-    return launches
+    return launches, fused_launches
 
 
 def pretrain_cfg(dropout=None, solver=None):
@@ -4752,6 +4779,326 @@ def run_demf_fcaf3d_train_path(dev, kernels):
     return by_path
 
 
+# -- M4: launchers, two ranks, the fused eval and the flip aug-test ---------
+
+# the launcher path: the train entry's synthetic steps under --launcher
+# pytorch on one NCCL rank, in a process of its own
+LAUNCHER_STEPS = 3
+LAUNCHER_CHILD = 'import chip_smoke; chip_smoke.launcher_child()'
+# the two-rank step: DeMF-VoteNet stage 2 at full width (every dropout 0),
+# a global batch of 16 scenes split 8 + 8 over two ranks on the one card
+# (gloo: NCCL takes one rank a card), against one process on all 16.  The
+# two runs differ only in the order of float32 sums over scenes (the
+# statistics' and normalizers' partial sums 8 + 8, the gradients' rows),
+# and so does one process on the same scenes in reverse order: that run
+# measures the float32 noise of regrouping them, carried through the
+# network (votes that move by an ulp can change the aggregation's FPS
+# picks).  Each quantity is bounded in the manner of ``grad_bound``: the
+# loss within max(1e-5, TWO_RANK_NOISE x the reversed run's error), each
+# gradient within max(1e-3, TWO_RANK_NOISE x the reversed run's error) of
+# its tensor's largest (a largest under 1e-4 of the largest gradient of
+# all, as for a bias just before a train-mode BatchNorm, whose true
+# gradient is 0, counts as that floor), each running statistic within
+# max(1e-4, TWO_RANK_NOISE x the reversed run's error) of its largest; the
+# ranks' parameters the same bits
+TWO_RANK_CASE = dict(config='demf/demf_votenet.py', batch=16, points=20000,
+                     hw=(800, 1344), gt=64)
+TWO_RANK_LOSS_BOUND = 1e-5
+TWO_RANK_GRAD_BOUND = 1e-3
+TWO_RANK_NOISE_FLOOR = 1e-4
+TWO_RANK_STAT_BOUND = 1e-4
+TWO_RANK_NOISE = 10.0
+# the fused eval: folding BatchNorm into the convs moves the predictions by
+# float32 rounding only, so each scene keeps as many detections (within 1%,
+# a tie at the NMS threshold may go the other way) and its 10 best scores
+# within 1e-4, as the dataset path holds a scene alone to its batch
+FUSED_COUNT_BOUND = 0.01
+FUSED_SCORE_BOUND = 1e-4
+# the flip aug-test: twice a request's launches and the merge's one K8
+AUG_NMS_THR = 0.25
+LAUNCHES_AUG_TEST = {n: 2 * c + (n == 'nms3d')
+                     for n, c in LAUNCHES_PER_REQUEST.items()}
+# host ms of the no-launcher train steps (run_training_path), beside which
+# the launcher path prints its own
+STEP_MS = []
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def launcher_child():
+    """Run in a process of its own by ``run_launcher_path``: the train
+    entry under ``--launcher pytorch`` (the env names rank 0 of 1), each
+    step's host ms and launches recorded around ``TrainStep.__call__``;
+    prints them as a ``LAUNCHER_STEPS`` JSON line."""
+    from demf_tpu_torch import ops, train
+    from demf_tpu_torch.engine import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = ops.kernels()
+    steps = []
+    call = trainer.TrainStep.__call__
+
+    def counted(self, batch, generator):
+        torch.cuda.synchronize()
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        out = call(self, batch, generator)
+        torch.cuda.synchronize()
+        steps.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            launches={n: k.launches - before[n] for n, k in kernels.items()},
+            backend=torch.distributed.get_backend(),
+            world=torch.distributed.get_world_size()))
+        return out
+
+    trainer.TrainStep.__call__ = counted
+    train.main(['configs/demf/demf_votenet.py', '--launcher', 'pytorch',
+                '--synthetic', '--steps', str(LAUNCHER_STEPS)])
+    print('LAUNCHER_STEPS ' + json.dumps(steps), flush=True)
+
+
+def run_launcher_path(kernels):
+    """``python -m demf_tpu_torch.train configs/demf/demf_votenet.py
+    --launcher pytorch --synthetic --steps 3`` in a subprocess with
+    RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 and a free MASTER_PORT: NCCL on the
+    card.  Each step must launch what the no-launcher step launches
+    (``LAUNCHES_PER_STEP``); its host ms are printed beside the training
+    path's.  Returns the launches of its steps."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+               MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, '-c', LAUNCHER_CHILD], cwd=root,
+                       env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in p.stdout.splitlines()
+             if line.startswith('LAUNCHER_STEPS ')]
+    if p.returncode or not lines:
+        raise AssertionError(f'launcher path exited {p.returncode}:\n'
+                             f'{p.stdout[-3000:]}\n{p.stderr[-3000:]}')
+    steps = json.loads(lines[-1].split(' ', 1)[1])
+    if len(steps) != LAUNCHER_STEPS:
+        raise AssertionError(f'launcher path took {len(steps)} steps')
+    for i, step in enumerate(steps):
+        if step['launches'] != LAUNCHES_PER_STEP:
+            raise AssertionError(f'launcher step {i} launched '
+                                 f'{step["launches"]}, expected '
+                                 f'{LAUNCHES_PER_STEP}')
+        if (step['backend'], step['world']) != ('nccl', 1):
+            raise AssertionError(f'launcher step {i} on {step["backend"]} '
+                                 f'of {step["world"]} ranks')
+    logged = [line.split(' - ', 1)[-1] for line in p.stdout.splitlines()
+              if 'Epoch [' in line]
+    print(f'launcher path: train entry under --launcher pytorch (NCCL, '
+          f'rank 0 of 1) in a subprocess, {seconds:.3f} s in all; step ms '
+          f'(host clock, synchronized) '
+          f'{[round(s["ms"], 3) for s in steps]} beside the no-launcher '
+          f'steps\' {[round(ms, 3) for ms in STEP_MS]} (16 x 20,000 '
+          f'points, 800x1344); each launched {steps[0]["launches"]}; its '
+          f'log: {logged[-1] if logged else "none"}', flush=True)
+    return {n: sum(s['launches'][n] for s in steps) for n in KERNEL_NAMES}
+
+
+def run_two_rank_step(kernels, device='cuda'):
+    """Two ranks on the one card over gloo (``tools/dp_equivalence.py``,
+    one subprocess a rank, ``TWO_RANK_CASE``) against one process on the
+    whole batch: the first step's loss, every gradient after the
+    all-reduce and every running statistic, within the bounds above; the
+    ranks' parameters the same bits; each step's launches
+    ``LAUNCHES_PER_STEP``; the step's host ms and its all-reduce's share.
+    Returns rank 0's launches."""
+    from demf_tpu_torch.tools import dp_equivalence as dpe
+    torch.cuda.empty_cache()
+    # the ranks' records (~0.3 GB each) pass through build/ of this checkout
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'build')
+    os.makedirs(build_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = dpe.run_ranks([TWO_RANK_CASE], world=2, device=device,
+                          backend='gloo', steps=2, threads=4, timeout=900,
+                          work_dir=build_dir)
+    seconds = time.perf_counter() - t0
+    mine = [r[0]['float32'] for r in ranks]
+    one = dpe.run_case(TWO_RANK_CASE, device, steps=2)
+    rev = dpe.run_case(TWO_RANK_CASE, device, steps=1, reverse=True)
+    for who, rec in [('one process', one)] + [
+            (f'rank {r}', m) for r, m in enumerate(mine)]:
+        if rec['launches'] != [LAUNCHES_PER_STEP] * 2:
+            raise AssertionError(f'two-rank step: {who} launched '
+                                 f'{rec["launches"]}')
+    result = dpe.compare(one, mine)
+    if result['same_bits']:
+        raise AssertionError(f'two-rank step: the ranks differ in '
+                             f'{result["same_bits"][:5]}')
+    loss_noise = dpe.compare(one, [rev])['loss']
+    top = max(g.abs().max().item() for g in one['grads'].values())
+
+    def errors(got, want, floor=0.0):
+        return {n: (got[n].double() - w.double()).abs().max().item() /
+                max(w.abs().max().item(), floor, 1e-30)
+                for n, w in want.items()}
+
+    grads = errors(mine[0]['grads'], one['grads'], TWO_RANK_NOISE_FLOOR * top)
+    noise = errors(rev['grads'], one['grads'], TWO_RANK_NOISE_FLOOR * top)
+    stats = errors(mine[0]['stats'], one['stats'])
+    stat_noise = errors(rev['stats'], one['stats'])
+    worst = sorted((e / max(TWO_RANK_GRAD_BOUND, TWO_RANK_NOISE * noise[n]),
+                    n) for n, e in grads.items())
+    worst_stat = sorted((e / max(TWO_RANK_STAT_BOUND,
+                                 TWO_RANK_NOISE * stat_noise[n]), n)
+                        for n, e in stats.items())
+    loss_bound = max(TWO_RANK_LOSS_BOUND, TWO_RANK_NOISE * loss_noise)
+    print(f'two-rank step: against one process on the 16, first loss '
+          f'{one["losses"][0]["loss"]:.5f} vs '
+          f'{mine[0]["losses"][0]["loss"]:.5f} (rel {result["loss"]:.3e}; '
+          f'the reversed order {loss_noise:.3e}; bound {loss_bound:.3e}); '
+          f'{len(grads)} gradients, the nearest their bounds (rank / '
+          f'reversed error of the largest, floor {TWO_RANK_NOISE_FLOOR} of '
+          f'all): ' + ', '.join(f'{n} {grads[n]:.2e} / {noise[n]:.2e}'
+                                for _, n in worst[-4:]) +
+          f'; {len(stats)} running statistics, the nearest: ' +
+          ', '.join(f'{n} {stats[n]:.2e} / {stat_noise[n]:.2e}'
+                    for _, n in worst_stat[-2:]), flush=True)
+    if not (result['loss'] <= loss_bound and worst[-1][0] <= 1 and
+            worst_stat[-1][0] <= 1):
+        raise AssertionError(f'two-rank step strays from one process past '
+                             f'its bounds: {worst[-3:]}, {worst_stat[-2:]}')
+    # the second step's times: the first one warms the card up
+    step_ms = mine[0]['step_s'][1] * 1e3
+    reduce_ms = mine[0]['all_reduce_s'][1] * 1e3
+    print(f'two-rank step: DeMF-VoteNet stage 2, 16 scenes split 8 + 8 over '
+          f'two ranks on one card over gloo, {seconds:.3f} s for both '
+          f'processes in all; every gradient and statistic within its '
+          f'bound; parameters the same bits on both ranks after 2 steps; '
+          f'rank 0 second step {step_ms:.3f} ms (host clock), of which the '
+          f'gloo all-reduce of gradients and metrics {reduce_ms:.3f} ms '
+          f'({reduce_ms / step_ms:.1%}) and all its '
+          f'{mine[0]["collectives"][1]} all-reduces (the statistics\' and '
+          f'normalizers\' too, each from a synchronize to a synchronize) '
+          f'{mine[0]["collective_s"][1] * 1e3:.3f} ms '
+          f'({mine[0]["collective_s"][1] / mine[0]["step_s"][1]:.1%}); '
+          f'rank 1 {mine[1]["step_s"][1] * 1e3:.3f} ms; the two ranks share '
+          f'the card, so their kernels take turns; one process on all 16 '
+          f'{one["step_s"][1] * 1e3:.3f} ms', flush=True)
+    return {n: sum(step[n] for step in mine[0]['launches'])
+            for n in KERNEL_NAMES}
+
+
+def check_fused_eval(eval_entry, cfg_file, ckpt, unfused, work_dir,
+                     kernels):
+    """The eval entry with ``--fuse-conv-bn --show-dir`` on the dataset
+    path's checkpoint and the same draws as its unfused eval: each scene's
+    detections held to the unfused ones (``FUSED_COUNT_BOUND``,
+    ``FUSED_SCORE_BOUND``) and three ``.obj`` files a scene written.
+    Returns its launches."""
+    show = os.path.join(work_dir, 'show')
+    out_file = os.path.join(work_dir, 'fused.pkl')
+    np.random.seed(7)
+    _, out, seconds, launches = run_entry(
+        eval_entry.main, [cfg_file, ckpt, '--eval', 'mAP', '--fuse-conv-bn',
+                          '--show-dir', show, '--out', out_file], kernels,
+        LAUNCHES_EVAL_ENTRY)
+    fused_line = [line for line in out.splitlines()
+                  if line.startswith('fused ')]
+    with open(out_file, 'rb') as f:
+        fused = pickle.load(f)
+    if not fused_line or len(fused) != len(unfused):
+        raise AssertionError(f'fused eval: {fused_line}, {len(fused)} '
+                             f'results')
+    worst = 0.0
+    top = slice(0, 10)
+    for k, (got, want) in enumerate(zip(fused, unfused)):
+        n = len(want['scores_3d'])
+        if abs(len(got['scores_3d']) - n) > FUSED_COUNT_BOUND * max(n, 1):
+            raise AssertionError(f'fused eval: scene {k} keeps '
+                                 f'{len(got["scores_3d"])} of {n}')
+        a = np.sort(got['scores_3d'])[::-1][top]
+        b = np.sort(want['scores_3d'])[::-1][top]
+        err = float(np.abs(a - b).max()) if len(a) == len(b) and len(a) \
+            else 0.0
+        worst = max(worst, err)
+    if worst > FUSED_SCORE_BOUND:
+        raise AssertionError(f'fused eval: best scores off by {worst}')
+    objs = sorted(os.listdir(show))
+    if len(objs) != 3 * len(unfused) or not all(
+            os.path.getsize(os.path.join(show, f)) for f in objs
+            if not f.endswith('_pred.obj')):
+        raise AssertionError(f'fused eval: {len(objs)} .obj files')
+    print(f'fused eval: eval entry --fuse-conv-bn --show-dir, '
+          f'{fused_line[0]}, {seconds:.3f} s in all; {len(fused)} scenes '
+          f'each within {FUSED_COUNT_BOUND:.0%} of the unfused count, the '
+          f'10 best scores within {worst:.2e} (bound {FUSED_SCORE_BOUND}); '
+          f'{len(objs)} .obj files ('
+          f'{sum(os.path.getsize(os.path.join(show, f)) for f in objs) / 2**20:.1f}'
+          f' MiB); launches {launches}', flush=True)
+    return launches
+
+
+def run_aug_test(model, dev, kernels):
+    """``engine/aug_test.py::aug_test_3d`` on the serving model, a request
+    of batch 2 x 20,000 points and 800x1344: twice a request's launches
+    and the merge's one K8 (``LAUNCHES_AUG_TEST``), latency, the merged
+    detections finite and the merge's K8 keep mask equal to the plain
+    version's on the same detections.  Returns its launches."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.engine import batch_to_device, make_eval_step
+    from demf_tpu_torch.engine.aug_test import (NMS_ROWS, aug_test_3d,
+                                                flip_batch, merge_nms,
+                                                unflip_boxes)
+    batch = batch_to_device(zoo.synth_demf_batch(
+        2, p=20000, hw=(800, 1344), valid_hw=(784, 1312), seed=0), dev)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = aug_test_3d(model, batch, nms_thr=AUG_NMS_THR)
+    torch.cuda.synchronize()
+    latency = (time.perf_counter() - t0) * 1e3
+    launched = {n: k.launches for n, k in kernels.items()}
+    if launched != LAUNCHES_AUG_TEST:
+        raise AssertionError(f'aug test launched {launched}, expected '
+                             f'{LAUNCHES_AUG_TEST}')
+    for key in ('boxes_3d', 'scores_3d'):
+        if not torch.isfinite(out[key]).all():
+            raise AssertionError(f'aug test: non-finite {key}')
+    t0 = time.perf_counter()
+    aug_test_3d(model, batch, nms_thr=AUG_NMS_THR)
+    torch.cuda.synchronize()
+    again = (time.perf_counter() - t0) * 1e3
+    # the merge's input, once more, through K8 and through its plain version
+    eval_step = make_eval_step(model)
+    dets = [eval_step(batch), dict(eval_step(flip_batch(batch)))]
+    dets[1]['boxes_3d'] = unflip_boxes(dets[1]['boxes_3d'])
+    cat = {k: torch.cat([d[k] for d in dets], 1)
+           for k in ('boxes_3d', 'scores_3d', 'labels_3d', 'valid')}
+    args = (cat['boxes_3d'], cat['scores_3d'], cat['labels_3d'],
+            cat['valid'], AUG_NMS_THR)
+    keep = merge_nms(*args)
+    plain = merge_nms(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+    if not torch.equal(keep.cpu(), plain) or not torch.equal(
+            keep & cat['valid'], out['valid']):
+        raise AssertionError('aug test: the merge differs from its plain '
+                             'version or from the aug test\'s')
+    m = cat['valid'].shape[1]
+    half = m // 2
+    print(f'aug test: flip ensemble of a request (batch 2, 20000 points, '
+          f'800x1344), latency {latency:.3f} ms (host clock; again '
+          f'{again:.3f} ms), {int(cat["valid"].sum())} detections of the two '
+          f'augmentations merged to {int(out["valid"].sum())} '
+          f'({int(out["valid"][:, :half].sum())} direct, '
+          f'{int(out["valid"][:, half:].sum())} flipped), {m} a scene'
+          + (f' cut into (scene, class) rows of at most {NMS_ROWS}'
+             if m > NMS_ROWS else '') +
+          f'; K8\'s merge equal to its plain version; launches {launched}',
+          flush=True)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card only',
@@ -4843,16 +5190,19 @@ def main():
     eval_step(batch)
     profile_request(eval_step, batch)
     del eval_step, batch
+    aug_launches = run_aug_test(model, dev, kernels)
     serving_bf16 = run_serving_bf16(model, dev, kernels)
     del model
     torch.cuda.empty_cache()
     check_train_reference(dev)
     launches, first_step = run_training_path(dev, kernels)
     by_path = {'training': dict(launches), 'probes': probe_launches,
-               'serving_bf16': serving_bf16}
+               'serving_bf16': serving_bf16, 'aug_test': aug_launches}
+    by_path['launcher_step'] = run_launcher_path(kernels)
+    by_path['two_rank_step'] = run_two_rank_step(kernels)
     by_path['training_bf16'] = run_training_bf16(dev, kernels, first_step)
     launches.update(probe_launches)
-    by_path['dataset'] = run_dataset_path(kernels)
+    by_path['dataset'], by_path['fused_eval'] = run_dataset_path(kernels)
     launches['nms3d'] = by_path['dataset']['nms3d']
     launches['box_count'] = by_path['dataset']['box_count']
     by_path['pretrain'] = run_pretrain_path(dev, kernels)

@@ -14,6 +14,8 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 
+from ..parallel.dist import rank_and_world, rows_of_rank
+
 
 def collate_fixed(samples, max_gt=64):
     """Stack per-sample dicts into fixed-shape numpy batches.
@@ -94,11 +96,17 @@ class DataLoader:
     The mmcv dataloader equivalent (workers_per_gpu -> num_threads): pipeline
     transforms are numpy and release the GIL for their hot parts, so a
     thread pool scales with the host's cores.
+
+    ``batch_size`` is the global batch, as in the JAX package.  With
+    ``world`` ranks every rank shuffles the same order and fetches and
+    collates only its contiguous rows of each batch
+    (``parallel.rows_of_rank``); the collate pads a rank's images to its own
+    rows' largest, as each card of mmdet's distributed loader does.
     """
 
     def __init__(self, dataset, batch_size=16, shuffle=True, max_gt=64,
                  seed=0, drop_last=True, prefetch=2, num_threads=4,
-                 collate_fn=None):
+                 collate_fn=None, rank=0, world=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -110,6 +118,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.num_threads = max(1, num_threads)
         self._epoch = 0
+        self._rows = rows_of_rank(batch_size, rank, world)
 
     def __len__(self):
         n = len(self.dataset)
@@ -129,6 +138,7 @@ class DataLoader:
         return idx
 
     def _fetch(self, pool, sel):
+        sel = sel[self._rows]
         if pool is None:
             samples = [self.dataset[i] for i in sel]
         else:
@@ -183,7 +193,11 @@ class DataLoader:
 
 def build_dataloader(dataset, samples_per_gpu=16, workers_per_gpu=4,
                      shuffle=True, seed=0, max_gt=64, **kwargs):
+    """A ``DataLoader`` of global batches of ``samples_per_gpu`` scenes;
+    under a process group each rank's loader yields its rows of them."""
+    rank, world = rank_and_world()
     return DataLoader(dataset, batch_size=samples_per_gpu, shuffle=shuffle,
                       seed=seed, max_gt=max_gt,
                       num_threads=max(1, workers_per_gpu),
-                      collate_fn=kwargs.get('collate_fn'))
+                      collate_fn=kwargs.get('collate_fn'), rank=rank,
+                      world=world)

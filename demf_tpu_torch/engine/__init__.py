@@ -1,7 +1,9 @@
 """Engine of the port: inference and train steps, the epoch runner with
-its eval hook, the dataset evaluation loop, AdamW with the step schedule
-and optax's clip, the frozen-feature cache, checkpoints, the entry points'
-argument parsers (``cli``), and weight transfer from the JAX package."""
+its eval hook, the dataset evaluation loop, AdamW / Adam / SGD with the
+step schedule and optax's clip, the frozen-feature cache, checkpoints, the
+entry points' argument parsers (``cli``), weight transfer from the JAX
+package, and the eval extras: ``fuse_bn``, ``visualize`` and the flip
+aug-test ``aug_test``."""
 from .checkpoint import (latest_checkpoint, load_checkpoint, load_meta,
                          load_weights, remap_img_branch_keys,
                          save_checkpoint)

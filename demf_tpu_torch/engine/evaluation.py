@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..data.loader import collate_fixed
+from ..parallel.dist import gather_to_rank0, rank_and_world
 from ..utils.precision import cast_batch, cast_floating, policy_call
 
 
@@ -73,42 +74,61 @@ def run_batches_inference(model, batches: Iterable[dict]) -> List[dict]:
 
 
 def run_dataset_inference(model, dataset, batch_size=16, max_gt=64,
-                          progress_cb=None, compute_dtype=None) -> List[dict]:
+                          progress_cb=None, compute_dtype=None,
+                          gpu_collect=False, tmpdir=None):
     """Run inference over a whole dataset on the model's device (the
     caller puts the model in eval mode), returning per-scene numpy results,
     validity-filtered, in dataset order.  Every batch has ``batch_size``
     scenes: the last one is filled by repeating its last scene, and the
-    fill is dropped."""
+    fill is dropped.
+
+    Under a process group rank ``r`` of ``w`` runs batches ``r``, ``r + w``,
+    ... (each collated as on one rank, so each scene's detections are the
+    one-rank run's), and rank 0 gathers them in dataset order
+    (``parallel.gather_to_rank0``: a collective with ``gpu_collect``, else
+    pickles in ``tmpdir``) and returns the list; the other ranks return
+    None."""
     device = next(model.parameters()).device
     eval_step = make_eval_step(model, compute_dtype)
     n = len(dataset)
-    results: List[dict] = []
-    for start in range(0, n, batch_size):
+    rank, world = rank_and_world()
+    mine = {}
+    for start in range(rank * batch_size, n, world * batch_size):
         idx = list(range(start, min(start + batch_size, n)))
         pad = batch_size - len(idx)
         samples = [dataset[i] for i in idx] + [dataset[idx[-1]]] * pad
         batch = collate_fixed(samples, max_gt=max_gt)
-        results.extend(_scene_results(
-            eval_step(batch_to_device(batch, device)), len(idx)))
-        if progress_cb:
-            progress_cb(len(results), n)
-    return results
+        mine[start] = _scene_results(
+            eval_step(batch_to_device(batch, device)), len(idx))
+        if progress_cb and rank == 0:
+            progress_cb(min(start + batch_size * world, n), n)
+    parts = gather_to_rank0(mine, gpu_collect, tmpdir)
+    if parts is None:
+        return None
+    merged = {k: v for part in parts for k, v in part.items()}
+    return [r for start in sorted(merged) for r in merged[start]]
 
 
 def make_dataset_eval_fn(dataset, batch_size, logger,
                          compute_dtype=None) -> Callable:
     """-> ``eval_fn(model, epoch)`` for the runner's eval hook: inference
     over ``dataset`` in eval mode, ``dataset.evaluate``, one log line; the
-    model goes back to the mode it was in."""
+    model goes back to the mode it was in.  Under a process group every
+    rank runs its share of the inference, rank 0 gathers it by a
+    collective, evaluates, logs and returns the metrics (the others
+    None)."""
 
     def eval_fn(model, epoch):
         was_training = model.training
         model.eval()
         try:
             results = run_dataset_inference(model, dataset, batch_size,
-                                            compute_dtype=compute_dtype)
+                                            compute_dtype=compute_dtype,
+                                            gpu_collect=True)
         finally:
             model.train(was_training)
+        if results is None:
+            return None
         metrics = dataset.evaluate(results)
         logger(f'[eval @ epoch {epoch + 1}] ' + ' '.join(
             f'{k}: {v:.4f}' for k, v in metrics.items()))

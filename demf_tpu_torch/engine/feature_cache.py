@@ -18,6 +18,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def compute_image_features(model, batch):
@@ -69,12 +70,16 @@ def precompute_dataset_features(model, dataset, cache, batch_size=8,
                                 max_gt=64, progress_cb=None):
     """Fill the cache for every scene of a dataset (one pass, batched; a
     batch whose scenes are all cached is skipped; the last batch is filled
-    by repeating its last scene)."""
+    by repeating its last scene).  Under a process group each rank fills
+    every ``world``-th batch from its rank on, and all wait for the others
+    before they read the cache."""
     from ..data.loader import collate_fixed
+    from ..parallel import rank_and_world
     from .evaluation import batch_to_device
     device = next(model.parameters()).device
     n = len(dataset)
-    for start in range(0, n, batch_size):
+    rank, world = rank_and_world()
+    for start in range(rank * batch_size, n, world * batch_size):
         ids = list(range(start, min(start + batch_size, n)))
         if all(cache.has(i) for i in ids):
             continue
@@ -88,6 +93,8 @@ def precompute_dataset_features(model, dataset, cache, batch_size=8,
             cache.save(sid, [f[k] for f in feats])
         if progress_cb:
             progress_cb(min(start + batch_size, n), n)
+    if world > 1:
+        dist.barrier()
 
 
 class CachedFeatureLoader:

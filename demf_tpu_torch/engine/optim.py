@@ -1,14 +1,28 @@
-"""AdamW, the step LR schedule and the global-norm gradient clip (port of
-``demf_tpu/engine/optim.py``).
+"""AdamW, Adam and SGD, the step LR schedule and the global-norm gradient
+clip (port of ``demf_tpu/engine/optim.py``).
 
-The JAX package builds one optax chain: clip_by_global_norm -> scale_by_adam
--> add_decayed_weights -> per-leaf lr_mult -> scale_by_learning_rate.  Here
-that is ``torch.optim.AdamW`` with one param group per lr_mult: a group's
-learning rate is ``lr * lr_mult``, and AdamW's decoupled decay is scaled by
-the group's learning rate, so lr_mult scales both the Adam step and the
-decay, as the chain does.  ``custom_keys`` match by substring on the dotted
-torch parameter name (mmcv's rule; the JAX side matches the '/' flax path),
-the first matching key in config order winning, as on the JAX side.
+The JAX package builds one optax chain a type, after clip_by_global_norm:
+
+* AdamW: scale_by_adam -> add_decayed_weights -> per-leaf lr_mult ->
+  scale_by_learning_rate.  Here ``torch.optim.AdamW`` with one param group
+  per lr_mult: a group's learning rate is ``lr * lr_mult``, and AdamW's
+  decoupled decay is scaled by the group's learning rate, so lr_mult scales
+  both the Adam step and the decay, as the chain does.
+* Adam: scale_by_adam -> lr_mult -> scale_by_learning_rate, with no decay
+  whatever ``weight_decay`` says (the chain has none).  Here
+  ``torch.optim.Adam`` with the same groups and ``weight_decay=0``.
+* SGD: optax.trace (momentum, no dampening, no Nesterov) ->
+  add_decayed_weights -> scale_by_learning_rate: the decay is added to the
+  update outside the momentum trace, where ``torch.optim.SGD(
+  weight_decay=)`` puts it inside; hence ``OptaxSGD``.  The chain has no
+  lr_mult: ``custom_keys`` and the frozen patterns do not reach it, so every
+  parameter takes the same rate, and a frozen one (its gradient zero in the
+  JAX package, None here) still moves by its decay, ``-lr * wd * p``, as it
+  does there.
+
+``custom_keys`` match by substring on the dotted torch parameter name
+(mmcv's rule; the JAX side matches the '/' flax path), the first matching
+key in config order winning, as on the JAX side.
 """
 from __future__ import annotations
 
@@ -46,18 +60,52 @@ def param_lr_mult(name, custom_keys):
     return 1.0
 
 
-def build_optimizer(model, optimizer_cfg, frozen_patterns=()):
-    """``torch.optim.AdamW`` from an mmcv-style config, dict(type='AdamW',
-    lr, weight_decay, betas, eps, paramwise_cfg=dict(custom_keys={...})).
+class OptaxSGD(torch.optim.Optimizer):
+    """optax's ``chain(trace(momentum), add_decayed_weights(wd),
+    scale_by_learning_rate(lr))``: ``buf = g + momentum * buf``, then
+    ``p -= lr * (buf + wd * p)``.  A parameter without a gradient counts
+    as a zero gradient (optax updates every leaf)."""
 
-    ``frozen_patterns`` join the custom keys at lr_mult 0.  Every group
-    carries its ``lr_mult``; ``set_lr`` applies a scheduled rate to all.
+    def __init__(self, params, lr, momentum=0.9, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group['params']:
+                state = self.state[p]
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                buf = state.get('momentum_buffer')
+                buf = g.clone() if buf is None else \
+                    g + group['momentum'] * buf
+                state['momentum_buffer'] = buf
+                update = buf + group['weight_decay'] * p \
+                    if group['weight_decay'] else buf
+                p.sub_(group['lr'] * update)
+
+
+def build_optimizer(model, optimizer_cfg, frozen_patterns=()):
+    """The optimizer of an mmcv-style config: dict(type='AdamW' | 'Adam' |
+    'SGD', lr, weight_decay, betas, eps, momentum,
+    paramwise_cfg=dict(custom_keys={...})), as the JAX package's chain of
+    that type (see the module's doc).
+
+    ``frozen_patterns`` join the custom keys at lr_mult 0 (AdamW and Adam;
+    SGD has no lr_mult).  Every group carries its ``lr_mult``; ``set_lr``
+    applies a scheduled rate to all.
     """
     cfg = dict(optimizer_cfg)
     opt_type = cfg.pop('type', 'AdamW')
-    if opt_type != 'AdamW':
-        raise NotImplementedError(f'the port has AdamW, not {opt_type}')
+    if opt_type not in ('AdamW', 'Adam', 'SGD'):
+        raise NotImplementedError(
+            f'the port has AdamW, Adam and SGD, not {opt_type}')
     lr = cfg.pop('lr', 1e-3)
+    if opt_type == 'SGD':
+        return OptaxSGD([dict(params=list(model.parameters()), lr=lr,
+                              lr_mult=1.0)], lr,
+                        momentum=cfg.pop('momentum', 0.9),
+                        weight_decay=cfg.pop('weight_decay', 0.0))
     custom_keys = dict((cfg.pop('paramwise_cfg', None) or {}).get(
         'custom_keys', {}))
     for pat in frozen_patterns:
@@ -68,9 +116,11 @@ def build_optimizer(model, optimizer_cfg, frozen_patterns=()):
         groups.setdefault(mult, []).append(p)
     param_groups = [dict(params=ps, lr=lr * m, lr_mult=m)
                     for m, ps in groups.items()]
-    return torch.optim.AdamW(
-        param_groups, lr=lr, betas=tuple(cfg.pop('betas', (0.9, 0.999))),
-        eps=cfg.pop('eps', 1e-8), weight_decay=cfg.pop('weight_decay', 0.0))
+    kind, wd = ((torch.optim.AdamW, cfg.pop('weight_decay', 0.0))
+                if opt_type == 'AdamW' else (torch.optim.Adam, 0.0))
+    return kind(param_groups, lr=lr,
+                betas=tuple(cfg.pop('betas', (0.9, 0.999))),
+                eps=cfg.pop('eps', 1e-8), weight_decay=wd)
 
 
 def set_lr(optimizer, lr):

@@ -5,8 +5,14 @@ the caller's generator), the detector's loss, backward, the global-norm
 clip with optax's rule, the scheduled learning rate, and AdamW.  The step
 returns its metrics as device tensors and does no host sync, so steps queue
 on the card back to back; the runner reads them only at its log interval.
-The three phases are ``torch.profiler`` ranges (``PHASES``), which cost a
+The phases are ``torch.profiler`` ranges (``PHASES``), which cost a
 few microseconds when no profiler runs; ``train.py --profile`` reads them.
+Under a process group of several ranks (``parallel.dist``) each rank's loss
+is its share of the global batch's, and a fourth phase sums the gradients
+and the metrics over the ranks in one flat all-reduce before the clip, so
+the clip, the schedule and the optimizer see the global batch's gradient on
+every rank and the metrics are the global ones; only rank 0 writes logs,
+TensorBoard scalars and checkpoints.
 With ``compute_dtype=torch.bfloat16`` the step runs the JAX package's
 mixed-precision policy (``utils/precision.py``): forward and backward on
 bf16 copies of the float32 master weights, the batch's images / cached
@@ -21,12 +27,16 @@ import time
 import torch
 from torch.profiler import record_function
 
+from ..parallel import (is_distributed, rank_and_world, replicate,
+                        sum_gradients)
+from ..parallel.dist import rank_seed
 from ..utils.precision import cast_batch, cast_floating, policy_call
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluation import batch_to_device
 from .optim import clip_grad_global_norm, global_norm, set_lr
 
-PHASES = ('train_step.forward', 'train_step.backward', 'train_step.optimizer')
+PHASES = ('train_step.forward', 'train_step.backward',
+          'train_step.all_reduce', 'train_step.optimizer')
 
 
 class TrainStep:
@@ -72,15 +82,23 @@ class TrainStep:
                 with torch.no_grad():
                     batch = self.preprocess(batch, generator)
             dtype = self.compute_dtype
-            # the float32 loss island (the reference's @force_fp32)
+            # the float32 loss island (the reference's @force_fp32) under
+            # the policy; without it the model's own dtype
             results = cast_floating(policy_call(
                 model, dtype, cast_batch(batch, dtype), generator=generator),
-                torch.float32)
+                None if dtype is None else torch.float32)
             losses = model.loss(results, batch)
             total = sum(losses.values())
         with record_function(PHASES[1]):
             total.backward()
-        with record_function(PHASES[2]):
+        metrics = dict(loss=total.detach())
+        metrics.update({k: v.detach() for k, v in losses.items()})
+        if is_distributed():
+            with record_function(PHASES[2]):
+                summed = sum_gradients(self.params, torch.stack(
+                    list(metrics.values())))
+                metrics = dict(zip(metrics, summed.unbind()))
+        with record_function(PHASES[3]):
             if self.max_norm is not None:
                 grad_norm = clip_grad_global_norm(self.params, self.max_norm)
             else:
@@ -91,8 +109,6 @@ class TrainStep:
                 set_lr(self.optimizer, self.lr)
             self.optimizer.step()
         self.count += 1
-        metrics = dict(loss=total.detach())
-        metrics.update({k: v.detach() for k, v in losses.items()})
         metrics['grad_norm'] = grad_norm.detach()
         return metrics
 
@@ -121,6 +137,12 @@ class Runner:
     ``loader_wait_s`` and ``epoch_s`` add up, over the epochs run, the host
     time spent waiting for the next batch and the whole epoch's (to the
     end of its last step on the device).
+
+    Under a process group every rank runs the loop on its rows of each
+    batch, with its generator seeded from (``seed``, rank); only rank 0
+    logs, writes TensorBoard scalars and checkpoints, every rank reads a
+    resume and calls ``eval_fn``; rank 0's weights are broadcast to the
+    others when the runner is made.
     """
 
     def __init__(self, model, optimizer, train_step, batches, max_epochs=1,
@@ -144,8 +166,12 @@ class Runner:
         self.loader_wait_s = 0.0
         self.epoch_s = 0.0
         self.device = next(model.parameters()).device
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._tb = _tensorboard(work_dir) if work_dir else None
+        replicate(model)
+        self.rank, world = rank_and_world()
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, self.rank, world))
+        self._tb = (_tensorboard(work_dir) if work_dir and self.rank == 0
+                    else None)
 
     def resume(self, path):
         """Model, optimizer, epoch and update count from a checkpoint; the
@@ -156,6 +182,8 @@ class Runner:
 
     def _log(self, epoch, it, metrics, seconds):
         last = {k: float(v) for k, v in metrics.items()}
+        if self.rank:
+            return last
         msg = ' '.join(f'{k}: {v:.4f}' for k, v in sorted(last.items()))
         self.logger(f'Epoch [{epoch + 1}/{self.max_epochs}][{it + 1}] {msg} '
                     f'({seconds:.3f} s/step)')
@@ -188,7 +216,8 @@ class Runner:
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             self.epoch_s += time.perf_counter() - t0
-            if self.work_dir and (epoch + 1) % self.checkpoint_interval == 0:
+            if self.work_dir and self.rank == 0 and \
+                    (epoch + 1) % self.checkpoint_interval == 0:
                 save_checkpoint(self.work_dir, self.model, self.optimizer,
                                 epoch, count=self.train_step.count,
                                 keep=self.max_keep_ckpts, meta=self.meta)

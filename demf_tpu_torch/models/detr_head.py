@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.assignment import auction_match, hungarian_match
+from ..parallel import global_sum
 from ..registry import HEADS, LOSSES, build_from_cfg
 from ..utils.precision import dense
 from .losses import extent_area
@@ -229,7 +230,7 @@ class DeformableDETRHead(nn.Module):
         for layer in range(layers):
             suffix = '' if layer == layers - 1 else f'.d{layer}'
             w = weights[layer]
-            avg = w.sum().clamp_min(1.0)
+            avg = global_sum(w.sum()).clamp_min(1.0)
             losses[f'loss_cls{suffix}'] = self.loss_cls(
                 cls[layer].reshape(b * q, -1), labels[layer].reshape(-1),
                 avg_factor=avg)

@@ -29,6 +29,7 @@ from torch import nn
 from ..core.rotated_iou import iou3d_aligned
 from ..ops import sparse as S
 from ..ops.nms_rotated import rotated_nms_classwise
+from ..parallel import mean_share
 from ..registry import BACKBONES, DETECTORS, HEADS, build_from_cfg
 from ..utils.precision import cast_compute
 from .losses import FocalLoss, sigmoid_cross_entropy
@@ -294,10 +295,12 @@ class FCAF3DHead(nn.Module):
                             safe_t.detach().reshape(-1, 7)).reshape(b, n)
         w = torch.where(pos, cent_t, 0.0)
         bbox_loss = ((1.0 - iou) * w).sum(1) / w.sum(1).clamp(min=1e-6)
-        return {f'loss_cls{suffix}': self.cls_loss_weight * cls_loss.mean(),
+        return {f'loss_cls{suffix}': self.cls_loss_weight *
+                mean_share(cls_loss),
                 f'loss_centerness{suffix}':
-                    self.center_loss_weight * center_loss.mean(),
-                f'loss_bbox{suffix}': self.bbox_loss_weight * bbox_loss.mean()}
+                    self.center_loss_weight * mean_share(center_loss),
+                f'loss_bbox{suffix}': self.bbox_loss_weight *
+                mean_share(bbox_loss)}
 
     def loss(self, head_outs, gt_bboxes, gt_labels, gt_valid):
         """The batch's loss over every level (mmdet3d

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import mean_share
 from ..registry import LOSSES
 
 
@@ -17,7 +18,7 @@ def _reduce(loss, reduction):
     if reduction == 'sum':
         return loss.sum()
     if reduction == 'mean':
-        return loss.mean()
+        return mean_share(loss)
     raise ValueError(reduction)
 
 
@@ -220,7 +221,7 @@ class ChamferDistance:
         if self.reduction == 'sum':
             ls, ld = ls.sum(), ld.sum()
         elif self.reduction == 'mean':
-            ls, ld = ls.mean(), ld.mean()
+            ls, ld = mean_share(ls), mean_share(ld)
         if return_indices:
             return ls, ld, i1, i2
         return ls, ld

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sparse as S
+from ..parallel import global_moments
 from ..registry import BACKBONES
 
 
@@ -31,7 +32,9 @@ class MaskedBatchNorm(nn.Module):
     Eval mode normalizes with the running statistics; train mode with the
     valid rows' mean and biased variance, moving the running ones as flax
     does (momentum 0.9).  Computes in float32 (float64 rows, a reference
-    run's: in float64) and returns the input's dtype."""
+    run's: in float64) and returns the input's dtype.  Under a process
+    group of several ranks the count, the mean and the variance are the
+    global batch's valid rows' (``parallel.global_moments``)."""
 
     def __init__(self, channels, eps=1e-5, momentum=0.9):
         super().__init__()
@@ -43,10 +46,7 @@ class MaskedBatchNorm(nn.Module):
         dtype = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(dtype)
         if self.training:
-            w = valid[..., None].to(dtype)
-            cnt = w.sum((0, 1)).clamp(min=1.0)
-            mean = (xf * w).sum((0, 1)) / cnt
-            var = ((xf - mean) ** 2 * w).sum((0, 1)) / cnt
+            mean, var = global_moments(xf, (0, 1), valid[..., None].to(dtype))
             with torch.no_grad():
                 m = self.momentum
                 bn.running_mean.mul_(m).add_(mean, alpha=1 - m)

@@ -18,6 +18,7 @@ from ..ops.grouping import (ball_query, gather_points_last,
                             group_points_last)
 from ..ops.interpolate import three_nn_interpolate
 from ..ops.sampling import furthest_point_sample
+from ..parallel import global_moments
 from ..registry import BACKBONES
 from ..utils.precision import cast_compute, dense
 
@@ -27,27 +28,29 @@ def bn_last(bn, x):
     (x - mean) * (rsqrt(var + eps) * scale) + bias.
 
     Eval mode uses the running statistics.  Train mode uses the batch mean
-    and the *biased* variance over every other axis, and moves the running
-    statistics as flax does with momentum 0.9:
+    and the *biased* variance over every other axis (the sum over the
+    count, then the squared deviations about it: ``parallel.global_moments``,
+    whose sums run over every rank under a process group), and moves the
+    running statistics as flax does with momentum 0.9:
     ``running = 0.9 * running + 0.1 * batch``, the biased variance included
     (``torch.nn.BatchNorm`` stores the unbiased one, so it is not used).
 
     As flax, it reduces and normalizes in float32 whatever the input's
-    dtype (a bfloat16 ``var_mean`` would reduce in bfloat16), keeps the
-    running statistics float32, and returns the input's dtype.
+    dtype (a bfloat16 sum would reduce in bfloat16), keeps the running
+    statistics float32, and returns the input's dtype (a float64 input, a
+    reference run's, stays float64).
     """
     dtype = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dtype, torch.float32))
     if bn.training:
-        var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)),
-                                   correction=0)
+        mean, var = global_moments(x, tuple(range(x.dim() - 1)))
         with torch.no_grad():
             bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             bn.running_var.mul_(0.9).add_(var, alpha=0.1)
     else:
         mean, var = bn.running_mean, bn.running_var
-    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
-    return ((x - mean) * mul + bn.bias.float()).to(dtype)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(x.dtype)
+    return ((x - mean) * mul + bn.bias.to(x.dtype)).to(dtype)
 
 
 class ConvModule(nn.Module):

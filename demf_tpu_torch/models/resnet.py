@@ -22,23 +22,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import global_moments
 from ..registry import BACKBONES
 from ..utils.precision import conv
 
 
 def _bn(bn, x, dtype):
     """BatchNorm2d on NCHW: the running statistics in eval mode; in train
-    mode the batch's (biased variance) with flax's update of the running
-    ones, ``running = 0.9 * running + 0.1 * batch`` (biased variance too,
-    where ``nn.BatchNorm2d`` would store the unbiased one).  It computes
-    in float32 and returns ``dtype``."""
-    x = x.float()
-    weight, bias = bn.weight.float(), bn.bias.float()
+    mode the batch's (biased variance: the sum over the count, then the
+    squared deviations, ``parallel.global_moments``, over every rank under
+    a process group) with flax's update of the running ones, ``running =
+    0.9 * running + 0.1 * batch`` (biased variance too, where
+    ``nn.BatchNorm2d`` would store the unbiased one).  It computes
+    in float32 (float64 rows in float64) and returns ``dtype``."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    weight, bias = bn.weight.to(x.dtype), bn.bias.to(x.dtype)
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, weight,
                             bias, training=False, eps=bn.eps).to(dtype)
-    mean = x.mean((0, 2, 3))
-    var = (x * x).mean((0, 2, 3)) - mean * mean
+    mean, var = global_moments(x, (0, 2, 3))
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(0.1 * mean)
         bn.running_var.mul_(0.9).add_(0.1 * var)

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.nms2d import batched_nms_2d
 from ..ops.roi_align import pyramid_roi_align, roi_levels
+from ..parallel import global_sum
 from ..registry import HEADS, LOSSES, build_from_cfg
 from ..utils.precision import conv, dense
 from .losses import sigmoid_cross_entropy
@@ -325,7 +326,7 @@ def rpn_loss(outs, anchor_cfg, coder_cfg, gt_bboxes, gt_valid, train_cfg,
     deltas = bbox2delta(anchors, _take(gt_bboxes, assigned.clamp_min(0)),
                         coder_cfg.get('target_means', (0., 0., 0., 0.)),
                         coder_cfg.get('target_stds', (1., 1., 1., 1.)))
-    avg = weights.sum().clamp_min(1.0)
+    avg = global_sum(weights.sum()).clamp_min(1.0)
     bce = sigmoid_cross_entropy(cls, pos.to(cls.dtype))
     loss_cls = (bce * weights).sum() / avg * dict(loss_cls_cfg).get(
         'loss_weight', 1.0)
@@ -378,7 +379,7 @@ def rcnn_loss(cls_logits, bbox_deltas, sampled, coder_cfg, num_classes,
     dict(loss_cls, loss_bbox)."""
     labels = sampled['labels']
     chosen = sampled['chosen'].to(cls_logits.dtype)
-    avg = chosen.sum().clamp_min(1.0)
+    avg = global_sum(chosen.sum()).clamp_min(1.0)
     loss_cls = build_from_cfg(dict(loss_cls_cfg), LOSSES)(
         cls_logits, labels, weight=chosen, avg_factor=avg)
     targets = bbox2delta(sampled['rois'], sampled['gt_boxes'],

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core import boxes as box_ops
+from ..parallel import global_sum
 
 
 def _take(x, idx):
@@ -125,9 +126,9 @@ def get_vote_head_targets(points, gt_bboxes_3d, gt_labels_3d, gt_valid,
         assign['centerness_targets'] = ((nom / den + 1e-6) ** (1. / 3)).clamp(
             0., 1.)
     obj_w = assign['objectness_masks']
-    assign['objectness_weights'] = obj_w / (obj_w.sum() + 1e-6)
+    assign['objectness_weights'] = obj_w / (global_sum(obj_w.sum()) + 1e-6)
     obj_t = assign['objectness_targets'].float()
-    assign['box_loss_weights'] = obj_t / (obj_t.sum() + 1e-6)
+    assign['box_loss_weights'] = obj_t / (global_sum(obj_t.sum()) + 1e-6)
     assign['vote_targets'] = vote_targets
     assign['vote_target_masks'] = vote_target_masks
     return assign

@@ -12,6 +12,7 @@ from ..core import boxes as box_ops
 from ..ops.box_count import box_point_count
 from ..ops.nms import aligned_3d_nms
 from ..ops.sampling import furthest_point_sample
+from ..parallel import global_sum
 from ..registry import BBOX_CODERS, HEADS, LOSSES, build_from_cfg
 from .conv_bbox_head import BaseConvBboxHead
 from .losses import chamfer_distance
@@ -248,9 +249,9 @@ class VoteHead(CAVoteHead):
         positive = euclid < tcfg['pos_distance_thr']
         obj_targets = positive.long()
         obj_masks = (positive | (euclid > tcfg['neg_distance_thr'])).float()
-        obj_w = obj_masks / (obj_masks.sum() + 1e-6)
+        obj_w = obj_masks / (global_sum(obj_masks.sum()) + 1e-6)
         blw = positive.float()
-        blw = blw / (blw.sum() + 1e-6)
+        blw = blw / (global_sum(blw.sum()) + 1e-6)
 
         size_cls_a = _take(size_cls_t, assignment)
         size_res_a = _take(size_res_t, assignment)
@@ -266,7 +267,7 @@ class VoteHead(CAVoteHead):
             results['obj_scores'], obj_targets, weight=obj_w)
         # the chamfer center loss, both ways
         valid_w = gt_valid.float()
-        valid_w = valid_w / (valid_w.sum() + 1e-6)
+        valid_w = valid_w / (global_sum(valid_w.sum()) + 1e-6)
         ccfg = dict(self.loss_cfgs['center_loss'])
         src2dst, dst2src, _, _ = chamfer_distance(
             results['center'], center_t, mode=ccfg.get('mode', 'l2'),

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import global_sum
 from ..utils.precision import dense
 from .pointnet2 import ConvModule
 
@@ -69,7 +70,7 @@ class VoteModule(nn.Module):
         gt_votes = torch.gather(vote_targets, 1,
                                 idx[..., None].expand(-1, -1, 3 * gps))
         gt_votes = gt_votes + seed_points.repeat(1, 1, gps)
-        weight = mask / (mask.sum() + 1e-6)
+        weight = mask / (global_sum(mask.sum()) + 1e-6)
         votes = vote_points.reshape(b, n, self.vote_per_seed, 3)
         gts = gt_votes.reshape(b, n, gps, 3)
         d = (votes[:, :, :, None, :] - gts[:, :, None, :, :]).abs().sum(-1)

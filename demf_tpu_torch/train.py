@@ -30,6 +30,19 @@ its kernels by device time, the device's busy share and the step's phases.
 
 Both run on the GPU by default and stop when there is none; ``--device
 cpu`` takes the plain versions of the kernels (for small sizes only).
+
+With a launcher both modes train data-parallel, one process a card:
+
+    torchrun --nproc_per_node 8 -m demf_tpu_torch.train <config> \
+        --launcher pytorch
+    srun -N 2 --ntasks-per-node 8 --gpus-per-task 1 \
+        python -m demf_tpu_torch.train <config> --launcher slurm
+
+``samples_per_gpu`` (``--batch`` in synthetic mode) stays the global batch,
+split over the ranks; the BatchNorm statistics, the loss normalizers and the
+gradient are the global batch's (``parallel.dist``), so the ranks train
+what one process trains on the whole batch.  Only rank 0 writes the work
+dir's log, config dump and checkpoints.
 """
 from __future__ import annotations
 
@@ -44,8 +57,9 @@ from .data import build_dataloader, build_dataset
 from .engine import (CachedFeatureLoader, FeatureCache, Runner,
                      batch_to_device, compute_image_features, load_weights,
                      make_dataset_eval_fn, precompute_dataset_features)
-from .engine.cli import parse_args, require_device
+from .engine.cli import parse_args, set_deterministic, setup_device
 from .engine.trainer import PHASES
+from .parallel import rank_and_world, shard_batch
 from .utils.config import Config
 from .utils.precision import resolve_compute_dtype
 
@@ -113,12 +127,14 @@ def profile_step(step, batch, generator, device, rows=20):
 
 def train_synthetic(cfg, args, device):
     """``--steps`` steps on one synthetic batch, each logged; the schedule
-    counts ``--steps`` as the epoch's length."""
+    counts ``--steps`` as the epoch's length.  Under a process group the
+    batch is the global one and each rank steps on its rows."""
+    rank = rank_and_world()[0]
     model, optimizer, step = zoo.build_trainer(
         cfg, device, args.seed, steps_per_epoch=max(args.steps, 1))
-    batch = batch_to_device(zoo.synth_batch_for(
+    batch = batch_to_device(shard_batch(zoo.synth_batch_for(
         model, args.batch, p=args.points, g=args.gt, hw=args.hw,
-        seed=args.seed), device)
+        seed=args.seed)), device)
     if getattr(model, 'caches_img_features', False) and \
             model.freeze_img_branch:
         # else the image branch trains every step, runs inside the step
@@ -127,23 +143,32 @@ def train_synthetic(cfg, args, device):
         batch['img_features'] = compute_image_features(model, batch)
         n = len(batch.pop('img'))
         _sync(device)
-        print(f'image features of {n} scenes cached in '
-              f'{time.perf_counter() - t0:.3f} s')
+        if rank == 0:
+            print(f'image features of {n} scenes cached in '
+                  f'{time.perf_counter() - t0:.3f} s')
     runner = Runner(model, optimizer, step, [batch] * args.steps,
                     log_interval=1, work_dir=args.work_dir, seed=args.seed)
     runner.run()
-    if args.profile:
+    if args.profile and rank == 0:
         profile_step(step, batch, runner.generator, device)
+    elif args.profile:
+        # the other ranks take the same two steps, for the collectives
+        step(batch, runner.generator)
+        step(batch, runner.generator)
 
 
 def train_dataset(cfg, args, device):
-    """The config's dataset, schedule, checkpoints and eval hook."""
+    """The config's dataset, schedule, checkpoints and eval hook; only rank
+    0 writes the config dump and the log (the others log nothing)."""
     if args.work_dir:
         cfg.work_dir = args.work_dir
     elif not cfg.get('work_dir'):
         cfg.work_dir = os.path.join(
             'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(cfg.work_dir, exist_ok=True)
+    if rank_and_world()[0]:
+        _train_dataset(cfg, args, device, lambda msg: None)
+        return
     cfg.dump(os.path.join(cfg.work_dir, os.path.basename(args.config)))
     log_file = os.path.join(cfg.work_dir,
                             time.strftime('%Y%m%d_%H%M%S') + '.log')
@@ -161,13 +186,15 @@ def train_dataset(cfg, args, device):
 def _train_dataset(cfg, args, device, logger):
     name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
             else 'cpu')
-    logger(f'device: {name}')
+    rank, world = rank_and_world()
+    logger(f'device: {name}' + (f', rank {rank} of {world}' if world > 1
+                                else ''))
     logger(f'config: {args.config}')
     if resolve_compute_dtype(cfg) is not None:
         logger('compute dtype: bfloat16 (fp32 master weights)')
     if args.autoscale_lr:
-        cfg.optimizer['lr'] = (cfg.optimizer['lr'] *
-                               max(torch.cuda.device_count(), 1) / 8.0)
+        # one card a rank: the cards of all ranks
+        cfg.optimizer['lr'] = cfg.optimizer['lr'] * world / 8.0
         logger(f'autoscaled lr to {cfg.optimizer["lr"]}')
     np.random.seed(args.seed)
 
@@ -245,15 +272,21 @@ def _train_dataset(cfg, args, device, logger):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = require_device(args.device)
-    cfg = (Config.fromfile(args.config) if os.path.exists(args.config)
-           else zoo.load_model_cfg(args.config))
-    if args.cfg_options:
-        cfg.merge_from_dict(args.cfg_options)
-    if args.synthetic:
-        train_synthetic(cfg, args, device)
-    else:
-        train_dataset(cfg, args, device)
+    device, grouped = setup_device(args)
+    try:
+        if args.deterministic:
+            set_deterministic()
+        cfg = (Config.fromfile(args.config) if os.path.exists(args.config)
+               else zoo.load_model_cfg(args.config))
+        if args.cfg_options:
+            cfg.merge_from_dict(args.cfg_options)
+        if args.synthetic:
+            train_synthetic(cfg, args, device)
+        else:
+            train_dataset(cfg, args, device)
+    finally:
+        if grouped:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -10,6 +10,11 @@ the JAX package's own float32 step strays by up to 1.0e-3, 0.17 and
 reverse order (``PYTHONPATH=. python
 tests/test_torch_fcaf3d_train_coarse.py [seeds]`` prints these), where
 ``test_torch_fcaf3d_train.py`` holds its float32 steps at 3 cm to 1e-3.
+``... --layers [seeds]`` shows why: fed JAX's float32 output of every
+``MaskedBatchNorm``, the port's float32 layers, forward and backward,
+stray from float64 as far as JAX's own; unfed, they first stray further
+at layer 4, whose norms count 1-2 voxels a scene and amplify rounding that
+both packages make alike in size but not in bits.
 So the two packages meet here where rounding is no excuse: the port's
 model and scenes in float64 (its ``MaskedBatchNorm`` computes in the rows'
 dtype)
@@ -191,7 +196,112 @@ def float32_gaps(seed):
             for n, p in model.named_parameters()}
 
 
+def _norm_module(path):
+    """The port's ``MaskedBatchNorm`` module name of a JAX norm's path."""
+    from demf_tpu_torch.engine.weights import _mink_entry
+    key, _ = _mink_entry(f'{path}/scale', np.zeros(1))
+    return key[:-len('.bn.weight')]
+
+
+def jax_norm_outputs(jmodel, params, stats, batch, dtype):
+    """{the port's module name: the output of that ``MaskedBatchNorm``} of
+    one JAX train-mode forward in ``dtype`` (flax's
+    ``capture_intermediates``), in the order they ran."""
+    def run():
+        _, mutated = jax.jit(lambda p, s, b: jmodel.apply(
+            {'params': p, 'batch_stats': s}, b, train=True,
+            mutable=['batch_stats', 'intermediates'],
+            capture_intermediates=lambda m, _: isinstance(
+                m, jax_mink.MaskedBatchNorm)))(
+            in_dtype(unflatten_params(params), dtype),
+            in_dtype(unflatten_params(stats), dtype),
+            in_dtype(batch, dtype))
+        flat = flatten_params(jax.device_get(mutated['intermediates']))
+        return {_norm_module(k[:-len('/__call__')]): np.asarray(v[0])
+                for k, v in flat.items()}
+
+    if dtype == jnp.float32:
+        return run()
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_mink, 'MaskedBatchNorm', Float64Stats)
+        mp.setattr(jax_fcaf3d, 'MaskedBatchNorm', Float64Stats)
+        return run()
+
+
+def port_norm_outputs(cfg, params, stats, batch, dtype, feed=None):
+    """({module name: output} of every ``MaskedBatchNorm`` in the port's
+    train-mode forward in ``dtype``, in the order they ran, {parameter
+    name: gradient} of that step's loss).  With ``feed`` ({module name:
+    array}) each norm's output takes that array's values (cast to
+    ``dtype``) before the next layer reads it, its gradient still flowing
+    through the norm, so a layer's own rounding shows apart from what
+    reaches it."""
+    from demf_tpu_torch.models.mink_resnet import MaskedBatchNorm
+    model = zoo.build_detector(cfg, device='cpu')
+    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    model = model.to(dtype).train()
+    out = {}
+
+    def hook(name):
+        def record(module, args, y):
+            out[name] = y.detach().numpy().copy()
+            if feed is not None and name in feed:
+                want = torch.as_tensor(np.array(feed[name]), dtype=y.dtype)
+                return y + (want - y).detach()
+        return record
+
+    for name, m in model.named_modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.register_forward_hook(hook(name))
+    tb = {k: v.to(dtype) if v.is_floating_point() else v
+          for k, v in batch_to_device(batch, 'cpu').items()}
+    losses = model.loss(model(tb, generator=torch.Generator().manual_seed(0)),
+                        tb)
+    sum(losses.values()).backward()
+    return out, {n: p.grad for n, p in model.named_parameters()}
+
+
+def layer_gaps(seed):
+    """Each ``MaskedBatchNorm``'s output in float32 against float64 (of
+    its float64 output's largest), in the order the forward runs it: the
+    JAX package's, the port's, and the port's own layer fed JAX's float32
+    output of every earlier norm (what the layer itself adds); then each
+    parameter's float32 gradient against JAX's float64 one, in the order
+    the backward reaches it: JAX's, the port's, and the port's on the fed
+    activations (what its backward itself adds)."""
+    cfg, jmodel, batch, params, stats = coarse_case(seed)
+    j64 = jax_norm_outputs(jmodel, params, stats, batch, jnp.float64)
+    j32 = jax_norm_outputs(jmodel, params, stats, batch, jnp.float32)
+    p32, g32 = port_norm_outputs(cfg, params, stats, batch, torch.float32)
+    fed, gfed = port_norm_outputs(cfg, params, stats, batch, torch.float32,
+                                  feed=j32)
+    norms = [(name, rel(j32[name], j64[name]), rel(p32[name], j64[name]),
+              rel(fed[name], j64[name])) for name in p32]
+    _, ref, _ = jax_step(jmodel, params, stats, batch, jnp.float64)
+    _, jg32, _ = jax_step(jmodel, params, stats, batch, jnp.float32)
+    ref = state_dict_from_jax(ref, {})
+    jg32 = state_dict_from_jax(jg32, {})
+    grads = [(n, rel(jg32[n], ref[n]), rel(g32[n], ref[n]),
+              rel(gfed[n], ref[n])) for n in reversed(list(g32))]
+    return norms, grads
+
+
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--layers']:
+        for seed in map(int, sys.argv[2:] or (0, 1, 2)):
+            norms, grads = layer_gaps(seed)
+            for what, rows in (('norm\'s float32 output', norms),
+                               ('float32 gradient, backward order,', grads)):
+                print(f'seed {seed}: each {what} against float64 at 10 cm '
+                      f'(of its largest): JAX / the port / the port fed '
+                      f'JAX\'s float32 norm outputs')
+                for name, j, p, f in rows:
+                    print(f'  {name:44s} {j:.3e} {p:.3e} {f:.3e}'
+                          + ('  <- the port further' if p > 2 * max(j, 1e-7)
+                             else '')
+                          + ('  <- fed, still further' if f > 2 * max(j, 1e-7)
+                             else ''))
+        sys.exit(0)
     for seed in map(int, sys.argv[1:] or (0, 1, 2)):
         gaps = float32_gaps(seed)
         largest = [max(g[i] for g in gaps.values()) for i in range(3)]

@@ -368,15 +368,20 @@ def test_entry_points_stop_without_a_card_and_refuse_what_is_not_ported(
                            (eval_entry.main, [cfg, 'none.pth'])):
             with pytest.raises(SystemExit, match='no CUDA device'):
                 main(argv)
-    refused = [(train.main, [cfg, '--launcher', 'pytorch']),
-               (eval_entry.main, [cfg, 'c.pth', '--launcher', 'slurm']),
-               (eval_entry.main, [cfg, 'c.pth', '--show']),
-               (eval_entry.main, [cfg, 'c.pth', '--show-dir', 'x']),
-               (eval_entry.main, [cfg, 'c.pth', '--fuse-conv-bn'])]
-    for main, argv in refused:
-        with pytest.raises(SystemExit):
-            main(argv + ['--device', 'cpu'])
-        assert 'not ported yet (ROADMAP M4)' in capsys.readouterr().err
+    # nothing is refused as not ported any more: a launcher without its
+    # env raises, naming it; --gpus above 1 without one is refused
+    for main, argv, launcher in (
+            (train.main, [cfg], 'pytorch'),
+            (eval_entry.main, [cfg, 'c.pth'], 'slurm')):
+        with pytest.raises(RuntimeError, match=f'--launcher {launcher}'):
+            with pytest.MonkeyPatch.context() as mp:
+                for name in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR',
+                             'MASTER_PORT', 'SLURM_PROCID', 'SLURM_NTASKS'):
+                    mp.delenv(name, raising=False)
+                main(argv + ['--device', 'cpu', '--launcher', launcher])
+    with pytest.raises(SystemExit):
+        train.main([cfg, '--device', 'cpu', '--gpus', '2'])
+    assert '--launcher pytorch' in capsys.readouterr().err
     # a config's bf16 / fp16 is no longer refused: both entries take the
     # bf16 policy and run on the CPU
     wd = tmp_path / 'bf16'
