@@ -80,7 +80,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    feature cache once, then 3 steps through ``engine.trainer``, each with
    finite losses and gradient norm and a fixed number of launches of each
    kernel; the image branch must stay unchanged and every other parameter
-   move; then the same step under the bf16 policy from the same weights,
+   move; K18, the vote targets' in-box slots, on the first step's own call
+   against its plain version bit for bit, and the targets built on them;
+   then the same step under the bf16 policy from the same weights,
    batch and dropout draws: its first step's losses within 0.2 of the
    float32 first step's, step time, peak memory, float32 master weights,
    optimizer state and BatchNorm statistics; between the two, the float32
@@ -232,7 +234,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    gradient, against its plain version on that step's own 47 calls (the
    same bits twice, its time, bound and a ``torch.matmul`` a tap); K14 on
    the step's 46 reverse tables (the backward's d_feats) against its plain
-   version; then 3 steps with their launches (``LAUNCHES_PER_FCAF3D_STEP``),
+   version; K17, the stem's max pool, forward and backward, on that step's
+   own call against its plain versions and the chain's autograd bit for
+   bit (also with NaN, inf and signed zeros planted in its rows), timed
+   beside the chain and a gather + ``torch.amax``; then 3 steps with their
+   launches (``LAUNCHES_PER_FCAF3D_STEP``),
    finite losses, host ms, device ms by kernel, busy share, the rest of a
    profiled step's device ms by the op that launched it
    (``device_ms_by_op``) and peak memory; then the same trainer under the
@@ -267,8 +273,9 @@ every gradient after the all-reduce and every running statistic within
 parameters the same bits after 2 steps, the step's ms and its gloo
 all-reduce's share; in the dataset path, the eval entry again with
 ``--fuse-conv-bn --show-dir`` on the same checkpoint and draws
-(``check_fused_eval``): each scene's detections held to the unfused ones
-and three ``.obj`` files a scene.
+(``check_fused_eval``): its detections matched to the unfused ones, the
+folded model's forward held to the unfused one output by output, and three
+``.obj`` files a scene.
 
 The line before the last is the kernel table as JSON (K1-K3: launches
 counted in the training path, times and bound at its shape, each kernel's
@@ -294,14 +301,20 @@ step's); K14 on reverse tables (``sparse_conv_backward``) and K16: launches
 of a FCAF3D train step, times and bounds summed over its own calls (their
 bf16 entries, ``sparse_conv_backward_bf16`` and
 ``sparse_conv_dweights_bf16``: the bf16 step's, bound at bf16's peak);
-``library_ms`` is
+K17 (``sparse_max_pool``, ``sparse_max_pool_backward`` and their bf16
+entries): launches of a FCAF3D train step (bf16: the bf16 step's), times
+and bounds on its own call; K18 (``vote_slots``): launches of the
+DeMF-VoteNet training path's 3 steps, times and bound on its first step's
+call; ``library_ms`` is
 the one
 PyTorch call that computes the kernel's function (K5 an indexing call, K6
 an einsum, K7 an ``embedding_bag`` with weights, K13 ``searchsorted``, K14
-a gather and a matmul, K16 a gather and a matmul a tap) and null where
+a gather and a matmul, K16 a gather and a matmul a tap, K17 a gather and
+``torch.amax``, its backward that call's autograd) and null where
 there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
-3D NMS, the count of points in rotated boxes, and the 2D NMS and RoIAlign
+3D NMS, the count of points in rotated boxes, the vote targets' slots,
+and the 2D NMS and RoIAlign
 (forward and backward), which torchvision has and this machine does not);
 the
 last line is ``{"ok": true, "device": {...}}``.
@@ -334,7 +347,10 @@ KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'roi_align_backward_bf16', 'kernel_map', 'sparse_conv',
                 'sparse_conv_bf16', 'sparse_conv_plan', 'nms3d_rotated',
                 'sparse_conv_backward', 'sparse_conv_dweights',
-                'sparse_conv_backward_bf16', 'sparse_conv_dweights_bf16')
+                'sparse_conv_backward_bf16', 'sparse_conv_dweights_bf16',
+                'sparse_max_pool', 'sparse_max_pool_bf16',
+                'sparse_max_pool_backward', 'sparse_max_pool_backward_bf16',
+                'vote_slots')
 
 
 def launch_counts(**counts):
@@ -348,17 +364,18 @@ REQUESTS = (0, 1, 2)
 LAUNCHES_PER_REQUEST = launch_counts(fps=5, ball_query=5, msda=7, nms3d=1,
                                      box_count=1)
 # train steps per run and what each must launch (the image branch runs
-# once, before, to fill the feature cache)
+# once, before, to fill the feature cache; the vote targets' slots once,
+# in the head's loss)
 TRAIN_STEPS = 3
 TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
 LAUNCHES_PER_STEP = launch_counts(fps=5, ball_query=5, msda=1,
-                                  msda_backward=1)
+                                  msda_backward=1, vote_slots=1)
 # under the bf16 policy the MSDA layers take bf16 values: K3 and K4 run
 # their bf16 entries; FPS, the ball query, K8 and K9 stay float32
 LAUNCHES_PER_REQUEST_BF16 = launch_counts(fps=5, ball_query=5, msda_bf16=7,
                                           nms3d=1, box_count=1)
 LAUNCHES_PER_STEP_BF16 = launch_counts(fps=5, ball_query=5, msda_bf16=1,
-                                       msda_backward_bf16=1)
+                                       msda_backward_bf16=1, vote_slots=1)
 # bf16 against float32 stage predictions of a full-width request, of each
 # tensor's largest: 2.2e-2 measured on an H100 (PERF.md), a limit with some
 # room above it that a stage off by a tenth would break
@@ -368,7 +385,7 @@ SERVE_BF16_BOUND = 5e-2
 VOTENET_CFG = 'baseline/votenet.py'
 VOTENET_STEPS = 3
 VOTENET_BATCH = dict(b=16, p=20000, g=64)
-LAUNCHES_PER_VOTENET_STEP = launch_counts(fps=5, ball_query=5)
+LAUNCHES_PER_VOTENET_STEP = launch_counts(fps=5, ball_query=5, vote_slots=1)
 LAUNCHES_PER_VOTENET_REQUEST = launch_counts(fps=5, ball_query=5, nms3d=1,
                                              box_count=1)
 VOTENET_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
@@ -426,6 +443,12 @@ REPLACES = {
     'sparse_conv_dweights': 'demf_tpu/ops/sparse.py:414',
     'sparse_conv_backward_bf16': 'demf_tpu/ops/sparse.py:450',
     'sparse_conv_dweights_bf16': 'demf_tpu/ops/sparse.py:414',
+    # the scan over taps (:652-659) and its autograd
+    'sparse_max_pool': 'demf_tpu/ops/sparse.py:636',
+    'sparse_max_pool_bf16': 'demf_tpu/ops/sparse.py:636',
+    'sparse_max_pool_backward': 'demf_tpu/ops/sparse.py:636',
+    'sparse_max_pool_backward_bf16': 'demf_tpu/ops/sparse.py:636',
+    'vote_slots': 'demf_tpu/models/target_assign.py:30',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -452,7 +475,13 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'sparse_conv_dweights': 'demf_tpu_torch/csrc/sparse_dweights.cu',
            'sparse_conv_backward_bf16': 'demf_tpu_torch/csrc/sparse_conv.cu',
            'sparse_conv_dweights_bf16':
-               'demf_tpu_torch/csrc/sparse_dweights.cu'}
+               'demf_tpu_torch/csrc/sparse_dweights.cu',
+           'sparse_max_pool': 'demf_tpu_torch/csrc/sparse_pool.cu',
+           'sparse_max_pool_bf16': 'demf_tpu_torch/csrc/sparse_pool.cu',
+           'sparse_max_pool_backward': 'demf_tpu_torch/csrc/sparse_pool.cu',
+           'sparse_max_pool_backward_bf16':
+               'demf_tpu_torch/csrc/sparse_pool.cu',
+           'vote_slots': 'demf_tpu_torch/csrc/vote_slots.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -472,19 +501,19 @@ PRETRAIN_TINY_CFG = os.path.join('demf_tpu_torch', 'configs',
 # R-CNN branch (K10 over the RPN's level groups and the R-CNN's class
 # groups, K11 once), 4 SA and 3 tower aggregations around the FPS of the
 # seeds, and the joint tower's post-processing; a step the same but the
-# post-processing.  Scenes of 608x832 (a 530x730 frame under Resize
-# (1333, 600) and Pad 32)
+# post-processing, and the vote targets' slots in each tower's loss.
+# Scenes of 608x832 (a 530x730 frame under Resize (1333, 600) and Pad 32)
 IMVOTENET_CFG = 'baseline/imvotenet.py'
 IMVOTENET_REQUEST = dict(b=2, p=20000, hw=(608, 832), valid_hw=(600, 826))
 LAUNCHES_PER_IMVOTENET_REQUEST = launch_counts(
     fps=7, ball_query=7, nms2d=2, roi_align=1, nms3d=1, box_count=1)
 LAUNCHES_PER_IMVOTENET_STEP = launch_counts(fps=7, ball_query=7, nms2d=2,
-                                            roi_align=1)
+                                            roi_align=1, vote_slots=3)
 # under the bf16 policy the FPN's levels are bf16: K11 runs its bf16 entry
 LAUNCHES_PER_IMVOTENET_REQUEST_BF16 = launch_counts(
     fps=7, ball_query=7, nms2d=2, roi_align_bf16=1, nms3d=1, box_count=1)
 LAUNCHES_PER_IMVOTENET_STEP_BF16 = launch_counts(
-    fps=7, ball_query=7, nms2d=2, roi_align_bf16=1)
+    fps=7, ball_query=7, nms2d=2, roi_align_bf16=1, vote_slots=3)
 # bf16 against float32 towers of a full-width ImVoteNet request on the
 # same 2D boxes, of each tensor's largest: the bound the CPU tests hold the
 # port's bf16 predictions to its float32 ones (tests/test_engine.py's 0.2);
@@ -937,7 +966,7 @@ def check_msda_backward(dev, rng):
         least, by = bound_ms(
             30 * aw.numel() * 32,
             msda_bytes(shapes, value, locs, aw, backward=True))
-        route = ''
+        route, lists_ok = '', True
         if q != s:
             # the lists route: d_value the same bits call after call and
             # equal to the plain row order's, no fill and no query-major
@@ -964,12 +993,9 @@ def check_msda_backward(dev, rng):
                      f'at {least / ms:.1%} of its bound; launches a call '
                      f'{launches}: ' + ', '.join(
                          f'{k} {t:.4f} ms' for k, (_, t) in found.items()))
-            if not (same and plain_order) or taken > allowed or list(
-                    found) != ['msda_backward_lists_kernel'] or launches != 1:
-                raise AssertionError(
-                    'K4\'s lists route: d_value differs between calls or '
-                    'from the plain row order, or the call launches other '
-                    'kernels or takes more memory than its outputs and lists')
+            lists_ok = (same and plain_order and taken <= allowed and
+                        list(found) == ['msda_backward_lists_kernel'] and
+                        launches == 1)
         del got
         print(f'K4 msda_backward ({b}, Q {q}, heads 8, hd 32, L 4, P {p}, '
               f'sum_HW {s}, {where}): max_abs_err d_value / d_loc / d_aw '
@@ -977,6 +1003,11 @@ def check_msda_backward(dev, rng):
               f'{bounds[0]:.3e} / {bounds[1]:.3e} / {bounds[2]:.3e}), '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, least '
               f'{least:.4f} ms ({by}){route}', flush=True)
+        if not lists_ok:
+            raise AssertionError(
+                'K4\'s lists route: d_value differs between calls or from '
+                'the plain row order, or the call launches other kernels or '
+                'takes more memory than its outputs and lists')
         if not all(e <= bd for e, bd in zip(errs, bounds)):
             raise AssertionError('MSDA backward kernel disagrees with plain')
         rows[b, q, where] = kernel_row(max(errs), ms, plain_ms, least, by)
@@ -1402,8 +1433,9 @@ def check_train_reference(dev):
 
 
 def run_training_path(dev, kernels):
-    """The stage-2 step at full width; returns the launches of the steps
-    and the first step's metrics."""
+    """The stage-2 step at full width, K18 checked on the first step's
+    own call; returns the launches of the steps, the first step's metrics
+    and K18's row."""
     from demf_tpu_torch import zoo
     from demf_tpu_torch.engine import batch_to_device, compute_image_features
     t0 = time.perf_counter()
@@ -1429,10 +1461,14 @@ def run_training_path(dev, kernels):
         k.launches = 0
     for i in range(TRAIN_STEPS):
         start = {n: k.launches for n, k in kernels.items()}
-        t0 = time.perf_counter()
-        metrics = step(batch, generator)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with recorded_calls() if i == 0 else \
+                contextlib.nullcontext() as kept:
+            t0 = time.perf_counter()
+            metrics = step(batch, generator)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if i == 0:
+            slot_calls = kept['vote_slots']
         launched = {n: k.launches - start[n] for n, k in kernels.items()}
         if launched != LAUNCHES_PER_STEP:
             raise AssertionError(f'step {i} launched {launched}, expected '
@@ -1466,7 +1502,58 @@ def run_training_path(dev, kernels):
     print(f'training: {frozen} frozen image-branch tensors unchanged, '
           f'{moved} trained tensors moved')
     compare_devpipe_step(model, step, batch, generator, kernels)
-    return launches, first
+    return launches, first, check_vote_slots(slot_calls)
+
+
+def check_vote_slots(calls):
+    """K18 on a DeMF-VoteNet train step's own call (its points, GT boxes,
+    validity and gt_per_seed): slots and flags equal to
+    ``vote_slots_plain``'s (the JAX package's expressions on the card), the
+    same bits on a second call, and the vote targets built on them
+    (``_vote_targets``) the bits of those built on the plain slots; timed
+    beside the plain version and its bound: 12 float32 operations a
+    (point, box) pair tested (all pairs: no box is skipped), or the bytes
+    (the points' 3 coordinates, the boxes, the yaw's cosine and sine and
+    the validity read; the slots and flags written).  No one PyTorch call
+    computes the slots."""
+    from demf_tpu_torch.models import target_assign
+    from demf_tpu_torch.ops import vote_slots as vs
+    from demf_tpu_torch.tools import bound_ms, same_bits, time_ms
+    if len(calls) != 1:
+        raise AssertionError(f'K18: {len(calls)} calls a step')
+    points, boxes, valid, per_seed, eps = calls[0]
+    slots, has = vs.vote_slots_cuda(points, boxes, valid, per_seed, eps)
+    again = vs.vote_slots_cuda(points, boxes, valid, per_seed, eps)
+    want_s, want_h = vs.vote_slots_plain(points, boxes, valid, per_seed, eps)
+    targets = target_assign._vote_targets(points, boxes, valid, per_seed)
+    with patched((target_assign, 'vote_slots', vs.vote_slots_plain)):
+        want_t = target_assign._vote_targets(points, boxes, valid, per_seed)
+    ok = (torch.equal(slots.long(), want_s) and torch.equal(has, want_h) and
+          torch.equal(slots, again[0]) and torch.equal(has, again[1]) and
+          same_bits(targets[0], want_t[0]) and
+          torch.equal(targets[1], want_t[1]))
+    b, p, _ = points.shape
+    g = boxes.shape[1]
+    hits = has.sum(-1)
+    print(f'K18 vote_slots on a train step\'s call: {b} scenes x {p} points '
+          f'x {g} GT slots ({int(valid.sum())} valid), gt_per_seed '
+          f'{per_seed}; points in {list(range(per_seed))} / >={per_seed} '
+          f'boxes: {[int((hits == k).sum()) for k in range(per_seed)]} / '
+          f'{int((hits == per_seed).sum())}; slots, flags and vote targets '
+          f'the plain version\'s bits: {ok}', flush=True)
+    if not ok:
+        raise AssertionError('K18 differs from the plain slots')
+    ms = time_ms(lambda: vs.vote_slots_cuda(points, boxes, valid, per_seed,
+                                            eps), 20)
+    plain_ms = time_ms(lambda: vs.vote_slots_plain(points, boxes, valid,
+                                                   per_seed, eps), 5)
+    nbytes = (12 * b * p + (7 + 2) * 4 * b * g + b * g +
+              5 * b * p * per_seed)
+    least, by = bound_ms(12.0 * b * p * g, nbytes)
+    print(f'K18 vote_slots: kernel {ms:.4f} ms (its 3 launches), plain '
+          f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {least / ms:.1%})',
+          flush=True)
+    return kernel_row(0.0, ms, plain_ms, least, by)
 
 
 def stage_errors(got, want):
@@ -3597,14 +3684,15 @@ FCAF3D_EVAL_SCENES = 8
 # and 1 an out block; K14's count is one a call, whose tiles kernel is
 # followed by its sum of parts where the taps are split) on the row plans
 # of their 16 tables (the stem's, 3 a stage, one an up block), one
-# class-wise NMS (its pairs kernel and its sweep kernel); DeMF-FCAF3D adds
+# class-wise NMS (its pairs kernel and its sweep kernel), the stem's max
+# pool (K17 on the pool's table, in the rows' dtype); DeMF-FCAF3D adds
 # the encoder's 6 MSDA layers (uncached) and its decoder's one
 SPARSE_PATH = dict(kernel_map=7, sparse_conv=47, sparse_conv_plan=16,
-                   nms3d_rotated=1)
+                   nms3d_rotated=1, sparse_max_pool=1)
 LAUNCHES_PER_FCAF3D_REQUEST = launch_counts(**SPARSE_PATH)
 LAUNCHES_PER_FCAF3D_REQUEST_BF16 = launch_counts(
     kernel_map=7, sparse_conv_bf16=47, sparse_conv_plan=16,
-    nms3d_rotated=1)
+    nms3d_rotated=1, sparse_max_pool_bf16=1)
 LAUNCHES_PER_DEMF_FCAF3D_REQUEST = launch_counts(msda=7, **SPARSE_PATH)
 LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
 # a train step's launches: the forward's (a request's without K15), then in
@@ -3614,10 +3702,12 @@ LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
 # table (4 K13 launches, its tap 0 the shortcut's reverse) and the plans of
 # 12 reverse tables (the 4 level tables flipped, the 4 parent tables and
 # their 4 one-tap cuts); the up blocks' transposed convs read back the 3
-# strided tables on the plans their forward made
+# strided tables on the plans their forward made; the stem pool's
+# backward (K17's, on its forward's table and tie mask)
 SPARSE_TRAIN_STEP = dict(kernel_map=11, sparse_conv=47,
                          sparse_conv_backward=46, sparse_conv_plan=28,
-                         sparse_conv_dweights=47)
+                         sparse_conv_dweights=47, sparse_max_pool=1,
+                         sparse_max_pool_backward=1)
 LAUNCHES_PER_FCAF3D_STEP = launch_counts(**SPARSE_TRAIN_STEP)
 # the decoder's one MSDA layer, forward and backward
 LAUNCHES_PER_DEMF_FCAF3D_STEP = launch_counts(msda=1, msda_backward=1,
@@ -3629,7 +3719,9 @@ LAUNCHES_PER_DEMF_FCAF3D_STEP = launch_counts(msda=1, msda_backward=1,
 SPARSE_TRAIN_STEP_BF16 = dict(kernel_map=11, sparse_conv_bf16=47,
                               sparse_conv_backward_bf16=46,
                               sparse_conv_plan=28,
-                              sparse_conv_dweights_bf16=47)
+                              sparse_conv_dweights_bf16=47,
+                              sparse_max_pool_bf16=1,
+                              sparse_max_pool_backward_bf16=1)
 LAUNCHES_PER_FCAF3D_STEP_BF16 = launch_counts(**SPARSE_TRAIN_STEP_BF16)
 LAUNCHES_PER_DEMF_FCAF3D_STEP_BF16 = launch_counts(
     msda_bf16=1, msda_backward_bf16=1, **SPARSE_TRAIN_STEP_BF16)
@@ -3639,6 +3731,7 @@ FCAF3D_MARKERS = {'K13': ('kernel_map_kernel',),
                   'K14': ('sparse_conv_tiles', 'sparse_conv_sum_parts',
                           'sparse_conv_plan'),
                   'K15': ('nms3d_pairs_kernel', 'nms3d_sweep_kernel'),
+                  'K17': ('pool_forward_kernel',),
                   'K3': ('msda_forward_kernel',)}
 # an IoU this close to iou_thr may fall on either side between two
 # roundings of the same pair: a keep bit it decides may differ
@@ -3686,8 +3779,9 @@ def patched(*changes):
 
 def plain_sparse_ops():
     """The FCAF3D family's K13, K14 with its plan (forward, and on reverse
-    tables in the backward), K16, K15 and the decoders' MSDA routed to
-    their plain versions."""
+    tables in the backward), K16, K17 (the chain of ``torch.maximum`` and
+    its autograd), K15 and the decoders' MSDA routed to their plain
+    versions."""
     from demf_tpu_torch.models import fcaf3d, transformer
     from demf_tpu_torch.ops import msda, nms_rotated, sparse
     return patched(
@@ -3701,6 +3795,7 @@ def plain_sparse_ops():
         (sparse, 'sparse_conv_dweights_cuda',
          lambda feats, nbr, g, plan: sparse.sparse_conv_dweights_plain(
              feats, nbr, g)),
+        (sparse, 'sparse_max_pool', sparse.sparse_max_pool_plain),
         (fcaf3d, 'rotated_nms_classwise',
          nms_rotated.rotated_nms_classwise_plain),
         (transformer, 'multi_scale_deformable_attention', msda.msda_plain))
@@ -3709,11 +3804,14 @@ def plain_sparse_ops():
 @contextlib.contextmanager
 def recorded_calls():
     """Keep the arguments of every K13, K14 (forward and on reverse
-    tables), K16 and K15 launch in the block (yielded by kernel): the shapes
-    and data the main path gives them."""
-    from demf_tpu_torch.ops import nms_rotated, sparse
+    tables), K16, K17 (forward and backward), K15 and K18 launch in the
+    block (yielded by kernel): the shapes and data the main path gives
+    them."""
+    from demf_tpu_torch.ops import nms_rotated, sparse, vote_slots
     calls = {'kernel_map': [], 'sparse_conv': [], 'nms3d_rotated': [],
-             'sparse_conv_backward': [], 'sparse_conv_dweights': []}
+             'sparse_conv_backward': [], 'sparse_conv_dweights': [],
+             'sparse_max_pool': [], 'sparse_max_pool_backward': [],
+             'vote_slots': []}
 
     def recorder(module, name, key):
         fn = getattr(module, name)
@@ -3729,8 +3827,12 @@ def recorded_calls():
                           'sparse_conv_backward'),
                  recorder(sparse, 'sparse_conv_dweights_cuda',
                           'sparse_conv_dweights'),
+                 recorder(sparse, 'sparse_max_pool_cuda', 'sparse_max_pool'),
+                 recorder(sparse, 'sparse_max_pool_backward_cuda',
+                          'sparse_max_pool_backward'),
                  recorder(nms_rotated, 'rotated_nms_classwise_cuda',
-                          'nms3d_rotated')):
+                          'nms3d_rotated'),
+                 recorder(vote_slots, 'vote_slots_cuda', 'vote_slots')):
         yield calls
 
 
@@ -4301,7 +4403,8 @@ FCAF3D_TINY_CFGS = (os.path.join('configs', 'synthetic', 'fcaf3d_tiny.py'),
                     os.path.join('configs', 'synthetic',
                                  'demf_fcaf3d_tiny.py'))
 TINY_TRAIN_STEP = dict(kernel_map=11, sparse_conv=31, sparse_conv_backward=30,
-                       sparse_conv_plan=28, sparse_conv_dweights=31)
+                       sparse_conv_plan=28, sparse_conv_dweights=31,
+                       sparse_max_pool=1, sparse_max_pool_backward=1)
 LAUNCHES_TINY_TRAIN_ENTRY = (
     launch_counts(**{k: 2 * v for k, v in TINY_TRAIN_STEP.items()}),
     launch_counts(msda=3, msda_backward=2,
@@ -4334,6 +4437,7 @@ TRAIN_MARKERS = {'K13': ('kernel_map_kernel',),
                  'K14': ('sparse_conv_tiles', 'sparse_conv_sum_parts',
                          'sparse_conv_plan'),
                  'K16': ('dweights_tiles', 'dweights_sum'),
+                 'K17': ('pool_forward_kernel', 'pool_backward_kernel'),
                  'K3-K4': ('msda_',)}
 
 
@@ -4408,6 +4512,101 @@ def check_sparse_dweights(calls, dtype=torch.float32):
           f'{least:.6f} ms ({by}; {flops / 1e9 / max(ms, 1e-9):.1f} TFLOP/s)',
           flush=True)
     return kernel_row(worst, ms, plain_ms, least, by, lib_ms)
+
+
+def planted(feats):
+    """The rows with NaN, inf and -inf planted in some channels and signed
+    zeros in others (an output with a NaN or +-inf tap is 0, ties of +0
+    and -0 are ties)."""
+    x = feats.clone()
+    x[:, 10::97, 0] = float('nan')
+    x[:, 11::89, 1] = float('inf')
+    x[:, 12::83, 2] = float('-inf')
+    x[:, 13::7, 3] = -0.0
+    x[:, 14::7, 3] = 0.0
+    return x
+
+
+def check_sparse_max_pool(calls, backward_calls, dtype):
+    """K17 on a train step's own calls (the stem pool's rows, table and
+    out_valid; in the backward its output gradient and tie mask; in bf16
+    the bf16 step's), forward and backward: the output and the tie mask
+    equal to ``sparse_max_pool_mask_plain`` and to the chain on the card,
+    d_in to ``sparse_max_pool_backward_plain`` and to the chain's
+    autograd, bit for bit; then the same on the rows with NaN, inf, -inf
+    and signed zeros planted.  Each direction timed beside the chain
+    (forward; its autograd backward), a gather to (B, M_out, K, C) and
+    ``torch.amax`` (its autograd backward: a yardstick of time, whose ties
+    split evenly) and its bound, the function's bytes of ``pool_bytes`` (the
+    tie mask's printed apart).  Returns the
+    (forward, backward) rows."""
+    from demf_tpu_torch.ops import sparse
+    from demf_tpu_torch.tools import bound_ms, same_bits, time_ms
+    from demf_tpu_torch.tools.sparse_cases import gather_amax, pool_bytes
+    if len(calls) != 1 or len(backward_calls) != 1:
+        raise AssertionError(f'K17: {len(calls)} forward and '
+                             f'{len(backward_calls)} backward calls a step')
+    feats, nbr, ov, _ = calls[0]
+    grad, _, step_mask, m_in = backward_calls[0]
+    feats = feats.detach()
+    if feats.dtype != dtype or grad.dtype != dtype:
+        raise AssertionError(f'K17 {dtype}: a call of {feats.dtype}')
+    worst = {}
+    for label, x in (('the step\'s rows', feats), ('planted', planted(feats))):
+        out, mask = sparse.sparse_max_pool_cuda(x, nbr, ov)
+        want, want_mask = sparse.sparse_max_pool_mask_plain(x, nbr, ov)
+        xa = x.clone().requires_grad_()
+        chain = sparse.sparse_max_pool_plain(xa, nbr, ov)
+        d = sparse.sparse_max_pool_backward_cuda(grad, nbr, mask, m_in)
+        dx, = torch.autograd.grad(chain, xa, grad)
+        ok = (same_bits(out, want) and torch.equal(mask, want_mask) and
+              same_bits(out, chain.detach()) and same_bits(d, dx) and
+              same_bits(d, sparse.sparse_max_pool_backward_plain(
+                  grad, nbr, mask, m_in)))
+        if x is feats:
+            ok = ok and torch.equal(mask, step_mask)
+        bits = mask.int()
+        tied = int(((bits & (bits - 1)) > 0).sum())
+        worst[label] = max((out.float() - chain.detach().float()).abs().max()
+                           .item(), (d.float() - dx.float()).abs().max()
+                           .item())
+        print(f'K17 {str(dtype)[6:]} on {label}: {tuple(x.shape)} -> '
+              f'{tuple(out.shape)} over {int((nbr >= 0).sum())} taps, '
+              f'{tied} (row, channel) ties, {int((out == 0).sum())} zero '
+              f'outputs; output, tie mask and d_in the plain versions\' '
+              f'bits and the chain\'s: {ok}', flush=True)
+        if not ok:
+            raise AssertionError(f'K17 {dtype} differs from the chain on '
+                                 f'{label}')
+    xa = feats.clone().requires_grad_()
+    chain = sparse.sparse_max_pool_plain(xa, nbr, ov)
+    _, mask = sparse.sparse_max_pool_cuda(feats, nbr, ov)
+    ms = time_ms(lambda: sparse.sparse_max_pool_cuda(feats, nbr, ov), 20)
+    plain_ms = time_ms(lambda: sparse.sparse_max_pool_plain(feats, nbr, ov),
+                       5)
+    lib_ms = time_ms(gather_amax(feats, nbr), 10)
+    b_ms = time_ms(lambda: sparse.sparse_max_pool_backward_cuda(
+        grad, nbr, mask, m_in), 20)
+    b_plain_ms = time_ms(lambda: torch.autograd.grad(
+        chain, xa, grad, retain_graph=True), 5)
+    b_lib_ms = time_ms(gather_amax(feats, nbr, grad), 10)
+    taps = float((nbr >= 0).sum()) * feats.shape[2]
+    need, mask_bytes = pool_bytes(feats, nbr, ov)
+    b_need, _ = pool_bytes(feats, nbr, ov, backward=True)
+    least, by = bound_ms(taps, need)
+    b_least, b_by = bound_ms(taps, b_need)
+    mask_ms = bound_ms(0.0, mask_bytes)[0]
+    print(f'K17 {str(dtype)[6:]}: forward {ms:.4f} ms (the chain '
+          f'{plain_ms:.4f}, gather + amax {lib_ms:.4f}, bound {least:.6f} '
+          f'ms by {by}, {need} bytes: {least / ms:.1%}); backward '
+          f'{b_ms:.4f} ms (the chain\'s autograd {b_plain_ms:.4f}, gather + '
+          f'amax\'s autograd {b_lib_ms:.4f}, bound {b_least:.6f} ms by '
+          f'{b_by}, {b_need} bytes: {b_least / b_ms:.1%}); the tie mask, '
+          f'{mask_bytes} bytes each way, {mask_ms:.6f} ms more', flush=True)
+    return (kernel_row(worst['the step\'s rows'], ms, plain_ms, least, by,
+                       lib_ms),
+            kernel_row(worst['the step\'s rows'], b_ms, b_plain_ms, b_least,
+                       b_by, b_lib_ms))
 
 
 def fcaf3d_train_batch(maker, **kw):
@@ -4681,9 +4880,10 @@ def demf_fcaf3d_trainer(dev, seed=0, bf16=False):
 
 def run_fcaf3d_train_path(dev, kernels):
     """FCAF3D trained at full width (``fcaf3d_trainer``): the first step
-    against the plain path, K16 and K14 on reverse tables checked on that
-    step's own calls, then 3 steps; then the same under the bf16 policy
-    (``run_train_bf16``), whose first step's calls hold the bf16 entries.
+    against the plain path, K16, K14 on reverse tables and K17 (forward and
+    backward) checked on that step's own calls, then 3 steps; then the same
+    under the bf16 policy (``run_train_bf16``), whose first step's calls
+    hold the bf16 entries.
     Returns (the kernel rows, the launches by path)."""
     t0 = time.perf_counter()
     model, _, step, batch = fcaf3d_trainer(dev)
@@ -4698,6 +4898,10 @@ def run_fcaf3d_train_path(dev, kernels):
         'sparse_conv_backward': check_sparse_conv(
             calls['sparse_conv_backward'], torch.float32,
             'a train step\'s backward (reverse tables)')}
+    measured['sparse_max_pool'], measured['sparse_max_pool_backward'] = \
+        check_sparse_max_pool(calls['sparse_max_pool'],
+                              calls['sparse_max_pool_backward'],
+                              torch.float32)
     del calls
     torch.cuda.empty_cache()
     launched, first, _ = run_train_steps(step, batch, kernels,
@@ -4715,6 +4919,10 @@ def run_fcaf3d_train_path(dev, kernels):
     measured['sparse_conv_backward_bf16'] = check_sparse_conv(
         calls['sparse_conv_backward'], torch.bfloat16,
         'a bf16 train step\'s backward (reverse tables)')
+    (measured['sparse_max_pool_bf16'],
+     measured['sparse_max_pool_backward_bf16']) = check_sparse_max_pool(
+        calls['sparse_max_pool'], calls['sparse_max_pool_backward'],
+        torch.bfloat16)
     del calls
     torch.cuda.empty_cache()
     return measured, by_path
@@ -4809,11 +5017,23 @@ TWO_RANK_NOISE_FLOOR = 1e-4
 TWO_RANK_STAT_BOUND = 1e-4
 TWO_RANK_NOISE = 10.0
 # the fused eval: folding BatchNorm into the convs moves the predictions by
-# float32 rounding only, so each scene keeps as many detections (within 1%,
-# a tie at the NMS threshold may go the other way) and its 10 best scores
-# within 1e-4, as the dataset path holds a scene alone to its batch
-FUSED_COUNT_BOUND = 0.01
-FUSED_SCORE_BOUND = 1e-4
+# float32 rounding, and a rounding can turn a decision the model takes on
+# its outputs (a point at a ball query's radius, a score at score_thr, an
+# IoU at the NMS threshold, the order of two scores), which then moves a
+# proposal or a chain of detections.  A checkpoint two steps from random
+# weights has many of them near their thresholds: of nine such checkpoints
+# on an H100, two had 8.1% and 12.1% of their detections moved, and 9.4% of
+# the values of one output of the forward (the second ensemble layer's).
+# So the check counts what agrees: each floating output of the forward on
+# the first val batch, value by value, against the unfused model's (a share
+# FUSED_AGREE_SHARE within FUSED_BOUND, taken as |a - b| <= FUSED_BOUND *
+# (1 + |b|)), and the two evals' detections matched across them (the same
+# scene and label, score and box within FUSED_BOUND; a share
+# FUSED_MATCH_SHARE of each side's).  A pair folded wrongly moves nearly
+# every value of each output downstream of it, and most detections.
+FUSED_BOUND = 1e-4
+FUSED_AGREE_SHARE = 0.5
+FUSED_MATCH_SHARE = 0.5
 # the flip aug-test: twice a request's launches and the merge's one K8
 AUG_NMS_THR = 0.25
 LAUNCHES_AUG_TEST = {n: 2 * c + (n == 'nms3d')
@@ -4989,13 +5209,86 @@ def run_two_rank_step(kernels, device='cuda'):
             for n in KERNEL_NAMES}
 
 
+def floating_leaves(tree, name='out'):
+    """The floating tensors of a nested dict / list / tuple, in order, as
+    (path, tensor)."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in floating_leaves(v, f'{name}.{k}')]
+    if isinstance(tree, (list, tuple)):
+        return [t for k, v in enumerate(tree)
+                for t in floating_leaves(v, f'{name}[{k}]')]
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return [(name, tree)]
+    return []
+
+
+def fused_forward_agreement(cfg, ckpt, val_set, batch):
+    """The checkpoint's model and a copy folded by ``fuse_conv_bn`` on the
+    eval entry's first val batch (its draws): -> (the least share, over the
+    forward's floating outputs, of elements within ``FUSED_BOUND`` of the
+    unfused ones, that output's path, the count of outputs and of
+    elements, the largest and the median difference)."""
+    from demf_tpu_torch import zoo
+    from demf_tpu_torch.data.loader import collate_fixed
+    from demf_tpu_torch.engine import batch_to_device, load_checkpoint
+    from demf_tpu_torch.engine.fuse_bn import fuse_conv_bn
+    model = zoo.build_detector(cfg.model, seed=0)
+    load_checkpoint(ckpt, model)
+    fused = copy.deepcopy(model)
+    fuse_conv_bn(fused)
+    np.random.seed(7)
+    inputs = batch_to_device(collate_fixed(
+        [val_set[i] for i in range(batch)], max_gt=cfg.get('max_gt', 64)),
+        next(model.parameters()).device)
+    with torch.inference_mode():
+        want = floating_leaves(model(inputs))
+        got = floating_leaves(fused(inputs))
+    shares, errs = [], []
+    for (name, w), (_, g) in zip(want, got):
+        w, g = w.float().flatten(), g.float().flatten()
+        err = ((g - w).abs() / (1 + w.abs())).nan_to_num(
+            posinf=float('inf'))
+        err = torch.where((g == w) | (g.isnan() & w.isnan()),
+                          torch.zeros_like(err), err)
+        shares.append(((err <= FUSED_BOUND).float().mean().item(), name))
+        errs.append(err)
+    errs = torch.cat(errs)
+    least, name = min(shares)
+    return (least, name, len(shares), errs.numel(), errs.max().item(),
+            errs.median().item())
+
+
+def matched_detections(a, b):
+    """-> (how many of the results ``a``'s detections have a match in
+    ``b``'s, how many of ``b``'s have one in ``a``'s): the same scene and
+    label, the score and each box term within ``FUSED_BOUND``."""
+    hits = [0, 0]
+    for x, y in zip(a, b):
+        for label in np.union1d(x['labels_3d'], y['labels_3d']):
+            i = x['labels_3d'] == label
+            j = y['labels_3d'] == label
+            sx = np.concatenate([x['scores_3d'][i, None],
+                                 x['boxes_3d'][i]], 1)
+            sy = np.concatenate([y['scores_3d'][j, None],
+                                 y['boxes_3d'][j]], 1)
+            close = (np.abs(sx[:, None] - sy[None]) <=
+                     FUSED_BOUND * (1 + np.abs(sy[None]))).all(-1)
+            hits[0] += int(close.any(1).sum())
+            hits[1] += int(close.any(0).sum())
+    return hits
+
+
 def check_fused_eval(eval_entry, cfg_file, ckpt, unfused, work_dir,
                      kernels):
     """The eval entry with ``--fuse-conv-bn --show-dir`` on the dataset
-    path's checkpoint and the same draws as its unfused eval: each scene's
-    detections held to the unfused ones (``FUSED_COUNT_BOUND``,
-    ``FUSED_SCORE_BOUND``) and three ``.obj`` files a scene written.
+    path's checkpoint and the same draws as its unfused eval: its
+    detections matched to the unfused ones (``FUSED_MATCH_SHARE``), the
+    folded model's forward held to the unfused one on the first val batch
+    (``FUSED_AGREE_SHARE``), and three ``.obj`` files a scene written.
     Returns its launches."""
+    from demf_tpu_torch.data import build_dataset
+    from demf_tpu_torch.utils.config import Config
     show = os.path.join(work_dir, 'show')
     out_file = os.path.join(work_dir, 'fused.pkl')
     np.random.seed(7)
@@ -5010,32 +5303,34 @@ def check_fused_eval(eval_entry, cfg_file, ckpt, unfused, work_dir,
     if not fused_line or len(fused) != len(unfused):
         raise AssertionError(f'fused eval: {fused_line}, {len(fused)} '
                              f'results')
-    worst = 0.0
-    top = slice(0, 10)
-    for k, (got, want) in enumerate(zip(fused, unfused)):
-        n = len(want['scores_3d'])
-        if abs(len(got['scores_3d']) - n) > FUSED_COUNT_BOUND * max(n, 1):
-            raise AssertionError(f'fused eval: scene {k} keeps '
-                                 f'{len(got["scores_3d"])} of {n}')
-        a = np.sort(got['scores_3d'])[::-1][top]
-        b = np.sort(want['scores_3d'])[::-1][top]
-        err = float(np.abs(a - b).max()) if len(a) == len(b) and len(a) \
-            else 0.0
-        worst = max(worst, err)
-    if worst > FUSED_SCORE_BOUND:
-        raise AssertionError(f'fused eval: best scores off by {worst}')
+    counts = [sum(len(r['scores_3d']) for r in rs) for rs in (fused, unfused)]
+    hits = matched_detections(fused, unfused)
+    shares = [h / n if n else 1.0 for h, n in zip(hits, counts)]
+    moved = sum(len(g['scores_3d']) != len(w['scores_3d'])
+                for g, w in zip(fused, unfused))
+    cfg = Config.fromfile(cfg_file)
+    agree, least, n_out, n_el, worst, median = fused_forward_agreement(
+        cfg, ckpt, build_dataset(cfg.data['test']),
+        cfg.data['samples_per_gpu'])
     objs = sorted(os.listdir(show))
+    print(f'fused eval: eval entry --fuse-conv-bn --show-dir, '
+          f'{fused_line[0]}, {seconds:.3f} s in all; {counts[0]} detections '
+          f'against {counts[1]} unfused ({moved} of {len(fused)} scenes '
+          f'with another count), {hits[0]} and {hits[1]} matched '
+          f'({shares[0]:.4%} and {shares[1]:.4%}, bound '
+          f'{FUSED_MATCH_SHARE:.0%}); the folded forward on the first val '
+          f'batch: of each of its {n_out} outputs ({n_el} values) at least '
+          f'{agree:.4%} within {FUSED_BOUND} of the unfused ({least}; bound '
+          f'{FUSED_AGREE_SHARE:.0%}), largest difference {worst:.3e}, median '
+          f'{median:.3e}; {len(objs)} .obj files ('
+          f'{sum(os.path.getsize(os.path.join(show, f)) for f in objs) / 2**20:.1f}'
+          f' MiB); launches {launches}', flush=True)
+    if min(shares) < FUSED_MATCH_SHARE or agree < FUSED_AGREE_SHARE:
+        raise AssertionError('fused eval: the folded model disagrees')
     if len(objs) != 3 * len(unfused) or not all(
             os.path.getsize(os.path.join(show, f)) for f in objs
             if not f.endswith('_pred.obj')):
         raise AssertionError(f'fused eval: {len(objs)} .obj files')
-    print(f'fused eval: eval entry --fuse-conv-bn --show-dir, '
-          f'{fused_line[0]}, {seconds:.3f} s in all; {len(fused)} scenes '
-          f'each within {FUSED_COUNT_BOUND:.0%} of the unfused count, the '
-          f'10 best scores within {worst:.2e} (bound {FUSED_SCORE_BOUND}); '
-          f'{len(objs)} .obj files ('
-          f'{sum(os.path.getsize(os.path.join(show, f)) for f in objs) / 2**20:.1f}'
-          f' MiB); launches {launches}', flush=True)
     return launches
 
 
@@ -5195,7 +5490,8 @@ def main():
     del model
     torch.cuda.empty_cache()
     check_train_reference(dev)
-    launches, first_step = run_training_path(dev, kernels)
+    launches, first_step, measured['vote_slots'] = run_training_path(
+        dev, kernels)
     by_path = {'training': dict(launches), 'probes': probe_launches,
                'serving_bf16': serving_bf16, 'aug_test': aug_launches}
     by_path['launcher_step'] = run_launcher_path(kernels)
@@ -5248,10 +5544,12 @@ def main():
     measured.update(train_rows)
     by_path.update(train)
     by_path.update(run_demf_fcaf3d_train_path(dev, kernels))
-    # K14 on reverse tables and K16: launches of a FCAF3D train step, rows
-    # from that step's own calls (bf16: the bf16 step's); K14's row carries
-    # them as its backward
-    for n in ('sparse_conv_backward', 'sparse_conv_dweights'):
+    # K14 on reverse tables, K16 and K17 (forward and backward): launches
+    # of a FCAF3D train step, rows from that step's own calls (bf16: the
+    # bf16 step's); K14's row carries them as its backward.  K18's launches
+    # and row are the DeMF-VoteNet training path's
+    for n in ('sparse_conv_backward', 'sparse_conv_dweights',
+              'sparse_max_pool', 'sparse_max_pool_backward'):
         launches[n] = by_path['fcaf3d_train'][n]
         launches[f'{n}_bf16'] = by_path['fcaf3d_train_bf16'][f'{n}_bf16']
     measured['sparse_conv']['backward_launches'] = \

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core import boxes as box_ops
+from ..ops.vote_slots import vote_slots
 from ..parallel import global_sum
 
 
@@ -32,28 +33,16 @@ def _take(x, idx):
 
 def _vote_targets(points_xyz, gt_boxes, gt_valid, gt_per_seed):
     """points_xyz (B, P, 3), gt (B, G, 7) / (B, G) -> vote_targets
-    (B, P, 3 * gt_per_seed), vote_target_masks (B, P) int."""
-    in_box = box_ops.points_in_boxes(points_xyz, gt_boxes) & \
-        gt_valid[:, None, :]
-    hits = in_box.long()
+    (B, P, 3 * gt_per_seed), vote_target_masks (B, P) int.  The boxes that
+    hold each point come from ``ops/vote_slots.py::vote_slots`` (kernel K18
+    on the card); unfilled slots repeat the first vote."""
+    slots, has = vote_slots(points_xyz, gt_boxes, gt_valid, gt_per_seed)
+    b, p, s = slots.shape
     centers = box_ops.gravity_center(gt_boxes)              # (B, G, 3)
-    g = in_box.shape[-1]
-    cnt_excl = hits.cumsum(-1) - hits                       # earlier hits
-    has1 = in_box.any(-1)
-    v_first = _take(centers, hits.argmax(-1)) - points_xyz
-    slots = [v_first]
-    for k in range(1, gt_per_seed):
-        if k < gt_per_seed - 1:
-            mk = in_box & (cnt_excl == k)
-            idxk = mk.long().argmax(-1)
-        else:
-            # last slot: the LAST box with >= k earlier hits (overwrite rule)
-            mk = in_box & (cnt_excl >= k)
-            idxk = (g - 1) - mk.flip(-1).long().argmax(-1)
-        vk = _take(centers, idxk) - points_xyz
-        slots.append(torch.where(mk.any(-1)[..., None], vk, v_first))
-    vote_targets = torch.cat(slots, -1) * has1[..., None]
-    return vote_targets, has1.int()
+    votes = _take(centers, slots.reshape(b, p * s).long()).view(
+        b, p, s, 3) - points_xyz[:, :, None]
+    votes = torch.where(has[..., None], votes, votes[:, :, :1])
+    return votes.reshape(b, p, 3 * s) * has[..., :1], has[..., 0].int()
 
 
 def _assign(gt_boxes, gt_labels, gt_valid, aggregated_points, coder, pos_thr,

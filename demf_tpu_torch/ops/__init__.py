@@ -2,8 +2,9 @@
 backward), the aligned 3D NMS, the count of points in rotated boxes, the
 batched 2D NMS, the pyramid RoIAlign (forward and backward), and the
 FCAF3D family's sparse-convolution kernel map, gather-GEMM (forward, and
-on reverse tables the backward's d_feats) and weight gradient and its
-class-wise rotated 3D NMS each have a CUDA kernel
+on reverse tables the backward's d_feats), weight gradient and max pool
+(forward and backward), its class-wise rotated 3D NMS and the vote
+targets' in-box slots each have a CUDA kernel
 (``csrc/``) beside a plain PyTorch version; a CPU tensor takes the plain
 version and a CUDA tensor the kernel.  So do the
 row gather, the slot fold and the M-form sampler of the quad-plane MSDA
@@ -30,7 +31,11 @@ from .sampling import FPS_KERNEL, furthest_point_sample
 from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BACKWARD_BF16_KERNEL,
                      SPARSE_CONV_BACKWARD_KERNEL, SPARSE_CONV_BF16_KERNEL,
                      SPARSE_CONV_KERNEL, SPARSE_CONV_PLAN_KERNEL,
-                     SPARSE_DWEIGHTS_BF16_KERNEL, SPARSE_DWEIGHTS_KERNEL)
+                     SPARSE_DWEIGHTS_BF16_KERNEL, SPARSE_DWEIGHTS_KERNEL,
+                     SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL,
+                     SPARSE_MAX_POOL_BACKWARD_KERNEL,
+                     SPARSE_MAX_POOL_BF16_KERNEL, SPARSE_MAX_POOL_KERNEL)
+from .vote_slots import VOTE_SLOTS_KERNEL
 
 __all__ = [
     'aligned_3d_nms', 'ball_query', 'batched_nms_2d', 'box_point_count',
@@ -50,8 +55,10 @@ def kernels():
     bfloat16 rows, each with its own count, the row plan of its tables,
     its launches on reverse tables for the backward's d_feats, counted
     apart, and its weight gradient K16, on float32 and on bfloat16 rows,
-    each with its own count) and the class-wise rotated NMS of
-    the FCAF3D family; MSDA
+    each with its own count), the max pool (forward and backward, on
+    float32 and on bfloat16 rows, each with its own count) and the
+    class-wise rotated NMS of the FCAF3D family; the vote targets' in-box
+    slots of the vote heads' losses; MSDA
     forward and backward on a float32 and on a bfloat16 value, and the
     RoIAlign on float32 and on bfloat16 levels, each with its own count)
     and the probes'."""
@@ -74,4 +81,10 @@ def kernels():
             'sparse_conv_backward_bf16': SPARSE_CONV_BACKWARD_BF16_KERNEL,
             'sparse_conv_dweights': SPARSE_DWEIGHTS_KERNEL,
             'sparse_conv_dweights_bf16': SPARSE_DWEIGHTS_BF16_KERNEL,
-            'nms3d_rotated': NMS3D_ROTATED_KERNEL}
+            'nms3d_rotated': NMS3D_ROTATED_KERNEL,
+            'sparse_max_pool': SPARSE_MAX_POOL_KERNEL,
+            'sparse_max_pool_bf16': SPARSE_MAX_POOL_BF16_KERNEL,
+            'sparse_max_pool_backward': SPARSE_MAX_POOL_BACKWARD_KERNEL,
+            'sparse_max_pool_backward_bf16':
+                SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL,
+            'vote_slots': VOTE_SLOTS_KERNEL}

@@ -1,6 +1,7 @@
 """Sparse 3D convolution on fixed-capacity voxel tables: the kernel map
-(CUDA kernel K13), the gather-GEMM convolution (CUDA kernel K14) and their
-plain versions, with the voxelization, stride and pooling around them.
+(CUDA kernel K13), the gather-GEMM convolution (CUDA kernel K14), the max
+pool (CUDA kernel K17) and their plain versions, with the voxelization and
+stride around them.
 
 Port of ``demf_tpu/ops/sparse.py``, forward only, under the JAX package's
 names.  A scene's voxels live in a table of static capacity M: ``coords``
@@ -48,6 +49,16 @@ keys as they stand (``key_table_presorted``).
   table; a transposed conv's reverse, the strided conv's table between the
   same two levels, is that table with the plan its forward made
   (``Reverse.of``).
+* ``sparse_max_pool_batched``: the max over each output voxel's taps, as
+  the chain of ``torch.maximum`` over the taps in table order
+  (``sparse_max_pool_plain``, the CPU's path).  A CUDA tensor takes the
+  autograd Function ``SparseMaxPool``: K17 (``csrc/sparse_pool.cu``,
+  float32 or bfloat16 rows, an entry a dtype and direction, each with its
+  own count) writes the output and a tie mask, and its backward halves a
+  tie's gradient as the chain's autograd does, each input row written once
+  (kernel == stride: one parent a row); both equal the chain bit for bit
+  (``sparse_max_pool_mask_plain``, ``sparse_max_pool_backward_plain``: its
+  order in plain torch).
 
 Tap order.  ``kernel_offsets(k)`` enumerates taps with the last axis
 fastest, as the JAX package does; ``kernel_offsets(k, me_order=True)``
@@ -65,7 +76,7 @@ from typing import NamedTuple
 
 import torch
 
-from ._cuda import SM_COUNT, CudaKernel, check_cuda
+from ._cuda import DTYPE_CODES, SM_COUNT, CudaKernel, check_cuda
 
 _SPAN = 1290                       # per-axis key span; _SPAN**3 < 2**31
 _SHIFT = 16                        # headroom for negative tap queries
@@ -106,6 +117,22 @@ SPARSE_DWEIGHTS_BF16_KERNEL = CudaKernel(
 # K14's row plan: nbr, mask, order, tile taps; B, M, K
 SPARSE_CONV_PLAN_KERNEL = CudaKernel(
     'demf_sparse_conv_plan', [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
+# K17, the max pool: rows, nbr, out_valid, out, tie mask (None in
+# inference); B, M_in, M_out, C, K (an entry a dtype)
+SPARSE_MAX_POOL_KERNEL = CudaKernel(
+    'demf_sparse_max_pool', [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+SPARSE_MAX_POOL_BF16_KERNEL = CudaKernel('demf_sparse_max_pool_bf16',
+                                         SPARSE_MAX_POOL_KERNEL.argtypes)
+# K17's backward: output gradient, nbr, tie mask, d_in; B, M_in, M_out, C,
+# K (an entry a dtype)
+SPARSE_MAX_POOL_BACKWARD_KERNEL = CudaKernel(
+    'demf_sparse_max_pool_backward',
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL = CudaKernel(
+    'demf_sparse_max_pool_backward_bf16',
+    SPARSE_MAX_POOL_BACKWARD_KERNEL.argtypes)
+# the taps K17 takes (a bit each in its tie mask)
+MAX_POOL_TAPS = 8
 
 
 def linearize(coords):
@@ -958,25 +985,171 @@ def sparse_max_pool_batched(coords, valid, feats, stride=2, kernel_size=2,
                             max_out=None, tensor_stride=1,
                             sorted_input=False):
     """MinkowskiMaxPooling(kernel=k, stride=s): the max over each output
-    voxel's taps (0 where it has none)."""
+    voxel's taps (0 where it has none).  A CPU tensor takes the chain of
+    ``torch.maximum`` over the taps (``sparse_max_pool_plain``), as the JAX
+    package's scan; a CUDA tensor kernel K17 (``SparseMaxPool``), which
+    takes kernel == stride and at most ``MAX_POOL_TAPS`` taps and raises on
+    others."""
+    if feats.device.type != 'cpu' and (
+            kernel_size != stride or kernel_size ** 3 > MAX_POOL_TAPS):
+        raise ValueError(f'K17 pools with kernel == stride and at most '
+                         f'{MAX_POOL_TAPS} taps, not kernel {kernel_size} at '
+                         f'stride {stride}')
     max_out = max_out or coords.shape[1]
     oc, ov = downsample_coords(coords, valid, stride * tensor_stride,
                                max_out)
     nbr = kernel_tables([TableJob(coords, valid, oc, ov, kernel_size, False,
                                   tensor_stride)], sorted_input)[0]
+    return oc, ov, sparse_max_pool(feats, nbr, ov)
+
+
+def sparse_max_pool(feats, nbr, out_valid):
+    """The pool's output (B, M_out, C) from its table: the chain
+    (``sparse_max_pool_plain``) on a CPU tensor, K17 (``SparseMaxPool``)
+    on a CUDA tensor."""
+    if feats.device.type == 'cpu':
+        return sparse_max_pool_plain(feats, nbr, out_valid)
+    return SparseMaxPool.apply(feats, nbr, out_valid)
+
+
+def _chain_max(feats, nbr):
+    """(``torch.maximum`` over the taps in table order from -inf, (B,
+    M_out, C); each tap's rows, -inf where the tap is absent)."""
     b, m, c = feats.shape
     flat = feats.reshape(b * m, c)
     base = (torch.arange(b, device=feats.device) * m)[:, None]
-    out = torch.full((b, nbr.shape[1], c), float('-inf'), dtype=feats.dtype,
-                     device=feats.device)
+    out = feats.new_full((b, nbr.shape[1], c), float('-inf'))
+    taps = []
     for t in range(nbr.shape[2]):
         idx = nbr[..., t].long()
-        g = flat[(idx.clamp(min=0) + base).reshape(-1)].reshape(
-            b, -1, c)
-        out = torch.maximum(out, torch.where((idx >= 0)[..., None], g,
-                                             float('-inf')))
+        g = flat[(idx.clamp(min=0) + base).reshape(-1)].reshape(b, -1, c)
+        taps.append(torch.where((idx >= 0)[..., None], g, float('-inf')))
+        out = torch.maximum(out, taps[-1])
+    return out, taps
+
+
+def sparse_max_pool_plain(feats, nbr, out_valid):
+    """The pool's output (B, M_out, C) from its table, as the JAX package
+    takes it: ``torch.maximum`` over the taps in table order from -inf, a
+    non-finite result and an invalid row 0.  Its autograd is the rule K17's
+    backward follows."""
+    out = _chain_max(feats, nbr)[0]
     out = torch.where(torch.isfinite(out), out, 0)
-    return oc, ov, torch.where(ov[..., None], out, 0)
+    return torch.where(out_valid[..., None], out, 0)
+
+
+def sparse_max_pool_mask_plain(feats, nbr, out_valid):
+    """K17's forward in plain torch: (the output, as ``sparse_max_pool_
+    plain``'s; the tie mask (B, M_out, C) uint8, bit t set where tap t is
+    valid and equal to the output, the output finite and its row valid)."""
+    with torch.no_grad():
+        acc, taps = _chain_max(feats, nbr)
+        keep = torch.isfinite(acc) & out_valid[..., None]
+        mask = torch.zeros(acc.shape, dtype=torch.int32, device=acc.device)
+        for t, g in enumerate(taps):
+            mask |= (keep & (g == acc) & (nbr[..., t:t + 1] >= 0)).int() << t
+        return torch.where(keep, acc, 0), mask.to(torch.uint8)
+
+
+def sparse_max_pool_backward_plain(grad, nbr, mask, m_in):
+    """K17's backward in plain torch, in its order: walking the taps from
+    the last, a tap of the tie mask takes the running gradient halved (and
+    halves it), the mask's lowest tap what is left, every other tap 0;
+    each share written once as 0 + share into a zeroed (B, M_in, C), as
+    the accumulating ``index_put_`` of the chain's autograd writes it.
+    Needs one reader an input row (kernel == stride)."""
+    b, m_out, c = grad.shape
+    bits = mask.int()
+    low = bits & -bits
+    run = grad
+    d_in = grad.new_zeros((b * m_in, c))
+    base = (torch.arange(b, device=grad.device) * m_in)[:, None]
+    for t in reversed(range(nbr.shape[2])):
+        mine = (bits >> t) & 1 == 1
+        run = torch.where(mine & (low != 1 << t), run / 2, run)
+        idx = nbr[..., t].long()
+        read = idx >= 0
+        share = torch.where(mine, run, 0)
+        d_in[(idx + base)[read]] = share[read] + 0.0
+    return d_in.reshape(b, m_in, c)
+
+
+def sparse_max_pool_cuda(feats, nbr, out_valid, with_mask=True):
+    """Kernel K17's forward (csrc/sparse_pool.cu), one launch: float32 or
+    bf16 rows (B, M_in, C), an int32 table (B, M_out, K <= 8) and bool
+    out_valid (B, M_out), contiguous on the card -> (output, tie mask or
+    None without ``with_mask``)."""
+    if feats.dtype not in DTYPE_CODES:
+        raise TypeError(f'K17 takes float32 or bfloat16 rows, not '
+                        f'{feats.dtype}')
+    check_cuda('feats', feats, feats.dtype, 3)
+    check_cuda('nbr', nbr, torch.int32, 3)
+    check_cuda('out_valid', out_valid, torch.bool, 2)
+    b, m_in, c = feats.shape
+    m_out, k = nbr.shape[1:]
+    if nbr.shape[0] != b or k > MAX_POOL_TAPS:
+        raise ValueError(f'K17 takes a (B, M_out, K <= {MAX_POOL_TAPS}) '
+                         f'table of rows (B, M_in, C), got '
+                         f'{tuple(nbr.shape)} and {tuple(feats.shape)}')
+    if out_valid.shape != (b, m_out):
+        raise ValueError(f'out_valid {tuple(out_valid.shape)} does not go '
+                         f'with the table {tuple(nbr.shape)}')
+    out = torch.empty((b, m_out, c), dtype=feats.dtype, device=feats.device)
+    mask = torch.empty((b, m_out, c), dtype=torch.uint8,
+                       device=feats.device) if with_mask else None
+    kernel = (SPARSE_MAX_POOL_KERNEL if feats.dtype == torch.float32 else
+              SPARSE_MAX_POOL_BF16_KERNEL)
+    kernel(feats.data_ptr(), nbr.data_ptr(), out_valid.data_ptr(),
+           out.data_ptr(), None if mask is None else mask.data_ptr(), b, m_in,
+           m_out, c, k)
+    return out, mask
+
+
+def sparse_max_pool_backward_cuda(grad, nbr, mask, m_in):
+    """Kernel K17's backward (csrc/sparse_pool.cu), one launch: the output
+    gradient (B, M_out, C) in the rows' type, the forward's table and tie
+    mask, contiguous on the card -> d_in (B, M_in, C).  The table must give
+    each input row one reader at most (kernel == stride)."""
+    if grad.dtype not in DTYPE_CODES:
+        raise TypeError(f'K17 takes float32 or bfloat16 gradients, not '
+                        f'{grad.dtype}')
+    check_cuda('grad', grad, grad.dtype, 3)
+    check_cuda('nbr', nbr, torch.int32, 3)
+    check_cuda('mask', mask, torch.uint8, 3)
+    b, m_out, c = grad.shape
+    if nbr.shape[:2] != (b, m_out) or mask.shape != grad.shape or \
+            nbr.shape[2] > MAX_POOL_TAPS:
+        raise ValueError(f'grad {tuple(grad.shape)}, table '
+                         f'{tuple(nbr.shape)} and mask {tuple(mask.shape)} '
+                         f'do not go together')
+    d_in = torch.empty((b, m_in, c), dtype=grad.dtype, device=grad.device)
+    kernel = (SPARSE_MAX_POOL_BACKWARD_KERNEL if grad.dtype == torch.float32
+              else SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL)
+    kernel(grad.data_ptr(), nbr.data_ptr(), mask.data_ptr(), d_in.data_ptr(),
+           b, m_in, m_out, c, nbr.shape[2])
+    return d_in
+
+
+class SparseMaxPool(torch.autograd.Function):
+    """The pool's output from its table and out_valid on the card: K17's
+    forward (it writes the tie mask when the rows take a gradient) and its
+    backward (it reads the mask).  Both equal the chain's output and its
+    autograd bit for bit, as their plain versions do
+    (``sparse_max_pool_mask_plain``, ``sparse_max_pool_backward_plain``)."""
+
+    @staticmethod
+    def forward(ctx, feats, nbr, out_valid):
+        out, mask = sparse_max_pool_cuda(feats.contiguous(), nbr, out_valid,
+                                         ctx.needs_input_grad[0])
+        ctx.save_for_backward(nbr, mask)
+        ctx.m_in = feats.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        nbr, mask = ctx.saved_tensors
+        return (sparse_max_pool_backward_cuda(grad.contiguous(), nbr, mask,
+                                              ctx.m_in), None, None)
 
 
 def parent_job(coords_fine, valid_fine, coords_coarse, valid_coarse,

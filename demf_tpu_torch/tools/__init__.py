@@ -122,25 +122,34 @@ def box_pairs_in_reach(points, boxes, eps=1e-6, chunk=1 << 22):
     return total
 
 
+# profiler windows ``device_kernels`` takes at most before it gives up
+PROFILE_WINDOWS = 3
+
+
 def device_kernels(fn, runs=4):
     """The kernels one call of ``fn`` launches on the card, by torch.profiler
     over ``runs`` calls after one unprofiled (a window of one call can lose
     its first kernel): {function name: (launches a call, device ms a
-    call)}."""
+    call)}.  A window in which the profiler recorded no kernel at all (seen
+    on the card in long runs) is taken again, up to ``PROFILE_WINDOWS`` in
+    all."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in events:
         name = re.findall(r'([A-Za-z_]\w*)(?:<[^()]*>)?\(', e.key)
         name = name[0] if name else e.key
         n, ms = out.get(name, (0.0, 0.0))
@@ -175,6 +184,15 @@ def max_err(got, want):
     want = want.float()
     return ((got.float() - want).abs().max().item(),
             1e-5 * want.abs().max().item())
+
+
+def same_bits(got, want):
+    """Two float tensors of one dtype and shape hold the same bits (a -0
+    and a +0 differ)."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        torch.equal(got.contiguous().view(ints[got.element_size()]),
+                    want.contiguous().view(ints[want.element_size()]))
 
 
 def encoder_sampling_locations(spatial_shapes, b, heads, points, device,

@@ -114,7 +114,19 @@ sizes, and K16 at grids of 2 to 32 blocks an SM: the numbers behind
 ``ops.mform.mform_launch_shape`` and ``ops.sparse.dweights_chunk``.  ``--only`` names the kernels to run
 (``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
 roi_align,roi_align_backward,sparse_conv,kernel_map,nms3d_rotated,
-sparse_dweights,sparse_conv_backward``).  Prints its lines, writes
+sparse_dweights,sparse_conv_backward,sparse_max_pool,vote_slots``).
+K17 (``sparse_max_pool``) runs on the stem pool's call of the same FCAF3D
+train step (its coordinates, validity and rows; the output gradient drawn
+from a seed), float32 and bf16 (the rows rounded): each side's
+``sparse_max_pool_batched`` (the parent's chain of gathers and
+``torch.maximum``, whose autograd accumulates with ``index_put_``; this
+tree's K17) forward alone and forward + backward in turns, each side's
+device ms by kernel, and both sides' outputs and gradients the same bits.
+K18 (``vote_slots``) runs on a stage-2 step's vote-target call (16 scenes
+of 20,000 points of ``zoo.synth_demf_batch``, 64 GT slots, 3 slots a
+point): each side's ``models/target_assign.py::_vote_targets`` in turns,
+the targets the same bits, each side's device ms by kernel.  Without
+``--parent`` their chain side is this tree's plain route.  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -136,7 +148,7 @@ from ..ops.gather_rows import gather_rows
 from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
                box_pairs_in_reach, call_bytes, cuda_device,
                decoder_sampling_locations, device_kernels,
-               encoder_sampling_locations, time_ms)
+               encoder_sampling_locations, same_bits, time_ms)
 from .nms_cases import box_count_case, nms2d_case
 from .roi_cases import (ROI_KINDS, ROI_STRIDES, SAMPLED_ROIS, k12_case,
                         roi_case)
@@ -180,7 +192,11 @@ MSDA_BACKWARD_CASES = tuple(
 KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
            'msda_fold', 'box_count', 'nms2d', 'roi_align',
            'roi_align_backward', 'sparse_conv', 'kernel_map', 'nms3d_rotated',
-           'sparse_dweights', 'sparse_conv_backward')
+           'sparse_dweights', 'sparse_conv_backward', 'sparse_max_pool',
+           'vote_slots')
+# K18: the vote targets' call of a stage-2 step (scenes, points, GT slots,
+# gt_per_seed)
+VOTE_SLOTS_CALL = (16, 20000, 64, 3)
 # the kernels whose comparison can time the parent alone (--parent-only)
 PARENT_ONLY = ('kernel_map', 'nms3d_rotated')
 # K9: (scenes, points, boxes) of a request and of an eval batch
@@ -1201,7 +1217,8 @@ def train_step_calls(dev):
     from seed 0, the GT boxes twice the size and 1.5 m down the x axis,
     where the voxels are kept): {'sparse_dweights': [(feats, nbr, g, plan),
     ...] (47), 'sparse_conv_backward': [(g, rev, weights_t, plan), ...]
-    (46)}."""
+    (46), 'sparse_max_pool': [((coords, valid, feats), kwargs)] (the
+    stem's pool, its rows detached)}."""
     from .. import zoo
     from ..engine import batch_to_device
     model, _, _ = zoo.build_trainer('fcaf3d/fcaf3d_sunrgbd.py', device=dev,
@@ -1210,15 +1227,20 @@ def train_step_calls(dev):
     batch['gt_bboxes_3d'][..., 3:6] *= 2
     batch['gt_bboxes_3d'][..., 0] -= 1.5
     batch = batch_to_device(batch, dev)
-    calls = {'sparse_dweights': [], 'sparse_conv_backward': []}
+    calls = {'sparse_dweights': [], 'sparse_conv_backward': [],
+             'sparse_max_pool': []}
     hooks = [(sparse, 'sparse_conv_dweights_cuda', 'sparse_dweights'),
-             (sparse, 'sparse_conv_backward_cuda', 'sparse_conv_backward')]
+             (sparse, 'sparse_conv_backward_cuda', 'sparse_conv_backward'),
+             (sparse, 'sparse_max_pool_batched', 'sparse_max_pool')]
     saved = [getattr(module, name) for module, name, _ in hooks]
 
     def recorder(fn, key):
-        def call(*args):
-            calls[key].append(args)
-            return fn(*args)
+        def call(*args, **kw):
+            if kw:
+                calls[key].append((tuple(a.detach() for a in args), kw))
+            else:
+                calls[key].append(args)
+            return fn(*args, **kw)
         return call
 
     for (module, name, key), fn in zip(hooks, saved):
@@ -1413,6 +1435,153 @@ def compare_sparse_conv_backward(old, dev, calls32):
     return rows
 
 
+def _device_split(fn):
+    """(device ms a call of ``fn``, [(kernel, launches, ms)] slowest
+    first)."""
+    found = device_kernels(fn, runs=3)
+    split = sorted(((k, n, ms) for k, (n, ms) in found.items()),
+                   key=lambda r: -r[2])
+    return sum(ms for _, _, ms in split), split
+
+
+def _plain_route(module, name, plain, fn):
+    """``fn`` run with ``module.name`` set to ``plain`` (this tree's plain
+    route, the chain side without a parent)."""
+    def call(*args, **kw):
+        kept = getattr(module, name)
+        setattr(module, name, plain)
+        try:
+            return fn(*args, **kw)
+        finally:
+            setattr(module, name, kept)
+    return call
+
+
+def compare_sparse_max_pool(old_pool, dev, calls):
+    """K17 on a FCAF3D train step's stem pool through both sides'
+    ``sparse_max_pool_batched`` (``old_pool`` the chain), float32 and bf16
+    (the rows rounded), the output gradient drawn from seed 0: outputs and
+    gradients the same bits; forward and forward + backward in turns; each
+    side's device ms by kernel; K17's two kernels beside their bounds."""
+    from . import bound_ms as bound
+    from .sparse_cases import pool_bytes
+    (coords, valid, feats32), kw = calls[0]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = feats32.to(dtype)
+        shape = sparse.sparse_max_pool_batched(coords, valid, feats,
+                                               **kw)[2].shape
+        g = torch.randn(shape, device=dev, generator=torch.Generator(
+            dev).manual_seed(0)).to(dtype)
+
+        def forward(fn):
+            return lambda: fn(coords, valid, feats, **kw)
+
+        def both(fn):
+            def run():
+                x = feats.detach().requires_grad_()
+                out = fn(coords, valid, x, **kw)[2]
+                return out, torch.autograd.grad(out, x, g)[0]
+            return run
+
+        got, want = both(sparse.sparse_max_pool_batched)(), both(old_pool)()
+        same = all(same_bits(a, b) for a, b in zip(got, want))
+        fwd_ms = in_turns(forward(old_pool),
+                          forward(sparse.sparse_max_pool_batched), 10)
+        both_ms = in_turns(both(old_pool),
+                           both(sparse.sparse_max_pool_batched), 5)
+        sides = (('chain', old_pool),
+                 ('this tree', sparse.sparse_max_pool_batched))
+        split = {name: _device_split(both(fn)) for name, fn in sides}
+        oc, ov = sparse.downsample_coords(coords, valid,
+                                          2 * kw['tensor_stride'],
+                                          kw['max_out'])
+        nbr = sparse.kernel_tables([sparse.TableJob(
+            coords, valid, oc, ov, 2, False, kw['tensor_stride'])], True)[0]
+        least = bound(0.0, pool_bytes(feats, nbr, ov)[0])[0]
+        b_least = bound(0.0, pool_bytes(feats, nbr, ov, backward=True)[0])[0]
+        k17 = sum(ms for k, _, ms in split['this tree'][1] if 'pool_' in k)
+        print(f'K17 sparse_max_pool {str(dtype)[6:]}, a train step\'s stem '
+              f'pool {tuple(feats.shape)} -> {tuple(shape)}: forward chain '
+              f'{fwd_ms[0]:.4f} / {fwd_ms[3]:.4f} ms, this tree '
+              f'{fwd_ms[1]:.4f} / {fwd_ms[2]:.4f}; forward + backward chain '
+              f'{both_ms[0]:.4f} / {both_ms[3]:.4f}, this tree '
+              f'{both_ms[1]:.4f} / {both_ms[2]:.4f}; device ms forward + '
+              f'backward: chain {split["chain"][0]:.4f}, this tree '
+              f'{split["this tree"][0]:.4f} (K17\'s kernels {k17:.4f}, '
+              f'bound {least + b_least:.6f}); outputs and gradients the same '
+              f'bits: {same}', flush=True)
+        for name, (_, found) in split.items():
+            print(f'  {name}, device ms by kernel: ' + ', '.join(
+                f'{k} x{n:g} {ms:.4f}' for k, n, ms in found[:8]),
+                flush=True)
+        if not same:
+            raise AssertionError('K17 differs from the chain')
+        rows.append(dict(kernel='sparse_max_pool', dtype=str(dtype)[6:],
+                         parent_ms=[fwd_ms[0], fwd_ms[3]],
+                         ms=[fwd_ms[1], fwd_ms[2]],
+                         parent_ms_with_backward=[both_ms[0], both_ms[3]],
+                         ms_with_backward=[both_ms[1], both_ms[2]],
+                         device_ms={k: v[0] for k, v in split.items()},
+                         k17_device_ms=k17, bound_ms=[least, b_least]))
+    return rows
+
+
+def vote_slot_inputs(dev):
+    """The vote targets' call of a stage-2 step at ``VOTE_SLOTS_CALL``:
+    (points (B, P, 3) of a (B, P, 4) cloud, GT boxes, valid, gt_per_seed),
+    a scene without valid GT given its fake box as the heads give it."""
+    from .. import zoo
+    from ..engine import batch_to_device
+    b, p, g, per_seed = VOTE_SLOTS_CALL
+    batch = batch_to_device(zoo.synth_points_batch(b, p, g, seed=0), dev)
+    valid = batch['gt_valid'].bool()
+    first = torch.zeros_like(valid)
+    first[:, 0] = True
+    valid = torch.where(valid.any(1, keepdim=True), valid, first)
+    boxes = torch.where(valid[..., None], batch['gt_bboxes_3d'], 0.0)
+    return batch['points'][..., :3], boxes, valid, per_seed
+
+
+def compare_vote_slots(old_targets, dev):
+    """K18 through both sides' ``_vote_targets`` (``old_targets`` the
+    chain) on ``vote_slot_inputs``: the targets the same bits; in turns;
+    each side's device ms by kernel; K18's bound."""
+    from . import bound_ms as bound
+    from ..models import target_assign
+    from ..ops import vote_slots as vs
+    args = vote_slot_inputs(dev)
+    b, p, g, per_seed = VOTE_SLOTS_CALL
+    got = target_assign._vote_targets(*args)
+    want = old_targets(*args)
+    same = same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    ms = in_turns(lambda: old_targets(*args),
+                  lambda: target_assign._vote_targets(*args), 20)
+    slots_ms = [time_ms(lambda: vs.vote_slots_plain(*args), 10),
+                time_ms(lambda: vs.vote_slots_cuda(*args), 20)]
+    split = {name: _device_split(lambda fn=fn: fn(*args)) for name, fn in (
+        ('chain', old_targets), ('this tree', target_assign._vote_targets))}
+    nbytes = (12 * b * p + 36 * b * g + b * g + 5 * b * p * per_seed)
+    least, by = bound(12.0 * b * p * g, nbytes)
+    k18 = sum(ms_ for k, _, ms_ in split['this tree'][1] if 'vote_slots' in k)
+    print(f'K18 vote_slots, a stage-2 step\'s call ({b} x {p} points, {g} GT '
+          f'slots, {per_seed} a point): _vote_targets chain {ms[0]:.4f} / '
+          f'{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f}; the slots '
+          f'alone: plain {slots_ms[0]:.4f}, K18 {slots_ms[1]:.4f}; device ms '
+          f'chain {split["chain"][0]:.4f}, this tree '
+          f'{split["this tree"][0]:.4f} (K18\'s kernel {k18:.4f}, bound '
+          f'{least:.6f} by {by}); targets the same bits: {same}', flush=True)
+    for name, (_, found) in split.items():
+        print(f'  {name}, device ms by kernel: ' + ', '.join(
+            f'{k} x{n:g} {t:.4f}' for k, n, t in found[:8]), flush=True)
+    if not same:
+        raise AssertionError('K18 differs from the chain')
+    return [dict(kernel='vote_slots', parent_ms=[ms[0], ms[3]],
+                 ms=[ms[1], ms[2]], slots_ms=slots_ms,
+                 device_ms={k: v[0] for k, v in split.items()},
+                 k18_device_ms=k18, bound_ms=least, bound_by=by)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', default=None,
@@ -1473,10 +1642,18 @@ def main(argv=None):
         old_nms = importlib.import_module('demf_parent.ops.nms_rotated') \
             if args.parent else nms_rotated
         rows += compare_nms3d_rotated(old_nms, dev, args.parent_only)
-    if {'sparse_dweights', 'sparse_conv_backward'} & set(only):
+    if {'sparse_dweights', 'sparse_conv_backward', 'sparse_max_pool'} & \
+            set(only):
         old_sparse = importlib.import_module('demf_parent.ops.sparse') \
             if args.parent else sparse
         calls = train_step_calls(dev)
+        if 'sparse_max_pool' in only:
+            old_pool = old_sparse.sparse_max_pool_batched if args.parent \
+                else _plain_route(sparse, 'sparse_max_pool',
+                                  sparse.sparse_max_pool_plain,
+                                  sparse.sparse_max_pool_batched)
+            rows += compare_sparse_max_pool(old_pool, dev,
+                                            calls['sparse_max_pool'])
         with torch.no_grad():
             if 'sparse_dweights' in only:
                 rows += compare_sparse_dweights(
@@ -1488,6 +1665,15 @@ def main(argv=None):
                     old_sparse, dev, calls['sparse_conv_backward'])
         del calls
         torch.cuda.empty_cache()
+    if 'vote_slots' in only:
+        from ..models import target_assign
+        from ..ops import vote_slots as vs
+        old_targets = importlib.import_module(
+            'demf_parent.models.target_assign')._vote_targets \
+            if args.parent else _plain_route(
+                target_assign, 'vote_slots', vs.vote_slots_plain,
+                target_assign._vote_targets)
+        rows += compare_vote_slots(old_targets, dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -164,3 +164,41 @@ def gather_matmul(feats, nbr, w):
     w2 = w.reshape(-1, w.shape[2])
     rows = b * nbr.shape[1]
     return lambda: torch.matmul(flat[idx].reshape(rows, -1), w2)
+
+
+def gather_amax(feats, nbr, grad=None):
+    """K17's yardstick, a time and not a result (``amax`` spreads a tie's
+    gradient evenly, the chain halves it): the rows of every (row, tap)
+    gathered into (B, M_out, K, C) (-inf where absent) and one
+    ``torch.amax`` over the taps; with ``grad`` that call's autograd
+    backward instead (the graph made once).  Returns the call as a
+    closure over its prepared index."""
+    b, m, c = feats.shape
+    flat = torch.cat([feats.detach().reshape(b * m, c),
+                      feats.new_full((1, c), float('-inf'))])
+    base = (torch.arange(b, device=nbr.device) * m)[:, None, None]
+    idx = torch.where(nbr >= 0, nbr + base, b * m).reshape(-1)
+    shape = (*nbr.shape, c)
+    if grad is None:
+        return lambda: flat[idx].reshape(shape).amax(2)
+    flat.requires_grad_()
+    out = flat[idx].reshape(shape).amax(2)
+    return lambda: torch.autograd.grad(out, flat, grad, retain_graph=True)
+
+
+def pool_bytes(feats, nbr, out_valid, backward=False):
+    """(Bytes the pool's function must move, bytes of K17's tie mask).  The
+    forward reads the rows its present taps point to, the table and
+    out_valid, and writes the output; the backward reads the output
+    gradient of the valid output rows, the table and out_valid, and writes
+    d_in whole (a row no output reads is 0).  The mask, a byte a (output
+    row, channel) that the forward writes and the backward reads, is K17's
+    design and not the function's: a cost apart."""
+    b, m_out, _ = nbr.shape
+    c, e = feats.shape[2], feats.element_size()
+    table = 4 * nbr.numel() + out_valid.numel()
+    if backward:
+        need = int(out_valid.sum()) * c * e + table + feats.numel() * e
+    else:
+        need = int((nbr >= 0).sum()) * c * e + table + b * m_out * c * e
+    return need, b * m_out * c

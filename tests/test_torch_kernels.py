@@ -2291,3 +2291,144 @@ def test_rotated_nms_far_from_the_origin(dev, n):
     assert err[copies].max().item() <= 4 * reach * 2.0 ** -23 / 0.3
     want = nms_rotated.classwise_sweep(iou, scores, valid, 0.5, 0.01)
     assert torch.equal(keep, want)
+
+
+def pool_case(dev, b, m, seed=0):
+    """A stem-like level on the card: b scenes of about m voxels at tensor
+    stride 2 (the last scene holds fewer: padding rows), the stem pool's
+    table onto its stride-4 set: (coords, valid, nbr, out valid)."""
+    from demf_tpu_torch.ops import sparse
+    rng = np.random.RandomState(seed)
+    pts = torch.from_numpy(rng.uniform(0, 2.5, (b, 3 * m, 3)).astype(
+        np.float32)).to(dev)
+    pts[-1, m:] = -1.0                      # out of the grid: dropped
+    coords, _, valid = sparse.voxelize(pts, torch.zeros_like(pts), 0.05,
+                                       (0.0, 0.0, 0.0), m)
+    coords, valid = sparse.downsample_coords(coords, valid, 2, m)
+    oc, ov = sparse.downsample_coords(coords, valid, 4, max(1, m // 2))
+    nbr = sparse.kernel_tables([sparse.TableJob(coords, valid, oc, ov, 2,
+                                                False, 2)], True)[0]
+    return coords, valid, nbr, ov
+
+
+def pool_rows(valid, c, kind, dtype, seed=0):
+    """Rows for K17: ``randn``; ``relu`` (zeros tie); ``ties`` (positive
+    halves); ``nonfinite`` (NaN, inf, -inf and signed zeros among them)."""
+    g = torch.Generator(valid.device).manual_seed(seed)
+    x = torch.randn(*valid.shape, c, device=valid.device, generator=g)
+    if kind == 'relu':
+        x = x.clamp_min(0)
+    elif kind == 'ties':
+        x = ((x.abs() * 2).round() + 1) / 2
+    elif kind == 'nonfinite':
+        x[:, 10::7, 0] = float('nan')
+        x[:, 11::7, c // 2] = float('inf')
+        x[:, 12::7, c - 1] = float('-inf')
+        x[:, 13::5] = 0.0
+        x[:, 14::5] = -0.0
+    return torch.where(valid[..., None], x, 0).to(dtype)
+
+
+def bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['randn', 'relu', 'ties', 'nonfinite'])
+@pytest.mark.parametrize('b,m,c', [(3, 16384, 64), (2, 2048, 5),
+                                   (1, 512, 12)])
+def test_sparse_max_pool_equals_plain(dev, b, m, c, kind, dtype):
+    """K17's forward and backward (16-byte rows, and rows of 5 and 12
+    values one a thread) against the plain versions of its order and
+    against the chain and its autograd on the card, bit for bit: outputs,
+    tie masks and d_in, -0 gradients written +0; one launch each, none of
+    the mask in inference."""
+    from demf_tpu_torch.ops import sparse
+    coords, valid, nbr, ov = pool_case(dev, b, m)
+    x = pool_rows(valid, c, kind, dtype)
+    fwd = (sparse.SPARSE_MAX_POOL_KERNEL if dtype == torch.float32 else
+           sparse.SPARSE_MAX_POOL_BF16_KERNEL)
+    bwd = (sparse.SPARSE_MAX_POOL_BACKWARD_KERNEL if dtype == torch.float32
+           else sparse.SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL)
+    before = (fwd.launches, bwd.launches)
+    out, mask = sparse.sparse_max_pool_cuda(x, nbr, ov)
+    want, want_mask = sparse.sparse_max_pool_mask_plain(x, nbr, ov)
+    assert torch.equal(bits(out), bits(want))
+    assert torch.equal(mask, want_mask)
+    bare, none = sparse.sparse_max_pool_cuda(x, nbr, ov, with_mask=False)
+    assert none is None and torch.equal(bits(bare), bits(out))
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)).to(dtype)
+    g[:, ::9] = -0.0
+    d = sparse.sparse_max_pool_backward_cuda(g, nbr, mask, x.shape[1])
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(bits(d), bits(sparse.sparse_max_pool_backward_plain(
+        g, nbr, mask, x.shape[1])))
+    xa = x.clone().requires_grad_()
+    chain = sparse.sparse_max_pool_plain(xa, nbr, ov)
+    chain.backward(g)
+    assert torch.equal(bits(chain.detach()), bits(out))
+    assert torch.equal(bits(d), bits(xa.grad))
+    if kind in ('relu', 'ties'):
+        assert ((mask.int() & (mask.int() - 1)) > 0).any()
+    xf = x.clone().requires_grad_()
+    sparse.SparseMaxPool.apply(xf, nbr, ov).backward(g)
+    assert torch.equal(bits(xf.grad), bits(d))
+    assert (fwd.launches, bwd.launches) == (before[0] + 3, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_sparse_max_pool_refuses_other_kernels(dev):
+    """K17 takes kernel == stride and at most 8 taps: other pools raise on
+    the card before any table is made."""
+    from demf_tpu_torch.ops import sparse
+    coords, valid, _, _ = pool_case(dev, 1, 512)
+    x = torch.zeros(*valid.shape, 8, device=dev)
+    for k, s in ((3, 2), (2, 1), (3, 3)):
+        with pytest.raises(ValueError):
+            sparse.sparse_max_pool_batched(coords, valid, x, stride=s,
+                                           kernel_size=k, tensor_stride=2,
+                                           sorted_input=True)
+
+
+def slot_scene(dev, b, p, g, seed=0):
+    """b scenes of p points (a (B, P, 4) cloud read through its strides)
+    among g overlapping rotated boxes, a fifth of them invalid, a NaN point
+    and a NaN box: points in 0 to many boxes."""
+    rng = np.random.RandomState(seed)
+    cloud = rng.uniform(-2, 2, (b, p, 4)).astype(np.float32)
+    cloud[0, 3] = np.nan
+    boxes = np.concatenate([
+        rng.uniform(-1, 1, (b, g, 2)), rng.uniform(-1.2, -0.8, (b, g, 1)),
+        rng.uniform(0.5, 2.5, (b, g, 2)), rng.uniform(2.0, 3.0, (b, g, 1)),
+        rng.uniform(-np.pi, np.pi, (b, g, 1))], -1).astype(np.float32)
+    boxes[-1, -1, 0] = np.nan
+    valid = rng.rand(b, g) < 0.8
+    return (torch.from_numpy(cloud).to(dev)[..., :3],
+            torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,p,g,s', [(16, 20000, 64, 3), (2, 1000, 5, 1),
+                                     (3, 777, 200, 2), (2, 500, 8, 5),
+                                     (1, 300, 1024, 8)])
+def test_vote_slots_equals_plain(dev, b, p, g, s):
+    """K18's slots and flags against the plain version on the card, and
+    the vote targets built on them against those built on the plain
+    slots, bit for bit; one launch a call."""
+    from demf_tpu_torch.models import target_assign
+    from demf_tpu_torch.ops import vote_slots
+    points, boxes, valid = slot_scene(dev, b, p, g)
+    before = vote_slots.VOTE_SLOTS_KERNEL.launches
+    slots, has = vote_slots.vote_slots_cuda(points, boxes, valid, s)
+    assert vote_slots.VOTE_SLOTS_KERNEL.launches == before + 1
+    want_s, want_h = vote_slots.vote_slots_plain(points, boxes, valid, s)
+    assert torch.equal(slots.long(), want_s) and torch.equal(has, want_h)
+    assert has[..., 0].any() and not has[..., 0].all()
+    got = target_assign._vote_targets(points, boxes, valid, s)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(target_assign, 'vote_slots', vote_slots.vote_slots_plain)
+        want = target_assign._vote_targets(points, boxes, valid, s)
+    assert torch.equal(bits(got[0]), bits(want[0]))
+    assert torch.equal(got[1], want[1])

@@ -288,6 +288,83 @@ def test_max_pool_equals_jax(level):
     close(got[2], want[2], 0)
 
 
+def pool_rows(valid, kind, dtype):
+    """A level's rows for the pool: ``randn``, ``relu`` (post-ReLU rows:
+    zeros tie), ``ties`` (positive halves: exact ties of the maximum),
+    ``nonfinite`` (NaN, inf and -inf in some rows: their outputs 0)."""
+    x = feats_of(valid, 8, 5).astype(np.float64)
+    if kind == 'relu':
+        x = np.maximum(x, 0)
+    elif kind == 'ties':
+        x = (np.round(np.abs(x) * 2) + 1) / 2 * valid.numpy()[..., None]
+    elif kind == 'nonfinite':
+        x[:, 10:40:3, 1] = np.nan
+        x[:, 11:41:3, 2] = np.inf
+        x[:, 12:42:3, 3] = -np.inf
+    return x.astype(dtype)
+
+
+def same_bits(got, want):
+    got = np.ascontiguousarray(np.asarray(got))
+    want = np.ascontiguousarray(np.asarray(want))
+    ints = {4: np.int32, 8: np.int64}[got.itemsize]
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(ints), want.view(ints))
+
+
+@jax.jit
+def jax_pool_and_grad(coords, valid, feats, ct):
+    """The JAX package's pool of a level at stride 2 onto 1,024 rows and its
+    vjp with ``ct`` (one compile a dtype)."""
+    out, vjp = jax.vjp(lambda f: J.sparse_max_pool_batched(
+        coords, valid, f, max_out=1024, tensor_stride=2,
+        sorted_input=True)[2], feats)
+    return out, vjp(ct)[0]
+
+
+@pytest.fixture
+def one_thread():
+    """The test on one intra-op thread: small ops under the other test
+    workers' threads slow by tens of times with torch's default pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('kind', ['randn', 'relu', 'ties', 'nonfinite'])
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+def test_max_pool_gradient_equals_jax(level, dtype, kind, one_thread):
+    """The pool's output and its gradient (autograd of the chain) against
+    ``jax.vjp`` of the JAX package's at tolerance 0, ties and non-finite
+    rows included (both halve the gradient on a tie); K17's order in plain
+    torch (its mask and output, its shares) the chain's bits."""
+    coords, valid = at_stride(level, 2)
+    x = pool_rows(valid, kind, dtype)
+    ct = np.random.RandomState(7).randn(x.shape[0], 1024, x.shape[2]).astype(
+        dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want, want_g = jax_pool_and_grad(
+            jnp.asarray(coords.numpy()), jnp.asarray(valid.numpy()),
+            jnp.asarray(x), jnp.asarray(ct))
+    xt = torch.from_numpy(x).requires_grad_()
+    oc, ov, got = P.sparse_max_pool_batched(coords, valid, xt, max_out=1024,
+                                            tensor_stride=2,
+                                            sorted_input=True)
+    got.backward(torch.from_numpy(ct))
+    assert np.array_equal(got.detach().numpy(), np.asarray(want))
+    assert np.array_equal(xt.grad.numpy(), np.asarray(want_g))
+    nbr = P.kernel_tables([P.TableJob(coords, valid, oc, ov, 2, False, 2)],
+                          True)[0]
+    plain, mask = P.sparse_max_pool_mask_plain(torch.from_numpy(x), nbr, ov)
+    shares = P.sparse_max_pool_backward_plain(torch.from_numpy(ct), nbr,
+                                              mask, x.shape[1])
+    same_bits(plain.numpy(), got.detach().numpy())
+    same_bits(shares.numpy(), xt.grad.numpy())
+    tied = (mask.int() & (mask.int() - 1)) > 0
+    assert tied.any() == (kind in ('relu', 'ties'))
+
+
 @pytest.mark.parametrize('route', ['plain', 'tiles', 'head'])
 @pytest.mark.parametrize('fine_stride', [1, 2, 4])
 def test_transposed_conv_equals_jax(level, fine_stride, route, monkeypatch):

@@ -203,6 +203,87 @@ def test_vote_targets_overwrite_rule():
     assert mask.tolist() == [[1]]
 
 
+def _slot_scene(dtype):
+    """Two scenes of 12 overlapping rotated boxes (some invalid) and 600
+    points: points in 0 to 6 valid boxes, a NaN point."""
+    rng = np.random.RandomState(11)
+    boxes = np.concatenate([
+        rng.uniform(-0.8, 0.8, (2, 12, 2)),
+        rng.uniform(-1.2, -0.8, (2, 12, 1)),
+        rng.uniform(0.6, 2.4, (2, 12, 2)), rng.uniform(2.0, 3.0, (2, 12, 1)),
+        rng.uniform(-np.pi, np.pi, (2, 12, 1))], -1).astype(dtype)
+    valid = rng.rand(2, 12) < 0.8
+    points = rng.uniform(-2, 2, (2, 600, 3)).astype(dtype)
+    points[1, 5] = np.nan
+    return points, boxes, valid
+
+
+def _slots_by_scan(in_box, gt_per_seed):
+    """K18's rule, point by point: the boxes that hold it in order."""
+    b, p, g = in_box.shape
+    slots = np.zeros((b, p, gt_per_seed), np.int64)
+    has = np.zeros((b, p, gt_per_seed), bool)
+    for i in range(b):
+        for j in range(p):
+            hits = list(np.flatnonzero(in_box[i, j]))
+            for k in range(gt_per_seed):
+                has[i, j, k] = len(hits) > k
+                if k < max(gt_per_seed - 1, 1):
+                    slots[i, j, k] = hits[k] if len(hits) > k else 0
+                else:
+                    slots[i, j, k] = hits[-1] if len(hits) > k else g - 1
+    return slots, has
+
+
+@jax.jit
+def jax_slot_targets(points, boxes, valid):
+    """The JAX package's in-box mask (valid GT only) and its vote targets
+    at gt_per_seed 1 to 4 (one compile a dtype)."""
+    from demf_tpu.core import boxes as jboxes
+    in_box = jax.vmap(jboxes.points_in_boxes)(points, boxes) & \
+        valid[:, None]
+    return in_box, [jax.vmap(lambda p, b, v, k=k: jta._vote_targets_single(
+        p, b, v, k))(points, boxes, valid) for k in (1, 2, 3, 4)]
+
+
+@pytest.fixture
+def one_thread():
+    """The test on one intra-op thread: small ops under the other test
+    workers' threads slow by tens of times with torch's default pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('gt_per_seed', [1, 2, 3, 4])
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+def test_vote_slots_and_targets_equal_jax(dtype, gt_per_seed, one_thread):
+    """K18's plain version (``ops/vote_slots.py::vote_slots_plain``, the
+    JAX package's expressions) against the rule walked point by point over
+    the JAX package's in-box mask, on points in 0, 1, 2, 3, 5 and more
+    valid boxes and beside invalid GT; the targets built on its slots
+    (``_vote_targets``) against the JAX package's at tolerance 0."""
+    from demf_tpu_torch.ops.vote_slots import vote_slots_plain
+    points, boxes, valid = _slot_scene(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        in_box, targets = jax_slot_targets(
+            jnp.asarray(points), jnp.asarray(boxes), jnp.asarray(valid))
+    in_box = np.asarray(in_box)
+    want_t, want_m = targets[gt_per_seed - 1]
+    assert {0, 1, 2, 3, 5} <= set(in_box.sum(-1).ravel().tolist())
+    slots, has = vote_slots_plain(_t(points), _t(boxes), _t(valid),
+                                  gt_per_seed)
+    want_s, want_h = _slots_by_scan(in_box, gt_per_seed)
+    np.testing.assert_array_equal(slots.numpy(), want_s)
+    np.testing.assert_array_equal(has.numpy(), want_h)
+    got_t, got_m = target_assign._vote_targets(_t(points), _t(boxes),
+                                               _t(valid), gt_per_seed)
+    assert got_t.dtype == torch.from_numpy(points).dtype
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+
+
 def _vote_inputs(rng):
     boxes, labels, valid = _gt(rng)
     points = rng.uniform(-2, 2, (2, 300, 4)).astype(np.float32)
