@@ -80,8 +80,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    feature cache once, then 3 steps through ``engine.trainer``, each with
    finite losses and gradient norm and a fixed number of launches of each
    kernel; the image branch must stay unchanged and every other parameter
-   move; K18, the vote targets' in-box slots, on the first step's own call
-   against its plain version bit for bit, and the targets built on them;
+   move; K18, the vote targets, on the first step's own call against its
+   plain version and through ``_vote_targets`` bit for bit;
    then the same step under the bf16 policy from the same weights,
    batch and dropout draws: its first step's losses within 0.2 of the
    float32 first step's, step time, peak memory, float32 master weights,
@@ -303,7 +303,7 @@ bf16 entries, ``sparse_conv_backward_bf16`` and
 ``sparse_conv_dweights_bf16``: the bf16 step's, bound at bf16's peak);
 K17 (``sparse_max_pool``, ``sparse_max_pool_backward`` and their bf16
 entries): launches of a FCAF3D train step (bf16: the bf16 step's), times
-and bounds on its own call; K18 (``vote_slots``): launches of the
+and bounds on its own call; K18 (``vote_targets``): launches of the
 DeMF-VoteNet training path's 3 steps, times and bound on its first step's
 call; ``library_ms`` is
 the one
@@ -313,7 +313,7 @@ a gather and a matmul, K16 a gather and a matmul a tap, K17 a gather and
 ``torch.amax``, its backward that call's autograd) and null where
 there is
 none: FPS, the exact ball query, MSDA and its backward, the class-aware
-3D NMS, the count of points in rotated boxes, the vote targets' slots,
+3D NMS, the count of points in rotated boxes, the vote targets,
 and the 2D NMS and RoIAlign
 (forward and backward), which torchvision has and this machine does not);
 the
@@ -350,7 +350,7 @@ KERNEL_NAMES = ('fps', 'ball_query', 'msda', 'msda_backward', 'msda_bf16',
                 'sparse_conv_backward_bf16', 'sparse_conv_dweights_bf16',
                 'sparse_max_pool', 'sparse_max_pool_bf16',
                 'sparse_max_pool_backward', 'sparse_max_pool_backward_bf16',
-                'vote_slots')
+                'vote_targets')
 
 
 def launch_counts(**counts):
@@ -369,13 +369,13 @@ LAUNCHES_PER_REQUEST = launch_counts(fps=5, ball_query=5, msda=7, nms3d=1,
 TRAIN_STEPS = 3
 TRAIN_BATCH = dict(b=16, p=20000, g=64, hw=(800, 1344))
 LAUNCHES_PER_STEP = launch_counts(fps=5, ball_query=5, msda=1,
-                                  msda_backward=1, vote_slots=1)
+                                  msda_backward=1, vote_targets=1)
 # under the bf16 policy the MSDA layers take bf16 values: K3 and K4 run
 # their bf16 entries; FPS, the ball query, K8 and K9 stay float32
 LAUNCHES_PER_REQUEST_BF16 = launch_counts(fps=5, ball_query=5, msda_bf16=7,
                                           nms3d=1, box_count=1)
 LAUNCHES_PER_STEP_BF16 = launch_counts(fps=5, ball_query=5, msda_bf16=1,
-                                       msda_backward_bf16=1, vote_slots=1)
+                                       msda_backward_bf16=1, vote_targets=1)
 # bf16 against float32 stage predictions of a full-width request, of each
 # tensor's largest: 2.2e-2 measured on an H100 (PERF.md), a limit with some
 # room above it that a stage off by a tenth would break
@@ -385,7 +385,7 @@ SERVE_BF16_BOUND = 5e-2
 VOTENET_CFG = 'baseline/votenet.py'
 VOTENET_STEPS = 3
 VOTENET_BATCH = dict(b=16, p=20000, g=64)
-LAUNCHES_PER_VOTENET_STEP = launch_counts(fps=5, ball_query=5, vote_slots=1)
+LAUNCHES_PER_VOTENET_STEP = launch_counts(fps=5, ball_query=5, vote_targets=1)
 LAUNCHES_PER_VOTENET_REQUEST = launch_counts(fps=5, ball_query=5, nms3d=1,
                                              box_count=1)
 VOTENET_DATASET_CFG = os.path.join('demf_tpu_torch', 'configs',
@@ -448,7 +448,7 @@ REPLACES = {
     'sparse_max_pool_bf16': 'demf_tpu/ops/sparse.py:636',
     'sparse_max_pool_backward': 'demf_tpu/ops/sparse.py:636',
     'sparse_max_pool_backward_bf16': 'demf_tpu/ops/sparse.py:636',
-    'vote_slots': 'demf_tpu/models/target_assign.py:30',
+    'vote_targets': 'demf_tpu/models/target_assign.py:30',
 }
 SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'ball_query': 'demf_tpu_torch/csrc/ball_query.cu',
@@ -481,7 +481,7 @@ SOURCES = {'fps': 'demf_tpu_torch/csrc/fps.cu',
            'sparse_max_pool_backward': 'demf_tpu_torch/csrc/sparse_pool.cu',
            'sparse_max_pool_backward_bf16':
                'demf_tpu_torch/csrc/sparse_pool.cu',
-           'vote_slots': 'demf_tpu_torch/csrc/vote_slots.cu'}
+           'vote_targets': 'demf_tpu_torch/csrc/vote_targets.cu'}
 MSDA_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
 # the stage-1 pretrain path: the model of configs/deformdetr/
 # imvotenet_deform.py, a batch of 4 images of 800x1344 with 20 GT slots; a
@@ -508,12 +508,12 @@ IMVOTENET_REQUEST = dict(b=2, p=20000, hw=(608, 832), valid_hw=(600, 826))
 LAUNCHES_PER_IMVOTENET_REQUEST = launch_counts(
     fps=7, ball_query=7, nms2d=2, roi_align=1, nms3d=1, box_count=1)
 LAUNCHES_PER_IMVOTENET_STEP = launch_counts(fps=7, ball_query=7, nms2d=2,
-                                            roi_align=1, vote_slots=3)
+                                            roi_align=1, vote_targets=3)
 # under the bf16 policy the FPN's levels are bf16: K11 runs its bf16 entry
 LAUNCHES_PER_IMVOTENET_REQUEST_BF16 = launch_counts(
     fps=7, ball_query=7, nms2d=2, roi_align_bf16=1, nms3d=1, box_count=1)
 LAUNCHES_PER_IMVOTENET_STEP_BF16 = launch_counts(
-    fps=7, ball_query=7, nms2d=2, roi_align_bf16=1, vote_slots=3)
+    fps=7, ball_query=7, nms2d=2, roi_align_bf16=1, vote_targets=3)
 # bf16 against float32 towers of a full-width ImVoteNet request on the
 # same 2D boxes, of each tensor's largest: the bound the CPU tests hold the
 # port's bf16 predictions to its float32 ones (tests/test_engine.py's 0.2);
@@ -1468,7 +1468,7 @@ def run_training_path(dev, kernels):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         if i == 0:
-            slot_calls = kept['vote_slots']
+            target_calls = kept['vote_targets']
         launched = {n: k.launches - start[n] for n, k in kernels.items()}
         if launched != LAUNCHES_PER_STEP:
             raise AssertionError(f'step {i} launched {launched}, expected '
@@ -1502,56 +1502,58 @@ def run_training_path(dev, kernels):
     print(f'training: {frozen} frozen image-branch tensors unchanged, '
           f'{moved} trained tensors moved')
     compare_devpipe_step(model, step, batch, generator, kernels)
-    return launches, first, check_vote_slots(slot_calls)
+    return launches, first, check_vote_targets(target_calls)
 
 
-def check_vote_slots(calls):
+def check_vote_targets(calls):
     """K18 on a DeMF-VoteNet train step's own call (its points, GT boxes,
-    validity and gt_per_seed): slots and flags equal to
-    ``vote_slots_plain``'s (the JAX package's expressions on the card), the
-    same bits on a second call, and the vote targets built on them
-    (``_vote_targets``) the bits of those built on the plain slots; timed
-    beside the plain version and its bound: 12 float32 operations a
-    (point, box) pair tested (all pairs: no box is skipped), or the bytes
-    (the points' 3 coordinates, the boxes, the yaw's cosine and sine and
-    the validity read; the slots and flags written).  No one PyTorch call
-    computes the slots."""
+    validity and gt_per_seed): the targets and masks equal to
+    ``vote_targets_plain``'s (the JAX package's expressions on the card)
+    and to the model's entry ``_vote_targets``'s bit for bit, the same bits
+    on a second call; timed through its wrapper and on the device beside
+    the plain version and its bound (``tools.vote_target_bound``: the
+    (point, valid box) tests at half the float32 rate, or the points read
+    and the targets and masks written).  No one PyTorch call computes the
+    targets."""
+    from demf_tpu_torch.core.boxes import points_in_boxes
     from demf_tpu_torch.models import target_assign
-    from demf_tpu_torch.ops import vote_slots as vs
-    from demf_tpu_torch.tools import bound_ms, same_bits, time_ms
+    from demf_tpu_torch.ops import vote_targets as vt
+    from demf_tpu_torch.tools import (device_kernels, same_bits, time_ms,
+                                      vote_target_bound)
     if len(calls) != 1:
         raise AssertionError(f'K18: {len(calls)} calls a step')
     points, boxes, valid, per_seed, eps = calls[0]
-    slots, has = vs.vote_slots_cuda(points, boxes, valid, per_seed, eps)
-    again = vs.vote_slots_cuda(points, boxes, valid, per_seed, eps)
-    want_s, want_h = vs.vote_slots_plain(points, boxes, valid, per_seed, eps)
-    targets = target_assign._vote_targets(points, boxes, valid, per_seed)
-    with patched((target_assign, 'vote_slots', vs.vote_slots_plain)):
-        want_t = target_assign._vote_targets(points, boxes, valid, per_seed)
-    ok = (torch.equal(slots.long(), want_s) and torch.equal(has, want_h) and
-          torch.equal(slots, again[0]) and torch.equal(has, again[1]) and
-          same_bits(targets[0], want_t[0]) and
-          torch.equal(targets[1], want_t[1]))
+    got, masks = vt.vote_targets_cuda(points, boxes, valid, per_seed, eps)
+    again = vt.vote_targets_cuda(points, boxes, valid, per_seed, eps)
+    want, want_m = vt.vote_targets_plain(points, boxes, valid, per_seed, eps)
+    entry = target_assign._vote_targets(points, boxes, valid, per_seed)
+    ok = (same_bits(got, want) and torch.equal(masks, want_m) and
+          same_bits(again[0], got) and torch.equal(again[1], masks) and
+          same_bits(entry[0], got) and torch.equal(entry[1], masks))
     b, p, _ = points.shape
     g = boxes.shape[1]
-    hits = has.sum(-1)
-    print(f'K18 vote_slots on a train step\'s call: {b} scenes x {p} points '
-          f'x {g} GT slots ({int(valid.sum())} valid), gt_per_seed '
+    hits = (points_in_boxes(points, boxes, eps) & valid[:, None]).sum(-1)
+    print(f'K18 vote_targets on a train step\'s call: {b} scenes x {p} '
+          f'points x {g} GT slots ({int(valid.sum())} valid), gt_per_seed '
           f'{per_seed}; points in {list(range(per_seed))} / >={per_seed} '
           f'boxes: {[int((hits == k).sum()) for k in range(per_seed)]} / '
-          f'{int((hits == per_seed).sum())}; slots, flags and vote targets '
-          f'the plain version\'s bits: {ok}', flush=True)
+          f'{int((hits >= per_seed).sum())}; targets and masks the plain '
+          f'version\'s bits: {ok}', flush=True)
     if not ok:
-        raise AssertionError('K18 differs from the plain slots')
-    ms = time_ms(lambda: vs.vote_slots_cuda(points, boxes, valid, per_seed,
-                                            eps), 20)
-    plain_ms = time_ms(lambda: vs.vote_slots_plain(points, boxes, valid,
-                                                   per_seed, eps), 5)
-    nbytes = (12 * b * p + (7 + 2) * 4 * b * g + b * g +
-              5 * b * p * per_seed)
-    least, by = bound_ms(12.0 * b * p * g, nbytes)
-    print(f'K18 vote_slots: kernel {ms:.4f} ms (its 3 launches), plain '
-          f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {least / ms:.1%})',
+        raise AssertionError('K18 differs from its plain version')
+    ms = time_ms(lambda: vt.vote_targets_cuda(points, boxes, valid,
+                                              per_seed, eps), 20)
+    device = device_kernels(lambda: vt.vote_targets_cuda(
+        points, boxes, valid, per_seed, eps))
+    device_ms = sum(t for _, t in device.values())
+    plain_ms = time_ms(lambda: vt.vote_targets_plain(points, boxes, valid,
+                                                     per_seed, eps), 5)
+    least, by = vote_target_bound(points, boxes, valid, per_seed)
+    print(f'K18 vote_targets: kernel {ms:.4f} ms through its wrapper, '
+          f'{device_ms:.4f} on the device in '
+          f'{sum(n for n, _ in device.values()):g} launch(es), plain '
+          f'{plain_ms:.4f} ms, bound {least:.6f} ms ({by}; {least / ms:.1%} '
+          f'of the wrapper\'s, {least / device_ms:.1%} of the device\'s)',
           flush=True)
     return kernel_row(0.0, ms, plain_ms, least, by)
 
@@ -3703,7 +3705,7 @@ LAUNCHES_PER_DEMF_FCAF3D_CACHED = launch_counts(msda=1, **SPARSE_PATH)
 # 12 reverse tables (the 4 level tables flipped, the 4 parent tables and
 # their 4 one-tap cuts); the up blocks' transposed convs read back the 3
 # strided tables on the plans their forward made; the stem pool's
-# backward (K17's, on its forward's table and tie mask)
+# backward (K17's, on its forward's tie mask and reverse index)
 SPARSE_TRAIN_STEP = dict(kernel_map=11, sparse_conv=47,
                          sparse_conv_backward=46, sparse_conv_plan=28,
                          sparse_conv_dweights=47, sparse_max_pool=1,
@@ -3807,11 +3809,11 @@ def recorded_calls():
     tables), K16, K17 (forward and backward), K15 and K18 launch in the
     block (yielded by kernel): the shapes and data the main path gives
     them."""
-    from demf_tpu_torch.ops import nms_rotated, sparse, vote_slots
+    from demf_tpu_torch.ops import nms_rotated, sparse, vote_targets
     calls = {'kernel_map': [], 'sparse_conv': [], 'nms3d_rotated': [],
              'sparse_conv_backward': [], 'sparse_conv_dweights': [],
              'sparse_max_pool': [], 'sparse_max_pool_backward': [],
-             'vote_slots': []}
+             'vote_targets': []}
 
     def recorder(module, name, key):
         fn = getattr(module, name)
@@ -3832,7 +3834,8 @@ def recorded_calls():
                           'sparse_max_pool_backward'),
                  recorder(nms_rotated, 'rotated_nms_classwise_cuda',
                           'nms3d_rotated'),
-                 recorder(vote_slots, 'vote_slots_cuda', 'vote_slots')):
+                 recorder(vote_targets, 'vote_targets_cuda',
+                          'vote_targets')):
         yield calls
 
 
@@ -4529,42 +4532,60 @@ def planted(feats):
 
 def check_sparse_max_pool(calls, backward_calls, dtype):
     """K17 on a train step's own calls (the stem pool's rows, table and
-    out_valid; in the backward its output gradient and tie mask; in bf16
-    the bf16 step's), forward and backward: the output and the tie mask
-    equal to ``sparse_max_pool_mask_plain`` and to the chain on the card,
-    d_in to ``sparse_max_pool_backward_plain`` and to the chain's
-    autograd, bit for bit; then the same on the rows with NaN, inf, -inf
-    and signed zeros planted.  Each direction timed beside the chain
-    (forward; its autograd backward), a gather to (B, M_out, K, C) and
-    ``torch.amax`` (its autograd backward: a yardstick of time, whose ties
-    split evenly) and its bound, the function's bytes of ``pool_bytes`` (the
-    tie mask's printed apart).  Returns the
-    (forward, backward) rows."""
+    out_valid; in the backward its output gradient, reverse index, table
+    and tie mask; in bf16 the bf16 step's), forward and backward: the
+    output and the tie mask equal to ``sparse_max_pool_mask_plain`` and the
+    chain on the card, the reverse index to ``sparse_max_pool_reader_plain``
+    where that names a reader, d_in to ``sparse_max_pool_backward_plain``
+    and to the chain's autograd, bit for bit, also with stale entries
+    planted where the forward writes none; then the same on the rows with
+    NaN, inf, -inf and signed zeros planted.  Each direction timed through
+    its wrapper and on the device beside the chain (forward; its autograd
+    backward), a gather to (B, M_out, K, C) and ``torch.amax`` (its
+    autograd backward: a yardstick of time, whose ties split evenly) and
+    its bound, the function's bytes of ``pool_bytes`` (the tie mask's and
+    the reverse index's printed apart).  Returns the (forward, backward)
+    rows."""
     from demf_tpu_torch.ops import sparse
-    from demf_tpu_torch.tools import bound_ms, same_bits, time_ms
+    from demf_tpu_torch.tools import (bound_ms, device_kernels, same_bits,
+                                      time_ms)
     from demf_tpu_torch.tools.sparse_cases import gather_amax, pool_bytes
     if len(calls) != 1 or len(backward_calls) != 1:
         raise AssertionError(f'K17: {len(calls)} forward and '
                              f'{len(backward_calls)} backward calls a step')
     feats, nbr, ov, _ = calls[0]
-    grad, _, step_mask, m_in = backward_calls[0]
+    grad, step_reader, _, step_mask = backward_calls[0]
     feats = feats.detach()
+    m_in = feats.shape[1]
     if feats.dtype != dtype or grad.dtype != dtype:
         raise AssertionError(f'K17 {dtype}: a call of {feats.dtype}')
     worst = {}
+    want_reader = sparse.sparse_max_pool_reader_plain(nbr, ov, m_in)
+    read = want_reader >= 0
+    # what stale memory may hold where the forward writes no entry: any int
+    # around the table's range, and the taps of invalid rows that read
+    stale = torch.randint(-9, nbr.shape[1] * 8 + 9, read.shape,
+                          device=read.device, dtype=torch.int32)
+    s, o, t = torch.nonzero((nbr >= 0) & ~ov[..., None], as_tuple=True)
+    stale[s, nbr[s, o, t].long()] = (o * 8 + t).int()
     for label, x in (('the step\'s rows', feats), ('planted', planted(feats))):
-        out, mask = sparse.sparse_max_pool_cuda(x, nbr, ov)
+        out, mask, reader = sparse.sparse_max_pool_cuda(x, nbr, ov)
         want, want_mask = sparse.sparse_max_pool_mask_plain(x, nbr, ov)
         xa = x.clone().requires_grad_()
         chain = sparse.sparse_max_pool_plain(xa, nbr, ov)
-        d = sparse.sparse_max_pool_backward_cuda(grad, nbr, mask, m_in)
+        d = sparse.sparse_max_pool_backward_cuda(grad, reader, nbr, mask)
+        d_stale = sparse.sparse_max_pool_backward_cuda(
+            grad, torch.where(read, reader, stale), nbr, mask)
         dx, = torch.autograd.grad(chain, xa, grad)
         ok = (same_bits(out, want) and torch.equal(mask, want_mask) and
+              torch.equal(reader[read], want_reader[read]) and
               same_bits(out, chain.detach()) and same_bits(d, dx) and
+              same_bits(d_stale, d) and
               same_bits(d, sparse.sparse_max_pool_backward_plain(
                   grad, nbr, mask, m_in)))
         if x is feats:
-            ok = ok and torch.equal(mask, step_mask)
+            ok = ok and torch.equal(mask, step_mask) and torch.equal(
+                step_reader[read], want_reader[read])
         bits = mask.int()
         tied = int(((bits & (bits - 1)) > 0).sum())
         worst[label] = max((out.float() - chain.detach().float()).abs().max()
@@ -4573,36 +4594,48 @@ def check_sparse_max_pool(calls, backward_calls, dtype):
         print(f'K17 {str(dtype)[6:]} on {label}: {tuple(x.shape)} -> '
               f'{tuple(out.shape)} over {int((nbr >= 0).sum())} taps, '
               f'{tied} (row, channel) ties, {int((out == 0).sum())} zero '
-              f'outputs; output, tie mask and d_in the plain versions\' '
-              f'bits and the chain\'s: {ok}', flush=True)
+              f'outputs, {int((~read).sum())} input rows unread; output, tie '
+              f'mask, reverse index and d_in (also over stale index entries) '
+              f'the plain versions\' bits and the chain\'s: {ok}',
+              flush=True)
         if not ok:
             raise AssertionError(f'K17 {dtype} differs from the chain on '
                                  f'{label}')
     xa = feats.clone().requires_grad_()
     chain = sparse.sparse_max_pool_plain(xa, nbr, ov)
-    _, mask = sparse.sparse_max_pool_cuda(feats, nbr, ov)
-    ms = time_ms(lambda: sparse.sparse_max_pool_cuda(feats, nbr, ov), 20)
+    _, mask, reader = sparse.sparse_max_pool_cuda(feats, nbr, ov)
+
+    def forward():
+        return sparse.sparse_max_pool_cuda(feats, nbr, ov)
+
+    def backward():
+        return sparse.sparse_max_pool_backward_cuda(grad, reader, nbr, mask)
+
+    ms, b_ms = time_ms(forward, 20), time_ms(backward, 20)
+    dev_ms, b_dev_ms = (sum(t for _, t in device_kernels(fn).values())
+                        for fn in (forward, backward))
     plain_ms = time_ms(lambda: sparse.sparse_max_pool_plain(feats, nbr, ov),
                        5)
     lib_ms = time_ms(gather_amax(feats, nbr), 10)
-    b_ms = time_ms(lambda: sparse.sparse_max_pool_backward_cuda(
-        grad, nbr, mask, m_in), 20)
     b_plain_ms = time_ms(lambda: torch.autograd.grad(
         chain, xa, grad, retain_graph=True), 5)
     b_lib_ms = time_ms(gather_amax(feats, nbr, grad), 10)
     taps = float((nbr >= 0).sum()) * feats.shape[2]
-    need, mask_bytes = pool_bytes(feats, nbr, ov)
+    need, design_bytes = pool_bytes(feats, nbr, ov)
     b_need, _ = pool_bytes(feats, nbr, ov, backward=True)
     least, by = bound_ms(taps, need)
     b_least, b_by = bound_ms(taps, b_need)
-    mask_ms = bound_ms(0.0, mask_bytes)[0]
-    print(f'K17 {str(dtype)[6:]}: forward {ms:.4f} ms (the chain '
+    design_ms = bound_ms(0.0, design_bytes)[0]
+    print(f'K17 {str(dtype)[6:]}: forward {ms:.4f} ms through its wrapper, '
+          f'{dev_ms:.4f} on the device (the chain '
           f'{plain_ms:.4f}, gather + amax {lib_ms:.4f}, bound {least:.6f} '
-          f'ms by {by}, {need} bytes: {least / ms:.1%}); backward '
-          f'{b_ms:.4f} ms (the chain\'s autograd {b_plain_ms:.4f}, gather + '
-          f'amax\'s autograd {b_lib_ms:.4f}, bound {b_least:.6f} ms by '
-          f'{b_by}, {b_need} bytes: {b_least / b_ms:.1%}); the tie mask, '
-          f'{mask_bytes} bytes each way, {mask_ms:.6f} ms more', flush=True)
+          f'ms by {by}, {need} bytes: {least / dev_ms:.1%} on the device); '
+          f'backward {b_ms:.4f} ms, {b_dev_ms:.4f} on the device (the '
+          f'chain\'s autograd {b_plain_ms:.4f}, gather + amax\'s autograd '
+          f'{b_lib_ms:.4f}, bound {b_least:.6f} ms by {b_by}, {b_need} '
+          f'bytes: {b_least / b_dev_ms:.1%} on the device); the tie mask and '
+          f'the reverse index, {design_bytes} bytes each way, {design_ms:.6f}'
+          f' ms more', flush=True)
     return (kernel_row(worst['the step\'s rows'], ms, plain_ms, least, by,
                        lib_ms),
             kernel_row(worst['the step\'s rows'], b_ms, b_plain_ms, b_least,
@@ -5490,7 +5523,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     check_train_reference(dev)
-    launches, first_step, measured['vote_slots'] = run_training_path(
+    launches, first_step, measured['vote_targets'] = run_training_path(
         dev, kernels)
     by_path = {'training': dict(launches), 'probes': probe_launches,
                'serving_bf16': serving_bf16, 'aug_test': aug_launches}

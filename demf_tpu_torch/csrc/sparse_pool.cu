@@ -19,38 +19,65 @@
 //   a NaN, +-inf) is 0, and so is an invalid output row.  With a mask
 //   pointer it also writes mask[b, o, c]: bit t set where tap t is valid
 //   and equal to the output, the output finite and the row valid (the ties
-//   of the chain's maximum).
+//   of the chain's maximum); and the reverse index reader[b, i] = o * 8 + t
+//   of the one (output row, tap) of a valid row that reads input row i.
+//   The index is not filled: the backward takes an entry only where the
+//   table confirms it (nbr[b, o, t] == i), so an entry that no thread of
+//   this forward wrote (stale memory) is either rejected or names a tap
+//   that does read row i, of an invalid row, whose mask is 0.
 // - backward: the chain's tie rule.  torch.maximum's backward (and
 //   jax.lax.max's) halves the gradient on a tie: walking the taps from the
 //   last, a tap in the mask gets the running gradient halved, and the
 //   running gradient is halved with it, except at the lowest tap of the
-//   mask, which takes what is left.  The halvings run in the rows' type,
-//   one at a time, as autograd runs them; every other tap gets 0.  The
-//   result is written as 0 + share, as the index_put_ that accumulates
-//   into zeros writes it (-0 becomes +0).  An input row that no output
-//   reads is 0.  With kernel == stride each input row has one parent at
-//   most, so each element of d_in is written by one thread at most: no
-//   atomics and no sort.  d_in is zeroed first (cudaMemsetAsync in the
-//   entry), then the kernel writes the rows that are read.
+//   mask, which takes what is left.  So tap t's share is the gradient
+//   halved once for each mask bit at or above t, the lowest bit not
+//   counted; the halvings run in the rows' type, one at a time, as
+//   autograd runs them; a tap not in the mask gets 0.  The result is
+//   written as 0 + share, as the index_put_ that accumulates into zeros
+//   writes it (-0 becomes +0).  An input row that no valid output reads is
+//   0.  With kernel == stride each input row has one reader at most, so a
+//   thread a (input row, 16 bytes of channels) reads its reader from the
+//   reverse index, checks it against the table and writes its part of d_in
+//   once: every row of d_in, read or not, in one pass, with no fill of
+//   d_in or of the index, no atomics and no sort.
 //
 // What bounds it on the card: bytes.  At the stem of a FCAF3D train step
 // (8 scenes, 16,384 rows of 64 channels in, 8,192 out, 8 taps) the forward
-// reads the rows (33.6 MB float32) and the table (2.1 MB) and writes the
-// output (16.8 MB) and the mask (4.2 MB): ~57 MB, ~17 us at 3.35 TB/s; the
-// backward moves the same bytes the other way.
+// reads the rows its present taps point to, the table and out_valid and
+// writes the output; the backward reads the output gradient and writes
+// d_in whole.  The tie mask (a byte a (output row, channel)) and the
+// reverse index (4 bytes an input row, 0.5 MB at the stem) are this
+// design's bytes on top.
 //
-// The design: a thread owns 16 bytes of channels of an output row (4
-// float32 or 8 bf16 values), neighbouring threads on neighbouring channels
-// of a row, so a tap's row is read with whole 16-byte loads; the row's 8
-// table entries are one broadcast read.  The backward keeps the forward's
-// mask (one byte a (row, channel): 4 MB against 34 MB of rows to read
-// again) and reads the output gradient, the mask and the table once.
+// The design: neighbouring threads on neighbouring channels of a row, so a
+// row is read and written with whole vector loads and stores; each launch
+// one kernel, its index math in 32 bits.
+// - forward, a thread a (output row, 4 channels: 16 bytes of float32, 8 of
+//   bf16; 8 bf16 values a thread took 100 registers and left fewer
+//   threads resident than a float32 forward): the row's 8 table entries
+//   come in as two 16-byte loads beside its validity; then every present
+//   tap's row load is issued before the first of them is used, so a
+//   thread's loads overlap; an invalid row loads no tap.  bf16 values stay
+//   packed as they were loaded until each is compared, and the running
+//   maximum stays in the rows' type (exact: it is one of them).  The tie
+//   mask is built while walking the taps: (running maximum, bits of the
+//   taps equal to it), a greater tap clearing the bits, an equal one
+//   adding its bit; a NaN makes the maximum NaN for good and a non-finite
+//   maximum clears the mask at the end, so the bits equal those of the
+//   final compare in every case (NaN, +-inf, +-0, absent taps, invalid
+//   rows, ties of 2 to 8 taps) with no tap's values kept.
+// - backward, a thread a (input row, 16 bytes): the reader, its table
+//   entry, then the output gradient's and the mask's bytes of that row,
+//   the shares, one store.  An input row without a reader is written 0
+//   without a read of either.
 // Rows whose bytes are no multiple of 16 take the same kernels one value a
-// thread.
+// thread; tables of fewer than 8 taps (or not 16-byte aligned) are read
+// an entry at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -91,170 +118,220 @@ __device__ __forceinline__ float torch_maximum(float a, float b) {
   return fmaxf(a, b);
 }
 
-template <typename T, int V>
+// a row's K table entries, -1 beyond K; kWide: K == 8 on a 16-byte aligned
+// table, two 16-byte loads
+template <bool kWide>
+__device__ __forceinline__ void load_taps(const int* __restrict__ taps,
+                                          int k, int (&at)[kMaxTaps]) {
+  if (kWide) {
+    const int4 lo = __ldg(reinterpret_cast<const int4*>(taps));
+    const int4 hi = __ldg(reinterpret_cast<const int4*>(taps) + 1);
+    at[0] = lo.x, at[1] = lo.y, at[2] = lo.z, at[3] = lo.w;
+    at[4] = hi.x, at[5] = hi.y, at[6] = hi.z, at[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxTaps; ++i) at[i] = i < k ? __ldg(taps + i) : -1;
+  }
+}
+
+template <typename T, int V, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     pool_forward_kernel(const T* __restrict__ rows,
                         const int* __restrict__ nbr,
                         const bool* __restrict__ out_valid,
                         T* __restrict__ out, uint8_t* __restrict__ mask,
-                        int m_in, int m_out, int c, int k, long long total) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+                        int* __restrict__ reader, int m_in, int m_out, int c,
+                        int k, int total) {
+  constexpr int kWords = (V + 3) / 4;      // the mask's bytes, 4 a word
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= total) return;
   const int vecs = c / V;
-  const long long row = t / vecs;          // b * m_out + o
-  const int col = static_cast<int>(t % vecs) * V;
-  const long long base = row / m_out * m_in;
-  const int* taps = nbr + row * k;
-  float x[kMaxTaps][V];
+  const int row = t / vecs;                // b * m_out + o
+  const int col = (t - row * vecs) * V;
+  const int scene = row / m_out;
+  const long long base = static_cast<long long>(scene) * m_in;
   int at[kMaxTaps];
-  float acc[V];
+  load_taps<kWide>(nbr + static_cast<long long>(row) * k, k, at);
+  const bool ok = out_valid[row];
+  // every present tap's row in flight before the first is used
+  Vec<T, V> x[kMaxTaps];
 #pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = -CUDART_INF_F;
+  for (int i = 0; i < kMaxTaps; ++i)
+    if (ok && at[i] >= 0)
+      x[i] = *reinterpret_cast<const Vec<T, V>*>(rows + (base + at[i]) * c +
+                                                 col);
+  Vec<T, V> acc;
+  uint32_t bits[kWords];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc.v[v] = narrow<T>(-CUDART_INF_F);
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) bits[w] = 0;
 #pragma unroll
   for (int i = 0; i < kMaxTaps; ++i) {
-    at[i] = i < k ? __ldg(taps + i) : -1;
-    if (at[i] >= 0) {
-      const Vec<T, V> r = *reinterpret_cast<const Vec<T, V>*>(
-          rows + (base + at[i]) * c + col);
+    if (!(ok && at[i] >= 0)) continue;
 #pragma unroll
-      for (int v = 0; v < V; ++v) x[i][v] = widen(r.v[v]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) x[i][v] = -CUDART_INF_F;
+    for (int v = 0; v < V; ++v) {
+      const float a = widen(acc.v[v]), y = widen(x[i].v[v]);
+      const int shift = (v % 4) * 8;
+      if (y > a)
+        bits[v / 4] = (bits[v / 4] & ~(0xffu << shift)) | (1u << (shift + i));
+      else if (y == a)
+        bits[v / 4] |= 1u << (shift + i);
+      acc.v[v] = narrow<T>(torch_maximum(a, y));
     }
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = torch_maximum(acc[v], x[i][v]);
   }
-  const bool ok = out_valid[row];
   Vec<T, V> o;
-  Bytes<V> bits;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const bool keep = ok && isfinite(acc[v]);
-    o.v[v] = narrow<T>(keep ? acc[v] : 0.0f);
-    uint8_t b = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxTaps; ++i)
-      b |= static_cast<uint8_t>((keep && at[i] >= 0 && x[i][v] == acc[v])
-                                << i);
-    bits.v[v] = b;
+    const float a = widen(acc.v[v]);
+    const bool keep = ok && isfinite(a);
+    o.v[v] = narrow<T>(keep ? a : 0.0f);
+    if (!keep) bits[v / 4] &= ~(0xffu << ((v % 4) * 8));
   }
-  *reinterpret_cast<Vec<T, V>*>(out + row * c + col) = o;
-  if (mask != nullptr)
-    *reinterpret_cast<Bytes<V>*>(mask + row * c + col) = bits;
+  const long long at_out = static_cast<long long>(row) * c + col;
+  *reinterpret_cast<Vec<T, V>*>(out + at_out) = o;
+  if (mask == nullptr) return;
+  Bytes<V> b;
+#pragma unroll
+  for (int v = 0; v < V; ++v) b.v[v] = (bits[v / 4] >> ((v % 4) * 8)) & 0xff;
+  *reinterpret_cast<Bytes<V>*>(mask + at_out) = b;
+  if (col != 0 || !ok) return;
+  const int me = (row - scene * m_out) * kMaxTaps;
+#pragma unroll
+  for (int i = 0; i < kMaxTaps; ++i)
+    if (at[i] >= 0) reader[base + at[i]] = me + i;
 }
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     pool_backward_kernel(const T* __restrict__ grad,
+                         const int* __restrict__ reader,
                          const int* __restrict__ nbr,
                          const uint8_t* __restrict__ mask,
                          T* __restrict__ d_in, int m_in, int m_out, int c,
-                         int k, long long total) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+                         int k, int total) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= total) return;
   const int vecs = c / V;
-  const long long row = t / vecs;
-  const int col = static_cast<int>(t % vecs) * V;
-  const long long base = row / m_out * m_in;
-  const int* taps = nbr + row * k;
-  const Vec<T, V> g =
-      *reinterpret_cast<const Vec<T, V>*>(grad + row * c + col);
-  const Bytes<V> bits =
-      *reinterpret_cast<const Bytes<V>*>(mask + row * c + col);
-  // each tap's share, walked from the last tap as autograd walks the chain
-  float share[kMaxTaps][V];
+  const int row = t / vecs;                // b * m_in + i
+  const int col = (t - row * vecs) * V;
+  const int scene = row / m_in;
+  const int who = __ldg(reader + row);
+  const int tap = who % kMaxTaps;
+  const long long o =
+      static_cast<long long>(scene) * m_out + who / kMaxTaps;
+  // an entry counts where the table confirms it: one this forward did not
+  // write is stale memory
+  const bool read = who >= 0 && who / kMaxTaps < m_out && tap < k &&
+                    __ldg(nbr + o * k + tap) == row - scene * m_in;
+  Vec<T, V> d;
+  if (!read) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const int b = bits.v[v];
-    const int lowest = __ffs(b) - 1;
-    float run = widen(g.v[v]);
+    for (int v = 0; v < V; ++v) d.v[v] = narrow<T>(0.0f);
+  } else {
+    const Vec<T, V> g =
+        *reinterpret_cast<const Vec<T, V>*>(grad + o * c + col);
+    const Bytes<V> bits =
+        *reinterpret_cast<const Bytes<V>*>(mask + o * c + col);
 #pragma unroll
-    for (int i = kMaxTaps - 1; i >= 0; --i) {
-      float s = 0.0f;
-      if ((b >> i) & 1) {
-        if (i != lowest) run = widen(narrow<T>(run * 0.5f));
-        s = run;
+    for (int v = 0; v < V; ++v) {
+      const int b = bits.v[v];
+      float share = 0.0f;
+      if ((b >> tap) & 1) {
+        // halved once a mask bit at or above the tap, the lowest not
+        const int halvings =
+            __popc(b >> tap) - ((b & ((1 << tap) - 1)) == 0 ? 1 : 0);
+        share = widen(g.v[v]);
+        for (int h = 0; h < halvings; ++h)
+          share = widen(narrow<T>(share * 0.5f));
       }
-      share[i][v] = s;
+      d.v[v] = narrow<T>(__fadd_rn(0.0f, share));
     }
   }
-#pragma unroll
-  for (int i = 0; i < kMaxTaps; ++i) {
-    const int at = i < k ? __ldg(taps + i) : -1;
-    if (at < 0) continue;
-    Vec<T, V> d;
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      d.v[v] = narrow<T>(__fadd_rn(0.0f, share[i][v]));
-    *reinterpret_cast<Vec<T, V>*>(d_in + (base + at) * c + col) = d;
-  }
+  *reinterpret_cast<Vec<T, V>*>(d_in + static_cast<long long>(row) * c +
+                              col) = d;
 }
 
-unsigned blocks_for(long long total) {
+unsigned blocks_for(int total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
-// a thread 16 bytes of a row where the rows and pointers allow it, else one
-// value
-template <typename T>
+// a thread kV values of a row where the rows and pointers allow it, else
+// one value
+template <typename T, int kV>
 bool whole_vectors(int c, const void* a, const void* b, const void* m) {
-  constexpr int kV = 16 / sizeof(T);
-  return c % kV == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+  constexpr uintptr_t kAlign = sizeof(T) * kV;
+  return c % kV == 0 && reinterpret_cast<uintptr_t>(a) % kAlign == 0 &&
+         reinterpret_cast<uintptr_t>(b) % kAlign == 0 &&
          reinterpret_cast<uintptr_t>(m) % kV == 0;
+}
+
+template <typename T, int V>
+void launch_forward(bool wide, int threads, cudaStream_t s,
+                    const T* r, const int* n, const bool* ov, T* o,
+                    uint8_t* mk, int* rd, int m_in, int m_out, int c, int k) {
+  if (wide)
+    pool_forward_kernel<T, V, true><<<blocks_for(threads), kThreads, 0, s>>>(
+        r, n, ov, o, mk, rd, m_in, m_out, c, k, threads);
+  else
+    pool_forward_kernel<T, V, false><<<blocks_for(threads), kThreads, 0, s>>>(
+        r, n, ov, o, mk, rd, m_in, m_out, c, k, threads);
+}
+
+// the most threads (and rows) a launch indexes in 32 bits
+bool fits(int b, int m, int c) {
+  return static_cast<long long>(b) * m * c <= INT_MAX;
 }
 
 template <typename T>
 int pool_forward(const void* rows, const void* nbr, const void* out_valid,
-                 void* out, void* mask, int b, int m_in, int m_out, int c,
-                 int k, void* stream) {
-  if (k > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
-  const long long cells = static_cast<long long>(b) * m_out * c;
-  if (cells == 0) return 0;
+                 void* out, void* mask, void* reader, int b, int m_in,
+                 int m_out, int c, int k, void* stream) {
+  if (k > kMaxTaps || m_out > INT_MAX / kMaxTaps || !fits(b, m_out, c) ||
+      !fits(b, m_in, 1) || (mask == nullptr) != (reader == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kV = 16 / sizeof(T);
+  const int cells = b * m_out * c;
+  if (cells == 0) return 0;
+  constexpr int kV = 4;
+  const bool wide =
+      k == kMaxTaps && reinterpret_cast<uintptr_t>(nbr) % 16 == 0;
   const T* r = static_cast<const T*>(rows);
   const int* n = static_cast<const int*>(nbr);
   const bool* ov = static_cast<const bool*>(out_valid);
   T* o = static_cast<T*>(out);
   uint8_t* mk = static_cast<uint8_t*>(mask);
-  if (whole_vectors<T>(c, rows, out, mask)) {
-    pool_forward_kernel<T, kV><<<blocks_for(cells / kV), kThreads, 0, s>>>(
-        r, n, ov, o, mk, m_in, m_out, c, k, cells / kV);
-  } else {
-    pool_forward_kernel<T, 1><<<blocks_for(cells), kThreads, 0, s>>>(
-        r, n, ov, o, mk, m_in, m_out, c, k, cells);
-  }
+  int* rd = static_cast<int*>(reader);
+  if (whole_vectors<T, kV>(c, rows, out, mask))
+    launch_forward<T, kV>(wide, cells / kV, s, r, n, ov, o, mk, rd, m_in,
+                          m_out, c, k);
+  else
+    launch_forward<T, 1>(wide, cells, s, r, n, ov, o, mk, rd, m_in, m_out,
+                         c, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int pool_backward(const void* grad, const void* nbr, const void* mask,
-                  void* d_in, int b, int m_in, int m_out, int c, int k,
-                  void* stream) {
-  if (k > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
+int pool_backward(const void* grad, const void* reader, const void* nbr,
+                  const void* mask, void* d_in, int b, int m_in, int m_out,
+                  int c, int k, void* stream) {
+  if (k > kMaxTaps || m_out > INT_MAX / kMaxTaps || !fits(b, m_in, c))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t in_bytes = static_cast<size_t>(b) * m_in * c * sizeof(T);
-  if (in_bytes) {
-    const cudaError_t err = cudaMemsetAsync(d_in, 0, in_bytes, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long cells = static_cast<long long>(b) * m_out * c;
-  if (cells == 0) return static_cast<int>(cudaGetLastError());
+  const int cells = b * m_in * c;
+  if (cells == 0) return 0;
   constexpr int kV = 16 / sizeof(T);
   const T* g = static_cast<const T*>(grad);
+  const int* rd = static_cast<const int*>(reader);
   const int* n = static_cast<const int*>(nbr);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   T* d = static_cast<T*>(d_in);
-  if (whole_vectors<T>(c, grad, d_in, mask)) {
+  if (whole_vectors<T, kV>(c, grad, d_in, mask)) {
     pool_backward_kernel<T, kV><<<blocks_for(cells / kV), kThreads, 0, s>>>(
-        g, n, mk, d, m_in, m_out, c, k, cells / kV);
+        g, rd, n, mk, d, m_in, m_out, c, k, cells / kV);
   } else {
     pool_backward_kernel<T, 1><<<blocks_for(cells), kThreads, 0, s>>>(
-        g, n, mk, d, m_in, m_out, c, k, cells);
+        g, rd, n, mk, d, m_in, m_out, c, k, cells);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -265,40 +342,42 @@ extern "C" {
 
 // rows: (B, M_in, C); nbr: (B, M_out, K) int32, -1 for an absent tap, each
 // entry a row of its own scene; out_valid: (B, M_out) bool; out: (B, M_out,
-// C) of the rows' type; mask: (B, M_out, C) uint8 or null (inference).
-// K <= 8.
+// C) of the rows' type; mask: (B, M_out, C) uint8 and reader: (B, M_in)
+// int32 (written where read, not filled), both null (inference) or
+// neither.  K <= 8; B * M_out * C and B * M_in at most 2^31 - 1.
 int demf_sparse_max_pool(const void* rows, const void* nbr,
-                         const void* out_valid, void* out, void* mask, int b,
-                         int m_in, int m_out, int c, int k, void* stream) {
-  return pool_forward<float>(rows, nbr, out_valid, out, mask, b, m_in, m_out,
-                             c, k, stream);
+                         const void* out_valid, void* out, void* mask,
+                         void* reader, int b, int m_in, int m_out, int c,
+                         int k, void* stream) {
+  return pool_forward<float>(rows, nbr, out_valid, out, mask, reader, b,
+                             m_in, m_out, c, k, stream);
 }
 
 int demf_sparse_max_pool_bf16(const void* rows, const void* nbr,
                               const void* out_valid, void* out, void* mask,
-                              int b, int m_in, int m_out, int c, int k,
-                              void* stream) {
-  return pool_forward<__nv_bfloat16>(rows, nbr, out_valid, out, mask, b,
-                                     m_in, m_out, c, k, stream);
+                              void* reader, int b, int m_in, int m_out,
+                              int c, int k, void* stream) {
+  return pool_forward<__nv_bfloat16>(rows, nbr, out_valid, out, mask, reader,
+                                     b, m_in, m_out, c, k, stream);
 }
 
-// grad: (B, M_out, C) of the rows' type; nbr and mask the forward's; d_in:
-// (B, M_in, C), zeroed here, then each read row written once.  The table
-// must give each input row one reader at most (kernel == stride).
-int demf_sparse_max_pool_backward(const void* grad, const void* nbr,
-                                  const void* mask, void* d_in, int b,
-                                  int m_in, int m_out, int c, int k,
-                                  void* stream) {
-  return pool_backward<float>(grad, nbr, mask, d_in, b, m_in, m_out, c, k,
-                              stream);
+// grad: (B, M_out, C) of the rows' type; reader, nbr and mask the
+// forward's; d_in: (B, M_in, C), every row written once.  The table must
+// give each input row one reader at most (kernel == stride).
+int demf_sparse_max_pool_backward(const void* grad, const void* reader,
+                                  const void* nbr, const void* mask,
+                                  void* d_in, int b, int m_in, int m_out,
+                                  int c, int k, void* stream) {
+  return pool_backward<float>(grad, reader, nbr, mask, d_in, b, m_in, m_out,
+                              c, k, stream);
 }
 
-int demf_sparse_max_pool_backward_bf16(const void* grad, const void* nbr,
-                                       const void* mask, void* d_in, int b,
-                                       int m_in, int m_out, int c, int k,
-                                       void* stream) {
-  return pool_backward<__nv_bfloat16>(grad, nbr, mask, d_in, b, m_in, m_out,
-                                      c, k, stream);
+int demf_sparse_max_pool_backward_bf16(const void* grad, const void* reader,
+                                       const void* nbr, const void* mask,
+                                       void* d_in, int b, int m_in, int m_out,
+                                       int c, int k, void* stream) {
+  return pool_backward<__nv_bfloat16>(grad, reader, nbr, mask, d_in, b, m_in,
+                                      m_out, c, k, stream);
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core import boxes as box_ops
-from ..ops.vote_slots import vote_slots
+from ..ops.vote_targets import vote_targets
 from ..parallel import global_sum
 
 
@@ -33,16 +33,10 @@ def _take(x, idx):
 
 def _vote_targets(points_xyz, gt_boxes, gt_valid, gt_per_seed):
     """points_xyz (B, P, 3), gt (B, G, 7) / (B, G) -> vote_targets
-    (B, P, 3 * gt_per_seed), vote_target_masks (B, P) int.  The boxes that
-    hold each point come from ``ops/vote_slots.py::vote_slots`` (kernel K18
-    on the card); unfilled slots repeat the first vote."""
-    slots, has = vote_slots(points_xyz, gt_boxes, gt_valid, gt_per_seed)
-    b, p, s = slots.shape
-    centers = box_ops.gravity_center(gt_boxes)              # (B, G, 3)
-    votes = _take(centers, slots.reshape(b, p * s).long()).view(
-        b, p, s, 3) - points_xyz[:, :, None]
-    votes = torch.where(has[..., None], votes, votes[:, :, :1])
-    return votes.reshape(b, p, 3 * s) * has[..., :1], has[..., 0].int()
+    (B, P, 3 * gt_per_seed), vote_target_masks (B, P) int:
+    ``ops/vote_targets.py::vote_targets`` (kernel K18 on the card, one
+    launch); unfilled slots repeat the first vote."""
+    return vote_targets(points_xyz, gt_boxes, gt_valid, gt_per_seed)
 
 
 def _assign(gt_boxes, gt_labels, gt_valid, aggregated_points, coder, pos_thr,

@@ -4,7 +4,7 @@ batched 2D NMS, the pyramid RoIAlign (forward and backward), and the
 FCAF3D family's sparse-convolution kernel map, gather-GEMM (forward, and
 on reverse tables the backward's d_feats), weight gradient and max pool
 (forward and backward), its class-wise rotated 3D NMS and the vote
-targets' in-box slots each have a CUDA kernel
+heads' vote targets each have a CUDA kernel
 (``csrc/``) beside a plain PyTorch version; a CPU tensor takes the plain
 version and a CUDA tensor the kernel.  So do the
 row gather, the slot fold and the M-form sampler of the quad-plane MSDA
@@ -35,7 +35,7 @@ from .sparse import (KERNEL_MAP_KERNEL, SPARSE_CONV_BACKWARD_BF16_KERNEL,
                      SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL,
                      SPARSE_MAX_POOL_BACKWARD_KERNEL,
                      SPARSE_MAX_POOL_BF16_KERNEL, SPARSE_MAX_POOL_KERNEL)
-from .vote_slots import VOTE_SLOTS_KERNEL
+from .vote_targets import VOTE_TARGETS_KERNEL
 
 __all__ = [
     'aligned_3d_nms', 'ball_query', 'batched_nms_2d', 'box_point_count',
@@ -57,8 +57,8 @@ def kernels():
     apart, and its weight gradient K16, on float32 and on bfloat16 rows,
     each with its own count), the max pool (forward and backward, on
     float32 and on bfloat16 rows, each with its own count) and the
-    class-wise rotated NMS of the FCAF3D family; the vote targets' in-box
-    slots of the vote heads' losses; MSDA
+    class-wise rotated NMS of the FCAF3D family; the vote targets of the
+    vote heads' losses; MSDA
     forward and backward on a float32 and on a bfloat16 value, and the
     RoIAlign on float32 and on bfloat16 levels, each with its own count)
     and the probes'."""
@@ -87,4 +87,4 @@ def kernels():
             'sparse_max_pool_backward': SPARSE_MAX_POOL_BACKWARD_KERNEL,
             'sparse_max_pool_backward_bf16':
                 SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL,
-            'vote_slots': VOTE_SLOTS_KERNEL}
+            'vote_targets': VOTE_TARGETS_KERNEL}

@@ -54,11 +54,12 @@ keys as they stand (``key_table_presorted``).
   (``sparse_max_pool_plain``, the CPU's path).  A CUDA tensor takes the
   autograd Function ``SparseMaxPool``: K17 (``csrc/sparse_pool.cu``,
   float32 or bfloat16 rows, an entry a dtype and direction, each with its
-  own count) writes the output and a tie mask, and its backward halves a
+  own count) writes the output, a tie mask and each read input row's
+  reader (kernel == stride: one parent a row), and its backward halves a
   tie's gradient as the chain's autograd does, each input row written once
-  (kernel == stride: one parent a row); both equal the chain bit for bit
-  (``sparse_max_pool_mask_plain``, ``sparse_max_pool_backward_plain``: its
-  order in plain torch).
+  from its reader as the table confirms it; both equal the chain bit for
+  bit (``sparse_max_pool_mask_plain``, ``sparse_max_pool_reader_plain``,
+  ``sparse_max_pool_backward_plain``: its order in plain torch).
 
 Tap order.  ``kernel_offsets(k)`` enumerates taps with the last axis
 fastest, as the JAX package does; ``kernel_offsets(k, me_order=True)``
@@ -117,17 +118,17 @@ SPARSE_DWEIGHTS_BF16_KERNEL = CudaKernel(
 # K14's row plan: nbr, mask, order, tile taps; B, M, K
 SPARSE_CONV_PLAN_KERNEL = CudaKernel(
     'demf_sparse_conv_plan', [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
-# K17, the max pool: rows, nbr, out_valid, out, tie mask (None in
-# inference); B, M_in, M_out, C, K (an entry a dtype)
+# K17, the max pool: rows, nbr, out_valid, out, tie mask and reverse
+# index (both None in inference); B, M_in, M_out, C, K (an entry a dtype)
 SPARSE_MAX_POOL_KERNEL = CudaKernel(
-    'demf_sparse_max_pool', [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+    'demf_sparse_max_pool', [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5)
 SPARSE_MAX_POOL_BF16_KERNEL = CudaKernel('demf_sparse_max_pool_bf16',
                                          SPARSE_MAX_POOL_KERNEL.argtypes)
-# K17's backward: output gradient, nbr, tie mask, d_in; B, M_in, M_out, C,
-# K (an entry a dtype)
+# K17's backward: output gradient, reverse index, nbr, tie mask, d_in; B,
+# M_in, M_out, C, K (an entry a dtype)
 SPARSE_MAX_POOL_BACKWARD_KERNEL = CudaKernel(
     'demf_sparse_max_pool_backward',
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
 SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL = CudaKernel(
     'demf_sparse_max_pool_backward_bf16',
     SPARSE_MAX_POOL_BACKWARD_KERNEL.argtypes)
@@ -1051,6 +1052,22 @@ def sparse_max_pool_mask_plain(feats, nbr, out_valid):
         return torch.where(keep, acc, 0), mask.to(torch.uint8)
 
 
+def sparse_max_pool_reader_plain(nbr, out_valid, m_in):
+    """K17's reverse index in plain torch: (B, M_in) int32, ``o * 8 + t``
+    for the (output row o, tap t) of a valid output row that reads input
+    row i, -1 where none does (where K17's forward writes nothing).  Needs
+    one reader an input row (kernel == stride)."""
+    b, m_out, k = nbr.shape
+    reader = torch.full((b, m_in), -1, dtype=torch.int32, device=nbr.device)
+    who = (torch.arange(m_out, dtype=torch.int32, device=nbr.device)[:, None]
+           * MAX_POOL_TAPS + torch.arange(k, dtype=torch.int32,
+                                          device=nbr.device))
+    read = (nbr >= 0) & out_valid[..., None]
+    scene = torch.arange(b, device=nbr.device)[:, None, None].expand_as(nbr)
+    reader[scene[read], nbr[read].long()] = who.expand_as(nbr)[read]
+    return reader
+
+
 def sparse_max_pool_backward_plain(grad, nbr, mask, m_in):
     """K17's backward in plain torch, in its order: walking the taps from
     the last, a tap of the tie mask takes the running gradient halved (and
@@ -1077,8 +1094,11 @@ def sparse_max_pool_backward_plain(grad, nbr, mask, m_in):
 def sparse_max_pool_cuda(feats, nbr, out_valid, with_mask=True):
     """Kernel K17's forward (csrc/sparse_pool.cu), one launch: float32 or
     bf16 rows (B, M_in, C), an int32 table (B, M_out, K <= 8) and bool
-    out_valid (B, M_out), contiguous on the card -> (output, tie mask or
-    None without ``with_mask``)."""
+    out_valid (B, M_out), contiguous on the card -> (output, tie mask,
+    reverse index), the last two None without ``with_mask``.  The index
+    holds the reader of each input row that a valid output row reads (as
+    ``sparse_max_pool_reader_plain``) and stale memory elsewhere, which the
+    backward rejects against the table."""
     if feats.dtype not in DTYPE_CODES:
         raise TypeError(f'K17 takes float32 or bfloat16 rows, not '
                         f'{feats.dtype}')
@@ -1095,61 +1115,69 @@ def sparse_max_pool_cuda(feats, nbr, out_valid, with_mask=True):
         raise ValueError(f'out_valid {tuple(out_valid.shape)} does not go '
                          f'with the table {tuple(nbr.shape)}')
     out = torch.empty((b, m_out, c), dtype=feats.dtype, device=feats.device)
-    mask = torch.empty((b, m_out, c), dtype=torch.uint8,
-                       device=feats.device) if with_mask else None
+    mask = reader = None
+    if with_mask:
+        mask = torch.empty((b, m_out, c), dtype=torch.uint8,
+                           device=feats.device)
+        reader = torch.empty((b, m_in), dtype=torch.int32,
+                             device=feats.device)
     kernel = (SPARSE_MAX_POOL_KERNEL if feats.dtype == torch.float32 else
               SPARSE_MAX_POOL_BF16_KERNEL)
     kernel(feats.data_ptr(), nbr.data_ptr(), out_valid.data_ptr(),
-           out.data_ptr(), None if mask is None else mask.data_ptr(), b, m_in,
-           m_out, c, k)
-    return out, mask
+           out.data_ptr(), None if mask is None else mask.data_ptr(),
+           None if reader is None else reader.data_ptr(), b, m_in, m_out, c,
+           k)
+    return out, mask, reader
 
 
-def sparse_max_pool_backward_cuda(grad, nbr, mask, m_in):
+def sparse_max_pool_backward_cuda(grad, reader, nbr, mask):
     """Kernel K17's backward (csrc/sparse_pool.cu), one launch: the output
-    gradient (B, M_out, C) in the rows' type, the forward's table and tie
-    mask, contiguous on the card -> d_in (B, M_in, C).  The table must give
-    each input row one reader at most (kernel == stride)."""
+    gradient (B, M_out, C) in the rows' type, the forward's reverse index
+    (B, M_in), table and tie mask, contiguous on the card -> d_in (B, M_in,
+    C), each row written once (an index entry counts where the table
+    confirms it)."""
     if grad.dtype not in DTYPE_CODES:
         raise TypeError(f'K17 takes float32 or bfloat16 gradients, not '
                         f'{grad.dtype}')
     check_cuda('grad', grad, grad.dtype, 3)
+    check_cuda('reader', reader, torch.int32, 2)
     check_cuda('nbr', nbr, torch.int32, 3)
     check_cuda('mask', mask, torch.uint8, 3)
     b, m_out, c = grad.shape
-    if nbr.shape[:2] != (b, m_out) or mask.shape != grad.shape or \
-            nbr.shape[2] > MAX_POOL_TAPS:
-        raise ValueError(f'grad {tuple(grad.shape)}, table '
-                         f'{tuple(nbr.shape)} and mask {tuple(mask.shape)} '
-                         f'do not go together')
+    m_in = reader.shape[1]
+    if reader.shape[0] != b or mask.shape != grad.shape or \
+            nbr.shape[:2] != (b, m_out) or nbr.shape[2] > MAX_POOL_TAPS:
+        raise ValueError(f'grad {tuple(grad.shape)}, reverse index '
+                         f'{tuple(reader.shape)}, table {tuple(nbr.shape)} '
+                         f'and mask {tuple(mask.shape)} do not go together')
     d_in = torch.empty((b, m_in, c), dtype=grad.dtype, device=grad.device)
     kernel = (SPARSE_MAX_POOL_BACKWARD_KERNEL if grad.dtype == torch.float32
               else SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL)
-    kernel(grad.data_ptr(), nbr.data_ptr(), mask.data_ptr(), d_in.data_ptr(),
-           b, m_in, m_out, c, nbr.shape[2])
+    kernel(grad.data_ptr(), reader.data_ptr(), nbr.data_ptr(),
+           mask.data_ptr(), d_in.data_ptr(), b, m_in, m_out, c, nbr.shape[2])
     return d_in
 
 
 class SparseMaxPool(torch.autograd.Function):
     """The pool's output from its table and out_valid on the card: K17's
-    forward (it writes the tie mask when the rows take a gradient) and its
-    backward (it reads the mask).  Both equal the chain's output and its
-    autograd bit for bit, as their plain versions do
-    (``sparse_max_pool_mask_plain``, ``sparse_max_pool_backward_plain``)."""
+    forward (it writes the tie mask and the reverse index when the rows
+    take a gradient) and its backward (it reads them).  Both equal the
+    chain's output and its autograd bit for bit, as their plain versions
+    do (``sparse_max_pool_mask_plain``,
+    ``sparse_max_pool_backward_plain``)."""
 
     @staticmethod
     def forward(ctx, feats, nbr, out_valid):
-        out, mask = sparse_max_pool_cuda(feats.contiguous(), nbr, out_valid,
-                                         ctx.needs_input_grad[0])
-        ctx.save_for_backward(nbr, mask)
-        ctx.m_in = feats.shape[1]
+        out, mask, reader = sparse_max_pool_cuda(
+            feats.contiguous(), nbr, out_valid, ctx.needs_input_grad[0])
+        ctx.save_for_backward(reader, nbr, mask)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        nbr, mask = ctx.saved_tensors
-        return (sparse_max_pool_backward_cuda(grad.contiguous(), nbr, mask,
-                                              ctx.m_in), None, None)
+        reader, nbr, mask = ctx.saved_tensors
+        return (sparse_max_pool_backward_cuda(grad.contiguous(), reader, nbr,
+                                              mask), None, None)
 
 
 def parent_job(coords_fine, valid_fine, coords_coarse, valid_coarse,

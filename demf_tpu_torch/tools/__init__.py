@@ -74,6 +74,18 @@ def bound_ms(flops, nbytes, peak_flops=PEAK_FLOPS):
     return (by_ops, 'operations') if by_ops > by_bytes else (by_bytes, 'bytes')
 
 
+def vote_target_bound(points, boxes, valid, per_seed):
+    """K18's bound (ms, by): ~12 float32 operations a (point, valid box)
+    pair at half the card's float32 rate (exact roundings, no FMA), or the
+    bytes: the points' coordinates and the boxes and validity read, the
+    targets and masks written."""
+    b, p, _ = points.shape
+    g = boxes.shape[1]
+    pairs = float(p) * int(valid.sum())
+    nbytes = 12 * b * p + 28 * b * g + b * g + 4 * b * p * (3 * per_seed + 1)
+    return bound_ms(12.0 * pairs, nbytes, peak_flops=PEAK_FLOPS / 2)
+
+
 def msda_rows_touched(spatial_shapes, sampling_locations):
     """How many distinct (scene, token, head) value rows the bilinear
     corners of these sampling locations read (corners outside the map read
@@ -159,14 +171,16 @@ def device_kernels(fn, runs=4):
 
 
 def call_bytes(fn):
-    """Device memory that one call of ``fn`` takes at its peak beyond what
-    was allocated before it, its outputs included."""
+    """Device memory that one call of ``fn`` asks for at its peak beyond
+    what was asked for before it, its outputs included: the allocator's
+    requested bytes, so that a cached block it hands out unsplit counts at
+    the size the call asked for and not at the block's."""
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before = torch.cuda.memory_stats()['requested_bytes.all.current']
     torch.cuda.reset_peak_memory_stats()
     out = fn()
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - before
+    peak = torch.cuda.memory_stats()['requested_bytes.all.peak'] - before
     del out
     return peak
 

@@ -114,19 +114,19 @@ sizes, and K16 at grids of 2 to 32 blocks an SM: the numbers behind
 ``ops.mform.mform_launch_shape`` and ``ops.sparse.dweights_chunk``.  ``--only`` names the kernels to run
 (``fps,ball_query,msda,msda_backward,mform,msda_fold,box_count,nms2d,
 roi_align,roi_align_backward,sparse_conv,kernel_map,nms3d_rotated,
-sparse_dweights,sparse_conv_backward,sparse_max_pool,vote_slots``).
+sparse_dweights,sparse_conv_backward,sparse_max_pool,vote_targets``).
 K17 (``sparse_max_pool``) runs on the stem pool's call of the same FCAF3D
 train step (its coordinates, validity and rows; the output gradient drawn
 from a seed), float32 and bf16 (the rows rounded): each side's
-``sparse_max_pool_batched`` (the parent's chain of gathers and
-``torch.maximum``, whose autograd accumulates with ``index_put_``; this
-tree's K17) forward alone and forward + backward in turns, each side's
-device ms by kernel, and both sides' outputs and gradients the same bits.
-K18 (``vote_slots``) runs on a stage-2 step's vote-target call (16 scenes
-of 20,000 points of ``zoo.synth_demf_batch``, 64 GT slots, 3 slots a
-point): each side's ``models/target_assign.py::_vote_targets`` in turns,
-the targets the same bits, each side's device ms by kernel.  Without
-``--parent`` their chain side is this tree's plain route.  Prints its lines, writes
+``sparse_max_pool_batched`` forward alone and forward + backward in turns,
+each side's device ms by kernel and its pool's device ms a direction (its
+kernels and fills), and both sides' outputs and gradients the same bits.
+K18 (``vote_targets``) runs on a stage-2 step's vote-target call (16
+scenes of 20,000 points of ``zoo.synth_points_batch``, 64 GT slots, 3
+slots a point): each side's ``models/target_assign.py::_vote_targets`` in
+turns, the targets the same bits, each side's device ms by kernel and its
+launches a call.  Without ``--parent`` their other side is this tree's
+plain route.  Prints its lines, writes
 them as JSON to ``--out`` when given, and returns the rows.
 """
 from __future__ import annotations
@@ -148,7 +148,8 @@ from ..ops.gather_rows import gather_rows
 from . import (bench_msda_fold, bench_msda_matmul, bf16_err, bound_ms,
                box_pairs_in_reach, call_bytes, cuda_device,
                decoder_sampling_locations, device_kernels,
-               encoder_sampling_locations, same_bits, time_ms)
+               encoder_sampling_locations, same_bits, time_ms,
+               vote_target_bound)
 from .nms_cases import box_count_case, nms2d_case
 from .roi_cases import (ROI_KINDS, ROI_STRIDES, SAMPLED_ROIS, k12_case,
                         roi_case)
@@ -193,10 +194,10 @@ KERNELS = ('fps', 'ball_query', 'msda', 'msda_backward', 'mform',
            'msda_fold', 'box_count', 'nms2d', 'roi_align',
            'roi_align_backward', 'sparse_conv', 'kernel_map', 'nms3d_rotated',
            'sparse_dweights', 'sparse_conv_backward', 'sparse_max_pool',
-           'vote_slots')
+           'vote_targets')
 # K18: the vote targets' call of a stage-2 step (scenes, points, GT slots,
 # gt_per_seed)
-VOTE_SLOTS_CALL = (16, 20000, 64, 3)
+VOTE_TARGETS_CALL = (16, 20000, 64, 3)
 # the kernels whose comparison can time the parent alone (--parent-only)
 PARENT_ONLY = ('kernel_map', 'nms3d_rotated')
 # K9: (scenes, points, boxes) of a request and of an eval batch
@@ -1457,12 +1458,32 @@ def _plain_route(module, name, plain, fn):
     return call
 
 
-def compare_sparse_max_pool(old_pool, dev, calls):
+def _pool_calls(mod, feats, nbr, ov, g):
+    """(forward, backward) of a side's K17 entries on one call, as closures
+    (``mod`` its ``ops.sparse``): this tree's forward returns (output,
+    mask, reverse index) and its backward reads the index and the table;
+    the first K17 returned (output, mask) and read the table and M_in."""
+    res = mod.sparse_max_pool_cuda(feats, nbr, ov)
+    if len(res) == 3:
+        _, mask, reader = res
+        return (lambda: mod.sparse_max_pool_cuda(feats, nbr, ov),
+                lambda: mod.sparse_max_pool_backward_cuda(g, reader, nbr,
+                                                          mask))
+    _, mask = res
+    return (lambda: mod.sparse_max_pool_cuda(feats, nbr, ov),
+            lambda: mod.sparse_max_pool_backward_cuda(g, nbr, mask,
+                                                      feats.shape[1]))
+
+
+def compare_sparse_max_pool(old_pool, old_sparse, dev, calls):
     """K17 on a FCAF3D train step's stem pool through both sides'
-    ``sparse_max_pool_batched`` (``old_pool`` the chain), float32 and bf16
-    (the rows rounded), the output gradient drawn from seed 0: outputs and
-    gradients the same bits; forward and forward + backward in turns; each
-    side's device ms by kernel; K17's two kernels beside their bounds."""
+    ``sparse_max_pool_batched`` (``old_pool`` the parent's, or the chain),
+    float32 and bf16 (the rows rounded), the output gradient drawn from
+    seed 0: outputs and gradients the same bits; forward and forward +
+    backward in turns; each side's device ms by kernel; each side's K17
+    entries on the device a direction, every launch of a call (memsets
+    too; ``old_sparse`` the parent's ``ops.sparse``, None for the chain),
+    beside K17's bounds."""
     from . import bound_ms as bound
     from .sparse_cases import pool_bytes
     (coords, valid, feats32), kw = calls[0]
@@ -1490,7 +1511,7 @@ def compare_sparse_max_pool(old_pool, dev, calls):
                           forward(sparse.sparse_max_pool_batched), 10)
         both_ms = in_turns(both(old_pool),
                            both(sparse.sparse_max_pool_batched), 5)
-        sides = (('chain', old_pool),
+        sides = (('parent', old_pool),
                  ('this tree', sparse.sparse_max_pool_batched))
         split = {name: _device_split(both(fn)) for name, fn in sides}
         oc, ov = sparse.downsample_coords(coords, valid,
@@ -1498,42 +1519,54 @@ def compare_sparse_max_pool(old_pool, dev, calls):
                                           kw['max_out'])
         nbr = sparse.kernel_tables([sparse.TableJob(
             coords, valid, oc, ov, 2, False, kw['tensor_stride'])], True)[0]
+        # each entry's device ms in turns (parent, this tree, this tree,
+        # parent), the parent's NaN without a parent tree
+        mine = _pool_calls(sparse, feats, nbr, ov, g)
+        theirs = _pool_calls(old_sparse, feats, nbr, ov, g) \
+            if old_sparse is not None else (None, None)
+        pool = [[_device_split(fn)[0] if fn else float('nan')
+                 for fn in (old, new, new, old)]
+                for old, new in zip(theirs, mine)]
         least = bound(0.0, pool_bytes(feats, nbr, ov)[0])[0]
         b_least = bound(0.0, pool_bytes(feats, nbr, ov, backward=True)[0])[0]
-        k17 = sum(ms for k, _, ms in split['this tree'][1] if 'pool_' in k)
         print(f'K17 sparse_max_pool {str(dtype)[6:]}, a train step\'s stem '
-              f'pool {tuple(feats.shape)} -> {tuple(shape)}: forward chain '
+              f'pool {tuple(feats.shape)} -> {tuple(shape)}: forward parent '
               f'{fwd_ms[0]:.4f} / {fwd_ms[3]:.4f} ms, this tree '
-              f'{fwd_ms[1]:.4f} / {fwd_ms[2]:.4f}; forward + backward chain '
+              f'{fwd_ms[1]:.4f} / {fwd_ms[2]:.4f}; forward + backward parent '
               f'{both_ms[0]:.4f} / {both_ms[3]:.4f}, this tree '
               f'{both_ms[1]:.4f} / {both_ms[2]:.4f}; device ms forward + '
-              f'backward: chain {split["chain"][0]:.4f}, this tree '
-              f'{split["this tree"][0]:.4f} (K17\'s kernels {k17:.4f}, '
-              f'bound {least + b_least:.6f}); outputs and gradients the same '
+              f'backward: parent {split["parent"][0]:.4f}, this tree '
+              f'{split["this tree"][0]:.4f}; K17\'s entries on the device in '
+              f'turns, forward: parent {pool[0][0]:.4f} / {pool[0][3]:.4f}, '
+              f'this tree {pool[0][1]:.4f} / {pool[0][2]:.4f} (bound '
+              f'{least:.6f}: {least / pool[0][1]:.1%}); backward: parent '
+              f'{pool[1][0]:.4f} / {pool[1][3]:.4f}, this tree '
+              f'{pool[1][1]:.4f} / {pool[1][2]:.4f} (bound {b_least:.6f}: '
+              f'{b_least / pool[1][1]:.1%}); outputs and gradients the same '
               f'bits: {same}', flush=True)
         for name, (_, found) in split.items():
             print(f'  {name}, device ms by kernel: ' + ', '.join(
                 f'{k} x{n:g} {ms:.4f}' for k, n, ms in found[:8]),
                 flush=True)
         if not same:
-            raise AssertionError('K17 differs from the chain')
+            raise AssertionError('K17 differs from the parent')
         rows.append(dict(kernel='sparse_max_pool', dtype=str(dtype)[6:],
                          parent_ms=[fwd_ms[0], fwd_ms[3]],
                          ms=[fwd_ms[1], fwd_ms[2]],
                          parent_ms_with_backward=[both_ms[0], both_ms[3]],
                          ms_with_backward=[both_ms[1], both_ms[2]],
                          device_ms={k: v[0] for k, v in split.items()},
-                         k17_device_ms=k17, bound_ms=[least, b_least]))
+                         pool_device_ms=pool, bound_ms=[least, b_least]))
     return rows
 
 
-def vote_slot_inputs(dev):
-    """The vote targets' call of a stage-2 step at ``VOTE_SLOTS_CALL``:
+def vote_target_inputs(dev):
+    """The vote targets' call of a stage-2 step at ``VOTE_TARGETS_CALL``:
     (points (B, P, 3) of a (B, P, 4) cloud, GT boxes, valid, gt_per_seed),
     a scene without valid GT given its fake box as the heads give it."""
     from .. import zoo
     from ..engine import batch_to_device
-    b, p, g, per_seed = VOTE_SLOTS_CALL
+    b, p, g, per_seed = VOTE_TARGETS_CALL
     batch = batch_to_device(zoo.synth_points_batch(b, p, g, seed=0), dev)
     valid = batch['gt_valid'].bool()
     first = torch.zeros_like(valid)
@@ -1543,43 +1576,41 @@ def vote_slot_inputs(dev):
     return batch['points'][..., :3], boxes, valid, per_seed
 
 
-def compare_vote_slots(old_targets, dev):
+def compare_vote_targets(old_targets, dev):
     """K18 through both sides' ``_vote_targets`` (``old_targets`` the
-    chain) on ``vote_slot_inputs``: the targets the same bits; in turns;
-    each side's device ms by kernel; K18's bound."""
-    from . import bound_ms as bound
+    parent's, or the plain route) on ``vote_target_inputs``: the targets
+    the same bits; in turns; each side's device ms and launches by kernel;
+    K18's bound (``vote_target_bound``)."""
     from ..models import target_assign
-    from ..ops import vote_slots as vs
-    args = vote_slot_inputs(dev)
-    b, p, g, per_seed = VOTE_SLOTS_CALL
+    args = vote_target_inputs(dev)
+    b, p, g, per_seed = VOTE_TARGETS_CALL
     got = target_assign._vote_targets(*args)
     want = old_targets(*args)
     same = same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
     ms = in_turns(lambda: old_targets(*args),
                   lambda: target_assign._vote_targets(*args), 20)
-    slots_ms = [time_ms(lambda: vs.vote_slots_plain(*args), 10),
-                time_ms(lambda: vs.vote_slots_cuda(*args), 20)]
     split = {name: _device_split(lambda fn=fn: fn(*args)) for name, fn in (
-        ('chain', old_targets), ('this tree', target_assign._vote_targets))}
-    nbytes = (12 * b * p + 36 * b * g + b * g + 5 * b * p * per_seed)
-    least, by = bound(12.0 * b * p * g, nbytes)
-    k18 = sum(ms_ for k, _, ms_ in split['this tree'][1] if 'vote_slots' in k)
-    print(f'K18 vote_slots, a stage-2 step\'s call ({b} x {p} points, {g} GT '
-          f'slots, {per_seed} a point): _vote_targets chain {ms[0]:.4f} / '
-          f'{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f}; the slots '
-          f'alone: plain {slots_ms[0]:.4f}, K18 {slots_ms[1]:.4f}; device ms '
-          f'chain {split["chain"][0]:.4f}, this tree '
-          f'{split["this tree"][0]:.4f} (K18\'s kernel {k18:.4f}, bound '
-          f'{least:.6f} by {by}); targets the same bits: {same}', flush=True)
+        ('parent', old_targets), ('this tree', target_assign._vote_targets))}
+    launches = {k: sum(n for _, n, _ in v[1]) for k, v in split.items()}
+    least, by = vote_target_bound(*args)
+    print(f'K18 vote_targets, a stage-2 step\'s call ({b} x {p} points, {g} '
+          f'GT slots ({int(args[2].sum())} valid), {per_seed} a point): '
+          f'_vote_targets parent {ms[0]:.4f} / {ms[3]:.4f} ms, this tree '
+          f'{ms[1]:.4f} / {ms[2]:.4f}; device ms parent '
+          f'{split["parent"][0]:.4f} in {launches["parent"]:g} launches, '
+          f'this tree {split["this tree"][0]:.4f} in '
+          f'{launches["this tree"]:g} (bound {least:.6f} by {by}: '
+          f'{least / split["this tree"][0]:.1%}); targets the same bits: '
+          f'{same}', flush=True)
     for name, (_, found) in split.items():
         print(f'  {name}, device ms by kernel: ' + ', '.join(
-            f'{k} x{n:g} {t:.4f}' for k, n, t in found[:8]), flush=True)
+            f'{k} x{n:g} {t:.4f}' for k, n, t in found[:12]), flush=True)
     if not same:
-        raise AssertionError('K18 differs from the chain')
-    return [dict(kernel='vote_slots', parent_ms=[ms[0], ms[3]],
-                 ms=[ms[1], ms[2]], slots_ms=slots_ms,
+        raise AssertionError('K18 differs from the parent')
+    return [dict(kernel='vote_targets', parent_ms=[ms[0], ms[3]],
+                 ms=[ms[1], ms[2]],
                  device_ms={k: v[0] for k, v in split.items()},
-                 k18_device_ms=k18, bound_ms=least, bound_by=by)]
+                 launches=launches, bound_ms=least, bound_by=by)]
 
 
 def main(argv=None):
@@ -1652,8 +1683,9 @@ def main(argv=None):
                 else _plain_route(sparse, 'sparse_max_pool',
                                   sparse.sparse_max_pool_plain,
                                   sparse.sparse_max_pool_batched)
-            rows += compare_sparse_max_pool(old_pool, dev,
-                                            calls['sparse_max_pool'])
+            rows += compare_sparse_max_pool(
+            old_pool, old_sparse if args.parent else None, dev,
+            calls['sparse_max_pool'])
         with torch.no_grad():
             if 'sparse_dweights' in only:
                 rows += compare_sparse_dweights(
@@ -1665,15 +1697,15 @@ def main(argv=None):
                     old_sparse, dev, calls['sparse_conv_backward'])
         del calls
         torch.cuda.empty_cache()
-    if 'vote_slots' in only:
+    if 'vote_targets' in only:
         from ..models import target_assign
-        from ..ops import vote_slots as vs
+        from ..ops import vote_targets as vt
         old_targets = importlib.import_module(
             'demf_parent.models.target_assign')._vote_targets \
             if args.parent else _plain_route(
-                target_assign, 'vote_slots', vs.vote_slots_plain,
+                target_assign, 'vote_targets', vt.vote_targets_plain,
                 target_assign._vote_targets)
-        rows += compare_vote_slots(old_targets, dev)
+        rows += compare_vote_targets(old_targets, dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -187,13 +187,14 @@ def gather_amax(feats, nbr, grad=None):
 
 
 def pool_bytes(feats, nbr, out_valid, backward=False):
-    """(Bytes the pool's function must move, bytes of K17's tie mask).  The
-    forward reads the rows its present taps point to, the table and
-    out_valid, and writes the output; the backward reads the output
-    gradient of the valid output rows, the table and out_valid, and writes
-    d_in whole (a row no output reads is 0).  The mask, a byte a (output
-    row, channel) that the forward writes and the backward reads, is K17's
-    design and not the function's: a cost apart."""
+    """(Bytes the pool's function must move, bytes of K17's tie mask and
+    reverse index).  The forward reads the rows its present taps point to,
+    the table and out_valid, and writes the output; the backward reads the
+    output gradient of the valid output rows, the table and out_valid, and
+    writes d_in whole (a row no output reads is 0).  The mask, a byte a
+    (output row, channel), and the reverse index, an int32 an input row,
+    which the forward writes and the backward reads, are K17's design and
+    not the function's: a cost apart."""
     b, m_out, _ = nbr.shape
     c, e = feats.shape[2], feats.element_size()
     table = 4 * nbr.numel() + out_valid.numel()
@@ -201,4 +202,4 @@ def pool_bytes(feats, nbr, out_valid, backward=False):
         need = int(out_valid.sum()) * c * e + table + feats.numel() * e
     else:
         need = int((nbr >= 0).sum()) * c * e + table + b * m_out * c * e
-    return need, b * m_out * c
+    return need, b * m_out * c + 4 * feats.shape[0] * feats.shape[1]

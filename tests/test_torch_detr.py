@@ -39,6 +39,19 @@ from demf_tpu_torch.models import detr_head, losses
 TINY = load_model_cfg('synthetic/detr_pretrain_tiny.py')
 BATCH = dict(b=2, hw=(64, 96), g=5, seed=3)
 MAX_NORM = TINY.optimizer_config['grad_clip']['max_norm']
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """The module on one intra-op thread: the tiny models' many small ops
+    under the other test workers' threads slow by tens to hundreds of
+    times with torch's default pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FROZEN = ('img_backbone.conv1', 'img_backbone.bn1', 'img_backbone.layer1.')
 
 

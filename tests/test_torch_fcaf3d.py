@@ -51,6 +51,17 @@ CFG = 'configs/synthetic/fcaf3d_tiny.py'
 LEVEL_KEYS = ('centerness', 'bbox_pred', 'cls_scores')
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """The module on one intra-op thread: the tiny models' many small ops
+    under the other test workers' threads slow by tens to hundreds of
+    times with torch's default pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def jax_variables(jmodel, jbatch, seed=0):
     """Flat params and statistics at ``init``'s shapes (by
     ``jax.eval_shape``): He-scaled kernels, small biases, BatchNorm scales

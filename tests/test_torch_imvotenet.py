@@ -80,6 +80,17 @@ RESULT_KEYS = ('seed_points', 'vote_points', 'vote_features', 'vote_offset',
                'dir_res_norm', 'distance')
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """The module on one intra-op thread: the tiny models' many small ops
+    under the other test workers' threads slow by tens to hundreds of
+    times with torch's default pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _plain(cfg):
     if isinstance(cfg, dict):
         return {k: _plain(v) for k, v in cfg.items()}

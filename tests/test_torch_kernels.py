@@ -2342,8 +2342,8 @@ def test_sparse_max_pool_equals_plain(dev, b, m, c, kind, dtype):
     """K17's forward and backward (16-byte rows, and rows of 5 and 12
     values one a thread) against the plain versions of its order and
     against the chain and its autograd on the card, bit for bit: outputs,
-    tie masks and d_in, -0 gradients written +0; one launch each, none of
-    the mask in inference."""
+    tie masks, reverse indices and d_in, -0 gradients written +0; one
+    launch each, neither mask nor index in inference."""
     from demf_tpu_torch.ops import sparse
     coords, valid, nbr, ov = pool_case(dev, b, m)
     x = pool_rows(valid, c, kind, dtype)
@@ -2352,16 +2352,20 @@ def test_sparse_max_pool_equals_plain(dev, b, m, c, kind, dtype):
     bwd = (sparse.SPARSE_MAX_POOL_BACKWARD_KERNEL if dtype == torch.float32
            else sparse.SPARSE_MAX_POOL_BACKWARD_BF16_KERNEL)
     before = (fwd.launches, bwd.launches)
-    out, mask = sparse.sparse_max_pool_cuda(x, nbr, ov)
+    out, mask, reader = sparse.sparse_max_pool_cuda(x, nbr, ov)
     want, want_mask = sparse.sparse_max_pool_mask_plain(x, nbr, ov)
     assert torch.equal(bits(out), bits(want))
     assert torch.equal(mask, want_mask)
-    bare, none = sparse.sparse_max_pool_cuda(x, nbr, ov, with_mask=False)
-    assert none is None and torch.equal(bits(bare), bits(out))
+    assert written_equal(reader, sparse.sparse_max_pool_reader_plain(
+        nbr, ov, x.shape[1]))
+    bare, none, no_index = sparse.sparse_max_pool_cuda(x, nbr, ov,
+                                                       with_mask=False)
+    assert none is None and no_index is None
+    assert torch.equal(bits(bare), bits(out))
     g = torch.randn(out.shape, device=dev,
                     generator=torch.Generator(dev).manual_seed(1)).to(dtype)
     g[:, ::9] = -0.0
-    d = sparse.sparse_max_pool_backward_cuda(g, nbr, mask, x.shape[1])
+    d = sparse.sparse_max_pool_backward_cuda(g, reader, nbr, mask)
     assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
     assert torch.equal(bits(d), bits(sparse.sparse_max_pool_backward_plain(
         g, nbr, mask, x.shape[1])))
@@ -2392,6 +2396,99 @@ def test_sparse_max_pool_refuses_other_kernels(dev):
                                            sorted_input=True)
 
 
+def tie_table(dev, b, m_out, kind, c, dtype, seed=3):
+    """Output row o reads input rows 8 o + t of 16 M_out (taps absent at
+    random, all 8 present in every fifth row, a tenth of the output rows
+    invalid; half the input rows have no reader) and rows of ``kind``:
+    ``ties`` values of {1, 2} (ties of 2 to 8 taps), ``zeros`` of +0, -0
+    and -1, ``nonfinite`` with NaN, inf and -inf planted.  Returns (rows,
+    table, out_valid)."""
+    rng = np.random.RandomState(seed)
+    nbr = np.arange(m_out)[:, None] * 8 + np.arange(8)
+    nbr = np.where(rng.rand(b, m_out, 8) < 0.4, -1, nbr)
+    nbr[:, ::5] = np.arange(m_out)[::5, None] * 8 + np.arange(8)
+    if kind == 'ties':
+        x = rng.randint(1, 3, (b, 16 * m_out, c)).astype(np.float32)
+    elif kind == 'zeros':
+        x = rng.choice(np.array([0.0, -0.0, -1.0], np.float32),
+                       (b, 16 * m_out, c))
+    else:
+        x = rng.randn(b, 16 * m_out, c).astype(np.float32)
+        for col, v in enumerate((np.nan, np.inf, -np.inf)):
+            x[:, col::13, col % c] = v
+    return (torch.from_numpy(x).to(dev, dtype),
+            torch.from_numpy(nbr.astype(np.int32)).to(dev),
+            torch.from_numpy(rng.rand(b, m_out) > 0.1).to(dev))
+
+
+def written_equal(reader, want):
+    """K17's reverse index equals the plain one where that one names a
+    reader (elsewhere the kernel writes nothing)."""
+    read = want >= 0
+    return torch.equal(reader[read], want[read])
+
+
+def stale_entries(reader, want, nbr, ov, seed=4):
+    """``reader`` with every entry that K17 does not write replaced by what
+    stale memory may hold: any int around the table's range, and the taps
+    of invalid output rows that do read the row."""
+    m_out = nbr.shape[1]
+    gen = torch.Generator(reader.device).manual_seed(seed)
+    stale = torch.randint(-9, m_out * 8 + 9, reader.shape, generator=gen,
+                          device=reader.device, dtype=torch.int32)
+    s, o, t = torch.nonzero((nbr >= 0) & ~ov[..., None], as_tuple=True)
+    stale[s, nbr[s, o, t].long()] = (o * 8 + t).int()
+    return torch.where(want >= 0, reader, stale)
+
+
+def stale_nan(dev, shape, dtype):
+    """Leave a freed block of NaN of ``shape`` in the caching allocator,
+    which the next allocation of that size takes: a kernel that does not
+    write every element of it shows it."""
+    torch.full(shape, float('nan'), dtype=dtype, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['ties', 'zeros', 'nonfinite'])
+@pytest.mark.parametrize('c', [64, 8, 5, 3])
+def test_sparse_max_pool_ties_and_unread_rows(dev, c, kind, dtype):
+    """K17 on ties of 2 to 8 taps, signed zeros and non-finite rows, with
+    rows of 16 bytes and of 5 and 3 values (no multiple of 16 bytes, one
+    value a thread): output, tie mask and reverse index equal to the plain
+    versions, d_in to ``sparse_max_pool_backward_plain`` and to the chain's
+    autograd bit for bit; each input row that no valid output reads comes
+    out +0 though its memory held NaN before (no fill of d_in), and so it
+    does with stale entries planted in the index where the forward wrote
+    none."""
+    from demf_tpu_torch.ops import sparse
+    x, nbr, ov = tie_table(dev, 2, 1024, kind, c, dtype)
+    m_in = x.shape[1]
+    out, mask, reader = sparse.sparse_max_pool_cuda(x, nbr, ov)
+    want, want_mask = sparse.sparse_max_pool_mask_plain(x, nbr, ov)
+    assert torch.equal(bits(out), bits(want)) and torch.equal(mask, want_mask)
+    want_reader = sparse.sparse_max_pool_reader_plain(nbr, ov, m_in)
+    assert written_equal(reader, want_reader)
+    if kind == 'ties':
+        ties = {bin(v).count('1') for v in mask.unique().tolist()}
+        assert set(range(2, 9)) <= ties
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(2)).to(dtype)
+    g[:, ::7] = -0.0
+    stale_nan(dev, x.shape, dtype)
+    d = sparse.sparse_max_pool_backward_cuda(g, reader, nbr, mask)
+    assert torch.equal(bits(d), bits(sparse.sparse_max_pool_backward_plain(
+        g, nbr, mask, m_in)))
+    again = sparse.sparse_max_pool_backward_cuda(
+        g, stale_entries(reader, want_reader, nbr, ov), nbr, mask)
+    assert torch.equal(bits(again), bits(d))
+    unread = want_reader < 0
+    assert unread.any() and (bits(d)[unread] == 0).all()
+    xa = x.clone().requires_grad_()
+    sparse.sparse_max_pool_plain(xa, nbr, ov).backward(g)
+    assert torch.equal(bits(d), bits(xa.grad))
+
+
 def slot_scene(dev, b, p, g, seed=0):
     """b scenes of p points (a (B, P, 4) cloud read through its strides)
     among g overlapping rotated boxes, a fifth of them invalid, a NaN point
@@ -2409,26 +2506,79 @@ def slot_scene(dev, b, p, g, seed=0):
             torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
 
 
+def check_vote_targets(points, boxes, valid, s):
+    """K18 against its plain version on the card, bit for bit, in one
+    launch, also through ``_vote_targets``; returns the masks."""
+    from demf_tpu_torch.models import target_assign
+    from demf_tpu_torch.ops import vote_targets as vt
+    before = vt.VOTE_TARGETS_KERNEL.launches
+    got, masks = vt.vote_targets_cuda(points, boxes, valid, s)
+    assert vt.VOTE_TARGETS_KERNEL.launches == before + 1
+    want, want_m = vt.vote_targets_plain(points, boxes, valid, s)
+    assert torch.equal(bits(got), bits(want)) and torch.equal(masks, want_m)
+    via = target_assign._vote_targets(points, boxes, valid, s)
+    assert vt.VOTE_TARGETS_KERNEL.launches == before + 2
+    assert torch.equal(bits(via[0]), bits(got)) and torch.equal(via[1],
+                                                                masks)
+    return masks
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('b,p,g,s', [(16, 20000, 64, 3), (2, 1000, 5, 1),
                                      (3, 777, 200, 2), (2, 500, 8, 5),
                                      (1, 300, 1024, 8)])
 def test_vote_slots_equals_plain(dev, b, p, g, s):
-    """K18's slots and flags against the plain version on the card, and
-    the vote targets built on them against those built on the plain
-    slots, bit for bit; one launch a call."""
-    from demf_tpu_torch.models import target_assign
-    from demf_tpu_torch.ops import vote_slots
-    points, boxes, valid = slot_scene(dev, b, p, g)
-    before = vote_slots.VOTE_SLOTS_KERNEL.launches
-    slots, has = vote_slots.vote_slots_cuda(points, boxes, valid, s)
-    assert vote_slots.VOTE_SLOTS_KERNEL.launches == before + 1
-    want_s, want_h = vote_slots.vote_slots_plain(points, boxes, valid, s)
-    assert torch.equal(slots.long(), want_s) and torch.equal(has, want_h)
-    assert has[..., 0].any() and not has[..., 0].all()
-    got = target_assign._vote_targets(points, boxes, valid, s)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(target_assign, 'vote_slots', vote_slots.vote_slots_plain)
-        want = target_assign._vote_targets(points, boxes, valid, s)
-    assert torch.equal(bits(got[0]), bits(want[0]))
-    assert torch.equal(got[1], want[1])
+    """K18's vote targets and masks against the plain version on the card
+    (the JAX package's expressions), bit for bit; one launch a call."""
+    masks = check_vote_targets(*slot_scene(dev, b, p, g), s)
+    assert masks.any() and not masks.all()
+
+
+def face_scene(dev, yaw):
+    """Points on and 2e-6 beyond the faces of boxes turned by ``yaw``
+    (invalid boxes between valid ones, a NaN point, a NaN box)."""
+    rng = np.random.RandomState(5)
+    boxes = np.zeros((2, 6, 7), np.float32)
+    boxes[..., :3] = rng.uniform(-1, 1, (2, 6, 3))
+    boxes[..., 3:6] = rng.choice([0.5, 1.0, 1.5, 2.0], (2, 6, 3))
+    boxes[..., 6] = yaw
+    valid = np.tile([True, False, True, True, False, True], (2, 1))
+    centers = boxes[..., :3].copy()
+    centers[..., 2] += boxes[..., 5] / 2
+    axis = rng.randint(0, 3, (2, 6, 40))
+    off = rng.uniform(-0.5, 0.5, (2, 6, 40, 3)) * boxes[:, :, None, 3:6]
+    face = np.take_along_axis(boxes[:, :, None, 3:6] / 2, axis[..., None], -1)
+    face = face + np.where(rng.rand(2, 6, 40, 1) < 0.3, 2e-6, 0.0)
+    np.put_along_axis(off, axis[..., None],
+                      rng.choice([-1.0, 1.0], (2, 6, 40, 1)) * face, -1)
+    c, s_ = np.cos(yaw), np.sin(yaw)
+    off[..., :2] = np.stack([off[..., 0] * c + off[..., 1] * s_,
+                             -off[..., 0] * s_ + off[..., 1] * c], -1)
+    points = (centers[:, :, None] + off).reshape(2, 240, 3).astype(np.float32)
+    points[0, 7] = np.nan
+    boxes[1, 4, 0] = np.nan
+    return (torch.from_numpy(points).to(dev), torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('s', [1, 2, 3, 4])
+@pytest.mark.parametrize('case', ['faces', 'turned', 'one_box', 'far_yaws'])
+def test_vote_targets_edge_cases_equal_plain(dev, case, s):
+    """K18 against its plain version, bit for bit, on points on and just
+    beyond box faces (axis-aligned and turned boxes), invalid boxes
+    between valid ones, NaN points and boxes, G = 1, and yaws out to
+    +-1e4 rad (the kernel's cosf / sinf against torch.cos / torch.sin)."""
+    if case in ('faces', 'turned'):
+        scene = face_scene(dev, 0.0 if case == 'faces' else 0.7)
+    else:
+        points, boxes, valid = slot_scene(dev, 2, 3000, 40, seed=s)
+        if case == 'one_box':
+            boxes, valid = boxes[:, :1].contiguous(), valid[:, :1].clone()
+            valid[0], valid[1] = True, False
+        else:
+            boxes[..., 6] = torch.linspace(-1e4, 1e4, boxes[..., 6].numel(),
+                                           device=dev).view(boxes.shape[:2])
+        scene = points, boxes, valid
+    masks = check_vote_targets(*scene, s)
+    assert masks.any()

@@ -365,6 +365,123 @@ def test_max_pool_gradient_equals_jax(level, dtype, kind, one_thread):
     assert tied.any() == (kind in ('relu', 'ties'))
 
 
+def walk_case(kind, dtype, b=2, m_out=96, seed=3):
+    """A pool table in which output row o reads input rows 8 o + t (taps
+    absent at random, every tap of some rows present, a tenth of the rows
+    invalid; half the input rows have no reader) and rows of ``kind``:
+    ``ties`` values of {1, 2} (ties of 2 to 8 taps), ``nonfinite`` with
+    NaN, inf and -inf planted, ``zeros`` of +0, -0 and -1.  Returns (rows
+    (B, 16 M_out, 8), table, out_valid, an output gradient)."""
+    rng = np.random.RandomState(seed)
+    k, c = 8, 8
+    nbr = np.arange(m_out)[:, None] * k + np.arange(k)
+    nbr = np.where(rng.rand(b, m_out, k) < 0.4, -1, nbr)
+    nbr[:, ::5] = np.arange(m_out)[::5, None] * k + np.arange(k)
+    valid = rng.rand(b, m_out) > 0.1
+    if kind == 'ties':
+        x = rng.randint(1, 3, (b, 2 * k * m_out, c)).astype(np.float32)
+    elif kind == 'zeros':
+        x = rng.choice(np.array([0.0, -0.0, -1.0], np.float32),
+                       (b, 2 * k * m_out, c))
+    else:
+        x = rng.randn(b, 2 * k * m_out, c).astype(np.float32)
+        for col, v in enumerate((np.nan, np.inf, -np.inf)):
+            x[:, col::13, col] = v
+    grad = rng.randn(b, m_out, c).astype(np.float32)
+    grad[:, ::7] = -0.0
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(nbr.astype(
+        np.int32)), torch.from_numpy(valid),
+        torch.from_numpy(grad).to(dtype))
+
+
+def pool_walk(x, nbr, out_valid):
+    """K17's forward walk in plain torch: the taps in order, (running
+    maximum in the rows' type, bits of the taps equal to it), a greater
+    tap clearing the bits and an equal one adding its bit; an invalid row
+    reads no tap; a non-finite maximum or invalid row writes 0 and no
+    bits."""
+    b, m_out, k = nbr.shape
+    acc = x.new_full((b, m_out, x.shape[2]), float('-inf'))
+    bits = torch.zeros(acc.shape, dtype=torch.int32)
+    for t in range(k):
+        idx = nbr[..., t].long()
+        here = ((idx >= 0) & out_valid)[..., None]
+        y = torch.gather(x, 1, idx.clamp(min=0)[..., None].expand_as(acc))
+        bit = 1 << t
+        bits = torch.where(here & (y > acc), bit,
+                           torch.where(here & (y == acc), bits | bit, bits))
+        acc = torch.where(here, torch.maximum(acc, y), acc)
+    keep = torch.isfinite(acc) & out_valid[..., None]
+    return torch.where(keep, acc, 0), torch.where(keep, bits, 0).to(
+        torch.uint8)
+
+
+def pool_backward_walk(grad, reader, nbr, mask):
+    """K17's backward in plain torch, an input row at a time as its threads
+    run: 0 unless its index entry names a tap of the table that reads it,
+    else the reader's gradient halved (in the rows' type, one halving at a
+    time) once a mask bit at or above its tap, the lowest bit not counted,
+    0 off the mask; written 0 + share."""
+    b, m_in = reader.shape
+    m_out, k = nbr.shape[1:]
+    d = grad.new_zeros((b, m_in, grad.shape[2]))
+    for s in range(b):
+        for i in range(m_in):
+            who = int(reader[s, i])
+            o, tap = divmod(who, P.MAX_POOL_TAPS)
+            if who < 0 or o >= m_out or tap >= k or int(nbr[s, o, tap]) != i:
+                continue
+            for ch in range(grad.shape[2]):
+                bits = int(mask[s, o, ch])
+                share = grad.new_zeros(())
+                if bits >> tap & 1:
+                    share = grad[s, o, ch].clone()
+                    low = bits & -bits == 1 << tap
+                    for _ in range(bin(bits >> tap).count('1') - low):
+                        share = share * 0.5
+                d[s, i, ch] = 0 + share
+    return d
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['ties', 'nonfinite', 'zeros'])
+def test_max_pool_walk_equals_mask_plain(kind, dtype, one_thread):
+    """K17's redesigned order in plain torch: the tie mask built while
+    walking the taps, and d_in an input row at a time from the reverse
+    index (``sparse_max_pool_reader_plain`` where it is written, stale
+    entries elsewhere: out of range, naming taps that read other rows, and
+    naming the taps of invalid rows that do read the row), against the
+    final-compare mask of ``sparse_max_pool_mask_plain`` and the tap-by-tap
+    shares of ``sparse_max_pool_backward_plain``, bit for bit, on NaN,
+    +-inf, +-0, absent taps, invalid rows, unread input rows and ties of 2
+    to 8 taps."""
+    x, nbr, ov, grad = walk_case(kind, dtype)
+    out, mask = pool_walk(x, nbr, ov)
+    want, want_mask = P.sparse_max_pool_mask_plain(x, nbr, ov)
+    same_bits(out.float().numpy(), want.float().numpy())
+    assert torch.equal(mask, want_mask)
+    ties = {bin(v).count('1') for v in mask.unique().tolist()}
+    if kind == 'ties':
+        assert set(range(1, 9)) <= ties
+    reader = P.sparse_max_pool_reader_plain(nbr, ov, x.shape[1])
+    want_reader = torch.full(reader.shape, -1, dtype=torch.int32)
+    for s, o, t in zip(*torch.nonzero((nbr >= 0) & ov[..., None],
+                                      as_tuple=True)):
+        want_reader[s, nbr[s, o, t]] = o * P.MAX_POOL_TAPS + t
+    assert torch.equal(reader, want_reader)
+    assert (reader >= 0).any() and (reader < 0).any()
+    m_out = nbr.shape[1]
+    stale = torch.from_numpy(np.random.RandomState(4).randint(
+        -9, m_out * P.MAX_POOL_TAPS + 9, reader.shape).astype(np.int32))
+    for s, o, t in zip(*torch.nonzero((nbr >= 0) & ~ov[..., None],
+                                      as_tuple=True)):
+        stale[s, nbr[s, o, t]] = o * P.MAX_POOL_TAPS + t
+    d = pool_backward_walk(grad, torch.where(reader >= 0, reader, stale),
+                           nbr, mask)
+    want_d = P.sparse_max_pool_backward_plain(grad, nbr, mask, x.shape[1])
+    same_bits(d.float().numpy(), want_d.float().numpy())
+
+
 @pytest.mark.parametrize('route', ['plain', 'tiles', 'head'])
 @pytest.mark.parametrize('fine_stride', [1, 2, 4])
 def test_transposed_conv_equals_jax(level, fine_stride, route, monkeypatch):

@@ -218,23 +218,6 @@ def _slot_scene(dtype):
     return points, boxes, valid
 
 
-def _slots_by_scan(in_box, gt_per_seed):
-    """K18's rule, point by point: the boxes that hold it in order."""
-    b, p, g = in_box.shape
-    slots = np.zeros((b, p, gt_per_seed), np.int64)
-    has = np.zeros((b, p, gt_per_seed), bool)
-    for i in range(b):
-        for j in range(p):
-            hits = list(np.flatnonzero(in_box[i, j]))
-            for k in range(gt_per_seed):
-                has[i, j, k] = len(hits) > k
-                if k < max(gt_per_seed - 1, 1):
-                    slots[i, j, k] = hits[k] if len(hits) > k else 0
-                else:
-                    slots[i, j, k] = hits[-1] if len(hits) > k else g - 1
-    return slots, has
-
-
 @jax.jit
 def jax_slot_targets(points, boxes, valid):
     """The JAX package's in-box mask (valid GT only) and its vote targets
@@ -256,32 +239,139 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+def _targets_by_walk(points, boxes, in_box, gt_per_seed):
+    """K18's walk, point by point in numpy: the boxes that hold a point in
+    order, slot 0 the first, slot min(n, S - 1) the n-th after it (the last
+    slot overwritten), each slot's center - the point in the points' dtype,
+    the first vote (box 0's when there is no hit) where a slot has none,
+    times has1; and has1."""
+    b, p, _ = in_box.shape
+    s = gt_per_seed
+    half = np.asarray(0.5, points.dtype)
+    centers = np.concatenate([boxes[..., :2], boxes[..., 2:3] +
+                              boxes[..., 5:6] * half], -1)
+    targets = np.zeros((b, p, 3 * s), points.dtype)
+    masks = np.zeros((b, p), np.int32)
+    for i in range(b):
+        for j in range(p):
+            slot, n = [0] * s, 0
+            for box in np.flatnonzero(in_box[i, j]):
+                if n == 0 or s > 1:
+                    slot[min(n, s - 1)] = box
+                n += 1
+            has1 = np.asarray(n > 0, points.dtype)
+            first = centers[i, slot[0]] - points[i, j, :3]
+            for k in range(s):
+                v = centers[i, slot[k]] - points[i, j, :3] if 0 < k < n \
+                    else first
+                targets[i, j, 3 * k:3 * k + 3] = v * has1
+            masks[i, j] = n > 0
+    return targets, masks
+
+
+def same_bits(got, want):
+    got = np.ascontiguousarray(np.asarray(got))
+    want = np.ascontiguousarray(np.asarray(want))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ints = {4: np.int32, 8: np.int64}[got.itemsize]
+    np.testing.assert_array_equal(got.view(ints), want.view(ints))
+
+
+def check_vote_targets(points, boxes, valid, gt_per_seed, want):
+    """K18's plain version (``ops/vote_targets.py::vote_targets_plain``,
+    also through ``_vote_targets``) and its walk rule in numpy against the
+    JAX package's (in-box mask, (targets, masks)) ``want``, bit for bit."""
+    from demf_tpu_torch.ops.vote_targets import vote_targets_plain
+    in_box, (want_t, want_m) = np.asarray(want[0]), want[1]
+    got_t, got_m = vote_targets_plain(points, _t(boxes), _t(valid),
+                                      gt_per_seed)
+    assert got_t.dtype == points.dtype and got_m.dtype == torch.int32
+    same_bits(got_t.numpy(), want_t)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    via, via_m = target_assign._vote_targets(points, _t(boxes), _t(valid),
+                                             gt_per_seed)
+    same_bits(via.numpy(), want_t)
+    np.testing.assert_array_equal(via_m.numpy(), np.asarray(want_m))
+    walk_t, walk_m = _targets_by_walk(points.numpy(), boxes, in_box,
+                                      gt_per_seed)
+    same_bits(walk_t, want_t)
+    np.testing.assert_array_equal(walk_m, np.asarray(want_m))
+    return in_box
+
+
 @pytest.mark.parametrize('gt_per_seed', [1, 2, 3, 4])
 @pytest.mark.parametrize('dtype', [np.float32, np.float64])
 def test_vote_slots_and_targets_equal_jax(dtype, gt_per_seed, one_thread):
-    """K18's plain version (``ops/vote_slots.py::vote_slots_plain``, the
-    JAX package's expressions) against the rule walked point by point over
-    the JAX package's in-box mask, on points in 0, 1, 2, 3, 5 and more
-    valid boxes and beside invalid GT; the targets built on its slots
-    (``_vote_targets``) against the JAX package's at tolerance 0."""
-    from demf_tpu_torch.ops.vote_slots import vote_slots_plain
+    """K18's plain version (``ops/vote_targets.py::vote_targets_plain``,
+    the JAX package's expressions, and ``_vote_targets`` on it) and K18's
+    walk rule in numpy against the JAX package's ``_vote_targets_single``
+    at tolerance 0 (bit for bit), on points in 0, 1, 2, 3, 5 and more
+    valid boxes and beside invalid GT."""
     points, boxes, valid = _slot_scene(dtype)
     with jax.enable_x64(dtype == np.float64):
         in_box, targets = jax_slot_targets(
             jnp.asarray(points), jnp.asarray(boxes), jnp.asarray(valid))
-    in_box = np.asarray(in_box)
-    want_t, want_m = targets[gt_per_seed - 1]
+    in_box = check_vote_targets(_t(points), boxes, valid, gt_per_seed,
+                                (in_box, targets[gt_per_seed - 1]))
     assert {0, 1, 2, 3, 5} <= set(in_box.sum(-1).ravel().tolist())
-    slots, has = vote_slots_plain(_t(points), _t(boxes), _t(valid),
-                                  gt_per_seed)
-    want_s, want_h = _slots_by_scan(in_box, gt_per_seed)
-    np.testing.assert_array_equal(slots.numpy(), want_s)
-    np.testing.assert_array_equal(has.numpy(), want_h)
-    got_t, got_m = target_assign._vote_targets(_t(points), _t(boxes),
-                                               _t(valid), gt_per_seed)
-    assert got_t.dtype == torch.from_numpy(points).dtype
-    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
-    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+
+
+def _edge_scene(case):
+    """Scenes for K18's edge cases (float32): ``faces`` points exactly on
+    and just beyond the faces of axis-aligned and quarter-turned boxes,
+    invalid boxes between valid ones, a NaN point and a NaN box;
+    ``one_box`` a single GT slot (valid in one scene, not in the other);
+    ``strided`` the (B, P, 4) cloud read as a (B, P, 3) view.  Returns
+    (points as a torch tensor, boxes, valid)."""
+    rng = np.random.RandomState(5)
+    if case == 'faces':
+        boxes = np.zeros((2, 6, 7), np.float32)
+        boxes[..., :3] = rng.uniform(-1, 1, (2, 6, 3))
+        boxes[..., 3:6] = rng.choice([0.5, 1.0, 1.5, 2.0], (2, 6, 3))
+        boxes[:, 3:, 6] = np.float32(np.pi / 2)
+        valid = np.tile([True, False, True, True, False, True], (2, 1))
+        centers = boxes[..., :3] + np.stack(
+            [0 * boxes[..., 5], 0 * boxes[..., 5], boxes[..., 5] / 2], -1)
+        signs = rng.choice([-1.0, 1.0], (2, 6, 40, 3)).astype(np.float32)
+        axis = rng.randint(0, 3, (2, 6, 40))
+        beyond = np.where(rng.rand(2, 6, 40) < 0.3, 2e-6, 0.0)
+        off = rng.uniform(-0.5, 0.5, (2, 6, 40, 3)) * boxes[:, :, None, 3:6]
+        face = np.take_along_axis(
+            boxes[:, :, None, 3:6] / 2 + beyond[..., None], axis[..., None],
+            -1)
+        np.put_along_axis(off, axis[..., None],
+                          np.take_along_axis(signs, axis[..., None], -1) *
+                          face, -1)
+        points = (centers[:, :, None] + off).reshape(2, 240, 3).astype(
+            np.float32)
+        points[0, 7] = np.nan
+        boxes[1, 4, 0] = np.nan
+        return _t(points), boxes, valid
+    points, boxes, valid = _slot_scene(np.float32)
+    if case == 'one_box':
+        return _t(points), boxes[:, :1].copy(), np.array([[True], [False]])
+    cloud = np.concatenate([points, rng.rand(2, 600, 1).astype(np.float32)],
+                           -1)
+    return torch.from_numpy(cloud)[..., :3], boxes, valid
+
+
+@pytest.mark.parametrize('gt_per_seed', [1, 2, 3, 4])
+@pytest.mark.parametrize('case', ['faces', 'one_box', 'strided'])
+def test_vote_targets_edge_cases_equal_jax(case, gt_per_seed, one_thread):
+    """K18's plain version and walk rule against the JAX package's
+    ``_vote_targets_single``, bit for bit, on points on box faces (inside
+    within eps, outside beyond it), invalid boxes between valid ones, NaN
+    points and boxes, G = 1 and strided (B, P, 4) clouds."""
+    points, boxes, valid = _edge_scene(case)
+    assert points.is_contiguous() == (case != 'strided')
+    with jax.enable_x64(False):
+        want = jax_slot_targets(jnp.asarray(points.numpy()),
+                                jnp.asarray(boxes), jnp.asarray(valid))
+    in_box = check_vote_targets(points, boxes, valid, gt_per_seed,
+                                (want[0], want[1][gt_per_seed - 1]))
+    if case == 'faces':
+        assert in_box.any() and not in_box.all(-1).any()
+        assert np.isnan(np.asarray(want[1][gt_per_seed - 1][0])[0, 7]).all()
 
 
 def _vote_inputs(rng):

@@ -28,6 +28,17 @@ FULL = load_model_cfg('demf/demf_votenet.py')
 BATCH = dict(b=2, p=1024, g=8, hw=(64, 96), valid_hw=(60, 88), seed=0)
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """The module on one intra-op thread: the tiny models' many small ops
+    under the other test workers' threads slow by tens to hundreds of
+    times with torch's default pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny_trainer_cfg():
     cfg = tiny_demf_model_cfg()
     cfg['pts_backbone']['sa_cfg']['ball_query_exact'] = True
